@@ -7,9 +7,15 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
 
 1. device: the card's name, count, and `nvidia-smi` name and power limit;
 2. build: every kernel under paddle_tpu_torch/kernels/csrc with nvcc;
-3. each kernel against its plain PyTorch version at the serving shapes;
-   after phase 4, its device time, the plain version's, a library call's,
-   and its bound;
+3. each kernel against its plain PyTorch version at the serving and the
+   training shapes (flash attention forward, dK/dV and dQ at
+   [1, 4096, 32, 128] bf16 causal and not, a rectangular 1024x4096 causal
+   case, a 256x128 causal case with fully masked rows, an f32 case, each
+   held row by row and beside faults made from the plain versions, which
+   must fail the same bar; the RMSNorm backward at [4096, 4096] and
+   [8, 4096], bf16 and f32); after
+   phase 4, its device time, the plain version's, a library call's, and its
+   bound;
 4. LLaMA-2-7B (32 layers, hidden 4096, bf16, random weights from --seed)
    served by the paged-KV ServingEngine: one 2500-token request decoding
    past a 2048-token context, then 10 requests of 5-1000 tokens, greedy
@@ -17,7 +23,19 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    before and checked just after; then a profiled warm 2500-token prefill
    and a profiled window of batch-8 decode steps give the device's busy
    time and idle share;
-5. a tiny f32 LLaMA gives the same greedy streams on CUDA and on the CPU.
+5. a tiny f32 LLaMA gives the same greedy streams on CUDA and on the CPU;
+6. training: LLaMA-2-7B widths cut to 20 of 32 layers (memory: weights,
+   gradients and AdamW's f32 moments of all 32 do not fit one card), bf16
+   parameters (amp O2), AdamW(lr 1e-4), dense cross entropy, batch 1 x
+   seq 4096 of random ids from --seed repeated each step, through
+   build_train_step: one warm step, then 5 timed steps with the kernels'
+   launch counts reset just before and checked just after (per step: flash
+   forward, dK/dV, dQ 20 each, RMSNorm forward and backward 41 each); then
+   one profiled step gives the device's busy time, idle share and top
+   kernels;
+7. a tiny f32 LLaMA (head_dim 128) takes 3 AdamW steps on CUDA, through the
+   kernels, and on the CPU, through their plain versions, from the same
+   weights: losses and updates agree.
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -26,6 +44,7 @@ list of kernels; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -36,19 +55,33 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from paddle_tpu_torch import amp
 from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import flash_attention as kfa
 from paddle_tpu_torch.kernels import paged_attention as kpa
 from paddle_tpu_torch.kernels import rms_norm as krms
+from paddle_tpu_torch.models import build_train_step
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.weights import load_llama_state
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s, f32 FLOP/s off the tensor
-# cores (both kernels do their arithmetic in f32 on the CUDA cores)
+# H100 SXM data-sheet peaks (dense): HBM bytes/s; f32 FLOP/s off the tensor
+# cores (the RMSNorm and paged kernels' arithmetic); the tensor cores' bf16
+# and TF32 rates (the flash kernels' products on bf16 and f32 inputs)
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
+TF32_FLOP_S = 495e12
 # bf16: one output rounding (2^-7 relative); f32: summation order
 TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+# flash: the largest error of a row (a query's out or dQ, a key's dK or dV)
+# relative to that row's norm (`row_rel_err`). bf16: P and dS rounded to
+# bf16 before their products, then the output rounding, which alone may
+# reach one ulp, 2^-7 relative; f32: split-TF32 products summed in the
+# tensor cores. Each bar lies between the sound kernels' readings and
+# those of faults made from the plain versions (`flash_controls`)
+FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
 
 
 def log(*parts):
@@ -91,10 +124,22 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters, "events"
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_s=F32_FLOP_S):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / F32_FLOP_S * 1e3
+    t_ops = flops / flop_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def row_rel_err(got, want):
+    """Max over rows (the last dim) of ||got - want|| / ||want||, the
+    denominator at least a quarter of the rms of the row norms: a row that
+    is 0 but for rounding (the dQ of a query that sees one key, where
+    p = 1 and dp = delta) is held to that floor, not to its own noise."""
+    g, w = got.float(), want.float()
+    num = (g - w).norm(dim=-1)
+    den = w.norm(dim=-1)
+    low = 0.25 * den.square().mean().sqrt()
+    return (num / den.clamp_min(low.clamp_min(1e-30))).max().item()
 
 
 def max_err(got, want, dtype):
@@ -186,6 +231,191 @@ def paged_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
         page=page, lens=list(lens), dtype=str(dtype).split(".")[-1],
         max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
         timings=timings)
+
+
+def rms_bwd_case(name, rows, cols, dtype, gen, dev, eps=1e-6):
+    x = (torch.randn(rows, cols, generator=gen, device=dev) * 2).to(dtype)
+    w = torch.randn(cols, generator=gen, device=dev).to(dtype)
+    g = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
+    _, rstd = krms.rms_norm(x, w, eps, with_rstd=True)
+    dx, dw = krms.rms_norm_bwd(x, w, rstd, g)
+    torch.cuda.synchronize()
+    _, rstd_ref = krms.rms_norm_ref(x, w, eps, with_rstd=True)
+    err_r = ((rstd - rstd_ref).abs() / rstd_ref).max().item()
+    check(err_r <= 1e-5, f"rms_norm rstd {name}: rel err {err_r} > 1e-5")
+    dx_ref, dw_ref = krms.rms_norm_bwd_ref(x, w, rstd_ref, g)
+    err_dx, tol_dx = max_err(dx, dx_ref, dtype)
+    err_dw, tol_dw = max_err(dw, dw_ref, dtype)
+    check(err_dx <= tol_dx, f"rms_norm_bwd {name} dx: {err_dx} > {tol_dx}")
+    check(err_dw <= tol_dw, f"rms_norm_bwd {name} dw: {err_dw} > {tol_dw}")
+    elt = x.element_size()
+    # x and g read, dx written, w read, dw written, rstd read; ~10 f32
+    # operations per element
+    b_ms, b_by = bound((3 * rows * cols + 2 * cols) * elt + 4 * rows,
+                       10 * rows * cols)
+    it = 500 if rows <= 64 else 100
+    lib = getattr(TF, "rms_norm", None)
+
+    def library():
+        xl = x.detach().requires_grad_()
+        wl = w.detach().requires_grad_()
+        y = lib(xl, (cols,), wl, eps)
+        return time_ms(lambda: torch.autograd.grad(
+            y, (xl, wl), g, retain_graph=True), it // 5)[0]
+
+    def timings():
+        ms, timer = time_ms(lambda: krms.rms_norm_bwd(x, w, rstd, g), it)
+        return dict(
+            ms=ms, timer=timer,
+            plain_ms=time_ms(lambda: krms.rms_norm_bwd_ref(x, w, rstd, g),
+                             it // 5)[0],
+            library_ms=None if lib is None else library())
+
+    return dict(case=name, shape=[rows, cols],
+                dtype=str(dtype).split(".")[-1],
+                max_abs_err=max(err_dx, err_dw), tol=min(tol_dx, tol_dw),
+                bound_ms=b_ms, bound_by=b_by, timings=timings)
+
+
+def visible_pairs(s_q, s_kv, causal):
+    """(query, key) pairs the attention computes: all, or under the
+    bottom-right aligned causal mask those with i + s_kv - s_q >= j."""
+    if not causal:
+        return s_q * s_kv
+    off = s_kv - s_q
+    return sum(min(max(i + off + 1, 0), s_kv) for i in range(s_q))
+
+
+def flash_controls(q, k, v, do, lse, delta, scale, causal, want):
+    """Readings of the flash check on faults made from the plain versions,
+    each against the sound plain outputs `want`: every one must exceed the
+    bar. "scale": the softmax scale 1 % too large throughout. "tile" (not
+    causal): the forward and the dQ pass skip one 64-key tile, the dK/dV
+    pass one 64-query tile, with the sound lse and delta."""
+    s2 = scale * 1.01
+    out, lse2 = kfa.flash_fwd_ref(q, k, v, s2, causal)
+    delta2 = kfa.flash_bwd_delta(out, do)
+    dk, dv = kfa.flash_bwd_dkv_ref(q, k, v, do, lse2, delta2, s2, causal)
+    dq = kfa.flash_bwd_dq_ref(q, k, v, do, lse2, delta2, s2, causal)
+    got = {"scale": dict(out=out, dq=dq, dk=dk, dv=dv)}
+    if not causal:
+        a, b = k.shape[1] // 2, q.shape[1] // 2
+
+        def cut(t, i):
+            return torch.cat([t[:, :i], t[:, i + 64:]], dim=1)
+
+        kd, vd = cut(k, a), cut(v, a)
+        out = kfa.flash_fwd_ref(q, kd, vd, scale, False)[0]
+        dq = kfa.flash_bwd_dq_ref(q, kd, vd, do, lse, delta, scale, False)
+        dk, dv = kfa.flash_bwd_dkv_ref(
+            cut(q, b), k, v, cut(do, b), cut(lse[..., None], b)[..., 0],
+            cut(delta[..., None], b)[..., 0], scale, False)
+        got["tile"] = dict(out=out, dq=dq, dk=dk, dv=dv)
+    return {fault: {key: row_rel_err(t, want[key]) for key, t in ts.items()}
+            for fault, ts in got.items()}
+
+
+def flash_case(name, bh, s_q, s_kv, causal, dtype, gen, dev, library=False):
+    """The three flash kernels against their plain versions, each held to
+    FLASH_TOL as a row relative error, and the readings of faults
+    (`flash_controls`), which must exceed it; with `library`, timings also
+    of the plain versions and of PyTorch's SDPA (square shapes only: SDPA
+    aligns its causal mask top-left)."""
+    d = kfa.HEAD_DIM
+    scale = d ** -0.5
+
+    def rnd(s):
+        return torch.randn(bh, s, d, generator=gen, device=dev).to(dtype)
+
+    q, k, v, do = rnd(s_q), rnd(s_kv), rnd(s_kv), rnd(s_q)
+    out, lse = kfa.flash_fwd(q, k, v, scale, causal)
+    delta = kfa.flash_bwd_delta(out, do)
+    dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    out_r, lse_r = kfa.flash_fwd_ref(q, k, v, scale, causal)
+    dk_r, dv_r = kfa.flash_bwd_dkv_ref(q, k, v, do, lse_r, delta, scale,
+                                       causal)
+    dq_r = kfa.flash_bwd_dq_ref(q, k, v, do, lse_r, delta, scale, causal)
+    want = dict(out=out_r, dq=dq_r, dk=dk_r, dv=dv_r)
+    tol = FLASH_TOL[dtype]
+    errs, abs_err = {}, {}
+    for key, got in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
+        abs_err[key] = (got.float() - want[key].float()).abs().max().item()
+        err = row_rel_err(got, want[key])
+        check(err <= tol, f"flash {name} {key}: row rel err {err} > {tol}")
+        errs[key] = err
+    live = lse_r > -1e29  # rows that see at least one key
+    lse_err = (lse[live] - lse_r[live]).abs().max().item()
+    check(lse_err <= 1e-3, f"flash {name} lse: max abs err {lse_err}")
+    check(torch.equal(lse[~live], lse_r[~live]) and not out[~live].any(),
+          f"flash {name}: a row that sees no key is not 0 / -1e30")
+    ctl = flash_controls(q, k, v, do, lse_r, delta, scale, causal, want)
+    for fault, readings in ctl.items():
+        for key, err in readings.items():
+            check(err > tol, f"flash {name}: the {fault} control reads "
+                  f"{key} {err}, within the bar {tol}")
+    del out_r, lse_r, dk_r, dv_r, dq_r, want
+    pairs = visible_pairs(s_q, s_kv, causal)
+    elt = q.element_size()
+    rate = BF16_FLOP_S if dtype == torch.bfloat16 else TF32_FLOP_S
+    n_q, n_kv = bh * s_q * d * elt, bh * s_kv * d * elt
+    # forward: q, k, v read, out written, lse written; 2 products
+    fwd_b = bound(2 * n_q + 2 * n_kv + 4 * bh * s_q, 4 * bh * d * pairs,
+                  rate)
+    # dK/dV: q, dO, k, v, lse, delta read, dk, dv written; 4 products
+    dkv_b = bound(2 * n_q + 4 * n_kv + 8 * bh * s_q, 8 * bh * d * pairs,
+                  rate)
+    # dQ: q, dO, k, v, lse, delta read, dq written; 3 products
+    dq_b = bound(3 * n_q + 2 * n_kv + 8 * bh * s_q, 6 * bh * d * pairs,
+                 rate)
+    res = dict(case=name, bh=bh, s_q=s_q, s_kv=s_kv, head_dim=d,
+               causal=causal, dtype=str(dtype).split(".")[-1],
+               lse_err=lse_err, visible_pairs=pairs, tol=tol, controls=ctl,
+               fwd=dict(max_abs_err=abs_err["out"], row_rel_err=errs["out"],
+                        bound_ms=fwd_b[0], bound_by=fwd_b[1]),
+               dkv=dict(max_abs_err=max(abs_err["dk"], abs_err["dv"]),
+                        row_rel_err=max(errs["dk"], errs["dv"]),
+                        bound_ms=dkv_b[0], bound_by=dkv_b[1]),
+               dq=dict(max_abs_err=abs_err["dq"], row_rel_err=errs["dq"],
+                       bound_ms=dq_b[0], bound_by=dq_b[1]))
+
+    def timings():
+        it = 20 if s_q * s_kv >= 2 ** 22 else 100
+        for key, fn in (
+                ("fwd", lambda: kfa.flash_fwd(q, k, v, scale, causal)),
+                ("dkv", lambda: kfa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                  scale, causal)),
+                ("dq", lambda: kfa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                scale, causal))):
+            res[key]["ms"], res[key]["timer"] = time_ms(fn, it)
+            res[key]["plain_ms"] = res[key]["library_ms"] = None
+        if not library:
+            return
+        res["fwd"]["plain_ms"] = time_ms(
+            lambda: kfa.flash_fwd_ref(q, k, v, scale, causal), 3)[0]
+        res["dkv"]["plain_ms"] = time_ms(
+            lambda: kfa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale,
+                                          causal), 3)[0]
+        res["dq"]["plain_ms"] = time_ms(
+            lambda: kfa.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale,
+                                         causal), 3)[0]
+        # SDPA over [1, bh, s, d] views; its backward computes dQ, dK and
+        # dV in one call, so both backward rows carry its time
+        q4, k4, v4 = (t.view(1, bh, -1, d) for t in (q, k, v))
+        res["fwd"]["library_ms"] = time_ms(
+            lambda: TF.scaled_dot_product_attention(q4, k4, v4,
+                                                    is_causal=causal),
+            it)[0]
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+        o = TF.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        bwd = time_ms(lambda: torch.autograd.grad(
+            o, (qg, kg, vg), do.view(1, bh, s_q, d), retain_graph=True),
+            it)[0]
+        res["dkv"]["library_ms"] = res["dq"]["library_ms"] = bwd
+
+    res["timings"] = timings
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +615,207 @@ def tiny_parity(seed, dev):
     return dict(requests=len(prompts), identical=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+
+def model_flops_per_token(cfg, seq_len, causal=True):
+    """6*N (fwd+bwd matmul flops per token per param) + attention term
+    (a copy of `bench.py::model_flops_per_token`)."""
+    h = cfg.hidden_size
+    l = cfg.num_hidden_layers
+    v = cfg.vocab_size
+    inter = cfg.intermediate_size
+    per_layer = 4 * h * h + 3 * h * inter
+    n_matmul = l * per_layer + v * h
+    flops = 6 * n_matmul
+    attn = 12 * seq_len * h * l
+    flops += attn // 2 if causal else attn
+    return flops
+
+
+TRAIN_COUNTERS = (("flash_fwd", kfa, "fwd_launches"),
+                  ("flash_bwd_dkv", kfa, "dkv_launches"),
+                  ("flash_bwd_dq", kfa, "dq_launches"),
+                  ("rms_norm", krms, "launches"),
+                  ("rms_norm_bwd", krms, "bwd_launches"))
+
+
+def _device_profile(fn):
+    """Run fn() under the profiler: (wall ms, {kernel name: device us})."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in _device_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return wall * 1e3, by_name
+
+
+def _kernel_class(name):
+    n = name.lower()
+    if "flash_" in n:
+        return "flash"
+    if "rms_norm" in n:
+        return "rms_norm"
+    if any(t in n for t in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
+        return "gemm"
+    return "other"
+
+
+def train_7b(seed, dev, card, layers=20, seq=4096, steps=5):
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = layers
+    t0 = time.perf_counter()
+    model = amp.decorate(LlamaForCausalLM(cfg, device=dev, seed=seed),
+                         level="O2", dtype="bfloat16")
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = build_train_step(model, opt)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq))).to(dev)
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq))).to(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"train: LLaMA-2-7B widths, {layers} layers, {n_params / 1e9:.3f} B "
+        f"bf16 parameters, ready in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    losses = [step(x, y)]
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    # the main path: counts from zero, read right after
+    for _, mod, attr in TRAIN_COUNTERS:
+        setattr(mod, attr, 0)
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(x, y))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {name: getattr(mod, attr) for name, mod, attr in
+                TRAIN_COUNTERS}
+    losses = [float(v) for v in losses]
+    per_step = {"flash_fwd": layers, "flash_bwd_dkv": layers,
+                "flash_bwd_dq": layers, "rms_norm": 2 * layers + 1,
+                "rms_norm_bwd": 2 * layers + 1}
+    for name, n in per_step.items():
+        check(launches[name] == n * steps,
+              f"train: {name} launched {launches[name]} times in {steps} "
+              f"steps, expected {n * steps}")
+    check(all(math.isfinite(v) for v in losses), f"train: loss {losses}")
+    check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    p50 = float(np.median(step_ms))
+    tok_s = seq / (p50 / 1e3)
+    flops_tok = model_flops_per_token(cfg, seq)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    total_gib = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    res = dict(card=card, layers=layers, params=n_params, seq=seq, batch=1,
+               losses=losses, warm_step_ms=warm_ms, step_ms=step_ms,
+               step_ms_p50=p50, tokens_per_s=tok_s,
+               model_flops_per_token=flops_tok,
+               mfu=tok_s * flops_tok / BF16_FLOP_S, launches=launches,
+               max_memory_allocated_gib=peak_gib,
+               device_memory_gib=total_gib)
+    log(f"train: losses {', '.join(f'{v:.4f}' for v in losses)} (warm step "
+        f"first)")
+    log(f"train: batch 1 x {seq}: warm step {warm_ms:.1f} ms; {steps} steps "
+        f"p50 {p50:.1f} ms (min {min(step_ms):.1f}, max {max(step_ms):.1f}),"
+        f" {tok_s:.1f} tokens/s, model-FLOPs share {res['mfu']:.4f} of "
+        f"989 TFLOP/s bf16; peak {peak_gib:.2f} GiB allocated of "
+        f"{total_gib:.2f} GiB [{card}]")
+    log(f"train: launches over the {steps} timed steps {launches}")
+
+    # one profiled step, in its two halves (forward + backward, optimizer)
+    def fwd_bwd():
+        model.train()
+        model.compute_loss(model(x), y).backward()
+
+    wall_a, dev_a = _device_profile(fwd_bwd)
+    wall_b, dev_b = _device_profile(opt.step)
+    opt.clear_grad()
+    busy_a, busy_b = sum(dev_a.values()) / 1e3, sum(dev_b.values()) / 1e3
+    classes = {}
+    for name, us in dev_a.items():
+        c = _kernel_class(name)
+        classes[c] = classes.get(c, 0.0) + us / 1e3
+    classes["optimizer"] = busy_b
+    top = sorted(dev_a.items(), key=lambda kv: -kv[1])[:10]
+    wall, busy = wall_a + wall_b, busy_a + busy_b
+    res["profile"] = dict(
+        wall_ms=wall, device_busy_ms=busy, idle_share=1.0 - busy / wall,
+        fwd_bwd_wall_ms=wall_a, fwd_bwd_busy_ms=busy_a,
+        optimizer_wall_ms=wall_b, optimizer_busy_ms=busy_b,
+        device_ms_by_class=classes,
+        top_kernels_ms=[(n[:90], us / 1e3) for n, us in top])
+    log(f"profile: one train step: {wall:.1f} ms wall, {busy:.1f} ms device "
+        f"busy, idle share {1.0 - busy / wall:.3f} (forward+backward "
+        f"{wall_a:.1f} ms wall / {busy_a:.1f} ms busy, AdamW {wall_b:.1f} ms "
+        f"wall / {busy_b:.1f} ms busy) [{card}]")
+    log("profile:   device ms by class: " + ", ".join(
+        f"{c} {ms:.1f}" for c, ms in sorted(classes.items(),
+                                             key=lambda kv: -kv[1])))
+    for name, ms in res["profile"]["top_kernels_ms"]:
+        log(f"profile:   {ms:8.3f} ms  {name}")
+    del model, opt, step, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: tiny training parity, CUDA kernels vs CPU plain versions
+# ---------------------------------------------------------------------------
+
+
+def tiny_train_parity(seed, dev, steps=3, lr=1e-3):
+    """Losses within 1e-4 relative (the flash kernels' split-TF32 products
+    against f32); each parameter's update (after - before) within 1e-2 of
+    its norm: Adam's step is about lr * sign(grad), so an element whose
+    gradient is at rounding level may move the other way."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2,
+                           seq=256)
+    cfg.num_key_value_heads = 1
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    load_llama_state(gpu, {k: v.numpy() for k, v in cpu.state_dict().items()})
+    before = {k: v.clone() for k, v in cpu.state_dict().items()}
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 256)))
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 256)))
+    n0 = kfa.fwd_launches, kfa.dkv_launches, kfa.dq_launches
+    losses = []
+    for model, d in ((cpu, "cpu"), (gpu, dev)):
+        step = build_train_step(model, AdamW(learning_rate=lr,
+                                             parameters=model.parameters()))
+        losses.append([step(x.to(d), y.to(d)).item() for _ in range(steps)])
+    check((kfa.fwd_launches, kfa.dkv_launches, kfa.dq_launches) ==
+          tuple(n + 2 * steps for n in n0),
+          "tiny training did not run the flash kernels on CUDA")
+    rel = max(abs(a - b) / abs(a) for a, b in zip(*losses))
+    check(rel <= 1e-4, f"tiny training losses differ: cpu {losses[0]} "
+          f"cuda {losses[1]}")
+    worst = 0.0
+    g_state = gpu.state_dict()
+    for name, c in cpu.state_dict().items():
+        dc = c - before[name]
+        dg = g_state[name].cpu() - before[name]
+        worst = max(worst, ((dg - dc).norm() / dc.norm()).item())
+    check(worst <= 1e-2, f"tiny training updates differ by {worst} of norm")
+    log(f"parity: tiny f32 LLaMA (2 layers, hidden 256, 2 heads of 128 over "
+        f"1 KV head), {steps} AdamW steps: losses cpu {losses[0]} cuda "
+        f"{losses[1]} (max rel diff {rel:.2e}); updates differ by at most "
+        f"{worst:.2e} of their norm")
+    return dict(losses_cpu=losses[0], losses_cuda=losses[1],
+                max_rel_loss_diff=rel, max_rel_update_diff=worst)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -419,57 +850,116 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"build: {name}: {line.strip()}")
 
-    # 3. kernels against their plain versions at the serving shapes (the
-    # timings wait until after the serving run, so that no profiler session
-    # precedes the serving measurements)
+    # 3. kernels against their plain versions at the serving and training
+    # shapes (the timings wait until after the serving run, so that no
+    # profiler session precedes the serving measurements)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     lens = [0, 1, 15, 16, 17, 1000, 2049, 4096]
-    rms = [rms_case("decode", 8, 4096, torch.bfloat16, gen, dev),
-           rms_case("prefill", 4096, 4096, torch.bfloat16, gen, dev)]
-    paged = [paged_case("mha_bf16", torch.bfloat16, 32, 32, gen, dev, lens),
-             paged_case("gqa_bf16", torch.bfloat16, 32, 8, gen, dev, lens),
-             paged_case("mha_f32", torch.float32, 32, 32, gen, dev, lens)]
-    for r in rms + paged:
-        log(f"kernel: {'rms_norm' if r in rms else 'paged_attention'} "
-            f"{r['case']} {r['dtype']}: max abs err {r['max_abs_err']:.3g} "
-            f"vs plain (tol {r['tol']:.3g})")
+    bf16, f32 = torch.bfloat16, torch.float32
+    rms = [rms_case("decode", 8, 4096, bf16, gen, dev),
+           rms_case("prefill", 4096, 4096, bf16, gen, dev)]
+    paged = [paged_case("mha_bf16", bf16, 32, 32, gen, dev, lens),
+             paged_case("gqa_bf16", bf16, 32, 8, gen, dev, lens),
+             paged_case("mha_f32", f32, 32, 32, gen, dev, lens)]
+    rms_bwd = [rms_bwd_case("train", 4096, 4096, bf16, gen, dev),
+               rms_bwd_case("rows8", 8, 4096, bf16, gen, dev),
+               rms_bwd_case("train_f32", 4096, 4096, f32, gen, dev),
+               rms_bwd_case("rows8_f32", 8, 4096, f32, gen, dev)]
+    flash = [flash_case("causal_bf16", 32, 4096, 4096, True, bf16, gen, dev,
+                        library=True),
+             flash_case("full_bf16", 32, 4096, 4096, False, bf16, gen, dev),
+             flash_case("rect_bf16", 32, 1024, 4096, True, bf16, gen, dev),
+             flash_case("masked_bf16", 32, 256, 128, True, bf16, gen, dev),
+             flash_case("causal_f32", 32, 1024, 1024, True, f32, gen, dev)]
+    for kind_, rs in (("rms_norm", rms), ("paged_attention", paged),
+                      ("rms_norm_bwd", rms_bwd)):
+        for r in rs:
+            log(f"kernel: {kind_} {r['case']} {r['dtype']}: max abs err "
+                f"{r['max_abs_err']:.3g} vs plain (tol {r['tol']:.3g})")
+    for r in flash:
+        for key in ("fwd", "dkv", "dq"):
+            log(f"kernel: flash {key} {r['case']} ({r['bh']}x{r['s_q']}x"
+                f"{r['s_kv']}, causal {r['causal']}) {r['dtype']}: row rel "
+                f"err {r[key]['row_rel_err']:.3g} vs plain (bar "
+                f"{r['tol']:.3g}), max abs err {r[key]['max_abs_err']:.3g}"
+                + (f", lse err {r['lse_err']:.3g}" if key == "fwd" else ""))
+        for fault, readings in r["controls"].items():
+            log(f"kernel: flash {r['case']} control '{fault}' (must exceed "
+                f"the bar {r['tol']:.3g}): row rel err " + ", ".join(
+                    f"{key} {err:.3g}" for key, err in readings.items()))
 
-    # 4. the main path: LLaMA-2-7B serving
+    # 4. the serving path: LLaMA-2-7B
     serving = serve_7b(args.seed, dev, card)
 
-    # 3, continued: times at the serving shapes
-    for r in rms + paged:
-        r.update(r.pop("timings")())
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"kernel: {'rms_norm' if r in rms else 'paged_attention'} "
-            f"{r['case']} {r['dtype']}: {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), device time "
-            f"({r['timer']}) [{card}]")
+    # 3, continued: times at the serving and training shapes
+    for kind_, rs in (("rms_norm", rms), ("paged_attention", paged),
+                      ("rms_norm_bwd", rms_bwd)):
+        for r in rs:
+            r.update(r.pop("timings")())
+            lib = "n/a" if r["library_ms"] is None \
+                else f"{r['library_ms']:.4f}"
+            log(f"kernel: {kind_} {r['case']} {r['dtype']}: {r['ms']:.4f} "
+                f"ms, plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}), device time "
+                f"({r['timer']}) [{card}]")
+    for r in flash:
+        r.pop("timings")()
+        for key in ("fwd", "dkv", "dq"):
+            t = r[key]
+            extra = "" if t["plain_ms"] is None else (
+                f", plain {t['plain_ms']:.3f} ms, library "
+                f"{t['library_ms']:.4f} ms")
+            log(f"kernel: flash {key} {r['case']} {r['dtype']}: "
+                f"{t['ms']:.4f} ms{extra}, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), device time ({t['timer']}) [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 5. a tiny model decodes the same on CUDA and CPU
     parity = tiny_parity(args.seed, dev)
 
-    def row(name, source, replaces, r):
+    # 6. the training path: 20-layer LLaMA-2-7B widths, batch 1 x 4096
+    training = train_7b(args.seed, dev, card)
+
+    # 7. tiny training: CUDA kernels against the CPU's plain versions
+    train_parity = tiny_train_parity(args.seed, dev)
+
+    def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
-                    replaces=replaces,
-                    launches=serving["launches"][name],
+                    replaces=replaces, launches=launches,
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
 
+    csrc = "paddle_tpu_torch/kernels/csrc/"
+    ref = "paddle_tpu/kernels/"
+    served, trained = serving["launches"], training["launches"]
     kernels = [
-        row("rms_norm", "paddle_tpu_torch/kernels/csrc/rms_norm.cu",
-            "paddle_tpu/kernels/rms_norm.py:71", rms[0]),
-        row("paged_attention",
-            "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-            "paddle_tpu/kernels/paged_attention.py:584", paged[0]),
+        # launches: the serving run's count plus the training run's
+        row("rms_norm", csrc + "rms_norm.cu", ref + "rms_norm.py:71", rms[0],
+            served["rms_norm"] + trained["rms_norm"]),
+        row("rms_norm_bwd", csrc + "rms_norm.cu", ref + "rms_norm.py:101",
+            rms_bwd[0], trained["rms_norm_bwd"]),
+        row("paged_attention", csrc + "paged_attention.cu",
+            ref + "paged_attention.py:584", paged[0],
+            served["paged_attention"]),
+        row("flash_fwd", csrc + "flash_attention.cu",
+            ref + "flash_attention.py:214", flash[0]["fwd"],
+            trained["flash_fwd"]),
+        row("flash_bwd_dkv", csrc + "flash_attention.cu",
+            ref + "flash_attention.py:473", flash[0]["dkv"],
+            trained["flash_bwd_dkv"]),
+        row("flash_bwd_dq", csrc + "flash_attention.cu",
+            ref + "flash_attention.py:534", flash[0]["dq"],
+            trained["flash_bwd_dq"]),
     ]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
-                           build_s=secs, rms_norm=rms, paged_attention=paged,
-                           serving=serving, parity=parity, kernels=kernels),
+                           build_s=secs, rms_norm=rms, rms_norm_bwd=rms_bwd,
+                           paged_attention=paged, flash=flash,
+                           serving=serving, parity=parity, training=training,
+                           train_parity=train_parity, kernels=kernels),
                       f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,3 +1,4 @@
 from .llama import LlamaConfig, LlamaForCausalLM
+from .trainer import build_train_step
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "build_train_step"]

@@ -1,10 +1,12 @@
-"""LLaMA-family causal LM (counterpart of `paddle_tpu/models/llama.py`), the
-serving paths: the dense-cache forward `forward_cached` (batched prefill)
-and the paged single-token decode `forward_paged`.
+"""LLaMA-family causal LM (counterpart of `paddle_tpu/models/llama.py`): the
+training forward `forward` (causal attention through
+`F.scaled_dot_product_attention`, so the flash kernels at the shapes they
+take), the dense-cache forward `forward_cached` (batched prefill) and the
+paged single-token decode `forward_paged`.
 
 Parameter names and shapes equal the JAX model's, linears in Paddle's
-[in, out] layout. The training forward (flash attention, ring and zigzag
-context parallelism, scan-stacked layers) is not ported yet.
+[in, out] layout. Not ported: padding masks in `forward`, recompute, ring
+and zigzag context parallelism, scan-stacked layers.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import torch.nn.functional as TF
 from torch import nn
 
 from ..framework.device import resolve_device, torch_dtype
-from ..nn import Embedding, Linear, RMSNorm
+from ..nn import Embedding, Linear, ParallelCrossEntropy, RMSNorm
+from ..nn import functional as F
 from ..nn.functional import apply_rope, rope_tables
 from .causal_lm import CausalLMBase
 from .paged_step import paged_attention_step
@@ -99,6 +102,20 @@ class LlamaAttention(nn.Module):
                                position_offset=offset, device=q.device)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
+    def forward(self, hidden_states):
+        """Causal self-attention over [b, s, hidden] from position 0 (the
+        training path): GQA repeats K/V to the query heads first."""
+        b, s = hidden_states.shape[:2]
+        q, k, v = self._qkv(hidden_states)
+        q, k = self._rotate(q, k, 0)
+        rep = self.num_heads // self.num_kv_heads
+        if rep != 1:
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             training=self.training)
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+
     def forward_cached(self, hidden_states, kv_cache, cur_len):
         """Prefill/decode over a dense cache (k_cache, v_cache), each
         [b, max_len, kv_heads, d]: cur_len tokens are present and the s new
@@ -154,6 +171,10 @@ class LlamaDecoderLayer(nn.Module):
         h = residual + attn_out
         return h + self.mlp(self.post_attention_layernorm(h))
 
+    def forward(self, hidden_states):
+        return self._finish(hidden_states, self.self_attn(
+            self.input_layernorm(hidden_states)))
+
     def forward_cached(self, hidden_states, kv_cache, cur_len):
         h, cache = self.self_attn.forward_cached(
             self.input_layernorm(hidden_states), kv_cache, cur_len)
@@ -178,6 +199,12 @@ class LlamaModel(nn.Module):
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtype,
                             device)
+
+    def forward(self, input_ids):
+        h = self.embed_tokens(input_ids)
+        for layer in self.layers:
+            h = layer(h)
+        return self.norm(h)
 
     def forward_cached(self, input_ids, caches, cur_len):
         """caches: per-layer (k_cache, v_cache). Returns (hidden,
@@ -214,6 +241,7 @@ class LlamaForCausalLM(CausalLMBase):
         self.llama = LlamaModel(config, dtype, dev)
         self.lm_head = None if config.tie_word_embeddings else Linear(
             config.hidden_size, config.vocab_size, dtype=dtype, device=dev)
+        self.loss_fn = ParallelCrossEntropy()
         self.init_weights(seed)
 
     @torch.no_grad()
@@ -228,6 +256,10 @@ class LlamaForCausalLM(CausalLMBase):
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, std, generator=gen)
+
+    def forward(self, input_ids):
+        """[b, s] token ids -> [b, s, vocab] logits."""
+        return self._head(self.llama(input_ids))
 
     def forward_cached(self, input_ids, caches, cur_len):
         h, new_caches = self.llama.forward_cached(input_ids, caches, cur_len)

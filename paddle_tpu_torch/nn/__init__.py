@@ -1,4 +1,5 @@
 from . import functional
-from .layers import Embedding, Linear, RMSNorm
+from .layers import Embedding, Linear, ParallelCrossEntropy, RMSNorm
 
-__all__ = ["Embedding", "Linear", "RMSNorm", "functional"]
+__all__ = ["Embedding", "Linear", "ParallelCrossEntropy", "RMSNorm",
+           "functional"]

@@ -2,11 +2,32 @@
 `paddle_tpu/nn/functional/norm.py`)."""
 from __future__ import annotations
 
+import torch
+
 from ...kernels import rms_norm as _krms
 
 
 def rms_norm(x, weight, epsilon=1e-6):
-    """RMSNorm over the last dim, output in x's dtype. A CUDA tensor goes to
-    the CUDA kernel (which raises on what it does not take); a CPU tensor
-    goes to the plain version."""
-    return _krms.rms_norm(x, weight, epsilon)
+    """RMSNorm over the last dim, output in x's dtype; differentiable.
+
+    Without a gradient to take (serving) only the forward runs, and it
+    writes no rstd: the CUDA kernel for a CUDA tensor, which raises for an
+    input it does not take; the plain version for a CPU tensor. With one,
+    a shape the kernels take (`kernels.rms_norm.supports`) goes through
+    `RMSNormFunction`: the forward and backward kernels for a CUDA tensor,
+    their plain versions for a CPU tensor. Any other shape or dtype raises
+    on CUDA and takes the plain expression, under autograd, on the CPU."""
+    if not (torch.is_grad_enabled()
+            and (x.requires_grad or weight.requires_grad)):
+        return _krms.rms_norm(x, weight, epsilon)
+    if not _krms.supports(x, weight):
+        if x.device.type == "cpu":
+            return _krms.rms_norm_ref(x, weight, epsilon)
+        raise ValueError(
+            f"rms_norm: the CUDA kernels do not take x {tuple(x.shape)} "
+            f"{x.dtype} with weight {tuple(weight.shape)} {weight.dtype} "
+            "(kernels.rms_norm.supports)")
+    shape = x.shape
+    y = _krms.RMSNormFunction.apply(x.reshape(-1, shape[-1]).contiguous(),
+                                    weight.contiguous(), float(epsilon))
+    return y.reshape(shape)

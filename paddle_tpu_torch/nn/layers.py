@@ -3,11 +3,13 @@
 `Linear` stands for `Linear`, `ColumnParallelLinear` and
 `RowParallelLinear` (`paddle_tpu/distributed/fleet/layers/mpu/mp_layers.py`)
 at tensor-parallel degree 1, `Embedding` for `VocabParallelEmbedding`, and
-`RMSNorm` for `paddle_tpu/nn/norm_layers.py::RMSNorm`. Parameter names and
-shapes equal the JAX layers', so a state dict maps across by name
-(`paddle_tpu_torch.weights`). Parameters are allocated uninitialised on
-`device`; the model fills them (`LlamaForCausalLM.init_weights`) or loads
-them.
+`RMSNorm` for `paddle_tpu/nn/norm_layers.py::RMSNorm`, and
+`ParallelCrossEntropy` for its namesake in `mp_layers.py`. Parameter names
+and shapes equal the JAX layers', so a state dict maps across by name
+(`paddle_tpu_torch.weights`). Parameters are trainable and allocated
+uninitialised on `device`; the model fills them
+(`LlamaForCausalLM.init_weights`) or loads them. Serving runs its forwards
+under `torch.no_grad()`.
 """
 from __future__ import annotations
 
@@ -25,8 +27,7 @@ class Linear(nn.Module):
                  device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
-            in_features, out_features, dtype=dtype, device=device),
-            requires_grad=False)
+            in_features, out_features, dtype=dtype, device=device))
 
     def forward(self, x):
         return F.linear(x, self.weight)
@@ -39,8 +40,7 @@ class Embedding(nn.Module):
                  device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
-            num_embeddings, embedding_dim, dtype=dtype, device=device),
-            requires_grad=False)
+            num_embeddings, embedding_dim, dtype=dtype, device=device))
 
     def forward(self, ids):
         return F.embedding(ids, self.weight)
@@ -52,7 +52,20 @@ class RMSNorm(nn.Module):
         super().__init__()
         self._epsilon = epsilon
         self.weight = nn.Parameter(torch.ones(
-            hidden_size, dtype=dtype, device=device), requires_grad=False)
+            hidden_size, dtype=dtype, device=device))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self._epsilon)
+
+
+class ParallelCrossEntropy(nn.Module):
+    """Softmax cross entropy at tensor-parallel degree 1: per-token losses
+    with a trailing size-1 axis, [..., 1]."""
+
+    def __init__(self, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, input, label):
+        return F.cross_entropy(input, label, reduction="none",
+                               ignore_index=self.ignore_index).unsqueeze(-1)

@@ -1,6 +1,7 @@
 """Weights across the two packages: a LLaMA state dict as numpy arrays (the
 JAX model's `state_dict()`, each value turned into an array) onto the
-port's modules.
+port's modules (`load_llama_state`), and back (`llama_state_to_numpy`, so
+trained parameters can be compared with the JAX model's).
 
 The port keeps the JAX model's parameter names and Paddle's [in, out]
 layout for linears, so the map is one to one; these functions check that
@@ -58,6 +59,20 @@ def llama_state_from_numpy(state, config, dtype=torch.float32, device=None):
         out[name] = torch.from_numpy(
             np.array(arr, dtype=np.float32)).to(dev, dtype)
     return out
+
+
+def llama_state_to_numpy(model):
+    """The weights of a port `LlamaForCausalLM` as {name: np.ndarray} in
+    f32 (the inverse of `load_llama_state` on an f32 model), checked
+    against `llama_param_shapes`."""
+    expected = llama_param_shapes(model.config)
+    state = {n: t.detach().float().cpu().numpy()
+             for n, t in model.state_dict().items()}
+    got = {n: a.shape for n, a in state.items()}
+    if got != expected:
+        raise KeyError(f"model state {sorted(got)} does not match the LLaMA "
+                       f"layout of its config")
+    return state
 
 
 def load_llama_state(model, state):

@@ -10,18 +10,32 @@ JAX):
 Tolerances, in the working dtype: bf16 outputs differ by at most one
 rounding of the output, one bf16 ulp (2^-7 relative) at the largest
 magnitude; f32 outputs differ by summation order only (1e-5 relative).
+The flash outputs are held row by row (a query's out or dQ, a key's dK or
+dV): the error's norm over the row's norm, or over a quarter of the rms
+row norm where the row is smaller (a row that is 0 but for rounding). The
+kernels round P and dS to bf16 before their tensor-core products (the
+plain versions keep them in f32), and round the output to bf16, which
+alone may reach one ulp (2^-7 relative): bf16 rows are held to 1e-2; float
+inputs go through split-TF32 products (about 2^-22 relative each) summed
+in the tensor cores, held to 1e-3. `chip_smoke.py` shows at full size that
+faults (a softmax scale 1 % off, a skipped tile) exceed these bars.
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.inference import ServingEngine
+from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.kernels import rms_norm as trms
+from paddle_tpu_torch.models import build_train_step
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.weights import load_llama_state
 
 _TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+_FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
 
 
 @pytest.fixture
@@ -53,6 +67,119 @@ def test_rms_norm_kernel_matches_plain(cuda_device, dtype, rows, cols):
     torch.cuda.synchronize()
     assert trms.launches == n0 + 1
     assert _close(got, trms.rms_norm_ref(x, w, 1e-6), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,cols", [(8, 4096), (4096, 4096), (512, 128),
+                                       (5, 8192)])
+def test_rms_norm_backward_kernel_matches_plain(cuda_device, dtype, rows,
+                                                cols):
+    g = torch.Generator(device=cuda_device).manual_seed(rows + cols)
+    x = (torch.randn(rows, cols, generator=g, device=cuda_device) * 2) \
+        .to(dtype)
+    w = torch.randn(cols, generator=g, device=cuda_device).to(dtype)
+    gy = torch.randn(rows, cols, generator=g, device=cuda_device).to(dtype)
+    n0, b0 = trms.launches, trms.bwd_launches
+    y, rstd = trms.rms_norm(x, w, 1e-6, with_rstd=True)
+    dx, dw = trms.rms_norm_bwd(x, w, rstd, gy)
+    torch.cuda.synchronize()
+    assert (trms.launches, trms.bwd_launches) == (n0 + 1, b0 + 1)
+    y_ref, rstd_ref = trms.rms_norm_ref(x, w, 1e-6, with_rstd=True)
+    assert _close(y, y_ref, dtype)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=0)
+    dx_ref, dw_ref = trms.rms_norm_bwd_ref(x, w, rstd_ref, gy)
+    assert _close(dx, dx_ref, dtype)
+    assert _close(dw, dw_ref, dtype)
+
+
+def _row_rel_err(got, want):
+    """Max over rows of ||got - want|| / ||want||, the denominator at least
+    a quarter of the rms row norm (a row that is 0 but for rounding)."""
+    num = (got.float() - want.float()).norm(dim=-1)
+    den = want.float().norm(dim=-1)
+    low = 0.25 * den.square().mean().sqrt()
+    return (num / den.clamp_min(low.clamp_min(1e-30))).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s_q,s_kv,causal", [
+    (256, 256, True), (256, 256, False), (128, 384, True), (256, 128, True),
+    (192, 64, False)])
+def test_flash_kernels_match_plain(cuda_device, dtype, s_q, s_kv, causal):
+    g = torch.Generator(device=cuda_device).manual_seed(s_q + s_kv)
+    bh, d, scale = 3, 128, 128 ** -0.5
+
+    def rnd(s):
+        return torch.randn(bh, s, d, generator=g, device=cuda_device) \
+            .to(dtype)
+
+    q, k, v, do = rnd(s_q), rnd(s_kv), rnd(s_kv), rnd(s_q)
+    counts = (tfa.fwd_launches, tfa.dkv_launches, tfa.dq_launches)
+    out, lse = tfa.flash_fwd(q, k, v, scale, causal)
+    delta = tfa.flash_bwd_delta(out, do)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert (tfa.fwd_launches, tfa.dkv_launches, tfa.dq_launches) == \
+        tuple(c + 1 for c in counts)
+    out_ref, lse_ref = tfa.flash_fwd_ref(q, k, v, scale, causal)
+    assert _row_rel_err(out, out_ref) <= _FLASH_TOL[dtype]
+    live = lse_ref > -1e29  # rows with at least one visible key
+    torch.testing.assert_close(lse[live], lse_ref[live], rtol=0, atol=1e-3)
+    assert torch.equal(lse[~live], lse_ref[~live])
+    assert not out[~live].any()
+    dk_ref, dv_ref = tfa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta,
+                                           scale, causal)
+    dq_ref = tfa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, scale, causal)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert _row_rel_err(got, want) <= _FLASH_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_runs_the_kernels(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(2, 256, 4, 128, generator=g, device=cuda_device)
+               .requires_grad_() for _ in range(3))
+    counts = (tfa.fwd_launches, tfa.dkv_launches, tfa.dq_launches)
+    out = tfa.flash_attention_bshd(q, k, v, causal=True)
+    out.square().sum().backward()
+    assert (tfa.fwd_launches, tfa.dkv_launches, tfa.dq_launches) == \
+        tuple(c + 1 for c in counts)
+    qc, kc, vc = (t.detach().cpu().requires_grad_() for t in (q, k, v))
+    out_c = tfa.flash_attention_bshd(qc, kc, vc, causal=True)
+    out_c.square().sum().backward()
+    assert _row_rel_err(out.cpu(), out_c) <= _FLASH_TOL[torch.float32]
+    for a, b in ((q, qc), (k, kc), (v, vc)):
+        assert _row_rel_err(a.grad.cpu(), b.grad) <= _FLASH_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_rms_norm_functional_on_cuda_launches_or_raises(cuda_device):
+    """F.rms_norm never takes the plain version for a CUDA tensor: a
+    no-grad forward wider than the backward kernel takes still launches the
+    forward kernel; with a gradient, the kernels run or the call raises."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(5, 11008, generator=g, device=cuda_device)
+    w = torch.randn(11008, generator=g, device=cuda_device)
+    n0 = trms.launches
+    with torch.no_grad():
+        y = F.rms_norm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert trms.launches == n0 + 1
+    assert _close(y, trms.rms_norm_ref(x, w, 1e-6), torch.float32)
+    with pytest.raises(ValueError, match="supports"):
+        F.rms_norm(x.requires_grad_(), w, 1e-6)
+    xg = x[:, :8192].detach().contiguous().requires_grad_()
+    wg = w[:8192].clone().requires_grad_()
+    n0, b0 = trms.launches, trms.bwd_launches
+    F.rms_norm(xg, wg, 1e-6).sum().backward()
+    assert (trms.launches, trms.bwd_launches) == (n0 + 1, b0 + 1)
+    xr, wr = (t.detach().requires_grad_() for t in (xg, wg))
+    trms.rms_norm_ref(xr, wr, 1e-6).sum().backward()
+    assert _close(xg.grad, xr.grad, torch.float32)
+    assert _close(wg.grad, wr.grad, torch.float32)
 
 
 def _decode_case(dev, dtype, b, q_heads, kv_heads, d, page, pages_per_seq,
@@ -98,6 +225,19 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
                         (3, 5))
     with pytest.raises(ValueError, match="head_dim"):
         tpa.paged_attention(*args)
+    q = torch.randn(2, 128, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_fwd(q, q, q, 0.125, True)
+    q = torch.randn(2, 100, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="multiples"):
+        tfa.flash_fwd(q, q, q, 0.125, True)
+    q = torch.randn(2, 128, 128, device=cuda_device)
+    with pytest.raises(TypeError):
+        tfa.flash_fwd(q, q.half(), q, 0.125, True)
+    rstd = torch.ones(8, device=cuda_device)
+    with pytest.raises(ValueError, match="rstd"):
+        trms.rms_norm_bwd(x, torch.ones(256, device=cuda_device),
+                          rstd[:4], x)
 
 
 @pytest.mark.cuda
@@ -118,3 +258,26 @@ def test_tiny_engine_greedy_streams_equal_on_cuda_and_cpu(cuda_device):
         streams.append({f.request_id: f.output_ids.tolist()
                         for f in eng.run()})
     assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+def test_tiny_training_through_the_kernels_matches_cpu(cuda_device):
+    """Head_dim 128, so CUDA trains through the flash and RMSNorm kernels
+    and the CPU through their plain versions: 3 AdamW steps from the same
+    weights give losses within 1e-4 relative (split-TF32 flash products)."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2, seq=256)
+    cfg.num_key_value_heads = 1
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    gpu = LlamaForCausalLM(cfg, device=cuda_device)
+    load_llama_state(gpu, {k: v.numpy() for k, v in cpu.state_dict().items()})
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(0, 256, (2, 256)))
+    y = torch.from_numpy(rng.randint(0, 256, (2, 256)))
+    n0 = tfa.fwd_launches, trms.bwd_launches
+    losses = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        step = build_train_step(model, AdamW(learning_rate=1e-3,
+                                             parameters=model.parameters()))
+        losses.append([step(x.to(dev), y.to(dev)).item() for _ in range(3)])
+    assert (tfa.fwd_launches, trms.bwd_launches) == (n0[0] + 6, n0[1] + 15)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4, atol=0)

@@ -3,11 +3,13 @@
 On the CPU: each kernel's plain PyTorch version against the JAX Pallas
 kernel (interpret mode off the TPU, as the JAX tests run it) and against
 its XLA reference, plus the paged cache writes. Tolerance 1e-5 abs in f32:
-both sides compute the same f32 arithmetic, in a different summation order.
+both sides compute the same f32 arithmetic, in a different summation order
+(the RMSNorm weight gradient, a sum over 512 rows, 1e-4).
 
 The CUDA kernels themselves are held against these plain versions on the
 card in `test_torch_cuda.py`.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 
 from paddle_tpu.kernels import paged_attention as jpa
 from paddle_tpu.kernels import rms_norm as jrms
+from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.kernels import rms_norm as trms
 from paddle_tpu_torch.nn import functional as TF
@@ -52,17 +55,90 @@ def test_rms_norm_bf16_keeps_dtype():
     assert y.dtype == torch.bfloat16 and y.shape == x.shape
 
 
+@pytest.mark.parametrize("rows,cols", [(512, 128), (512, 256)])
+def test_rms_norm_rstd_and_backward_match_pallas(rows, cols):
+    """512 rows: two of the Pallas backward's 256-row blocks, so its dw
+    accumulates across its grid."""
+    rng = np.random.RandomState(rows * cols)
+    x = rng.randn(rows, cols).astype(np.float32) * 2.0
+    w = rng.randn(cols).astype(np.float32)
+    g = rng.randn(rows, cols).astype(np.float32)
+    _, j_rstd = jrms._fwd(jnp.asarray(x), jnp.asarray(w), 1e-6)
+    y, rstd = trms.rms_norm_ref(torch.from_numpy(x), torch.from_numpy(w),
+                                1e-6, with_rstd=True)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(j_rstd)[:, 0],
+                               rtol=1e-6, atol=0)
+    _, vjp = jax.vjp(lambda a, b: jrms.rms_norm_2d(a, b, 1e-6),
+                     jnp.asarray(x), jnp.asarray(w))
+    j_dx, j_dw = vjp(jnp.asarray(g))
+    dx, dw = trms.rms_norm_bwd_ref(torch.from_numpy(x), torch.from_numpy(w),
+                                   rstd, torch.from_numpy(g))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(j_dx), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(j_dw), rtol=0,
+                               atol=1e-4)
+
+
+def test_rms_norm_functional_gradient_is_the_plain_backward():
+    """The differentiable functional (RMSNormFunction on the CPU: the plain
+    forward and backward) equals autograd through the plain expression."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 64, 256).astype(np.float32))
+    w = torch.from_numpy(rng.randn(256).astype(np.float32))
+    g = torch.from_numpy(rng.randn(2, 64, 256).astype(np.float32))
+    got = []
+    for fn in (TF.rms_norm, trms.rms_norm_ref):
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xa, wa, 1e-6).backward(g)
+        got.append((xa.grad, wa.grad))
+    torch.testing.assert_close(got[0][0], got[1][0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[0][1], got[1][1], rtol=0, atol=1e-4)
+
+
+def test_rms_norm_functional_takes_the_kernel_by_shape():
+    x = torch.randn(4, 100, requires_grad=True)  # 100 % 4 == 0: kernel shape
+    assert trms.supports(x, torch.ones(100))
+    assert not trms.supports(x.half(), torch.ones(100).half())
+    assert not trms.supports(torch.randn(4, 6), torch.ones(6))  # 6 % 4
+    y = TF.rms_norm(torch.randn(3, 6, requires_grad=True),
+                    torch.ones(6, requires_grad=True))
+    y.sum().backward()  # the plain expression, under autograd
+
+
+def test_rms_norm_functional_off_the_cpu_never_takes_the_plain_version():
+    """Only a CPU tensor takes the plain version. A tensor on another device
+    (here `meta`, which no kernel takes) goes to the kernel's wrapper and
+    raises, whatever its width, with or without a gradient."""
+    x = torch.empty(5, 11008, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        TF.rms_norm(x, torch.empty(11008, device="meta"))
+    for cols in (16384, 6):  # past the backward kernel's width; 6 % 4
+        x = torch.empty(3, cols, device="meta", requires_grad=True)
+        with pytest.raises(ValueError, match="supports"):
+            TF.rms_norm(x, torch.empty(cols, device="meta"))
+
+
 def test_cuda_paths_raise_instead_of_falling_back():
     # the kernel entry points refuse a CPU tensor: no plain-version fallback
     x = torch.randn(8, 128)
     with pytest.raises(ValueError, match="CUDA"):
         trms._rms_norm_cuda(x, torch.ones(128), 1e-6)
+    with pytest.raises(ValueError, match="CUDA"):
+        trms._rms_norm_bwd_cuda(x, torch.ones(128), torch.ones(8), x)
     q = torch.randn(2, 4, 64)
     kp, vp = tpa.alloc_pages(4, 8, 2, 64)
     tables = torch.zeros(2, 2, dtype=torch.int32)
     lens = torch.ones(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         tpa._paged_attention_cuda(q, kp, vp, tables, lens, None)
+    q = torch.randn(2, 128, 128)
+    lse = torch.zeros(2, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa._fwd_cuda(q, q, q, 0.1, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa._dkv_cuda(q, q, q, q, lse, lse, 0.1, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa._dq_cuda(q, q, q, q, lse, lse, 0.1, True)
 
 
 # ---------------------------------------------------------------------------
