@@ -13,9 +13,13 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    case, a 256x128 causal case with fully masked rows, an f32 case, each
    held row by row and beside faults made from the plain versions, which
    must fail the same bar; the RMSNorm backward at [4096, 4096] and
-   [8, 4096], bf16 and f32); after
-   phase 4, its device time, the plain version's, a library call's, and its
-   bound;
+   [8, 4096], bf16 and f32; the dequant matmul at LLaMA-2-13B's
+   projections, 5120->5120, 5120->13824 and 13824->5120, at m = 8 and
+   2512, int8 and int4 weights per channel and in groups, and one small
+   f32 case; the int8 paged decode at 40/40 and 32/8 heads bf16 and 32/32
+   f32; each new case held row by row and beside faults made from the
+   plain version); after phase 4b, its device time, the plain version's, a
+   library call's, and its bound;
 4. LLaMA-2-7B (32 layers, hidden 4096, bf16, random weights from --seed)
    served by the paged-KV ServingEngine: one 2500-token request decoding
    past a 2048-token context, then 10 requests of 5-1000 tokens, greedy
@@ -23,7 +27,18 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    before and checked just after; then a profiled warm 2500-token prefill
    and a profiled window of batch-8 decode steps give the device's busy
    time and idle share;
-5. a tiny f32 LLaMA gives the same greedy streams on CUDA and on the CPU;
+4b. LLaMA-2-13B (40 layers, hidden 5120, bf16, random weights from
+   --seed, PyTorch's default initialisation): the last-position logits of
+   a 64-token prompt in f32, in bf16, and after weight-only int8
+   quantization (lm_head kept in bf16): int8 and bf16 agree within 0.05 of
+   the largest, the bf16-f32 distance is read beside it; then served with an int8 paged KV cache, the same
+   traffic as phase 4, the launch counts reset just before and checked
+   just after (dequant matmul 280 and RMSNorm 81 per forward, int8 paged
+   decode 40 per decode step, the float paged kernel none), a profiled
+   prefill and decode window; then a fresh bf16 13B model quantized to int4
+   in groups of 128 serves the 10 requests with the same checks;
+5. a tiny f32 LLaMA gives the same greedy streams on CUDA and on the CPU,
+   in float, and with int8 and int4 weights and an int8 KV cache;
 6. training: LLaMA-2-7B widths cut to 20 of 32 layers (memory: weights,
    gradients and AdamW's f32 moments of all 32 do not fit one card), bf16
    parameters (amp O2), AdamW(lr 1e-4), dense cross entropy, batch 1 x
@@ -60,11 +75,13 @@ from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as kfa
 from paddle_tpu_torch.kernels import paged_attention as kpa
+from paddle_tpu_torch.kernels import quant_matmul as kqm
 from paddle_tpu_torch.kernels import rms_norm as krms
 from paddle_tpu_torch.models import build_train_step
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.nn.quant import quantize_for_inference, weight_quantize
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.weights import load_llama_state
+from paddle_tpu_torch.weights import llama_state_to_numpy, load_llama_state
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s; f32 FLOP/s off the tensor
 # cores (the RMSNorm and paged kernels' arithmetic); the tensor cores' bf16
@@ -82,6 +99,13 @@ TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 # tensor cores. Each bar lies between the sound kernels' readings and
 # those of faults made from the plain versions (`flash_controls`)
 FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
+# the dequant matmul and the int8 paged decode, row by row: kernel and
+# plain version dequantize to the same values and sum in f32, so they
+# differ by summation order and, in bf16, by the output rounding of the
+# few elements whose sums straddle a rounding boundary; each bar lies
+# below the faults (`qmm_controls`, the paged "k_scales" control)
+QUANT_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-4}
+ALGO = {"int8": "weight_only_int8", "int4": "weight_only_int4"}
 
 
 def log(*parts):
@@ -231,6 +255,174 @@ def paged_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
         page=page, lens=list(lens), dtype=str(dtype).split(".")[-1],
         max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
         timings=timings)
+
+
+def swap_nibbles(qw):
+    u = qw.to(torch.int32) & 0xFF
+    u = ((u & 0xF) << 4) | (u >> 4)
+    return torch.where(u >= 128, u - 256, u).to(torch.int8)
+
+
+def shift_group(scales):
+    """Group 0 takes group 1's scales; per-channel scales: every column
+    takes its neighbour's."""
+    if scales.dim() == 1:
+        return scales.roll(1)
+    out = scales.clone()
+    out[0] = scales[1]
+    return out
+
+
+def qmm_controls(x, qw, sc, wd, want):
+    """Readings of the row check on faults made from the plain version:
+    one group's scales shifted by one group, and for int4 the two nibbles
+    of every byte swapped. Each must exceed the bar."""
+    got = {"group_shift": kqm.quant_matmul_ref(x, qw, shift_group(sc), wd)}
+    if wd == "int4":
+        got["nibble_swap"] = kqm.quant_matmul_ref(x, swap_nibbles(qw), sc, wd)
+    return {k: row_rel_err(v, want) for k, v in got.items()}
+
+
+class full_precision_reductions:
+    """cuBLAS bf16 products reduce in f32 inside the block (the plain
+    version's products, as the kernel's)."""
+
+    def __enter__(self):
+        self.old = torch.backends.cuda.matmul.\
+            allow_bf16_reduced_precision_reduction
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            self.old
+
+
+def qmm_case(name, m, k, n, wd, gs, dtype, gen, dev):
+    w = (torch.randn(k, n, generator=gen, device=dev) * 0.02).to(dtype)
+    qw, sc = weight_quantize(w, ALGO[wd], group_size=gs)
+    del w
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    got = kqm.quant_matmul(x, qw, sc, wd, gs)
+    torch.cuda.synchronize()
+    tol = QUANT_TOL[dtype]
+    with full_precision_reductions():
+        want = kqm.quant_matmul_ref(x, qw, sc, wd)
+        err = row_rel_err(got, want)
+        check(err <= tol, f"quant_matmul {name}: row rel err {err} > {tol}")
+        ctl = qmm_controls(x, qw, sc, wd, want)
+    for fault, r in ctl.items():
+        check(r > tol, f"quant_matmul {name}: the {fault} control reads {r}, "
+              f"within the bar {tol}")
+    abs_err = (got.float() - want.float()).abs().max().item()
+    del got, want
+    elt = x.element_size()
+    rate = BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S
+    # x, the packed weight and the scales read once, y written once
+    b_ms, b_by = bound(m * k * elt + qw.numel() + 4 * sc.numel()
+                       + m * n * elt, 2 * m * k * n, rate)
+
+    def timings():
+        it = 200 if m <= 16 else 20
+        ms, timer = time_ms(lambda: kqm.quant_matmul(x, qw, sc, wd, gs), it)
+        w_deq = kqm.dequantize(qw, sc, wd, dtype)
+        res = dict(
+            ms=ms, timer=timer,
+            plain_ms=time_ms(lambda: kqm.quant_matmul_ref(x, qw, sc, wd),
+                             max(it // 10, 3))[0],
+            library_ms=time_ms(lambda: torch.matmul(x, w_deq), it)[0])
+        del w_deq
+        return res
+
+    return dict(case=name, m=m, k=k, n=n, weight=wd, group_size=gs,
+                dtype=str(dtype).split(".")[-1], row_rel_err=err,
+                max_abs_err=abs_err, tol=tol, controls=ctl, bound_ms=b_ms,
+                bound_by=b_by, timings=timings)
+
+
+def qmm_split_sweep(gen, dev, card, splits=(1, 2, 4, 8, 16, 32)):
+    """Device time of the decode-shape dequant matmul (m = 8, int8 and int4
+    per channel) at forced k splits beside the automatic one (one wave of
+    resident blocks): where the time stops falling, the bytes in flight no
+    longer bound it."""
+    res = []
+    for k, n in ((5120, 5120), (5120, 13824), (13824, 5120)):
+        w = torch.randn(k, n, generator=gen, device=dev) * 0.02
+        x = torch.randn(8, k, generator=gen, device=dev).to(torch.bfloat16)
+        for wd in ("int8", "int4"):
+            qw, sc = weight_quantize(w, ALGO[wd])
+            auto = kqm._splits(8, k, n, wd == "int4", True, dev)
+            row = dict(k=k, n=n, weight=wd, auto_splits=auto, ms={})
+            for sp in (None,) + splits:
+                row["ms"]["auto" if sp is None else sp] = time_ms(
+                    lambda: kqm._quant_matmul_cuda(x, qw, sc, wd, -1, sp),
+                    100)[0]
+            log(f"kernel: quant_matmul {k}->{n} m8 {wd} by k split (auto "
+                f"{auto}): " + ", ".join(f"{s_} {ms * 1e3:.1f} us"
+                                         for s_, ms in row["ms"].items())
+                + f" [{card}]")
+            res.append(row)
+    return res
+
+
+def sdpa_paged_q8(q, k_pages, v_pages, tables, lens, k_scales, v_scales):
+    """Library yardstick of the int8 decode: a dequantizing gather of the
+    pages, then PyTorch's SDPA (as `sdpa_paged`)."""
+    kd = k_pages.to(q.dtype) * k_scales[..., None].to(q.dtype)
+    vd = v_pages.to(q.dtype) * v_scales[..., None].to(q.dtype)
+    return sdpa_paged(q, kd, vd, tables, lens)
+
+
+def paged_q8_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
+                  page=16, pages_per_seq=256):
+    b = len(lens)
+    n_pages = b * pages_per_seq
+    shape = (kv_heads, n_pages, page, d)
+    kp, ks = kpa._quant_kv_token(torch.randn(shape, generator=gen,
+                                             device=dev))
+    vp, vs = kpa._quant_kv_token(torch.randn(shape, generator=gen,
+                                             device=dev))
+    q = torch.randn(b, q_heads, d, generator=gen, device=dev).to(dtype)
+    tables = torch.randperm(n_pages, generator=gen, device=dev) \
+        .reshape(b, pages_per_seq).to(torch.int32)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    args = (q, kp, vp, tables, ln)
+    sc = dict(k_scales=ks, v_scales=vs)
+    got = kpa.paged_attention(*args, **sc)
+    torch.cuda.synchronize()
+    want = kpa.paged_attention_ref(*args, **sc)
+    err = row_rel_err(got, want)
+    tol = QUANT_TOL[dtype]
+    check(err <= tol, f"paged_attention_int8 {name}: row rel err {err} > "
+          f"{tol}")
+    check(not got[lens.index(0)].any() if 0 in lens else True,
+          f"paged_attention_int8 {name}: a ctx 0 row is not zero")
+    ctl = {"k_scales_left_out": row_rel_err(kpa.paged_attention_ref(
+        *args, k_scales=torch.ones_like(ks), v_scales=vs), want)}
+    check(ctl["k_scales_left_out"] > tol, f"paged_attention_int8 {name}: "
+          f"the control reads {ctl}, within the bar {tol}")
+    abs_err = (got.float() - want.float()).abs().max().item()
+    del got, want
+    elt = q.element_size()
+    ctx = sum(lens)
+    # int8 K and V rows and their f32 scales, q read, out written, tables
+    nbytes = (2 * ctx * kv_heads * (d + 4) + 2 * q.numel() * elt
+              + 4 * sum(math.ceil(c / page) for c in lens) + 4 * b)
+    b_ms, b_by = bound(nbytes, 4 * ctx * q_heads * d)
+
+    def timings():
+        ms, timer = time_ms(lambda: kpa.paged_attention(*args, **sc), 50)
+        return dict(
+            ms=ms, timer=timer,
+            plain_ms=time_ms(lambda: kpa.paged_attention_ref(*args, **sc),
+                             5)[0],
+            library_ms=time_ms(lambda: sdpa_paged_q8(*args, ks, vs), 10)[0])
+
+    return dict(
+        case=name, batch=b, q_heads=q_heads, kv_heads=kv_heads, head_dim=d,
+        page=page, lens=list(lens), dtype=str(dtype).split(".")[-1],
+        row_rel_err=err, max_abs_err=abs_err, tol=tol, controls=ctl,
+        bound_ms=b_ms, bound_by=b_by, timings=timings)
 
 
 def rms_bwd_case(name, rows, cols, dtype, gen, dev, eps=1e-6):
@@ -528,6 +720,22 @@ def profile_prefill(eng, rng, card, n=2500):
     return res
 
 
+def traffic(rng, vocab):
+    """The serving phases' requests: one 2500-token prompt with 64 new
+    tokens, and 10 prompts of 5-1000 tokens with 16-64 new tokens, every
+    other one sampled."""
+    long_req = [(rng.randint(0, vocab, 2500), 64, {})]
+    batch = []
+    for i in range(10):
+        n = int(rng.randint(5, 1001))
+        kw = {} if i % 2 == 0 else dict(decode_strategy="sampling",
+                                        temperature=0.8, top_k=50,
+                                        top_p=0.95)
+        batch.append((rng.randint(0, vocab, n), int(rng.randint(16, 65)),
+                      kw))
+    return long_req, batch
+
+
 def serve_7b(seed, dev, card):
     cfg = LlamaConfig.llama2_7b()
     cfg.dtype = "bfloat16"
@@ -541,15 +749,7 @@ def serve_7b(seed, dev, card):
         f"{cfg.hidden_size}) and 8x4096-token page pools ready in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.RandomState(seed)
-    long_req = [(rng.randint(0, cfg.vocab_size, 2500), 64, {})]
-    batch = []
-    for i in range(10):
-        n = int(rng.randint(5, 1001))
-        kw = {} if i % 2 == 0 else dict(decode_strategy="sampling",
-                                        temperature=0.8, top_k=50,
-                                        top_p=0.95)
-        batch.append((rng.randint(0, cfg.vocab_size, n),
-                      int(rng.randint(16, 65)), kw))
+    long_req, batch = traffic(rng, cfg.vocab_size)
     # the main path: counts from zero, read right after
     krms.launches = 0
     kpa.launches = 0
@@ -589,6 +789,190 @@ def serve_7b(seed, dev, card):
     res["decode_profile"] = profile_decode(eng, rng, card)
     del eng, model
     torch.cuda.empty_cache()
+    return res
+
+
+def last_logits(model, ids, dev):
+    """f32 logits of the last position of one prompt (dense-cache
+    forward, the prefill path)."""
+    with torch.no_grad():
+        logits, _ = model.forward_cached(
+            torch.from_numpy(ids)[None].to(dev),
+            model.init_kv_caches(1, len(ids)), 0)
+    return logits[0, -1].float()
+
+
+QUANT_COUNTERS = (("quant_matmul", kqm, "launches"),
+                  ("paged_attention_int8", kpa, "q8_launches"),
+                  ("paged_attention", kpa, "launches"),
+                  ("rms_norm", krms, "launches"))
+
+
+def init_default(model, seed, dev):
+    """PyTorch's default initialisation, drawn from `seed`: a linear's
+    [in, out] weight U(-1/sqrt(in), 1/sqrt(in)) (`nn.Linear`), the
+    embedding N(0, 1) (`nn.Embedding`), norm weights 1. A 40-layer model
+    drawn from N(0, 0.02) instead amplifies small perturbations (int8
+    weights moved its logits by 0.29 of the largest on an H100), so a
+    quantization bar of 0.05 could not tell good weights from bad on it."""
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 1:
+                p.fill_(1.0)
+            elif name.endswith("embed_tokens.weight"):
+                p.normal_(0.0, 1.0, generator=gen)
+            else:
+                b = p.shape[0] ** -0.5
+                p.uniform_(-b, b, generator=gen)
+
+
+def serve_13b(seed, dev, card, algo, group_size, lone=True):
+    """LLaMA-2-13B (random weights, `init_default`), quantized weight-only
+    (lm_head kept in bf16) and served over an int8 paged KV cache: the
+    last-position logits of a 64-token prompt in bf16 and after quantizing
+    (int8: held to the reference's 0.05 of the largest; with `lone` also
+    read in f32 first, the floor bf16 rounding alone sets), then the
+    phase-4 traffic (`lone`: also the 2500-token request) with the
+    kernels' launch counts reset just before and checked just after."""
+    cfg = LlamaConfig.llama2_13b()
+    cfg.dtype = "float32" if lone else "bfloat16"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold (their timing inputs): the sizes below
+    # are this phase's own
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    init_default(model, seed, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = np.random.RandomState(seed + 1).randint(0, cfg.vocab_size, 64)
+    floor = None
+    if lone:
+        ref32 = last_logits(model, prompt, dev)
+        model.to(torch.bfloat16)
+        cfg.dtype = "bfloat16"
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = last_logits(model, prompt, dev)
+    if lone:
+        floor = ((ref - ref32).abs().max() / ref32.abs().max()).item()
+        del ref32
+    bf16_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    t1 = time.perf_counter()
+    quantize_for_inference(model, algo, group_size, exclude=("lm_head",))
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = last_logits(model, prompt, dev)
+    logit_dev = ((got - ref).abs().max() / ref.abs().max()).item()
+    tag = f"{algo.split('_')[-1]}" + ("" if group_size == -1
+                                      else f"-g{group_size}")
+    if algo == "weight_only_int8":
+        check(logit_dev < 0.05, f"13B {tag}: logits moved by {logit_dev} "
+              f"of the largest, the reference's bar is 0.05")
+    quant_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    eng = ServingEngine(model, max_batch=8, max_seq_len=4096, page_size=16,
+                        seed=seed, device=dev, kv_cache_quant="int8")
+    torch.cuda.synchronize()
+    ready_gib = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    log(f"serve13: LLaMA-2-13B ({cfg.num_hidden_layers} layers, hidden "
+        f"{cfg.hidden_size}, {n_params / 1e9:.3f} B parameters) bf16 "
+        f"{bf16_gib:.2f} GiB allocated -> {tag} weights {quant_gib:.2f} GiB "
+        f"(quantized in {quant_s:.1f} s) -> with int8 8x4096-token page "
+        f"pools {ready_gib:.2f} GiB; ready in {time.perf_counter() - t0:.1f} "
+        f"s; last-position logits of a 64-token prompt moved by "
+        f"{logit_dev:.4f} of the largest |logit| ({ref.abs().max():.3f})"
+        + ("" if floor is None else f"; bf16 itself moves the f32 model's "
+           f"by {floor:.4f}"))
+    rng = np.random.RandomState(seed)
+    long_req, batch = traffic(rng, cfg.vocab_size)
+    # the main path: counts from zero, read right after
+    for _, mod, attr in QUANT_COUNTERS:
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    lone_res = drive(eng, long_req) if lone else None
+    mixed = drive(eng, batch)
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(mod, attr) for name, mod, attr in
+                QUANT_COUNTERS}
+    L = cfg.num_hidden_layers
+    forwards = eng.prefills + eng.decode_steps
+    want = {"quant_matmul": 7 * L * forwards,
+            "paged_attention_int8": L * eng.decode_steps,
+            "paged_attention": 0, "rms_norm": (2 * L + 1) * forwards}
+    for name, n in want.items():
+        check(launches[name] == n, f"13B {tag}: {name} launched "
+              f"{launches[name]} times, expected {n}")
+    check(eng.decode_steps > 0, f"13B {tag}: no decode step ran")
+    res = dict(card=card, algo=algo, group_size=group_size, params=n_params,
+               logit_rel_dev=logit_dev, bf16_vs_f32_logit_rel_dev=floor,
+               bf16_gib=bf16_gib,
+               quantized_gib=quant_gib, ready_gib=ready_gib,
+               quantize_s=quant_s, lone_2500=lone_res, mixed_10=mixed,
+               wall_s=wall, prefills=eng.prefills,
+               decode_steps=eng.decode_steps, preemptions=eng.preemptions,
+               launches=launches,
+               max_memory_allocated_gib=(torch.cuda.max_memory_allocated()
+                                         - base) / 2 ** 30)
+    if lone_res:
+        log(f"serve13 {tag}: lone 2500-token request, 64 new tokens: TTFT "
+            f"{lone_res['ttft_ms'][0]:.1f} ms, "
+            f"{lone_res['ms_per_decode_step_p50']:.2f} ms/decode step "
+            f"(p50), {lone_res['decode_tokens_per_s']:.1f} tok/s [{card}]")
+    log(f"serve13 {tag}: 10 requests (5-1000 tokens, 16-64 new, "
+        f"greedy+sampled) through 8 slots: TTFT p50 "
+        f"{np.median(mixed['ttft_ms']):.1f} ms max "
+        f"{max(mixed['ttft_ms']):.1f} ms, "
+        f"{mixed['ms_per_decode_step_p50']:.2f} ms/decode step (p50), "
+        f"{mixed['decode_tokens_per_s']:.1f} decode tok/s [{card}]")
+    log(f"serve13 {tag}: {eng.prefills} prefills, {eng.decode_steps} decode "
+        f"steps, {eng.preemptions} preemptions, launches {launches}, peak "
+        f"{res['max_memory_allocated_gib']:.2f} GiB allocated, {wall:.1f} s "
+        f"[{card}]")
+    if lone:
+        res["prefill_profile"] = profile_prefill(eng, rng, card)
+    res["decode_profile"] = profile_decode(eng, rng, card)
+    del eng, model, ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tiny_quant_parity(seed, dev):
+    """A tiny f32 LLaMA (head_dim 128, so the kernels take it), quantized on
+    the CPU and carried to the card: with int8 KV, the greedy streams
+    through the CUDA kernels equal those through the plain versions."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2, seq=128)
+    cfg.num_key_value_heads = 1
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 9, 17, 3, 40)]
+    res = {}
+    for algo, gs in (("weight_only_int8", -1), ("weight_only_int4", 64)):
+        cpu = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+        gpu = LlamaForCausalLM(cfg, device=dev)
+        for m in (cpu, gpu):
+            quantize_for_inference(m, algo, gs, exclude=("lm_head",))
+        load_llama_state(gpu, llama_state_to_numpy(cpu))
+        n0 = kqm.launches, kpa.q8_launches
+        streams = []
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            eng = ServingEngine(model, max_batch=3, max_seq_len=128,
+                                page_size=8, device=d, kv_cache_quant="int8")
+            for p in prompts:
+                eng.add_request(p, max_new_tokens=24)
+            streams.append({f.request_id: f.output_ids.tolist()
+                            for f in eng.run()})
+        check(kqm.launches > n0[0] and kpa.q8_launches > n0[1],
+              f"tiny {algo}: the quantized kernels did not run on CUDA")
+        check(streams[0] == streams[1], f"tiny {algo} g{gs} + int8 KV "
+              f"greedy streams differ: cpu {streams[0]} cuda {streams[1]}")
+        log(f"parity: tiny f32 LLaMA (2 layers, hidden 256, 2 heads of 128 "
+            f"over 1 KV head), {algo} g{gs} + int8 KV, {len(prompts)} "
+            f"greedy requests x 24 tokens: CUDA == CPU")
+        res[f"{algo}_g{gs}"] = dict(requests=len(prompts), identical=True)
     return res
 
 
@@ -865,6 +1249,25 @@ def main():
                rms_bwd_case("rows8", 8, 4096, bf16, gen, dev),
                rms_bwd_case("train_f32", 4096, 4096, f32, gen, dev),
                rms_bwd_case("rows8_f32", 8, 4096, f32, gen, dev)]
+    qmm = [qmm_case(f"{k}->{n} m{m} {wd} g{gs}", m, k, n, wd, gs, bf16, gen,
+                    dev)
+           for k, n in ((5120, 5120), (5120, 13824), (13824, 5120))
+           for m in (8, 2512)
+           for wd, gs in (("int8", -1), ("int8", 64), ("int4", -1),
+                          ("int4", 128))]
+    qmm.append(qmm_case("512->1024 m33 int4 g64", 33, 512, 1024, "int4", 64,
+                        f32, gen, dev))
+    paged_q8 = [paged_q8_case("mha_bf16_13b", bf16, 40, 40, gen, dev, lens),
+                paged_q8_case("gqa_bf16", bf16, 32, 8, gen, dev, lens),
+                paged_q8_case("mha_f32", f32, 32, 32, gen, dev, lens)]
+    for kind_, rs in (("quant_matmul", qmm),
+                      ("paged_attention_int8", paged_q8)):
+        for r in rs:
+            log(f"kernel: {kind_} {r['case']} {r['dtype']}: row rel err "
+                f"{r['row_rel_err']:.3g} vs plain (bar {r['tol']:.3g}), max "
+                f"abs err {r['max_abs_err']:.3g}; controls (must exceed the "
+                f"bar) " + ", ".join(f"{k} {v:.3g}"
+                                     for k, v in r["controls"].items()))
     flash = [flash_case("causal_bf16", 32, 4096, 4096, True, bf16, gen, dev,
                         library=True),
              flash_case("full_bf16", 32, 4096, 4096, False, bf16, gen, dev),
@@ -891,9 +1294,16 @@ def main():
     # 4. the serving path: LLaMA-2-7B
     serving = serve_7b(args.seed, dev, card)
 
+    # 4b. quantized serving: LLaMA-2-13B, int8 weights, then int4 g128,
+    # over an int8 KV cache
+    serving13 = serve_13b(args.seed, dev, card, "weight_only_int8", -1)
+    serving13_int4 = serve_13b(args.seed, dev, card, "weight_only_int4", 128,
+                               lone=False)
+
     # 3, continued: times at the serving and training shapes
     for kind_, rs in (("rms_norm", rms), ("paged_attention", paged),
-                      ("rms_norm_bwd", rms_bwd)):
+                      ("rms_norm_bwd", rms_bwd), ("quant_matmul", qmm),
+                      ("paged_attention_int8", paged_q8)):
         for r in rs:
             r.update(r.pop("timings")())
             lib = "n/a" if r["library_ms"] is None \
@@ -912,11 +1322,13 @@ def main():
             log(f"kernel: flash {key} {r['case']} {r['dtype']}: "
                 f"{t['ms']:.4f} ms{extra}, bound {t['bound_ms']:.4f} ms "
                 f"({t['bound_by']}), device time ({t['timer']}) [{card}]")
+    split_sweep = qmm_split_sweep(gen, dev, card)
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 5. a tiny model decodes the same on CUDA and CPU
+    # 5. a tiny model decodes the same on CUDA and CPU, float and quantized
     parity = tiny_parity(args.seed, dev)
+    quant_parity = tiny_quant_parity(args.seed, dev)
 
     # 6. the training path: 20-layer LLaMA-2-7B widths, batch 1 x 4096
     training = train_7b(args.seed, dev, card)
@@ -934,10 +1346,13 @@ def main():
     csrc = "paddle_tpu_torch/kernels/csrc/"
     ref = "paddle_tpu/kernels/"
     served, trained = serving["launches"], training["launches"]
+    q8, q4 = serving13["launches"], serving13_int4["launches"]
+    qmm_row = next(r for r in qmm if r["case"] == "5120->13824 m8 int8 g-1")
     kernels = [
-        # launches: the serving run's count plus the training run's
+        # launches: the serving runs' counts plus the training run's
         row("rms_norm", csrc + "rms_norm.cu", ref + "rms_norm.py:71", rms[0],
-            served["rms_norm"] + trained["rms_norm"]),
+            served["rms_norm"] + q8["rms_norm"] + q4["rms_norm"]
+            + trained["rms_norm"]),
         row("rms_norm_bwd", csrc + "rms_norm.cu", ref + "rms_norm.py:101",
             rms_bwd[0], trained["rms_norm_bwd"]),
         row("paged_attention", csrc + "paged_attention.cu",
@@ -952,13 +1367,23 @@ def main():
         row("flash_bwd_dq", csrc + "flash_attention.cu",
             ref + "flash_attention.py:534", flash[0]["dq"],
             trained["flash_bwd_dq"]),
+        row("quant_matmul", csrc + "quant_matmul.cu",
+            ref + "quant_matmul.py:208", qmm_row,
+            q8["quant_matmul"] + q4["quant_matmul"]),
+        row("paged_attention_int8", csrc + "paged_attention.cu",
+            ref + "paged_attention.py:584", paged_q8[0],
+            q8["paged_attention_int8"] + q4["paged_attention_int8"]),
     ]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
                            build_s=secs, rms_norm=rms, rms_norm_bwd=rms_bwd,
                            paged_attention=paged, flash=flash,
-                           serving=serving, parity=parity, training=training,
+                           quant_matmul=qmm, paged_attention_int8=paged_q8,
+                           quant_matmul_split_sweep=split_sweep,
+                           serving=serving, serving13_int8=serving13,
+                           serving13_int4=serving13_int4, parity=parity,
+                           quant_parity=quant_parity, training=training,
                            train_parity=train_parity, kernels=kernels),
                       f, indent=1)
     log(card)

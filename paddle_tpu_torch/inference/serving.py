@@ -14,10 +14,17 @@ the youngest slot is preempted, requeued at the front with its tokens so
 far, and re-prefilled later (recompute preemption). Greedy token streams
 equal the JAX engine's.
 
+`kv_cache_quant="int8"` keeps the pages in int8 with one f32 scale per (kv
+head, page, slot): prefill and re-prefill quantize the prompt's K/V into
+the pages, each decode step quantizes its token, and decode attention runs
+the int8 kernel. A weight-only quantized model (`nn.quant.
+quantize_for_inference`) serves as it is.
+
 Ported: the parameters below, per-request sampling, eos and token-budget
-finishes, on-demand pages and recompute preemption. Not ported: decode
-bursts, async dispatch, speculative decoding, prefix cache, chunked prefill,
-int8 KV, KV tiers and handoff, telemetry, recovery and tensor parallelism.
+finishes, on-demand pages, recompute preemption and int8 KV. Not ported:
+decode bursts, async dispatch, speculative decoding (and its int8 window
+writers), prefix cache, chunked prefill, KV tiers and handoff, telemetry,
+recovery and tensor parallelism.
 """
 from __future__ import annotations
 
@@ -57,7 +64,10 @@ class FinishedRequest:
 class ServingEngine:
     def __init__(self, model, max_batch=4, max_seq_len=256, page_size=16,
                  decode_strategy="greedy_search", temperature=1.0, top_k=0,
-                 top_p=1.0, eos_token_id=None, seed=0, device=None):
+                 top_p=1.0, eos_token_id=None, seed=0, device=None,
+                 kv_cache_quant=None):
+        if kv_cache_quant not in (None, "int8"):
+            raise ValueError("kv_cache_quant must be None or 'int8'")
         if max_seq_len % page_size:
             raise ValueError("max_seq_len must be a multiple of page_size")
         max_pos = getattr(model.config, "max_position_embeddings", None)
@@ -84,13 +94,21 @@ class ServingEngine:
         n_pages = max_batch * self.pages_per_seq
         self._free_pages = list(range(n_pages))
         hd = cfg.hidden_size // cfg.num_attention_heads
-        # pages in the model's dtype; the decode kernel accumulates in f32
-        pools = [_pa.alloc_pages(n_pages, page_size,
-                                 cfg.num_key_value_heads, hd, param.dtype,
-                                 self.device)
-                 for _ in range(cfg.num_hidden_layers)]
+        kvh, L = cfg.num_key_value_heads, cfg.num_hidden_layers
+        # pages in the model's dtype, or int8 plus per-slot f32 scales; the
+        # decode kernels accumulate in f32
+        self.kv_cache_quant = kv_cache_quant
+        kv_dtype = torch.int8 if kv_cache_quant else param.dtype
+        pools = [_pa.alloc_pages(n_pages, page_size, kvh, hd, kv_dtype,
+                                 self.device) for _ in range(L)]
         self.k_pages = [k for k, _ in pools]
         self.v_pages = [v for _, v in pools]
+        self.k_scales = self.v_scales = None
+        if kv_cache_quant:
+            scales = [_pa.alloc_page_scales(n_pages, page_size, kvh,
+                                            self.device) for _ in range(L)]
+            self.k_scales = [k for k, _ in scales]
+            self.v_scales = [v for _, v in scales]
         self.block_tables = np.zeros((max_batch, self.pages_per_seq),
                                      np.int32)
         self.slots = [_Slot() for _ in range(max_batch)]
@@ -263,8 +281,14 @@ class ServingEngine:
             self.block_tables[[si for si, _ in new]]).to(dev)
         lens = torch.from_numpy(true_lens[:n])  # host: masks without a sync
         for li, (kc, vc) in enumerate(caches):
-            _pa.prefill_paged_kv_cache(self.k_pages[li], self.v_pages[li],
-                                       kc[:n], vc[:n], tables, lens)
+            if self.kv_cache_quant:
+                _pa.prefill_paged_kv_cache_q8(
+                    self.k_pages[li], self.k_scales[li], self.v_pages[li],
+                    self.v_scales[li], kc[:n], vc[:n], tables, lens)
+            else:
+                _pa.prefill_paged_kv_cache(self.k_pages[li],
+                                           self.v_pages[li], kc[:n], vc[:n],
+                                           tables, lens)
         del caches
         first = first.cpu().numpy()
         for row, (si, _) in enumerate(new):
@@ -284,9 +308,10 @@ class ServingEngine:
         rids = [s.request_id if act[i] else None
                 for i, s in enumerate(self.slots)]
         all_greedy = all(self.slots[i].greedy for i in active)
+        pools = (self.k_pages, self.v_pages) + (
+            (self.k_scales, self.v_scales) if self.kv_cache_quant else ())
         logits, _ = self.model.forward_paged(
-            torch.from_numpy(tokens).to(dev)[:, None],
-            list(zip(self.k_pages, self.v_pages)),
+            torch.from_numpy(tokens).to(dev)[:, None], list(zip(*pools)),
             torch.from_numpy(self.block_tables).to(dev),
             torch.from_numpy(lens).to(dev),
             active=torch.from_numpy(act))  # host mask: no device sync

@@ -1,18 +1,23 @@
 // Paged decode attention for NVIDIA Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/kernels/paged_attention.py::paged_attention (the
-// Pallas body `_decode_kernel`, float pages). One new token per sequence
-// attends the K/V already in its pages:
+// Pallas body `_decode_kernel`, float pages and its `quant=True` int8
+// pages). One new token per sequence attends the K/V already in its pages:
 //   q            [batch, q_heads, D]            (q_heads = kv_heads * group)
-//   k/v pages    [kv_heads, n_pages, page_size, D]
+//   k/v pages    [kv_heads, n_pages, page_size, D], q's dtype or int8
+//   k/v scales   [kv_heads, n_pages, page_size] f32 (int8 pages only)
 //   block_tables [batch, pages_per_seq] int32   (page ids of each sequence)
 //   context_lens [batch] int32                  (tokens valid in the cache)
 //   out          [batch, q_heads, D] in q's dtype, softmax and sums in f32.
-// A row with context 0 writes zeros, as `_decode_epilogue` does.
+// A row with context 0 writes zeros, as `_decode_epilogue` does. int8 pages
+// are dequantized as `_decode_accumulate` does: each token's K scale
+// multiplies its score after q . k_int8, its V scale multiplies its softmax
+// weight before p . v_int8, and the normaliser sums the unscaled weights.
 //
 // Bound on the H100: bytes. Each (row, kv head) reads ctx * D K values and
 // ctx * D V values once; at 8 rows, 32 kv heads, D=128 and a 4096-token
-// context that is 537 MB of bf16 per layer, about 160 us at 3.35 TB/s.
+// context that is 537 MB of bf16 per layer, about 160 us at 3.35 TB/s; int8
+// pages halve that (plus 8 bytes of scales per token and kv head).
 // The arithmetic (4 * ctx * q_heads * D flops) is far below the card's rate.
 //
 // Design: one block of 8 warps per (batch row, kv head). The block holds
@@ -30,8 +35,10 @@
 // Keeping many independent loads in flight is what a decode kernel bound by
 // memory latency needs. At the end the 8 warps' states are merged through
 // shared memory. The group is a compile-time bucket (1, 2, 4, 8, 16) so the
-// per-query state stays in registers. Split-KV across blocks, TMA staging
-// and tensor-core products are left for later work.
+// per-query state stays in registers. The page type is a template
+// parameter: int8 pages are read 16 values to a 16-byte load and converted
+// in registers, so one kernel body serves both formats. Split-KV across
+// blocks, TMA staging and tensor-core products are left for later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,6 +53,9 @@ constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
@@ -82,6 +92,8 @@ struct Args {
   const void* q;
   const void* k_pages;
   const void* v_pages;
+  const float* k_scales;  // int8 pages only
+  const float* v_scales;
   const int* block_tables;
   const int* context_lens;
   void* out;
@@ -94,9 +106,11 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (G * D + kWarps * G * D + kWarps * G * 2);
 }
 
-template <typename T, int D, int G>
+// T: q and out; P: the pages (T, or int8_t with per-token scales)
+template <typename T, typename P, int D, int G>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr bool kQuant = sizeof(P) == 1;
+  constexpr int kVec = 16 / sizeof(P);  // page elements per 16-byte load
   constexpr int kChunks = D / kVec;
   constexpr int kPerLane = D / 32;      // output columns per lane
   const int h = blockIdx.x;
@@ -105,8 +119,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
   const int q_heads = gridDim.x * group;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const T* __restrict__ k_pages = static_cast<const T*>(a.k_pages);
-  const T* __restrict__ v_pages = static_cast<const T*>(a.v_pages);
+  const P* __restrict__ k_pages = static_cast<const P*>(a.k_pages);
+  const P* __restrict__ v_pages = static_cast<const P*>(a.v_pages);
 
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                    // [G][D] queries, f32
@@ -140,10 +154,17 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
     const int n = min(kSlice, limit - s0);  // warp-uniform
     const bool valid = lane < n;
     long long off = 0;  // element offset of this lane's token in the pools
+    float ksc = 0.f, vsc = 0.f;  // its scales (int8 pages)
     if (valid) {
       const int t = s0 + lane;
-      off = ((head_base + table[t / a.page_size]) * a.page_size +
-             t % a.page_size) * D;
+      const long long tok =
+          (head_base + table[t / a.page_size]) * a.page_size +
+          t % a.page_size;
+      off = tok * D;
+      if (kQuant) {
+        ksc = a.k_scales[tok];
+        vsc = a.v_scales[tok];
+      }
     }
 
     // scores of this lane's token against every query
@@ -151,9 +172,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
 #pragma unroll
     for (int g = 0; g < G; ++g) sc[g] = 0.f;
     if (valid) {
-      const Chunk<T, kVec>* kr =
-          reinterpret_cast<const Chunk<T, kVec>*>(k_pages + off);
-      Chunk<T, kVec> kc[kChunks];
+      const Chunk<P, kVec>* kr =
+          reinterpret_cast<const Chunk<P, kVec>*>(k_pages + off);
+      Chunk<P, kVec> kc[kChunks];
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) kc[c] = kr[c];
 #pragma unroll
@@ -171,7 +192,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
     float p[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float s = valid ? sc[g] * a.scale : kNegInf;
+      const float s =
+          valid ? (kQuant ? sc[g] * a.scale * ksc : sc[g] * a.scale)
+                : kNegInf;
       const float m_new = fmaxf(m[g], warp_max(s));
       const float alpha = expf(m[g] - m_new);
       p[g] = valid ? expf(s - m_new) : 0.f;
@@ -185,11 +208,13 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
 #pragma unroll 8
     for (int j = 0; j < n; ++j) {
       const long long oj = __shfl_sync(kFull, off, j);
-      const Chunk<T, kPerLane> vc = *reinterpret_cast<const Chunk<T, kPerLane>*>(
+      const float vj = kQuant ? __shfl_sync(kFull, vsc, j) : 1.f;
+      const Chunk<P, kPerLane> vc = *reinterpret_cast<const Chunk<P, kPerLane>*>(
           v_pages + oj + lane * kPerLane);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float pj = __shfl_sync(kFull, p[g], j);
+        const float pj =
+            kQuant ? __shfl_sync(kFull, p[g], j) * vj : __shfl_sync(kFull, p[g], j);
 #pragma unroll
         for (int i = 0; i < kPerLane; ++i) acc[g][i] += pj * to_f32(vc.v[i]);
       }
@@ -228,11 +253,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, typename P, int D, int G>
 cudaError_t launch(const Args& a, int batch, int kv_heads,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, G>();
-  auto kernel = paged_decode_kernel<T, D, G>;
+  auto kernel = paged_decode_kernel<T, P, D, G>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -243,29 +268,52 @@ cudaError_t launch(const Args& a, int batch, int kv_heads,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 cudaError_t launch_group(const Args& a, int batch, int kv_heads,
                          cudaStream_t s) {
-  if (a.group <= 1) return launch<T, D, 1>(a, batch, kv_heads, s);
-  if (a.group <= 2) return launch<T, D, 2>(a, batch, kv_heads, s);
-  if (a.group <= 4) return launch<T, D, 4>(a, batch, kv_heads, s);
-  if (a.group <= 8) return launch<T, D, 8>(a, batch, kv_heads, s);
-  return launch<T, D, 16>(a, batch, kv_heads, s);
+  if (a.group <= 1) return launch<T, P, D, 1>(a, batch, kv_heads, s);
+  if (a.group <= 2) return launch<T, P, D, 2>(a, batch, kv_heads, s);
+  if (a.group <= 4) return launch<T, P, D, 4>(a, batch, kv_heads, s);
+  if (a.group <= 8) return launch<T, P, D, 8>(a, batch, kv_heads, s);
+  return launch<T, P, D, 16>(a, batch, kv_heads, s);
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t launch_dim(const Args& a, int batch, int kv_heads, int head_dim,
                        cudaStream_t s) {
   switch (head_dim) {
     case 32:
-      return launch_group<T, 32>(a, batch, kv_heads, s);
+      return launch_group<T, P, 32>(a, batch, kv_heads, s);
     case 64:
-      return launch_group<T, 64>(a, batch, kv_heads, s);
+      return launch_group<T, P, 64>(a, batch, kv_heads, s);
     case 128:
-      return launch_group<T, 128>(a, batch, kv_heads, s);
+      return launch_group<T, P, 128>(a, batch, kv_heads, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// q/out of T (is_bf16: bfloat16, else float32), pages of P
+template <bool kQuant>
+int decode(const Args& a, int batch, int kv_heads, int head_dim, int is_bf16,
+           void* stream) {
+  if (a.group < 1 || a.group > 16 || a.page_size < 1 || kv_heads < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (kQuant) {
+    err = is_bf16
+              ? launch_dim<__nv_bfloat16, int8_t>(a, batch, kv_heads,
+                                                  head_dim, s)
+              : launch_dim<float, int8_t>(a, batch, kv_heads, head_dim, s);
+  } else {
+    err = is_bf16 ? launch_dim<__nv_bfloat16, __nv_bfloat16>(
+                        a, batch, kv_heads, head_dim, s)
+                  : launch_dim<float, float>(a, batch, kv_heads, head_dim, s);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -279,17 +327,25 @@ extern "C" int paged_attention_decode(
     const void* block_tables, const void* context_lens, void* out, int batch,
     int kv_heads, int group, int n_pages, int page_size, int pages_per_seq,
     int head_dim, float scale, int is_bf16, void* stream) {
-  if (group < 1 || group > 16 || page_size < 1 || kv_heads < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (batch <= 0) return 0;
-  const Args a{q, k_pages, v_pages,
+  const Args a{q, k_pages, v_pages, nullptr, nullptr,
                static_cast<const int*>(block_tables),
                static_cast<const int*>(context_lens), out, n_pages, page_size,
                pages_per_seq, group, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_dim<__nv_bfloat16>(a, batch, kv_heads, head_dim, s)
-              : launch_dim<float>(a, batch, kv_heads, head_dim, s);
-  return static_cast<int>(err);
+  return decode<false>(a, batch, kv_heads, head_dim, is_bf16, stream);
+}
+
+// The same over int8 pages with their f32 scales [kv_heads, n_pages,
+// page_size]; q and out float32 or bfloat16 (is_bf16).
+extern "C" int paged_attention_decode_q8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* block_tables,
+    const void* context_lens, void* out, int batch, int kv_heads, int group,
+    int n_pages, int page_size, int pages_per_seq, int head_dim, float scale,
+    int is_bf16, void* stream) {
+  const Args a{q, k_pages, v_pages, static_cast<const float*>(k_scales),
+               static_cast<const float*>(v_scales),
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(context_lens), out, n_pages, page_size,
+               pages_per_seq, group, scale};
+  return decode<true>(a, batch, kv_heads, head_dim, is_bf16, stream);
 }

@@ -5,17 +5,26 @@ fixed-size pages `[kv_heads, n_pages, page_size, head_dim]`; each sequence
 owns a row of a block table listing its pages.
 
 - `alloc_pages`, `update_paged_kv_cache` and `prefill_paged_kv_cache` are
-  plain PyTorch. They write the pools IN PLACE (JAX returns new arrays;
+  plain PyTorch, and so are their int8 counterparts `alloc_page_scales`,
+  `update_paged_kv_cache_q8` and `prefill_paged_kv_cache_q8`, which store
+  each token's K and V as int8 with one f32 scale per (kv head, page, slot)
+  (symmetric absmax over head_dim). They write the pools IN PLACE (JAX returns new arrays;
   here the pools are the engine's own buffers) and return them. JAX drops
   masked writes by sending them to an out-of-range index (`mode="drop"`);
   on CUDA that index is a device assert, so these ops select the rows they
   write with an explicit mask instead. The mask is read where it lives: a
   host (CPU) mask costs the device no synchronisation.
 - `paged_attention` is the decode attention: the CUDA kernel
-  `csrc/paged_attention.cu` for CUDA tensors, `paged_attention_ref` (the
-  plain counterpart of `paged_attention_xla`) for CPU tensors. There is no
-  crossover dispatch: on CUDA the kernel runs at every context length.
-  `launches` counts the kernel's launches.
+  `csrc/paged_attention.cu` for CUDA tensors (float pages, or int8 pages
+  with their scales), `paged_attention_ref` (the plain counterpart of
+  `paged_attention_xla`) for CPU tensors. There is no crossover dispatch:
+  on CUDA the kernel runs at every context length. `launches` counts the
+  float kernel's launches, `q8_launches` the int8 kernel's.
+
+The scale pools are [kv_heads, n_pages, page_size] f32. The reference pads
+the last dim to 128 (`alloc_page_scales`: a TPU lane-tiling rule), which at
+page 16 would make the scales a quarter of the int8 payload; its
+`[..., :page_size]` equals the port's pools.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from . import _build
 NEG_INF = -1e30  # the TPU kernel's masked-score value
 
 launches = 0
+q8_launches = 0
 
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GROUP = 16
@@ -99,17 +109,84 @@ def prefill_paged_kv_cache(k_pages, v_pages, k_seq, v_seq, block_tables,
     return k_pages, v_pages
 
 
+def alloc_page_scales(n_pages, page_size, num_kv_heads, device=None):
+    """Zeroed K and V scale pools for int8 pages, [kv_heads, n_pages,
+    page_size] f32 each."""
+    shape = (num_kv_heads, n_pages, page_size)
+    return (torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def _quant_kv_token(x):
+    """Per-(row, head) symmetric int8 quantization of [..., head_dim]
+    values: scale = max(absmax / 127, 1e-12) in f32, q = clip(round(x /
+    scale), -127, 127). Returns (q int8 [..., head_dim], scale [...])."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
+    q = torch.round(xf / scale[..., None]).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def update_paged_kv_cache_q8(k_pages, k_scales, v_pages, v_scales, k_new,
+                             v_new, block_tables, context_lens, active=None):
+    """int8 `update_paged_kv_cache`: quantize each row's new token per kv
+    head and write values and scales; False rows of `active` write
+    nothing. Returns (k_pages, k_scales, v_pages, v_scales)."""
+    dev = k_pages.device
+    page_size = k_pages.shape[2]
+    lens = context_lens.to(dev, torch.long)
+    if active is None:
+        rows = torch.arange(k_new.shape[0], device=dev)
+    else:
+        (rows,) = _nonzero_on(active, dev)
+    pos = lens[rows]
+    page_ids = block_tables[rows, pos // page_size].long()
+    slots = pos % page_size
+    for pages, scales, new in ((k_pages, k_scales, k_new),
+                               (v_pages, v_scales, v_new)):
+        q, s = _quant_kv_token(new[rows])  # [r, kvh, d], [r, kvh]
+        pages[:, page_ids, slots] = q.transpose(0, 1)
+        scales[:, page_ids, slots] = s.transpose(0, 1)
+    return k_pages, k_scales, v_pages, v_scales
+
+
+def prefill_paged_kv_cache_q8(k_pages, k_scales, v_pages, v_scales, k_seq,
+                              v_seq, block_tables, seq_lens):
+    """int8 `prefill_paged_kv_cache`: whole prompts [batch, s, kv_heads,
+    head_dim], quantized per (token, kv head); positions j >= seq_lens[b]
+    write nothing. Returns (k_pages, k_scales, v_pages, v_scales)."""
+    dev = k_pages.device
+    page_size = k_pages.shape[2]
+    s = k_seq.shape[1]
+    valid = torch.arange(s, device=seq_lens.device)[None, :] < \
+        seq_lens[:, None]
+    rows, pos = _nonzero_on(valid, dev)
+    page_ids = block_tables[rows, pos // page_size].long()
+    slots = pos % page_size
+    for pages, scales, seq in ((k_pages, k_scales, k_seq),
+                               (v_pages, v_scales, v_seq)):
+        q, sc = _quant_kv_token(seq[rows, pos])  # [r, kvh, d], [r, kvh]
+        pages[:, page_ids, slots] = q.transpose(0, 1)
+        scales[:, page_ids, slots] = sc.transpose(0, 1)
+    return k_pages, k_scales, v_pages, v_scales
+
+
 # ---------------------------------------------------------------------------
 # decode attention
 # ---------------------------------------------------------------------------
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
-                        scale=None):
+                        scale=None, k_scales=None, v_scales=None):
     """Dense-gather decode attention, the plain counterpart of the JAX
     `paged_attention_xla`: gather every mapped page to [kv_h, b, S, d],
     mask positions >= context_lens[b], softmax in f32. A row with context 0
-    returns zeros, as the TPU kernel and the CUDA kernel do."""
+    returns zeros, as the TPU kernel and the CUDA kernel do.
+
+    int8 pages come with their scales and are dequantized as the
+    reference's decode kernel does it (`_decode_accumulate`): the K scales
+    multiply the score columns after q . k_int8, the V scales the softmax
+    weights before p . v_int8 (the normaliser sums the unscaled weights)."""
     b, n_q_heads, head_dim = q.shape
     n_kv_heads, _, page_size, _ = k_pages.shape
     group = n_q_heads // n_kv_heads
@@ -121,62 +198,82 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
     v_dense = v_pages[:, tables].reshape(n_kv_heads, b, S, head_dim).float()
     qf = q.reshape(b, n_kv_heads, group, head_dim).float()
     s = torch.einsum("bhgd,hbsd->bhgs", qf, k_dense) * scale
+    if k_scales is not None:
+        ks = k_scales[:, tables].reshape(n_kv_heads, b, S).transpose(0, 1)
+        s = s * ks[:, :, None, :]
     lens = context_lens.to(q.device).long()
     mask = torch.arange(S, device=q.device)[None, :] < lens[:, None]
     s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
+    if v_scales is not None:
+        vs = v_scales[:, tables].reshape(n_kv_heads, b, S).transpose(0, 1)
+        p = p * vs[:, :, None, :]
     out = torch.einsum("bhgs,hbsd->bhgd", p, v_dense)
     out = torch.where((lens > 0)[:, None, None, None], out, 0.0)
     return out.reshape(b, n_q_heads, head_dim).to(q.dtype)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
-                    scale=None):
+                    scale=None, k_scales=None, v_scales=None):
     """Single-token decode attention over a paged KV cache.
 
     q: [batch, num_q_heads, head_dim]
-    k_pages/v_pages: [num_kv_heads, n_pages, page_size, head_dim]
+    k_pages/v_pages: [num_kv_heads, n_pages, page_size, head_dim], q's
+        dtype, or int8 with k_scales/v_scales [num_kv_heads, n_pages,
+        page_size] f32 (`alloc_page_scales`)
     block_tables: [batch, pages_per_seq] int32
     context_lens: [batch] int32, tokens valid in the cache (the current
         token's K/V must already be written)
     -> [batch, num_q_heads, head_dim] in q's dtype
     """
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("paged_attention: give both k_scales and v_scales "
+                         "(int8 pages) or neither")
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                   context_lens, scale)
+                                   context_lens, scale, k_scales, v_scales)
     return _paged_attention_cuda(q, k_pages, v_pages, block_tables,
-                                 context_lens, scale)
+                                 context_lens, scale, k_scales, v_scales)
 
 
-def _kernel():
+def _kernel(quant):
     global _lib
     if _lib is None:
         lib = _build.load("paged_attention")
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_attention_decode.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, p]
+            p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
         lib.paged_attention_decode.restype = ctypes.c_int
+        lib.paged_attention_decode_q8.argtypes = [
+            p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+        lib.paged_attention_decode_q8.restype = ctypes.c_int
         _lib = lib
-    return _lib.paged_attention_decode
+    return _lib.paged_attention_decode_q8 if quant \
+        else _lib.paged_attention_decode
 
 
 def _paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
-                          scale):
-    global launches
+                          scale, k_scales=None, v_scales=None):
+    global launches, q8_launches
+    quant = k_scales is not None
     dev = q.device
     tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages,
                    block_tables=block_tables, context_lens=context_lens)
+    if quant:
+        tensors.update(k_scales=k_scales, v_scales=v_scales)
     for name, t in tensors.items():
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"paged_attention: {name} on {t.device}, q on "
                              f"{dev}; all must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous")
+    page_dtype = torch.int8 if quant else q.dtype
     if q.dtype not in (torch.float32, torch.bfloat16) or \
-            k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+            k_pages.dtype != page_dtype or v_pages.dtype != page_dtype:
         raise TypeError(f"paged_attention kernel takes float32 or bfloat16 "
-                        f"q and pages of one dtype, got {q.dtype}/"
-                        f"{k_pages.dtype}/{v_pages.dtype}")
+                        f"q with pages of q's dtype, or int8 pages with "
+                        f"scales; got {q.dtype}/{k_pages.dtype}/"
+                        f"{v_pages.dtype}")
     if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
         raise TypeError("paged_attention: block_tables and context_lens "
                         "must be int32")
@@ -186,6 +283,14 @@ def _paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
         raise ValueError(f"paged_attention: q {tuple(q.shape)}, k_pages "
                          f"{tuple(k_pages.shape)}, v_pages "
                          f"{tuple(v_pages.shape)} do not agree")
+    if quant and (k_scales.dtype != torch.float32 or
+                  v_scales.dtype != torch.float32 or
+                  k_scales.shape != k_pages.shape[:3] or
+                  v_scales.shape != k_pages.shape[:3]):
+        raise ValueError(f"paged_attention: scales {tuple(k_scales.shape)} "
+                         f"{k_scales.dtype} / {tuple(v_scales.shape)} "
+                         f"{v_scales.dtype}, expected f32 "
+                         f"{tuple(k_pages.shape[:3])}")
     if head_dim not in _HEAD_DIMS:
         raise ValueError(f"paged_attention kernel takes head_dim in "
                          f"{_HEAD_DIMS}, got {head_dim}")
@@ -204,16 +309,21 @@ def _paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
     if scale is None:
         scale = 1.0 / math.sqrt(head_dim)
     out = torch.empty_like(q)
-    fn = _kernel()
+    fn = _kernel(quant)
+    sizes = (b, n_kv_heads, n_q_heads // n_kv_heads, n_pages, page_size,
+             block_tables.shape[1], head_dim, float(scale),
+             int(q.dtype == torch.bfloat16),
+             torch.cuda.current_stream(dev).cuda_stream)
+    pools = (k_pages.data_ptr(), v_pages.data_ptr()) + (
+        (k_scales.data_ptr(), v_scales.data_ptr()) if quant else ())
     with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                block_tables.data_ptr(), context_lens.data_ptr(),
-                out.data_ptr(), b, n_kv_heads, n_q_heads // n_kv_heads,
-                n_pages, page_size, block_tables.shape[1], head_dim,
-                float(scale), int(q.dtype == torch.bfloat16),
-                torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(q.data_ptr(), *pools, block_tables.data_ptr(),
+                context_lens.data_ptr(), out.data_ptr(), *sizes)
     if rc:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    launches += 1
+    if quant:
+        q8_launches += 1
+    else:
+        launches += 1
     return out

@@ -45,6 +45,12 @@ class LlamaConfig:
                            num_hidden_layers=32, num_attention_heads=32)
 
     @staticmethod
+    def llama2_13b():
+        return LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                           num_hidden_layers=40, num_attention_heads=40,
+                           num_key_value_heads=40)
+
+    @staticmethod
     def tiny(vocab=256, hidden=64, layers=2, heads=4, seq=128):
         return LlamaConfig(vocab_size=vocab, hidden_size=hidden,
                            intermediate_size=hidden * 4,
@@ -147,8 +153,10 @@ class LlamaAttention(nn.Module):
 
     def forward_paged(self, hidden_states, paged_cache, block_tables,
                       context_lens, active=None):
-        """Single-token decode over the paged cache (models.paged_step).
-        hidden_states: [b, 1, hidden]. Returns (out, paged_cache)."""
+        """Single-token decode over the paged cache (models.paged_step):
+        (k_pages, v_pages), or with int8 pages (k_pages, v_pages, k_scales,
+        v_scales). hidden_states: [b, 1, hidden]. Returns (out,
+        paged_cache)."""
         q, k, v = self._qkv(hidden_states)
         out, cache = paged_attention_step(
             q, k, v, paged_cache, block_tables, context_lens, active=active,

@@ -6,7 +6,10 @@ trained parameters can be compared with the JAX model's).
 The port keeps the JAX model's parameter names and Paddle's [in, out]
 layout for linears, so the map is one to one; these functions check that
 every expected name is present with its shape and that nothing is left
-over, then convert.
+over, then convert. A weight-only quantized linear carries its int8
+`quant_weight` and f32 `weight_scale` in place of `weight` (both packages'
+`quantize_for_inference`); loading such a state needs a port model
+quantized with the same algorithm and group size.
 """
 from __future__ import annotations
 
@@ -41,37 +44,78 @@ def llama_param_shapes(config) -> dict:
     return shapes
 
 
+def _layout(config, names):
+    """name -> the float shape it stands for, for a state holding `names`: a
+    linear's `<p>.weight` [k, n] may instead be `<p>.quant_weight` and
+    `<p>.weight_scale` (both mapped to [k, n]), where the state holds
+    those."""
+    out = {}
+    for name, shape in llama_param_shapes(config).items():
+        p = name[:-len("weight")]
+        if len(shape) == 2 and name != "llama.embed_tokens.weight" and \
+                p + "quant_weight" in names:
+            out[p + "quant_weight"] = out[p + "weight_scale"] = shape
+        else:
+            out[name] = shape
+    return out
+
+
+def _check_quant(name, qw, scale, shape):
+    """A quantized linear of float shape [k, n]: int8 [k, n] or packed int4
+    [k // 2, n], f32 scales [n] or [groups, n] with groups dividing k."""
+    k, n = shape
+    ok = (qw.dtype == np.int8 and qw.ndim == 2 and qw.shape[1] == n
+          and qw.shape[0] in (k, k // 2) and scale.dtype == np.float32
+          and (scale.shape == (n,) or (scale.ndim == 2 and scale.shape[1] == n
+                                       and k % scale.shape[0] == 0)))
+    if not ok:
+        raise ValueError(f"{name}: quantized weight {qw.dtype} "
+                         f"{qw.shape} with scales {scale.dtype} "
+                         f"{scale.shape} does not fit [{k}, {n}]")
+
+
 def llama_state_from_numpy(state, config, dtype=torch.float32, device=None):
-    """{name: np.ndarray} -> {name: torch.Tensor} in `dtype` on `device`,
-    after checking the names and shapes against `config`."""
-    expected = llama_param_shapes(config)
-    missing = sorted(set(expected) - set(state))
-    extra = sorted(set(state) - set(expected))
+    """{name: np.ndarray} -> {name: torch.Tensor} on `device`, after
+    checking the names and shapes against `config`. Float weights become
+    `dtype`; a quantized linear (`<p>.quant_weight` int8 and
+    `<p>.weight_scale` f32 in place of `<p>.weight`, as the JAX
+    `quantize_for_inference` leaves them) keeps its int8 and f32."""
+    layout = _layout(config, set(state))
+    missing = sorted(set(layout) - set(state))
+    extra = sorted(set(state) - set(layout))
     if missing or extra:
         raise KeyError(f"LLaMA state dict mismatch: missing {missing}, "
                        f"unexpected {extra}")
     dev = resolve_device(device)
     out = {}
-    for name, shape in expected.items():
+    for name in layout:
         arr = np.asarray(state[name])
-        if arr.shape != shape:
-            raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
-        out[name] = torch.from_numpy(
-            np.array(arr, dtype=np.float32)).to(dev, dtype)
+        if name.endswith(".quant_weight"):
+            p = name[:-len("quant_weight")]
+            scale = np.asarray(state[p + "weight_scale"])
+            _check_quant(p + "weight", arr, scale, layout[name])
+            out[name] = torch.from_numpy(np.array(arr)).to(dev)
+            out[p + "weight_scale"] = torch.from_numpy(
+                np.array(scale)).to(dev)
+        elif not name.endswith(".weight_scale"):
+            if arr.shape != layout[name]:
+                raise ValueError(f"{name}: shape {arr.shape}, expected "
+                                 f"{layout[name]}")
+            out[name] = torch.from_numpy(
+                np.array(arr, dtype=np.float32)).to(dev, dtype)
     return out
 
 
 def llama_state_to_numpy(model):
-    """The weights of a port `LlamaForCausalLM` as {name: np.ndarray} in
-    f32 (the inverse of `load_llama_state` on an f32 model), checked
-    against `llama_param_shapes`."""
-    expected = llama_param_shapes(model.config)
-    state = {n: t.detach().float().cpu().numpy()
-             for n, t in model.state_dict().items()}
-    got = {n: a.shape for n, a in state.items()}
-    if got != expected:
-        raise KeyError(f"model state {sorted(got)} does not match the LLaMA "
-                       f"layout of its config")
+    """The weights of a port `LlamaForCausalLM` as {name: np.ndarray}: float
+    weights in f32 (the inverse of `load_llama_state` on an f32 model),
+    quantized linears as their int8 `quant_weight` and f32 `weight_scale`;
+    checked against the LLaMA layout of the model's config."""
+    state = {}
+    for n, t in model.state_dict().items():
+        t = t.detach().cpu()
+        state[n] = (t if t.dtype == torch.int8 else t.float()).numpy()
+    llama_state_from_numpy(state, model.config, device="cpu")  # the check
     return state
 
 

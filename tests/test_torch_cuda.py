@@ -19,6 +19,14 @@ alone may reach one ulp (2^-7 relative): bf16 rows are held to 1e-2; float
 inputs go through split-TF32 products (about 2^-22 relative each) summed
 in the tensor cores, held to 1e-3. `chip_smoke.py` shows at full size that
 faults (a softmax scale 1 % off, a skipped tile) exceed these bars.
+
+The dequant-matmul and int8 paged-decode kernels are held row by row too
+(`_QUANT_TOL`): kernel and plain version dequantize to the same values and
+sum in f32, so they differ by summation order and, in bf16, by the output
+rounding of the few elements whose sums straddle a rounding boundary;
+bf16 rows are held to 5e-3, f32 rows to 1e-4. Each case also reads a fault
+made from the plain version (int4 nibbles swapped, one group's scales
+shifted by a group, the K scales left out), which must exceed the bar.
 """
 import numpy as np
 import pytest
@@ -27,15 +35,22 @@ import torch
 from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.kernels import paged_attention as tpa
+from paddle_tpu_torch.kernels import quant_matmul as tqm
 from paddle_tpu_torch.kernels import rms_norm as trms
 from paddle_tpu_torch.models import build_train_step
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.quant import (WeightOnlyLinear,
+                                       quantize_for_inference,
+                                       weight_quantize)
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.weights import load_llama_state
+from paddle_tpu_torch.weights import (llama_state_to_numpy,
+                                      load_llama_state)
 
 _TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 _FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
+_QUANT_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-4}
 
 
 @pytest.fixture
@@ -281,3 +296,176 @@ def test_tiny_training_through_the_kernels_matches_cpu(cuda_device):
         losses.append([step(x.to(dev), y.to(dev)).item() for _ in range(3)])
     assert (tfa.fwd_launches, trms.bwd_launches) == (n0[0] + 6, n0[1] + 15)
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4, atol=0)
+
+
+_ALGO = {"int8": "weight_only_int8", "int4": "weight_only_int4"}
+
+
+def _swap_nibbles(qw):
+    u = qw.to(torch.int32) & 0xFF
+    u = ((u & 0xF) << 4) | (u >> 4)
+    return torch.where(u >= 128, u - 256, u).to(torch.int8)
+
+
+def _shift_group(scales):
+    """Group 0 takes group 1's scales (per-channel: every column takes its
+    neighbour's)."""
+    if scales.dim() == 1:
+        return scales.roll(1)
+    out = scales.clone()
+    out[0] = scales[1]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("wd,gs", [("int8", -1), ("int8", 64), ("int8", 128),
+                                   ("int4", -1), ("int4", 64),
+                                   ("int4", 128)])
+@pytest.mark.parametrize("m,k,n", [(1, 256, 384), (8, 512, 128),
+                                   (17, 256, 256), (200, 384, 640)])
+def test_quant_matmul_kernel_matches_plain(cuda_device, dtype, wd, gs, m, k,
+                                           n):
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    w = torch.randn(k, n, generator=g, device=cuda_device) * 0.05
+    x = torch.randn(m, k, generator=g, device=cuda_device).to(dtype)
+    qw, sc = weight_quantize(w.to(dtype), _ALGO[wd], group_size=gs)
+    n0 = tqm.launches
+    got = tqm.quant_matmul(x, qw, sc, wd, gs)
+    torch.cuda.synchronize()
+    assert tqm.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    want = tqm.quant_matmul_ref(x, qw, sc, wd)
+    assert _row_rel_err(got, want) <= _QUANT_TOL[dtype]
+    fault = (tqm.quant_matmul_ref(x, _swap_nibbles(qw), sc, wd)
+             if wd == "int4" else
+             tqm.quant_matmul_ref(x, qw, _shift_group(sc), wd))
+    assert _row_rel_err(fault, want) > _QUANT_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_quant_matmul_refuses_what_it_does_not_take(cuda_device):
+    x = torch.randn(4, 256, device=cuda_device)
+    qw, sc = weight_quantize(torch.randn(256, 200, device=cuda_device))
+    assert not tqm.supports(4, 256, 200)
+    with pytest.raises(ValueError, match="supports"):
+        tqm.quant_matmul(x, qw, sc)
+    qw, sc = weight_quantize(torch.randn(96, 128, device=cuda_device))
+    with pytest.raises(ValueError, match="supports"):
+        tqm.quant_matmul(torch.randn(4, 96, device=cuda_device), qw, sc)
+    qw, sc = weight_quantize(torch.randn(256, 128, device=cuda_device),
+                             group_size=64)
+    with pytest.raises(ValueError, match="scales"):
+        tqm.quant_matmul(x, qw, sc, "int8", -1)
+    with pytest.raises(TypeError):
+        tqm.quant_matmul(x.half(), qw, sc, "int8", 64)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(x, qw.cpu(), sc, "int8", 64)
+
+
+@pytest.mark.cuda
+def test_weight_only_linear_launches_the_kernel(cuda_device):
+    """WeightOnlyLinear on CUDA runs the kernel at every m (decode and a
+    prefill of 1100 rows); with a gradient, dx is the plain transposed
+    product."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    lin = Linear(512, 256, device=cuda_device)
+    with torch.no_grad():
+        lin.weight.normal_(0, 0.05, generator=g)
+    wol = WeightOnlyLinear.from_source(lin, "weight_only_int4", 128)
+    for rows in (8, 1100):
+        x = torch.randn(1, rows, 512, generator=g, device=cuda_device)
+        n0 = tqm.launches
+        with torch.no_grad():
+            y = wol(x)
+        torch.cuda.synchronize()
+        assert tqm.launches == n0 + 1 and y.shape == (1, rows, 256)
+        want = tqm.quant_matmul_ref(x[0], wol.quant_weight, wol.weight_scale,
+                                    "int4")
+        assert _row_rel_err(y[0], want) <= _QUANT_TOL[torch.float32]
+    x = x.requires_grad_()
+    wol(x).square().sum().backward()
+    xc = x.detach().cpu().requires_grad_()
+    tqm.quant_matmul(xc, wol.quant_weight.cpu(), wol.weight_scale.cpu(),
+                     "int4", 128).square().sum().backward()
+    assert _row_rel_err(x.grad.cpu(), xc.grad) <= _QUANT_TOL[torch.float32]
+
+
+def _q8_case(dev, dtype, b, q_heads, kv_heads, d, page, pages_per_seq, lens,
+             seed=0):
+    q, k, v, tables, ln = _decode_case(dev, torch.float32, b, q_heads,
+                                       kv_heads, d, page, pages_per_seq,
+                                       lens, seed)
+    kq, ks = tpa._quant_kv_token(k)
+    vq, vs = tpa._quant_kv_token(v)
+    return q.to(dtype), kq, vq, tables, ln, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_heads,kv_heads,d,page", [
+    (40, 40, 128, 16), (32, 8, 128, 16), (4, 2, 64, 8), (16, 1, 128, 128),
+    (4, 2, 32, 8)])
+def test_paged_attention_q8_kernel_matches_plain(cuda_device, dtype, q_heads,
+                                                 kv_heads, d, page):
+    lens = (0, 1, 15, 16, 17, 300, 511, 512)
+    q, kq, vq, tables, ln, ks, vs = _q8_case(
+        cuda_device, dtype, len(lens), q_heads, kv_heads, d, page,
+        512 // page, lens, seed=d + page)
+    n0, f0 = tpa.q8_launches, tpa.launches
+    got = tpa.paged_attention(q, kq, vq, tables, ln, k_scales=ks,
+                              v_scales=vs)
+    torch.cuda.synchronize()
+    assert (tpa.q8_launches, tpa.launches) == (n0 + 1, f0)
+    want = tpa.paged_attention_ref(q, kq, vq, tables, ln, k_scales=ks,
+                                   v_scales=vs)
+    assert _row_rel_err(got[1:], want[1:]) <= _QUANT_TOL[dtype]
+    assert not got[0].any()  # a ctx == 0 row writes zeros
+    fault = tpa.paged_attention_ref(q, kq, vq, tables, ln,
+                                    k_scales=torch.ones_like(ks),
+                                    v_scales=vs)
+    assert _row_rel_err(fault[1:], want[1:]) > _QUANT_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_paged_attention_q8_refuses_bad_scales(cuda_device):
+    q, kq, vq, tables, ln, ks, vs = _q8_case(cuda_device, torch.float32, 2,
+                                             4, 2, 64, 8, 4, (3, 5))
+    with pytest.raises(ValueError, match="both"):
+        tpa.paged_attention(q, kq, vq, tables, ln, k_scales=ks)
+    with pytest.raises(ValueError, match="scales"):
+        tpa.paged_attention(q, kq, vq, tables, ln, k_scales=ks[..., :4],
+                            v_scales=vs[..., :4].contiguous())
+    with pytest.raises(TypeError):
+        tpa.paged_attention(q, kq.float(), vq.float(), tables, ln,
+                            k_scales=ks, v_scales=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,gs", [("weight_only_int8", -1),
+                                     ("weight_only_int4", 64)])
+def test_tiny_quantized_engine_streams_equal_on_cuda_and_cpu(cuda_device,
+                                                             algo, gs):
+    """Head_dim 128, int8 KV: CUDA serves through the dequant-matmul and
+    int8 decode kernels, the CPU through their plain versions."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2, seq=64)
+    cfg.num_key_value_heads = 1
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    gpu = LlamaForCausalLM(cfg, device=cuda_device)
+    for m in (cpu, gpu):
+        quantize_for_inference(m, algo, gs, exclude=("lm_head",))
+    # the CPU's quantized weights, carried across
+    load_llama_state(gpu, llama_state_to_numpy(cpu))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 256, (n,)) for n in (5, 9, 17, 3)]
+    counts = tqm.launches, tpa.q8_launches
+    streams = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        eng = ServingEngine(model, max_batch=3, max_seq_len=48, page_size=8,
+                            device=dev, kv_cache_quant="int8")
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=12)
+        streams.append({f.request_id: f.output_ids.tolist()
+                        for f in eng.run()})
+    assert tqm.launches > counts[0] and tpa.q8_launches > counts[1]
+    assert streams[0] == streams[1]
