@@ -62,23 +62,28 @@ import argparse
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as TF
 
-from paddle_tpu_torch import amp
+from paddle_tpu_torch import amp, get_flags, set_flags
 from paddle_tpu_torch.inference import ServingEngine
-from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import _build, autotune
 from paddle_tpu_torch.kernels import flash_attention as kfa
+from paddle_tpu_torch.kernels import matmul as kmm
 from paddle_tpu_torch.kernels import paged_attention as kpa
 from paddle_tpu_torch.kernels import quant_matmul as kqm
 from paddle_tpu_torch.kernels import rms_norm as krms
 from paddle_tpu_torch.models import build_train_step
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.quant import quantize_for_inference, weight_quantize
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.weights import llama_state_to_numpy, load_llama_state
@@ -105,6 +110,22 @@ FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
 # few elements whose sums straddle a rounding boundary; each bar lies
 # below the faults (`qmm_controls`, the paged "k_scales" control)
 QUANT_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-4}
+# the dense matmul, row by row against torch.matmul on the f32 values of
+# its inputs: bf16 rows differ by the output's one rounding (2^-9 relative
+# on average), f32 rows by summation order (exact f32 products); the faults
+# of `mm_case` read 0.1 and more
+MATMUL_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
+# the grouped decode, row by row against the plain dense version (and the
+# per-page kernel): bf16 one output rounding, f32 summation order in the
+# softmax; the faults of `grouped_controls` lie far above
+GROUPED_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-4}
+# phase 8's training losses against cuBLAS's from the same weights: bf16
+# products summed in another order, then one AdamW step whose sign-like
+# update moves elements with rounding-level gradients either way
+TRAIN_DISPATCH_TOL = 1e-2
+# the grouped decode's cases: every partial-group edge (15-17, 127-129) and
+# long contexts (tables of 256 pages, 4096 tokens)
+GROUPED_LENS = [0, 1, 15, 16, 17, 127, 128, 129, 1000, 2049, 4096]
 ALGO = {"int8": "weight_only_int8", "int4": "weight_only_int4"}
 
 
@@ -425,6 +446,161 @@ def paged_q8_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
         bound_ms=b_ms, bound_by=b_by, timings=timings)
 
 
+def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False):
+    """The dense matmul at every row tile against `torch.matmul` on the f32
+    values of its inputs, row by row, beside two faults made from the plain
+    version (one 64-deep k tile of x dropped; w's column tiles shifted by
+    one), which must exceed the bar. `check_timer`: also time the default
+    tile through the tuner's timer (a CUDA graph of launches) beside the
+    profiler, to check the tuner's clock."""
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(dtype)
+    tol = MATMUL_TOL[dtype]
+    want = torch.matmul(x.float(), w.float())
+    errs, abs_err = {}, 0.0
+    for tile in kmm.tiles(dtype):
+        got = kmm.matmul_fused(x, w, tile)
+        torch.cuda.synchronize()
+        errs[tile] = row_rel_err(got, want)
+        abs_err = max(abs_err, (got.float() - want).abs().max().item())
+        check(errs[tile] <= tol, f"matmul {name} tile {tile}: row rel err "
+              f"{errs[tile]} > {tol}")
+        del got
+    x_cut = x.float().clone()
+    x_cut[:, k // 2:k // 2 + 64] = 0
+    ctl = {"k_tile_dropped": row_rel_err(torch.matmul(x_cut, w.float()),
+                                         want),
+           "column_tile_shifted": row_rel_err(
+               torch.matmul(x.float(), w.float().roll(128, dims=1)), want)}
+    del x_cut, want
+    for fault, r in ctl.items():
+        check(r > tol, f"matmul {name}: the {fault} control reads {r}, "
+              f"within the bar {tol}")
+    elt = x.element_size()
+    rate = BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S
+    # x and w read once, y written once
+    b_ms, b_by = bound((m * k + k * n + m * n) * elt, 2 * m * k * n, rate)
+
+    def timings():
+        it = 200 if m <= 16 else 20
+        # as on the serving path, each call finds its weight out of the
+        # 50 MB L2: the calls take turns over copies of w worth >= 128 MB
+        ws = [w] + [w.clone() for _ in range(-(-2 ** 27 // (k * n * elt))
+                                             - 1)]
+        turn = [0]
+
+        def w_next():
+            turn[0] += 1
+            return ws[turn[0] % len(ws)]
+
+        tile_ms = {t: time_ms(lambda: kmm.matmul_fused(x, w_next(), t), it)
+                   for t in kmm.tiles(dtype)}
+        best = min(tile_ms, key=lambda t: tile_ms[t][0])
+        # the plain version is the library call: torch.matmul in x's dtype
+        lib_ms = time_ms(lambda: torch.matmul(x, w_next()), it)[0]
+        res = dict(ms=tile_ms[best][0], timer=tile_ms[best][1],
+                   best_tile=best, weight_copies=len(ws),
+                   tile_ms={t: v[0] for t, v in tile_ms.items()},
+                   plain_ms=lib_ms, library_ms=lib_ms,
+                   # the tuner's timer on the same two calls (one weight)
+                   graph_ms={"kernel": autotune.default_timer(
+                       lambda a, b: kmm.matmul_fused(a, b, best), (x, w)),
+                       "library": autotune.default_timer(torch.matmul,
+                                                         (x, w))})
+        del ws
+        if check_timer:
+            t = kmm.default_tile(m, dtype)
+            res["tuner_timer_ms"] = {
+                "tile": t, "graph_events": autotune.default_timer(
+                    lambda a, b: kmm.matmul_fused(a, b, t), (x, w), iters=20),
+                "profiler": tile_ms[t][0]}
+        return res
+
+    return dict(case=name, m=m, k=k, n=n, dtype=str(dtype).split(".")[-1],
+                row_rel_err=max(errs.values()), tile_row_rel_err=errs,
+                max_abs_err=abs_err, tol=tol, controls=ctl, bound_ms=b_ms,
+                bound_by=b_by, timings=timings)
+
+
+def grouped_controls(q, kp, vp, tables, ln, want):
+    """Readings of the grouped decode's row check on faults made from the
+    plain version, each against the sound plain output: "page_skipped",
+    every row past two pages loses the second page of its first group;
+    "pages_out_of_order", the K of a row's first two pages swapped (read
+    in the wrong order against their V). Each must exceed the bar."""
+    lens = ln.tolist()
+    t_skip, l_skip = tables.clone(), ln.clone()
+    kf = kp.clone()
+    for row, n in enumerate(lens):
+        if n > 32:
+            t_skip[row, 1:-1] = tables[row, 2:]
+            l_skip[row] = n - 16
+            p0, p1 = tables[row, 0].item(), tables[row, 1].item()
+            kf[:, p0], kf[:, p1] = kp[:, p1], kp[:, p0]
+    return {"page_skipped": row_rel_err(kpa.paged_attention_ref(
+                q, kp, vp, t_skip, l_skip), want),
+            "pages_out_of_order": row_rel_err(kpa.paged_attention_ref(
+                q, kf, vp, tables, ln), want)}
+
+
+def grouped_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
+                 page=16, pages_per_seq=256):
+    """The grouped-fetch decode against the plain dense version, row by row
+    (bar GROUPED_TOL), beside the faults of `grouped_controls`, and against
+    the per-page kernel."""
+    b = len(lens)
+    n_pages = b * pages_per_seq
+    shape = (kv_heads, n_pages, page, d)
+    kp = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    vp = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q = torch.randn(b, q_heads, d, generator=gen, device=dev).to(dtype)
+    tables = torch.randperm(n_pages, generator=gen, device=dev) \
+        .reshape(b, pages_per_seq).to(torch.int32)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    args = (q, kp, vp, tables, ln)
+    got = kpa.paged_attention_grouped(*args)
+    paged = kpa.paged_attention(*args)
+    torch.cuda.synchronize()
+    want = kpa.paged_attention_ref(*args)
+    tol = GROUPED_TOL[dtype]
+    err = row_rel_err(got, want)
+    vs_paged = row_rel_err(got, paged)
+    check(err <= tol, f"paged_attention_grouped {name}: row rel err {err} "
+          f"> {tol}")
+    check(vs_paged <= tol, f"paged_attention_grouped {name}: row rel err "
+          f"{vs_paged} against the per-page kernel > {tol}")
+    check(not got[lens.index(0)].any() if 0 in lens else True,
+          f"paged_attention_grouped {name}: a ctx 0 row is not zero")
+    ctl = grouped_controls(*args, want)
+    for fault, r in ctl.items():
+        check(r > tol, f"paged_attention_grouped {name}: the {fault} control "
+              f"reads {r}, within the bar {tol}")
+    abs_err = (got.float() - want.float()).abs().max().item()
+    del got, paged, want
+    elt = q.element_size()
+    ctx = sum(lens)
+    nbytes = (2 * ctx * kv_heads * d * elt + 2 * q.numel() * elt
+              + 4 * sum(math.ceil(c / page) for c in lens) + 4 * b)
+    b_ms, b_by = bound(nbytes, 4 * ctx * q_heads * d)
+
+    def timings():
+        ms, timer = time_ms(lambda: kpa.paged_attention_grouped(*args), 50)
+        return dict(
+            ms=ms, timer=timer,
+            per_page_kernel_ms=time_ms(lambda: kpa.paged_attention(*args),
+                                       50)[0],
+            plain_ms=time_ms(lambda: kpa.paged_attention_grouped_ref(*args),
+                             5)[0],
+            library_ms=time_ms(lambda: sdpa_paged(*args), 10)[0])
+
+    return dict(
+        case=name, batch=b, q_heads=q_heads, kv_heads=kv_heads, head_dim=d,
+        page=page, lens=list(lens), dtype=str(dtype).split(".")[-1],
+        row_rel_err=err, row_rel_err_vs_per_page=vs_paged,
+        max_abs_err=abs_err, tol=tol, controls=ctl, bound_ms=b_ms,
+        bound_by=b_by, timings=timings)
+
+
 def rms_bwd_case(name, rows, cols, dtype, gen, dev, eps=1e-6):
     x = (torch.randn(rows, cols, generator=gen, device=dev) * 2).to(dtype)
     w = torch.randn(cols, generator=gen, device=dev).to(dtype)
@@ -650,11 +826,41 @@ def drive(eng, requests):
         check(((f.output_ids >= 0) & (f.output_ids < vocab)).all(),
               f"request {f.request_id}: token outside the vocabulary")
     ttft = [1e3 * (t_first[r] - t_add[r]) for r in sorted(want)]
+    streams = {r: f.output_ids.tolist() for f in finished
+               for r in (f.request_id,)}
     return dict(requests=len(want), ttft_ms=ttft,
+                streams=[streams[r] for r in sorted(want)],
                 decode_steps=len(step_ms),
                 ms_per_decode_step_p50=float(np.median(step_ms))
                 if step_ms else None,
                 decode_tokens_per_s=dec_tok / dec_s if dec_s else None)
+
+
+class ForwardLog:
+    """Wraps an engine's model so that every forward is recorded: its token
+    count m (the linears' rows) and the host seconds the call took. A
+    decode forward issues its kernels without waiting on the device (its
+    masks stay on the host), so its call time is the host's cost of the
+    step's forward."""
+
+    def __init__(self, model):
+        self.forwards = []  # (kind, m, host s)
+        for kind in ("forward_cached", "forward_paged"):
+            real = getattr(model, kind)
+
+            def wrapped(ids, *a, _real=real, _kind=kind, **kw):
+                t0 = time.perf_counter()
+                out = _real(ids, *a, **kw)
+                self.forwards.append((_kind, ids.numel(),
+                                      time.perf_counter() - t0))
+                return out
+
+            setattr(model, kind, wrapped)
+
+    def host_ms_per_decode(self, since=0):
+        ts = [t for k, _, t in self.forwards[since:]
+              if k == "forward_paged"]
+        return float(np.median(ts)) * 1e3 if ts else None
 
 
 def profile_decode(eng, rng, card, steps=8):
@@ -750,6 +956,7 @@ def serve_7b(seed, dev, card):
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.RandomState(seed)
     long_req, batch = traffic(rng, cfg.vocab_size)
+    fwd = ForwardLog(model)
     # the main path: counts from zero, read right after
     krms.launches = 0
     kpa.launches = 0
@@ -757,6 +964,7 @@ def serve_7b(seed, dev, card):
     lone = drive(eng, long_req)
     mixed = drive(eng, batch)
     wall = time.perf_counter() - t0
+    host_ms = fwd.host_ms_per_decode()
     launches = {"rms_norm": krms.launches,
                 "paged_attention": kpa.launches}
     L = cfg.num_hidden_layers
@@ -768,6 +976,7 @@ def serve_7b(seed, dev, card):
           f"paged_attention launched {launches['paged_attention']} times, "
           f"expected {L * eng.decode_steps}")
     res = dict(card=card, lone_2500=lone, mixed_10=mixed, wall_s=wall,
+               host_ms_per_decode_forward=host_ms,
                prefills=eng.prefills, decode_steps=eng.decode_steps,
                preemptions=eng.preemptions, launches=launches,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
@@ -781,6 +990,8 @@ def serve_7b(seed, dev, card):
         f"max {max(mixed['ttft_ms']):.1f} ms, "
         f"{mixed['ms_per_decode_step_p50']:.2f} ms/decode step (p50), "
         f"{mixed['decode_tokens_per_s']:.1f} decode tok/s [{card}]")
+    log(f"serve: host ms per decode step's forward (p50) {host_ms:.2f} "
+        f"[{card}]")
     log(f"serve: {eng.prefills} prefills, {eng.decode_steps} decode steps, "
         f"{eng.preemptions} preemptions, launches {launches}, peak "
         f"{res['max_memory_allocated_gb']:.2f} GiB allocated, "
@@ -1200,6 +1411,420 @@ def tiny_train_parity(seed, dev, steps=3, lr=1e-3):
                 max_rel_loss_diff=rel, max_rel_update_diff=worst)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: measured dispatch (FLAGS_autotune, FLAGS_paged_grouped_kernel)
+# ---------------------------------------------------------------------------
+
+
+DISPATCH_FLAGS = ("FLAGS_autotune", "FLAGS_autotune_cache_dir",
+                  "FLAGS_paged_grouped_kernel")
+DISPATCH_COUNTERS = (("matmul", kmm, "launches"),
+                     ("paged_attention_grouped", kpa, "grouped_launches"),
+                     ("paged_attention", kpa, "launches"),
+                     ("rms_norm", krms, "launches"))
+
+
+def linear_shapes(cfg):
+    """(k, n, count) of the linears of one forward: q, k, v, o, gate, up,
+    down per layer, and lm_head."""
+    h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    kv = cfg.num_key_value_heads * (h // cfg.num_attention_heads)
+    per_layer = [(h, h), (h, kv), (h, kv), (h, h), (h, i), (h, i), (i, h)]
+    shapes = {}
+    for kn in per_layer:
+        shapes[kn] = shapes.get(kn, 0) + L
+    shapes[(h, cfg.vocab_size)] = shapes.get((h, cfg.vocab_size), 0) + 1
+    return [(k, n, c) for (k, n), c in shapes.items()]
+
+
+def expected_matmul_launches(ms, cfg, dtype):
+    """GEMM kernel launches of forwards with token counts `ms`: one per
+    linear whose bucket's winner (the tuner, as the dispatch asks it) is
+    the kernel."""
+    total = 0
+    for m in ms:
+        for k, n, count in linear_shapes(cfg):
+            if not kmm.supports(m, k, n, dtype):
+                continue
+            win = autotune.choose_matmul(m, k, n, dtype)
+            if win is not None and win.meta["impl"] == "cuda":
+                total += count
+    return total
+
+
+def tuner_table():
+    """The tuner's table: {key: entry}, as saved in its file."""
+    with open(autotune.get_tuner().cache_path()) as f:
+        return json.load(f)["entries"]
+
+
+def log_table(entries, card, tag):
+    for key, e in sorted(entries.items()):
+        times = ", ".join(f"{c} {t:.4f}" for c, t in
+                          sorted(e["timings_ms"].items(), key=lambda kv: kv[1]))
+        log(f"dispatch {tag}: {key}: winner {e['winner']}; ms {times} "
+            f"[{card}]")
+
+
+def pin_kernel_winners():
+    """Rewrite the tuner's file so that the kernel's fastest row tile wins
+    every matmul bucket and the grouped kernel every float decode bucket
+    it was timed in; drop the process's tuner so the file is read again.
+    Returns the rewritten entries."""
+    path = autotune.get_tuner().cache_path()
+    with open(path) as f:
+        payload = json.load(f)
+    for e in payload["entries"].values():
+        t = e["timings_ms"]
+        if e["op"] == "matmul":
+            e["winner"] = min((c for c in t if c.startswith("cuda:")),
+                              key=t.get)
+        elif e["op"] == "paged_decode" and "grouped" in t:
+            e["winner"] = "grouped"
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f, indent=1, sort_keys=True)
+    os.replace(tmp, path)
+    autotune.reset_tuner()
+    return payload["entries"]
+
+
+def reset_counters():
+    for _, mod, attr in DISPATCH_COUNTERS:
+        setattr(mod, attr, 0)
+
+
+def read_counters():
+    return {name: getattr(mod, attr) for name, mod, attr in DISPATCH_COUNTERS}
+
+
+def check_dispatch_launches(tag, launches, fwd, since, cfg, decode_steps,
+                            prefills):
+    """Exact launch counts of a serving run under measured dispatch: the
+    GEMM kernel once per linear whose bucket it won, the grouped or the
+    per-page decode kernel 32 times a decode step as the decode bucket's
+    winner says, RMSNorm 2L + 1 per forward."""
+    L = cfg.num_hidden_layers
+    ms = [m for _, m, _ in fwd.forwards[since:]]
+    check(len(ms) == prefills + decode_steps,
+          f"{tag}: {len(ms)} forwards recorded, expected "
+          f"{prefills + decode_steps}")
+    dwin = autotune.choose_paged_decode(
+        8, cfg.num_attention_heads, cfg.num_key_value_heads,
+        cfg.hidden_size // cfg.num_attention_heads, 16, 256, torch.bfloat16,
+        False)
+    grouped = dwin is not None and dwin.meta["impl"] == "grouped"
+    want = {"matmul": expected_matmul_launches(ms, cfg, torch.bfloat16),
+            "paged_attention_grouped": L * decode_steps if grouped else 0,
+            "paged_attention": 0 if grouped else L * decode_steps,
+            "rms_norm": (2 * L + 1) * len(ms)}
+    for name, n in want.items():
+        check(launches[name] == n, f"{tag}: {name} launched {launches[name]} "
+              f"times, expected {n}")
+    return want, grouped
+
+
+def stream_agreement(phase4, lone, mixed):
+    """Phase 4's streams against a run's: how many are identical and where
+    the greedy ones first differ (a random 32-layer model's logits sit
+    close together, so one rounding that moves may flip a token; a sampled
+    stream also depends on the engine's sampler state)."""
+    pairs = [(p, g, i % 2 == 0) for i, (p, g) in enumerate(zip(
+        phase4["mixed_10"]["streams"], mixed["streams"]))]
+    if lone is not None:
+        pairs.append((phase4["lone_2500"]["streams"][0], lone["streams"][0],
+                      True))
+
+    def first_diff(x, y):
+        return next((i for i, (u, v) in enumerate(zip(x, y)) if u != v),
+                    None if len(x) == len(y) else min(len(x), len(y)))
+
+    greedy = [first_diff(p, g) for p, g, gr in pairs if gr]
+    sampled = [p == g for p, g, gr in pairs if not gr]
+    return dict(greedy=len(greedy),
+                greedy_identical=sum(d is None for d in greedy),
+                greedy_first_diff=greedy, sampled=len(sampled),
+                sampled_identical=sum(sampled))
+
+
+def dispatch_host_cost(dev, card, calls=2000, rounds=3):
+    """Host microseconds per `F.linear` call on a small CUDA matmul (the
+    device finishes each call before the host issues the next), with the
+    tuner off and on (a table hit whose winner is torch.matmul), in turns:
+    the dispatch's own host cost per linear."""
+    x = torch.randn(8, 256, device=dev, dtype=torch.bfloat16)
+    w = torch.randn(256, 256, device=dev, dtype=torch.bfloat16)
+    old = get_flags(["FLAGS_autotune"])
+    autotune.get_tuner()  # the bucket may be timed at the first call
+    res = {"off": [], "on": []}
+    try:
+        for _ in range(rounds):
+            for mode in ("off", "on"):
+                set_flags({"FLAGS_autotune": mode})
+                F.linear(x, w)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    F.linear(x, w)
+                res[mode].append((time.perf_counter() - t0) / calls * 1e6)
+                torch.cuda.synchronize()
+    finally:
+        set_flags(old)
+    out = {m: min(v) for m, v in res.items()}
+    out["winner_on"] = autotune.choose_matmul(8, 256, 256,
+                                              torch.bfloat16).name
+    log(f"dispatch (a): host us per F.linear on a small CUDA matmul "
+        f"(8x256 @ 256x256 bf16): tuner off {out['off']:.2f}, on "
+        f"{out['on']:.2f} (the bucket's winner {out['winner_on']}; best of "
+        f"{rounds} x {calls} calls, in turns) [{card}]")
+    return out
+
+
+def serve_dispatch(seed, dev, card, phase4):
+    """(a) LLaMA-2-7B, phase 4's model, engine and traffic, under
+    FLAGS_autotune=on with FLAGS_paged_grouped_kernel set: a first pass
+    fills the tuner's table (it times every bucket at its first call),
+    then the counted pass; (b) the table rewritten so the GEMM kernel wins
+    every matmul bucket, and the 10 requests again under readonly."""
+    cfg = LlamaConfig.llama2_7b()
+    cfg.dtype = "bfloat16"
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    eng = ServingEngine(model, max_batch=8, max_seq_len=4096, page_size=16,
+                        seed=seed, device=dev)
+    fwd = ForwardLog(model)
+    rng = np.random.RandomState(seed)
+    long_req, batch = traffic(rng, cfg.vocab_size)
+    t0 = time.perf_counter()
+    drive(eng, long_req)
+    drive(eng, batch)
+    tune_s = time.perf_counter() - t0
+    entries = tuner_table()
+    log(f"dispatch (a): tuning pass (FLAGS_autotune=on, every bucket timed "
+        f"at its first call) {tune_s:.1f} s, {len(entries)} buckets")
+    log_table(entries, card, "(a)")
+    # the main path: counts from zero, read right after
+    since, d0, p0 = len(fwd.forwards), eng.decode_steps, eng.prefills
+    reset_counters()
+    t0 = time.perf_counter()
+    lone = drive(eng, long_req)
+    mixed = drive(eng, batch)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    steps, prefills = eng.decode_steps - d0, eng.prefills - p0
+    want, grouped = check_dispatch_launches("dispatch (a)", launches, fwd,
+                                            since, cfg, steps, prefills)
+    host_ms = fwd.host_ms_per_decode(since)
+    agree = stream_agreement(phase4, lone, mixed)
+    # the same traffic with both flags off again, right after, so that the
+    # host's cost is compared within one stretch of the run
+    set_flags({"FLAGS_autotune": "off", "FLAGS_paged_grouped_kernel": False})
+    since_off = len(fwd.forwards)
+    lone_off = drive(eng, long_req)
+    mixed_off = drive(eng, batch)
+    host_off = fwd.host_ms_per_decode(since_off)
+    # the control of the stream comparison: this engine with the flags off
+    agree_off = stream_agreement(phase4, lone_off, mixed_off)
+    set_flags({"FLAGS_autotune": "on", "FLAGS_paged_grouped_kernel": True})
+    a = dict(tune_s=tune_s, table=entries, lone_2500=lone, mixed_10=mixed,
+             wall_s=wall, decode_steps=steps, prefills=prefills,
+             launches=launches, expected=want, decode_winner_grouped=grouped,
+             host_ms_per_decode_forward=host_ms,
+             flags_off=dict(lone_2500=lone_off, mixed_10=mixed_off,
+                            host_ms_per_decode_forward=host_off,
+                            streams_vs_phase4=agree_off),
+             phase4_host_ms_per_decode_forward=phase4[
+                 "host_ms_per_decode_forward"],
+             streams_vs_phase4=agree)
+    log(f"dispatch (a): lone 2500-token request: TTFT "
+        f"{lone['ttft_ms'][0]:.1f} ms, {lone['ms_per_decode_step_p50']:.2f} "
+        f"ms/decode step (p50); 10 requests: TTFT p50 "
+        f"{np.median(mixed['ttft_ms']):.1f} ms, "
+        f"{mixed['ms_per_decode_step_p50']:.2f} ms/decode step (p50); host "
+        f"ms per decode step's forward {host_ms:.2f} [{card}]")
+    log(f"dispatch (a): the same traffic right after with both flags off: "
+        f"lone TTFT {lone_off['ttft_ms'][0]:.1f} ms, "
+        f"{lone_off['ms_per_decode_step_p50']:.2f} ms/decode step; 10 "
+        f"requests TTFT p50 {np.median(mixed_off['ttft_ms']):.1f} ms, "
+        f"{mixed_off['ms_per_decode_step_p50']:.2f} ms/decode step; host ms "
+        f"per decode step's forward {host_off:.2f} (phase 4: "
+        f"{phase4['host_ms_per_decode_forward']:.2f}); greedy streams "
+        f"against phase 4's {agree_off['greedy_identical']} of "
+        f"{agree_off['greedy']} identical, first differing token at "
+        f"{agree_off['greedy_first_diff']} [{card}]")
+    log(f"dispatch (a): {prefills} prefills, {steps} decode steps, launches "
+        f"{launches} (exact; the decode bucket's winner is "
+        f"{'grouped' if grouped else 'per-page'}); against phase 4's streams "
+        f"(not a gate): greedy {agree['greedy_identical']} of "
+        f"{agree['greedy']} identical, first differing token at "
+        f"{agree['greedy_first_diff']}; sampled {agree['sampled_identical']} "
+        f"of {agree['sampled']} (this engine's sampler drew for the tuning "
+        f"pass first)")
+    a["decode_profile"] = profile_decode(eng, rng, card)
+    a["dispatch_host_us"] = dispatch_host_cost(dev, card)
+
+    # (b): the GEMM kernel's best tile pinned in every matmul bucket
+    pinned = pin_kernel_winners()
+    set_flags({"FLAGS_autotune": "readonly"})
+    since, d0, p0 = len(fwd.forwards), eng.decode_steps, eng.prefills
+    reset_counters()
+    mixed_b = drive(eng, batch)
+    launches_b = read_counters()
+    steps, prefills = eng.decode_steps - d0, eng.prefills - p0
+    L = cfg.num_hidden_layers
+    check(launches_b["matmul"] == (7 * L + 1) * (steps + prefills),
+          f"dispatch (b): matmul launched {launches_b['matmul']} times, "
+          f"expected {7 * L + 1} per forward x {steps + prefills}")
+    want_b, grouped_b = check_dispatch_launches(
+        "dispatch (b)", launches_b, fwd, since, cfg, steps, prefills)
+    check(grouped_b, "dispatch (b): the grouped kernel was not pinned")
+    b = dict(table=pinned, mixed_10=mixed_b, decode_steps=steps,
+             prefills=prefills, launches=launches_b,
+             host_ms_per_decode_forward=fwd.host_ms_per_decode(since),
+             streams_vs_phase4=stream_agreement(phase4, None, mixed_b))
+    log(f"dispatch (b): readonly table with the GEMM kernel pinned: 10 "
+        f"requests, {prefills} prefills, {steps} decode steps, launches "
+        f"{launches_b} (matmul {7 * L + 1} per forward, grouped {L} per "
+        f"decode step); TTFT p50 {np.median(mixed_b['ttft_ms']):.1f} ms, "
+        f"{mixed_b['ms_per_decode_step_p50']:.2f} ms/decode step (p50), host "
+        f"ms per decode step's forward {b['host_ms_per_decode_forward']:.2f}"
+        f"; greedy streams against phase 4's: "
+        f"{b['streams_vs_phase4']['greedy_identical']} of "
+        f"{b['streams_vs_phase4']['greedy']} identical, first differing "
+        f"token at {b['streams_vs_phase4']['greedy_first_diff']} [{card}]")
+    b["decode_profile"] = profile_decode(eng, rng, card)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return a, b
+
+
+def train_dispatch(seed, dev, card, layers=4, seq=4096, steps=2):
+    """(c) the training step at LLaMA-2-7B widths, cut to `layers` layers:
+    2 steps with the tuner off (cuBLAS), 2 under FLAGS_autotune=on, 2 under
+    the table rewritten so the GEMM kernel wins (readonly), each from the
+    same weights; the readonly run launches the kernel once per linear of
+    each forward (7 L + 1); its losses and the tuned run's agree with
+    cuBLAS's within TRAIN_DISPATCH_TOL."""
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = layers
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq))).to(dev)
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq))).to(dev)
+
+    def run(mode):
+        set_flags({"FLAGS_autotune": mode})
+        model = amp.decorate(LlamaForCausalLM(cfg, device=dev, seed=seed),
+                             level="O2", dtype="bfloat16")
+        step = build_train_step(model, AdamW(
+            learning_rate=1e-4, parameters=model.parameters()))
+        reset_counters()
+        ms, losses = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_counters()
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(losses=losses, step_ms=ms, launches=launches)
+
+    res = {"off": run("off")}
+    # a table of its own, so that the tuned run measures its buckets
+    set_flags({"FLAGS_autotune_cache_dir": os.path.join(
+        get_flags(["FLAGS_autotune_cache_dir"])["FLAGS_autotune_cache_dir"],
+        "train")})
+    autotune.reset_tuner()
+    res["on"] = run("on")
+    winners = {k: e["winner"] for k, e in tuner_table().items()
+               if e["op"] == "matmul" and f"|m={seq}|" in k}
+    log(f"dispatch (c): training under FLAGS_autotune=on, winners at "
+        f"m={seq}: {winners}")
+    pin_kernel_winners()
+    res["readonly_pinned"] = run("readonly")
+    n = res["readonly_pinned"]["launches"]["matmul"]
+    check(n == (7 * layers + 1) * steps, f"dispatch (c): matmul launched {n} "
+          f"times in {steps} steps, expected {7 * layers + 1} per forward")
+    ref = res["off"]["losses"]
+    for mode in ("on", "readonly_pinned"):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res[mode]["losses"],
+                                                       ref))
+        res[mode]["max_rel_loss_diff_vs_cublas"] = rel
+        check(all(math.isfinite(v) for v in res[mode]["losses"])
+              and rel <= TRAIN_DISPATCH_TOL,
+              f"dispatch (c): {mode} losses {res[mode]['losses']} vs cuBLAS "
+              f"{ref}: rel diff {rel} > {TRAIN_DISPATCH_TOL}")
+    res["winners_on"] = winners
+    log(f"dispatch (c): LLaMA-2-7B widths, {layers} layers, batch 1 x {seq}, "
+        f"bf16 O2: losses cuBLAS {ref}, tuned {res['on']['losses']}, GEMM "
+        f"kernel pinned {res['readonly_pinned']['losses']} (max rel diff "
+        f"{res['readonly_pinned']['max_rel_loss_diff_vs_cublas']:.2e}, bar "
+        f"{TRAIN_DISPATCH_TOL}); step ms cuBLAS {res['off']['step_ms']}, "
+        f"pinned {res['readonly_pinned']['step_ms']}; matmul launches {n} "
+        f"[{card}]")
+    return res
+
+
+def tiny_dispatch_parity(seed, dev):
+    """(d) a tiny f32 LLaMA (head_dim 128, 16-token pages, tables 8 pages
+    wide) with the grouped flag on and the GEMM kernel pinned (a first
+    CUDA pass under FLAGS_autotune=on fills the table, which is then
+    rewritten and read readonly): the greedy streams through the kernels
+    on CUDA equal those through the plain versions on the CPU."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2, seq=128)
+    cfg.num_key_value_heads = 1
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    load_llama_state(gpu, {k: v.numpy() for k, v in cpu.state_dict().items()})
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 9, 17, 3, 40)]
+
+    def serve(model, d):
+        eng = ServingEngine(model, max_batch=3, max_seq_len=128,
+                            page_size=16, device=d)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=24)
+        return {f.request_id: f.output_ids.tolist() for f in eng.run()}
+
+    set_flags({"FLAGS_autotune": "on"})
+    serve(gpu, dev)
+    pin_kernel_winners()
+    set_flags({"FLAGS_autotune": "readonly"})
+    reset_counters()
+    streams = [serve(cpu, "cpu"), serve(gpu, dev)]
+    launches = read_counters()
+    check(launches["matmul"] > 0 and launches["paged_attention_grouped"] > 0
+          and launches["paged_attention"] == 0,
+          f"tiny dispatch: the new kernels did not run on CUDA: {launches}")
+    check(streams[0] == streams[1], f"tiny dispatch greedy streams differ: "
+          f"cpu {streams[0]} cuda {streams[1]}")
+    log(f"parity: tiny f32 LLaMA (2 layers, hidden 256, 2 heads of 128 over 1 "
+        f"KV head), grouped decode on, GEMM kernel pinned, {len(prompts)} "
+        f"greedy requests x 24 tokens: CUDA == CPU; launches {launches}")
+    return dict(requests=len(prompts), identical=True, launches=launches)
+
+
+def measured_dispatch(seed, dev, card, phase4):
+    """Phase 8: (a)-(d) with FLAGS_paged_grouped_kernel set and the tuner's
+    table in a temporary directory; the flags are restored afterwards, so
+    the other phases keep the fixed dispatch."""
+    old = get_flags(list(DISPATCH_FLAGS))
+    tmp = tempfile.mkdtemp(prefix="autotune-")
+    try:
+        set_flags({"FLAGS_autotune": "on", "FLAGS_paged_grouped_kernel": True,
+                   "FLAGS_autotune_cache_dir": tmp})
+        autotune.reset_tuner()
+        a, b = serve_dispatch(seed, dev, card, phase4)
+        c = train_dispatch(seed, dev, card)
+        d = tiny_dispatch_parity(seed, dev)
+    finally:
+        set_flags(old)
+        autotune.reset_tuner()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(serving=a, serving_pinned=b, training=c, tiny_parity=d)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1260,8 +1885,19 @@ def main():
     paged_q8 = [paged_q8_case("mha_bf16_13b", bf16, 40, 40, gen, dev, lens),
                 paged_q8_case("gqa_bf16", bf16, 32, 8, gen, dev, lens),
                 paged_q8_case("mha_f32", f32, 32, 32, gen, dev, lens)]
+    mm = [mm_case(f"{k}->{n} m{m}", m, k, n, bf16, gen, dev,
+                  check_timer=(m, k, n) == (8, 4096, 4096))
+          for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
+                       (4096, 32000))
+          for m in (8, 2512, 4096)]
+    mm.append(mm_case("512->1024 m33", 33, 512, 1024, f32, gen, dev))
+    grouped = [grouped_case("mha_bf16", bf16, 32, 32, gen, dev,
+                            GROUPED_LENS),
+               grouped_case("gqa_bf16", bf16, 32, 8, gen, dev, GROUPED_LENS),
+               grouped_case("mha_f32", f32, 32, 32, gen, dev, GROUPED_LENS)]
     for kind_, rs in (("quant_matmul", qmm),
-                      ("paged_attention_int8", paged_q8)):
+                      ("paged_attention_int8", paged_q8), ("matmul", mm),
+                      ("paged_attention_grouped", grouped)):
         for r in rs:
             log(f"kernel: {kind_} {r['case']} {r['dtype']}: row rel err "
                 f"{r['row_rel_err']:.3g} vs plain (bar {r['tol']:.3g}), max "
@@ -1303,7 +1939,8 @@ def main():
     # 3, continued: times at the serving and training shapes
     for kind_, rs in (("rms_norm", rms), ("paged_attention", paged),
                       ("rms_norm_bwd", rms_bwd), ("quant_matmul", qmm),
-                      ("paged_attention_int8", paged_q8)):
+                      ("paged_attention_int8", paged_q8), ("matmul", mm),
+                      ("paged_attention_grouped", grouped)):
         for r in rs:
             r.update(r.pop("timings")())
             lib = "n/a" if r["library_ms"] is None \
@@ -1312,6 +1949,23 @@ def main():
                 f"ms, plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), device time "
                 f"({r['timer']}) [{card}]")
+            if "tile_ms" in r:
+                log(f"kernel: matmul {r['case']} by row tile: " + ", ".join(
+                    f"{t} {ms:.4f} ms" for t, ms in r["tile_ms"].items())
+                    + f" ({r['weight_copies']} weight copies in turn); the "
+                    f"tuner's timer, one weight: kernel "
+                    f"{r['graph_ms']['kernel']:.4f} ms, library "
+                    f"{r['graph_ms']['library']:.4f} ms [{card}]")
+            if "per_page_kernel_ms" in r:
+                log(f"kernel: paged_attention_grouped {r['case']}: the "
+                    f"per-page kernel on the same inputs "
+                    f"{r['per_page_kernel_ms']:.4f} ms [{card}]")
+            if "tuner_timer_ms" in r:
+                tt = r["tuner_timer_ms"]
+                log(f"kernel: matmul {r['case']} tile {tt['tile']}: the "
+                    f"tuner's timer (CUDA graph of 20 launches, events) "
+                    f"{tt['graph_events']:.4f} ms, the profiler "
+                    f"{tt['profiler']:.4f} ms [{card}]")
     for r in flash:
         r.pop("timings")()
         for key in ("fwd", "dkv", "dq"):
@@ -1335,6 +1989,10 @@ def main():
 
     # 7. tiny training: CUDA kernels against the CPU's plain versions
     train_parity = tiny_train_parity(args.seed, dev)
+
+    # 8. measured dispatch: serving and training with FLAGS_autotune and
+    # FLAGS_paged_grouped_kernel on, then off again
+    dispatch = measured_dispatch(args.seed, dev, card, serving)
 
     def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
@@ -1373,6 +2031,17 @@ def main():
         row("paged_attention_int8", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged_q8[0],
             q8["paged_attention_int8"] + q4["paged_attention_int8"]),
+        # launches: phase 8's counted runs
+        row("matmul", csrc + "matmul.cu", ref + "matmul.py:118",
+            next(r for r in mm if r["case"] == "4096->4096 m8"),
+            dispatch["serving"]["launches"]["matmul"]
+            + dispatch["serving_pinned"]["launches"]["matmul"]
+            + dispatch["training"]["readonly_pinned"]["launches"]["matmul"]),
+        row("paged_attention_grouped", csrc + "paged_attention.cu",
+            ref + "paged_attention.py:523", grouped[0],
+            dispatch["serving"]["launches"]["paged_attention_grouped"]
+            + dispatch["serving_pinned"]["launches"][
+                "paged_attention_grouped"]),
     ]
     if args.out:
         with open(args.out, "w") as f:
@@ -1384,7 +2053,9 @@ def main():
                            serving=serving, serving13_int8=serving13,
                            serving13_int4=serving13_int4, parity=parity,
                            quant_parity=quant_parity, training=training,
-                           train_parity=train_parity, kernels=kernels),
+                           train_parity=train_parity, matmul=mm,
+                           paged_attention_grouped=grouped,
+                           dispatch=dispatch, kernels=kernels),
                       f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

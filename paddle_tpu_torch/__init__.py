@@ -7,6 +7,12 @@ same path there. The package imports `torch`, never `jax` and nothing of
 ported path is a hand-written CUDA C++ kernel for `sm_90a` under
 `kernels/csrc/`, built by `nvcc` at first use (`kernels._build`). A wrapper
 runs its kernel's plain PyTorch version only for CPU tensors; for a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. `set_flags` and `get_flags` read
+and set the `FLAGS_*` registry (`framework.config`), which is seeded from
+the environment at import.
 """
 __version__ = "0.1.0"
+
+from .framework.config import get_flags, set_flags
+
+__all__ = ["get_flags", "set_flags"]

@@ -39,6 +39,12 @@
 // parameter: int8 pages are read 16 values to a 16-byte load and converted
 // in registers, so one kernel body serves both formats. Split-KV across
 // blocks, TMA staging and tensor-core products are left for later work.
+//
+// The grouped-fetch kernel (paged_decode_grouped_kernel, below) replaces
+// paddle_tpu/kernels/paged_attention.py::paged_attention_grouped (the Pallas
+// body `_decode_grouped_kernel`): the same function over float 16-token
+// pages at head_dim 128, with the row's pages staged in shared memory a
+// group at a time. See its own note.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -316,6 +322,260 @@ int decode(const Args& a, int batch, int kv_heads, int head_dim, int is_bf16,
   return static_cast<int>(err);
 }
 
+// ---------------------------------------------------------------------------
+// Grouped-fetch decode
+//
+// The TPU kernel fetches 8 pages (128 tokens) per grid step by
+// double-buffered async copies, because one 16-token page per step starves
+// its matrix unit. Here the same idea hides memory latency: the per-page
+// kernel above reads one dependent slice at a time, while this kernel keeps
+// whole groups of pages in flight. One block of 4 warps per (batch row, kv
+// head) walks the row's context in stages of 64 KB of K and V: 8 pages (128
+// tokens) of bf16, or 4 pages (64 tokens, half a group) of f32, since a
+// whole f32 group is 128 KB and two of them do not fit. Two stages live in
+// shared memory; each is filled by cp.async from the block table while the
+// block computes on the other (the TPU kernel's two-slot pipeline, group
+// g + 2 issued into the slot group g has left). A page whose first token is
+// at or past the row's context is never fetched (its rows are zero-filled),
+// stale table entries past the context are never read, and the walk stops
+// at the last stage holding a token below the context. Per stage:
+//   scores: thread t takes token t, reads its K row from shared memory with
+//     16-byte loads against the group's queries (f32, in shared memory),
+//     scales and masks at the context with the TPU kernel's -1e30;
+//   softmax: one warp per query row folds the stage into the row's running
+//     (m, l), as `_decode_accumulate` does, and leaves the weights in
+//     shared memory;
+//   P.V: thread d owns output column d of every query of the group and
+//     accumulates in f32, rescaled by the stage's alpha.
+// All arithmetic is f32 on the CUDA cores: a decode step moves 2 bytes of
+// K/V for every 1-16 multiply-adds, far below the rate at which they run.
+// The query group is a compile-time bucket (1, 2, 4, 8, 16), the TPU
+// kernel's pad of the group to 8 rows. Tensor-core products on the
+// [16 x 128] score tile, TMA and split-KV are left for later work.
+
+constexpr int kGThreads = 128;  // one per output column
+constexpr int kGWarps = kGThreads / 32;
+constexpr int kGPage = 16;      // page size
+constexpr int kGD = 128;        // head_dim
+constexpr int kGroupPages = 8;  // pages per group
+
+template <typename T>
+struct GStage {
+  static constexpr int kTok = 64 * 1024 / (2 * kGD * sizeof(T));
+  static constexpr int kLD = kGD + 16 / sizeof(T);  // row stride, padded
+  static constexpr int kTileBytes = kTok * kLD * sizeof(T);
+  static constexpr int kStageBytes = 2 * kTileBytes;  // K and V
+};
+
+template <typename T, int G>
+constexpr size_t grouped_smem_bytes() {
+  return 2 * GStage<T>::kStageBytes +
+         sizeof(float) * (G * kGD + G * GStage<T>::kTok + 3 * G);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kGThreads)
+    paged_decode_grouped_kernel(Args a) {
+  using St = GStage<T>;
+  constexpr int kTok = St::kTok;
+  constexpr int kLD = St::kLD;
+  constexpr int kVec = 16 / sizeof(T);            // elements per 16 bytes
+  constexpr int kRowChunks = kGD / kVec;          // 16-byte chunks per row
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int group = a.group;
+  const int q_heads = gridDim.x * group;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const T* __restrict__ k_pages = static_cast<const T*>(a.k_pages);
+  const T* __restrict__ v_pages = static_cast<const T*>(a.v_pages);
+
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  float* sq = reinterpret_cast<float*>(gsmem + 2 * St::kStageBytes);
+  float* sp = sq + G * kGD;    // [G][kTok] scores, then weights
+  float* sm = sp + G * kTok;   // [G] running max
+  float* sl = sm + G;          // [G] running sum
+  float* salpha = sl + G;      // [G] this stage's rescale
+  auto tile_k = [&](int s) {
+    return reinterpret_cast<T*>(gsmem + s * St::kStageBytes);
+  };
+  auto tile_v = [&](int s) {
+    return reinterpret_cast<T*>(gsmem + s * St::kStageBytes +
+                                St::kTileBytes);
+  };
+
+  const T* qb = static_cast<const T*>(a.q) +
+                (static_cast<size_t>(b) * q_heads +
+                 static_cast<size_t>(h) * group) * kGD;
+  for (int i = tid; i < G * kGD; i += kGThreads) {
+    sq[i] = i < group * kGD ? to_f32(qb[i]) : 0.f;
+  }
+  if (tid < G) {
+    sm[tid] = kNegInf;
+    sl[tid] = 0.f;
+    salpha[tid] = 1.f;
+  }
+
+  int ctx = a.pages_per_seq * kGPage;  // never read past the table
+  if (a.context_lens[b] < ctx) ctx = a.context_lens[b];
+  const int n_stages = (ctx + kTok - 1) / kTok;
+  const int* table =
+      a.block_tables + static_cast<size_t>(b) * a.pages_per_seq;
+  const long long head_base = static_cast<long long>(h) * a.n_pages;
+
+  // stage i -> slot s; a page whose first token is at or past ctx is not
+  // read, its rows zero-filled
+  auto issue = [&](int i, int s) {
+    T* kd = tile_k(s);
+    T* vd = tile_v(s);
+    for (int c = tid; c < kTok * kRowChunks; c += kGThreads) {
+      const int t = c / kRowChunks;
+      const int e = (c % kRowChunks) * kVec;
+      const int pos = i * kTok + t;
+      const int p = pos / kGPage;
+      const bool live = p * kGPage < ctx;
+      size_t off = 0;
+      if (live) {
+        off = (static_cast<size_t>(head_base + __ldg(table + p)) * kGPage +
+               pos % kGPage) * kGD + e;
+      }
+      cp_async16(kd + t * kLD + e, k_pages + off, live ? 16 : 0);
+      cp_async16(vd + t * kLD + e, v_pages + off, live ? 16 : 0);
+    }
+  };
+
+  float acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+
+  if (n_stages > 0) issue(0, 0);
+  cp_async_commit();
+  if (n_stages > 1) issue(1, 1);
+  cp_async_commit();
+  for (int i = 0; i < n_stages; ++i) {
+    cp_async_wait<1>();
+    __syncthreads();  // stage i landed; the queries and state are set
+    const int s = i & 1;
+    const T* kt = tile_k(s);
+    const T* vt = tile_v(s);
+    const int base = i * kTok;
+
+    // scores of token t against every query
+    for (int t = tid; t < kTok; t += kGThreads) {
+      float sc[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) sc[g] = 0.f;
+      const T* kr = kt + t * kLD;
+#pragma unroll 4
+      for (int c = 0; c < kGD; c += kVec) {
+        const Chunk<T, kVec> kc = *reinterpret_cast<const Chunk<T, kVec>*>(
+            kr + c);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          const float kf = to_f32(kc.v[j]);
+#pragma unroll
+          for (int g = 0; g < G; ++g) sc[g] += sq[g * kGD + c + j] * kf;
+        }
+      }
+      const bool valid = base + t < ctx;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        sp[g * kTok + t] = valid ? sc[g] * a.scale : kNegInf;
+      }
+    }
+    __syncthreads();
+
+    // fold the stage into each query row's online softmax
+    for (int g = warp; g < group; g += kGWarps) {
+      float* row = sp + g * kTok;
+      float mx = kNegInf;
+      for (int t = lane; t < kTok; t += 32) mx = fmaxf(mx, row[t]);
+      const float m_old = sm[g];
+      const float m_new = fmaxf(m_old, warp_max(mx));
+      float sum = 0.f;
+      for (int t = lane; t < kTok; t += 32) {
+        const float p = base + t < ctx ? expf(row[t] - m_new) : 0.f;
+        row[t] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        salpha[g] = alpha;
+        sl[g] = sl[g] * alpha + sum;
+        sm[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P.V, thread tid on column tid
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] *= salpha[g];
+    for (int t = 0; t < kTok; t += 4) {
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = to_f32(vt[(t + j) * kLD + tid]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g < group) {
+          const float4 p = *reinterpret_cast<const float4*>(sp + g * kTok + t);
+          acc[g] += p.x * v[0] + p.y * v[1] + p.z * v[2] + p.w * v[3];
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with slot s and the weights
+    if (i + 2 < n_stages) issue(i + 2, s);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // a row with no stage: the state's initial values
+
+  T* ob = static_cast<T*>(a.out) + (static_cast<size_t>(b) * q_heads +
+                                    static_cast<size_t>(h) * group) * kGD;
+  for (int g = 0; g < group; ++g) {
+    const float l = sl[g];
+    ob[g * kGD + tid] = from_f32<T>(l == 0.f ? 0.f : acc[g] / l);
+  }
+}
+
+template <typename T, int G>
+cudaError_t launch_grouped(const Args& a, int batch, int kv_heads,
+                           cudaStream_t stream) {
+  constexpr size_t smem = grouped_smem_bytes<T, G>();
+  static const cudaError_t status = cudaFuncSetAttribute(
+      paged_decode_grouped_kernel<T, G>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (status != cudaSuccess) return status;
+  paged_decode_grouped_kernel<T, G>
+      <<<dim3(kv_heads, batch), kGThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_grouped_group(const Args& a, int batch, int kv_heads,
+                                 cudaStream_t s) {
+  if (a.group <= 1) return launch_grouped<T, 1>(a, batch, kv_heads, s);
+  if (a.group <= 2) return launch_grouped<T, 2>(a, batch, kv_heads, s);
+  if (a.group <= 4) return launch_grouped<T, 4>(a, batch, kv_heads, s);
+  if (a.group <= 8) return launch_grouped<T, 8>(a, batch, kv_heads, s);
+  return launch_grouped<T, 16>(a, batch, kv_heads, s);
+}
+
 }  // namespace
 
 // Decode attention over paged K/V (layouts above); all tensors contiguous,
@@ -348,4 +608,29 @@ extern "C" int paged_attention_decode_q8(
                static_cast<const int*>(context_lens), out, n_pages, page_size,
                pages_per_seq, group, scale};
   return decode<true>(a, batch, kv_heads, head_dim, is_bf16, stream);
+}
+
+// The grouped-fetch decode (layouts as paged_attention_decode) over float
+// pages of q's dtype: page_size 16, head_dim 128, pages_per_seq a multiple
+// of 8, 1 <= group <= 16. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int paged_attention_decode_grouped(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* block_tables, const void* context_lens, void* out, int batch,
+    int kv_heads, int group, int n_pages, int page_size, int pages_per_seq,
+    int head_dim, float scale, int is_bf16, void* stream) {
+  if (group < 1 || group > 16 || page_size != kGPage || head_dim != kGD ||
+      pages_per_seq < 1 || pages_per_seq % kGroupPages || kv_heads < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch <= 0) return 0;
+  const Args a{q, k_pages, v_pages, nullptr, nullptr,
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(context_lens), out, n_pages, page_size,
+               pages_per_seq, group, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_grouped_group<__nv_bfloat16>(a, batch, kv_heads, s)
+              : launch_grouped_group<float>(a, batch, kv_heads, s);
+  return static_cast<int>(err);
 }

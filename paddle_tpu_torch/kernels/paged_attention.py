@@ -20,6 +20,18 @@ owns a row of a block table listing its pages.
   `paged_attention_xla`) for CPU tensors. There is no crossover dispatch:
   on CUDA the kernel runs at every context length. `launches` counts the
   float kernel's launches, `q8_launches` the int8 kernel's.
+- `paged_attention_grouped` is the grouped-fetch variant (the JAX
+  `paged_attention_grouped`): the same function over float 16-token pages
+  at head_dim 128 with tables a multiple of 8 pages wide
+  (`grouped_supports`), by the CUDA kernel that stages 8 pages at a time
+  for CUDA tensors and by `paged_attention_grouped_ref`, a plain walk over
+  the same groups, for CPU tensors. `grouped_launches` counts its kernel's
+  launches.
+- `paged_attention_dispatch` picks between them as the JAX dispatch does:
+  the tuner's winner when `FLAGS_autotune` is on or readonly, else the
+  grouped kernel when `FLAGS_paged_grouped_kernel` is set and the shape
+  fits, else `paged_attention`. There is no XLA crossover at a mapped
+  context of 2048 (a TPU measurement), and a tuner failure raises.
 
 The scale pools are [kv_heads, n_pages, page_size] f32. The reference pads
 the last dim to 128 (`alloc_page_scales`: a TPU lane-tiling rule), which at
@@ -39,9 +51,13 @@ NEG_INF = -1e30  # the TPU kernel's masked-score value
 
 launches = 0
 q8_launches = 0
+grouped_launches = 0
 
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GROUP = 16
+GROUP_PAGES = 8      # pages per grouped-fetch step: 8 x 16 = 128 tokens
+_GROUPED_PAGE = 16
+_GROUPED_HEAD_DIM = 128
 _lib = None
 
 
@@ -236,7 +252,118 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                                  context_lens, scale, k_scales, v_scales)
 
 
-def _kernel(quant):
+def grouped_supports(head_dim, page_size, pages_per_seq):
+    """Whether the grouped-fetch decode takes this shape: head_dim 128,
+    16-token pages, a table a multiple of 8 pages wide."""
+    return (head_dim == _GROUPED_HEAD_DIM and page_size == _GROUPED_PAGE
+            and pages_per_seq > 0 and pages_per_seq % GROUP_PAGES == 0)
+
+
+def paged_attention_grouped_ref(q, k_pages, v_pages, block_tables,
+                                context_lens, scale=None):
+    """The grouped decode in plain PyTorch, as the TPU kernel computes it:
+    every row walks its pages 8 at a time (128 tokens), folding each group
+    into an online softmax in f32 (`_decode_accumulate`), and stops at the
+    last group that holds a token below its context. A row with context 0
+    returns zeros."""
+    b, n_q_heads, head_dim = q.shape
+    n_kv_heads, _, page_size, _ = k_pages.shape
+    group = n_q_heads // n_kv_heads
+    if scale is None:
+        scale = 1.0 / math.sqrt(head_dim)
+    tables = block_tables.long()
+    lens = context_lens.to(q.device).long().clamp(
+        max=tables.shape[1] * page_size)
+    gtok = GROUP_PAGES * page_size
+    qf = q.reshape(b, n_kv_heads, group, head_dim).float()
+    m = torch.full((b, n_kv_heads, group, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, n_kv_heads, group, head_dim, device=q.device)
+    n_groups = -(-int(lens.max()) // gtok) if b else 0
+    for gi in range(n_groups):
+        pages = tables[:, gi * GROUP_PAGES:(gi + 1) * GROUP_PAGES]
+        first = (gi * GROUP_PAGES + torch.arange(
+            GROUP_PAGES, device=q.device)) * page_size
+        # a page whose first token is at or past the context is not read
+        pages = torch.where(first[None, :] < lens[:, None], pages, 0)
+        k = k_pages[:, pages].reshape(n_kv_heads, b, gtok, head_dim)
+        v = v_pages[:, pages].reshape(n_kv_heads, b, gtok, head_dim)
+        s = torch.einsum("bhgd,hbsd->bhgs", qf, k.float()) * scale
+        pos = gi * gtok + torch.arange(gtok, device=q.device)
+        live = pos[None, :] < lens[:, None]  # [b, gtok]
+        s = s.masked_fill(~live[:, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new) * live[:, None, None, :]
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhgs,hbsd->bhgd", p, v.float())
+        m = m_new  # unchanged for a row whose context ended earlier
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.reshape(b, n_q_heads, head_dim).to(q.dtype)
+
+
+def paged_attention_grouped(q, k_pages, v_pages, block_tables, context_lens,
+                            scale=None):
+    """Grouped-fetch decode attention: `paged_attention`'s contract for
+    float pages of q's dtype at head_dim 128 and page_size 16, with
+    block_tables [batch, pages_per_seq] a multiple of 8 pages wide (raises
+    ValueError otherwise, on every device). -> [batch, num_q_heads,
+    head_dim] in q's dtype."""
+    head_dim = q.shape[-1]
+    page_size, pps = k_pages.shape[2], block_tables.shape[1]
+    if not grouped_supports(head_dim, page_size, pps):
+        raise ValueError(
+            f"paged_attention_grouped takes head_dim {_GROUPED_HEAD_DIM}, "
+            f"{_GROUPED_PAGE}-token pages and tables a multiple of "
+            f"{GROUP_PAGES} pages wide; got head_dim {head_dim}, page "
+            f"{page_size}, pages_per_seq {pps}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged_attention_grouped takes float pages of q's "
+                        f"dtype, got q {q.dtype}, pages {k_pages.dtype}/"
+                        f"{v_pages.dtype}")
+    if q.device.type == "cpu":
+        return paged_attention_grouped_ref(q, k_pages, v_pages, block_tables,
+                                           context_lens, scale)
+    return _paged_attention_cuda(q, k_pages, v_pages, block_tables,
+                                 context_lens, scale, grouped=True)
+
+
+def paged_attention_dispatch(q, k_pages, v_pages, block_tables,
+                             context_lens, scale=None, k_scales=None,
+                             v_scales=None):
+    """Decode-attention dispatch (the JAX `paged_attention_dispatch`, which
+    `models/paged_step.py` calls): with `FLAGS_autotune` on or readonly,
+    the tuner's winner for this decode bucket (per-page or grouped; CPU
+    tensors consult the tuner only under a custom timer, as the reference
+    does off the TPU); else the grouped kernel when
+    `FLAGS_paged_grouped_kernel` is set and the pages are float and the
+    shape fits (`grouped_supports`); else `paged_attention`."""
+    from ..framework import config as _config
+    from . import autotune as _at
+
+    quant = k_scales is not None
+    b, n_q_heads, head_dim = q.shape
+    n_kv_heads, _, page_size, _ = k_pages.shape
+    pps = block_tables.shape[1]
+    if _at.enabled() and (q.is_cuda or _at.has_custom_timer()):
+        win = _at.choose_paged_decode(b, n_q_heads, n_kv_heads, head_dim,
+                                      page_size, pps, k_pages.dtype, quant)
+        if win is not None:
+            if win.meta["impl"] == "grouped":
+                return paged_attention_grouped(q, k_pages, v_pages,
+                                               block_tables, context_lens,
+                                               scale)
+            return paged_attention(q, k_pages, v_pages, block_tables,
+                                   context_lens, scale, k_scales, v_scales)
+    if not quant and _config.get_flag("FLAGS_paged_grouped_kernel", False) \
+            and grouped_supports(head_dim, page_size, pps):
+        return paged_attention_grouped(q, k_pages, v_pages, block_tables,
+                                       context_lens, scale)
+    return paged_attention(q, k_pages, v_pages, block_tables, context_lens,
+                           scale, k_scales, v_scales)
+
+
+def _kernel(quant, grouped=False):
     global _lib
     if _lib is None:
         lib = _build.load("paged_attention")
@@ -247,14 +374,21 @@ def _kernel(quant):
         lib.paged_attention_decode_q8.argtypes = [
             p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
         lib.paged_attention_decode_q8.restype = ctypes.c_int
+        lib.paged_attention_decode_grouped.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+        lib.paged_attention_decode_grouped.restype = ctypes.c_int
         _lib = lib
+    if grouped:
+        return _lib.paged_attention_decode_grouped
     return _lib.paged_attention_decode_q8 if quant \
         else _lib.paged_attention_decode
 
 
 def _paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
-                          scale, k_scales=None, v_scales=None):
-    global launches, q8_launches
+                          scale, k_scales=None, v_scales=None, grouped=False):
+    """The per-page kernel (float or int8 pages), or with `grouped` the
+    grouped-fetch kernel (float pages)."""
+    global launches, q8_launches, grouped_launches
     quant = k_scales is not None
     dev = q.device
     tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages,
@@ -309,7 +443,7 @@ def _paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
     if scale is None:
         scale = 1.0 / math.sqrt(head_dim)
     out = torch.empty_like(q)
-    fn = _kernel(quant)
+    fn = _kernel(quant, grouped)
     sizes = (b, n_kv_heads, n_q_heads // n_kv_heads, n_pages, page_size,
              block_tables.shape[1], head_dim, float(scale),
              int(q.dtype == torch.bfloat16),
@@ -322,7 +456,9 @@ def _paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
     if rc:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    if quant:
+    if grouped:
+        grouped_launches += 1
+    elif quant:
         q8_launches += 1
     else:
         launches += 1

@@ -2,7 +2,9 @@
 `paddle_tpu/models/paged_step.py`, its single-token path).
 
 Write the new token's K/V into the page pools (float, or int8 with scales),
-then run decode attention over the pages. The speculative-verify window
+then run decode attention over the pages through
+`paged_attention_dispatch` (per-page or grouped-fetch kernel, as the flags
+and the tuner say). The speculative-verify window
 (s > 1) and the tensor-parallel shard_map of the JAX step are not ported.
 """
 from __future__ import annotations
@@ -44,7 +46,8 @@ def paged_attention_step(q, k, v, paged_cache, block_tables, context_lens,
     ctx = context_lens + 1
     if active is not None:
         ctx = ctx * active.to(ctx.device, non_blocking=True)
-    out = _pa.paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
-                              block_tables, ctx.to(torch.int32),
-                              k_scales=k_scales, v_scales=v_scales)
+    out = _pa.paged_attention_dispatch(q[:, 0].contiguous(), k_pages,
+                                       v_pages, block_tables,
+                                       ctx.to(torch.int32),
+                                       k_scales=k_scales, v_scales=v_scales)
     return out.reshape(b, 1, n_heads * head_dim), paged_cache

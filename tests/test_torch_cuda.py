@@ -27,13 +27,24 @@ rounding of the few elements whose sums straddle a rounding boundary;
 bf16 rows are held to 5e-3, f32 rows to 1e-4. Each case also reads a fault
 made from the plain version (int4 nibbles swapped, one group's scales
 shifted by a group, the K scales left out), which must exceed the bar.
+
+The dense matmul kernel is held row by row against `torch.matmul` on the
+f32 values of its inputs (`_MATMUL_TOL`): bf16 rows differ by the output's
+one rounding (2^-9 relative on average, below 5e-3), f32 rows by
+summation order (exact f32 products, 1e-5). A dropped k tile must exceed
+the bar. The grouped-fetch decode is held as the per-page kernel is (one
+output rounding at the largest magnitude), against the plain dense
+version and against the per-page kernel.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import get_flags, set_flags
 from paddle_tpu_torch.inference import ServingEngine
+from paddle_tpu_torch.kernels import autotune as tat
 from paddle_tpu_torch.kernels import flash_attention as tfa
+from paddle_tpu_torch.kernels import matmul as tmm
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.kernels import quant_matmul as tqm
 from paddle_tpu_torch.kernels import rms_norm as trms
@@ -51,6 +62,7 @@ from paddle_tpu_torch.weights import (llama_state_to_numpy,
 _TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 _FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
 _QUANT_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-4}
+_MATMUL_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
 
 
 @pytest.fixture
@@ -468,4 +480,199 @@ def test_tiny_quantized_engine_streams_equal_on_cuda_and_cpu(cuda_device,
         streams.append({f.request_id: f.output_ids.tolist()
                         for f in eng.run()})
     assert tqm.launches > counts[0] and tpa.q8_launches > counts[1]
+    assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# the dense matmul and the grouped-fetch decode
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def flags_restored(tmp_path):
+    """The tuner's flags, its table in a temporary directory, and its timer,
+    restored afterwards."""
+    names = ["FLAGS_autotune", "FLAGS_autotune_cache_dir",
+             "FLAGS_paged_grouped_kernel"]
+    old = get_flags(names)
+    set_flags({"FLAGS_autotune_cache_dir": str(tmp_path)})
+    tat.reset_tuner()
+    yield tmp_path
+    set_flags(old)
+    tat.set_timer(None)
+    tat.reset_tuner()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(1, 128, 128), (8, 512, 384),
+                                   (33, 256, 256), (300, 1024, 512),
+                                   (129, 4096, 128)])
+def test_matmul_kernel_matches_plain(cuda_device, dtype, m, k, n):
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=cuda_device).to(dtype)
+    w = torch.randn(k, n, generator=g, device=cuda_device).to(dtype)
+    want = torch.matmul(x.float(), w.float())
+    x_cut = x.clone()
+    x_cut[:, :64] = 0  # a dropped k tile
+    fault = torch.matmul(x_cut.float(), w.float())
+    assert _row_rel_err(fault, want) > _MATMUL_TOL[dtype]
+    for tile in tmm.tiles(dtype):
+        n0 = tmm.launches
+        got = tmm.matmul_fused(x, w, tile)
+        torch.cuda.synchronize()
+        assert tmm.launches == n0 + 1
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert _row_rel_err(got, want) <= _MATMUL_TOL[dtype], tile
+
+
+@pytest.mark.cuda
+def test_matmul_autograd_uses_the_kernel_forward(cuda_device):
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 17, 256).astype(np.float32))
+    w = torch.from_numpy(rng.randn(256, 384).astype(np.float32))
+    g = torch.from_numpy(rng.randn(2, 17, 384).astype(np.float32))
+    xc, wc = x.clone().requires_grad_(), w.clone().requires_grad_()
+    torch.matmul(xc, wc).backward(g)
+    xg = x.to(cuda_device).requires_grad_()
+    wg = w.to(cuda_device).requires_grad_()
+    n0 = tmm.launches
+    y = tmm.matmul_fused(xg, wg)
+    y.backward(g.to(cuda_device))
+    assert tmm.launches == n0 + 1
+    assert _row_rel_err(y.detach().cpu(), torch.matmul(x, w)) <= 1e-5
+    assert _row_rel_err(xg.grad.cpu(), xc.grad) <= 1e-5
+    assert _row_rel_err(wg.grad.cpu(), wc.grad) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_matmul_refuses_what_it_does_not_take(cuda_device):
+    x = torch.randn(8, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="supports"):
+        tmm.matmul_fused(x, torch.randn(256, 200, device=cuda_device))
+    with pytest.raises(TypeError):
+        tmm.matmul_fused(x.half(), torch.randn(256, 128, device=cuda_device)
+                         .half())
+    with pytest.raises(ValueError, match="tiles"):
+        tmm.matmul_fused(x, torch.randn(256, 128, device=cuda_device), 128)
+
+
+_GROUPED_LENS = (0, 1, 15, 16, 17, 127, 128, 129, 1000, 2049)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_heads,kv_heads", [(32, 32), (32, 8), (12, 2),
+                                              (16, 1)])
+def test_grouped_decode_kernel_matches_plain(cuda_device, dtype, q_heads,
+                                             kv_heads):
+    """Against the dense plain version and the per-page kernel; then with
+    the table entries past each row's pages made ids far out of the pool,
+    which the kernel must never read."""
+    lens = _GROUPED_LENS
+    q, kp, vp, tables, ln = _decode_case(cuda_device, dtype, len(lens),
+                                         q_heads, kv_heads, 128, 16, 136,
+                                         lens, seed=q_heads + kv_heads)
+    n0 = tpa.grouped_launches
+    got = tpa.paged_attention_grouped(q, kp, vp, tables, ln)
+    torch.cuda.synchronize()
+    assert tpa.grouped_launches == n0 + 1
+    assert _close(got, tpa.paged_attention_ref(q, kp, vp, tables, ln), dtype)
+    assert _close(got, tpa.paged_attention(q, kp, vp, tables, ln), dtype)
+    assert not got[0].any()  # a ctx == 0 row writes zeros
+    stale = tables.clone()
+    for row, n in enumerate(lens):
+        stale[row, -(-n // 16):] = 2 ** 30
+    again = tpa.paged_attention_grouped(q, kp, vp, stale, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_grouped_decode_refuses_what_it_does_not_take(cuda_device):
+    args = _decode_case(cuda_device, torch.float32, 2, 4, 2, 128, 16, 12,
+                        (3, 5))
+    with pytest.raises(ValueError, match="multiple"):
+        tpa.paged_attention_grouped(*args)
+    args = _decode_case(cuda_device, torch.float32, 2, 4, 2, 128, 8, 16,
+                        (3, 5))
+    with pytest.raises(ValueError, match="16-token"):
+        tpa.paged_attention_grouped(*args)
+    q, kp, vp, tables, ln = _decode_case(cuda_device, torch.float32, 2, 4, 2,
+                                         128, 16, 8, (3, 5))
+    with pytest.raises(TypeError):
+        tpa.paged_attention_grouped(q, kp.to(torch.int8), vp.to(torch.int8),
+                                    tables, ln)
+
+
+@pytest.mark.cuda
+def test_decode_dispatch_follows_the_grouped_flag(cuda_device,
+                                                  flags_restored):
+    args = _decode_case(cuda_device, torch.bfloat16, 3, 8, 2, 128, 16, 16,
+                        (5, 200, 0))
+    counts = tpa.launches, tpa.grouped_launches
+    tpa.paged_attention_dispatch(*args)
+    set_flags({"FLAGS_paged_grouped_kernel": True})
+    tpa.paged_attention_dispatch(*args)
+    torch.cuda.synchronize()
+    assert (tpa.launches, tpa.grouped_launches) == (counts[0] + 1,
+                                                    counts[1] + 1)
+
+
+@pytest.mark.cuda
+def test_tuner_times_the_kernels_on_the_card(cuda_device, flags_restored):
+    """FLAGS_autotune=on: the default timer (a CUDA graph of launches timed
+    by events) times torch.matmul and every row tile of the kernel, and
+    the grouped and per-page decode, then saves the table."""
+    set_flags({"FLAGS_autotune": "on", "FLAGS_paged_grouped_kernel": True})
+    win = tat.choose_matmul(8, 512, 256, torch.bfloat16)
+    assert win is not None
+    args = _decode_case(cuda_device, torch.bfloat16, 4, 8, 2, 128, 16, 32,
+                        (5, 200, 0, 511))
+    dwin = tat.choose_paged_decode(4, 8, 2, 128, 16, 32, torch.bfloat16,
+                                   False)
+    assert dwin.meta["impl"] in ("paged", "grouped")
+    table = tat.get_tuner().snapshot()
+    mm = [e for key, e in table.items() if key.startswith("matmul|")]
+    pd = [e for key, e in table.items() if key.startswith("paged_decode|")]
+    assert len(mm) == 1 and set(mm[0]["timings_ms"]) == {
+        "torch", "cuda:m16", "cuda:m64", "cuda:m128"}
+    assert len(pd) == 1 and set(pd[0]["timings_ms"]) == {"paged", "grouped"}
+    for e in mm + pd:
+        assert all(0 < t < 100 for t in e["timings_ms"].values())
+    assert (flags_restored / f"autotune_{tat.device_kind()}.json").is_file()
+    out = tpa.paged_attention_dispatch(*args)
+    torch.cuda.synchronize()
+    assert _close(out, tpa.paged_attention_ref(*args), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_tiny_engine_with_grouped_decode_and_gemm_kernel_equals_cpu(
+        cuda_device, flags_restored):
+    """Head_dim 128, 16-token pages, tables 8 pages wide: with the grouped
+    flag on and a timer that makes the GEMM kernel win every bucket, CUDA
+    serves through both new kernels and the CPU through their plain
+    versions; the greedy streams are equal."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2, seq=128)
+    cfg.num_key_value_heads = 1
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    gpu = LlamaForCausalLM(cfg, device=cuda_device)
+    load_llama_state(gpu, {k: v.numpy() for k, v in cpu.state_dict().items()})
+    set_flags({"FLAGS_autotune": "on", "FLAGS_paged_grouped_kernel": True})
+    # torch.matmul 1 ms, the per-page decode 2 ms, the new kernels 0.5 ms
+    tat.set_timer(lambda fn, args: {"matmul": 1.0, "paged": 2.0}.get(
+        fn.__name__, 0.5))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 256, (n,)) for n in (5, 9, 17, 3)]
+    counts = tmm.launches, tpa.grouped_launches, tpa.launches
+    streams = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        eng = ServingEngine(model, max_batch=3, max_seq_len=128,
+                            page_size=16, device=dev)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=12)
+        streams.append({f.request_id: f.output_ids.tolist()
+                        for f in eng.run()})
+    assert tmm.launches > counts[0] and tpa.grouped_launches > counts[1]
+    assert tpa.launches == counts[2]
     assert streams[0] == streams[1]

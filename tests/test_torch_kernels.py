@@ -249,3 +249,199 @@ def test_paged_attention_on_cpu_is_the_plain_version():
                                tpa.paged_attention_ref(*args), rtol=0,
                                atol=0)
     assert tpa.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# grouped-fetch decode and the decode dispatch
+# ---------------------------------------------------------------------------
+
+
+def _grouped_pools(rng, kvh, n_pages, hd, dtype):
+    kp = rng.standard_normal((kvh, n_pages, 16, hd)).astype(np.float32)
+    vp = rng.standard_normal((kvh, n_pages, 16, hd)).astype(np.float32)
+    return kp, vp
+
+
+def _as(dtype, *arrays):
+    """Each array in `dtype` on both sides: (jax arrays, torch tensors)."""
+    js = [jnp.asarray(a, dtype) for a in arrays]
+    ts = [torch.from_numpy(np.array(j.astype(jnp.float32)))
+          .to(torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
+          for j in js]
+    return js, ts
+
+
+def test_grouped_ref_matches_pallas_multi_group():
+    """`tests/test_flash_kernels.py`'s multi-group case: lens 384 (every
+    group), 129 (just into the second group), 16 (one page); f32, 1e-4
+    abs, the reference's bar."""
+    rng = np.random.default_rng(0)
+    kp, vp = _grouped_pools(rng, 2, 96, 128, jnp.float32)
+    q = rng.standard_normal((3, 4, 128)).astype(np.float32)
+    bt = rng.permutation(96)[:3 * 24].reshape(3, 24).astype(np.int32)
+    cl = np.asarray([384, 129, 16], np.int32)
+    want = np.asarray(jpa.paged_attention_grouped(
+        *map(jnp.asarray, (q, kp, vp, bt, cl))))
+    got = tpa.paged_attention_grouped(*_torch(q, kp, vp, bt, cl)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    np.testing.assert_allclose(
+        got, tpa.paged_attention_ref(*_torch(q, kp, vp, bt, cl)).numpy(),
+        atol=ATOL)
+
+
+def test_grouped_ref_matches_pallas_gqa_bf16():
+    """The reference's GQA bf16 case (12 query heads over 2, group 6, pad
+    to 8 rows there): bf16 outputs within 0.04 abs, the reference's bar."""
+    rng = np.random.default_rng(1)
+    kp, vp = _grouped_pools(rng, 2, 32, 128, jnp.bfloat16)
+    q = rng.standard_normal((2, 12, 128)).astype(np.float32)
+    bt = rng.integers(0, 32, (2, 8)).astype(np.int32)
+    cl = np.asarray([100, 37], np.int32)
+    (jq, jk, jv), (tq, tk, tv) = _as(jnp.bfloat16, q, kp, vp)
+    want = np.asarray(jpa.paged_attention_grouped(
+        jq, jk, jv, jnp.asarray(bt), jnp.asarray(cl)), np.float32)
+    got = tpa.paged_attention_grouped(tq, tk, tv, torch.from_numpy(bt),
+                                      torch.from_numpy(cl))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=0.04)
+
+
+def test_grouped_ref_zero_context_and_stale_tables():
+    """A row with context 0 is zeros; entries past a row's pages are never
+    read (ids far out of the pool change nothing)."""
+    rng = np.random.default_rng(2)
+    kp, vp = _grouped_pools(rng, 1, 48, 128, jnp.float32)
+    q = rng.standard_normal((3, 2, 128)).astype(np.float32)
+    bt = rng.permutation(48).reshape(3, 16).astype(np.int32)
+    cl = np.asarray([0, 129, 256], np.int32)
+    got = tpa.paged_attention_grouped(*_torch(q, kp, vp, bt, cl)).numpy()
+    np.testing.assert_array_equal(got[0], 0.0)
+    stale = bt.copy()
+    stale[0, :], stale[1, 9:], stale[2, 16:] = 10 ** 6, 10 ** 6, 10 ** 6
+    np.testing.assert_array_equal(
+        tpa.paged_attention_grouped(*_torch(q, kp, vp, stale, cl)).numpy(),
+        got)
+
+
+def test_grouped_raises_when_the_width_is_not_a_multiple_of_8():
+    rng = np.random.default_rng(2)
+    kp, vp = _grouped_pools(rng, 1, 8, 128, jnp.float32)
+    q = rng.standard_normal((1, 1, 128)).astype(np.float32)
+    bt = rng.integers(0, 8, (1, 6)).astype(np.int32)
+    cl = np.asarray([50], np.int32)
+    with pytest.raises(ValueError):
+        jpa.paged_attention_grouped(*map(jnp.asarray, (q, kp, vp, bt, cl)))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tpa.paged_attention_grouped(*_torch(q, kp, vp, bt, cl))
+    with pytest.raises(ValueError, match="16-token"):  # 8-token pages
+        tpa.paged_attention_grouped(*_torch(q, kp[:, :, :8], vp[:, :, :8],
+                                            np.zeros((1, 8), np.int32), cl))
+    with pytest.raises(TypeError):
+        tpa.paged_attention_grouped(
+            *_torch(q, kp.astype(np.int8), vp.astype(np.int8),
+                    np.zeros((1, 8), np.int32), cl))
+    with pytest.raises(ValueError, match="CUDA"):
+        tpa._paged_attention_cuda(*_torch(q, kp, vp,
+                                          np.zeros((1, 8), np.int32), cl),
+                                  None, grouped=True)
+
+
+@pytest.fixture
+def grouped_flag():
+    from paddle_tpu_torch.framework import config as tconfig
+
+    old = tconfig.get_flags(["FLAGS_paged_grouped_kernel"])
+    yield lambda on: tconfig.set_flags({"FLAGS_paged_grouped_kernel": on})
+    tconfig.set_flags(old)
+
+
+def _dispatched(monkeypatch, q, k, v, tables, lens, **kw):
+    seen = []
+    for name in ("paged_attention", "paged_attention_grouped"):
+        real = getattr(tpa, name)
+        monkeypatch.setattr(tpa, name, lambda *a, _r=real, _n=name, **k_:
+                            seen.append(_n) or _r(*a, **k_))
+    out = tpa.paged_attention_dispatch(q, k, v, tables, lens, **kw)
+    monkeypatch.undo()
+    return seen, out
+
+
+def test_decode_dispatch_order(monkeypatch, grouped_flag):
+    """Tuner off: the grouped kernel exactly when its flag is set and the
+    pages are float, 16 tokens, head_dim 128, the table a multiple of 8
+    pages wide; otherwise the per-page kernel. (The tuner's winner comes
+    first when it is on: test_torch_autotune.py.)"""
+    rng = np.random.default_rng(3)
+    kp, vp = _grouped_pools(rng, 2, 32, 128, jnp.float32)
+    q = rng.standard_normal((2, 4, 128)).astype(np.float32)
+    bt = rng.permutation(32).reshape(2, 16).astype(np.int32)
+    cl = np.asarray([200, 17], np.int32)
+    args = _torch(q, kp, vp, bt, cl)
+    want = tpa.paged_attention_ref(*args)
+    grouped_flag(False)
+    seen, out = _dispatched(monkeypatch, *args)
+    assert seen == ["paged_attention"]
+    torch.testing.assert_close(out, want, rtol=0, atol=ATOL)
+    grouped_flag(True)
+    seen, out = _dispatched(monkeypatch, *args)
+    assert seen == ["paged_attention_grouped"]
+    torch.testing.assert_close(out, want, rtol=0, atol=ATOL)
+    # a table 12 pages wide does not fit the grouped kernel
+    seen, _ = _dispatched(monkeypatch, *_torch(q, kp, vp, bt[:, :12], cl))
+    assert seen == ["paged_attention"]
+    # int8 pages take the per-page kernel's int8 body
+    k8, ks = tpa._quant_kv_token(args[1])
+    v8, vs = tpa._quant_kv_token(args[2])
+    seen, _ = _dispatched(monkeypatch, args[0], k8, v8, args[3], args[4],
+                          k_scales=ks, v_scales=vs)
+    assert seen == ["paged_attention"]
+
+
+def test_tiny_engine_with_the_grouped_flag_matches_jax_engine(
+        monkeypatch, grouped_flag):
+    """head_dim 128, 16-token pages, tables 8 pages wide: with
+    FLAGS_paged_grouped_kernel set in both packages, the port's engine
+    decodes through the grouped plain version and its greedy streams equal
+    the JAX engine's."""
+    import paddle_tpu as paddle
+    from paddle_tpu.inference import ServingEngine as JaxEngine
+    from paddle_tpu.models.llama import LlamaConfig as JaxLlamaConfig
+    from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.weights import load_llama_state
+    from torch_parity import jax_state
+
+    dims = dict(vocab=256, hidden=256, layers=2, heads=2, seq=128)
+    paddle.seed(7)
+    jcfg = JaxLlamaConfig.tiny(**dims)
+    jcfg.num_key_value_heads = 1
+    jm = JaxLlama(jcfg)
+    jm.eval()
+    tcfg = LlamaConfig.tiny(**dims)
+    tcfg.num_key_value_heads = 1
+    tm = LlamaForCausalLM(tcfg, device="cpu")
+    load_llama_state(tm, jax_state(jm))
+    calls = []
+    real = tpa.paged_attention_grouped_ref
+    monkeypatch.setattr(tpa, "paged_attention_grouped_ref",
+                        lambda *a: calls.append(1) or real(*a))
+    old = paddle.get_flags(["FLAGS_paged_grouped_kernel"])
+    paddle.set_flags({"FLAGS_paged_grouped_kernel": True})
+    grouped_flag(True)
+    try:
+        rng = np.random.RandomState(5)
+        prompts = [rng.randint(0, 256, (n,)) for n in (5, 9, 17, 3, 40)]
+        streams = []
+        for cls, model, kw in ((JaxEngine, jm, {}),
+                               (ServingEngine, tm, {"device": "cpu"})):
+            eng = cls(model, max_batch=3, max_seq_len=128, page_size=16,
+                      decode_strategy="greedy_search", **kw)
+            for p in prompts:
+                eng.add_request(p, max_new_tokens=16)
+            streams.append({f.request_id: f.output_ids.tolist()
+                            for f in eng.run()})
+    finally:
+        paddle.set_flags(old)
+    assert calls  # the port decoded through the grouped plain version
+    assert streams[0] == streams[1]
