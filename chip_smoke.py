@@ -50,7 +50,30 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    kernels;
 7. a tiny f32 LLaMA (head_dim 128) takes 3 AdamW steps on CUDA, through the
    kernels, and on the CPU, through their plain versions, from the same
-   weights: losses and updates agree.
+   weights: losses and updates agree;
+8. measured dispatch (FLAGS_autotune, FLAGS_paged_grouped_kernel): the 7B
+   serving and a 4-layer training step with both flags on, exact launch
+   counts from the tuner's winners;
+9. varlen and dropout flash attention, with FLAGS_flash_dropout_kernel on:
+   (a) the seg, drop and seg_drop bodies of the forward, dK/dV and dQ
+   kernels against their plain versions at [b*h, s, 128] (2 batch rows of
+   8-16 heads, 2048-4096 tokens, bf16, and 512 tokens f32, causal and not;
+   packed ids with padding), held row by row beside faults (segment ids
+   shifted by a token, a mask keyed by tile-local positions, the seed off
+   by one, dV from the undropped p), with device times, bounds over the
+   visible pairs, the plain versions' and SDPA's times; (b)
+   `F.flash_attn_unpadded` at LLaMA-2-7B's attention width (32 heads of
+   128, bf16) over sequences of 64-4096 tokens packed to 16384, causal,
+   forward and backward at dropout 0 and 0.1, launches counted from zero,
+   3 heads held against per-sequence attention; (c) 24 fused encoder
+   layers at GPT-3 1.3B widths (d 2048, 16 heads, ffn 8192, vocab 50304)
+   trained on masked-token prediction, batch 4 x 2048, bf16 O2, AdamW,
+   attention and other dropout 0.1: a warm step and 3 timed steps with
+   exactly 24 launches of each dropout kernel a step, the loss falling, the
+   drop share of layer 0's mask within 0.005 of the rate; (d) the lse
+   entry at [1, 4096, 32, 128] bf16 against the plain versions; (e) a tiny
+   f32 encoder with attention dropout on CUDA and on the CPU from the same
+   weights and seed.
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -73,7 +96,10 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+import paddle_tpu_torch as ptt
 from paddle_tpu_torch import amp, get_flags, set_flags
+from paddle_tpu_torch.framework import random as trandom
+from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
 from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.kernels import _build, autotune
 from paddle_tpu_torch.kernels import flash_attention as kfa
@@ -83,10 +109,13 @@ from paddle_tpu_torch.kernels import quant_matmul as kqm
 from paddle_tpu_torch.kernels import rms_norm as krms
 from paddle_tpu_torch.models import build_train_step
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.nn import Embedding, LayerNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.quant import quantize_for_inference, weight_quantize
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.weights import llama_state_to_numpy, load_llama_state
+from paddle_tpu_torch.weights import (fused_encoder_state_from_numpy,
+                                      fused_encoder_state_to_numpy,
+                                      llama_state_to_numpy, load_llama_state)
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s; f32 FLOP/s off the tensor
 # cores (the RMSNorm and paged kernels' arithmetic); the tensor cores' bf16
@@ -167,6 +196,27 @@ def time_ms(fn, iters, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, "events"
+
+
+def events_ms(fn, iters):
+    """ms per call by CUDA events around `iters` back-to-back calls, after
+    two warm ones: the device's time where each call keeps the device busy
+    longer than the host takes to launch the next (phase 9's kernels, plain
+    versions and SDPA calls, 0.1 ms and more). Phase 9 does not sum
+    torch.profiler's records: late in this script's run the profiler kept
+    one of ten device records of the ctypes launches in one profiling run,
+    while a fresh process kept them all."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes, flops, flop_s=F32_FLOP_S):
@@ -645,13 +695,26 @@ def rms_bwd_case(name, rows, cols, dtype, gen, dev, eps=1e-6):
                 bound_ms=b_ms, bound_by=b_by, timings=timings)
 
 
-def visible_pairs(s_q, s_kv, causal):
-    """(query, key) pairs the attention computes: all, or under the
-    bottom-right aligned causal mask those with i + s_kv - s_q >= j."""
-    if not causal:
-        return s_q * s_kv
+def visible_pairs(s_q, s_kv, causal, seg_q=None, seg_k=None):
+    """(query, key) pairs the attention computes for one head: all, or under
+    the bottom-right aligned causal mask those with i + s_kv - s_q >= j;
+    with segment ids (int tensors [b, s_q], [b, s_kv]) only the pairs of
+    equal ids among those, summed over the b rows."""
     off = s_kv - s_q
-    return sum(min(max(i + off + 1, 0), s_kv) for i in range(s_q))
+    if seg_q is None:
+        if not causal:
+            return s_q * s_kv
+        return sum(min(max(i + off + 1, 0), s_kv) for i in range(s_q))
+    cols = torch.arange(s_kv, device=seg_k.device)
+    total = 0
+    for row in range(seg_q.shape[0]):
+        for r0 in range(0, s_q, 1024):
+            rows = torch.arange(r0, min(r0 + 1024, s_q), device=cols.device)
+            hit = seg_q[row, rows, None] == seg_k[row, None, :]
+            if causal:
+                hit &= rows[:, None] + off >= cols[None, :]
+            total += int(hit.sum())
+    return total
 
 
 def flash_controls(q, k, v, do, lse, delta, scale, causal, want):
@@ -1825,6 +1888,624 @@ def measured_dispatch(seed, dev, card, phase4):
     return dict(serving=a, serving_pinned=b, training=c, tiny_parity=d)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: varlen and dropout flash attention (the seg, drop and seg_drop
+# bodies of the three flash sites)
+# ---------------------------------------------------------------------------
+
+
+# the TPU kernel bodies each CUDA variant replaces
+# (paddle_tpu/kernels/flash_attention.py)
+VARIANT_REPLACES = {
+    ("fwd", "seg"): 190, ("fwd", "drop"): 196, ("fwd", "seg_drop"): 202,
+    ("dkv", "seg"): 410, ("dkv", "drop"): 425, ("dkv", "seg_drop"): 439,
+    ("dq", "seg"): 418, ("dq", "drop"): 433, ("dq", "seg_drop"): 447}
+PASS_KERNEL = {"fwd": "flash_fwd", "dkv": "flash_bwd_dkv",
+               "dq": "flash_bwd_dq"}
+DROP_RATE = 0.1
+
+
+def packed_ids(rng, b, s, pad, lo=64, hi=4096):
+    """[b, s] int32 segment ids of sequences of lengths drawn in [lo, hi]
+    packed from the start of each row (the last one cut to fit), the last
+    `pad` positions -1."""
+    ids = np.full((b, s), -1, np.int32)
+    for i in range(b):
+        pos, sid = 0, 0
+        while pos < s - pad:
+            n = min(int(rng.randint(lo, hi + 1)), s - pad - pos)
+            ids[i, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return ids
+
+
+def variant_controls(q, k, v, do, lse, delta, scale, causal, var, want):
+    """Readings of the variant check on faults made from the plain
+    versions, against the sound plain outputs `want`: every one must exceed
+    the bar. "seg_shift": segment ids shifted by one token. "tile_local":
+    the dropout mask keyed by positions within 64-row tiles instead of
+    global ones. "seed": the seed off by one. "dv_undropped": dV from the
+    undropped p (the sound lse and delta)."""
+    bh, s_q, s_kv = q.shape[0], q.shape[1], k.shape[1]
+
+    def run(v_):
+        out, lse2 = kfa.flash_fwd_ref(q, k, v, scale, causal, v_)
+        delta2 = kfa.flash_bwd_delta(out, do)
+        dk, dv = kfa.flash_bwd_dkv_ref(q, k, v, do, lse2, delta2, scale,
+                                       causal, v_)
+        dq = kfa.flash_bwd_dq_ref(q, k, v, do, lse2, delta2, scale, causal,
+                                  v_)
+        return dict(out=out, dq=dq, dk=dk, dv=dv)
+
+    def variant(**kw):
+        base = dict(seg_q=var.seg_q, seg_k=var.seg_k, heads=var.heads,
+                    rate=var.rate, seed=var.seed)
+        base.update(kw)
+        return kfa.Variant(**base)
+
+    got = {}
+    if var.seg_q is not None:
+        got["seg_shift"] = run(variant(
+            seg_q=torch.roll(var.seg_q, 1, dims=1),
+            seg_k=torch.roll(var.seg_k, 1, dims=1)))
+    if var.rate:
+        ar = torch.arange(max(bh, s_q, s_kv), device=q.device)
+        local = kfa.dropout_keep(var.seed, ar[:bh, None, None],
+                                 (ar[:s_q] % 64)[None, :, None],
+                                 (ar[:s_kv] % 64)[None, None, :], var.rate)
+        got["tile_local"] = run(variant(keep=local))
+        del local
+        got["seed"] = run(variant(seed=var.seed + 1))
+        _, dv = kfa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale, causal,
+                                      variant(rate=0.0))
+        got["dv_undropped"] = dict(dv=dv)
+    return {fault: {key: row_rel_err(t, want[key]) for key, t in ts.items()}
+            for fault, ts in got.items()}
+
+
+def variant_case(name, variant, b, heads, s, causal, dtype, gen, dev, rng,
+                 controls=False, seed=20260917):
+    """The three kernels of one variant against their plain versions, row by
+    row under FLASH_TOL, on [b * heads, s, 128] (row bh reads the segment ids
+    of batch bh // heads: packed sequences of 64-4096 tokens, s / 32
+    padding, -1 for queries, -2 for keys); with `controls`, faults that
+    must fail the bar, and a `timings` closure (kernel, plain, PyTorch's
+    SDPA with a boolean block-diagonal mask and / or dropout_p)."""
+    d = kfa.HEAD_DIM
+    scale = d ** -0.5
+    bh = b * heads
+    sq = sk = None
+    if variant != "drop":
+        sq = torch.from_numpy(packed_ids(rng, b, s, s // 32)).to(dev)
+        sk = torch.where(sq < 0, -2, sq).to(torch.int32)
+    var = kfa.Variant(sq, sk, heads=heads,
+                      rate=0.0 if variant == "seg" else DROP_RATE, seed=seed)
+    check(var.name == variant, f"variant {name}: {var.name}")
+
+    def rnd():
+        return torch.randn(bh, s, d, generator=gen, device=dev).to(dtype)
+
+    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    before = {p: kfa.variant_launches[(p, variant)] for p in kfa.PASSES}
+    out, lse = kfa.flash_fwd(q, k, v, scale, causal, var)
+    delta = kfa.flash_bwd_delta(out, do)
+    dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, var)
+    dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, var)
+    torch.cuda.synchronize()
+    check(all(kfa.variant_launches[(p, variant)] == before[p] + 1
+              for p in kfa.PASSES), f"variant {name}: kernels not launched")
+    out_r, lse_r = kfa.flash_fwd_ref(q, k, v, scale, causal, var)
+    dk_r, dv_r = kfa.flash_bwd_dkv_ref(q, k, v, do, lse_r, delta, scale,
+                                       causal, var)
+    dq_r = kfa.flash_bwd_dq_ref(q, k, v, do, lse_r, delta, scale, causal,
+                                var)
+    want = dict(out=out_r, dq=dq_r, dk=dk_r, dv=dv_r)
+    tol = FLASH_TOL[dtype]
+    errs, abs_err = {}, {}
+    for key, got in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
+        abs_err[key] = (got.float() - want[key].float()).abs().max().item()
+        errs[key] = row_rel_err(got, want[key])
+        check(errs[key] <= tol, f"flash {variant} {name} {key}: row rel err "
+              f"{errs[key]} > {tol}")
+    live = lse_r > -1e29
+    lse_err = (lse[live] - lse_r[live]).abs().max().item()
+    check(lse_err <= 1e-3, f"flash {variant} {name} lse: max abs err "
+          f"{lse_err}")
+    check(torch.equal(lse[~live], lse_r[~live]) and not out[~live].any(),
+          f"flash {variant} {name}: a row that sees no key is not 0 / -1e30")
+    ctl = {}
+    if controls:
+        ctl = variant_controls(q, k, v, do, lse_r, delta, scale, causal, var,
+                               want)
+        for fault, readings in ctl.items():
+            for key, err in readings.items():
+                check(err > tol, f"flash {variant} {name}: the {fault} "
+                      f"control reads {key} {err}, within the bar {tol}")
+    del out_r, lse_r, dk_r, dv_r, dq_r, want
+    # visible pairs: one head of each batch row, times the heads
+    pairs = visible_pairs(s, s, causal, sq, sk) * heads if sq is not None \
+        else visible_pairs(s, s, causal) * bh
+    elt = q.element_size()
+    rate_ = BF16_FLOP_S if dtype == torch.bfloat16 else TF32_FLOP_S
+    n_t = bh * s * d * elt
+    ids = 0 if sq is None else 2 * b * s * 4
+    b_fwd = bound(4 * n_t + 4 * bh * s + ids, 4 * d * pairs, rate_)
+    b_dkv = bound(6 * n_t + 8 * bh * s + ids, 8 * d * pairs, rate_)
+    b_dq = bound(5 * n_t + 8 * bh * s + ids, 6 * d * pairs, rate_)
+    res = dict(case=name, variant=variant, b=b, heads=heads, s=s,
+               causal=causal, dtype=str(dtype).split(".")[-1],
+               rate=var.rate, visible_pairs=pairs,
+               pair_share=pairs / (bh * s * s), tol=tol, lse_err=lse_err,
+               controls=ctl)
+    for key, kb, err, aerr in (
+            ("fwd", b_fwd, errs["out"], abs_err["out"]),
+            ("dkv", b_dkv, max(errs["dk"], errs["dv"]),
+             max(abs_err["dk"], abs_err["dv"])),
+            ("dq", b_dq, errs["dq"], abs_err["dq"])):
+        res[key] = dict(row_rel_err=err, max_abs_err=aerr, bound_ms=kb[0],
+                        bound_by=kb[1])
+
+    def timings():
+        it = 10
+        for key, fn, ref in (
+                ("fwd", lambda: kfa.flash_fwd(q, k, v, scale, causal, var),
+                 lambda: kfa.flash_fwd_ref(q, k, v, scale, causal, var)),
+                ("dkv", lambda: kfa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                  scale, causal, var),
+                 lambda: kfa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                               scale, causal, var)),
+                ("dq", lambda: kfa.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                scale, causal, var),
+                 lambda: kfa.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale,
+                                              causal, var))):
+            res[key]["ms"], res[key]["timer"] = events_ms(fn, it), "events"
+            res[key]["plain_ms"] = events_ms(ref, 2)
+        # SDPA over [b, heads, s, d] views: a boolean [b, 1, s, s] mask of
+        # equal ids (and the causal triangle) for segments, dropout_p for
+        # dropout; its backward computes dQ, dK and dV in one call
+        q4, k4, v4 = (t.view(b, heads, s, d) for t in (q, k, v))
+        mask = None
+        if sq is not None:
+            mask = (sq[:, None, :, None] == sk[:, None, None, :])
+            if causal:
+                mask = mask & torch.ones(s, s, dtype=torch.bool,
+                                         device=dev).tril()
+        kw = dict(attn_mask=mask, dropout_p=var.rate,
+                  is_causal=causal and mask is None)
+        res["fwd"]["library_ms"] = events_ms(
+            lambda: TF.scaled_dot_product_attention(q4, k4, v4, **kw), it)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+        o = TF.scaled_dot_product_attention(qg, kg, vg, **kw)
+        bwd = events_ms(lambda: torch.autograd.grad(
+            o, (qg, kg, vg), do.view(b, heads, s, d), retain_graph=True),
+            it)
+        res["dkv"]["library_ms"] = res["dq"]["library_ms"] = bwd
+
+    res["timings"] = timings
+    return res
+
+
+def per_sequence_reference(q, k, v, g, out, lens, heads, rate, seed):
+    """Causal attention of each packed sequence alone, in f32, for the
+    listed heads of q/k/v [total, heads, d] (bf16), with the threefry mask
+    of the packed call (batch-head row = head, global positions), and its
+    gradients for the output cotangent g by the flash backward's math from
+    the stored output `out` (delta = rowsum(g * out), as the backward
+    kernels take it: a row that sees few keys forms dQ from dP - delta, a
+    difference that bf16 rounding of a recomputed output would swamp):
+    (out, dq, dk, dv) [total, len(heads), d]."""
+    scale = q.shape[-1] ** -0.5
+    res = [torch.zeros(q.shape[0], len(heads), q.shape[-1],
+                       device=q.device) for _ in range(4)]
+    start = 0
+    for n in lens:
+        sl = slice(start, start + n)
+        pos = torch.arange(start, start + n, device=q.device)
+        tri = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        for j, hh in enumerate(heads):
+            qs, ks, vs, gs, os_ = (t[sl, hh].float()
+                                   for t in (q, k, v, g, out))
+            p = torch.softmax((qs @ ks.T * scale).masked_fill(
+                ~tri, float("-inf")), dim=-1)
+            dp = gs @ vs.T
+            p_d = p
+            if rate:
+                keep = kfa.dropout_keep(seed, hh, pos[:, None],
+                                        pos[None, :], rate)
+                inv = 1.0 / (1.0 - rate)
+                p_d = torch.where(keep, p, 0.0) * inv
+                dp = torch.where(keep, dp, 0.0) * inv
+            o = p_d @ vs
+            delta = (gs * os_).sum(-1, keepdim=True)
+            ds = p * (dp - delta) * scale
+            for r, t in zip(res, (o, ds @ ks, ds.T @ qs, p_d.T @ gs)):
+                r[sl, j] = t
+        start += n
+    return res
+
+
+def varlen_7b(seed, dev, card, total=16384, heads=32, check_heads=(0, 13,
+                                                                    31)):
+    """(b) `F.flash_attn_unpadded` at LLaMA-2-7B's attention width (32
+    heads of 128, bf16) over sequences of 64-4096 tokens from --seed packed
+    to 16384 tokens, causal, forward and backward in training, at dropout 0
+    (the seg kernels) and 0.1 (seg_drop), each run counted from zero; three
+    heads held against per-sequence plain attention."""
+    rng = np.random.RandomState(seed + 9)
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(rng.randint(64, 4097)))
+    lens[-1] -= sum(lens) - total
+    cu = torch.tensor([0] + np.cumsum(lens).tolist(), dtype=torch.int32,
+                      device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    q, k, v, g = (torch.randn(total, heads, 128, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    pairs = sum(n * (n + 1) // 2 for n in lens) * heads
+    runs = {}
+    for rate in (0.0, DROP_RATE):
+        name = "seg_drop" if rate else "seg"
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        state = ptt.get_rng_state()
+        torch.cuda.synchronize()
+        # the main path: counts from zero, read right after
+        kfa.reset_launches()
+        t0 = time.perf_counter()
+        out, _ = F.flash_attn_unpadded(*ts, cu, cu, max(lens), max(lens),
+                                       dropout=rate, causal=True,
+                                       training=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out.backward(g)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {f"{p}_{v_}": n for (p, v_), n in
+                    kfa.variant_launches.items() if n}
+        check(launches == {f"{p}_{name}": 1 for p in kfa.PASSES},
+              f"varlen dropout {rate}: launches {launches}")
+        kseed = None
+        if rate:  # the seed the call drew: the stream's next draw
+            after = ptt.get_rng_state()
+            ptt.set_rng_state(state)
+            kseed = trandom.next_seed()
+            ptt.set_rng_state(after)
+        want = per_sequence_reference(q, k, v, g, out.detach(), lens,
+                                      check_heads, rate, kseed)
+        hs = list(check_heads)
+        errs = {key: row_rel_err(got[:, hs].float(), w)
+                for key, got, w in zip(("out", "dq", "dk", "dv"),
+                                       (out.detach(), ts[0].grad,
+                                        ts[1].grad, ts[2].grad), want)}
+        for key, err in errs.items():
+            check(err <= FLASH_TOL[torch.bfloat16],
+                  f"varlen dropout {rate} {key}: row rel err {err} against "
+                  f"per-sequence attention")
+        check(all(torch.isfinite(t).all() for t in
+                  (out, ts[0].grad, ts[1].grad, ts[2].grad)),
+              f"varlen dropout {rate}: non-finite values")
+        del want
+
+        def fwd_bwd():
+            xs = [t.detach().requires_grad_() for t in (q, k, v)]
+            o, _ = F.flash_attn_unpadded(*xs, cu, cu, max(lens), max(lens),
+                                         dropout=rate, causal=True,
+                                         training=True)
+            o.backward(g)
+
+        _, by_name = _device_profile(fwd_bwd)
+        dev_ms = {n[:60]: us / 1e3 for n, us in by_name.items()}
+        flash_ms = sum(ms for n, ms in dev_ms.items() if "flash_" in n)
+        runs[name] = dict(rate=rate, seed=kseed, launches=launches,
+                          fwd_wall_ms=(t1 - t0) * 1e3,
+                          bwd_wall_ms=(t2 - t1) * 1e3, row_rel_err=errs,
+                          device_ms=dev_ms, flash_device_ms=flash_ms)
+        log(f"varlen: {len(lens)} sequences packed to {total} tokens x "
+            f"{heads} heads of 128 bf16, causal, dropout {rate}: forward "
+            f"{(t1 - t0) * 1e3:.2f} ms, backward {(t2 - t1) * 1e3:.2f} ms "
+            f"wall (first call); flash kernels {flash_ms:.3f} ms device per "
+            f"forward + backward; launches {launches}; heads {hs} against "
+            f"per-sequence attention: row rel err " + ", ".join(
+                f"{key} {e:.3g}" for key, e in errs.items()) + f" [{card}]")
+    return dict(lens=lens, total=total, heads=heads, visible_pairs=pairs,
+                pair_share=pairs / (heads * total * total), runs=runs)
+
+
+class MaskedEncoder(torch.nn.Module):
+    """Token and position embeddings, `layers` incubate
+    `FusedTransformerEncoderLayer`s (pre-LN, GELU, dropout 0.1 everywhere,
+    attention dropout included), a final LayerNorm and the output head tied
+    to the token embedding."""
+
+    def __init__(self, vocab, d, heads, ff, layers, seq, dev, gen):
+        super().__init__()
+        self.embed = Embedding(vocab, d, device=dev)
+        self.pos = Embedding(seq, d, device=dev)
+        with torch.no_grad():
+            for e in (self.embed, self.pos):
+                e.weight.normal_(0.0, 0.02, generator=gen)
+        self.layers = torch.nn.ModuleList(
+            FusedTransformerEncoderLayer(
+                d, heads, ff, dropout_rate=DROP_RATE, activation="gelu",
+                normalize_before=True, device=dev, generator=gen)
+            for _ in range(layers))
+        self.norm = LayerNorm(d, device=dev)
+
+    def forward(self, ids):
+        h = self.embed(ids) + self.pos.weight[:ids.shape[1]]
+        for layer in self.layers:
+            h = layer(h)
+        return F.linear(self.norm(h), self.embed.weight.t())
+
+
+def train_fused_encoder(seed, dev, card, layers=24, batch=4, seq=2048,
+                        steps=3, vocab=50304, d=2048, heads=16, ff=8192):
+    """(c) GPT-3 1.3B layer widths (d 2048, 16 heads of 128, ffn 8192,
+    vocab 50304) as 24 pre-LN fused encoder layers trained on masked-token
+    prediction (15 % of positions masked, random ids from --seed, the same
+    batch each step), bf16 O2, AdamW(1e-4), with FLAGS_flash_dropout_kernel
+    on: a warm step, then `steps` timed steps counted from zero (24
+    forward, dK/dV and dQ dropout launches a step, nothing else), the keep
+    share of layer 0's mask in one step, one profiled step."""
+    mask_id = vocab - 1
+    t0 = time.perf_counter()
+    ptt.seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = amp.decorate(MaskedEncoder(vocab, d, heads, ff, layers, seq, dev,
+                                       gen), level="O2", dtype="bfloat16")
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(seed + 3)
+    ids = rng.randint(0, vocab - 1, (batch, seq))
+    masked = rng.rand(batch, seq) < 0.15
+    x = torch.from_numpy(np.where(masked, mask_id, ids)).to(dev)
+    y = torch.from_numpy(np.where(masked, ids, -100)).to(dev)
+
+    def step():
+        model.train()
+        loss = F.cross_entropy(model(x).float(), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"encoder: GPT-3 1.3B widths, {layers} fused encoder layers, "
+        f"{n_params / 1e9:.3f} B bf16 parameters, ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    losses = [step()]
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    state = ptt.get_rng_state()  # layer 0's attention seed: the next draw
+    kfa.reset_launches()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {f"{p}_{v_}": n for (p, v_), n in kfa.variant_launches.items()
+                if n}
+    check(launches == {f"{p}_drop": layers * steps for p in kfa.PASSES},
+          f"encoder: launches {launches} in {steps} steps, expected "
+          f"{layers * steps} of each dropout kernel and no other")
+    after = ptt.get_rng_state()
+    ptt.set_rng_state(state)
+    seed0 = trandom.next_seed()
+    ptt.set_rng_state(after)
+    kept, ar = 0, torch.arange(seq, device=dev)
+    for h0 in range(0, batch * heads, 8):  # 8 rows of b*h at a time
+        rows = torch.arange(h0, min(h0 + 8, batch * heads), device=dev)
+        kept += int(kfa.dropout_keep(seed0, rows[:, None, None],
+                                     ar[None, :, None], ar[None, None, :],
+                                     DROP_RATE).sum())
+    drop_share = 1.0 - kept / (batch * heads * seq * seq)
+    check(abs(drop_share - DROP_RATE) <= 0.005,
+          f"encoder: layer 0's mask drops {drop_share}, rate {DROP_RATE}")
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses), f"encoder: loss {losses}")
+    check(losses[-1] < losses[0], f"encoder: loss did not fall: {losses}")
+    p50 = float(np.median(step_ms))
+    tok_s = batch * seq / (p50 / 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall, by_name = _device_profile(step)
+    busy = sum(by_name.values()) / 1e3
+    classes = {}
+    for name, us in by_name.items():
+        c = _kernel_class(name)
+        classes[c] = classes.get(c, 0.0) + us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    res = dict(card=card, layers=layers, params=n_params, batch=batch,
+               seq=seq, losses=losses, warm_step_ms=warm_ms,
+               step_ms=step_ms, step_ms_p50=p50, tokens_per_s=tok_s,
+               launches=launches, layer0_seed=seed0,
+               layer0_drop_share=drop_share, max_memory_allocated_gib=peak_gib,
+               profile=dict(wall_ms=wall, device_busy_ms=busy,
+                            idle_share=1.0 - busy / wall,
+                            device_ms_by_class=classes,
+                            top_kernels_ms=[(n[:90], us / 1e3)
+                                            for n, us in top]))
+    log(f"encoder: losses {', '.join(f'{v:.4f}' for v in losses)} (warm "
+        f"step first); batch {batch} x {seq}: warm step {warm_ms:.1f} ms; "
+        f"{steps} steps p50 {p50:.1f} ms (min {min(step_ms):.1f}, max "
+        f"{max(step_ms):.1f}), {tok_s:.1f} tokens/s; peak {peak_gib:.2f} GiB "
+        f"allocated [{card}]")
+    log(f"encoder: launches over the {steps} timed steps {launches}; layer "
+        f"0's mask (seed {seed0}) drops {drop_share:.5f} of "
+        f"{batch * heads * seq * seq} pairs (rate {DROP_RATE})")
+    log(f"profile: one encoder step: {wall:.1f} ms wall, {busy:.1f} ms "
+        f"device busy, idle share {1.0 - busy / wall:.3f}; device ms by "
+        f"class " + ", ".join(f"{c} {ms:.1f}" for c, ms in sorted(
+            classes.items(), key=lambda kv: -kv[1])) + f" [{card}]")
+    for name, ms in res["profile"]["top_kernels_ms"]:
+        log(f"profile:   {ms:8.3f} ms  {name}")
+    del model, opt, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def lse_entry(seed, dev, card, s=4096, heads=32):
+    """(d) `flash_attention_with_lse_bshd` at [1, 4096, 32, 128] bf16
+    causal: out, lse and the gradients of a loss on both against the plain
+    versions (the lse cotangent folded into delta, which both take from the
+    entry's stored output)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    q, k, v, g = (torch.randn(1, s, heads, 128, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    g_lse = torch.randn(1, heads, s, generator=gen, device=dev)
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    kfa.reset_launches()
+    out, lse = kfa.flash_attention_with_lse_bshd(*ts, causal=True)
+    torch.autograd.backward((out, lse), (g, g_lse))
+    torch.cuda.synchronize()
+    launches = {f"{p}_{v_}": n for (p, v_), n in kfa.variant_launches.items()
+                if n}
+    check(launches == {f"{p}_plain": 1 for p in kfa.PASSES},
+          f"lse entry: launches {launches}")
+
+    def bhsd(t):
+        return t.transpose(1, 2).reshape(heads, s, 128).contiguous()
+
+    scale = 128 ** -0.5
+    qb, kb, vb, gb = map(bhsd, (q, k, v, g))
+    out_r, lse_r = kfa.flash_fwd_ref(qb, kb, vb, scale, True)
+    # delta from the stored output, as the backward kernels take it
+    delta = kfa.flash_bwd_delta(bhsd(out.detach()), gb) - g_lse[0]
+    dk_r, dv_r = kfa.flash_bwd_dkv_ref(qb, kb, vb, gb, lse_r, delta, scale,
+                                       True)
+    dq_r = kfa.flash_bwd_dq_ref(qb, kb, vb, gb, lse_r, delta, scale, True)
+    tol = FLASH_TOL[torch.bfloat16]
+    errs = {key: row_rel_err(bhsd(got), want) for key, got, want in (
+        ("out", out.detach(), out_r), ("dq", ts[0].grad, dq_r),
+        ("dk", ts[1].grad, dk_r), ("dv", ts[2].grad, dv_r))}
+    lse_err = (lse[0] - lse_r).abs().max().item()
+    for key, err in errs.items():
+        check(err <= tol, f"lse entry {key}: row rel err {err} > {tol}")
+    check(lse_err <= 1e-3, f"lse entry: lse max abs err {lse_err}")
+    log(f"lse entry: [1, {s}, {heads}, 128] bf16 causal, out, lse and both "
+        f"cotangents against the plain versions: row rel err " + ", ".join(
+            f"{key} {e:.3g}" for key, e in errs.items())
+        + f", lse max abs err {lse_err:.3g}; launches {launches} [{card}]")
+    return dict(row_rel_err=errs, lse_err=lse_err, launches=launches)
+
+
+def tiny_encoder_parity(seed, dev, layers=2):
+    """(e) A tiny f32 stack of fused encoder layers (d 256, 2 heads of 128,
+    ffn 512) with attention dropout 0.1 and no other dropout: CUDA through
+    the drop kernels and the CPU through their plain versions, from the
+    same weights and the same `paddle_tpu_torch.seed`, so the same masks:
+    outputs and parameter gradients within the f32 bar."""
+    ptt.seed(seed)
+
+    def stack(d_):
+        return torch.nn.Sequential(*(FusedTransformerEncoderLayer(
+            256, 2, 512, dropout_rate=0.0, attn_dropout_rate=DROP_RATE,
+            activation="gelu", normalize_before=True, device=d_)
+            for _ in range(layers)))
+
+    cpu, gpu = stack("cpu"), stack(dev)
+    gpu.load_state_dict(fused_encoder_state_from_numpy(
+        fused_encoder_state_to_numpy(cpu), gpu))
+    x = torch.randn(2, 256, 256, generator=torch.Generator().manual_seed(
+        seed))
+    g = torch.randn(2, 256, 256, generator=torch.Generator().manual_seed(
+        seed + 1))
+    kfa.reset_launches()
+    outs = []
+    for model, d_ in ((cpu, "cpu"), (gpu, dev)):
+        ptt.seed(seed + 2)
+        out = model(x.to(d_))
+        out.backward(g.to(d_))
+        outs.append(out.detach().cpu())
+    check(kfa.variant_launches[("fwd", "drop")] == layers
+          and kfa.variant_launches[("dkv", "drop")] == layers,
+          "tiny encoder: CUDA did not run the drop kernels")
+    err = row_rel_err(outs[1], outs[0])
+    tol = FLASH_TOL[torch.float32]
+    check(err <= tol, f"tiny encoder: CUDA vs CPU out {err} > {tol}")
+    worst = 0.0
+    for (name, p), q_ in zip(cpu.named_parameters(), gpu.parameters()):
+        if p.grad is None:
+            continue
+        worst = max(worst, row_rel_err(q_.grad.cpu().reshape(
+            -1, p.shape[-1]), p.grad.reshape(-1, p.shape[-1])))
+    check(worst <= tol, f"tiny encoder: gradients differ by {worst}")
+    log(f"parity: tiny f32 fused encoder ({layers} layers, attention dropout "
+        f"{DROP_RATE}), CUDA drop kernels vs CPU plain versions: out row rel "
+        f"err {err:.3g}, gradients {worst:.3g} (bar {tol})")
+    return dict(out_row_rel_err=err, grad_row_rel_err=worst)
+
+
+def flash_variants(seed, dev, card):
+    """Phase 9: (a) the variant kernels against their plain versions, with
+    faults, then (b)-(e); returns every result, and the (a) cases whose
+    times the kernels line reports."""
+    old = get_flags(["FLAGS_flash_dropout_kernel"])
+    set_flags({"FLAGS_flash_dropout_kernel": True})
+    try:
+        gen = torch.Generator(device=dev).manual_seed(seed + 5)
+        rng = np.random.RandomState(seed + 5)
+        bf16, f32 = torch.bfloat16, torch.float32
+        cases = [
+            variant_case("seg_causal_bf16", "seg", 2, 8, 4096, True, bf16,
+                         gen, dev, rng, controls=True),
+            variant_case("drop_full_bf16", "drop", 2, 16, 2048, False, bf16,
+                         gen, dev, rng, controls=True),
+            variant_case("seg_drop_causal_bf16", "seg_drop", 2, 8, 4096,
+                         True, bf16, gen, dev, rng, controls=True),
+            variant_case("seg_full_bf16", "seg", 2, 8, 4096, False, bf16,
+                         gen, dev, rng),
+            variant_case("drop_causal_bf16", "drop", 2, 8, 2048, True, bf16,
+                         gen, dev, rng),
+            variant_case("seg_causal_f32", "seg", 2, 2, 512, True, f32, gen,
+                         dev, rng, controls=True),
+            variant_case("drop_full_f32", "drop", 2, 2, 512, False, f32, gen,
+                         dev, rng, controls=True),
+            variant_case("seg_drop_full_f32", "seg_drop", 2, 2, 512, False,
+                         f32, gen, dev, rng, controls=True)]
+        for r in cases:
+            for key in kfa.PASSES:
+                log(f"kernel: flash {key} {r['variant']} {r['case']} "
+                    f"({r['b']}x{r['heads']}x{r['s']}, causal {r['causal']}, "
+                    f"rate {r['rate']}, visible share "
+                    f"{r['pair_share']:.4f}): row rel err "
+                    f"{r[key]['row_rel_err']:.3g} vs plain (bar "
+                    f"{r['tol']:.3g}), max abs err "
+                    f"{r[key]['max_abs_err']:.3g}")
+            for fault, readings in r["controls"].items():
+                log(f"kernel: flash {r['variant']} {r['case']} control "
+                    f"'{fault}' (must exceed the bar {r['tol']:.3g}): row "
+                    f"rel err " + ", ".join(f"{key} {err:.3g}" for key, err
+                                            in readings.items()))
+        timed = {}
+        for r in cases[:3]:
+            r.pop("timings")()
+            timed[r["variant"]] = r
+            for key in kfa.PASSES:
+                t = r[key]
+                log(f"kernel: flash {key} {r['variant']} {r['case']}: "
+                    f"{t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
+                    f"library {t['library_ms']:.4f} ms, bound "
+                    f"{t['bound_ms']:.4f} ms ({t['bound_by']}), device time "
+                    f"({t['timer']}) [{card}]")
+        for r in cases[3:]:
+            r.pop("timings")
+        gc.collect()
+        torch.cuda.empty_cache()
+        varlen = varlen_7b(seed, dev, card)
+        encoder = train_fused_encoder(seed, dev, card)
+        lse = lse_entry(seed, dev, card)
+        parity = tiny_encoder_parity(seed, dev)
+    finally:
+        set_flags(old)
+    return dict(cases=cases, varlen=varlen, encoder=encoder, lse=lse,
+                parity=parity), timed
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1994,6 +2675,11 @@ def main():
     # FLAGS_paged_grouped_kernel on, then off again
     dispatch = measured_dispatch(args.seed, dev, card, serving)
 
+    # 9. varlen and dropout flash attention: the seg, drop and seg_drop
+    # kernels, packed LLaMA-2-7B attention, the fused GPT-3 1.3B encoder
+    # with attention dropout, the lse entry, a tiny CUDA-vs-CPU encoder
+    variants, timed = flash_variants(args.seed, dev, card)
+
     def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -2004,6 +2690,7 @@ def main():
     csrc = "paddle_tpu_torch/kernels/csrc/"
     ref = "paddle_tpu/kernels/"
     served, trained = serving["launches"], training["launches"]
+    lse_launches = variants["lse"]["launches"]
     q8, q4 = serving13["launches"], serving13_int4["launches"]
     qmm_row = next(r for r in qmm if r["case"] == "5120->13824 m8 int8 g-1")
     kernels = [
@@ -2016,15 +2703,16 @@ def main():
         row("paged_attention", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged[0],
             served["paged_attention"]),
+        # the plain flash bodies: the training run's and phase 9 (d)'s
         row("flash_fwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:214", flash[0]["fwd"],
-            trained["flash_fwd"]),
+            trained["flash_fwd"] + lse_launches["fwd_plain"]),
         row("flash_bwd_dkv", csrc + "flash_attention.cu",
             ref + "flash_attention.py:473", flash[0]["dkv"],
-            trained["flash_bwd_dkv"]),
+            trained["flash_bwd_dkv"] + lse_launches["dkv_plain"]),
         row("flash_bwd_dq", csrc + "flash_attention.cu",
             ref + "flash_attention.py:534", flash[0]["dq"],
-            trained["flash_bwd_dq"]),
+            trained["flash_bwd_dq"] + lse_launches["dq_plain"]),
         row("quant_matmul", csrc + "quant_matmul.cu",
             ref + "quant_matmul.py:208", qmm_row,
             q8["quant_matmul"] + q4["quant_matmul"]),
@@ -2043,6 +2731,18 @@ def main():
             + dispatch["serving_pinned"]["launches"][
                 "paged_attention_grouped"]),
     ]
+    # the variant bodies; launches: phase 9's counted runs, (b) (both
+    # rates) and (c)'s timed steps
+    counted = [run["launches"] for run in variants["varlen"]["runs"].values()]
+    counted.append(variants["encoder"]["launches"])
+    for variant in ("seg", "drop", "seg_drop"):
+        for p in kfa.PASSES:
+            kernels.append(row(
+                f"{PASS_KERNEL[p]}_{variant}",
+                csrc + f"flash_attention_{variant}.cu",
+                ref + f"flash_attention.py:{VARIANT_REPLACES[(p, variant)]}",
+                timed[variant][p],
+                sum(c.get(f"{p}_{variant}", 0) for c in counted)))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
@@ -2055,7 +2755,8 @@ def main():
                            quant_parity=quant_parity, training=training,
                            train_parity=train_parity, matmul=mm,
                            paged_attention_grouped=grouped,
-                           dispatch=dispatch, kernels=kernels),
+                           dispatch=dispatch, flash_variants=variants,
+                           kernels=kernels),
                       f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -9,10 +9,14 @@ ported path is a hand-written CUDA C++ kernel for `sm_90a` under
 runs its kernel's plain PyTorch version only for CPU tensors; for a CUDA
 tensor it launches the kernel or raises. `set_flags` and `get_flags` read
 and set the `FLAGS_*` registry (`framework.config`), which is seeded from
-the environment at import.
+the environment at import; `seed` restarts the global random stream
+(`framework.random`) that dropout and the layers' initial weights draw
+from.
 """
 __version__ = "0.1.0"
 
 from .framework.config import get_flags, set_flags
+from .framework.random import get_rng_state, get_seed, seed, set_rng_state
 
-__all__ = ["get_flags", "set_flags"]
+__all__ = ["get_flags", "get_rng_state", "get_seed", "seed", "set_flags",
+           "set_rng_state"]

@@ -81,3 +81,10 @@ define_flag("FLAGS_autotune", "off",
 define_flag("FLAGS_autotune_cache_dir", "",
             "Directory of the tuner's tables (empty: "
             "~/.cache/paddle_tpu_torch).")
+define_flag("FLAGS_flash_dropout_kernel", False,
+            "Route training SDPA with dropout_p > 0 (no mask, a shape "
+            "kernels.flash_attention.supports takes) to the flash dropout "
+            "bodies, which drop the softmax weights in the kernels with the "
+            "threefry mask and a fresh seed per call. Off (the default): "
+            "dropout attention takes the dense reference path with a "
+            "bernoulli mask.")

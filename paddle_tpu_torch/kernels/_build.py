@@ -7,8 +7,10 @@ C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas=-v -o build/kernels/<name>-<hash>.so <name>.cu
 
 The library lands in `build/kernels/` at the repository root (listed in
-`.gitignore`), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. `build()` starts one `nvcc`
+`.gitignore`), named by a hash of the source, the sources it includes from
+`csrc/` and the flags, so an edited source rebuilds and an unchanged one is
+reused. A source may include another whole (`flash_attention_seg.cu`
+builds `flash_attention.cu` with one variant's macros). `build()` starts one `nvcc`
 per missing library, all at once, and waits for them; `load()` builds what
 it needs on first use. Only the sources in this checkout are compiled.
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,8 +27,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("rms_norm", "paged_attention", "flash_attention", "quant_matmul",
-           "matmul")
+SOURCES = ("rms_norm", "paged_attention", "flash_attention",
+           "flash_attention_seg", "flash_attention_drop",
+           "flash_attention_seg_drop", "quant_matmul", "matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -46,9 +50,14 @@ def nvcc_path() -> str:
                        "source with the CUDA toolkit (set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    text = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(text)
+    for inc in _INCLUDE.findall(text):
+        h.update((CSRC / inc.decode()).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

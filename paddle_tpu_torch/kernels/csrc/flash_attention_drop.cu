@@ -1,0 +1,6 @@
+// Flash attention, the dropout bodies: flash_attention.cu built with
+// FLASH_SEG=0, FLASH_DROP=1, as a library of its own so that the four
+// variants compile in parallel (see that file).
+#define FLASH_SEG 0
+#define FLASH_DROP 1
+#include "flash_attention.cu"

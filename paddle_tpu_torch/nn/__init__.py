@@ -1,5 +1,6 @@
 from . import functional, quant
-from .layers import Embedding, Linear, ParallelCrossEntropy, RMSNorm
+from .layers import (Dropout, Embedding, LayerNorm, Linear,
+                     ParallelCrossEntropy, RMSNorm)
 
-__all__ = ["Embedding", "Linear", "ParallelCrossEntropy", "RMSNorm",
-           "functional", "quant"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear",
+           "ParallelCrossEntropy", "RMSNorm", "functional", "quant"]

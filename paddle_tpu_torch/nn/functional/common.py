@@ -1,9 +1,10 @@
 """Common functionals (counterpart of
-`paddle_tpu/nn/functional/common.py`)."""
+`paddle_tpu/nn/functional/common.py`): linear, dropout, embedding."""
 from __future__ import annotations
 
 import torch
 
+from ...framework import random as _random
 from ...kernels import autotune as _at
 from ...kernels import matmul as _kmm
 
@@ -27,9 +28,36 @@ def _matmul(a, w):
     return torch.matmul(a, w)
 
 
-def linear(x, weight):
-    """Paddle weight layout: weight is [in_features, out_features]."""
-    return _matmul(x, weight)
+def linear(x, weight, bias=None):
+    """Paddle weight layout: weight is [in_features, out_features]; bias
+    [out_features] or None."""
+    out = _matmul(x, weight)
+    return out if bias is None else out + bias
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
+    """Paddle's dropout. In training, each element (or, with `axis`, each
+    index along those axes, shared across the others) is kept with
+    probability 1 - p; "upscale_in_train" scales the kept ones by
+    1 / (1 - p), "downscale_in_infer" keeps them as they are and scales by
+    1 - p out of training instead. The mask is drawn from a generator made
+    from the global stream (`paddle_tpu_torch.seed`)."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout: unknown mode {mode!r}")
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
+        return x
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        axes = [a % x.dim() for a in axes]
+        shape = [n if i in axes else 1 for i, n in enumerate(shape)]
+    keep = torch.empty(shape, device=x.device).bernoulli_(
+        1.0 - p, generator=_random.generator(x.device)).bool()
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    return torch.where(keep, x, torch.zeros_like(x))
 
 
 def embedding(ids, weight):

@@ -3,8 +3,18 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as TF
 
 from ...kernels import rms_norm as _krms
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
+    """LayerNorm over the trailing `normalized_shape` dims with the
+    population variance, then `weight` and `bias` where given. XLA code in
+    the reference (no Pallas kernel), so PyTorch's own operator here."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    return TF.layer_norm(x, list(normalized_shape), weight, bias, epsilon)
 
 
 def rms_norm(x, weight, epsilon=1e-6):

@@ -1,10 +1,13 @@
-"""Layers the LLaMA model is built from, on a single rank.
+"""Layers the LLaMA model and the incubate encoder layers are built from,
+on a single rank.
 
 `Linear` stands for `Linear`, `ColumnParallelLinear` and
 `RowParallelLinear` (`paddle_tpu/distributed/fleet/layers/mpu/mp_layers.py`)
 at tensor-parallel degree 1, `Embedding` for `VocabParallelEmbedding`, and
 `RMSNorm` for `paddle_tpu/nn/norm_layers.py::RMSNorm`, and
-`ParallelCrossEntropy` for its namesake in `mp_layers.py`. Parameter names
+`ParallelCrossEntropy` for its namesake in `mp_layers.py`; `LayerNorm` and
+`Dropout` stand for `paddle_tpu/nn/norm_layers.py::LayerNorm` and
+`paddle_tpu/nn/common_layers.py::Dropout`. Parameter names
 and shapes equal the JAX layers', so a state dict maps across by name
 (`paddle_tpu_torch.weights`). Parameters are trainable and allocated
 uninitialised on `device`; the model fills them
@@ -69,3 +72,36 @@ class ParallelCrossEntropy(nn.Module):
     def forward(self, input, label):
         return F.cross_entropy(input, label, reduction="none",
                                ignore_index=self.ignore_index).unsqueeze(-1)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing `normalized_shape` dims: weight 1 and
+    bias 0 to start."""
+
+    def __init__(self, normalized_shape, epsilon=1e-05, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._shape = list(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(self._shape, dtype=dtype,
+                                              device=device))
+        self.bias = nn.Parameter(torch.zeros(self._shape, dtype=dtype,
+                                             device=device))
+
+    def forward(self, x):
+        return F.layer_norm(x, self._shape, self.weight, self.bias,
+                            self._epsilon)
+
+
+class Dropout(nn.Module):
+    """`F.dropout` with the module's training flag."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)

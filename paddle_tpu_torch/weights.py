@@ -1,7 +1,9 @@
 """Weights across the two packages: a LLaMA state dict as numpy arrays (the
 JAX model's `state_dict()`, each value turned into an array) onto the
 port's modules (`load_llama_state`), and back (`llama_state_to_numpy`, so
-trained parameters can be compared with the JAX model's).
+trained parameters can be compared with the JAX model's); the same for the
+incubate fused encoder layers (`fused_encoder_state_from_numpy`,
+`fused_encoder_state_to_numpy`).
 
 The port keeps the JAX model's parameter names and Paddle's [in, out]
 layout for linears, so the map is one to one; these functions check that
@@ -127,3 +129,33 @@ def load_llama_state(model, state):
         llama_state_from_numpy(state, model.config, ref.dtype, ref.device),
         strict=True)
     return model
+
+
+def fused_encoder_state_from_numpy(state, module):
+    """{name: np.ndarray} (a JAX incubate layer's state: `FusedMultiHead
+    Attention`, `FusedFeedForward`, `FusedTransformerEncoderLayer`, or a
+    stack of them) -> {name: torch.Tensor} for the port's `module` of the
+    same structure, each in its parameter's dtype and on its device, after
+    checking that names and shapes agree; load it with
+    `module.load_state_dict`."""
+    want = module.state_dict()
+    missing = sorted(set(want) - set(state))
+    extra = sorted(set(state) - set(want))
+    if missing or extra:
+        raise KeyError(f"fused encoder state mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    out = {}
+    for name, ref in want.items():
+        arr = np.asarray(state[name], dtype=np.float32)
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected "
+                             f"{tuple(ref.shape)}")
+        out[name] = torch.from_numpy(np.array(arr)).to(ref.device, ref.dtype)
+    return out
+
+
+def fused_encoder_state_to_numpy(module):
+    """The parameters of a port incubate layer as {name: np.ndarray} in
+    f32, named as the JAX layer's."""
+    return {n: t.detach().cpu().float().numpy()
+            for n, t in module.state_dict().items()}

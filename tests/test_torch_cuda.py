@@ -28,6 +28,12 @@ bf16 rows are held to 5e-3, f32 rows to 1e-4. Each case also reads a fault
 made from the plain version (int4 nibbles swapped, one group's scales
 shifted by a group, the K scales left out), which must exceed the bar.
 
+The flash segment-id, dropout and combined bodies are held as the plain
+ones, against their plain versions given the same segment ids and seed
+(the same threefry bits on both sides), bf16 and f32; so are the entry
+points that reach them (`flash_attn_unpadded`, dropout SDPA with
+`FLAGS_flash_dropout_kernel`, the fused encoder layer, the lse entry).
+
 The dense matmul kernel is held row by row against `torch.matmul` on the
 f32 values of its inputs (`_MATMUL_TOL`): bf16 rows differ by the output's
 one rounding (2^-9 relative on average, below 5e-3), f32 rows by
@@ -40,7 +46,9 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu_torch as ptt
 from paddle_tpu_torch import get_flags, set_flags
+from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
 from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.kernels import autotune as tat
 from paddle_tpu_torch.kernels import flash_attention as tfa
@@ -56,7 +64,9 @@ from paddle_tpu_torch.nn.quant import (WeightOnlyLinear,
                                        quantize_for_inference,
                                        weight_quantize)
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.weights import (llama_state_to_numpy,
+from paddle_tpu_torch.weights import (fused_encoder_state_from_numpy,
+                                      fused_encoder_state_to_numpy,
+                                      llama_state_to_numpy,
                                       load_llama_state)
 
 _TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
@@ -676,3 +686,197 @@ def test_tiny_engine_with_grouped_decode_and_gemm_kernel_equals_cpu(
     assert tmm.launches > counts[0] and tpa.grouped_launches > counts[1]
     assert tpa.launches == counts[2]
     assert streams[0] == streams[1]
+
+
+def _packed_ids(g, b, s, pad, device):
+    """[b, s] int32 ids of packed sequences of random lengths (1-200),
+    the last `pad` positions -1."""
+    ids = torch.full((b, s), -1, dtype=torch.int32)
+    for i in range(b):
+        pos, sid = 0, 0
+        while pos < s - pad:
+            n = min(int(torch.randint(1, 200, (), generator=g)),
+                    s - pad - pos)
+            ids[i, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return ids.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("variant", ["seg", "drop", "seg_drop"])
+@pytest.mark.parametrize("s_q,s_kv,causal", [
+    (256, 256, True), (256, 256, False), (128, 384, True), (384, 128, False)])
+def test_flash_variant_kernels_match_plain(cuda_device, dtype, variant, s_q,
+                                           s_kv, causal):
+    """b = 2 of 3 heads (row bh reads the ids of batch bh // 3), padded
+    queries (-1) and keys (-2) where there are segments."""
+    g = torch.Generator().manual_seed(s_q * 7 + s_kv)
+    b, h, d, scale = 2, 3, 128, 128 ** -0.5
+    seg = variant != "drop"
+    sq = sk = None
+    if seg:
+        sq = _packed_ids(g, b, s_q, 40, cuda_device)
+        sk = _packed_ids(g, b, s_kv, 24, cuda_device)
+        sk = torch.where(sk < 0, -2, sk).to(torch.int32)
+    var = tfa.Variant(sq, sk, heads=h, rate=0.0 if variant == "seg" else
+                      0.2, seed=-12345)
+    assert var.name == variant
+
+    def rnd(s):
+        return torch.randn(b * h, s, d, generator=g).to(cuda_device, dtype)
+
+    q, k, v, do = rnd(s_q), rnd(s_kv), rnd(s_kv), rnd(s_q)
+    counts = {p: tfa.variant_launches[(p, variant)] for p in tfa.PASSES}
+    out, lse = tfa.flash_fwd(q, k, v, scale, causal, var)
+    delta = tfa.flash_bwd_delta(out, do)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, var)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, var)
+    torch.cuda.synchronize()
+    assert all(tfa.variant_launches[(p, variant)] == counts[p] + 1
+               for p in tfa.PASSES)
+    out_ref, lse_ref = tfa.flash_fwd_ref(q, k, v, scale, causal, var)
+    assert _row_rel_err(out, out_ref) <= _FLASH_TOL[dtype]
+    live = lse_ref > -1e29
+    torch.testing.assert_close(lse[live], lse_ref[live], rtol=0, atol=1e-3)
+    assert torch.equal(lse[~live], lse_ref[~live]) and not out[~live].any()
+    dk_ref, dv_ref = tfa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta,
+                                           scale, causal, var)
+    dq_ref = tfa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, scale, causal,
+                                  var)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert _row_rel_err(got, want) <= _FLASH_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attn_unpadded_runs_the_seg_kernels(cuda_device, causal, rate):
+    """The packed entry on CUDA (seg or seg_drop kernels) against the same
+    call on the CPU (their plain versions), forward and gradients."""
+    lens = [300, 5, 700, 64, 211]
+    cu = torch.tensor([0] + np.cumsum(lens).tolist(), dtype=torch.int32)
+    g = torch.Generator().manual_seed(len(lens))
+    q, k, v, gr = (torch.randn(sum(lens), 4, 128, generator=g)
+                   for _ in range(4))
+    name = "seg_drop" if rate else "seg"
+    counts = {p: tfa.variant_launches[(p, name)] for p in tfa.PASSES}
+    res = []
+    for dev in (cuda_device, "cpu"):
+        ts = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out, _ = tfa.flash_attn_unpadded(*ts, cu.to(dev), cu.to(dev),
+                                         max(lens), max(lens), dropout=rate,
+                                         causal=causal, dropout_seed=77)
+        out.backward(gr.to(dev))
+        res.append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
+    assert all(tfa.variant_launches[(p, name)] == counts[p] + 1
+               for p in tfa.PASSES)
+    for got, want in zip(*res):
+        assert _row_rel_err(got, want) <= _FLASH_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_sdpa_dropout_with_the_flag_runs_the_drop_kernels(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(2, 256, 4, 128, generator=g, device=cuda_device,
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    old = get_flags(["FLAGS_flash_dropout_kernel"])
+    set_flags({"FLAGS_flash_dropout_kernel": True})
+    try:
+        counts = dict(tfa.variant_launches)
+        ptt.seed(5)
+        out = F.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                             is_causal=True)
+        out.float().square().sum().backward()
+        ptt.seed(5)
+        again = F.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                               is_causal=True)
+    finally:
+        set_flags(old)
+    torch.cuda.synchronize()
+    assert tfa.variant_launches[("fwd", "drop")] == \
+        counts[("fwd", "drop")] + 2
+    assert tfa.variant_launches[("dkv", "drop")] == \
+        counts[("dkv", "drop")] + 1
+    assert tfa.variant_launches[("dq", "drop")] == counts[("dq", "drop")] + 1
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_lse_entry_on_cuda_matches_cpu(cuda_device):
+    g = torch.Generator().manual_seed(4)
+    q, k, v, go = (torch.randn(1, 256, 3, 128, generator=g)
+                   for _ in range(4))
+    gl = torch.randn(1, 3, 256, generator=g)
+    res = []
+    for dev in (cuda_device, "cpu"):
+        ts = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out, lse = tfa.flash_attention_with_lse_bshd(*ts, causal=True)
+        (torch.sum(out * go.to(dev)) + torch.sum(lse * gl.to(dev))) \
+            .backward()
+        res.append([out.detach().cpu(), lse.detach().cpu()]
+                   + [t.grad.cpu() for t in ts])
+    torch.testing.assert_close(res[0][1], res[1][1], rtol=0, atol=1e-4)
+    for got, want in zip(res[0][:1] + res[0][2:], res[1][:1] + res[1][2:]):
+        assert _row_rel_err(got, want) <= _FLASH_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_fused_encoder_attention_dropout_equals_cpu(cuda_device):
+    """attn_dropout_rate 0.1, dropout_rate 0, f32, from the same weights and
+    seed: CUDA through the drop kernels, the CPU through their plain
+    versions, the same masks (the seeds come from the host stream)."""
+    old = get_flags(["FLAGS_flash_dropout_kernel"])
+    set_flags({"FLAGS_flash_dropout_kernel": True})
+    try:
+        ptt.seed(0)
+        cpu = FusedTransformerEncoderLayer(256, 2, 512, dropout_rate=0.0,
+                                           attn_dropout_rate=0.1,
+                                           activation="gelu",
+                                           normalize_before=True,
+                                           device="cpu")
+        gpu = FusedTransformerEncoderLayer(256, 2, 512, dropout_rate=0.0,
+                                           attn_dropout_rate=0.1,
+                                           activation="gelu",
+                                           normalize_before=True,
+                                           device=cuda_device)
+        gpu.load_state_dict(fused_encoder_state_from_numpy(
+            fused_encoder_state_to_numpy(cpu), gpu))
+        x = torch.randn(2, 256, 256, generator=torch.Generator()
+                        .manual_seed(1))
+        n0 = tfa.variant_launches[("fwd", "drop")]
+        outs = []
+        for layer, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+            ptt.seed(9)
+            out = layer(x.to(dev))
+            out.square().sum().backward()
+            outs.append(out.detach().cpu())
+    finally:
+        set_flags(old)
+    assert tfa.variant_launches[("fwd", "drop")] == n0 + 1
+    assert _row_rel_err(outs[1], outs[0]) <= _FLASH_TOL[torch.float32]
+    for (name, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        if p.grad is None:  # the post-LN norms of a pre-LN layer
+            assert q.grad is None, name
+            continue
+        assert _row_rel_err(q.grad.cpu().reshape(-1, p.shape[-1]),
+                            p.grad.reshape(-1, p.shape[-1])) <= 1e-3, name
+
+
+@pytest.mark.cuda
+def test_flash_variants_refuse_what_they_do_not_take(cuda_device):
+    q = torch.randn(4, 128, 128, device=cuda_device)
+    ids = torch.zeros(2, 128, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="segment ids"):
+        tfa.flash_fwd(q, q, q, 0.1, False,
+                      tfa.Variant(ids.long(), ids.long(), heads=2))
+    with pytest.raises(ValueError, match="segment ids"):
+        tfa.flash_fwd(q, q, q, 0.1, False, tfa.Variant(ids, ids, heads=3))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tfa.flash_fwd(q, q, q, 0.1, False,
+                      tfa.Variant(ids.cpu(), ids.cpu(), heads=2))
+    keep = torch.ones(4, 128, 128, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="regenerate"):
+        tfa.flash_fwd(q, q, q, 0.1, False,
+                      tfa.Variant(rate=0.1, seed=1, keep=keep))

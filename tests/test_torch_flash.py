@@ -158,13 +158,33 @@ def test_sdpa_masked_or_unsupported_takes_the_reference_path(shape, masked):
     assert (tfa.fwd_launches, tfa.dkv_launches, tfa.dq_launches) == counts
 
 
-def test_sdpa_dropout_in_training_is_not_ported():
-    q = torch.zeros(1, 128, 2, 128)
-    with pytest.raises(NotImplementedError):
-        TF.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
-    out, none = TF.flash_attention(q, q, q, dropout=0.1, causal=True,
-                                   training=False)
-    assert none is None and out.shape == q.shape
+@pytest.mark.parametrize("flag", [False, True])
+def test_sdpa_dropout_in_training_runs_and_is_seeded(flag):
+    """Dropout in training runs (the reference path, or with
+    FLAGS_flash_dropout_kernel the flash dropout bodies) and repeats itself
+    under the same `paddle_tpu_torch.seed`; out of training it is off."""
+    import paddle_tpu_torch as ptt
+
+    rng = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(rng.randn(1, 128, 2, 128).astype(np.float32))
+               for _ in range(3))
+    ptt.set_flags({"FLAGS_flash_dropout_kernel": flag})
+    try:
+        ptt.seed(12)
+        a = TF.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+        b = TF.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+        ptt.seed(12)
+        a2 = TF.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+        out, none = TF.flash_attention(q, k, v, dropout=0.1, causal=True,
+                                       training=False)
+    finally:
+        ptt.set_flags({"FLAGS_flash_dropout_kernel": False})
+    assert torch.equal(a, a2) and not torch.equal(a, b)
+    full = TF.scaled_dot_product_attention(q, k, v)
+    assert not torch.equal(a, full)
+    assert none is None
+    torch.testing.assert_close(out, TF.scaled_dot_product_attention(
+        q, k, v, is_causal=True), rtol=0, atol=0)
 
 
 def test_flash_attention_bshd_refuses_unsupported_shapes():

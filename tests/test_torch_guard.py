@@ -1,6 +1,7 @@
-"""The port stands alone: no module of `paddle_tpu_torch`, and not
-`chip_smoke.py`, imports JAX or `paddle_tpu`; entry points refuse to run on
-the CPU unless asked; the smoke script fails without a GPU."""
+"""The port stands alone: no module of `paddle_tpu_torch`, and neither
+`chip_smoke.py` nor `chip_flash_ab.py`, imports JAX or `paddle_tpu`;
+entry points refuse to run on the CPU unless asked; the smoke script fails
+without a GPU."""
 import ast
 import os
 import shutil
@@ -17,7 +18,8 @@ _BANNED = ("jax", "jaxlib", "paddle_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_flash_ab.py"]
 
 
 def _imported(path):
