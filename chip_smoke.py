@@ -8,16 +8,18 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
 1. device: the card's name, count, and `nvidia-smi` name and power limit;
 2. build: every kernel under paddle_tpu_torch/kernels/csrc with nvcc;
 3. each kernel against its plain PyTorch version at the serving and the
-   training shapes (flash attention forward, dK/dV and dQ at
-   [1, 4096, 32, 128] bf16 causal and not, a rectangular 1024x4096 causal
-   case, a 256x128 causal case with fully masked rows, an f32 case, each
-   held row by row and beside faults made from the plain versions, which
-   must fail the same bar; the RMSNorm backward at [4096, 4096] and
+   training shapes (flash attention forward and backward, the backward one
+   kernel for dQ, dK and dV, at [1, 4096, 32, 128] bf16 causal and not, a
+   rectangular 1024x4096 causal case, a 256x128 causal case with fully
+   masked rows, an f32 case, each held row by row and beside faults made
+   from the plain versions, which must fail the same bar; the RMSNorm backward at [4096, 4096] and
    [8, 4096], bf16 and f32; the dequant matmul at LLaMA-2-13B's
    projections, 5120->5120, 5120->13824 and 13824->5120, at m = 8 and
    2512, int8 and int4 weights per channel and in groups, and one small
-   f32 case; the int8 paged decode at 40/40 and 32/8 heads bf16 and 32/32
-   f32; each new case held row by row and beside faults made from the
+   f32 case; the float, int8 and grouped paged decodes at MHA and GQA
+   heads, at 32/1 (multi-query) and 64/2 heads, and the float and int8 at
+   head_dim 256, beside a fault with two chunks of a group's queries
+   swapped; each new case held row by row and beside faults made from the
    plain version); after phase 4b, its device time, the plain version's, a
    library call's, and its bound;
 4. LLaMA-2-7B (32 layers, hidden 4096, bf16, random weights from --seed)
@@ -38,14 +40,15 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    prefill and decode window; then a fresh bf16 13B model quantized to int4
    in groups of 128 serves the 10 requests with the same checks;
 5. a tiny f32 LLaMA gives the same greedy streams on CUDA and on the CPU,
-   in float, and with int8 and int4 weights and an int8 KV cache;
+   in float, with int8 and int4 weights and an int8 KV cache, and as a
+   multi-query model (32 heads of 32 over 1 KV head);
 6. training: LLaMA-2-7B widths cut to 20 of 32 layers (memory: weights,
    gradients and AdamW's f32 moments of all 32 do not fit one card), bf16
    parameters (amp O2), AdamW(lr 1e-4), dense cross entropy, batch 1 x
    seq 4096 of random ids from --seed repeated each step, through
    build_train_step: one warm step, then 5 timed steps with the kernels'
    launch counts reset just before and checked just after (per step: flash
-   forward, dK/dV, dQ 20 each, RMSNorm forward and backward 41 each); then
+   forward and backward 20 each, RMSNorm forward and backward 41 each); then
    one profiled step gives the device's busy time, idle share and top
    kernels;
 7. a tiny f32 LLaMA (head_dim 128) takes 3 AdamW steps on CUDA, through the
@@ -55,13 +58,14 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    serving and a 4-layer training step with both flags on, exact launch
    counts from the tuner's winners;
 9. varlen and dropout flash attention, with FLAGS_flash_dropout_kernel on:
-   (a) the seg, drop and seg_drop bodies of the forward, dK/dV and dQ
+   (a) the seg, drop and seg_drop bodies of the forward and backward
    kernels against their plain versions at [b*h, s, 128] (2 batch rows of
    8-16 heads, 2048-4096 tokens, bf16, and 512 tokens f32, causal and not;
    packed ids with padding), held row by row beside faults (segment ids
    shifted by a token, a mask keyed by tile-local positions, the seed off
-   by one, dV from the undropped p), with device times, bounds over the
-   visible pairs, the plain versions' and SDPA's times; (b)
+   by one, dV from the undropped p, dQ without one key tile), with device
+   times, bounds over the visible pairs (and the dropout mask's integer
+   work), the plain versions' and SDPA's times; (b)
    `F.flash_attn_unpadded` at LLaMA-2-7B's attention width (32 heads of
    128, bf16) over sequences of 64-4096 tokens packed to 16384, causal,
    forward and backward at dropout 0 and 0.1, launches counted from zero,
@@ -86,6 +90,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -124,6 +129,20 @@ HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
 TF32_FLOP_S = 495e12
+# the dropout mask's integer work: 132 SMs x 64 INT32 lanes x 1.98 GHz
+# (the H100 SXM's boost clock), and the live 32-bit integer operations of
+# one keep bit as `keep` in csrc/flash_attention.cu computes it, counting
+# only what varies per pair (the third key and the `k + n` injection
+# constants depend on the seed and the row alone) and what reaches the
+# returned word: x1 = kpos + k1 (1); 20 rounds of add, rotate (one funnel
+# shift), xor (60), less the last round's rotate and xor, which only x1
+# reads (-2); the 4 inner injections add to x1 (4), while their x0 add joins
+# the next round's add in one three-input add (0); the last injection's x0
+# add (1; its x1 add is dead); the low 23 bits (1); x0 = qpos + k0 joins the
+# first round's add (0). The float convert, multiply and compare run off
+# the INT32 pipe.
+INT32_OPS_S = 132 * 64 * 1.98e9
+MASK_INT_OPS = 65
 # bf16: one output rounding (2^-7 relative); f32: summation order
 TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 # flash: the largest error of a row (a query's out or dQ, a key's dK or dV)
@@ -160,6 +179,23 @@ ALGO = {"int8": "weight_only_int8", "int4": "weight_only_int4"}
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def kernel_name(mangled):
+    """name<args> of a kernel in an anonymous namespace, from its mangled
+    name (`_ZN<n><namespace><m><name>I<args>E...`), the arguments as
+    mangled (Lb0E is false, Lb1E true, f float)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled[:64]
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"\d+", rest)
+    if not m:
+        return mangled[:64]
+    end = m.end() + int(m.group(0))
+    args = rest[end:]
+    return rest[m.end():end] + (args[:args.find("EE") + 2]
+                                if args.startswith("I") else "")
 
 
 def check(cond, what):
@@ -219,9 +255,13 @@ def events_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, flops, flop_s=F32_FLOP_S):
+def bound(nbytes, flops, flop_s=F32_FLOP_S, int_ops=0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over HBM's
+    rate and the operations over their units' rates, the products over
+    flop_s and integer work (the dropout mask) over INT32_OPS_S, two
+    units that run side by side."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / flop_s * 1e3
+    t_ops = max(flops / flop_s, int_ops / INT32_OPS_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -290,6 +330,22 @@ def sdpa_paged(q, k_pages, v_pages, tables, lens):
                                            attn_mask=mask[:, None, None, :])
 
 
+def chunk_swapped(out, kv_heads, chunk):
+    """`out` [b, q_heads, d] with the first two `chunk`-query chunks of each
+    kv head's group swapped, what a decode kernel that wrote one block's
+    queries in another's place would give; None where the group is one
+    chunk. The per-page kernel's chunks are 16 queries (8 at head_dim 256),
+    the grouped kernel's 16."""
+    b, qh, d = out.shape
+    g = qh // kv_heads
+    if g <= chunk:
+        return None
+    idx = torch.arange(g, device=out.device)
+    idx[:chunk], idx[chunk:2 * chunk] = idx[chunk:2 * chunk].clone(), \
+        idx[:chunk].clone()
+    return out.reshape(b, kv_heads, g, d)[:, :, idx].reshape(b, qh, d)
+
+
 def paged_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
                page=16, pages_per_seq=256):
     b = len(lens)
@@ -304,10 +360,18 @@ def paged_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
     args = (q, kp, vp, tables, ln)
     got = kpa.paged_attention(*args)
     torch.cuda.synchronize()
-    err, tol = max_err(got, kpa.paged_attention_ref(*args), dtype)
+    want = kpa.paged_attention_ref(*args)
+    err, tol = max_err(got, want, dtype)
     check(err <= tol, f"paged_attention {name}: max abs err {err} > {tol}")
     check(not got[lens.index(0)].any() if 0 in lens else True,
           f"paged_attention {name}: a ctx 0 row is not zero")
+    ctl = {}
+    swapped = chunk_swapped(want, kv_heads, 8 if d > 128 else 16)
+    if swapped is not None:
+        ctl["chunk_swapped"] = max_err(swapped, want, dtype)[0]
+        check(ctl["chunk_swapped"] > tol, f"paged_attention {name}: the "
+              f"chunk_swapped control reads {ctl}, within {tol}")
+    del got, want, swapped
     elt = q.element_size()
     ctx = sum(lens)
     nbytes = (2 * ctx * kv_heads * d * elt + 2 * q.numel() * elt
@@ -324,8 +388,8 @@ def paged_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
     return dict(
         case=name, batch=b, q_heads=q_heads, kv_heads=kv_heads, head_dim=d,
         page=page, lens=list(lens), dtype=str(dtype).split(".")[-1],
-        max_abs_err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
-        timings=timings)
+        max_abs_err=err, tol=tol, controls=ctl, bound_ms=b_ms,
+        bound_by=b_by, timings=timings)
 
 
 def swap_nibbles(qw):
@@ -470,8 +534,12 @@ def paged_q8_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
           f"paged_attention_int8 {name}: a ctx 0 row is not zero")
     ctl = {"k_scales_left_out": row_rel_err(kpa.paged_attention_ref(
         *args, k_scales=torch.ones_like(ks), v_scales=vs), want)}
-    check(ctl["k_scales_left_out"] > tol, f"paged_attention_int8 {name}: "
-          f"the control reads {ctl}, within the bar {tol}")
+    swapped = chunk_swapped(want, kv_heads, 8 if d > 128 else 16)
+    if swapped is not None:
+        ctl["chunk_swapped"] = row_rel_err(swapped, want)
+    for fault, r in ctl.items():
+        check(r > tol, f"paged_attention_int8 {name}: the {fault} control "
+              f"reads {r}, within the bar {tol}")
     abs_err = (got.float() - want.float()).abs().max().item()
     del got, want
     elt = q.element_size()
@@ -577,7 +645,9 @@ def grouped_controls(q, kp, vp, tables, ln, want):
     plain version, each against the sound plain output: "page_skipped",
     every row past two pages loses the second page of its first group;
     "pages_out_of_order", the K of a row's first two pages swapped (read
-    in the wrong order against their V). Each must exceed the bar."""
+    in the wrong order against their V); "chunk_swapped" (groups above 16
+    queries), two chunks of a group's queries swapped. Each must exceed
+    the bar."""
     lens = ln.tolist()
     t_skip, l_skip = tables.clone(), ln.clone()
     kf = kp.clone()
@@ -587,10 +657,14 @@ def grouped_controls(q, kp, vp, tables, ln, want):
             l_skip[row] = n - 16
             p0, p1 = tables[row, 0].item(), tables[row, 1].item()
             kf[:, p0], kf[:, p1] = kp[:, p1], kp[:, p0]
-    return {"page_skipped": row_rel_err(kpa.paged_attention_ref(
-                q, kp, vp, t_skip, l_skip), want),
-            "pages_out_of_order": row_rel_err(kpa.paged_attention_ref(
-                q, kf, vp, tables, ln), want)}
+    ctl = {"page_skipped": row_rel_err(kpa.paged_attention_ref(
+               q, kp, vp, t_skip, l_skip), want),
+           "pages_out_of_order": row_rel_err(kpa.paged_attention_ref(
+               q, kf, vp, tables, ln), want)}
+    swapped = chunk_swapped(want, kp.shape[0], 16)
+    if swapped is not None:
+        ctl["chunk_swapped"] = row_rel_err(swapped, want)
+    return ctl
 
 
 def grouped_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
@@ -717,18 +791,32 @@ def visible_pairs(s_q, s_kv, causal, seg_q=None, seg_k=None):
     return total
 
 
+def dq_without_tile(q, k, v, do, lse, delta, scale, causal, var=None,
+                    keys=128):
+    """dQ of the plain version without the contribution of the first
+    `keys` keys (one block of the backward kernel), the fault of a block
+    whose atomic additions into dQ were lost."""
+    p, _, dp = kfa._grad_terms(q, k, v, do, lse, scale, causal, var)
+    ds = kfa._ds(p, dp, delta, scale)
+    del p, dp
+    ds[:, :, :keys] = 0
+    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
+
+
 def flash_controls(q, k, v, do, lse, delta, scale, causal, want):
     """Readings of the flash check on faults made from the plain versions,
     each against the sound plain outputs `want`: every one must exceed the
-    bar. "scale": the softmax scale 1 % too large throughout. "tile" (not
-    causal): the forward and the dQ pass skip one 64-key tile, the dK/dV
-    pass one 64-query tile, with the sound lse and delta."""
+    bar. "scale": the softmax scale 1 % too large throughout. "dq_tile":
+    dQ without the first 128-key tile's contribution. "tile" (not causal):
+    the forward and dQ skip one 64-key tile, dK/dV one 64-query tile, with
+    the sound lse and delta."""
     s2 = scale * 1.01
     out, lse2 = kfa.flash_fwd_ref(q, k, v, s2, causal)
     delta2 = kfa.flash_bwd_delta(out, do)
-    dk, dv = kfa.flash_bwd_dkv_ref(q, k, v, do, lse2, delta2, s2, causal)
-    dq = kfa.flash_bwd_dq_ref(q, k, v, do, lse2, delta2, s2, causal)
-    got = {"scale": dict(out=out, dq=dq, dk=dk, dv=dv)}
+    dq, dk, dv = kfa.flash_bwd_ref(q, k, v, do, lse2, delta2, s2, causal)
+    got = {"scale": dict(out=out, dq=dq, dk=dk, dv=dv),
+           "dq_tile": dict(dq=dq_without_tile(q, k, v, do, lse, delta, scale,
+                                              causal))}
     if not causal:
         a, b = k.shape[1] // 2, q.shape[1] // 2
 
@@ -747,11 +835,11 @@ def flash_controls(q, k, v, do, lse, delta, scale, causal, want):
 
 
 def flash_case(name, bh, s_q, s_kv, causal, dtype, gen, dev, library=False):
-    """The three flash kernels against their plain versions, each held to
-    FLASH_TOL as a row relative error, and the readings of faults
-    (`flash_controls`), which must exceed it; with `library`, timings also
-    of the plain versions and of PyTorch's SDPA (square shapes only: SDPA
-    aligns its causal mask top-left)."""
+    """The flash forward and backward kernels against their plain versions,
+    each output held to FLASH_TOL as a row relative error, and the readings
+    of faults (`flash_controls`), which must exceed it; with `library`,
+    timings also of the plain versions and of PyTorch's SDPA (square shapes
+    only: SDPA aligns its causal mask top-left)."""
     d = kfa.HEAD_DIM
     scale = d ** -0.5
 
@@ -761,13 +849,11 @@ def flash_case(name, bh, s_q, s_kv, causal, dtype, gen, dev, library=False):
     q, k, v, do = rnd(s_q), rnd(s_kv), rnd(s_kv), rnd(s_q)
     out, lse = kfa.flash_fwd(q, k, v, scale, causal)
     delta = kfa.flash_bwd_delta(out, do)
-    dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
-    dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    dq, dk, dv = kfa.flash_bwd(q, k, v, do, lse, delta, scale, causal)
     torch.cuda.synchronize()
     out_r, lse_r = kfa.flash_fwd_ref(q, k, v, scale, causal)
-    dk_r, dv_r = kfa.flash_bwd_dkv_ref(q, k, v, do, lse_r, delta, scale,
-                                       causal)
-    dq_r = kfa.flash_bwd_dq_ref(q, k, v, do, lse_r, delta, scale, causal)
+    dq_r, dk_r, dv_r = kfa.flash_bwd_ref(q, k, v, do, lse_r, delta, scale,
+                                         causal)
     want = dict(out=out_r, dq=dq_r, dk=dk_r, dv=dv_r)
     tol = FLASH_TOL[dtype]
     errs, abs_err = {}, {}
@@ -794,45 +880,39 @@ def flash_case(name, bh, s_q, s_kv, causal, dtype, gen, dev, library=False):
     # forward: q, k, v read, out written, lse written; 2 products
     fwd_b = bound(2 * n_q + 2 * n_kv + 4 * bh * s_q, 4 * bh * d * pairs,
                   rate)
-    # dK/dV: q, dO, k, v, lse, delta read, dk, dv written; 4 products
-    dkv_b = bound(2 * n_q + 4 * n_kv + 8 * bh * s_q, 8 * bh * d * pairs,
+    # backward: q, dO, k, v, lse, delta read, dq, dk, dv written; 5
+    # products (S, dP, dV, dK, dQ)
+    bwd_b = bound(3 * n_q + 4 * n_kv + 8 * bh * s_q, 10 * bh * d * pairs,
                   rate)
-    # dQ: q, dO, k, v, lse, delta read, dq written; 3 products
-    dq_b = bound(3 * n_q + 2 * n_kv + 8 * bh * s_q, 6 * bh * d * pairs,
-                 rate)
     res = dict(case=name, bh=bh, s_q=s_q, s_kv=s_kv, head_dim=d,
                causal=causal, dtype=str(dtype).split(".")[-1],
                lse_err=lse_err, visible_pairs=pairs, tol=tol, controls=ctl,
                fwd=dict(max_abs_err=abs_err["out"], row_rel_err=errs["out"],
                         bound_ms=fwd_b[0], bound_by=fwd_b[1]),
-               dkv=dict(max_abs_err=max(abs_err["dk"], abs_err["dv"]),
-                        row_rel_err=max(errs["dk"], errs["dv"]),
-                        bound_ms=dkv_b[0], bound_by=dkv_b[1]),
-               dq=dict(max_abs_err=abs_err["dq"], row_rel_err=errs["dq"],
-                       bound_ms=dq_b[0], bound_by=dq_b[1]))
+               bwd=dict(max_abs_err=max(abs_err[t] for t in ("dq", "dk",
+                                                             "dv")),
+                        row_rel_err=max(errs[t] for t in ("dq", "dk", "dv")),
+                        row_rel_errs={t: errs[t] for t in ("dq", "dk",
+                                                           "dv")},
+                        bound_ms=bwd_b[0], bound_by=bwd_b[1]))
 
     def timings():
         it = 20 if s_q * s_kv >= 2 ** 22 else 100
         for key, fn in (
                 ("fwd", lambda: kfa.flash_fwd(q, k, v, scale, causal)),
-                ("dkv", lambda: kfa.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                  scale, causal)),
-                ("dq", lambda: kfa.flash_bwd_dq(q, k, v, do, lse, delta,
-                                                scale, causal))):
+                ("bwd", lambda: kfa.flash_bwd(q, k, v, do, lse, delta,
+                                              scale, causal))):
             res[key]["ms"], res[key]["timer"] = time_ms(fn, it)
             res[key]["plain_ms"] = res[key]["library_ms"] = None
         if not library:
             return
         res["fwd"]["plain_ms"] = time_ms(
             lambda: kfa.flash_fwd_ref(q, k, v, scale, causal), 3)[0]
-        res["dkv"]["plain_ms"] = time_ms(
-            lambda: kfa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale,
-                                          causal), 3)[0]
-        res["dq"]["plain_ms"] = time_ms(
-            lambda: kfa.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale,
-                                         causal), 3)[0]
+        res["bwd"]["plain_ms"] = time_ms(
+            lambda: kfa.flash_bwd_ref(q, k, v, do, lse, delta, scale,
+                                      causal), 3)[0]
         # SDPA over [1, bh, s, d] views; its backward computes dQ, dK and
-        # dV in one call, so both backward rows carry its time
+        # dV in one call
         q4, k4, v4 = (t.view(1, bh, -1, d) for t in (q, k, v))
         res["fwd"]["library_ms"] = time_ms(
             lambda: TF.scaled_dot_product_attention(q4, k4, v4,
@@ -843,7 +923,7 @@ def flash_case(name, bh, s_q, s_kv, causal, dtype, gen, dev, library=False):
         bwd = time_ms(lambda: torch.autograd.grad(
             o, (qg, kg, vg), do.view(1, bh, s_q, d), retain_graph=True),
             it)[0]
-        res["dkv"]["library_ms"] = res["dq"]["library_ms"] = bwd
+        res["bwd"]["library_ms"] = bwd
 
     res["timings"] = timings
     return res
@@ -1273,6 +1353,42 @@ def tiny_parity(seed, dev):
     return dict(requests=len(prompts), identical=True)
 
 
+def tiny_mqa_parity(seed, dev):
+    """A tiny f32 multi-query LLaMA (32 heads of 32 over 1 KV head, so each
+    decode runs the per-page kernel in two chunks of 16 queries): the same
+    greedy streams on CUDA and on the CPU, float pages and int8 pages."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=1024, layers=2, heads=32,
+                           seq=128)
+    cfg.num_key_value_heads = 1
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    load_llama_state(gpu, {k: v.numpy() for k, v in cpu.state_dict().items()})
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 9, 17, 3, 40)]
+    res = {}
+    for kv in (None, "int8"):
+        n0 = kpa.launches, kpa.q8_launches
+        streams = []
+        for model, d in ((cpu, "cpu"), (gpu, dev)):
+            eng = ServingEngine(model, max_batch=3, max_seq_len=128,
+                                page_size=8, device=d, kv_cache_quant=kv)
+            for p in prompts:
+                eng.add_request(p, max_new_tokens=24)
+            streams.append({f.request_id: f.output_ids.tolist()
+                            for f in eng.run()})
+        ran = kpa.q8_launches > n0[1] if kv else kpa.launches > n0[0]
+        check(ran, f"tiny multi-query ({kv or 'float'} KV): the decode "
+              f"kernel did not run on CUDA")
+        check(streams[0] == streams[1], f"tiny multi-query ({kv or 'float'} "
+              f"KV) greedy streams differ: cpu {streams[0]} cuda "
+              f"{streams[1]}")
+        log(f"parity: tiny f32 multi-query LLaMA (2 layers, 32 heads of 32 "
+            f"over 1 KV head), {kv or 'float'} KV, {len(prompts)} greedy "
+            f"requests x 24 tokens: CUDA == CPU")
+        res[kv or "float"] = dict(requests=len(prompts), identical=True)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 6: training
 # ---------------------------------------------------------------------------
@@ -1294,8 +1410,7 @@ def model_flops_per_token(cfg, seq_len, causal=True):
 
 
 TRAIN_COUNTERS = (("flash_fwd", kfa, "fwd_launches"),
-                  ("flash_bwd_dkv", kfa, "dkv_launches"),
-                  ("flash_bwd_dq", kfa, "dq_launches"),
+                  ("flash_bwd", kfa, "bwd_launches"),
                   ("rms_norm", krms, "launches"),
                   ("rms_norm_bwd", krms, "bwd_launches"))
 
@@ -1360,8 +1475,8 @@ def train_7b(seed, dev, card, layers=20, seq=4096, steps=5):
     launches = {name: getattr(mod, attr) for name, mod, attr in
                 TRAIN_COUNTERS}
     losses = [float(v) for v in losses]
-    per_step = {"flash_fwd": layers, "flash_bwd_dkv": layers,
-                "flash_bwd_dq": layers, "rms_norm": 2 * layers + 1,
+    per_step = {"flash_fwd": layers, "flash_bwd": layers,
+                "rms_norm": 2 * layers + 1,
                 "rms_norm_bwd": 2 * layers + 1}
     for name, n in per_step.items():
         check(launches[name] == n * steps,
@@ -1447,13 +1562,13 @@ def tiny_train_parity(seed, dev, steps=3, lr=1e-3):
     rng = np.random.RandomState(seed)
     x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 256)))
     y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 256)))
-    n0 = kfa.fwd_launches, kfa.dkv_launches, kfa.dq_launches
+    n0 = kfa.fwd_launches, kfa.bwd_launches
     losses = []
     for model, d in ((cpu, "cpu"), (gpu, dev)):
         step = build_train_step(model, AdamW(learning_rate=lr,
                                              parameters=model.parameters()))
         losses.append([step(x.to(d), y.to(d)).item() for _ in range(steps)])
-    check((kfa.fwd_launches, kfa.dkv_launches, kfa.dq_launches) ==
+    check((kfa.fwd_launches, kfa.bwd_launches) ==
           tuple(n + 2 * steps for n in n0),
           "tiny training did not run the flash kernels on CUDA")
     rel = max(abs(a - b) / abs(a) for a, b in zip(*losses))
@@ -1895,13 +2010,12 @@ def measured_dispatch(seed, dev, card, phase4):
 
 
 # the TPU kernel bodies each CUDA variant replaces
-# (paddle_tpu/kernels/flash_attention.py)
+# (paddle_tpu/kernels/flash_attention.py): the backward both passes' bodies
 VARIANT_REPLACES = {
-    ("fwd", "seg"): 190, ("fwd", "drop"): 196, ("fwd", "seg_drop"): 202,
-    ("dkv", "seg"): 410, ("dkv", "drop"): 425, ("dkv", "seg_drop"): 439,
-    ("dq", "seg"): 418, ("dq", "drop"): 433, ("dq", "seg_drop"): 447}
-PASS_KERNEL = {"fwd": "flash_fwd", "dkv": "flash_bwd_dkv",
-               "dq": "flash_bwd_dq"}
+    ("fwd", "seg"): (190,), ("fwd", "drop"): (196,),
+    ("fwd", "seg_drop"): (202,), ("bwd", "seg"): (410, 418),
+    ("bwd", "drop"): (425, 433), ("bwd", "seg_drop"): (439, 447)}
+PASS_KERNEL = {"fwd": "flash_fwd", "bwd": "flash_bwd"}
 DROP_RATE = 0.1
 
 
@@ -1925,16 +2039,15 @@ def variant_controls(q, k, v, do, lse, delta, scale, causal, var, want):
     the bar. "seg_shift": segment ids shifted by one token. "tile_local":
     the dropout mask keyed by positions within 64-row tiles instead of
     global ones. "seed": the seed off by one. "dv_undropped": dV from the
-    undropped p (the sound lse and delta)."""
+    undropped p (the sound lse and delta). "dq_tile": dQ without the first
+    128-key tile's contribution."""
     bh, s_q, s_kv = q.shape[0], q.shape[1], k.shape[1]
 
     def run(v_):
         out, lse2 = kfa.flash_fwd_ref(q, k, v, scale, causal, v_)
         delta2 = kfa.flash_bwd_delta(out, do)
-        dk, dv = kfa.flash_bwd_dkv_ref(q, k, v, do, lse2, delta2, scale,
+        dq, dk, dv = kfa.flash_bwd_ref(q, k, v, do, lse2, delta2, scale,
                                        causal, v_)
-        dq = kfa.flash_bwd_dq_ref(q, k, v, do, lse2, delta2, scale, causal,
-                                  v_)
         return dict(out=out, dq=dq, dk=dk, dv=dv)
 
     def variant(**kw):
@@ -1943,7 +2056,8 @@ def variant_controls(q, k, v, do, lse, delta, scale, causal, var, want):
         base.update(kw)
         return kfa.Variant(**base)
 
-    got = {}
+    got = {"dq_tile": dict(dq=dq_without_tile(q, k, v, do, lse, delta,
+                                               scale, causal, var))}
     if var.seg_q is not None:
         got["seg_shift"] = run(variant(
             seg_q=torch.roll(var.seg_q, 1, dims=1),
@@ -1959,14 +2073,15 @@ def variant_controls(q, k, v, do, lse, delta, scale, causal, var, want):
         _, dv = kfa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale, causal,
                                       variant(rate=0.0))
         got["dv_undropped"] = dict(dv=dv)
+        del dv
     return {fault: {key: row_rel_err(t, want[key]) for key, t in ts.items()}
             for fault, ts in got.items()}
 
 
 def variant_case(name, variant, b, heads, s, causal, dtype, gen, dev, rng,
                  controls=False, seed=20260917):
-    """The three kernels of one variant against their plain versions, row by
-    row under FLASH_TOL, on [b * heads, s, 128] (row bh reads the segment ids
+    """The forward and backward kernels of one variant against their plain
+    versions, row by row under FLASH_TOL, on [b * heads, s, 128] (row bh reads the segment ids
     of batch bh // heads: packed sequences of 64-4096 tokens, s / 32
     padding, -1 for queries, -2 for keys); with `controls`, faults that
     must fail the bar, and a `timings` closure (kernel, plain, PyTorch's
@@ -1989,16 +2104,13 @@ def variant_case(name, variant, b, heads, s, causal, dtype, gen, dev, rng,
     before = {p: kfa.variant_launches[(p, variant)] for p in kfa.PASSES}
     out, lse = kfa.flash_fwd(q, k, v, scale, causal, var)
     delta = kfa.flash_bwd_delta(out, do)
-    dk, dv = kfa.flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, var)
-    dq = kfa.flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, var)
+    dq, dk, dv = kfa.flash_bwd(q, k, v, do, lse, delta, scale, causal, var)
     torch.cuda.synchronize()
     check(all(kfa.variant_launches[(p, variant)] == before[p] + 1
               for p in kfa.PASSES), f"variant {name}: kernels not launched")
     out_r, lse_r = kfa.flash_fwd_ref(q, k, v, scale, causal, var)
-    dk_r, dv_r = kfa.flash_bwd_dkv_ref(q, k, v, do, lse_r, delta, scale,
-                                       causal, var)
-    dq_r = kfa.flash_bwd_dq_ref(q, k, v, do, lse_r, delta, scale, causal,
-                                var)
+    dq_r, dk_r, dv_r = kfa.flash_bwd_ref(q, k, v, do, lse_r, delta, scale,
+                                         causal, var)
     want = dict(out=out_r, dq=dq_r, dk=dk_r, dv=dv_r)
     tol = FLASH_TOL[dtype]
     errs, abs_err = {}, {}
@@ -2029,35 +2141,36 @@ def variant_case(name, variant, b, heads, s, causal, dtype, gen, dev, rng,
     rate_ = BF16_FLOP_S if dtype == torch.bfloat16 else TF32_FLOP_S
     n_t = bh * s * d * elt
     ids = 0 if sq is None else 2 * b * s * 4
-    b_fwd = bound(4 * n_t + 4 * bh * s + ids, 4 * d * pairs, rate_)
-    b_dkv = bound(6 * n_t + 8 * bh * s + ids, 8 * d * pairs, rate_)
-    b_dq = bound(5 * n_t + 8 * bh * s + ids, 6 * d * pairs, rate_)
+    # the dropout mask: one keep bit per visible pair in each kernel
+    mask_ops = MASK_INT_OPS * pairs if var.rate else 0
+    b_fwd = bound(4 * n_t + 4 * bh * s + ids, 4 * d * pairs, rate_,
+                  mask_ops)
+    # q, dO, k, v, lse, delta read, dq, dk, dv written; 5 products
+    b_bwd = bound(7 * n_t + 8 * bh * s + ids, 10 * d * pairs, rate_,
+                  mask_ops)
     res = dict(case=name, variant=variant, b=b, heads=heads, s=s,
                causal=causal, dtype=str(dtype).split(".")[-1],
                rate=var.rate, visible_pairs=pairs,
                pair_share=pairs / (bh * s * s), tol=tol, lse_err=lse_err,
                controls=ctl)
-    for key, kb, err, aerr in (
-            ("fwd", b_fwd, errs["out"], abs_err["out"]),
-            ("dkv", b_dkv, max(errs["dk"], errs["dv"]),
-             max(abs_err["dk"], abs_err["dv"])),
-            ("dq", b_dq, errs["dq"], abs_err["dq"])):
+    for key, kb, err, aerr, flops in (
+            ("fwd", b_fwd, errs["out"], abs_err["out"], 4 * d * pairs),
+            ("bwd", b_bwd, max(errs[t] for t in ("dq", "dk", "dv")),
+             max(abs_err[t] for t in ("dq", "dk", "dv")), 10 * d * pairs)):
         res[key] = dict(row_rel_err=err, max_abs_err=aerr, bound_ms=kb[0],
-                        bound_by=kb[1])
+                        bound_by=kb[1],
+                        products_bound_ms=flops / rate_ * 1e3,
+                        mask_bound_ms=mask_ops / INT32_OPS_S * 1e3)
 
     def timings():
         it = 10
         for key, fn, ref in (
                 ("fwd", lambda: kfa.flash_fwd(q, k, v, scale, causal, var),
                  lambda: kfa.flash_fwd_ref(q, k, v, scale, causal, var)),
-                ("dkv", lambda: kfa.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                  scale, causal, var),
-                 lambda: kfa.flash_bwd_dkv_ref(q, k, v, do, lse, delta,
-                                               scale, causal, var)),
-                ("dq", lambda: kfa.flash_bwd_dq(q, k, v, do, lse, delta,
-                                                scale, causal, var),
-                 lambda: kfa.flash_bwd_dq_ref(q, k, v, do, lse, delta, scale,
-                                              causal, var))):
+                ("bwd", lambda: kfa.flash_bwd(q, k, v, do, lse, delta, scale,
+                                              causal, var),
+                 lambda: kfa.flash_bwd_ref(q, k, v, do, lse, delta, scale,
+                                           causal, var))):
             res[key]["ms"], res[key]["timer"] = events_ms(fn, it), "events"
             res[key]["plain_ms"] = events_ms(ref, 2)
         # SDPA over [b, heads, s, d] views: a boolean [b, 1, s, s] mask of
@@ -2079,7 +2192,7 @@ def variant_case(name, variant, b, heads, s, causal, dtype, gen, dev, rng,
         bwd = events_ms(lambda: torch.autograd.grad(
             o, (qg, kg, vg), do.view(b, heads, s, d), retain_graph=True),
             it)
-        res["dkv"]["library_ms"] = res["dq"]["library_ms"] = bwd
+        res["bwd"]["library_ms"] = bwd
 
     res["timings"] = timings
     return res
@@ -2375,9 +2488,8 @@ def lse_entry(seed, dev, card, s=4096, heads=32):
     out_r, lse_r = kfa.flash_fwd_ref(qb, kb, vb, scale, True)
     # delta from the stored output, as the backward kernels take it
     delta = kfa.flash_bwd_delta(bhsd(out.detach()), gb) - g_lse[0]
-    dk_r, dv_r = kfa.flash_bwd_dkv_ref(qb, kb, vb, gb, lse_r, delta, scale,
-                                       True)
-    dq_r = kfa.flash_bwd_dq_ref(qb, kb, vb, gb, lse_r, delta, scale, True)
+    dq_r, dk_r, dv_r = kfa.flash_bwd_ref(qb, kb, vb, gb, lse_r, delta,
+                                         scale, True)
     tol = FLASH_TOL[torch.bfloat16]
     errs = {key: row_rel_err(bhsd(got), want) for key, got, want in (
         ("out", out.detach(), out_r), ("dq", ts[0].grad, dq_r),
@@ -2422,7 +2534,7 @@ def tiny_encoder_parity(seed, dev, layers=2):
         out.backward(g.to(d_))
         outs.append(out.detach().cpu())
     check(kfa.variant_launches[("fwd", "drop")] == layers
-          and kfa.variant_launches[("dkv", "drop")] == layers,
+          and kfa.variant_launches[("bwd", "drop")] == layers,
           "tiny encoder: CUDA did not run the drop kernels")
     err = row_rel_err(outs[1], outs[0])
     tol = FLASH_TOL[torch.float32]
@@ -2536,9 +2648,13 @@ def main():
     secs = _build.build()
     log(f"build: {len(_build.SOURCES)} kernels in {secs:.1f} s")
     for name, out in sorted(_build.build_log.items()):
+        fn = "?"  # ptxas names each instance before its report
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build: {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = kernel_name(
+                    line.split("Function properties for", 1)[1].strip())
+            elif "registers" in line or "spill" in line:
+                log(f"build: {name}: {fn}: {line.strip()}")
 
     # 3. kernels against their plain versions at the serving and training
     # shapes (the timings wait until after the serving run, so that no
@@ -2550,7 +2666,10 @@ def main():
            rms_case("prefill", 4096, 4096, bf16, gen, dev)]
     paged = [paged_case("mha_bf16", bf16, 32, 32, gen, dev, lens),
              paged_case("gqa_bf16", bf16, 32, 8, gen, dev, lens),
-             paged_case("mha_f32", f32, 32, 32, gen, dev, lens)]
+             paged_case("mha_f32", f32, 32, 32, gen, dev, lens),
+             paged_case("mqa_bf16", bf16, 32, 1, gen, dev, lens),
+             paged_case("g32_bf16", bf16, 64, 2, gen, dev, lens),
+             paged_case("d256_bf16", bf16, 32, 2, gen, dev, lens, d=256)]
     rms_bwd = [rms_bwd_case("train", 4096, 4096, bf16, gen, dev),
                rms_bwd_case("rows8", 8, 4096, bf16, gen, dev),
                rms_bwd_case("train_f32", 4096, 4096, f32, gen, dev),
@@ -2565,7 +2684,11 @@ def main():
                         f32, gen, dev))
     paged_q8 = [paged_q8_case("mha_bf16_13b", bf16, 40, 40, gen, dev, lens),
                 paged_q8_case("gqa_bf16", bf16, 32, 8, gen, dev, lens),
-                paged_q8_case("mha_f32", f32, 32, 32, gen, dev, lens)]
+                paged_q8_case("mha_f32", f32, 32, 32, gen, dev, lens),
+                paged_q8_case("mqa_bf16", bf16, 32, 1, gen, dev, lens),
+                paged_q8_case("g32_bf16", bf16, 64, 2, gen, dev, lens),
+                paged_q8_case("d256_bf16", bf16, 32, 2, gen, dev, lens,
+                              d=256)]
     mm = [mm_case(f"{k}->{n} m{m}", m, k, n, bf16, gen, dev,
                   check_timer=(m, k, n) == (8, 4096, 4096))
           for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
@@ -2575,7 +2698,10 @@ def main():
     grouped = [grouped_case("mha_bf16", bf16, 32, 32, gen, dev,
                             GROUPED_LENS),
                grouped_case("gqa_bf16", bf16, 32, 8, gen, dev, GROUPED_LENS),
-               grouped_case("mha_f32", f32, 32, 32, gen, dev, GROUPED_LENS)]
+               grouped_case("mha_f32", f32, 32, 32, gen, dev, GROUPED_LENS),
+               grouped_case("mqa_bf16", bf16, 32, 1, gen, dev, GROUPED_LENS),
+               grouped_case("g32_bf16", bf16, 64, 2, gen, dev,
+                            GROUPED_LENS)]
     for kind_, rs in (("quant_matmul", qmm),
                       ("paged_attention_int8", paged_q8), ("matmul", mm),
                       ("paged_attention_grouped", grouped)):
@@ -2595,14 +2721,18 @@ def main():
                       ("rms_norm_bwd", rms_bwd)):
         for r in rs:
             log(f"kernel: {kind_} {r['case']} {r['dtype']}: max abs err "
-                f"{r['max_abs_err']:.3g} vs plain (tol {r['tol']:.3g})")
+                f"{r['max_abs_err']:.3g} vs plain (tol {r['tol']:.3g})"
+                + "".join(f"; control {k} (must exceed the tol) {v:.3g}"
+                          for k, v in r.get("controls", {}).items()))
     for r in flash:
-        for key in ("fwd", "dkv", "dq"):
+        for key in kfa.PASSES:
             log(f"kernel: flash {key} {r['case']} ({r['bh']}x{r['s_q']}x"
                 f"{r['s_kv']}, causal {r['causal']}) {r['dtype']}: row rel "
                 f"err {r[key]['row_rel_err']:.3g} vs plain (bar "
                 f"{r['tol']:.3g}), max abs err {r[key]['max_abs_err']:.3g}"
-                + (f", lse err {r['lse_err']:.3g}" if key == "fwd" else ""))
+                + (f", lse err {r['lse_err']:.3g}" if key == "fwd" else
+                   " (" + ", ".join(f"{t} {e:.3g}" for t, e in
+                                    r[key]["row_rel_errs"].items()) + ")"))
         for fault, readings in r["controls"].items():
             log(f"kernel: flash {r['case']} control '{fault}' (must exceed "
                 f"the bar {r['tol']:.3g}): row rel err " + ", ".join(
@@ -2649,7 +2779,7 @@ def main():
                     f"{tt['profiler']:.4f} ms [{card}]")
     for r in flash:
         r.pop("timings")()
-        for key in ("fwd", "dkv", "dq"):
+        for key in kfa.PASSES:
             t = r[key]
             extra = "" if t["plain_ms"] is None else (
                 f", plain {t['plain_ms']:.3f} ms, library "
@@ -2664,6 +2794,7 @@ def main():
     # 5. a tiny model decodes the same on CUDA and CPU, float and quantized
     parity = tiny_parity(args.seed, dev)
     quant_parity = tiny_quant_parity(args.seed, dev)
+    mqa_parity = tiny_mqa_parity(args.seed, dev)
 
     # 6. the training path: 20-layer LLaMA-2-7B widths, batch 1 x 4096
     training = train_7b(args.seed, dev, card)
@@ -2707,12 +2838,14 @@ def main():
         row("flash_fwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:214", flash[0]["fwd"],
             trained["flash_fwd"] + lse_launches["fwd_plain"]),
-        row("flash_bwd_dkv", csrc + "flash_attention.cu",
-            ref + "flash_attention.py:473", flash[0]["dkv"],
-            trained["flash_bwd_dkv"] + lse_launches["dkv_plain"]),
-        row("flash_bwd_dq", csrc + "flash_attention.cu",
-            ref + "flash_attention.py:534", flash[0]["dq"],
-            trained["flash_bwd_dq"] + lse_launches["dq_plain"]),
+        # the one backward kernel, under both sites it replaces: the dK/dV
+        # pass and the dQ pass
+        row("flash_bwd", csrc + "flash_attention.cu",
+            ref + "flash_attention.py:473", flash[0]["bwd"],
+            trained["flash_bwd"] + lse_launches["bwd_plain"]),
+        row("flash_bwd", csrc + "flash_attention.cu",
+            ref + "flash_attention.py:534", flash[0]["bwd"],
+            trained["flash_bwd"] + lse_launches["bwd_plain"]),
         row("quant_matmul", csrc + "quant_matmul.cu",
             ref + "quant_matmul.py:208", qmm_row,
             q8["quant_matmul"] + q4["quant_matmul"]),
@@ -2737,12 +2870,12 @@ def main():
     counted.append(variants["encoder"]["launches"])
     for variant in ("seg", "drop", "seg_drop"):
         for p in kfa.PASSES:
-            kernels.append(row(
-                f"{PASS_KERNEL[p]}_{variant}",
-                csrc + f"flash_attention_{variant}.cu",
-                ref + f"flash_attention.py:{VARIANT_REPLACES[(p, variant)]}",
-                timed[variant][p],
-                sum(c.get(f"{p}_{variant}", 0) for c in counted)))
+            for line in VARIANT_REPLACES[(p, variant)]:
+                kernels.append(row(
+                    f"{PASS_KERNEL[p]}_{variant}",
+                    csrc + f"flash_attention_{variant}.cu",
+                    ref + f"flash_attention.py:{line}", timed[variant][p],
+                    sum(c.get(f"{p}_{variant}", 0) for c in counted)))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
@@ -2752,7 +2885,8 @@ def main():
                            quant_matmul_split_sweep=split_sweep,
                            serving=serving, serving13_int8=serving13,
                            serving13_int4=serving13_int4, parity=parity,
-                           quant_parity=quant_parity, training=training,
+                           quant_parity=quant_parity,
+                           mqa_parity=mqa_parity, training=training,
                            train_parity=train_parity, matmul=mm,
                            paged_attention_grouped=grouped,
                            dispatch=dispatch, flash_variants=variants,

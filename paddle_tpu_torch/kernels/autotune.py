@@ -384,11 +384,12 @@ def _choose_matmul(m, k, n, dtype):
 def choose_paged_decode(b, n_q_heads, n_kv_heads, head_dim, page_size,
                         pages_per_seq, dtype, quant):
     """Measured dispatch of single-token paged decode
-    (`kernels/paged_attention.py`). Candidates: the per-page kernel and,
-    for float 16-token pages whose table width is a multiple of 8 and
-    with FLAGS_paged_grouped_kernel set, the grouped-fetch kernel; the
-    int8 kernel alone for int8 pages. Winner meta: {"impl": "paged"} or
-    {"impl": "grouped"}."""
+    (`kernels/paged_attention.py`). Candidates: the per-page kernel where
+    it takes the head_dim (`supports`) and, for float 16-token pages whose
+    table width is a multiple of 8 and with FLAGS_paged_grouped_kernel
+    set, the grouped-fetch kernel; the int8 kernel alone for int8 pages.
+    No candidate (None) where no kernel takes the shape. Winner meta:
+    {"impl": "paged"} or {"impl": "grouped"}."""
     return _memo(
         ("paged_decode", b, n_q_heads, n_kv_heads, head_dim, page_size,
          pages_per_seq, str(dtype), bool(quant)),
@@ -438,7 +439,8 @@ def _choose_paged_decode(b, n_q_heads, n_kv_heads, head_dim, page_size,
     def paged(q, kp, vp, tb, ln, *scales):
         return pa.paged_attention(q, kp, vp, tb, ln, None, *scales)
 
-    cands = [Candidate("paged", "kernel", paged, {"impl": "paged"})]
+    cands = [Candidate("paged", "kernel", paged, {"impl": "paged"})] \
+        if pa.supports(head_dim) else []
     if not quant and _config.get_flag("FLAGS_paged_grouped_kernel", False) \
             and pa.grouped_supports(head_dim, page_size, bpps):
         cands.append(Candidate("grouped", "kernel", pa.paged_attention_grouped,

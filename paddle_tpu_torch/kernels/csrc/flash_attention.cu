@@ -1,36 +1,36 @@
-// Flash attention for NVIDIA Hopper (sm_90a): forward, dK/dV and dQ.
+// Flash attention for NVIDIA Hopper (sm_90a): the forward and the backward.
 //
 // Replaces the four kernel bodies of each of the three Pallas sites of
 // paddle_tpu/kernels/flash_attention.py:
 //   flash_fwd_kernel <- _fwd_kernel{,_seg,_drop,_seg_drop} via _flash_fwd
 //                       (out, f32 row lse)
-//   flash_dkv_kernel <- _bwd_dkv_kernel{,_seg,_drop,_seg_drop} via
-//                       _run_dkv_pass (dK, dV)
-//   flash_dq_kernel  <- _bwd_dq_kernel{,_seg,_drop,_seg_drop} via
-//                       _run_dq_pass (dQ)
+//   flash_bwd_kernel <- _bwd_dkv_kernel{,...} via _run_dkv_pass (dK, dV)
+//                       and _bwd_dq_kernel{,...} via _run_dq_pass (dQ), in
+//                       one kernel for bf16 inputs; float inputs keep two
+//                       WMMA kernels, flash_dkv_kernel and flash_dq_kernel
 // over q [bh, s_q, d], k/v [bh, s_kv, d] with d = 128. Each kernel is a
-// template on <T, SEG, DROP>; this file built as it is gives the plain
+// template on <SEG, DROP>; this file built as it is gives the plain
 // bodies (no segments, no dropout), and flash_attention_{seg,drop,seg_drop}.cu
 // define FLASH_SEG / FLASH_DROP and include it, so the four variants build
-// as four libraries in parallel, each with the same three entry points.
+// as four libraries in parallel, each with the same two entry points.
 // Causal masking is bottom-right aligned: query i sees key j when
 // i + (s_kv - s_q) >= j; a masked score is the finite NEG_INF = -1e30 and
 // its probability is zeroed by the mask itself, so a fully masked row gives
-// out 0 and lse -1e30, and leaks nothing into dK/dV. The backward
+// out 0 and lse -1e30, and leaks nothing into the gradients. The backward
 // recomputes p = exp(s - lse) from the forward's lse and takes
-// delta = rowsum(dO * O) (f32) from the caller.
+// delta = rowsum(dO * O) (f32, less the lse cotangent) from the caller.
 //
 // SEG (varlen): int32 segment ids [b, s_q] and [b, s_kv], row bh reading
 // batch bh / heads; query i sees key j only when their ids are equal (and
 // the causal mask allows it); the mask zeroes p, not only the score. A
-// tile is skipped when the id range [min, max] of its 64 queries and that
-// of its 64 keys are disjoint (int2 ranges per 64-row tile from the
+// tile is skipped when the id range [min, max] of its queries and that
+// of its keys are disjoint (int2 ranges per 64-row tile from the
 // caller): exact for any ids, and it keeps a packed stream's work near its
 // block diagonal.
 // DROP: inverted dropout of the softmax weights with the reference's
 // counter-based mask, threefry2x32 (20 rounds) keyed by (seed, bh) over the
 // counters (global query, global key), low 23 bits times 2^-23 >= rate
-// (`_threefry2x32`, `_dropout_keep`), so every pass regenerates the same
+// (`_threefry2x32`, `_dropout_keep`), so every kernel regenerates the same
 // bits whatever its tiling. The forward's l sums the undropped p; P V, and
 // dV, take the dropped p times 1 / (1 - rate); dS = p * (dP' - delta) *
 // scale with dP' the masked, scaled dO V^T and p undropped.
@@ -38,31 +38,54 @@
 // Bound on the H100: operations. At [1, 4096, 32, 128] bf16 causal the
 // forward is 137 GFLOP of products against 134 MB moved, far above the
 // card's 295 FLOP/byte ridge, so the tensor cores (989 TFLOP/s bf16) are the
-// limit. The dropout mask adds ~100 integer operations per visible score on
-// the CUDA cores, in every pass, which may outweigh the products.
+// limit. The dropout mask adds ~65 integer operations per visible score on
+// the CUDA cores (see `keep`), which at 64 INT32 lanes per SM outweigh the
+// products: the backward regenerates it once per visible pair.
 //
-// Design: every product is a warp-level tensor-core product through the
+// Forward: every product is a warp-level tensor-core product through the
 // WMMA API on tiles staged in shared memory: bf16 operands with f32
 // accumulation; for float inputs three TF32 products per step on the split
 // a = hi + lo (hi*hi + hi*lo + lo*hi), which keeps close to f32 accuracy.
-// The scores go to shared memory as f32; the masks, the online softmax and
-// ds = p * (dp - delta) * scale run on the CUDA cores in f32; P and dS are
-// rounded to the input type before their products (bf16: one rounding,
-// 2^-9 relative, of each weight; the reference multiplies in f32).
-// Tiles: 64 query rows by 64 key rows, head_dim 128.
-//   forward: one block of 4 warps per (bh, q tile), each warp owning 16 query
-//     rows: its own softmax state, and its O accumulator in fragments,
-//     rescaled in place (a probe load tells which row each fragment element
-//     holds); K/V tiles in the future of the whole q tile are skipped.
-//   dK/dV: one block of 8 warps per (bh, k tile), looping over q tiles, so
-//     the sums need no atomics and are deterministic.
-//   dQ: one block of 8 warps per (bh, q tile), looping over k tiles.
-// Streamed tiles (K/V in the forward and dQ passes, Q/dO with their lse and
-// delta rows in the dK/dV pass, and their segment ids) arrive by cp.async;
-// the forward and dK/dV passes keep two buffers for bf16 inputs, the next
-// tile in flight while the block computes on the current one (see
-// kStages); in the forward each warp keeps its bf16 Q rows in registers.
-// The products are WMMA, not wgmma, and the tiles are not moved by TMA.
+// The scores go to shared memory as f32; the masks and the online softmax
+// run on the CUDA cores in f32; P is rounded to the input type before its
+// product (bf16: one rounding, 2^-9 relative, of each weight; the reference
+// multiplies in f32). One block of 4 warps per (bh, 64-row q tile), each
+// warp owning 16 query rows: its own softmax state, and its O accumulator
+// in fragments, rescaled in place (a probe load tells which row each
+// fragment element holds); K/V tiles in the future of the whole q tile are
+// skipped, the next K/V tile in flight by cp.async (two buffers for bf16)
+// while the block computes on the current one; each warp keeps its bf16 Q
+// rows in registers.
+//
+// Backward, bf16 (flash_bwd_kernel): one block of 8 warps per (bh, 128-key
+// tile) computes the tile's dK and dV and its share of dQ, 5 products per
+// (q tile, key tile) pair where the two passes of the reference take 7, and
+// one threefry call per visible pair. The products are mma.sync m16n8k16
+// (bf16 in, f32 accumulate) fed by ldmatrix, with the transposed operands
+// by ldmatrix.trans. Each warp owns 16 key rows and computes, 32 queries at
+// a time, S^T = K Q^T and dP^T = V dO^T into accumulator registers; the
+// masks, the keep bit, p = exp(s * scale - lse) and ds = p * (dp - delta) *
+// scale are applied there, each element's (key, query) from the lane id.
+// The m16n8 accumulator layout of two adjacent n-tiles is the A-operand
+// layout of one k16 step, so P^T and dS^T, rounded to bf16, feed
+// dV += P^T dO and dK += dS^T Q from registers: no score tile goes through
+// shared memory. dS^T is stored once in bf16 (two buffers); one q tile
+// later, past the next barrier, the 8 warps read it back by ldmatrix.trans
+// as the A operand of that tile's dQ += dS K (each warp 16 queries x 64
+// columns) and add their partials into a zeroed f32 [bh, s_q, d]
+// workspace with float2 atomics (the wrapper casts it to bf16). The order of those additions varies between
+// runs, so dQ is not bitwise repeatable: its f32 sums differ by rounding
+// (~1e-7 relative), a bf16 element at most by one ulp. K and V stay in
+// shared memory; the Q, dO, lse and delta tiles (and their segment ids)
+// stream in by cp.async, two buffers, the next tile in flight; one
+// barrier per q tile. The loop over a tile's two 32-query halves is
+// unrolled so that their work overlaps: 248-252 registers, no spills
+// (ptxas). The grid is (bh, key tile) so that the key tiles at
+// the start, which under the causal mask see the most queries, launch
+// first. Float inputs keep the WMMA bodies of the first design: a dK/dV
+// kernel of 8 warps per (bh, 64-key tile) and a dQ kernel per (bh, 64-row
+// q tile), scores and probabilities through shared memory.
+// Products are not wgmma and tiles are not moved by TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -222,10 +245,12 @@ __device__ __forceinline__ void load_row_stats(float* dst, const float* src) {
                                         src + 4 * threadIdx.x);
 }
 
-// kBQ (= kBK) int32 segment ids of one tile -> shared
-__device__ __forceinline__ void load_ids(int* dst, const int* src) {
-  if (threadIdx.x < kBQ / 4) cp_async16(dst + 4 * threadIdx.x,
-                                        src + 4 * threadIdx.x);
+// n (a multiple of 4; by default one 64-row tile's) int32 segment ids
+// -> shared
+__device__ __forceinline__ void load_ids(int* dst, const int* src,
+                                         int n = kBQ) {
+  for (int c = threadIdx.x; c < n / 4; c += blockDim.x)
+    cp_async16(dst + 4 * c, src + 4 * c);
 }
 
 // What the seg and drop bodies read besides q, k, v (unused by the plain
@@ -549,7 +574,7 @@ __global__ void __launch_bounds__(kFwdThreads)
 }
 
 // ---------------------------------------------------------------------------
-// backward
+// backward, float inputs: the WMMA dK/dV and dQ kernels
 // ---------------------------------------------------------------------------
 
 // s = q k^T and dp = dO v^T for one q tile against one k tile (64 x 64
@@ -846,6 +871,345 @@ __global__ void __launch_bounds__(kBwdThreads)
 }
 
 // ---------------------------------------------------------------------------
+// backward, bf16 inputs: one mma.sync kernel for dK, dV and dQ
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBwdKeys = 128;                  // key rows per block
+constexpr int kBwdWarps = kBwdKeys / 16;       // 16 key rows per warp
+constexpr int kBwdMmaThreads = kBwdWarps * 32;
+constexpr int kBwdQ = 64;                      // query rows per q tile
+constexpr int kLdT = kBwdQ + 8;                // row stride of the dS^T tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8 and receives, of matrix i, in r[i]: row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1 (trans: column l / 4, rows 2 (l % 4)
+// and 2 (l % 4) + 1)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a b over one m16n8k16 step: a the 16 x 16 row-major A fragment, b0 /
+// b1 the two registers of the 16 x 8 B fragment; f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <bool SEG>
+constexpr size_t bwd_smem() {
+  return (2 * kBwdKeys + 2 * 2 * kBwdQ) * kLD * sizeof(bf16) +
+         2 * kBwdKeys * kLdT * sizeof(bf16) + 2 * 2 * kBwdQ * sizeof(float) +
+         (SEG ? (kBwdKeys + 2 * kBwdQ) * sizeof(int) : 0);
+}
+
+// dQ[q tile at q0] += dS K for one 128-key tile: dS^T [key][query] in sdS,
+// K [key][d] in sK; warp w takes 16 queries x 64 columns over the 128 keys
+// and adds its partial into the f32 workspace by float2 atomics.
+__device__ __forceinline__ void dq_tile(const bf16* sdS, const bf16* sK,
+                                        float* dq_acc, int bh, int s_q,
+                                        int q0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bt_row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int bt_col = (lane >> 4) * 8;
+  const int qr = (warp & 3) * 16, dc = (warp >> 2) * 64;
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kBwdKeys / 16; ++kk) {
+    uint32_t a[4], bk[4];
+    // A = dS [query][key] from dS^T by .trans: lane l addresses key row
+    // l % 8 + 8 (l / 16), query half (l / 8) % 2
+    ldsm_x4_t(a, sdS + (kk * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLdT +
+                     qr + ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      ldsm_x4_t(bk, sK + (kk * 16 + bt_row) * kLD + dc + np * 16 + bt_col);
+      mma_bf16(acc[2 * np], a, bk[0], bk[1]);
+      mma_bf16(acc[2 * np + 1], a, bk[2], bk[3]);
+    }
+  }
+  float* dst =
+      dq_acc + (static_cast<size_t>(bh) * s_q + q0 + qr + g) * kD + dc + 2 * t4;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
+              make_float2(acc[n][0], acc[n][1]));
+    atomicAdd(reinterpret_cast<float2*>(dst + 8 * kD + n * 8),
+              make_float2(acc[n][2], acc[n][3]));
+  }
+}
+
+// Fragment layouts (m16n8k16, g = lane / 4, t = lane % 4): an accumulator
+// holds (row g, columns 2t, 2t + 1) and (row g + 8, the same columns); an
+// A fragment the same rows at columns 2t, 2t + 1 and 2t + 8, 2t + 9; a B
+// fragment (rows 2t, 2t + 1 | 2t + 8, 2t + 9, column g).
+template <bool SEG, bool DROP>
+__global__ void __launch_bounds__(kBwdMmaThreads, 1)
+    flash_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int s_q, int s_kv, float scale,
+                     int causal, const Variant var) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + kBwdKeys * kLD;
+  bf16* sQdO = sV + kBwdKeys * kLD;  // 2 x (Q tile, dO tile)
+  bf16* sdS = sQdO + 2 * 2 * kBwdQ * kLD;  // 2 x dS^T [key][query]
+  // 2 x (lse row, delta row)
+  float* sStats = reinterpret_cast<float*>(sdS + 2 * kBwdKeys * kLdT);
+  // SEG: the key tile's ids, then 2 x (q tile ids)
+  int* sIdK = reinterpret_cast<int*>(sStats + 2 * 2 * kBwdQ);
+  int* sIdQ = sIdK + kBwdKeys;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x, k0 = blockIdx.y * kBwdKeys;
+  const int keys = min(kBwdKeys, s_kv - k0);  // 128, or 64 at the end
+  const int offset = s_kv - s_q;
+  const size_t kv_base = (static_cast<size_t>(bh) * s_kv + k0) * kD;
+  const int n_q = s_q / kBwdQ;
+  const int batch = SEG ? bh / var.heads : 0;
+  int i0 = 0;  // the first q tile that sees a key of this tile
+  if (causal)
+    while (i0 < n_q && k0 > i0 * kBwdQ + kBwdQ - 1 + offset) ++i0;
+  int2 k_ids = make_int2(0, 0);  // SEG: the key tile's (min, max) id
+  if constexpr (SEG) {
+    const int2* rk = var.rng_k + batch * (s_kv / kBK) + k0 / kBK;
+    k_ids = rk[0];
+    if (keys > kBK) {
+      k_ids.x = min(k_ids.x, rk[1].x);
+      k_ids.y = max(k_ids.y, rk[1].y);
+    }
+  }
+  auto next = [&](int i) {  // the first q tile from i on that may see it
+    if constexpr (SEG)
+      return next_tile(i, n_q, var.rng_q + batch * n_q, k_ids.x, k_ids.y);
+    else
+      return i;
+  };
+  auto issue = [&](int i, int b) {  // q tile i into buffer b
+    const size_t q_base = (static_cast<size_t>(bh) * s_q + i * kBwdQ) * kD;
+    load_tile(sQdO + b * 2 * kBwdQ * kLD, q + q_base, kBwdQ);
+    load_tile(sQdO + (b * 2 + 1) * kBwdQ * kLD, dout + q_base, kBwdQ);
+    const size_t row = static_cast<size_t>(bh) * s_q + i * kBwdQ;
+    load_row_stats(sStats + b * 2 * kBwdQ, lse + row);
+    load_row_stats(sStats + (b * 2 + 1) * kBwdQ, delta + row);
+    if constexpr (SEG)
+      load_ids(sIdQ + b * kBwdQ,
+               var.seg_q + static_cast<size_t>(batch) * s_q + i * kBwdQ);
+    cp_async_commit();
+  };
+  load_tile(sK, k + kv_base, keys);
+  load_tile(sV, v + kv_base, keys);
+  if constexpr (SEG)
+    load_ids(sIdK, var.seg_k + static_cast<size_t>(batch) * s_kv + k0,
+             keys);
+  cp_async_commit();
+  // a half tile at the end: zero rows, so that dS K reads no stale values
+  {
+    constexpr int kChunks = kLD * sizeof(bf16) / 16;
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    for (int c = keys * kChunks + threadIdx.x; c < kBwdKeys * kChunks;
+         c += blockDim.x) {
+      reinterpret_cast<uint4*>(sK)[c] = zero;
+      reinterpret_cast<uint4*>(sV)[c] = zero;
+    }
+  }
+  int i = next(i0);
+  if (i < n_q) issue(i, 0);
+
+  float dk_acc[kD / 8][4], dv_acc[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  const int krow = warp * 16;  // this warp's key rows in the tile
+  // ldmatrix row addresses: A from row-major rows (lane % 16, column half
+  // lane / 16); B of two n-tiles from rows [n][k] (n lane % 8 + 8 (lane /
+  // 16), k half (lane / 8) % 2), by .trans from rows [k][n] (k lane % 8 +
+  // 8 ((lane / 8) % 2), n half lane / 16)
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int bt_row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int bt_col = (lane >> 4) * 8;
+
+  // One barrier per q tile. Iteration it computes tile i's dS^T into dS
+  // buffer it % 2, then the dQ step of the tile before (buffer (it + 1) %
+  // 2), whose dS^T every warp finished before this iteration's barrier;
+  // the next iteration's barrier keeps that buffer from being overwritten
+  // while a warp still reads it.
+  int it = 0, q_prev = -1;  // the q tile whose dQ step is pending
+  for (; i < n_q; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();
+    // every warp is past the last iteration's reads of buffer (it + 1) % 2
+    const int i_next = next(i + 1);
+    if (i_next < n_q) issue(i_next, (it + 1) & 1);
+    const int b = it & 1;
+    bf16* sdS_cur = sdS + b * kBwdKeys * kLdT;
+    const bf16* sQ = sQdO + b * 2 * kBwdQ * kLD;
+    const bf16* sdO = sQ + kBwdQ * kLD;
+    const float* sLse = sStats + b * 2 * kBwdQ;
+    const float* sDelta = sLse + kBwdQ;
+    const int* q_id = sIdQ + b * kBwdQ;
+    const int q0 = i * kBwdQ;
+    int k_id[2] = {0, 0};  // SEG: the ids of this thread's two key rows
+    if constexpr (SEG) {
+      k_id[0] = sIdK[krow + g];
+      k_id[1] = sIdK[krow + g + 8];
+    }
+
+    // unrolled, so that the two halves' products and masks overlap
+#pragma unroll
+    for (int h = 0; h < kBwdQ / 32; ++h) {  // 32 queries at a time
+      const int qh = h * 32;
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries, over d
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        uint32_t a[4], bq[4];
+        ldsm_x4(a, sK + (krow + a_row) * kLD + kk * 16 + a_col);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          ldsm_x4(bq, sQ + (qh + np * 16 + b_row) * kLD + kk * 16 + b_col);
+          mma_bf16(s[2 * np], a, bq[0], bq[1]);
+          mma_bf16(s[2 * np + 1], a, bq[2], bq[3]);
+        }
+        ldsm_x4(a, sV + (krow + a_row) * kLD + kk * 16 + a_col);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          ldsm_x4(bq, sdO + (qh + np * 16 + b_row) * kLD + kk * 16 + b_col);
+          mma_bf16(dp[2 * np], a, bq[0], bq[1]);
+          mma_bf16(dp[2 * np + 1], a, bq[2], bq[3]);
+        }
+      }
+      // in registers: s -> the weights of dV (p, or dropped and scaled),
+      // dp -> ds = p * (dp - delta) * scale
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = qh + n * 8 + 2 * t4 + (e & 1);
+          const int kr = krow + g + 8 * (e >> 1);
+          const int qpos = q0 + ql, kpos = k0 + kr;
+          bool masked = kpos >= s_kv || (causal && qpos + offset < kpos);
+          if constexpr (SEG) masked = masked || q_id[ql] != k_id[e >> 1];
+          const float p = masked ? 0.f : __expf(s[n][e] * scale - sLse[ql]);
+          float dpv = dp[n][e], p_d = p;
+          if constexpr (DROP) {
+            if (!masked && keep(var, bh, qpos, kpos)) {
+              p_d = p * var.inv;
+              dpv *= var.inv;
+            } else {
+              p_d = dpv = 0.f;
+            }
+          }
+          s[n][e] = p_d;
+          dp[n][e] = p * (dpv - sDelta[ql]) * scale;
+        }
+      }
+      // two adjacent n-tiles of the accumulators = one k16 A fragment
+      uint32_t pa[2][4], da[2][4];
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt) {
+        pa[kt][0] = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
+        pa[kt][1] = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
+        pa[kt][2] = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
+        pa[kt][3] = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
+        da[kt][0] = pack_bf16(dp[2 * kt][0], dp[2 * kt][1]);
+        da[kt][1] = pack_bf16(dp[2 * kt][2], dp[2 * kt][3]);
+        da[kt][2] = pack_bf16(dp[2 * kt + 1][0], dp[2 * kt + 1][1]);
+        da[kt][3] = pack_bf16(dp[2 * kt + 1][2], dp[2 * kt + 1][3]);
+        // dS^T to shared memory for the dQ product
+        bf16* row0 = sdS_cur + (krow + g) * kLdT + qh + kt * 16 + 2 * t4;
+        bf16* row8 = row0 + 8 * kLdT;
+        *reinterpret_cast<uint32_t*>(row0) = da[kt][0];
+        *reinterpret_cast<uint32_t*>(row8) = da[kt][1];
+        *reinterpret_cast<uint32_t*>(row0 + 8) = da[kt][2];
+        *reinterpret_cast<uint32_t*>(row8 + 8) = da[kt][3];
+      }
+      // dV += P^T dO, dK += dS^T Q over these 32 queries
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt) {
+        const int qr = qh + kt * 16 + bt_row;
+#pragma unroll
+        for (int np = 0; np < kD / 16; ++np) {
+          uint32_t bo[4];
+          ldsm_x4_t(bo, sdO + qr * kLD + np * 16 + bt_col);
+          mma_bf16(dv_acc[2 * np], pa[kt], bo[0], bo[1]);
+          mma_bf16(dv_acc[2 * np + 1], pa[kt], bo[2], bo[3]);
+          ldsm_x4_t(bo, sQ + qr * kLD + np * 16 + bt_col);
+          mma_bf16(dk_acc[2 * np], da[kt], bo[0], bo[1]);
+          mma_bf16(dk_acc[2 * np + 1], da[kt], bo[2], bo[3]);
+        }
+      }
+    }
+    if (q_prev >= 0)
+      dq_tile(sdS + (b ^ 1) * kBwdKeys * kLdT, sK, dq_acc, bh, s_q, q_prev);
+    q_prev = q0;
+    i = i_next;
+  }
+  if (q_prev >= 0) {  // the last q tile's dQ step
+    __syncthreads();
+    dq_tile(sdS + ((it - 1) & 1) * kBwdKeys * kLdT, sK, dq_acc, bh, s_q,
+            q_prev);
+  }
+
+  // dK and dV: this thread's two key rows, bf16 pairs
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = krow + g + 8 * r;
+    if (k0 + kr >= s_kv) continue;
+    const size_t base = kv_base + static_cast<size_t>(kr) * kD + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dk + base + n * 8) =
+          pack_bf16(dk_acc[n][2 * r], dk_acc[n][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + base + n * 8) =
+          pack_bf16(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -902,38 +1266,56 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dk, void* dv, int bh,
-                int s_q, int s_kv, float scale, int causal,
-                const Variant& var, cudaStream_t s) {
-  constexpr size_t smem = dkv_smem<T, kSeg>();
-  cudaError_t err = allow_smem(flash_dkv_kernel<T, kSeg, kDrop>, smem);
+// the WMMA dK/dV and dQ kernels, float inputs
+cudaError_t bwd_f32(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, void* dk, void* dv, int bh, int s_q, int s_kv,
+                    float scale, int causal, const Variant& var,
+                    cudaStream_t s) {
+  constexpr size_t dkv_bytes = dkv_smem<float, kSeg>();
+  cudaError_t err = allow_smem(flash_dkv_kernel<float, kSeg, kDrop>,
+                               dkv_bytes);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<T, kSeg, kDrop>
-      <<<dim3(s_kv / kBK, bh), kBwdThreads, smem, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_dkv_kernel<float, kSeg, kDrop>
+      <<<dim3(s_kv / kBK, bh), kBwdThreads, dkv_bytes, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dk), static_cast<T*>(dv), s_q, s_kv, scale, causal,
-          var);
+          static_cast<float*>(dk), static_cast<float*>(dv), s_q, s_kv, scale,
+          causal, var);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr size_t dq_bytes = dq_smem<float, kSeg>();
+  err = allow_smem(flash_dq_kernel<float, kSeg, kDrop>, dq_bytes);
+  if (err != cudaSuccess) return err;
+  flash_dq_kernel<float, kSeg, kDrop>
+      <<<dim3(s_q / kBQ, bh), kBwdThreads, dq_bytes, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<const float*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<float*>(dq), s_q, s_kv, scale, causal, var);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq_out, int bh,
-               int s_q, int s_kv, float scale, int causal, const Variant& var,
-               cudaStream_t s) {
-  constexpr size_t smem = dq_smem<T, kSeg>();
-  cudaError_t err = allow_smem(flash_dq_kernel<T, kSeg, kDrop>, smem);
+// the mma.sync kernel, bf16 inputs: zero the dQ workspace, then one launch
+cudaError_t bwd_bf16(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq_acc, void* dk, void* dv, int bh, int s_q,
+                     int s_kv, float scale, int causal, const Variant& var,
+                     cudaStream_t s) {
+  constexpr size_t bytes = bwd_smem<kSeg>();
+  cudaError_t err = allow_smem(flash_bwd_kernel<kSeg, kDrop>, bytes);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<T, kSeg, kDrop>
-      <<<dim3(s_q / kBQ, bh), kBwdThreads, smem, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dq_out), s_q, s_kv, scale, causal, var);
+  err = cudaMemsetAsync(dq_acc, 0,
+                        static_cast<size_t>(bh) * s_q * kD * sizeof(float), s);
+  if (err != cudaSuccess) return err;
+  flash_bwd_kernel<kSeg, kDrop>
+      <<<dim3(bh, (s_kv + kBwdKeys - 1) / kBwdKeys), kBwdMmaThreads, bytes,
+         s>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+              static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+              static_cast<const float*>(lse), static_cast<const float*>(delta),
+              static_cast<float*>(dq_acc), static_cast<bf16*>(dk),
+              static_cast<bf16*>(dv), s_q, s_kv, scale, causal, var);
   return cudaGetLastError();
 }
 
@@ -966,42 +1348,28 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                            s));
 }
 
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse,
-                             const void* delta, void* dk, void* dv,
-                             const void* seg_q, const void* seg_k,
-                             const void* rng_q, const void* rng_k, int bh,
-                             int s_q, int s_kv, int head_dim, int heads,
-                             float scale, int causal, int seed, float rate,
-                             float inv, int is_bf16, void* stream) {
+// dQ, dK, dV of attention: dq_acc [bh, s_q, 128] float32 receives dQ
+// (bf16 inputs: summed there by atomics, the caller casts it; float
+// inputs: written), dk/dv [bh, s_kv, 128] in the input dtype; the other
+// arguments as flash_fwd's, with dout of q's shape and dtype and lse,
+// delta [bh, s_q] float32. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int flash_bwd(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq_acc, void* dk, void* dv, const void* seg_q,
+                         const void* seg_k, const void* rng_q,
+                         const void* rng_k, int bh, int s_q, int s_kv,
+                         int head_dim, int heads, float scale, int causal,
+                         int seed, float rate, float inv, int is_bf16,
+                         void* stream) {
   const Variant var =
       make_variant(seg_q, seg_k, rng_q, rng_k, heads, seed, rate, inv);
   if (!shapes_ok(bh, s_q, s_kv, head_dim) || !variant_ok(var, bh))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      is_bf16 ? dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh, s_q,
-                                   s_kv, scale, causal, var, s)
-              : dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_kv,
-                           scale, causal, var, s));
-}
-
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dq_out,
-                            const void* seg_q, const void* seg_k,
-                            const void* rng_q, const void* rng_k, int bh,
-                            int s_q, int s_kv, int head_dim, int heads,
-                            float scale, int causal, int seed, float rate,
-                            float inv, int is_bf16, void* stream) {
-  const Variant var =
-      make_variant(seg_q, seg_k, rng_q, rng_k, heads, seed, rate, inv);
-  if (!shapes_ok(bh, s_q, s_kv, head_dim) || !variant_ok(var, bh))
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_bf16 ? dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq_out, bh, s_q,
-                                  s_kv, scale, causal, var, s)
-              : dq<float>(q, k, v, dout, lse, delta, dq_out, bh, s_q, s_kv,
-                          scale, causal, var, s));
+      is_bf16 ? bwd_bf16(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, s_q,
+                         s_kv, scale, causal, var, s)
+              : bwd_f32(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, s_q,
+                        s_kv, scale, causal, var, s));
 }

@@ -27,17 +27,23 @@
 // table). The warps split the context into 32-token slices and each warp
 // keeps its own online softmax (m, l, acc) over its slices, so no block
 // barrier sits inside the loop:
-//   scores: lane j takes token j of the slice and reads its whole K row
-//     with 16-byte loads, all issued before use, against the queries in
+//   scores: lane j takes token j of the slice and reads its K row with
+//     16-byte loads, up to 16 issued before use, against the queries in
 //     shared memory;
 //   P.V:    the lanes split D; token by token the warp reads one V row
 //     (coalesced), the probability broadcast by a shuffle.
 // Keeping many independent loads in flight is what a decode kernel bound by
 // memory latency needs. At the end the 8 warps' states are merged through
-// shared memory. The group is a compile-time bucket (1, 2, 4, 8, 16) so the
-// per-query state stays in registers. The page type is a template
-// parameter: int8 pages are read 16 values to a 16-byte load and converted
-// in registers, so one kernel body serves both formats. Split-KV across
+// shared memory. The group is a compile-time bucket (1, 2, 4, 8, 16; 8 at
+// most for head_dim 256) so the per-query state stays in registers; a
+// larger group (a multi-query model: 32 query heads on one KV head) is cut
+// into chunks of the largest bucket, one block per chunk (grid dimension
+// z), each reading its KV head's pages for its own queries. The reference
+// pads any group to the sublane tile (8) and takes any head_dim; this
+// kernel takes head_dim 32, 64, 128 and 256, and reads K rows 16 chunks of
+// 16 bytes at a time so that the widest rows stay in registers. The page
+// type is a template parameter: int8 pages are read 16 values to a 16-byte
+// load and converted in registers, so one kernel body serves both formats. Split-KV across
 // blocks, TMA staging and tensor-core products are left for later work.
 //
 // The grouped-fetch kernel (paged_decode_grouped_kernel, below) replaces
@@ -113,16 +119,26 @@ constexpr size_t smem_bytes() {
 }
 
 // T: q and out; P: the pages (T, or int8_t with per-token scales)
+// the largest group bucket of a head_dim: its per-query state in registers
+template <int D>
+constexpr int max_bucket() {
+  return D > 128 ? 8 : 16;
+}
+
+// T: q and out; P: the pages (T, or int8_t with per-token scales). Block
+// (h, b, z) takes queries z * G ... of kv head h's group, at most G of them.
 template <typename T, typename P, int D, int G>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
   constexpr bool kQuant = sizeof(P) == 1;
   constexpr int kVec = 16 / sizeof(P);  // page elements per 16-byte load
   constexpr int kChunks = D / kVec;
+  constexpr int kBatch = kChunks < 16 ? kChunks : 16;  // loads in flight
   constexpr int kPerLane = D / 32;      // output columns per lane
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int group = a.group;
-  const int q_heads = gridDim.x * group;
+  const int g0 = blockIdx.z * G;        // this block's first query
+  const int group = min(G, a.group - g0);  // its number of queries
+  const int q_heads = gridDim.x * a.group;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const P* __restrict__ k_pages = static_cast<const P*>(a.k_pages);
@@ -135,7 +151,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
 
   const T* qb = static_cast<const T*>(a.q) +
                 (static_cast<size_t>(b) * q_heads +
-                 static_cast<size_t>(h) * group) * D;
+                 static_cast<size_t>(h) * a.group + g0) * D;
   for (int i = threadIdx.x; i < G * D; i += kThreads) {
     sq[i] = i < group * D ? to_f32(qb[i]) : 0.f;
   }
@@ -180,16 +196,20 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
     if (valid) {
       const Chunk<P, kVec>* kr =
           reinterpret_cast<const Chunk<P, kVec>*>(k_pages + off);
-      Chunk<P, kVec> kc[kChunks];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) kc[c] = kr[c];
+      for (int c0 = 0; c0 < kChunks; c0 += kBatch) {
+        Chunk<P, kVec> kc[kBatch];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
+        for (int c = 0; c < kBatch; ++c) kc[c] = kr[c0 + c];
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) {
-          const float kf = to_f32(kc[c].v[i]);
+        for (int c = 0; c < kBatch; ++c) {
 #pragma unroll
-          for (int g = 0; g < G; ++g) sc[g] += sq[g * D + c * kVec + i] * kf;
+          for (int i = 0; i < kVec; ++i) {
+            const float kf = to_f32(kc[c].v[i]);
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              sc[g] += sq[g * D + (c0 + c) * kVec + i] * kf;
+          }
         }
       }
     }
@@ -241,7 +261,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(Args a) {
   }
   __syncthreads();
   T* ob = static_cast<T*>(a.out) + (static_cast<size_t>(b) * q_heads +
-                                    static_cast<size_t>(h) * group) * D;
+                                    static_cast<size_t>(h) * a.group + g0) *
+                                       D;
   for (int idx = threadIdx.x; idx < group * D; idx += kThreads) {
     const int g = idx / D;
     const int d = idx % D;
@@ -270,18 +291,22 @@ cudaError_t launch(const Args& a, int batch, int kv_heads,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<dim3(kv_heads, batch), kThreads, smem, stream>>>(a);
+  const int chunks = (a.group + G - 1) / G;
+  kernel<<<dim3(kv_heads, batch, chunks), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// the smallest bucket that holds the group, else the largest, in chunks
 template <typename T, typename P, int D>
 cudaError_t launch_group(const Args& a, int batch, int kv_heads,
                          cudaStream_t s) {
+  constexpr int kMax = max_bucket<D>();
   if (a.group <= 1) return launch<T, P, D, 1>(a, batch, kv_heads, s);
   if (a.group <= 2) return launch<T, P, D, 2>(a, batch, kv_heads, s);
   if (a.group <= 4) return launch<T, P, D, 4>(a, batch, kv_heads, s);
-  if (a.group <= 8) return launch<T, P, D, 8>(a, batch, kv_heads, s);
-  return launch<T, P, D, 16>(a, batch, kv_heads, s);
+  if (a.group <= 8 || kMax == 8)
+    return launch<T, P, D, 8>(a, batch, kv_heads, s);
+  return launch<T, P, D, kMax>(a, batch, kv_heads, s);
 }
 
 template <typename T, typename P>
@@ -294,6 +319,8 @@ cudaError_t launch_dim(const Args& a, int batch, int kv_heads, int head_dim,
       return launch_group<T, P, 64>(a, batch, kv_heads, s);
     case 128:
       return launch_group<T, P, 128>(a, batch, kv_heads, s);
+    case 256:
+      return launch_group<T, P, 256>(a, batch, kv_heads, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -303,7 +330,7 @@ cudaError_t launch_dim(const Args& a, int batch, int kv_heads, int head_dim,
 template <bool kQuant>
 int decode(const Args& a, int batch, int kv_heads, int head_dim, int is_bf16,
            void* stream) {
-  if (a.group < 1 || a.group > 16 || a.page_size < 1 || kv_heads < 1) {
+  if (a.group < 1 || a.page_size < 1 || kv_heads < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch <= 0) return 0;
@@ -350,7 +377,9 @@ int decode(const Args& a, int batch, int kv_heads, int head_dim, int is_bf16,
 // All arithmetic is f32 on the CUDA cores: a decode step moves 2 bytes of
 // K/V for every 1-16 multiply-adds, far below the rate at which they run.
 // The query group is a compile-time bucket (1, 2, 4, 8, 16), the TPU
-// kernel's pad of the group to 8 rows. Tensor-core products on the
+// kernel's pad of the group to 8 rows; a larger group runs in chunks of 16
+// queries, one block per chunk (grid dimension z), as the per-page kernel
+// does. Tensor-core products on the
 // [16 x 128] score tile, TMA and split-KV are left for later work.
 
 constexpr int kGThreads = 128;  // one per output column
@@ -397,8 +426,9 @@ __global__ void __launch_bounds__(kGThreads)
   constexpr int kRowChunks = kGD / kVec;          // 16-byte chunks per row
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int group = a.group;
-  const int q_heads = gridDim.x * group;
+  const int g0 = blockIdx.z * G;        // this block's first query
+  const int group = min(G, a.group - g0);  // its number of queries
+  const int q_heads = gridDim.x * a.group;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -421,7 +451,7 @@ __global__ void __launch_bounds__(kGThreads)
 
   const T* qb = static_cast<const T*>(a.q) +
                 (static_cast<size_t>(b) * q_heads +
-                 static_cast<size_t>(h) * group) * kGD;
+                 static_cast<size_t>(h) * a.group + g0) * kGD;
   for (int i = tid; i < G * kGD; i += kGThreads) {
     sq[i] = i < group * kGD ? to_f32(qb[i]) : 0.f;
   }
@@ -546,7 +576,8 @@ __global__ void __launch_bounds__(kGThreads)
   __syncthreads();  // a row with no stage: the state's initial values
 
   T* ob = static_cast<T*>(a.out) + (static_cast<size_t>(b) * q_heads +
-                                    static_cast<size_t>(h) * group) * kGD;
+                                    static_cast<size_t>(h) * a.group + g0) *
+                                       kGD;
   for (int g = 0; g < group; ++g) {
     const float l = sl[g];
     ob[g * kGD + tid] = from_f32<T>(l == 0.f ? 0.f : acc[g] / l);
@@ -561,8 +592,9 @@ cudaError_t launch_grouped(const Args& a, int batch, int kv_heads,
       paged_decode_grouped_kernel<T, G>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (status != cudaSuccess) return status;
+  const int chunks = (a.group + G - 1) / G;
   paged_decode_grouped_kernel<T, G>
-      <<<dim3(kv_heads, batch), kGThreads, smem, stream>>>(a);
+      <<<dim3(kv_heads, batch, chunks), kGThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -580,7 +612,7 @@ cudaError_t launch_grouped_group(const Args& a, int batch, int kv_heads,
 
 // Decode attention over paged K/V (layouts above); all tensors contiguous,
 // q/pages/out of one dtype (is_bf16: bfloat16, else float32), head_dim 32,
-// 64 or 128, 1 <= group <= 16, page_size >= 1. Launches on `stream` and
+// 64, 128 or 256, group >= 1, page_size >= 1. Launches on `stream` and
 // returns cudaGetLastError() (0 on success).
 extern "C" int paged_attention_decode(
     const void* q, const void* k_pages, const void* v_pages,
@@ -612,14 +644,14 @@ extern "C" int paged_attention_decode_q8(
 
 // The grouped-fetch decode (layouts as paged_attention_decode) over float
 // pages of q's dtype: page_size 16, head_dim 128, pages_per_seq a multiple
-// of 8, 1 <= group <= 16. Launches on `stream` and returns
+// of 8, group >= 1. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int paged_attention_decode_grouped(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* context_lens, void* out, int batch,
     int kv_heads, int group, int n_pages, int page_size, int pages_per_seq,
     int head_dim, float scale, int is_bf16, void* stream) {
-  if (group < 1 || group > 16 || page_size != kGPage || head_dim != kGD ||
+  if (group < 1 || page_size != kGPage || head_dim != kGD ||
       pages_per_seq < 1 || pages_per_seq % kGroupPages || kv_heads < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

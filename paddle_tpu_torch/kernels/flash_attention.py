@@ -1,5 +1,6 @@
-"""Flash attention: the CUDA kernels `csrc/flash_attention*.cu` (forward,
-dK/dV, dQ, each in four bodies) and their plain PyTorch versions.
+"""Flash attention: the CUDA kernels `csrc/flash_attention*.cu` (the
+forward, and one backward for dQ, dK and dV, each in four bodies) and their
+plain PyTorch versions.
 
 Counterpart of `paddle_tpu/kernels/flash_attention.py`: `_flash_fwd`,
 `_run_dkv_pass` and `_run_dq_pass` with their plain, segment-id (`_seg`),
@@ -16,17 +17,22 @@ and `flash_attn_unpadded`.
   (`_threefry2x32`, `_dropout_keep`), bit for bit: keys (seed, b*h),
   counters the global (query, key) positions, so the mask does not depend
   on any tiling; the low 23 bits times 2^-23 are kept when >= rate.
-- `flash_fwd_ref`, `flash_bwd_dkv_ref`, `flash_bwd_dq_ref` are the plain
-  versions, in f32 over the whole [s_q, s_kv] score matrix (the forward
-  follows `_xla_ref_fwd`, the backward and the dropout the Pallas kernels'
-  math: the forward's lse sums the undropped p, P V and dV take the dropped
-  p times 1 / (1 - rate), dS the undropped p against the dropped, scaled
-  dP).
-- `flash_fwd`, `flash_bwd_dkv`, `flash_bwd_dq` run the plain version for
-  CPU tensors and the kernel for CUDA tensors; a CUDA input the kernel does
-  not take raises. `fwd_launches`, `dkv_launches`, `dq_launches` count the
-  kernels' launches, and `variant_launches[(pass, variant)]` the launches of
-  each body.
+- `flash_fwd_ref` and `flash_bwd_ref` are the plain versions, in f32 over
+  the whole [s_q, s_kv] score matrix (the forward follows `_xla_ref_fwd`,
+  the backward and the dropout the Pallas kernels' math: the forward's lse
+  sums the undropped p, P V and dV take the dropped p times 1 / (1 - rate),
+  dS the undropped p against the dropped, scaled dP). `flash_bwd_ref`
+  computes the score terms once for dQ, dK and dV; `flash_bwd_dkv_ref` and
+  `flash_bwd_dq_ref` are the reference's two passes (`_run_dkv_pass`,
+  `_run_dq_pass`), each on its own.
+- `flash_fwd` and `flash_bwd` run the plain version for CPU tensors and the
+  kernel for CUDA tensors; a CUDA input the kernel does not take raises.
+  On bf16 inputs the backward is one kernel that sums dQ into an f32
+  workspace by atomics, in an order that varies between runs (a bf16 dQ
+  element may differ by one rounding from one run to the next); on float
+  inputs two kernels, dK/dV and dQ, both deterministic. `fwd_launches` and
+  `bwd_launches` count the entry points' launches, and
+  `variant_launches[(pass, variant)]` the launches of each body.
 
 Causal masking is bottom-right aligned (query i sees key j when
 i + s_kv - s_q >= j); a masked score is the finite NEG_INF and its
@@ -46,11 +52,10 @@ from . import _build
 
 NEG_INF = -1e30  # the TPU kernel's masked-score value
 
-PASSES = ("fwd", "dkv", "dq")
+PASSES = ("fwd", "bwd")
 VARIANTS = ("plain", "seg", "drop", "seg_drop")
 fwd_launches = 0
-dkv_launches = 0
-dq_launches = 0
+bwd_launches = 0
 variant_launches = {(p, v): 0 for p in PASSES for v in VARIANTS}
 
 HEAD_DIM = 128  # the kernels' head_dim
@@ -65,8 +70,8 @@ _libs: dict = {}
 
 def reset_launches():
     """Set every launch count to 0."""
-    global fwd_launches, dkv_launches, dq_launches
-    fwd_launches = dkv_launches = dq_launches = 0
+    global fwd_launches, bwd_launches
+    fwd_launches = bwd_launches = 0
     for key in variant_launches:
         variant_launches[key] = 0
 
@@ -265,12 +270,17 @@ def _grad_terms(q, k, v, do, lse, scale, causal, var):
             torch.where(keep, dp, 0.0) * var.inv)
 
 
+def _ds(p, dp, delta, scale):
+    """ds = p * (dp - delta) * scale, the scores' gradient (p undropped)."""
+    return p * (dp - delta[..., None]) * scale
+
+
 def flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale, causal, var=None):
     """(dk, dv) in k's / v's dtype: dv = p_d^T dO, dk = ds^T q with
     ds = p * (dp - delta) * scale; f32 arithmetic."""
     p, p_d, dp = _grad_terms(q, k, v, do, lse, scale, causal, var)
     dv = torch.einsum("bqk,bqd->bkd", p_d, do.float())
-    ds = p * (dp - delta[..., None]) * scale
+    ds = _ds(p, dp, delta, scale)
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
@@ -278,8 +288,20 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale, causal, var=None):
 def flash_bwd_dq_ref(q, k, v, do, lse, delta, scale, causal, var=None):
     """dq = ds k in q's dtype (ds as in `flash_bwd_dkv_ref`)."""
     p, _, dp = _grad_terms(q, k, v, do, lse, scale, causal, var)
-    ds = p * (dp - delta[..., None]) * scale
+    ds = _ds(p, dp, delta, scale)
     return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
+
+
+def flash_bwd_ref(q, k, v, do, lse, delta, scale, causal, var=None):
+    """(dq, dk, dv) in the inputs' dtypes from one evaluation of the score
+    terms: the two passes' math (`flash_bwd_dkv_ref`, `flash_bwd_dq_ref`)
+    in f32."""
+    p, p_d, dp = _grad_terms(q, k, v, do, lse, scale, causal, var)
+    ds = _ds(p, dp, delta, scale)
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.float())
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    dv = torch.einsum("bqk,bqd->bkd", p_d, do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -294,36 +316,29 @@ def flash_fwd(q, k, v, scale, causal, var=None):
     return _fwd_cuda(q, k, v, scale, causal, var)
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, var=None):
+def flash_bwd(q, k, v, do, lse, delta, scale, causal, var=None):
+    """(dq, dk, dv) of attention over [bh, s, d]; see `flash_bwd_ref`."""
     if q.device.type == "cpu":
-        return flash_bwd_dkv_ref(q, k, v, do, lse, delta, scale, causal, var)
-    return _dkv_cuda(q, k, v, do, lse, delta, scale, causal, var)
-
-
-def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, var=None):
-    if q.device.type == "cpu":
-        return flash_bwd_dq_ref(q, k, v, do, lse, delta, scale, causal, var)
-    return _dq_cuda(q, k, v, do, lse, delta, scale, causal, var)
+        return flash_bwd_ref(q, k, v, do, lse, delta, scale, causal, var)
+    return _bwd_cuda(q, k, v, do, lse, delta, scale, causal, var)
 
 
 def _backward(q, k, v, out, lse, dout, scale, causal, var, d_lse=None):
     """(dq, dk, dv): delta = rowsum(dO * O), less the lse cotangent where
-    there is one (`_bwd_delta`), then the dK/dV and dQ passes."""
+    there is one (`_bwd_delta`), then the backward."""
     do = dout.contiguous()
     delta = flash_bwd_delta(out, do)
     if d_lse is not None:
         delta = delta - d_lse.float()
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal, var)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, causal, var)
-    return dq, dk, dv
+    return flash_bwd(q, k, v, do, lse, delta, scale, causal, var)
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Differentiable attention over q [bh, s_q, d], k/v [bh, s_kv, d]
     (contiguous), with a `Variant` (segment ids, heads, dropout seed and
     rate) or None: the forward saves (q, k, v, out, lse), the backward
-    takes delta = rowsum(dO * O) and runs the dK/dV and dQ passes of the
-    same body, which regenerate the forward's dropout mask."""
+    takes delta = rowsum(dO * O) and runs the backward of the same body,
+    which regenerates the forward's dropout mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, var=None):
@@ -503,9 +518,8 @@ def _kernels(name):
     if lib is None:
         lib = _build.load(_LIBS[name])
         lib.flash_fwd.argtypes = [_P] * 5 + _VARIANT_ARGS
-        lib.flash_bwd_dkv.argtypes = [_P] * 8 + _VARIANT_ARGS
-        lib.flash_bwd_dq.argtypes = [_P] * 7 + _VARIANT_ARGS
-        for fn in (lib.flash_fwd, lib.flash_bwd_dkv, lib.flash_bwd_dq):
+        lib.flash_bwd.argtypes = [_P] * 9 + _VARIANT_ARGS
+        for fn in (lib.flash_fwd, lib.flash_bwd):
             fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
@@ -592,7 +606,7 @@ def _variant_args(var, bh, s_q, s_kv, d, scale, causal, is_bf16, dev):
 
 def _launch(fn_name, pass_, var, tensors, bh, s_q, s_kv, d, scale, causal,
             q):
-    global fwd_launches, dkv_launches, dq_launches
+    global fwd_launches, bwd_launches
     name = variant_name(var)
     fn = getattr(_kernels(name), fn_name)
     _alive, args = _variant_args(var, bh, s_q, s_kv, d, scale, causal,
@@ -605,10 +619,8 @@ def _launch(fn_name, pass_, var, tensors, bh, s_q, s_kv, d, scale, causal,
     variant_launches[(pass_, name)] += 1
     if pass_ == "fwd":
         fwd_launches += 1
-    elif pass_ == "dkv":
-        dkv_launches += 1
     else:
-        dq_launches += 1
+        bwd_launches += 1
 
 
 def _fwd_cuda(q, k, v, scale, causal, var=None):
@@ -620,18 +632,14 @@ def _fwd_cuda(q, k, v, scale, causal, var=None):
     return out, lse
 
 
-def _dkv_cuda(q, k, v, do, lse, delta, scale, causal, var=None):
-    bh, s_q, s_kv, d = _check("flash_bwd_dkv", q, k, v, do, lse, delta, var)
+def _bwd_cuda(q, k, v, do, lse, delta, scale, causal, var=None):
+    """One launch of the backward entry: dQ lands in an f32 workspace
+    (bf16: the kernel's atomic sums, cast here), dK and dV in k's dtype."""
+    bh, s_q, s_kv, d = _check("flash_bwd", q, k, v, do, lse, delta, var)
+    dq_acc = torch.empty(bh, s_q, d, dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_bwd_dkv", "dkv", var, (q, k, v, do, lse, delta, dk, dv),
-            bh, s_q, s_kv, d, scale, causal, q)
-    return dk, dv
-
-
-def _dq_cuda(q, k, v, do, lse, delta, scale, causal, var=None):
-    bh, s_q, s_kv, d = _check("flash_bwd_dq", q, k, v, do, lse, delta, var)
-    dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", "dq", var, (q, k, v, do, lse, delta, dq), bh,
-            s_q, s_kv, d, scale, causal, q)
-    return dq
+    _launch("flash_bwd", "bwd", var,
+            (q, k, v, do, lse, delta, dq_acc, dk, dv), bh, s_q, s_kv, d,
+            scale, causal, q)
+    return dq_acc.to(q.dtype), dk, dv

@@ -18,11 +18,15 @@ owns a row of a block table listing its pages.
   `csrc/paged_attention.cu` for CUDA tensors (float pages, or int8 pages
   with their scales), `paged_attention_ref` (the plain counterpart of
   `paged_attention_xla`) for CPU tensors. There is no crossover dispatch:
-  on CUDA the kernel runs at every context length. `launches` counts the
-  float kernel's launches, `q8_launches` the int8 kernel's.
+  on CUDA the kernel runs at every context length. It takes any query group
+  (q_heads = group * kv_heads: a multi-query model's 32 query heads on one
+  KV head run as two blocks of 16 per KV head) and head_dim 32, 64, 128 or
+  256 (`supports`); the reference takes any head_dim, and on CUDA another
+  one raises. `launches` counts the float kernel's launches, `q8_launches`
+  the int8 kernel's.
 - `paged_attention_grouped` is the grouped-fetch variant (the JAX
   `paged_attention_grouped`): the same function over float 16-token pages
-  at head_dim 128 with tables a multiple of 8 pages wide
+  at head_dim 128 with tables a multiple of 8 pages wide, any query group
   (`grouped_supports`), by the CUDA kernel that stages 8 pages at a time
   for CUDA tensors and by `paged_attention_grouped_ref`, a plain walk over
   the same groups, for CPU tensors. `grouped_launches` counts its kernel's
@@ -53,8 +57,7 @@ launches = 0
 q8_launches = 0
 grouped_launches = 0
 
-_HEAD_DIMS = (32, 64, 128)
-_MAX_GROUP = 16
+_HEAD_DIMS = (32, 64, 128, 256)  # the per-page kernel's widths
 GROUP_PAGES = 8      # pages per grouped-fetch step: 8 x 16 = 128 tokens
 _GROUPED_PAGE = 16
 _GROUPED_HEAD_DIM = 128
@@ -252,9 +255,16 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                                  context_lens, scale, k_scales, v_scales)
 
 
+def supports(head_dim):
+    """Whether the per-page decode kernel takes this head_dim (32, 64, 128
+    or 256, any query group); the reference takes any."""
+    return head_dim in _HEAD_DIMS
+
+
 def grouped_supports(head_dim, page_size, pages_per_seq):
     """Whether the grouped-fetch decode takes this shape: head_dim 128,
-    16-token pages, a table a multiple of 8 pages wide."""
+    16-token pages, a table a multiple of 8 pages wide (any query
+    group)."""
     return (head_dim == _GROUPED_HEAD_DIM and page_size == _GROUPED_PAGE
             and pages_per_seq > 0 and pages_per_seq % GROUP_PAGES == 0)
 
@@ -425,14 +435,14 @@ def _paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
                          f"{k_scales.dtype} / {tuple(v_scales.shape)} "
                          f"{v_scales.dtype}, expected f32 "
                          f"{tuple(k_pages.shape[:3])}")
-    if head_dim not in _HEAD_DIMS:
+    if not grouped and not supports(head_dim):
         raise ValueError(f"paged_attention kernel takes head_dim in "
-                         f"{_HEAD_DIMS}, got {head_dim}")
-    if n_q_heads % n_kv_heads or not 1 <= n_q_heads // n_kv_heads \
-            <= _MAX_GROUP:
+                         f"{_HEAD_DIMS}, got {head_dim}; the reference "
+                         f"takes any head_dim, a gap of the port (ROADMAP "
+                         f"Queue 2 A)")
+    if n_q_heads < n_kv_heads or n_q_heads % n_kv_heads:
         raise ValueError(f"paged_attention kernel takes q_heads = group * "
-                         f"kv_heads with group <= {_MAX_GROUP}, got "
-                         f"{n_q_heads}/{n_kv_heads}")
+                         f"kv_heads, got {n_q_heads}/{n_kv_heads}")
     if block_tables.dim() != 2 or block_tables.shape[0] != b or \
             context_lens.shape != (b,):
         raise ValueError("paged_attention: block_tables [b, pages] and "

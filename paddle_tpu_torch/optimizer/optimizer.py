@@ -65,12 +65,43 @@ class Optimizer:
             p.grad = None
 
     def state_dict(self):
-        """{"step": n, "<i>_<name>": state} for parameter position i."""
+        """{"step": n, "<i>_<name>": state} for parameter position i. The
+        reference keys an entry "<p.name or i>_<name>"
+        (`paddle_tpu/optimizer/optimizer.py::state_dict`), and its layers'
+        parameters are unnamed (`name == ''`), so its keys fall back to the
+        position too: the two packages' keys agree."""
         out = {"step": self._step_count}
         for i, st in self._accumulators.items():
             for k, v in st.items():
                 out[f"{i}_{k}"] = v
         return out
+
+    def set_state_dict(self, state):
+        """Restore `step` and each "<i>_<name>" entry of `state` (this
+        optimizer's `state_dict`, or the reference's, its arrays as numpy
+        arrays or tensors) into the state of parameter i, on the
+        parameter's device and in the dtype this optimizer keeps for that
+        entry. Keys of no parameter or no state entry are ignored, as the
+        reference ignores them."""
+        self._step_count = int(state.get("step", 0))
+        for key, v in state.items():
+            i, _, name = key.partition("_")
+            if not i.isdigit() or int(i) >= len(self._parameter_list):
+                continue
+            st = self._accumulators.get(int(i))
+            if st is None:
+                st = self._accumulators[int(i)] = self._init_state(
+                    self._parameter_list[int(i)])
+            if name not in st:
+                continue
+            cur = st[name]
+            t = v.detach() if isinstance(v, torch.Tensor) \
+                else torch.from_numpy(np.array(v, copy=True))
+            if isinstance(cur, torch.Tensor):
+                st[name] = t.to(cur.device, cur.dtype).reshape(cur.shape) \
+                    .clone()
+            else:  # the f32 beta pows
+                st[name] = type(cur)(t.item())
 
 
 class Adam(Optimizer):

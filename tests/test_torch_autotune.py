@@ -417,6 +417,22 @@ def test_int8_pages_have_only_the_int8_kernel(tuner_env):
     assert set(entry["timings_ms"]) == {"paged"}
 
 
+def test_decode_candidates_are_only_kernels_that_take_the_shape(tuner_env):
+    """A multi-query group (32 query heads on one KV head) has both
+    kernels as candidates; a head_dim no decode kernel takes has none,
+    and the tuner times nothing."""
+    tconfig.set_flags({"FLAGS_paged_grouped_kernel": True})
+    at.set_timer(lambda fn, args: 1.0)
+    win = at.choose_paged_decode(2, 32, 1, 128, 16, 8, torch.float32, False)
+    assert win is not None
+    (entry,) = at.get_tuner().snapshot().values()
+    assert set(entry["timings_ms"]) == {"paged", "grouped"}
+    assert kpa.supports(256) and not kpa.supports(96)
+    assert at.choose_paged_decode(2, 4, 2, 96, 16, 8, torch.float32,
+                                  False) is None
+    assert len(at.get_tuner().snapshot()) == 1
+
+
 def test_grouped_winner_not_taken_where_the_width_does_not_fit(tuner_env):
     """The bucket rounds 12 pages up to 16 (a multiple of 8), where the
     grouped kernel won; the concrete table of 12 pages takes the fastest

@@ -136,9 +136,7 @@ def test_cuda_paths_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA"):
         tfa._fwd_cuda(q, q, q, 0.1, True)
     with pytest.raises(ValueError, match="CUDA"):
-        tfa._dkv_cuda(q, q, q, q, lse, lse, 0.1, True)
-    with pytest.raises(ValueError, match="CUDA"):
-        tfa._dq_cuda(q, q, q, q, lse, lse, 0.1, True)
+        tfa._bwd_cuda(q, q, q, q, lse, lse, 0.1, True)
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +228,36 @@ def test_paged_attention_ref_matches_pallas(q_heads, kv_heads):
     got = tpa.paged_attention_ref(*_torch(q, k, v, tables, lens)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
     np.testing.assert_array_equal(got[0], 0.0)
+
+
+@pytest.mark.parametrize("q_heads,kv_heads,d", [(32, 1, 32), (64, 2, 32),
+                                                (8, 2, 256)])
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_ref_matches_pallas_at_any_group(q_heads, kv_heads,
+                                                          d, quant):
+    """A multi-query group (32 query heads on one KV head), 32 per KV head
+    over two, and head_dim 256, float pages and int8 pages with their
+    scales: the widths the CUDA kernels take in chunks of 16 (8 at head_dim
+    256) queries. int8: 2e-4 relative, as `test_torch_kv_quant.py`."""
+    q, k, v, tables, lens = _decode_case(q_heads + d, q_heads=q_heads,
+                                         kv_heads=kv_heads, d=d)
+    jargs = [jnp.asarray(a) for a in (q, k, v, tables, lens)]
+    targs = _torch(q, k, v, tables, lens)
+    jsc, tsc, tol = {}, {}, dict(rtol=0, atol=ATOL)
+    if quant:
+        kq, ks = tpa._quant_kv_token(targs[1])
+        vq, vs = tpa._quant_kv_token(targs[2])
+        targs[1:3] = kq, vq
+        tsc = dict(k_scales=ks, v_scales=vs)
+        pad = ((0, 0), (0, 0), (0, jpa._SCALE_LANES - ks.shape[-1]))
+        jargs[1:3] = jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy())
+        jsc = dict(k_scales=jnp.asarray(np.pad(ks.numpy(), pad)),
+                   v_scales=jnp.asarray(np.pad(vs.numpy(), pad)))
+        tol = dict(rtol=2e-4, atol=2e-5)
+    want = np.asarray(jpa.paged_attention(*jargs, **jsc))
+    got = tpa.paged_attention(*targs, **tsc).numpy()
+    np.testing.assert_allclose(got, want, **tol)
+    np.testing.assert_array_equal(got[0], 0.0)  # ctx == 0
 
 
 def test_paged_attention_ref_matches_xla_reference():

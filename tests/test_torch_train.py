@@ -117,6 +117,61 @@ def test_adam_updates_match_reference(decoupled, dtype, multi_precision):
         assert st[f"0_{name}"] == np.float32(state[name])
 
 
+@pytest.mark.parametrize("multi_precision", [False, True])
+def test_adamw_resumes_from_the_reference_state_dict(multi_precision):
+    """The reference's AdamW state after 3 steps on a Linear's (unnamed)
+    parameters, as numpy arrays, into the port's `set_state_dict`; then 2
+    more steps on each side from the same parameters and gradients agree
+    within the update tolerance above (1e-6 abs in f32)."""
+    rng = np.random.RandomState(3)
+    w0 = rng.randn(16, 8).astype(np.float32)
+    b0 = rng.randn(8).astype(np.float32)
+    grads = [(rng.randn(16, 8).astype(np.float32),
+              rng.randn(8).astype(np.float32)) for _ in range(5)]
+    lin = paddle.nn.Linear(16, 8)
+    jps = lin.parameters()
+    assert [p.name for p in jps] == ["", ""]  # keyed by position
+    jps[0].set_value(w0)
+    jps[1].set_value(b0)
+    jopt = JaxAdamW(learning_rate=0.01, parameters=jps, weight_decay=0.1,
+                    multi_precision=multi_precision)
+
+    def jax_step(gs):
+        for p, g in zip(jps, gs):
+            p.grad = paddle.to_tensor(g)
+        jopt.step()
+
+    for gs in grads[:3]:
+        jax_step(gs)
+    state = {k: v if isinstance(v, int) else np.asarray(v._data)
+             for k, v in jopt.state_dict().items()}
+    assert state["step"] == 3 and "1_moment2" in state
+    tps = [torch.nn.Parameter(torch.from_numpy(p.numpy().copy()))
+           for p in jps]
+    opt = AdamW(learning_rate=0.01, parameters=tps, weight_decay=0.1,
+                multi_precision=multi_precision)
+    opt.set_state_dict(state)
+    st = opt.state_dict()
+    assert st["step"] == 3
+    assert st["0_moment1"].dtype == torch.float32
+    assert st["1_beta2_pow"] == np.float32(state["1_beta2_pow"])
+    for gs in grads[3:]:
+        jax_step(gs)
+        for p, g in zip(tps, gs):
+            p.grad = torch.from_numpy(g)
+        opt.step()
+    assert opt.state_dict()["step"] == jopt.state_dict()["step"] == 5
+    for tp, jp in zip(tps, jps):
+        np.testing.assert_allclose(tp.detach().numpy(), jp.numpy(), rtol=0,
+                                   atol=1e-6)
+    want = jopt.state_dict()
+    for key, got in opt.state_dict().items():
+        if key != "step":
+            np.testing.assert_allclose(np.asarray(got, np.float32),
+                                       np.asarray(want[key]._data), rtol=0,
+                                       atol=1e-6)
+
+
 @pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
 def test_cross_entropy_with_ignore_index_matches_reference(reduction):
     rng = np.random.RandomState(1)
