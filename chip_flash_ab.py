@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
-"""Time the flash-attention kernels of two checkouts of the port on one
-NVIDIA GPU, in turns (A, B, B, A), each run in a process of its own.
+"""Time the flash-attention and dequant-matmul kernels of two checkouts of
+the port on one NVIDIA GPU, in turns (A, B, B, A), each run in a process of
+its own.
 
     python3 chip_flash_ab.py ROOT_A ROOT_B [--out file.json]
 
 Each root is a checkout holding `paddle_tpu_torch/`; a run builds the
-flash kernels from that root's sources (into its own `build/kernels/`) and
-times, by the device time torch.profiler sees over 20 calls after 3 warm
-ones (CUDA events where it sees none):
+kernels from that root's sources (into its own `build/kernels/`) and times,
+by CUDA events around 20 back-to-back calls after 3 warm ones (each call
+keeps the device busy far longer than the host takes to launch the next):
 
-- "plain": [32, 4096, 128] bf16 causal, the training phase's attention;
-- "drop": [32, 2048, 128] bf16, not causal, dropout 0.1 (the fused
-  encoder's attention at half its batch);
+- flash attention at two shapes: "plain", [32, 4096, 128] bf16 causal (the
+  training phase's attention), and "drop", [32, 2048, 128] bf16, not
+  causal, dropout 0.1 (the fused encoder's attention at half its batch);
+  at each the forward kernel ("fwd"), the root's whole backward
+  (`flash_attention._backward`: delta = rowsum(dO * O), then the backward
+  kernels, whatever launches they make), and beside them PyTorch's SDPA
+  forward and backward on the same inputs (`dropout_p` 0.1 at the drop
+  shape), the yardstick, which the port never calls;
+- the dequant matmul at LLaMA-2-13B's three projection shapes (5120->5120,
+  5120->13824, 13824->5120) at m = 2512 (a 2500-token prefill), bf16 x,
+  int8 weights per channel and int4 in groups of 128, beside
+  `torch.matmul` on the dequantized bf16 weight (the yardstick).
 
-at each shape the forward kernel and the root's whole backward
-(`flash_attention._backward`: delta = rowsum(dO * O), then the backward
-kernels, whatever launches they make), and beside them PyTorch's SDPA
-backward on the same inputs (`torch.autograd.grad` of
-`scaled_dot_product_attention`, with `dropout_p` 0.1 at the drop shape),
-the yardstick, which the port never calls. Prints one JSON object per run,
-then the card's name and power limit and the mean of each root's two runs.
+Prints one JSON object per run, then the card's name and power limit and
+the mean of each root's two runs.
 """
 from __future__ import annotations
 
@@ -30,26 +35,18 @@ import sys
 
 SHAPES = {"plain": dict(bh=32, s=4096, causal=True, rate=0.0),
           "drop": dict(bh=32, s=2048, causal=False, rate=0.1)}
-TIMED = ("fwd", "bwd", "sdpa_bwd")
+QMM_M = 2512
+QMM_SHAPES = ((5120, 5120), (5120, 13824), (13824, 5120))
+QMM_CASES = (("int8", -1), ("int4", 128))
 
 
-def device_ms(fn, iters=20):
-    """Device ms per call of `fn`: the kernel intervals torch.profiler saw,
-    or CUDA events around the calls where it saw none."""
+def events_ms(fn, iters=20):
+    """Device ms per call of `fn` by CUDA events around `iters` calls."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us > 0:
-        return us / 1e3 / iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -61,13 +58,14 @@ def device_ms(fn, iters=20):
 
 
 def time_root(root):
-    """One run: device ms of the forward, the backward and SDPA's backward
-    at each shape, for the port under `root`."""
+    """One run: ms of each timed call for the port under `root`."""
     sys.path.insert(0, root)
     import torch
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.kernels import flash_attention as kfa
+    from paddle_tpu_torch.kernels import quant_matmul as kqm
+    from paddle_tpu_torch.nn.quant import weight_quantize
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -80,19 +78,37 @@ def time_root(root):
                        .to(torch.bfloat16) for _ in range(4))
         var = kfa.Variant(heads=1, rate=rate, seed=1234) if rate else None
         out, lse = kfa.flash_fwd(q, k, v, scale, causal, var)
-        q4, k4, v4 = (t.view(1, bh, s, d).requires_grad_()
-                      for t in (q, k, v))
-        o4 = TF.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate,
+        q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+        o4 = TF.scaled_dot_product_attention(qg, kg, vg, dropout_p=rate,
                                              is_causal=causal)
         do4 = do.view(1, bh, s, d)
         res[name] = {
-            "fwd": device_ms(lambda: kfa.flash_fwd(q, k, v, scale, causal,
+            "fwd": events_ms(lambda: kfa.flash_fwd(q, k, v, scale, causal,
                                                    var)),
-            "bwd": device_ms(lambda: kfa._backward(q, k, v, out, lse, do,
+            "bwd": events_ms(lambda: kfa._backward(q, k, v, out, lse, do,
                                                    scale, causal, var)),
-            "sdpa_bwd": device_ms(lambda: torch.autograd.grad(
-                o4, (q4, k4, v4), do4, retain_graph=True))}
-        del q, k, v, do, out, lse, q4, k4, v4, o4, do4
+            "sdpa_fwd": events_ms(lambda: TF.scaled_dot_product_attention(
+                q4, k4, v4, dropout_p=rate, is_causal=causal)),
+            "sdpa_bwd": events_ms(lambda: torch.autograd.grad(
+                o4, (qg, kg, vg), do4, retain_graph=True))}
+        del q, k, v, do, out, lse, q4, k4, v4, qg, kg, vg, o4, do4
+        torch.cuda.empty_cache()
+    algo = {"int8": "weight_only_int8", "int4": "weight_only_int4"}
+    for kk, n in QMM_SHAPES:
+        w = torch.randn(kk, n, generator=gen, device=dev) * 0.02
+        x = torch.randn(QMM_M, kk, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        for wd, gs in QMM_CASES:
+            qw, sc = weight_quantize(w.to(torch.bfloat16), algo[wd],
+                                     group_size=gs)
+            w_deq = kqm.dequantize(qw, sc, wd, torch.bfloat16)
+            res[f"qmm {kk}->{n} {wd} g{gs}"] = {
+                "kernel": events_ms(lambda: kqm.quant_matmul(x, qw, sc, wd,
+                                                             gs)),
+                "matmul": events_ms(lambda: torch.matmul(x, w_deq))}
+            del qw, sc, w_deq
+        del w, x
         torch.cuda.empty_cache()
     return res
 
@@ -121,16 +137,16 @@ def main():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    mean = {root: {shape: {t: sum(r["ms"][shape][t] for r in runs
-                                  if r["root"] == root) / 2
-                           for t in TIMED}
-                   for shape in SHAPES}
+    mean = {root: {case: {t: sum(r["ms"][case][t] for r in runs
+                                 if r["root"] == root) / 2
+                          for t in timed}
+                   for case, timed in runs[0]["ms"].items()}
             for root in (a, b)}
     print(card)
     print(json.dumps(dict(card=card, mean_ms=mean)))
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(card=card, shapes=SHAPES, runs=runs,
+            json.dump(dict(card=card, shapes=SHAPES, qmm_m=QMM_M, runs=runs,
                            mean_ms=mean), f, indent=1)
     return 0
 

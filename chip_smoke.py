@@ -12,11 +12,14 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    kernel for dQ, dK and dV, at [1, 4096, 32, 128] bf16 causal and not, a
    rectangular 1024x4096 causal case, a 256x128 causal case with fully
    masked rows, an f32 case, each held row by row and beside faults made
-   from the plain versions, which must fail the same bar; the RMSNorm backward at [4096, 4096] and
-   [8, 4096], bf16 and f32; the dequant matmul at LLaMA-2-13B's
-   projections, 5120->5120, 5120->13824 and 13824->5120, at m = 8 and
-   2512, int8 and int4 weights per channel and in groups, and one small
-   f32 case; the float, int8 and grouped paged decodes at MHA and GQA
+   from the plain versions, which must fail the same bar (the causal
+   cases also beside the forward with its diagonal one key late); the
+   RMSNorm backward at [4096, 4096] and [8, 4096], bf16 and f32; the
+   dequant matmul at LLaMA-2-13B's projections, 5120->5120, 5120->13824
+   and 13824->5120, at m = 8 (the split kernel) and 2512 (the persistent
+   wgmma kernel), int8 and int4 weights per channel and in groups, and one
+   small f32 case, beside faults (a group's scales shifted, the first or
+   the last k tile missing, int4 nibbles swapped); the float, int8 and grouped paged decodes at MHA and GQA
    heads, at 32/1 (multi-query) and 64/2 heads, and the float and int8 at
    head_dim 256, beside a fault with two chunks of a group's queries
    swapped; each new case held row by row and beside faults made from the
@@ -37,7 +40,8 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    traffic as phase 4, the launch counts reset just before and checked
    just after (dequant matmul 280 and RMSNorm 81 per forward, int8 paged
    decode 40 per decode step, the float paged kernel none), a profiled
-   prefill and decode window; then a fresh bf16 13B model quantized to int4
+   prefill (its device time and the dequant matmul's share) and decode
+   window; then a fresh bf16 13B model quantized to int4
    in groups of 128 serves the 10 requests with the same checks;
 5. a tiny f32 LLaMA gives the same greedy streams on CUDA and on the CPU,
    in float, with int8 and int4 weights and an int8 KV cache, and as a
@@ -408,11 +412,23 @@ def shift_group(scales):
     return out
 
 
+def without_k_tile(x, qw, sc, wd, tile):
+    """The plain version without one 64-deep k tile's contribution (x's
+    columns of that tile zeroed): the fault of a ring that skips a stage."""
+    cut = x.clone()
+    cut[:, tile * 64:(tile + 1) * 64] = 0
+    return kqm.quant_matmul_ref(cut, qw, sc, wd)
+
+
 def qmm_controls(x, qw, sc, wd, want):
     """Readings of the row check on faults made from the plain version:
-    one group's scales shifted by one group, and for int4 the two nibbles
-    of every byte swapped. Each must exceed the bar."""
-    got = {"group_shift": kqm.quant_matmul_ref(x, qw, shift_group(sc), wd)}
+    one group's scales shifted by one group, the first or the last k tile's
+    contribution missing, and for int4 the two nibbles of every byte
+    swapped. Each must exceed the bar."""
+    k = x.shape[1]
+    got = {"group_shift": kqm.quant_matmul_ref(x, qw, shift_group(sc), wd),
+           "first_k_tile": without_k_tile(x, qw, sc, wd, 0),
+           "last_k_tile": without_k_tile(x, qw, sc, wd, k // 64 - 1)}
     if wd == "int4":
         got["nibble_swap"] = kqm.quant_matmul_ref(x, swap_nibbles(qw), sc, wd)
     return {k: row_rel_err(v, want) for k, v in got.items()}
@@ -803,13 +819,27 @@ def dq_without_tile(q, k, v, do, lse, delta, scale, causal, var=None,
     return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
 
 
+def fwd_diag_shift(q, k, v, scale):
+    """The causal forward with the diagonal shifted by one key (each query
+    also sees the key after its last one), in f32: a fault of the kernel's
+    in-register causal test."""
+    s_q, s_kv = q.shape[1], k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    rows = torch.arange(s_q, device=q.device)[:, None]
+    cols = torch.arange(s_kv, device=q.device)[None, :]
+    s = s.masked_fill(rows + (s_kv - s_q) + 1 < cols, float("-inf"))
+    out = torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), v.float())
+    return out.nan_to_num().to(q.dtype)
+
+
 def flash_controls(q, k, v, do, lse, delta, scale, causal, want):
     """Readings of the flash check on faults made from the plain versions,
     each against the sound plain outputs `want`: every one must exceed the
     bar. "scale": the softmax scale 1 % too large throughout. "dq_tile":
-    dQ without the first 128-key tile's contribution. "tile" (not causal):
-    the forward and dQ skip one 64-key tile, dK/dV one 64-query tile, with
-    the sound lse and delta."""
+    dQ without the first 128-key tile's contribution. "diag_shift"
+    (causal): the forward with the causal diagonal one key late. "tile" (not
+    causal): the forward and dQ skip one 64-key tile, dK/dV one 64-query
+    tile, with the sound lse and delta."""
     s2 = scale * 1.01
     out, lse2 = kfa.flash_fwd_ref(q, k, v, s2, causal)
     delta2 = kfa.flash_bwd_delta(out, do)
@@ -817,6 +847,8 @@ def flash_controls(q, k, v, do, lse, delta, scale, causal, want):
     got = {"scale": dict(out=out, dq=dq, dk=dk, dv=dv),
            "dq_tile": dict(dq=dq_without_tile(q, k, v, do, lse, delta, scale,
                                               causal))}
+    if causal:
+        got["diag_shift"] = dict(out=fwd_diag_shift(q, k, v, scale))
     if not causal:
         a, b = k.shape[1] // 2, q.shape[1] // 2
 
@@ -1060,10 +1092,20 @@ def profile_prefill(eng, rng, card, n=2500):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # the dequant matmul's kernels (prefill: qmm_wgmma_kernel)
+    dequant = sum(us for name, us in by_name.items()
+                  if "qmm_wgmma_kernel" in name
+                  or "quant_matmul_kernel" in name
+                  or "split_sum_kernel" in name)
     res = dict(prompt=n, wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
+               dequant_ms=dequant / 1e3,
                top_kernels_ms=[(k[:90], us / 1e3) for k, us in top])
     log(f"profile: warm prefill of a {n}-token prompt: {res['wall_ms']:.1f} "
         f"ms wall, {res['device_busy_ms']:.1f} ms device busy [{card}]")
+    if dequant:
+        log(f"profile:   the dequant matmul: {res['dequant_ms']:.1f} ms of "
+            f"the {res['device_busy_ms']:.1f} ms of device time (share "
+            f"{dequant / busy:.3f}) [{card}]")
     for name, ms in res["top_kernels_ms"]:
         log(f"profile:   {ms:8.3f} ms  {name}")
     return res

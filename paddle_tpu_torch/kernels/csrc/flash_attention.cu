@@ -2,8 +2,9 @@
 //
 // Replaces the four kernel bodies of each of the three Pallas sites of
 // paddle_tpu/kernels/flash_attention.py:
-//   flash_fwd_kernel <- _fwd_kernel{,_seg,_drop,_seg_drop} via _flash_fwd
-//                       (out, f32 row lse)
+//   flash_fwd_mma_kernel <- _fwd_kernel{,_seg,_drop,_seg_drop} via
+//                       _flash_fwd (out, f32 row lse) for bf16 inputs;
+//                       float inputs keep the WMMA flash_fwd_kernel
 //   flash_bwd_kernel <- _bwd_dkv_kernel{,...} via _run_dkv_pass (dK, dV)
 //                       and _bwd_dq_kernel{,...} via _run_dq_pass (dQ), in
 //                       one kernel for bf16 inputs; float inputs keep two
@@ -42,20 +43,25 @@
 // the CUDA cores (see `keep`), which at 64 INT32 lanes per SM outweigh the
 // products: the backward regenerates it once per visible pair.
 //
-// Forward: every product is a warp-level tensor-core product through the
-// WMMA API on tiles staged in shared memory: bf16 operands with f32
-// accumulation; for float inputs three TF32 products per step on the split
-// a = hi + lo (hi*hi + hi*lo + lo*hi), which keeps close to f32 accuracy.
-// The scores go to shared memory as f32; the masks and the online softmax
-// run on the CUDA cores in f32; P is rounded to the input type before its
-// product (bf16: one rounding, 2^-9 relative, of each weight; the reference
-// multiplies in f32). One block of 4 warps per (bh, 64-row q tile), each
-// warp owning 16 query rows: its own softmax state, and its O accumulator
-// in fragments, rescaled in place (a probe load tells which row each
-// fragment element holds); K/V tiles in the future of the whole q tile are
-// skipped, the next K/V tile in flight by cp.async (two buffers for bf16)
-// while the block computes on the current one; each warp keeps its bf16 Q
-// rows in registers.
+// Forward, bf16 (flash_fwd_mma_kernel): the counterpart of the backward
+// below. Each warp owns 16 query rows; S = Q K^T is computed by mma.sync
+// m16n8k16 into accumulator registers, where the masks, the keep bits and
+// the online softmax run (each element's (query, key) from the lane id, the
+// row maxima over the lane quad by shuffles, in base 2 with the scale and
+// log2 e folded into one multiply); P, rounded to bf16 (2^-9 relative, the
+// reference multiplies in f32), feeds O += P V from registers. No score
+// goes through shared memory; one barrier per 64-key K/V tile, the tiles
+// streamed by cp.async. Causal tiles that cross a warp's diagonal alone
+// evaluate the mask, a warp skips the tiles wholly in its future, and a
+// seg tile whose queries and keys carry one id runs without the mask.
+// Block shapes by variant at `kFwdQReg` (a 96-row block of 6 warps, two
+// blocks per SM, or for seg_drop 128 rows of 8 warps, one block per SM:
+// the shapes that fit the registers without spills). Float inputs keep the
+// WMMA body of the first design: three TF32 products per step on the
+// split a = hi + lo (hi*hi + hi*lo + lo*hi), close to f32 accuracy, scores
+// and probabilities through shared memory, one block of 4 warps per (bh,
+// 64-row q tile), a probe load telling which row each fragment element
+// holds; it serves parity checks and the tiny f32 models.
 //
 // Backward, bf16 (flash_bwd_kernel): one block of 8 warps per (bh, 128-key
 // tile) computes the tile's dK and dV and its share of dQ, 5 products per
@@ -85,7 +91,8 @@
 // first. Float inputs keep the WMMA bodies of the first design: a dK/dV
 // kernel of 8 warps per (bh, 64-key tile) and a dQ kernel per (bh, 64-row
 // q tile), scores and probabilities through shared memory.
-// Products are not wgmma and tiles are not moved by TMA.
+// Products are not wgmma and tiles are not moved by TMA (later work: one
+// warp-specialized wgmma template for both directions).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,20 +132,6 @@ struct IsRow<wmma::row_major> {
 
 template <typename T>
 struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static constexpr int K = 16;
-  template <typename L>
-  using A = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, L>;
-  template <typename L>
-  using B = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, L>;
-  using C = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  template <typename FA, typename FB>
-  static __device__ __forceinline__ void step(C& c, FA& a, FB& b) {
-    wmma::mma_sync(c, a, b, c);
-  }
-};
 
 template <>
 struct Mma<float> {
@@ -196,21 +189,9 @@ template <>
 __device__ __forceinline__ float from_f<float>(float v) {
   return v;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ void store4(float* d, float4 v) {
   *reinterpret_cast<float4*>(d) = v;
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* d, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(d) = u;
 }
 
 // cp.async: 16-byte copies global -> shared that bypass registers; a block
@@ -325,9 +306,9 @@ __device__ __forceinline__ int next_tile(int t, int end, const int2* rng,
   return end;
 }
 
-// pipeline depth of the streamed tiles in the forward and dK/dV passes: two
-// buffers for bf16; one for f32, whose tiles are twice as large and would
-// not fit twice in shared memory. The dQ pass keeps one buffer: a second
+// pipeline depth of the streamed tiles in the f32 WMMA forward and dK/dV
+// passes (bf16 inputs run the mma.sync kernels): one buffer, the f32 tiles
+// being too large to fit twice in shared memory. The dQ pass keeps one buffer: a second
 // (149 KB in all) leaves room for one block per SM instead of two, and
 // measured slower on the H100.
 template <typename T>
@@ -390,7 +371,6 @@ __global__ void __launch_bounds__(kFwdThreads)
                      int causal, const Variant var) {
   using C = typename Mma<T>::C;
   constexpr int S = kStages<T>;
-  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sKV = sQ + kBQ * kLD;  // S x (K tile, V tile)
@@ -444,17 +424,6 @@ __global__ void __launch_bounds__(kFwdThreads)
   for (int i = 0; i < C::num_elements; ++i)
     rowof[i] = static_cast<int>(probe.x[i]);
 
-  // bf16: the warp's 16 query rows stay in registers as A fragments
-  typename Mma<T>::template A<wmma::row_major> qf[kBf16 ? kD / 16 : 1];
-  if constexpr (kBf16) {
-    if (j < kv_end) cp_async_wait<1>();
-    else cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wmma::load_matrix_sync(qf[kk], sQ + warp * 16 * kLD + kk * 16, kLD);
-  }
-
   C acc[kD / 16];
 #pragma unroll
   for (int n = 0; n < kD / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
@@ -492,17 +461,8 @@ __global__ void __launch_bounds__(kFwdThreads)
     for (int n = 0; n < kBK / 16; ++n) {
       C s;
       wmma::fill_fragment(s, 0.f);
-      if constexpr (kBf16) {
-        typename Mma<T>::template B<wmma::col_major> fb;
-#pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) {
-          wmma::load_matrix_sync(fb, sK + n * 16 * kLD + kk * 16, kLD);
-          wmma::mma_sync(s, qf[kk], fb, s);
-        }
-      } else {
-        mma_tile<T, wmma::row_major, wmma::col_major>(
-            s, sQ + warp * 16 * kLD, kLD, sK + n * 16 * kLD, kLD, kD);
-      }
+      mma_tile<T, wmma::row_major, wmma::col_major>(
+          s, sQ + warp * 16 * kLD, kLD, sK + n * 16 * kLD, kLD, kD);
       wmma::store_matrix_sync(strip + n * 16, s, kLS, wmma::mem_row_major);
     }
     __syncwarp();
@@ -904,6 +864,21 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       : "r"(smem_u32(p)));
 }
 
+// the same by 32-bit shared-memory address
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // d += a b over one m16n8k16 step: a the 16 x 16 row-major A fragment, b0 /
 // b1 the two registers of the 16 x 8 B fragment; f32 accumulators
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -1210,6 +1185,336 @@ __global__ void __launch_bounds__(kBwdMmaThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// forward, bf16 inputs: register-resident scores with mma.sync
+// ---------------------------------------------------------------------------
+
+// The forward's shape, by the variant this library builds: 96-row blocks
+// of 6 warps, two blocks per SM (12 warps, at most 168 registers a
+// thread), Q read from shared memory at each step, 2 K/V stages; seg_drop,
+// whose masks need more registers than that, 128-row blocks of 8 warps,
+// one block per SM, Q kept in registers, 3 stages. (Two blocks of 8 warps,
+// at most 128 registers, spill in every body.)
+constexpr bool kFwdQReg = FLASH_SEG && FLASH_DROP;
+constexpr int kFwdQ = kFwdQReg ? 128 : 96;          // query rows per block
+constexpr int kFwdMmaThreads = kFwdQ / 16 * 32;     // a warp per 16 rows
+constexpr int kFwdStages = kFwdQReg ? 3 : 2;
+constexpr int kFwdBlocks = kFwdQReg ? 1 : 2;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <bool SEG>
+constexpr size_t fwd_mma_smem() {
+  return (kFwdQ + kFwdStages * 2 * kBK) * kLD * sizeof(bf16) +
+         (SEG ? kFwdStages * kBK * sizeof(int) : 0);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cp.async.wait_group with a count known only at run time (0..2)
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n >= 2) cp_async_wait<2>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+// One block of kFwdQ / 16 warps per (bh, q tile), each warp owning 16
+// query rows; a shorter last q tile leaves the warps past it idle. K/V
+// tiles of 64 keys stream in by cp.async through kFwdStages stages, one
+// barrier per tile. S = Q K^T goes into 16 x 64 f32 accumulators (mma.sync
+// m16n8k16, Q and K by ldmatrix); the masks, the keep bits and the online
+// softmax (in base 2, the scale and log2 e folded into one multiply) run
+// there, each element's (query, key) from the lane id (rows g and g + 8,
+// columns 2t and 2t + 1 of each n8 tile), row maxima over the quad by two
+// shuffles, l kept per thread and summed over the quad at the end. P,
+// rounded to bf16, is the A operand of P V straight from registers (two
+// adjacent n8 accumulator tiles form one k16 A fragment), V by
+// ldmatrix.trans, into 16 x 128 f32 O accumulators rescaled in place.
+// Causal: a warp skips a key tile that lies wholly in its rows' future and
+// evaluates the mask only on a tile that crosses its diagonal. SEG: the
+// block skips key tiles whose id range misses the q tile's (the ranges of
+// the 64-row tiles it spans combined) and drops the per-element test where
+// the q tile and the key tile carry one and the same id. DROP: the tile's
+// keep bits are computed first, one threefry call per visible pair, so
+// that the hash's registers are free again before S is. q tiles launch
+// longest first (grid y reversed under causal).
+template <bool SEG, bool DROP>
+__global__ void __launch_bounds__(kFwdMmaThreads, kFwdBlocks)
+    flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         float* __restrict__ lse, int s_q, int s_kv,
+                         float scale, int causal, const Variant var) {
+  constexpr int S = kFwdStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sKV = sQ + kFwdQ * kLD;  // S x (K tile, V tile)
+  int* sIdK = reinterpret_cast<int*>(sKV + S * 2 * kBK * kLD);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x;
+  const int n_qt = (s_q + kFwdQ - 1) / kFwdQ;
+  const int q0 = (causal ? n_qt - 1 - blockIdx.y : blockIdx.y) * kFwdQ;
+  const int rows = min(kFwdQ, s_q - q0);  // a multiple of 32
+  const int offset = s_kv - s_q;
+  const int n_kv = s_kv / kBK;
+  int kv_end = n_kv;
+  if (causal) {
+    const int last = q0 + rows - 1 + offset;
+    kv_end = last < 0 ? 0 : min(n_kv, last / kBK + 1);
+  }
+  const int batch = SEG ? bh / var.heads : 0;
+  int2 q_ids = make_int2(0, 0);  // SEG: the q tile's (min, max) id
+  if constexpr (SEG) {  // the ranges of the 64-row tiles it spans
+    const int2* rq = var.rng_q + batch * (s_q / kBQ);
+    q_ids = rq[q0 / kBQ];
+    for (int i = q0 / kBQ + 1; i <= (q0 + rows - 1) / kBQ; ++i) {
+      q_ids.x = min(q_ids.x, rq[i].x);
+      q_ids.y = max(q_ids.y, rq[i].y);
+    }
+  }
+  auto next = [&](int j) {  // the first key tile from j on it may see
+    if constexpr (SEG)
+      return next_tile(j, kv_end, var.rng_k + batch * n_kv, q_ids.x,
+                       q_ids.y);
+    else
+      return j;
+  };
+  auto issue = [&](int j, int b) {  // K/V tile j (and its ids) -> stage b
+    bf16* dst = sKV + b * 2 * kBK * kLD;
+    const size_t src = (static_cast<size_t>(bh) * s_kv + j * kBK) * kD;
+    load_tile(dst, k + src, kBK);
+    load_tile(dst + kBK * kLD, v + src, kBK);
+    if constexpr (SEG)
+      load_ids(sIdK + b * kBK,
+               var.seg_k + static_cast<size_t>(batch) * s_kv + j * kBK);
+    cp_async_commit();
+  };
+  load_tile(sQ, q + (static_cast<size_t>(bh) * s_q + q0) * kD, rows);
+  cp_async_commit();
+  // jt[0]: the tile of this iteration; jt[1..S-2]: the tiles issued ahead
+  int jt[S - 1];
+  jt[0] = next(0);
+#pragma unroll
+  for (int i = 1; i < S - 1; ++i)
+    jt[i] = jt[i - 1] < kv_end ? next(jt[i - 1] + 1) : kv_end;
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i)
+    if (jt[i] < kv_end) issue(jt[i], i);
+
+  const bool active = warp * 16 < rows;
+  const int wr0 = q0 + warp * 16;  // the warp's first query row
+  const int qpos[2] = {wr0 + g, wr0 + g + 8};  // this thread's two rows
+  int q_id[2] = {0, 0};
+  if constexpr (SEG) {
+    if (active) {
+      q_id[0] = var.seg_q[static_cast<size_t>(batch) * s_q + qpos[0]];
+      q_id[1] = var.seg_q[static_cast<size_t>(batch) * s_q + qpos[1]];
+    }
+  }
+  // 32-bit shared addresses: this lane's Q row, and its offsets in a K
+  // tile (ldmatrix) and a V tile (ldmatrix.trans); the lane layouts are
+  // flash_bwd_kernel's
+  const uint32_t q_addr =
+      smem_u32(sQ + (warp * 16 + (lane & 15)) * kLD + (lane >> 4) * 8);
+  const uint32_t k_off =
+      (((lane & 7) + ((lane >> 4) << 3)) * kLD + ((lane >> 3) & 1) * 8) * 2;
+  const uint32_t v_off =
+      (((lane & 7) + (((lane >> 3) & 1) << 3)) * kLD + (lane >> 4) * 8) * 2;
+  const uint32_t kv_addr = smem_u32(sKV);
+
+  uint32_t qf[kFwdQReg ? kD / 16 : 1][4];  // seg_drop: Q in registers
+  float acc[kD / 8][4];                     // O, 16 rows x 128
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // running max (base 2, scaled) and this thread's share of the row sums
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float scale2 = scale * kLog2e;
+
+  for (int it = 0; jt[0] < kv_end; ++it) {
+    int ahead = 0;
+#pragma unroll
+    for (int i = 1; i < S - 1; ++i) ahead += jt[i] < kv_end;
+    cp_async_wait_n(ahead);
+    // tile jt[0] landed for every thread; every warp is done with the
+    // stage that the next issue overwrites
+    __syncthreads();
+    const int jlast = jt[S - 2];
+    const int jnew = jlast < kv_end ? next(jlast + 1) : kv_end;
+    if (jnew < kv_end) issue(jnew, (it + S - 1) % S);
+    if (kFwdQReg && it == 0 && active) {
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        ldsm_x4(qf[kFwdQReg ? kk : 0], q_addr + kk * 32);
+    }
+    const int j = jt[0];
+    const int k0 = j * kBK;
+    // this warp's rows see a key of the tile / not every key of it
+    const bool sees = active && (!causal || k0 <= wr0 + 15 + offset);
+    const bool diag = causal && k0 + kBK - 1 > wr0 + offset;
+    if (sees) {
+      const uint32_t sK = kv_addr + (it % S) * (2 * kBK * kLD * 2);
+      const uint32_t sV = sK + kBK * kLD * 2;
+      // DROP: bit 4 n + e keeps element e of n8 tile n
+      uint32_t kept = 0;
+      if constexpr (DROP) {
+#pragma unroll
+        for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qp = qpos[e >> 1];
+            const int kp = k0 + n * 8 + 2 * t4 + (e & 1);
+            if ((!diag || qp + offset >= kp) && keep(var, bh, qp, kp))
+              kept |= 1u << (4 * n + e);
+          }
+      }
+      float s[kBK / 8][4];
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        uint32_t qa[4];
+        if constexpr (!kFwdQReg) ldsm_x4(qa, q_addr + kk * 32);
+        const uint32_t(&a)[4] = kFwdQReg ? qf[kFwdQReg ? kk : 0] : qa;
+#pragma unroll
+        for (int np = 0; np < kBK / 16; ++np) {
+          uint32_t bk[4];
+          ldsm_x4(bk, sK + k_off + (np * 16 * kLD + kk * 16) * 2);
+          mma_bf16(s[2 * np], a, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+        }
+      }
+      bool seg_mask = false;  // SEG: whether ids may differ in this tile
+      if constexpr (SEG) {
+        const int2 rk = var.rng_k[batch * n_kv + j];
+        seg_mask = !(q_ids.x == q_ids.y && rk.x == rk.y && rk.x == q_ids.x);
+      }
+      const int* k_id = sIdK + (it % S) * kBK;
+      // scores in base 2; a masked one is kNegInf exactly (no scaled
+      // product of bf16 values comes near it). Only a tile that crosses the
+      // diagonal or may mix segments evaluates the mask.
+      const bool masking = diag || seg_mask;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale2;
+          if (masking) {
+            const int col = n * 8 + 2 * t4 + (e & 1);
+            bool h = diag && col > qpos[e >> 1] + offset - k0;
+            if constexpr (SEG)
+              h = h || (seg_mask && q_id[e >> 1] != k_id[col]);
+            if (h) x = kNegInf;
+          }
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+      // p (0 where masked); l sums the undropped p, P V takes the dropped
+      // p times 1 / (1 - rate)
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[n][e];
+          const float p = x == kNegInf ? 0.f : ex2(x - m[e >> 1]);
+          l[e >> 1] += p;
+          float pv = p;
+          if constexpr (DROP)
+            pv = (kept >> (4 * n + e)) & 1 ? p * var.inv : 0.f;
+          s[n][e] = pv;
+        }
+      }
+      if (alpha[0] != 1.f || alpha[1] != 1.f) {
+#pragma unroll
+        for (int n = 0; n < kD / 8; ++n) {
+          acc[n][0] *= alpha[0];
+          acc[n][1] *= alpha[0];
+          acc[n][2] *= alpha[1];
+          acc[n][3] *= alpha[1];
+        }
+      }
+      // P in bf16: two adjacent n8 tiles = one k16 A fragment
+      uint32_t pa[kBK / 16][4];
+#pragma unroll
+      for (int kt = 0; kt < kBK / 16; ++kt) {
+        pa[kt][0] = pack_bf16(s[2 * kt][0], s[2 * kt][1]);
+        pa[kt][1] = pack_bf16(s[2 * kt][2], s[2 * kt][3]);
+        pa[kt][2] = pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]);
+        pa[kt][3] = pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3]);
+      }
+      // O += P V
+#pragma unroll
+      for (int kt = 0; kt < kBK / 16; ++kt) {
+#pragma unroll
+        for (int np = 0; np < kD / 16; ++np) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, sV + v_off + (kt * 16 * kLD + np * 16) * 2);
+          mma_bf16(acc[2 * np], pa[kt], bv[0], bv[1]);
+          mma_bf16(acc[2 * np + 1], pa[kt], bv[2], bv[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < S - 2; ++i) jt[i] = jt[i + 1];
+    jt[S - 2] = jnew;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the K/V stages become the output staging
+
+  // out = O / l in bf16, through shared memory for 16-byte stores; lse =
+  // m ln 2 + log(l); a row that saw no key gives 0 and -1e30
+  bf16* stage = sKV;
+  if (active) {
+    float safe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      safe[r] = lr == 0.f ? 1.f : lr;
+      if (t4 == 0)
+        lse[static_cast<size_t>(bh) * s_q + qpos[r]] =
+            lr == 0.f ? kNegInf : m[r] * kLn2 + logf(lr);
+    }
+    bf16* row0 = stage + (warp * 16 + g) * kLD + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(row0 + n * 8) =
+          pack_bf16(acc[n][0] / safe[0], acc[n][1] / safe[0]);
+      *reinterpret_cast<uint32_t*>(row0 + 8 * kLD + n * 8) =
+          pack_bf16(acc[n][2] / safe[1], acc[n][3] / safe[1]);
+    }
+  }
+  __syncthreads();
+  constexpr int kChunks = kD / 8;  // 16-byte chunks per row
+  bf16* ob = o + (static_cast<size_t>(bh) * s_q + q0) * kD;
+  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    *reinterpret_cast<uint4*>(ob + static_cast<size_t>(r) * kD + c) =
+        *reinterpret_cast<const uint4*>(stage + r * kLD + c);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1255,15 +1560,27 @@ template <typename T>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, int bh, int s_q, int s_kv, float scale, int causal,
                 const Variant& var, cudaStream_t s) {
-  constexpr size_t smem = fwd_smem<T, kSeg>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, kSeg, kDrop>, smem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, kSeg, kDrop>
-      <<<dim3(s_q / kBQ, bh), kFwdThreads, smem, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(o),
-          static_cast<float*>(lse), s_q, s_kv, scale, causal, var);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {  // bf16: the mma.sync kernel
+    constexpr size_t bytes = fwd_mma_smem<kSeg>();
+    cudaError_t err = allow_smem(flash_fwd_mma_kernel<kSeg, kDrop>, bytes);
+    if (err != cudaSuccess) return err;
+    flash_fwd_mma_kernel<kSeg, kDrop>
+        <<<dim3(bh, (s_q + kFwdQ - 1) / kFwdQ), kFwdMmaThreads, bytes, s>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<bf16*>(o),
+            static_cast<float*>(lse), s_q, s_kv, scale, causal, var);
+    return cudaGetLastError();
+  } else {  // float: the WMMA split-TF32 kernel
+    constexpr size_t smem = fwd_smem<T, kSeg>();
+    cudaError_t err = allow_smem(flash_fwd_kernel<T, kSeg, kDrop>, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_kernel<T, kSeg, kDrop>
+        <<<dim3(s_q / kBQ, bh), kFwdThreads, smem, s>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<T*>(o),
+            static_cast<float*>(lse), s_q, s_kv, scale, causal, var);
+    return cudaGetLastError();
+  }
 }
 
 // the WMMA dK/dV and dQ kernels, float inputs

@@ -24,25 +24,59 @@
 // multiplies by the scales with bf16x2 multiplies, the reference's one
 // rounding.
 //
-// Design: one block of 8 warps per (128-column tile, BM-row tile, k split).
-// The block walks its k tiles (BK rows; a tile never straddles a scale
-// group, since group_rows % BK == 0) through a ring of kStages shared-memory
-// stages filled by cp.async: each stage holds a tile's raw weight bytes,
-// its x rows (zero-filled past m) and its scale row, so kStages - 1 tiles
-// are in flight while the block dequantizes and multiplies the current
-// one. Per tile the block dequantizes the raw bytes into one bf16 (or f32)
-// weight tile, then
-//   bf16 x: WMMA 16x16x16 bf16 products with f32 accumulators; BM = 128
-//     (4x2 warps of 32x64) for m > 16, BM = 16 (8 warps of 16x16) for
-//     decode's m <= 16;
+// Two designs share the dequant arithmetic.
+//
+// Prefill, bf16 x and m > 16 (qmm_wgmma_kernel): a persistent,
+// warp-specialized wgmma kernel, one block of 4 warpgroups per SM walking
+// 128 x 128 output tiles in an order the host picks (bands of group_m row
+// tiles, row tiles fastest within a band, so that a band of x stays in the
+// 50 MB L2 while the weight columns stream past it). Warpgroup 0 loads:
+// one thread of warp 0 keeps a ring of kXRing x tiles in flight by TMA
+// (cp.async.bulk.tensor, 128-byte swizzle, rows past m zero-filled by the
+// copy), one thread of warp 1 a ring of kWRing raw int8/int4 weight tiles
+// by TMA (no swizzle) with their scale rows by a bulk copy, each completing
+// an mbarrier by transaction bytes; TMA spends no registers or
+// instructions of the warps that compute, and a loader thread does
+// nothing else (a wait of another role in its warp would stall its
+// copies). Warpgroup 1 dequantizes each landed raw tile into a ring of
+// kBRing bf16 weight tiles, written N-major in the 128-byte swizzled
+// layout that the wgmma descriptor reads (transpose bit set), and signals
+// an mbarrier. Warpgroups 2 and 3 multiply: each owns 64 rows of the tile
+// and keeps 64 x 128 f32 accumulators in registers, and per k tile issues
+// 4 asynchronous wgmma m64n128k16 from shared memory, keeping one k tile's
+// products in flight while it releases the stages of the one before. No
+// block-wide barrier runs in the mainloop: the dequant of the next tiles
+// overlaps the products. setmaxnreg moves registers from the loaders and
+// the dequant to the multiplying warpgroups. The epilogue rounds the
+// accumulators to bf16 once and stores them through shared memory with
+// 16-byte stores, rows past m masked. The tile count is not a multiple of
+// 132 at every shape (800 tiles at n = 5120, 6.06 rounds): the tail is not
+// split. Measured on the H100 (PERF.md): the load, dequant and product
+// phases add up more than they overlap, near 3x the bound; a 128 x 256
+// tile (4 rounds for 3.03 at n = 5120) and clusters of two CTAs sharing
+// the x tile by TMA multicast measured no faster and are not kept.
+//
+// Decode (m <= 16) and float32 x (quant_matmul_kernel): one block of 8
+// warps per (128-column tile, BM-row tile, k split). The block walks its k
+// tiles (BK rows; a tile never straddles a scale group, since group_rows %
+// BK == 0) through a ring of kStages shared-memory stages filled by
+// cp.async: each stage holds a tile's raw weight bytes, its x rows
+// (zero-filled past m) and its scale row, so kStages - 1 tiles are in
+// flight while the block dequantizes and multiplies the current one. Per
+// tile the block dequantizes the raw bytes into one bf16 (or f32) weight
+// tile, then
+//   bf16 x: WMMA 16x16x16 bf16 products with f32 accumulators, BM = 16 (8
+//     warps of 16x16): decode is bound by the weight bytes, and this
+//     design reads them at 1.3-1.5x torch.matmul's time on the bf16 weight;
 //   f32 x: CUDA-core FMA in f32 (each thread a 4- or 1-row by 8-column
-//     patch), so the f32 path keeps f32 arithmetic.
+//     patch), so the f32 path keeps f32 arithmetic (parity checks and the
+//     tiny f32 models).
 // At decode, n / 128 column tiles alone leave most of the 132 SMs idle, so
 // the host splits k to fill one wave of blocks: each split writes f32
 // partials and a second kernel sums them in split order (deterministic, no
-// atomics). TMA, wgmma and register-resident dequantized fragments are
-// left for later work.
+// atomics).
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -73,8 +107,8 @@ template <int BM>
 struct Cfg<__nv_bfloat16, BM> {
   static constexpr int BK = 64;
   static constexpr int kPad = 8;  // WMMA: a multiple of 8 bf16 per row
-  static constexpr int kStages = BM == 16 ? 4 : 3;
-  static constexpr int kWarpsM = BM == 16 ? 1 : 4;
+  static constexpr int kStages = 4;  // BM = 16 only: decode
+  static constexpr int kWarpsM = 1;
 };
 
 template <int BM>
@@ -462,6 +496,449 @@ __global__ void __launch_bounds__(kThreads)
   store_out(out + 4 * i, v);
 }
 
+// ---------------------------------------------------------------------------
+// prefill, bf16 x and m > 16: the warp-specialized wgmma kernel
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kPBM = 128;        // output rows per tile
+constexpr int kPBK = 64;         // k per stage: one 128-byte x row
+constexpr int kPThreads = 512;   // loaders, dequant, 2 consumer warpgroups
+constexpr int kXTile = kPBM * kPBK * 2;  // 16 KB, 128-byte swizzled rows
+constexpr int kBTile = kPBK * kBN * 2;   // 16 KB, N-major, swizzled
+constexpr int kRawTile = kPBK * kBN;     // int8 bytes (int4: half used)
+constexpr int kLdO = kBN + 8;            // epilogue staging row stride
+constexpr int kOTile = 64 * kLdO * 2;    // one consumer's staging
+constexpr int kXRing = 6;  // x tiles in flight
+constexpr int kWRing = 4;  // raw weight tiles (and their scale rows)
+constexpr int kBRing = 3;  // dequantized weight tiles
+constexpr int kPSmem = 1024 /* alignment slack */ + kXRing * kXTile +
+                       kBRing * kBTile + kWRing * (kRawTile + kBN * 4) +
+                       2 * kOTile;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// spin until the barrier's phase of this parity has completed; a wait
+// that never ends (a ring fault) traps, so the launch fails instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0;; ++spins) {
+    if (spins == (1u << 26)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+// TMA: a 2-d box of the tensor map at (c0 inner, c1 outer) -> shared
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+// bulk copy of contiguous bytes (a multiple of 16) -> shared
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (bits 0-13, 16-29, 32-45, in 16-byte units),
+// layout type 1 (SWIZZLE_128B) in bits 62-63
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+#define QMM_ACC8(i)                                                     \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64 x 128] += A[64 x 16] B[16 x 128]: A K-major, B N-major (transposed),
+// both bf16 in shared memory by descriptor; f32 accumulators in the m64nN
+// layout (d[4 j + e]: row 16 w + lane / 4 + 8 (e / 2), column 8 j + 2 (lane
+// % 4) + e % 2 for warp w of the warpgroup)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : QMM_ACC8(0), QMM_ACC8(8), QMM_ACC8(16), QMM_ACC8(24), QMM_ACC8(32),
+        QMM_ACC8(40), QMM_ACC8(48), QMM_ACC8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+#undef QMM_ACC8
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// named barrier over the 128 threads of consumer warpgroup w
+__device__ __forceinline__ void wg_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
+}
+
+// byte offset of weight element (kr, n) in a dequantized tile: N-major,
+// two 64-column halves of 8 KB, each 8 groups of 8 k rows of 128 bytes,
+// the 16-byte chunk index XORed with kr % 8 (the 128-byte swizzle)
+__device__ __forceinline__ uint32_t b_offset(int kr, int n) {
+  return (n >> 6) * (kPBK * 128) + kr * 128 +
+         ((((n & 63) >> 3) ^ (kr & 7)) << 4) + (n & 7) * 2;
+}
+
+// output tile t of the persistent walk -> (row tile, column tile): bands of
+// group_m row tiles, row tiles fastest within a band (`prefill_tile` in
+// quant_matmul.py is the same map)
+__device__ __forceinline__ void tile_of(int t, int tiles_m, int tiles_n,
+                                        int group_m, int* tm, int* tn) {
+  const int band = t / (group_m * tiles_n);
+  const int first = band * group_m;
+  const int rows = min(group_m, tiles_m - first);
+  const int local = t - band * group_m * tiles_n;
+  *tm = first + local % rows;
+  *tn = local / rows;
+}
+
+struct PArgs {
+  const float* s;
+  bf16* out;
+  int m, k, n, group_rows, tiles_m, tiles_n, group_m;
+};
+
+// registers after the shift (setmaxnreg): the launch gives 128 a thread
+// (512 threads, one block per SM); the loaders and the dequant give up
+// 88 and 32, and each consumer thread takes 56 of them
+constexpr int kLoaderRegs = 40;
+constexpr int kDequantRegs = 96;
+constexpr int kConsumerRegs = 184;
+
+template <bool kInt4>
+__global__ void __launch_bounds__(kPThreads, 1)
+    qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                     const __grid_constant__ CUtensorMap tmq, const PArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_x[kXRing], empty_x[kXRing];
+  __shared__ __align__(8) uint64_t full_w[kWRing], empty_w[kWRing];
+  __shared__ __align__(8) uint64_t full_b[kBRing], empty_b[kBRing];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sx = base;                       // kXRing x tiles
+  const uint32_t sb = sx + kXRing * kXTile;       // kBRing weight tiles
+  const uint32_t sraw = sb + kBRing * kBTile;     // kWRing raw tiles
+  const uint32_t ssc = sraw + kWRing * kRawTile;  // kWRing scale rows
+  const uint32_t sout = ssc + kWRing * kBN * 4;   // 2 staging tiles
+  unsigned char* g_b = gbase + (sb - base);
+  const unsigned char* g_raw = gbase + (sraw - base);
+  const float* g_sc = reinterpret_cast<const float*>(gbase + (ssc - base));
+  bf16* g_out = reinterpret_cast<bf16*>(gbase + (sout - base));
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, t = tid & 127;
+  if (tid == 0) {
+    for (int i = 0; i < kXRing; ++i) {
+      mbar_init(smem_u32(&full_x[i]), 1);
+      mbar_init(smem_u32(&empty_x[i]), 8);  // the 8 consumer warps
+    }
+    for (int i = 0; i < kWRing; ++i) {
+      mbar_init(smem_u32(&full_w[i]), 1);
+      mbar_init(smem_u32(&empty_w[i]), 128);  // every dequant thread
+    }
+    for (int i = 0; i < kBRing; ++i) {
+      mbar_init(smem_u32(&full_b[i]), 128);
+      mbar_init(smem_u32(&empty_b[i]), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int k_tiles = a.k / kPBK;
+  const int tiles = a.tiles_m * a.tiles_n;
+  const int my_tiles =
+      blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = my_tiles * k_tiles;  // k tiles this block walks
+  auto tile = [&](int u, int* tm, int* tn) {  // this block's u-th tile
+    tile_of(blockIdx.x + u * gridDim.x, a.tiles_m, a.tiles_n, a.group_m, tm,
+            tn);
+  };
+  constexpr int kRawRows = kInt4 ? kPBK / 2 : kPBK;
+
+  if (wg == 0) {
+    // ---- loaders: warp 0 the x tiles, warp 1 the raw weight tiles and
+    // their scales, each a ring of TMA loads freed by its consumers (the
+    // products, the dequant); one lane of a warp that does nothing else,
+    // so that no wait of another role stalls the copies ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kLoaderRegs));
+    const int warp = t >> 5;
+    if (warp <= 1 && (t & 31) == 0) {
+      // the tile's coordinates change every k_tiles steps and the scale
+      // row every group: a division per step on this one thread would
+      // pace the copies
+      int tm = 0, tn = 0, u = 0, k0 = 0, gk = 0, grp = 0;
+      for (int it = 0; it < total; ++it, k0 += kPBK, gk += kPBK) {
+        if (k0 == a.k) {
+          k0 = 0;
+          ++u;
+        }
+        if (gk == a.group_rows || k0 == 0) {
+          gk = 0;
+          grp = k0 == 0 ? 0 : grp + 1;
+        }
+        if (k0 == 0) tile(u, &tm, &tn);
+        if (warp == 0) {
+          const int st = it % kXRing;
+          if (it >= kXRing)
+            mbar_wait(smem_u32(&empty_x[st]), ((it / kXRing) & 1) ^ 1);
+          const uint32_t bar = smem_u32(&full_x[st]);
+          mbar_expect_tx(bar, kXTile);
+          tma_2d(sx + st * kXTile, &tmx, k0, tm * kPBM, bar);
+        } else {
+          const int st = it % kWRing;
+          if (it >= kWRing)
+            mbar_wait(smem_u32(&empty_w[st]), ((it / kWRing) & 1) ^ 1);
+          const uint32_t bar = smem_u32(&full_w[st]);
+          mbar_expect_tx(bar, kRawRows * kBN + kBN * 4);
+          tma_2d(sraw + st * kRawTile, &tmq, tn * kBN, kInt4 ? k0 / 2 : k0,
+                 bar);
+          bulk_copy(ssc + st * kBN * 4,
+                    a.s + static_cast<size_t>(grp) * a.n + tn * kBN,
+                    kBN * 4, bar);
+        }
+      }
+    }
+  } else if (wg == 1) {
+    // ---- dequant: raw weight tiles -> bf16 weight tiles (128 threads) ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kDequantRegs));
+    // this thread's 16 weight columns and the rows it dequantizes: lanes
+    // 0-3 of each 8 take chunks 0-3 of one raw row, lanes 4-7 chunks 4-7 of
+    // the next, so that neither the 16-byte raw reads nor the swizzled
+    // 16-byte writes of 8 lanes meet in a bank
+    const int c = t & 7;
+    const int row0 = ((t >> 2) & 1) + 2 * (t >> 3);  // 0..31
+    for (int it = 0; it < total; ++it) {
+      const int st = it % kWRing, b = it % kBRing;
+      mbar_wait(smem_u32(&full_w[st]), (it / kWRing) & 1);
+      if (it >= kBRing)
+        mbar_wait(smem_u32(&empty_b[b]), ((it / kBRing) & 1) ^ 1);
+      unsigned char* wt = g_b + b * kBTile;
+      const unsigned char* raw = g_raw + st * kRawTile + c * 16;
+      const float* srow = g_sc + st * kBN + c * 16;
+      __nv_bfloat162 sp[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sp[j] = __floats2bfloat162_rn(srow[2 * j], srow[2 * j + 1]);
+      constexpr int kTasks = kRawRows * 8 / 128;  // 4 (int8) or 2 (int4)
+#pragma unroll
+      for (int i = 0; i < kTasks; ++i) {
+        // int8: rows row0 ^ (i / 2) and 32 more, so that each column chunk
+        // sees every row; int4: the 32 byte rows, row0 ^ i
+        const int r = kInt4 ? row0 ^ i : (row0 ^ (i >> 1)) + 32 * (i & 1);
+        const uint4 u = *reinterpret_cast<const uint4*>(raw + r * kBN);
+        const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
+        uint2 e[4], o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (kInt4) {
+            dequant_i4(wd[j], sp + 2 * j, &e[j], &o[j]);
+          } else {
+            e[j] = dequant_i8(wd[j], sp + 2 * j);
+          }
+        }
+        const int kr = kInt4 ? 2 * r : r;
+        *reinterpret_cast<uint4*>(wt + b_offset(kr, c * 16)) =
+            make_uint4(e[0].x, e[0].y, e[1].x, e[1].y);
+        *reinterpret_cast<uint4*>(wt + b_offset(kr, c * 16 + 8)) =
+            make_uint4(e[2].x, e[2].y, e[3].x, e[3].y);
+        if (kInt4) {
+          *reinterpret_cast<uint4*>(wt + b_offset(kr + 1, c * 16)) =
+              make_uint4(o[0].x, o[0].y, o[1].x, o[1].y);
+          *reinterpret_cast<uint4*>(wt + b_offset(kr + 1, c * 16 + 8)) =
+              make_uint4(o[2].x, o[2].y, o[3].x, o[3].y);
+        }
+      }
+      mbar_arrive(smem_u32(&empty_w[st]));  // the raw stage is read
+      // the generic-proxy writes become visible to wgmma's async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(smem_u32(&full_b[b]));
+    }
+  } else {
+    // ---- consumers: warpgroup 2 rows 0-63, warpgroup 3 rows 64-127 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int w = wg - 2;
+    const int warp = t >> 5, lane = t & 31;
+    bf16* stg = g_out + w * (64 * kLdO);
+    auto release = [&](int i) {  // k tile i's x and weight stages
+      if (lane != 0) return;
+      mbar_arrive(smem_u32(&empty_x[i % kXRing]));
+      mbar_arrive(smem_u32(&empty_b[i % kBRing]));
+    };
+    float d[64];
+    int it = 0;
+    for (int u = 0; u < my_tiles; ++u) {
+      int tm, tn;
+      tile(u, &tm, &tn);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) d[i] = 0.f;
+      for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+        const int sxs = it % kXRing, b = it % kBRing;
+        mbar_wait(smem_u32(&full_x[sxs]), (it / kXRing) & 1);
+        mbar_wait(smem_u32(&full_b[b]), (it / kBRing) & 1);
+        __syncwarp();
+        wgmma_fence();
+        const uint32_t xa = sx + sxs * kXTile + w * 64 * 128;
+        const uint32_t wb = sb + b * kBTile;
+#pragma unroll
+        for (int kk = 0; kk < kPBK / 16; ++kk) {
+          // A: K-major rows of 128 bytes, 8-row groups 1024 bytes apart,
+          // each k16 step 32 bytes on; B: N-major, the two 64-column atoms
+          // 8 KB apart (leading), 8-row k groups 1024 apart (stride), each
+          // k16 step two groups on
+          wgmma_m64n128k16(d, gmma_desc(xa + kk * 32, 16, 1024),
+                           gmma_desc(wb + kk * 2048, kPBK * 128, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // k tile it - 1's products are done
+        if (kt > 0) release(it - 1);
+      }
+      wgmma_wait<0>();
+      release(it - 1);
+      // epilogue: bf16 pairs -> staging -> 16-byte rows of y
+      const int r0 = warp * 16 + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + 2 * (lane & 3);
+        *reinterpret_cast<__nv_bfloat162*>(stg + r0 * kLdO + col) =
+            __floats2bfloat162_rn(d[4 * j], d[4 * j + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(stg + (r0 + 8) * kLdO + col) =
+            __floats2bfloat162_rn(d[4 * j + 2], d[4 * j + 3]);
+      }
+      wg_sync(w);
+      const int row_base = tm * kPBM + w * 64;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int idx = t + 128 * i;
+        const int r = idx >> 4, ch = idx & 15;
+        if (row_base + r < a.m) {
+          *reinterpret_cast<uint4*>(
+              a.out + static_cast<size_t>(row_base + r) * a.n + tn * kBN +
+              ch * 8) =
+              *reinterpret_cast<const uint4*>(stg + r * kLdO + ch * 8);
+        }
+      }
+      wg_sync(w);  // the staging tile is free again
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up once through the runtime's
+// cudaGetDriverEntryPoint (so the library needs no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a 2-d tensor map over a row-major [rows, cols] array, boxes of
+// [box_rows, box_cols]
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elt,
+              const void* ptr, int rows, int cols, int box_rows, int box_cols,
+              CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elt};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool kInt4>
+cudaError_t launch_prefill(const void* x, const void* q, const float* s,
+                           void* out, int m, int k, int n, int group_rows,
+                           int grid, int group_m, cudaStream_t st) {
+  CUtensorMap tmx, tmq;
+  const int q_rows = kInt4 ? k / 2 : k;
+  if (!make_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, m, k, kPBM,
+                kPBK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q, q_rows, n,
+                kInt4 ? kPBK / 2 : kPBK, kBN, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  static cudaError_t allowed = cudaFuncSetAttribute(
+      qmm_wgmma_kernel<kInt4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kPSmem);
+  if (allowed != cudaSuccess) return allowed;
+  const PArgs a{s, static_cast<bf16*>(out), m, k, n, group_rows,
+                (m + kPBM - 1) / kPBM, n / kBN, group_m};
+  qmm_wgmma_kernel<kInt4><<<grid, kPThreads, kPSmem, st>>>(tmx, tmq, a);
+  return cudaGetLastError();
+}
+
 // the kernel for (T, BM, int4), its dynamic shared memory allowed once
 template <typename T, int BM, bool kInt4>
 cudaError_t prepare(void (**fn)(Args), int* smem) {
@@ -474,33 +951,36 @@ cudaError_t prepare(void (**fn)(Args), int* smem) {
   return status;
 }
 
-// row tiles: 16 rows for decode's m <= 16, else 128 (bf16) or 64 (f32)
+// row tiles: 16 rows for decode's m <= 16; 64 for f32 at larger m (bf16
+// at m > 16 is the prefill kernel's, quant_matmul_prefill)
 constexpr int kSmallM = 16;
-template <typename T>
-constexpr int kLargeTile = sizeof(T) == 2 ? 128 : 64;
-
-template <typename T>
-cudaError_t select(int m, bool int4, void (**fn)(Args), int* smem, int* bm) {
-  constexpr int kLarge = kLargeTile<T>;
-  *bm = m <= kSmallM ? kSmallM : kLarge;
-  if (m <= kSmallM) {
-    return int4 ? prepare<T, kSmallM, true>(fn, smem)
-                : prepare<T, kSmallM, false>(fn, smem);
-  }
-  return int4 ? prepare<T, kLarge, true>(fn, smem)
-              : prepare<T, kLarge, false>(fn, smem);
-}
+constexpr int kLargeF32 = 64;
 
 cudaError_t select_any(int m, int is_int4, int is_bf16, void (**fn)(Args),
                        int* smem, int* bm) {
-  return is_bf16 ? select<__nv_bfloat16>(m, is_int4 != 0, fn, smem, bm)
-                 : select<float>(m, is_int4 != 0, fn, smem, bm);
+  *bm = m <= kSmallM ? kSmallM : kLargeF32;
+  if (is_bf16) {
+    if (m > kSmallM) return cudaErrorInvalidValue;
+    return is_int4 ? prepare<__nv_bfloat16, kSmallM, true>(fn, smem)
+                   : prepare<__nv_bfloat16, kSmallM, false>(fn, smem);
+  }
+  if (m <= kSmallM)
+    return is_int4 ? prepare<float, kSmallM, true>(fn, smem)
+                   : prepare<float, kSmallM, false>(fn, smem);
+  return is_int4 ? prepare<float, kLargeF32, true>(fn, smem)
+                 : prepare<float, kLargeF32, false>(fn, smem);
+}
+
+bool layout_ok(int m, int k, int n, int group_rows) {
+  return m >= 0 && k > 0 && n > 0 && k % 64 == 0 && n % kBN == 0 &&
+         group_rows > 0 && group_rows % 64 == 0 && k % group_rows == 0;
 }
 
 }  // namespace
 
-// Blocks of the kernel for (m, is_int4, is_bf16) that one SM holds at once
-// (the host sizes its k split from this), or -1 on a CUDA error.
+// Blocks of the split kernel for (m, is_int4, is_bf16) that one SM holds
+// at once (the host sizes its k split from this), or -1 on a CUDA error or
+// a shape the split kernel does not take (bf16 at m > 16).
 extern "C" int quant_matmul_blocks_per_sm(int m, int is_int4, int is_bf16) {
   void (*fn)(Args) = nullptr;
   int smem = 0, bm = 0, blocks = 0;
@@ -512,23 +992,24 @@ extern "C" int quant_matmul_blocks_per_sm(int m, int is_int4, int is_bf16) {
   return blocks;
 }
 
-// The row tile of the kernel for m: the host counts blocks with it.
+// The row tile of the split kernel for m: the host counts blocks with it.
 extern "C" int quant_matmul_row_tile(int m, int is_bf16) {
-  return m <= kSmallM ? kSmallM
-                      : (is_bf16 ? kLargeTile<__nv_bfloat16> : kLargeTile<float>);
+  (void)is_bf16;
+  return m <= kSmallM ? kSmallM : kLargeF32;
 }
 
-// y = x @ dequant(q, s) (layouts above); all pointers 16-byte aligned and
+// The split kernel: y = x @ dequant(q, s) (layouts above) for bf16 x at
+// m <= 16 and for float32 x at any m; all pointers 16-byte aligned and
 // contiguous; k % 64 == 0, n % 128 == 0, group_rows a multiple of 64 that
 // divides k, 1 <= splits <= k / 64 (part: [splits, m, n] f32 scratch when
-// splits > 1, else unused). is_bf16: x and y bfloat16, else float32.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// splits > 1, else unused). is_bf16: x and y bfloat16, else float32; bf16
+// x at m > 16 is refused (quant_matmul_prefill takes it). Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int quant_matmul(const void* x, const void* q, const void* s,
                             void* out, void* part, int m, int k, int n,
                             int group_rows, int splits, int is_int4,
                             int is_bf16, void* stream) {
-  if (m < 0 || k <= 0 || n <= 0 || k % 64 || n % kBN || group_rows <= 0 ||
-      group_rows % 64 || k % group_rows || splits < 1 || splits > k / 64 ||
+  if (!layout_ok(m, k, n, group_rows) || splits < 1 || splits > k / 64 ||
       (splits > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -556,4 +1037,28 @@ extern "C" int quant_matmul(const void* x, const void* q, const void* s,
         a.part, static_cast<float*>(out), quads, splits);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The prefill kernel: y = x @ dequant(q, s) for bf16 x and y, m > 16, the
+// layouts and conditions of quant_matmul; `grid` persistent blocks (at
+// most one per SM is resident) walk the ceil(m / 128) x n / 128 output
+// tiles in bands of `group_m` row tiles (quant_matmul.py's
+// `prefill_schedule`). Launches on `stream` and returns cudaGetLastError()
+// (0 on success; cudaErrorInvalidValue also where the CUDA tensor-map
+// encoder is missing or refuses the arrays).
+extern "C" int quant_matmul_prefill(const void* x, const void* q,
+                                    const void* s, void* out, int m, int k,
+                                    int n, int group_rows, int is_int4,
+                                    int grid, int group_m, void* stream) {
+  if (!layout_ok(m, k, n, group_rows) || m <= kSmallM || grid < 1 ||
+      group_m < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(s);
+  return static_cast<int>(
+      is_int4 ? launch_prefill<true>(x, q, sc, out, m, k, n, group_rows, grid,
+                                     group_m, st)
+              : launch_prefill<false>(x, q, sc, out, m, k, n, group_rows,
+                                      grid, group_m, st));
 }

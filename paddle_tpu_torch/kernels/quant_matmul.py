@@ -10,11 +10,14 @@ low nibble = even row), with f32 scales [n] (per channel) or [k / g, n]
 - `unpack_int4`, `dequantize` and `quant_matmul_ref` (the counterpart of
   `quant_matmul_xla`: dequantize to x.dtype, then `torch.matmul`) are the
   plain versions.
-- `quant_matmul` runs the plain version for CPU tensors and the kernel for
+- `quant_matmul` runs the plain version for CPU tensors and a kernel for
   CUDA tensors, at every m (the reference caps its single m block at 1024
-  and gives larger m to XLA; the kernel tiles m). A CUDA input the kernel
-  does not take (`supports`) raises. `launches` counts the kernel's
-  launches. With a gradient, `QuantMatmulFunction` gives dx only, by the
+  and gives larger m to XLA; the kernels tile m): bf16 x at m > 16 goes to
+  the persistent wgmma kernel (`quant_matmul_prefill`, its walk over the
+  output tiles from `prefill_schedule`), decode's m <= 16 and float32 x to
+  the split kernel (`quant_matmul`, its k split from `_splits`). A CUDA
+  input the kernels do not take (`supports`) raises. `launches` counts the
+  launches of both. With a gradient, `QuantMatmulFunction` gives dx only, by the
   plain transposed product, as the reference's `_fused_bwd` does.
 """
 from __future__ import annotations
@@ -28,10 +31,16 @@ from . import _build
 launches = 0
 
 GROUP_SIZES = (-1, 64, 128)
-_K_MULTIPLE = 64   # the kernel's k tile (bf16 inputs)
-_N_MULTIPLE = 128  # the kernel's n tile
+_K_MULTIPLE = 64   # the kernels' k tile (bf16 inputs)
+_N_MULTIPLE = 128  # the kernels' n tile
+_SMALL_M = 16      # the split kernel's bf16 row tile: decode
+PREFILL_TILE = 128  # the prefill kernel's output tile, rows and columns
+# the x band the prefill walk keeps in the 50 MB L2 while the weight
+# columns stream past it
+_BAND_BYTES = 24 << 20
 _lib = None
 _slots: dict = {}  # (device, row tile, int4, bf16) -> blocks the card holds
+_sms: dict = {}  # device -> its SM count
 
 
 def unpack_int4(qw):
@@ -145,8 +154,40 @@ def _kernel():
         lib.quant_matmul_blocks_per_sm.restype = ctypes.c_int
         lib.quant_matmul_row_tile.argtypes = [i, i]
         lib.quant_matmul_row_tile.restype = ctypes.c_int
+        lib.quant_matmul_prefill.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                             p]
+        lib.quant_matmul_prefill.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def prefill_schedule(m, k, n, sms):
+    """The prefill kernel's walk for an [m, k] x [k, n] product on a card
+    of `sms` SMs: a dict of the 128 x 128 output tiles (`tiles_m` x
+    `tiles_n`), `grid` persistent blocks (one per SM, at most one per
+    tile), `group_m` (the row tiles of one band: the x rows of a band, at
+    most `_BAND_BYTES`, stay in L2 while every column tile of the band
+    uses them; the bands made even) and `rounds`, the tiles over the grid
+    (6.06 at m = 2512, n = 5120 on 132 SMs: the last round holds 8 tiles,
+    a tail that is not split)."""
+    tiles_m = -(-m // PREFILL_TILE)
+    tiles_n = n // PREFILL_TILE
+    tiles = tiles_m * tiles_n
+    fit = max(1, _BAND_BYTES // (PREFILL_TILE * k * 2))
+    bands = -(-tiles_m // min(fit, tiles_m))
+    return dict(tiles_m=tiles_m, tiles_n=tiles_n, grid=min(tiles, sms),
+                group_m=-(-tiles_m // bands), rounds=tiles / min(tiles, sms))
+
+
+def prefill_tile(t, tiles_m, tiles_n, group_m):
+    """(row tile, column tile) of the t-th tile of the prefill walk: bands
+    of group_m row tiles (the last band may be shorter), row tiles fastest
+    within a band (the kernel's `tile_of`)."""
+    band = t // (group_m * tiles_n)
+    first = band * group_m
+    rows = min(group_m, tiles_m - first)
+    local = t - band * group_m * tiles_n
+    return first + local % rows, local // rows
 
 
 def _splits(m, k, n, int4, bf16, dev):
@@ -171,7 +212,8 @@ def _splits(m, k, n, int4, bf16, dev):
 
 def _quant_matmul_cuda(x, qw, scales, weight_dtype, group_size,
                        splits=None):
-    """The kernel on [m, k] x; `splits` forces the k split (measurement
+    """A kernel on [m, k] x: bf16 at m > 16 the prefill kernel, else the
+    split kernel; `splits` forces the split kernel's k split (measurement
     only; None sizes it by `_splits`)."""
     global launches
     dev = x.device
@@ -199,6 +241,26 @@ def _quant_matmul_cuda(x, qw, scales, weight_dtype, group_size,
         raise ValueError("quant_matmul kernel takes 16-byte aligned tensors")
     group_rows = k if group_size == -1 else group_size
     int4, bf16 = weight_dtype == "int4", x.dtype == torch.bfloat16
+    if bf16 and m > _SMALL_M:
+        if splits is not None:
+            raise ValueError("quant_matmul: the prefill kernel (bf16, "
+                             "m > 16) takes no k split")
+        if dev not in _sms:
+            _sms[dev] = torch.cuda.get_device_properties(dev) \
+                .multi_processor_count
+        sch = prefill_schedule(m, k, n, _sms[dev])
+        out = torch.empty(m, n, dtype=x.dtype, device=dev)
+        with torch.cuda.device(dev):
+            rc = _kernel().quant_matmul_prefill(
+                x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), m, k, n, group_rows, int(int4), sch["grid"],
+                sch["group_m"],
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"quant_matmul prefill kernel launch failed: "
+                               f"CUDA error {rc}")
+        launches += 1
+        return out
     if splits is None:
         splits = _splits(m, k, n, int4, bf16, dev)
     elif not 1 <= splits <= k // _K_MULTIPLE:

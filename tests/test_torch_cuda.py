@@ -33,6 +33,15 @@ rounding of the few elements whose sums straddle a rounding boundary;
 bf16 rows are held to 5e-3, f32 rows to 1e-4. Each case also reads a fault
 made from the plain version (int4 nibbles swapped, one group's scales
 shifted by a group, the K scales left out), which must exceed the bar.
+The persistent wgmma kernel that takes bf16 at m > 16 (the prefill) is
+held at m 17, 129 and 2512 (ragged last row tiles), k 512 and 13824, n 128,
+384 and 5120, every weight and group, beside a ring's faults: the first or
+the last 64-deep k tile's contribution missing.
+
+The bf16 flash forward (register-resident scores) is also held in every
+body at s_q = 192 over s_kv = 320 causal, a q tile cut short, beside a
+diagonal one key late, and over tile-aligned segments, whose tiles it
+takes without the segment mask.
 
 The flash segment-id, dropout and combined bodies are held as the plain
 ones, against their plain versions given the same segment ids and seed
@@ -368,6 +377,41 @@ def test_quant_matmul_kernel_matches_plain(cuda_device, dtype, wd, gs, m, k,
              if wd == "int4" else
              tqm.quant_matmul_ref(x, qw, _shift_group(sc), wd))
     assert _row_rel_err(fault, want) > _QUANT_TOL[dtype]
+
+
+def _without_k_tile(x, qw, sc, wd, tile):
+    """The plain version without one 64-deep k tile's contribution."""
+    cut = x.clone()
+    cut[:, tile * 64:(tile + 1) * 64] = 0
+    return tqm.quant_matmul_ref(cut, qw, sc, wd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd,gs", [("int8", -1), ("int8", 64), ("int8", 128),
+                                   ("int4", -1), ("int4", 64),
+                                   ("int4", 128)])
+@pytest.mark.parametrize("n", [128, 384, 5120])
+@pytest.mark.parametrize("k", [512, 13824])
+@pytest.mark.parametrize("m", [17, 129, 2512])
+def test_quant_matmul_prefill_kernel_matches_plain(cuda_device, m, k, n, wd,
+                                                   gs):
+    """The persistent wgmma kernel (bf16, m > 16) row by row against the
+    plain version, beside the faults of a ring that drops the first or the
+    last k tile, which must fail the same bar."""
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    w = torch.randn(k, n, generator=g, device=cuda_device) * 0.02
+    x = torch.randn(m, k, generator=g, device=cuda_device).to(torch.bfloat16)
+    qw, sc = weight_quantize(w.to(torch.bfloat16), _ALGO[wd], group_size=gs)
+    n0 = tqm.launches
+    got = tqm.quant_matmul(x, qw, sc, wd, gs)
+    torch.cuda.synchronize()
+    assert tqm.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    want = tqm.quant_matmul_ref(x, qw, sc, wd)
+    tol = _QUANT_TOL[torch.bfloat16]
+    assert _row_rel_err(got, want) <= tol
+    for tile in (0, k // 64 - 1):
+        assert _row_rel_err(_without_k_tile(x, qw, sc, wd, tile), want) > tol
 
 
 @pytest.mark.cuda
@@ -750,6 +794,71 @@ def test_flash_variant_kernels_match_plain(cuda_device, dtype, variant, s_q,
                                                scale, causal, var)
     for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         assert _row_rel_err(got, want) <= _FLASH_TOL[dtype]
+
+
+def _aligned_ids(g, b, s, device):
+    """[b, s] int32 ids of packed sequences of 64-192 tokens in steps of
+    64: every 64-row tile inside one segment (the forward's mask-free
+    tiles)."""
+    ids = torch.empty((b, s), dtype=torch.int32)
+    for i in range(b):
+        pos, sid = 0, 0
+        while pos < s:
+            n = min(64 * int(torch.randint(1, 4, (), generator=g)), s - pos)
+            ids[i, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return ids.to(device)
+
+
+def _fwd_diag_shift(q, k, v, scale):
+    """The causal forward with its diagonal one key late, in f32."""
+    s_q, s_kv = q.shape[1], k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    rows = torch.arange(s_q, device=q.device)[:, None]
+    cols = torch.arange(s_kv, device=q.device)[None, :]
+    s = s.masked_fill(rows + (s_kv - s_q) + 1 < cols, float("-inf"))
+    out = torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), v.float())
+    return out.nan_to_num().to(q.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "seg", "drop", "seg_drop"])
+@pytest.mark.parametrize("pattern", ["s192", "aligned"])
+def test_flash_forward_kernel_at_its_edges(cuda_device, variant, pattern):
+    """The bf16 mma.sync forward, each body: "s192" is s_q = 192 over
+    s_kv = 320, causal (a q tile cut short, bottom-right aligned), beside
+    the fault of a diagonal one key late; "aligned" is 512 tokens of
+    tile-aligned segments, causal, the seg tiles taken mask-free."""
+    g = torch.Generator().manual_seed(len(variant) * 31 + len(pattern))
+    b, h, d, scale = 2, 2, 128, 128 ** -0.5
+    s_q, s_kv = (192, 320) if pattern == "s192" else (512, 512)
+    sq = sk = None
+    if variant in ("seg", "seg_drop"):
+        if pattern == "aligned":
+            sq = sk = _aligned_ids(g, b, s_q, cuda_device)
+        else:
+            sq = _packed_ids(g, b, s_q, 16, cuda_device)
+            sk = _packed_ids(g, b, s_kv, 0, cuda_device)
+    var = None if variant == "plain" else tfa.Variant(
+        sq, sk, heads=h, rate=0.2 if "drop" in variant else 0.0, seed=99)
+
+    def rnd(s):
+        return torch.randn(b * h, s, d, generator=g).to(cuda_device,
+                                                        torch.bfloat16)
+
+    q, k, v = rnd(s_q), rnd(s_kv), rnd(s_kv)
+    n0 = tfa.variant_launches[("fwd", variant)]
+    out, lse = tfa.flash_fwd(q, k, v, scale, True, var)
+    torch.cuda.synchronize()
+    assert tfa.variant_launches[("fwd", variant)] == n0 + 1
+    out_ref, lse_ref = tfa.flash_fwd_ref(q, k, v, scale, True, var)
+    tol = _FLASH_TOL[torch.bfloat16]
+    assert _row_rel_err(out, out_ref) <= tol
+    live = lse_ref > -1e29
+    torch.testing.assert_close(lse[live], lse_ref[live], rtol=0, atol=1e-3)
+    assert torch.equal(lse[~live], lse_ref[~live]) and not out[~live].any()
+    if variant == "plain":
+        assert _row_rel_err(_fwd_diag_shift(q, k, v, scale), out_ref) > tol
 
 
 @pytest.mark.cuda

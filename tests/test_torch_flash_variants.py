@@ -190,6 +190,64 @@ def test_variant_plain_versions_match_the_pallas_passes(b, h, s_q, s_kv,
         assert _rel_err(got.numpy(), want) <= GRAD_RTOL, name
 
 
+def _aligned_segments(rng, b, s):
+    """[b, s] int32 ids of packed sequences whose lengths are multiples of
+    64: every 64-row tile lies inside one segment, the tiles the forward
+    kernel runs without the segment mask."""
+    out = np.empty((b, s), np.int32)
+    for i in range(b):
+        pos, sid = 0, 0
+        while pos < s:
+            n = min(64 * int(rng.randint(1, 4)), s - pos)
+            out[i, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return out
+
+
+def _fwd_parity(q, k, v, sq, sk, b, h, causal, rate, seed):
+    """flash_fwd_ref against the reference's `_flash_fwd` (Pallas in
+    interpret mode) at 64-row blocks, the port kernels' tile."""
+    s_q, s_kv = q.shape[1], k.shape[1]
+    kw = dict(heads=h, dropout=rate, seed=seed if rate else None)
+    if sq is not None:
+        kw.update(seg_q=jfa._seg8(sq, b, s_q), seg_k=jfa._seg8(sk, b, s_kv))
+    out, lse = jfa._flash_fwd(*map(jnp.asarray, (q, k, v)), SCALE, causal,
+                              64, 64, **kw)
+    t_out, t_lse = tfa.flash_fwd_ref(*map(torch.from_numpy, (q, k, v)),
+                                     SCALE, causal,
+                                     _variant(sq, sk, h, rate, seed))
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(out), rtol=0,
+                               atol=FWD_ATOL)
+    np.testing.assert_allclose(t_lse.numpy(), np.asarray(lse), rtol=0,
+                               atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_plain_version_on_tile_aligned_segments(causal, rate):
+    """Packed ids whose 64-row tiles each lie inside one segment (the
+    pattern whose tiles the kernel takes mask-free) against the
+    reference's forward."""
+    b, h, s = 2, 2, 320
+    rng = np.random.RandomState(11)
+    q, k, v = (_rand(rng, b * h, s, 128) for _ in range(3))
+    ids = _aligned_segments(rng, b, s)
+    rq, rk = _variant(ids, ids, h, rate, 5).ranges()
+    assert torch.equal(rq[..., 0], rq[..., 1]) and ids.max() > 0
+    _fwd_parity(q, k, v, ids, ids, b, h, causal, rate, 5)
+
+
+@pytest.mark.parametrize("seg,rate", [(False, 0.0), (True, 0.0),
+                                      (False, 0.2), (True, 0.2)])
+def test_fwd_plain_version_at_a_rectangular_causal_shape(seg, rate):
+    """s_q = 192 (a 128-row q tile and a 64-row remainder), s_kv = 320,
+    causal bottom-right aligned, every body, against the reference's
+    forward."""
+    b, h = 1, 2
+    q, k, v, _, sq, sk = _pass_inputs(b, h, 192, 320, seg, 77)
+    _fwd_parity(q, k, v, sq, sk, b, h, True, rate, 77)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_seg_plain_versions_match_the_xla_reference(causal):
     b, h, s = 2, 2, 256

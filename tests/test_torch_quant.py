@@ -131,6 +131,86 @@ def test_quant_matmul_ref_matches_xla_and_pallas(algo, gs, m, k, n):
     np.testing.assert_array_equal(y.reshape(m, n).numpy(), got)
 
 
+def _ref_parity(algo, gs, m, k, n, pallas):
+    """quant_matmul_ref against the reference's quant_matmul_xla and, with
+    `pallas`, its Pallas kernel in interpret mode."""
+    wd = _WD[algo]
+    jq, js = jquant.weight_quantize(paddle.to_tensor(_weight(k, n, seed=m)),
+                                    algo=algo, group_size=gs)
+    qw, sc = jnp.asarray(jq.numpy()), jnp.asarray(js.numpy())
+    x = np.random.RandomState(2).randn(m, k).astype(np.float32)
+    got = tqm.quant_matmul_ref(torch.from_numpy(x),
+                               torch.tensor(jq.numpy()),
+                               torch.tensor(js.numpy()), wd).numpy()
+    wants = [np.asarray(jqm.quant_matmul_xla(jnp.asarray(x), qw, sc, wd))]
+    if pallas:
+        bn, bk = next((bn, bk) for bn in jqm.BLOCK_GRID_N
+                      for bk in jqm.BLOCK_GRID_K
+                      if jqm.supports(m, k, n, wd, gs, bn, bk))
+        wants.append(np.asarray(jqm.quant_matmul_fused(
+            jnp.asarray(x), qw, sc, wd, gs, bn, bk)))
+    for want in wants:
+        assert _rel(got, want) <= 1e-5
+        np.testing.assert_allclose(got, want, atol=1e-2 if wd == "int8"
+                                   else 3e-2)
+
+
+@pytest.mark.parametrize("m", [129, 200])
+@pytest.mark.parametrize("algo,gs", [("weight_only_int8", -1),
+                                     ("weight_only_int4", 128)])
+def test_quant_matmul_ref_matches_the_reference_at_prefill_m(algo, gs, m):
+    """Row counts past one 128-row tile of the prefill kernel (a ragged
+    last tile), against the XLA reference and the Pallas kernel."""
+    _ref_parity(algo, gs, m, 256, 256, pallas=True)
+
+
+@pytest.mark.parametrize("algo,gs", [("weight_only_int8", -1),
+                                     ("weight_only_int4", 128)])
+def test_quant_matmul_ref_matches_xla_above_the_reference_cap(algo, gs):
+    """m = 1100 lies above the reference's single m block (`_MAX_M`): the
+    reference gives it to XLA, the port's kernel takes it."""
+    assert not jqm.supports(1100, 256, 256, _WD[algo], gs)
+    assert tqm.supports(1100, 256, 256, _WD[algo], gs)
+    _ref_parity(algo, gs, 1100, 256, 256, pallas=False)
+
+
+@pytest.mark.parametrize("m,k,n,sms", [
+    (2512, 5120, 5120, 132), (2512, 5120, 13824, 132),
+    (2512, 13824, 5120, 132), (17, 512, 384, 132), (129, 13824, 128, 132),
+    (1100, 1024, 5120, 20), (4096, 4096, 11008, 114)])
+def test_prefill_schedule_walks_every_tile_once(m, k, n, sms):
+    """The prefill kernel's persistent walk (`prefill_tile`, the kernel's
+    `tile_of`) visits every 128 x 128 output tile exactly once, in bands
+    of row tiles whose x rows fit the band budget, the band's row tiles
+    fastest; the grid is one block per SM or per tile."""
+    sch = tqm.prefill_schedule(m, k, n, sms)
+    tm, tn = sch["tiles_m"], sch["tiles_n"]
+    assert (tm, tn) == (-(-m // 128), n // 128)
+    assert sch["grid"] == min(tm * tn, sms)
+    assert sch["rounds"] == pytest.approx(tm * tn / sch["grid"])
+    g = sch["group_m"]
+    assert 1 <= g <= tm
+    assert g == tm or g * 128 * k * 2 <= tqm._BAND_BYTES
+    walk = [tqm.prefill_tile(t, tm, tn, g) for t in range(tm * tn)]
+    assert sorted(walk) == [(i, j) for i in range(tm) for j in range(tn)]
+    assert walk[:min(g, tm)] == [(i, 0) for i in range(min(g, tm))]
+    # each block's tiles: blockIdx.x, + grid, ...; together all of them
+    mine = [t for b in range(sch["grid"])
+            for t in range(b, tm * tn, sch["grid"])]
+    assert sorted(mine) == list(range(tm * tn))
+
+
+def test_prefill_schedule_at_the_13b_shapes():
+    """LLaMA-2-13B's projections at a 2500-token prefill on 132 SMs: 800
+    tiles (6.06 rounds) at n = 5120, 2160 (16.36) at n = 13824."""
+    for (k, n), tiles in (((5120, 5120), 800), ((5120, 13824), 2160),
+                          ((13824, 5120), 800)):
+        sch = tqm.prefill_schedule(2512, k, n, 132)
+        assert sch["tiles_m"] * sch["tiles_n"] == tiles
+        assert sch["grid"] == 132
+        assert sch["rounds"] == pytest.approx(tiles / 132)
+
+
 @pytest.mark.parametrize("algo,gs", [("weight_only_int8", -1),
                                      ("weight_only_int4", 64)])
 def test_dx_backward_matches_reference_vjp(algo, gs):
