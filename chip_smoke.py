@@ -16,10 +16,18 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    cases also beside the forward with its diagonal one key late); the
    RMSNorm backward at [4096, 4096] and [8, 4096], bf16 and f32; the
    dequant matmul at LLaMA-2-13B's projections, 5120->5120, 5120->13824
-   and 13824->5120, at m = 8 (the split kernel) and 2512 (the persistent
-   wgmma kernel), int8 and int4 weights per channel and in groups, and one
-   small f32 case, beside faults (a group's scales shifted, the first or
-   the last k tile missing, int4 nibbles swapped); the float, int8 and grouped paged decodes at MHA and GQA
+   and 13824->5120, at m = 8 (the one-launch decode kernel) and 2512 (the
+   persistent wgmma kernel), int8 and int4 weights per channel and in
+   groups, one small f32 case (the split kernel) and untimed m, n and k
+   tails of the decode kernel, each called twice (bitwise equal) and held
+   beside faults (a group's scales shifted, the first or the last k tile
+   missing, int4 nibbles swapped, at decode one split partial of the
+   in-launch reduce missing); the dense GEMM's every variant (bf16: the
+   decode kernels at m <= 16, the persistent TMA + wgmma tiles 128x256 and
+   128x128 above) at LLaMA-2-7B's linears, m = 8, 2512 and 4096, and at
+   untimed m tails (1, 16, 17, 129, 4095) and n tails (256, 384, 11008),
+   beside faults (a k tile dropped, a column tile shifted, an m tail's
+   last row wrong); the float, int8 and grouped paged decodes at MHA and GQA
    heads, at 32/1 (multi-query) and 64/2 heads, and the float and int8 at
    head_dim 256, beside a fault with two chunks of a group's queries
    swapped; each new case held row by row and beside faults made from the
@@ -60,7 +68,8 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    weights: losses and updates agree;
 8. measured dispatch (FLAGS_autotune, FLAGS_paged_grouped_kernel): the 7B
    serving and a 4-layer training step with both flags on, exact launch
-   counts from the tuner's winners;
+   counts from the tuner's winners (the GEMM's variants raced against
+   cuBLAS, then the fastest variant pinned in every bucket);
 9. varlen and dropout flash attention, with FLAGS_flash_dropout_kernel on:
    (a) the seg, drop and seg_drop bodies of the forward and backward
    kernels against their plain versions at [b*h, s, 128] (2 batch rows of
@@ -175,6 +184,9 @@ GROUPED_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-4}
 # products summed in another order, then one AdamW step whose sign-like
 # update moves elements with rounding-level gradients either way
 TRAIN_DISPATCH_TOL = 1e-2
+# the decode dequant matmul's forced k split (every column tile cut into 3
+# k ranges), whose in-launch reduce phase 3 holds beside a missing partial
+DECODE_SPLITS = 3
 # the grouped decode's cases: every partial-group edge (15-17, 127-129) and
 # long contexts (tables of 256 pages, 4096 tokens)
 GROUPED_LENS = [0, 1, 15, 16, 17, 127, 128, 129, 1000, 2049, 4096]
@@ -420,17 +432,37 @@ def without_k_tile(x, qw, sc, wd, tile):
     return kqm.quant_matmul_ref(cut, qw, sc, wd)
 
 
+def without_split_partial(x, qw, sc, wd, splits):
+    """The plain version without one partial of the decode kernel's
+    in-launch reduce at a k split of `splits`: the first segment of a
+    column tile that several blocks share (`kmm.decode_segments` on this
+    card's SMs) adds nothing to that column tile (the fault of a reducer
+    that skips a slot)."""
+    k, n = x.shape[1], qw.shape[1]
+    sch = kmm.decode_schedule(k, n, kmm.sm_count(x.device), splits)
+    _, c, s0, s1, _ = next(s for s in kmm.decode_segments(sch)
+                           if s[4] is not None)
+    w = kqm.dequantize(qw, sc, wd, x.dtype)
+    t = kmm.DECODE_TILE
+    w[s0 * t:s1 * t, c * t:(c + 1) * t] = 0
+    return torch.matmul(x, w)
+
+
 def qmm_controls(x, qw, sc, wd, want):
     """Readings of the row check on faults made from the plain version:
     one group's scales shifted by one group, the first or the last k tile's
-    contribution missing, and for int4 the two nibbles of every byte
-    swapped. Each must exceed the bar."""
+    contribution missing, for int4 the two nibbles of every byte swapped,
+    and at decode (bf16, m <= 16) one split partial of the in-launch reduce
+    missing. Each must exceed the bar."""
     k = x.shape[1]
     got = {"group_shift": kqm.quant_matmul_ref(x, qw, shift_group(sc), wd),
            "first_k_tile": without_k_tile(x, qw, sc, wd, 0),
            "last_k_tile": without_k_tile(x, qw, sc, wd, k // 64 - 1)}
     if wd == "int4":
         got["nibble_swap"] = kqm.quant_matmul_ref(x, swap_nibbles(qw), sc, wd)
+    if x.dtype == torch.bfloat16 and x.shape[0] <= 16:
+        got["split_partial"] = without_split_partial(x, qw, sc, wd,
+                                                     DECODE_SPLITS)
     return {k: row_rel_err(v, want) for k, v in got.items()}
 
 
@@ -449,18 +481,51 @@ class full_precision_reductions:
             self.old
 
 
-def qmm_case(name, m, k, n, wd, gs, dtype, gen, dev):
+def turns(first, nbytes, copy):
+    """A function returning, call after call, the next of `first` and
+    copies made by `copy()`, worth at least 128 MB together: each call
+    finds its operands out of the 50 MB L2."""
+    items = first + [copy() for _ in range(-(-2 ** 27 // nbytes) - 1)]
+    state = [0]
+
+    def nxt():
+        state[0] = (state[0] + 1) % len(items)
+        return items[state[0]]
+
+    return nxt
+
+
+def qmm_case(name, m, k, n, wd, gs, dtype, gen, dev, timed=True):
+    """The dequant matmul against its plain version, row by row, beside
+    `qmm_controls`' faults; a second call must equal the first bit for bit
+    (the decode kernel's in-launch reduce adds its partials in a fixed
+    order). `timed`: time it after the serving phases (tails: no)."""
     w = (torch.randn(k, n, generator=gen, device=dev) * 0.02).to(dtype)
     qw, sc = weight_quantize(w, ALGO[wd], group_size=gs)
     del w
     x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
     got = kqm.quant_matmul(x, qw, sc, wd, gs)
+    again = kqm.quant_matmul(x, qw, sc, wd, gs)
     torch.cuda.synchronize()
+    check(torch.equal(got, again), f"quant_matmul {name}: two calls differ")
+    del again
     tol = QUANT_TOL[dtype]
     with full_precision_reductions():
         want = kqm.quant_matmul_ref(x, qw, sc, wd)
         err = row_rel_err(got, want)
         check(err <= tol, f"quant_matmul {name}: row rel err {err} > {tol}")
+        if dtype == torch.bfloat16 and m <= 16:
+            # the in-launch reduce of a forced split, which the control
+            # below faults
+            split = [kqm._quant_matmul_cuda(x, qw, sc, wd, gs, DECODE_SPLITS)
+                     for _ in range(2)]
+            check(torch.equal(*split), f"quant_matmul {name}: two calls at "
+                  f"{DECODE_SPLITS} k splits differ")
+            e = row_rel_err(split[0], want)
+            check(e <= tol, f"quant_matmul {name} at {DECODE_SPLITS} k "
+                  f"splits: row rel err {e} > {tol}")
+            err = max(err, e)
+            del split
         ctl = qmm_controls(x, qw, sc, wd, want)
     for fault, r in ctl.items():
         check(r > tol, f"quant_matmul {name}: the {fault} control reads {r}, "
@@ -475,42 +540,52 @@ def qmm_case(name, m, k, n, wd, gs, dtype, gen, dev):
 
     def timings():
         it = 200 if m <= 16 else 20
-        ms, timer = time_ms(lambda: kqm.quant_matmul(x, qw, sc, wd, gs), it)
+        # at decode, as on the serving path, each call finds its weight out
+        # of the 50 MB L2: the calls take turns over copies worth >= 128 MB
+        # (the kernel's packed weight and scales, the library's bf16 one)
         w_deq = kqm.dequantize(qw, sc, wd, dtype)
+        if m <= 16:
+            qs = turns([(qw, sc)], qw.numel() + 4 * sc.numel(),
+                       lambda: (qw.clone(), sc.clone()))
+            ws = turns([w_deq], w_deq.numel() * elt, w_deq.clone)
+        else:
+            qs, ws = (lambda: (qw, sc)), (lambda: w_deq)
+        ms, timer = time_ms(lambda: kqm.quant_matmul(x, *qs(), wd, gs), it)
         res = dict(
             ms=ms, timer=timer,
             plain_ms=time_ms(lambda: kqm.quant_matmul_ref(x, qw, sc, wd),
                              max(it // 10, 3))[0],
-            library_ms=time_ms(lambda: torch.matmul(x, w_deq), it)[0])
-        del w_deq
+            library_ms=time_ms(lambda: torch.matmul(x, ws()), it)[0])
+        del w_deq, qs, ws
         return res
 
     return dict(case=name, m=m, k=k, n=n, weight=wd, group_size=gs,
                 dtype=str(dtype).split(".")[-1], row_rel_err=err,
                 max_abs_err=abs_err, tol=tol, controls=ctl, bound_ms=b_ms,
-                bound_by=b_by, timings=timings)
+                bound_by=b_by, timings=timings if timed else None)
 
 
 def qmm_split_sweep(gen, dev, card, splits=(1, 2, 4, 8, 16, 32)):
-    """Device time of the decode-shape dequant matmul (m = 8, int8 and int4
-    per channel) at forced k splits beside the automatic one (one wave of
-    resident blocks): where the time stops falling, the bytes in flight no
-    longer bound it."""
+    """Device time of the decode dequant matmul (m = 8, int8 and int4 per
+    channel) with its weight stream cut as one block per SM shares it
+    ("auto", `kmm.decode_schedule`) beside forced k splits of every column
+    tile (a grid of n / 128 x splits blocks): where the time stops
+    falling, the bytes in flight no longer bound it."""
     res = []
     for k, n in ((5120, 5120), (5120, 13824), (13824, 5120)):
         w = torch.randn(k, n, generator=gen, device=dev) * 0.02
         x = torch.randn(8, k, generator=gen, device=dev).to(torch.bfloat16)
         for wd in ("int8", "int4"):
             qw, sc = weight_quantize(w, ALGO[wd])
-            auto = kqm._splits(8, k, n, wd == "int4", True, dev)
-            row = dict(k=k, n=n, weight=wd, auto_splits=auto, ms={})
+            auto = kmm.decode_schedule(k, n, kmm.sm_count(dev))["grid"]
+            row = dict(k=k, n=n, weight=wd, auto_grid=auto, ms={})
             for sp in (None,) + splits:
                 row["ms"]["auto" if sp is None else sp] = time_ms(
                     lambda: kqm._quant_matmul_cuda(x, qw, sc, wd, -1, sp),
                     100)[0]
-            log(f"kernel: quant_matmul {k}->{n} m8 {wd} by k split (auto "
-                f"{auto}): " + ", ".join(f"{s_} {ms * 1e3:.1f} us"
-                                         for s_, ms in row["ms"].items())
+            log(f"kernel: quant_matmul {k}->{n} m8 {wd} by k split (auto: "
+                f"{auto} blocks): " + ", ".join(
+                    f"{s_} {ms * 1e3:.1f} us" for s_, ms in row["ms"].items())
                 + f" [{card}]")
             res.append(row)
     return res
@@ -580,24 +655,27 @@ def paged_q8_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
         bound_ms=b_ms, bound_by=b_by, timings=timings)
 
 
-def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False):
-    """The dense matmul at every row tile against `torch.matmul` on the f32
-    values of its inputs, row by row, beside two faults made from the plain
-    version (one 64-deep k tile of x dropped; w's column tiles shifted by
-    one), which must exceed the bar. `check_timer`: also time the default
-    tile through the tuner's timer (a CUDA graph of launches) beside the
-    profiler, to check the tuner's clock."""
+def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False, timed=True):
+    """The dense matmul's every variant that takes m rows (bf16: the decode
+    kernels at m <= 16, the wgmma tiles above; f32: the split kernel's row
+    tiles) against `torch.matmul` on the f32 values of its inputs, row by
+    row, beside faults made from the plain version (one 64-deep k tile of x
+    dropped; w's column tiles shifted by one; at an m tail, the last row
+    written from the row before it), which must exceed the bar.
+    `check_timer`: also time the default variant through the tuner's timer
+    (a CUDA graph of launches) beside the profiler, to check the tuner's
+    clock. `timed`: time it after the serving phases (tails: no)."""
     x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
     w = (torch.randn(k, n, generator=gen, device=dev) * k ** -0.5).to(dtype)
     tol = MATMUL_TOL[dtype]
     want = torch.matmul(x.float(), w.float())
     errs, abs_err = {}, 0.0
-    for tile in kmm.tiles(dtype):
+    for tile in kmm.variants(dtype, m):
         got = kmm.matmul_fused(x, w, tile)
         torch.cuda.synchronize()
         errs[tile] = row_rel_err(got, want)
         abs_err = max(abs_err, (got.float() - want).abs().max().item())
-        check(errs[tile] <= tol, f"matmul {name} tile {tile}: row rel err "
+        check(errs[tile] <= tol, f"matmul {name} {tile}: row rel err "
               f"{errs[tile]} > {tol}")
         del got
     x_cut = x.float().clone()
@@ -606,6 +684,11 @@ def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False):
                                          want),
            "column_tile_shifted": row_rel_err(
                torch.matmul(x.float(), w.float().roll(128, dims=1)), want)}
+    if m % 128 and m > 1:
+        wrong = want.clone()
+        wrong[-1] = want[-2]
+        ctl["m_tail_last_row"] = row_rel_err(wrong, want)
+        del wrong
     del x_cut, want
     for fault, r in ctl.items():
         check(r > tol, f"matmul {name}: the {fault} control reads {r}, "
@@ -619,21 +702,15 @@ def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False):
         it = 200 if m <= 16 else 20
         # as on the serving path, each call finds its weight out of the
         # 50 MB L2: the calls take turns over copies of w worth >= 128 MB
-        ws = [w] + [w.clone() for _ in range(-(-2 ** 27 // (k * n * elt))
-                                             - 1)]
-        turn = [0]
-
-        def w_next():
-            turn[0] += 1
-            return ws[turn[0] % len(ws)]
-
+        w_next = turns([w], k * n * elt, w.clone)
         tile_ms = {t: time_ms(lambda: kmm.matmul_fused(x, w_next(), t), it)
-                   for t in kmm.tiles(dtype)}
+                   for t in kmm.variants(dtype, m)}
         best = min(tile_ms, key=lambda t: tile_ms[t][0])
         # the plain version is the library call: torch.matmul in x's dtype
         lib_ms = time_ms(lambda: torch.matmul(x, w_next()), it)[0]
+        copies = -(-2 ** 27 // (k * n * elt))
         res = dict(ms=tile_ms[best][0], timer=tile_ms[best][1],
-                   best_tile=best, weight_copies=len(ws),
+                   best_tile=best, weight_copies=copies,
                    tile_ms={t: v[0] for t, v in tile_ms.items()},
                    plain_ms=lib_ms, library_ms=lib_ms,
                    # the tuner's timer on the same two calls (one weight)
@@ -641,9 +718,9 @@ def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False):
                        lambda a, b: kmm.matmul_fused(a, b, best), (x, w)),
                        "library": autotune.default_timer(torch.matmul,
                                                          (x, w))})
-        del ws
+        del w_next
         if check_timer:
-            t = kmm.default_tile(m, dtype)
+            t = kmm.default_variant(m, n, dtype)
             res["tuner_timer_ms"] = {
                 "tile": t, "graph_events": autotune.default_timer(
                     lambda a, b: kmm.matmul_fused(a, b, t), (x, w), iters=20),
@@ -653,7 +730,7 @@ def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False):
     return dict(case=name, m=m, k=k, n=n, dtype=str(dtype).split(".")[-1],
                 row_rel_err=max(errs.values()), tile_row_rel_err=errs,
                 max_abs_err=abs_err, tol=tol, controls=ctl, bound_ms=b_ms,
-                bound_by=b_by, timings=timings)
+                bound_by=b_by, timings=timings if timed else None)
 
 
 def grouped_controls(q, kp, vp, tables, ln, want):
@@ -1038,10 +1115,12 @@ class ForwardLog:
         return float(np.median(ts)) * 1e3 if ts else None
 
 
-def profile_decode(eng, rng, card, steps=8):
+def profile_decode(eng, rng, card, steps=8, quant=False):
     """Profile `steps` pure decode steps at batch 8 (contexts ~1000): wall
     ms per step, device busy ms per step (the sum of kernel intervals on
-    the one stream), the device's idle share, and device time by kernel."""
+    the one stream), the device's idle share, and device time by kernel.
+    `quant`: also the dequant matmul's device ms per step, which must come
+    from the one-launch decode kernel (no split-summing kernel)."""
     for _ in range(eng.max_batch):
         eng.add_request(rng.randint(0, eng.cfg.vocab_size, 1000),
                         max_new_tokens=steps + 4)
@@ -1071,6 +1150,16 @@ def profile_decode(eng, rng, card, steps=8):
         f"{res['device_busy_ms_per_step']:.2f} ms/step device busy, idle "
         f"share {res['idle_share']:.3f}, {res['device_ops_per_step']:.0f} "
         f"kernels and copies per step [{card}]")
+    if quant:
+        check(not any("split_sum_kernel" in n for n in by_name),
+              "decode profile: a split-summing kernel ran beside the "
+              "dequant matmul")
+        res["dequant_ms_per_step"] = sum(
+            us for n, us in by_name.items() if "skinny_kernel" in n) \
+            / 1e3 / steps
+        log(f"profile:   the dequant matmul (decode kernel): "
+            f"{res['dequant_ms_per_step']:.3f} ms/step of "
+            f"{res['device_busy_ms_per_step']:.3f} [{card}]")
     for name, ms in res["top_kernels_ms_per_step"]:
         log(f"profile:   {ms:8.3f} ms/step  {name}")
     return res
@@ -1094,7 +1183,7 @@ def profile_prefill(eng, rng, card, n=2500):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     # the dequant matmul's kernels (prefill: qmm_wgmma_kernel)
     dequant = sum(us for name, us in by_name.items()
-                  if "qmm_wgmma_kernel" in name
+                  if "qmm_wgmma_kernel" in name or "skinny_kernel" in name
                   or "quant_matmul_kernel" in name
                   or "split_sum_kernel" in name)
     res = dict(prompt=n, wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
@@ -1288,12 +1377,14 @@ def serve_13b(seed, dev, card, algo, group_size, lone=True):
     # the main path: counts from zero, read right after
     for _, mod, attr in QUANT_COUNTERS:
         setattr(mod, attr, 0)
+    kqm.reset_launches()
     t0 = time.perf_counter()
     lone_res = drive(eng, long_req) if lone else None
     mixed = drive(eng, batch)
     wall = time.perf_counter() - t0
     launches = {name: getattr(mod, attr) for name, mod, attr in
                 QUANT_COUNTERS}
+    by_kernel = dict(kqm.kernel_launches)
     L = cfg.num_hidden_layers
     forwards = eng.prefills + eng.decode_steps
     want = {"quant_matmul": 7 * L * forwards,
@@ -1303,6 +1394,15 @@ def serve_13b(seed, dev, card, algo, group_size, lone=True):
         check(launches[name] == n, f"13B {tag}: {name} launched "
               f"{launches[name]} times, expected {n}")
     check(eng.decode_steps > 0, f"13B {tag}: no decode step ran")
+    # every decode step (at most 8 rows) runs the decode kernel, one launch
+    # a linear; prefills of more than 16 tokens the prefill kernel
+    check(by_kernel["split"] == 0 and by_kernel["prefill"] % (7 * L) == 0
+          and by_kernel["decode"] >= 7 * L * eng.decode_steps
+          and by_kernel["decode"] + by_kernel["prefill"]
+          == launches["quant_matmul"],
+          f"13B {tag}: dequant launches by kernel {by_kernel}, "
+          f"{eng.decode_steps} decode steps of {7 * L} linears")
+    launches["quant_matmul_by_kernel"] = by_kernel
     res = dict(card=card, algo=algo, group_size=group_size, params=n_params,
                logit_rel_dev=logit_dev, bf16_vs_f32_logit_rel_dev=floor,
                bf16_gib=bf16_gib,
@@ -1330,7 +1430,7 @@ def serve_13b(seed, dev, card, algo, group_size, lone=True):
         f"[{card}]")
     if lone:
         res["prefill_profile"] = profile_prefill(eng, rng, card)
-    res["decode_profile"] = profile_decode(eng, rng, card)
+    res["decode_profile"] = profile_decode(eng, rng, card, quant=True)
     del eng, model, ref, got
     gc.collect()
     torch.cuda.empty_cache()
@@ -1712,10 +1812,13 @@ def pin_kernel_winners():
 def reset_counters():
     for _, mod, attr in DISPATCH_COUNTERS:
         setattr(mod, attr, 0)
+    kmm.reset_launches()
 
 
 def read_counters():
-    return {name: getattr(mod, attr) for name, mod, attr in DISPATCH_COUNTERS}
+    out = {name: getattr(mod, attr) for name, mod, attr in DISPATCH_COUNTERS}
+    out["matmul_by_variant"] = dict(kmm.variant_launches)
+    return out
 
 
 def check_dispatch_launches(tag, launches, fwd, since, cfg, decode_steps,
@@ -2724,6 +2827,14 @@ def main():
                           ("int4", 128))]
     qmm.append(qmm_case("512->1024 m33 int4 g64", 33, 512, 1024, "int4", 64,
                         f32, gen, dev))
+    # the decode kernel's m and n tails and a k % 128 == 64 tail (checked,
+    # not timed)
+    qmm_tails = [qmm_case(f"{k}->{n} m{m} {wd} g{gs}", m, k, n, wd, gs, bf16,
+                          gen, dev, timed=False)
+                 for m, k, n, wd, gs in (
+                     (1, 5120, 5120, "int8", -1), (16, 5120, 384, "int4", 128),
+                     (9, 13824, 256, "int8", 64), (3, 320, 11008, "int4", 64),
+                     (16, 5184, 384, "int8", -1))]
     paged_q8 = [paged_q8_case("mha_bf16_13b", bf16, 40, 40, gen, dev, lens),
                 paged_q8_case("gqa_bf16", bf16, 32, 8, gen, dev, lens),
                 paged_q8_case("mha_f32", f32, 32, 32, gen, dev, lens),
@@ -2737,6 +2848,16 @@ def main():
                        (4096, 32000))
           for m in (8, 2512, 4096)]
     mm.append(mm_case("512->1024 m33", 33, 512, 1024, f32, gen, dev))
+    # the m tails (1, 16, 17, 129, 4095) and n tails (256, 384: a 128 x 256
+    # tile half past n; 11008 = 43 x 256), checked, not timed
+    mm_tails = [mm_case(f"{k}->{n} m{m}", m, k, n, bf16, gen, dev,
+                        timed=False)
+                for m, k, n in ((1, 4096, 4096), (16, 4096, 11008),
+                                (17, 4096, 4096), (129, 11008, 4096),
+                                (4095, 4096, 4096), (4095, 4096, 11008),
+                                (129, 4096, 384), (4095, 4096, 384),
+                                (17, 512, 256), (16, 512, 384),
+                                (8, 320, 256))]
     grouped = [grouped_case("mha_bf16", bf16, 32, 32, gen, dev,
                             GROUPED_LENS),
                grouped_case("gqa_bf16", bf16, 32, 8, gen, dev, GROUPED_LENS),
@@ -2744,8 +2865,9 @@ def main():
                grouped_case("mqa_bf16", bf16, 32, 1, gen, dev, GROUPED_LENS),
                grouped_case("g32_bf16", bf16, 64, 2, gen, dev,
                             GROUPED_LENS)]
-    for kind_, rs in (("quant_matmul", qmm),
-                      ("paged_attention_int8", paged_q8), ("matmul", mm),
+    for kind_, rs in (("quant_matmul", qmm + qmm_tails),
+                      ("paged_attention_int8", paged_q8),
+                      ("matmul", mm + mm_tails),
                       ("paged_attention_grouped", grouped)):
         for r in rs:
             log(f"kernel: {kind_} {r['case']} {r['dtype']}: row rel err "
@@ -2865,7 +2987,33 @@ def main():
     served, trained = serving["launches"], training["launches"]
     lse_launches = variants["lse"]["launches"]
     q8, q4 = serving13["launches"], serving13_int4["launches"]
-    qmm_row = next(r for r in qmm if r["case"] == "5120->13824 m8 int8 g-1")
+    q8by = q8["quant_matmul_by_kernel"]
+    q4by = q4["quant_matmul_by_kernel"]
+    # the GEMM's variants in phase 8's counted runs
+    by_variant = {}
+    for run in (dispatch["serving"], dispatch["serving_pinned"],
+                dispatch["training"]["readonly_pinned"]):
+        for v, n in run["launches"]["matmul_by_variant"].items():
+            by_variant[v] = by_variant.get(v, 0) + n
+    check(sum(by_variant.get(v, 0) for v in ("128x256", "128x128")) > 0
+          and sum(by_variant.get(v, 0) for v in ("skinny", "m16")) > 0,
+          f"phase 8: the GEMM's wgmma or decode kernels did not run: "
+          f"{by_variant}")
+    check(q8by["prefill"] + q4by["prefill"] > 0
+          and q8by["decode"] + q4by["decode"] > 0,
+          f"13B: the dequant matmul's prefill or decode kernel did not run: "
+          f"{q8by}, {q4by}")
+
+    def case(rs, name):
+        return next(r for r in rs if r["case"] == name)
+
+    def variant_row(v, launches):
+        r = case(mm, "4096->4096 m8" if v in ("skinny", "m16")
+                 else "4096->4096 m4096")
+        out = row(f"matmul_{v}", csrc + "matmul.cu", ref + "matmul.py:118",
+                  r, launches)
+        out["ms"] = r["tile_ms"][v]
+        return out
     kernels = [
         # launches: the serving runs' counts plus the training run's
         row("rms_norm", csrc + "rms_norm.cu", ref + "rms_norm.py:71", rms[0],
@@ -2888,18 +3036,19 @@ def main():
         row("flash_bwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:534", flash[0]["bwd"],
             trained["flash_bwd"] + lse_launches["bwd_plain"]),
-        row("quant_matmul", csrc + "quant_matmul.cu",
-            ref + "quant_matmul.py:208", qmm_row,
-            q8["quant_matmul"] + q4["quant_matmul"]),
+        # the dequant matmul's two bf16 kernels: m > 16 and m <= 16
+        row("quant_matmul_prefill", csrc + "quant_matmul.cu",
+            ref + "quant_matmul.py:208",
+            case(qmm, "5120->13824 m2512 int8 g-1"),
+            q8by["prefill"] + q4by["prefill"]),
+        row("quant_matmul_decode", csrc + "quant_matmul.cu",
+            ref + "quant_matmul.py:208", case(qmm, "5120->13824 m8 int8 g-1"),
+            q8by["decode"] + q4by["decode"]),
         row("paged_attention_int8", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged_q8[0],
             q8["paged_attention_int8"] + q4["paged_attention_int8"]),
-        # launches: phase 8's counted runs
-        row("matmul", csrc + "matmul.cu", ref + "matmul.py:118",
-            next(r for r in mm if r["case"] == "4096->4096 m8"),
-            dispatch["serving"]["launches"]["matmul"]
-            + dispatch["serving_pinned"]["launches"]["matmul"]
-            + dispatch["training"]["readonly_pinned"]["launches"]["matmul"]),
+        # the GEMM's variants that ran; launches: phase 8's counted runs
+        *[variant_row(v, n) for v, n in sorted(by_variant.items()) if n],
         row("paged_attention_grouped", csrc + "paged_attention.cu",
             ref + "paged_attention.py:523", grouped[0],
             dispatch["serving"]["launches"]["paged_attention_grouped"]

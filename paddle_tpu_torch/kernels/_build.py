@@ -10,9 +10,10 @@ The library lands in `build/kernels/` at the repository root (listed in
 `.gitignore`), named by a hash of the source, the sources it includes from
 `csrc/` and the flags, so an edited source rebuilds and an unchanged one is
 reused. A source may include another whole (`flash_attention_seg.cu`
-builds `flash_attention.cu` with one variant's macros). `build()` starts one `nvcc`
-per missing library, all at once, and waits for them; `load()` builds what
-it needs on first use. Only the sources in this checkout are compiled.
+builds `flash_attention.cu` with one variant's macros) and headers that
+include others (`skinny_matmul.cuh` includes `sm90.cuh`). `build()` starts
+one `nvcc` per missing library, all at once, and waits for them; `load()`
+builds what it needs on first use. Only the sources in this checkout are compiled.
 """
 from __future__ import annotations
 
@@ -53,11 +54,24 @@ def nvcc_path() -> str:
 _INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
 
 
+def _sources(name: str) -> list:
+    """`csrc/<name>.cu` and every file of `csrc/` it includes, directly or
+    through another, each once, in the order first met."""
+    seen, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [inc.decode() for inc in
+                 _INCLUDE.findall((CSRC / f).read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    text = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(text)
-    for inc in _INCLUDE.findall(text):
-        h.update((CSRC / inc.decode()).read_bytes())
+    h = hashlib.sha256()
+    for f in _sources(name):
+        h.update((CSRC / f).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

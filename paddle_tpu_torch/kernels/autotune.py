@@ -49,7 +49,7 @@ SCHEMA_VERSION = 1
 # the port's own tags: bump when a kernel's code changes enough to make its
 # measurements stale
 KERNEL_VERSIONS = {
-    "matmul": "cu-mm-v1",
+    "matmul": "cu-mm-v2",
     "paged_decode": "cu-pa-v1",
 }
 
@@ -58,7 +58,7 @@ _KIND_ORDER = {"library": 0, "kernel": 1}
 
 
 class Candidate(NamedTuple):
-    name: str          # e.g. "torch", "cuda:m128", "grouped"
+    name: str          # e.g. "torch", "cuda:128x256", "grouped"
     kind: str          # "library" (the baseline) | "kernel"
     fn: Callable       # function of the example args
     meta: dict         # what the call site runs: {"impl": ..., ...}
@@ -348,8 +348,10 @@ def _memo(key, build):
 def choose_matmul(m, k, n, dtype):
     """Measured dispatch of the dense matmul x [m, k] @ w [k, n]
     (`kernels/matmul.py`). Candidates: `torch.matmul` (the baseline, which
-    wins ties) and the CUDA kernel at each of its row tiles. Winner meta:
-    {"impl": "torch"} or {"impl": "cuda", "tile": rows}."""
+    wins ties) and each CUDA kernel variant that takes the bucket's m
+    (`matmul.variants`: bf16 "skinny" and "m16" at m <= 16, "128x256" and
+    "128x128" above; f32 "m16" and "m64"). Winner meta: {"impl": "torch"}
+    or {"impl": "cuda", "tile": variant}."""
     return _memo(("matmul", m, k, n, str(dtype)),
                  lambda: _choose_matmul(m, k, n, dtype))
 
@@ -364,11 +366,11 @@ def _choose_matmul(m, k, n, dtype):
               ("dt", str(dtype).replace("torch.", "")))
     cands: List[Candidate] = [
         Candidate("torch", "library", torch.matmul, {"impl": "torch"})]
-    for tile in mm.tiles(dtype):
+    for tile in mm.variants(dtype, bm):
         def run(x, w, _tile=tile):
             return mm.matmul_fused(x, w, _tile)
 
-        cands.append(Candidate(f"cuda:m{tile}", "kernel", run,
+        cands.append(Candidate(f"cuda:{tile}", "kernel", run,
                                {"impl": "cuda", "tile": tile}))
 
     def make_args():

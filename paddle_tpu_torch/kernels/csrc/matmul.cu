@@ -11,28 +11,58 @@
 // 3.35 TB/s), operations at prefill and training (m in the thousands:
 // 2mkn flops of bf16 products at 989 TFLOP/s).
 //
-// Design: one block of 8 warps per (128-column tile, BM-row tile, k split).
-// The block walks its k tiles (BK rows of w, BK columns of x) through a
-// ring of kStages shared-memory stages filled by cp.async, so kStages - 1
-// tiles are in flight while the block multiplies the current one. Rows of
-// x at or past m are zero-filled by the copy (the m tail is masked, not
-// padded by a copy of x), and their outputs are not stored.
-//   bf16: WMMA 16x16x16 bf16 products with f32 accumulators; BM = 16 (8
-//     warps of 16x16; decode's m of 1-16), 64 (2x4 warps of 32x32) or 128
-//     (4x2 warps of 32x64), BK = 64; the results go to shared memory and
-//     out as bf16, rounded once.
+// Four kernels, named by the host's variants (matmul.py `variants`):
+//
+// bf16, "128x256" and "128x128" (gemm_wgmma_kernel<BN>; any m, the default
+// at m > 16): a persistent, warp-specialized kernel, one block of three
+// warpgroups per SM walking 128 x BN output tiles in the band order of
+// sm90::tile_of (bands of group_m row tiles, row tiles fastest, so that a
+// band of x stays in the 50 MB L2 while the weight columns stream past
+// it). Warpgroup 0 loads: one thread keeps a ring of kStages stages in
+// flight by TMA (cp.async.bulk.tensor), each the 128 x 64 x tile (K-major,
+// 128-byte swizzle, rows past m zero-filled by the copy) and the 64 x BN
+// weight tile in the layout it is stored in (N-major: BN / 64 boxes of 64
+// columns, each a 128-byte swizzled atom of 8 KB), completing one mbarrier
+// by transaction bytes; weight atoms wholly past n (n % 256 == 128 at BN
+// 256) are not loaded, and their columns are never stored. Warpgroups 1
+// and 2 multiply: each owns 64 rows of the tile and keeps 64 x BN f32
+// accumulators in registers (128 a thread at BN 256), and per k tile
+// issues 4 asynchronous wgmma m64nBNk16 from shared memory, the weight
+// read through the transpose bit, keeping one k tile's products in flight
+// while it releases the stage before. No block-wide barrier runs in the
+// mainloop; setmaxnreg moves registers from the loaders to the consumers.
+// The epilogue rounds once to bf16 and stores through shared memory in
+// 64-column chunks with 16-byte stores, rows past m and columns past n
+// masked, while the loader already fills the ring for the next tile. The
+// last round of tiles is not split (512 tiles of 128 x 256 at 4096 x 4096
+// are 3.88 rounds on 132 SMs).
+//
+// bf16, "skinny" (m <= 16, the default there): the one-launch streaming
+// decode kernel of skinny_matmul.cuh with bf16 weights (Bf16W below).
+//
+// bf16 "m16" and float32 "m16" / "m64" (matmul_kernel): one block of 8
+// warps per (128-column tile, BM-row tile, k split). The block walks its k
+// tiles (BK rows of w, BK columns of x) through a ring of kStages
+// shared-memory stages filled by cp.async, so kStages - 1 tiles are in
+// flight while the block multiplies the current one. Rows of x at or past
+// m are zero-filled by the copy, and their outputs are not stored.
+//   bf16 (BM = 16, decode's m of 1-16): WMMA 16x16x16 bf16 products with
+//     f32 accumulators (8 warps of 16x16), BK = 64; the results go to
+//     shared memory and out as bf16, rounded once.
 //   f32: CUDA-core FMA in f32 (each thread a BM/16-row by 8-column patch),
 //     BM = 16 or 64, BK = 32: exact f32 products, no TF32.
-// At decode the n / 128 column tiles alone leave most of the 132 SMs idle,
-// so the host splits k to fill one wave of resident blocks: each split
-// writes f32 partials and a second kernel sums them in split order and
-// rounds once (deterministic, no atomics). TMA, wgmma and a persistent
-// schedule are left for later work.
+// At small m the n / 128 column tiles alone leave most of the 132 SMs
+// idle, so the host splits k to fill one wave of resident blocks: each
+// split writes f32 partials and a second kernel sums them in split order
+// and rounds once (deterministic, no atomics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "skinny_matmul.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -56,8 +86,8 @@ template <int BM>
 struct Cfg<__nv_bfloat16, BM> {
   static constexpr int BK = 64;
   static constexpr int kPad = 8;  // WMMA: a multiple of 8 bf16 per row
-  static constexpr int kStages = BM == 16 ? 4 : 3;
-  static constexpr int kWarpsM = BM >= 32 ? BM / 32 : 1;
+  static constexpr int kStages = 4;
+  static constexpr int kWarpsM = 1;  // BM = 16 only: decode
 };
 
 template <int BM>
@@ -312,6 +342,248 @@ __global__ void __launch_bounds__(kThreads)
   store_out(out + 4 * i, v);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the persistent warp-specialized wgmma kernel
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kGBM = 128;        // output rows per tile
+constexpr int kGBK = 64;         // k per stage: one 128-byte x row
+constexpr int kGThreads = 384;   // the loader and 2 consumer warpgroups
+constexpr int kGXTile = kGBM * kGBK * 2;  // 16 KB, 128-byte swizzled rows
+constexpr int kAtom = kGBK * 64 * 2;      // 8 KB: 64 k rows of 64 columns
+constexpr int kGLdO = 64 + 8;             // epilogue staging row stride
+constexpr int kGOTile = 64 * kGLdO * 2;   // one consumer's staging chunk
+
+template <int BN>
+struct GCfg {
+  static constexpr int kStage = kGXTile + (BN / 64) * kAtom;
+  static constexpr int kStages = BN == 256 ? 4 : 6;
+  static constexpr int kSmem = 1024 /* alignment slack */ +
+                               kStages * kStage + 2 * kGOTile;
+};
+
+struct GArgs {
+  bf16* out;
+  int m, k, n, tiles_m, tiles_n, group_m;
+};
+
+// registers after the shift (setmaxnreg): the launch gives 168 a thread
+// (384 threads, one block per SM); the loaders give up 128 and each
+// consumer thread takes 64 of them (the 128 accumulators at BN 256)
+constexpr int kGLoaderRegs = 40;
+constexpr int kGConsumerRegs = 232;
+
+template <int BN>
+__global__ void __launch_bounds__(kGThreads, 1)
+    gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                      const __grid_constant__ CUtensorMap tmw,
+                      const GArgs a) {
+  using C = GCfg<BN>;
+  constexpr int S = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
+  bf16* g_out = reinterpret_cast<bf16*>(
+      smem_raw + (base - sm90::smem_u32(smem_raw)) + S * C::kStage);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, t = tid & 127;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      sm90::mbar_init(sm90::smem_u32(&full[i]), 1);
+      sm90::mbar_init(sm90::smem_u32(&empty[i]), 8);  // the consumer warps
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int k_tiles = a.k / kGBK;
+  const int tiles = a.tiles_m * a.tiles_n;
+  const int my_tiles =
+      blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  auto tile = [&](int u, int* tm, int* tn) {  // this block's u-th tile
+    sm90::tile_of(blockIdx.x + u * gridDim.x, a.tiles_m, a.tiles_n,
+                  a.group_m, tm, tn);
+  };
+
+  if (wg == 0) {
+    // ---- loader: one thread keeps the ring of x and weight tiles ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kGLoaderRegs));
+    if (t == 0) {
+      int st = 0;
+      uint32_t phase = 0;
+      for (int u = 0, it = 0; u < my_tiles; ++u) {
+        int tm, tn;
+        tile(u, &tm, &tn);
+        // the 64-column weight atoms inside n (all of them but at an n
+        // tail)
+        const int atoms = min(BN / 64, (a.n - tn * BN) / 64);
+        const int bytes = kGXTile + atoms * kAtom;
+        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+          if (it >= S)
+            sm90::mbar_wait(sm90::smem_u32(&empty[st]), phase ^ 1);
+          const uint32_t bar = sm90::smem_u32(&full[st]);
+          const uint32_t dst = base + st * C::kStage;
+          sm90::mbar_expect_tx(bar, bytes);
+          sm90::tma_2d(dst, &tmx, kt * kGBK, tm * kGBM, bar);
+          for (int at = 0; at < atoms; ++at)
+            sm90::tma_2d(dst + kGXTile + at * kAtom, &tmw,
+                         tn * BN + at * 64, kt * kGBK, bar);
+          if (++st == S) {
+            st = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 1 rows 0-63, warpgroup 2 rows 64-127 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kGConsumerRegs));
+    const int w = wg - 1;
+    const int warp = t >> 5, lane = t & 31;
+    bf16* stg = g_out + w * (64 * kGLdO);
+    auto release = [&](int s) {
+      if (lane == 0) sm90::mbar_arrive(sm90::smem_u32(&empty[s]));
+    };
+    float d[BN / 2];
+    int st = 0;
+    uint32_t phase = 0;
+    for (int u = 0; u < my_tiles; ++u) {
+      int tm, tn;
+      tile(u, &tm, &tn);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+      int prev = 0;
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        sm90::mbar_wait(sm90::smem_u32(&full[st]), phase);
+        __syncwarp();
+        sm90::wgmma_fence();
+        const uint32_t xa = base + st * C::kStage + w * 64 * 128;
+        const uint32_t wb = base + st * C::kStage + kGXTile;
+#pragma unroll
+        for (int kk = 0; kk < kGBK / 16; ++kk) {
+          // A: K-major rows of 128 bytes, 8-row groups 1024 bytes apart,
+          // each k16 step 32 bytes on; B: N-major, the 64-column atoms 8 KB
+          // apart (leading), 8-row k groups 1024 apart (stride), each k16
+          // step two groups on
+          const uint64_t da = sm90::gmma_desc(xa + kk * 32, 16, 1024);
+          const uint64_t db = sm90::gmma_desc(wb + kk * 2048, kAtom, 1024);
+          if constexpr (BN == 256)
+            sm90::wgmma_m64n256k16(d, da, db);
+          else
+            sm90::wgmma_m64n128k16(d, da, db);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();  // k tile kt - 1's products are done
+        if (kt > 0) release(prev);
+        prev = st;
+        if (++st == S) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+      sm90::wgmma_wait<0>();
+      release(prev);
+      // epilogue: 64-column chunks of bf16 pairs -> staging -> 16-byte
+      // rows of y
+      const int r0 = warp * 16 + (lane >> 2);
+      const int row_base = tm * kGBM + w * 64;
+#pragma unroll
+      for (int h = 0; h < BN / 64; ++h) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * h + jj;
+          const int col = 8 * jj + 2 * (lane & 3);
+          *reinterpret_cast<__nv_bfloat162*>(stg + r0 * kGLdO + col) =
+              __floats2bfloat162_rn(d[4 * j], d[4 * j + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(stg + (r0 + 8) * kGLdO + col) =
+              __floats2bfloat162_rn(d[4 * j + 2], d[4 * j + 3]);
+        }
+        sm90::named_sync(1 + w, 128);
+        const int col0 = tn * BN + 64 * h;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int idx = t + 128 * i;
+          const int r = idx >> 3, ch = idx & 7;
+          if (row_base + r < a.m && col0 < a.n) {
+            *reinterpret_cast<uint4*>(
+                a.out + static_cast<size_t>(row_base + r) * a.n + col0 +
+                ch * 8) =
+                *reinterpret_cast<const uint4*>(stg + r * kGLdO + ch * 8);
+          }
+        }
+        sm90::named_sync(1 + w, 128);  // the staging chunk is free again
+      }
+    }
+  }
+}
+
+template <int BN>
+cudaError_t launch_gemm(const void* x, const void* w, void* out, int m,
+                        int k, int n, int grid, int group_m,
+                        cudaStream_t st) {
+  CUtensorMap tmx, tmw;
+  if (!sm90::make_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, m, k,
+                      kGBM, kGBK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !sm90::make_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, k, n,
+                      kGBK, 64, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  static cudaError_t allowed = cudaFuncSetAttribute(
+      gemm_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      GCfg<BN>::kSmem);
+  if (allowed != cudaSuccess) return allowed;
+  const GArgs a{static_cast<bf16*>(out), m, k, n, (m + kGBM - 1) / kGBM,
+                (n + BN - 1) / BN, group_m};
+  gemm_wgmma_kernel<BN><<<grid, kGThreads, GCfg<BN>::kSmem, st>>>(tmx, tmw,
+                                                                  a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 decode: skinny_matmul.cuh's kernel on bf16 weights
+// ---------------------------------------------------------------------------
+
+// thread (g, t) reads stored rows 4t .. 4t + 3 of its warp's 16, columns
+// 8 g .. 8 g + 7 and 64 + 8 g .. + 7 (16 bytes each, so that 8 lanes read
+// one row's 128 bytes)
+struct Bf16W {
+  static constexpr int kElt = 2;
+  static constexpr int kKPer = 1;
+  static constexpr int kStages = 4;
+  static constexpr bool kScaled = false;
+  __device__ static int col(int g, int i) {
+    return i < 8 ? 8 * g + i : 64 + 8 * g + (i - 8);
+  }
+  __device__ static void frags(const unsigned char* p, int g, int t,
+                               const __nv_bfloat162*, uint32_t (&a)[8][4]) {
+    constexpr int kRow = skinny::kBN * 2;
+    p += 4 * t * kRow + 16 * g;
+    uint32_t w[4][8];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint4 lo = *reinterpret_cast<const uint4*>(p + r * kRow);
+      const uint4 hi = *reinterpret_cast<const uint4*>(p + r * kRow + 128);
+      w[r][0] = lo.x;
+      w[r][1] = lo.y;
+      w[r][2] = lo.z;
+      w[r][3] = lo.w;
+      w[r][4] = hi.x;
+      w[r][5] = hi.y;
+      w[r][6] = hi.z;
+      w[r][7] = hi.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      skinny::pair_rows(w[0][j], w[1][j], w[2][j], w[3][j], a[j]);
+  }
+};
+
+// the column tiles' tickets of the decode kernel: 0 between launches
+__device__ unsigned g_tickets[skinny::kMaxTiles];
+
 // the kernel for (T, BM), its dynamic shared memory allowed once
 template <typename T, int BM>
 cudaError_t prepare(void (**fn)(Args), int* smem, int* bk) {
@@ -324,20 +596,12 @@ cudaError_t prepare(void (**fn)(Args), int* smem, int* bk) {
   return status;
 }
 
-// row tiles: bf16 16, 64, 128; f32 16, 64
+// row tiles: bf16 16; f32 16, 64
 cudaError_t select(int tile, int is_bf16, void (**fn)(Args), int* smem,
                    int* bk) {
   if (is_bf16) {
-    switch (tile) {
-      case 16:
-        return prepare<__nv_bfloat16, 16>(fn, smem, bk);
-      case 64:
-        return prepare<__nv_bfloat16, 64>(fn, smem, bk);
-      case 128:
-        return prepare<__nv_bfloat16, 128>(fn, smem, bk);
-      default:
-        return cudaErrorInvalidValue;
-    }
+    if (tile != 16) return cudaErrorInvalidValue;
+    return prepare<__nv_bfloat16, 16>(fn, smem, bk);
   }
   switch (tile) {
     case 16:
@@ -366,7 +630,7 @@ extern "C" int matmul_blocks_per_sm(int tile, int is_bf16) {
 
 // y = x @ w (layouts above); all pointers 16-byte aligned and contiguous;
 // n % 128 == 0, k a multiple of the k tile (64 bf16, 32 f32), row tile
-// `tile` (bf16: 16, 64, 128; f32: 16, 64), 1 <= splits <= k / k tile (part:
+// `tile` (bf16: 16; f32: 16, 64), 1 <= splits <= k / k tile (part:
 // [splits, m, n] f32 scratch when splits > 1, else unused). is_bf16: x, w
 // and y bfloat16, else float32. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
@@ -399,4 +663,48 @@ extern "C" int matmul(const void* x, const void* w, void* out, void* part,
         a.part, static_cast<float*>(out), quads, splits);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma kernel: y = x @ w for bf16 x, w and y; m >= 1, k % 64 == 0, n %
+// 128 == 0, 16-byte aligned contiguous arrays; bn 256 or 128 (the output
+// tile's columns); `grid` persistent blocks (at most one per SM is
+// resident) walk the ceil(m / 128) x ceil(n / bn) output tiles in bands of
+// `group_m` row tiles (matmul.py's `band_schedule`). Launches on `stream`
+// and returns cudaGetLastError() (0 on success; cudaErrorInvalidValue also
+// where the CUDA tensor-map encoder is missing or refuses the arrays).
+extern "C" int matmul_wgmma(const void* x, const void* w, void* out, int m,
+                            int k, int n, int bn, int grid, int group_m,
+                            void* stream) {
+  if (m < 1 || k <= 0 || n <= 0 || k % kGBK || n % 128 || grid < 1 ||
+      group_m < 1 || (bn != 256 && bn != 128)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bn == 256 ? launch_gemm<256>(x, w, out, m, k, n, grid, group_m, st)
+                : launch_gemm<128>(x, w, out, m, k, n, grid, group_m, st));
+}
+
+// The decode kernel: y = x @ w for bf16 x, w and y, 1 <= m <= 16, k % 64
+// == 0, n % 128 == 0; `grid` blocks (1 .. n / 128 * ceil(k / 128)) share
+// the weight's 128 x 128 stages evenly (skinny_matmul.cuh). part: [grid +
+// n / 128, m <= 8 ? 1024 : 2048] f32 scratch. One launch on `stream`;
+// returns cudaGetLastError() (0 on success; cudaErrorInvalidValue also
+// where the CUDA tensor-map encoder is missing or refuses the arrays).
+extern "C" int matmul_decode(const void* x, const void* w, void* out,
+                             void* part, int m, int k, int n, int grid,
+                             void* stream) {
+  if (!skinny::shape_ok(m, k, n, grid) || part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned* tickets = [] {
+    void* p = nullptr;
+    return cudaGetSymbolAddress(&p, g_tickets) == cudaSuccess
+               ? static_cast<unsigned*>(p)
+               : nullptr;
+  }();
+  if (tickets == nullptr) return static_cast<int>(cudaErrorInvalidSymbol);
+  return static_cast<int>(skinny::launch<Bf16W>(
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, w, nullptr,
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part), tickets,
+      m, k, n, k, grid, static_cast<cudaStream_t>(stream)));
 }

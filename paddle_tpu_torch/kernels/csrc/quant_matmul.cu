@@ -15,8 +15,9 @@
 // Bound on the H100: bytes at decode (m = 8: each weight byte is read once
 // for 16 multiply-adds), operations at prefill (m in the thousands: 2mkn
 // flops of bf16 products, 989 TFLOP/s). The bf16 weight never exists in
-// device memory: int8/int4 tiles are read, dequantized on the CUDA cores
-// and staged in shared memory for the products. The dequant is the other
+// device memory: int8/int4 tiles are read and dequantized on the CUDA
+// cores, into shared memory (prefill) or registers (decode), for the
+// tensor-core products. The dequant is the other
 // limit: int-to-float and float-to-bf16 conversions run at a quarter of the
 // FMA rate, so the bf16 path converts with integer and FADD instructions
 // instead (a byte b becomes the f32 2^23 + 128 + b by a byte permute, less
@@ -24,7 +25,7 @@
 // multiplies by the scales with bf16x2 multiplies, the reference's one
 // rounding.
 //
-// Two designs share the dequant arithmetic.
+// The two bf16 designs share the dequant arithmetic.
 //
 // Prefill, bf16 x and m > 16 (qmm_wgmma_kernel): a persistent,
 // warp-specialized wgmma kernel, one block of 4 warpgroups per SM walking
@@ -56,39 +57,44 @@
 // tile (4 rounds for 3.03 at n = 5120) and clusters of two CTAs sharing
 // the x tile by TMA multicast measured no faster and are not kept.
 //
-// Decode (m <= 16) and float32 x (quant_matmul_kernel): one block of 8
-// warps per (128-column tile, BM-row tile, k split). The block walks its k
-// tiles (BK rows; a tile never straddles a scale group, since group_rows %
-// BK == 0) through a ring of kStages shared-memory stages filled by
-// cp.async: each stage holds a tile's raw weight bytes, its x rows
-// (zero-filled past m) and its scale row, so kStages - 1 tiles are in
-// flight while the block dequantizes and multiplies the current one. Per
-// tile the block dequantizes the raw bytes into one bf16 (or f32) weight
-// tile, then
-//   bf16 x: WMMA 16x16x16 bf16 products with f32 accumulators, BM = 16 (8
-//     warps of 16x16): decode is bound by the weight bytes, and this
-//     design reads them at 1.3-1.5x torch.matmul's time on the bf16 weight;
-//   f32 x: CUDA-core FMA in f32 (each thread a 4- or 1-row by 8-column
-//     patch), so the f32 path keeps f32 arithmetic (parity checks and the
-//     tiny f32 models).
-// At decode, n / 128 column tiles alone leave most of the 132 SMs idle, so
-// the host splits k to fill one wave of blocks: each split writes f32
-// partials and a second kernel sums them in split order (deterministic, no
-// atomics).
+// Decode, bf16 x and m <= 16 (quant_matmul_decode): the one-launch
+// streaming kernel of skinny_matmul.cuh, instantiated here for int8 and
+// int4 weights (Int8W, Int4W below): the weight is TMA-streamed through an
+// mbarrier ring, dequantized in registers straight into mma.sync
+// fragments, and the k split is reduced in the same launch by the last
+// block of each column tile.
+//
+// float32 x (quant_matmul_kernel): one block of 8 warps per (128-column
+// tile, BM-row tile, k split). The block walks its k tiles (BK rows; a
+// tile never straddles a scale group, since group_rows % BK == 0) through
+// a ring of kStages shared-memory stages filled by cp.async: each stage
+// holds a tile's raw weight bytes, its x rows (zero-filled past m) and its
+// scale row, so kStages - 1 tiles are in flight while the block
+// dequantizes (q * s in f32) and multiplies the current one by CUDA-core
+// FMA in f32 (each thread a 4- or 1-row by 8-column patch), so the f32
+// path keeps f32 arithmetic (parity checks and the tiny f32 models). At
+// small m the host splits k to fill one wave of blocks: each split writes
+// f32 partials and a second kernel sums them in split order
+// (deterministic, no atomics).
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "skinny_matmul.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace sm90;
 
 constexpr int kThreads = 256;
 constexpr int kBN = 128;        // output columns per block
 constexpr int kWPR = kBN / 16;  // 16-byte chunks per weight byte row
+
+// ---------------------------------------------------------------------------
+// float32 x: the split kernel
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void* x;
@@ -99,45 +105,31 @@ struct Args {
   int m, k, n, group_rows, splits;
 };
 
-// tile shapes by input type and row tile
-template <typename T, int BM>
-struct Cfg;
-
+// tile shapes by row tile (f32)
 template <int BM>
-struct Cfg<__nv_bfloat16, BM> {
-  static constexpr int BK = 64;
-  static constexpr int kPad = 8;  // WMMA: a multiple of 8 bf16 per row
-  static constexpr int kStages = 4;  // BM = 16 only: decode
-  static constexpr int kWarpsM = 1;
-};
-
-template <int BM>
-struct Cfg<float, BM> {
+struct Cfg {
   static constexpr int BK = 32;
   static constexpr int kPad = 4;
   static constexpr int kStages = 3;
 };
 
-template <typename T, int BM, bool kInt4>
+template <int BM, bool kInt4>
 struct Tile {
-  using C = Cfg<T, BM>;
+  using C = Cfg<BM>;
   static constexpr int BK = C::BK;
   static constexpr int kStages = C::kStages;
   static constexpr int LDX = BK + C::kPad;       // x tile row stride
   static constexpr int LDW = kBN + C::kPad;      // weight tile row stride
-  static constexpr int LDC = kBN + 4;            // f32 result row stride
-  static constexpr int kXPer = 16 / sizeof(T);   // x elements per chunk
+  static constexpr int kXPer = 4;                // x elements per chunk
   static constexpr int kXChunks = BM * BK / kXPer;
   static constexpr int kWRows = kInt4 ? BK / 2 : BK;  // byte rows per tile
   static constexpr int kWChunks = kWRows * kWPR;
   // one stage: x rows, raw weight bytes, the scale row
-  static constexpr int kXBytes = BM * LDX * sizeof(T);
+  static constexpr int kXBytes = BM * LDX * 4;
   static constexpr int kRawBytes = kWRows * kBN;
   static constexpr int kStageBytes = kXBytes + kRawBytes + kBN * 4;
-  static constexpr int kWBytes = BK * LDW * sizeof(T);
-  static constexpr int kCBytes = sizeof(T) == 2 ? BM * LDC * 4 : 0;
-  static constexpr int kLoopBytes = kStages * kStageBytes + kWBytes;
-  static constexpr int kSmem = kLoopBytes > kCBytes ? kLoopBytes : kCBytes;
+  static constexpr int kWBytes = BK * LDW * 4;
+  static constexpr int kSmem = kStages * kStageBytes + kWBytes;
 };
 
 // cp.async: 16-byte copies global -> shared that bypass registers; `bytes`
@@ -210,26 +202,18 @@ __device__ __forceinline__ void store16(float* d, const float* v) {
   }
 }
 
-__device__ __forceinline__ void store_out(__nv_bfloat16* d, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(d) = u;
-}
 __device__ __forceinline__ void store_out(float* d, float4 v) {
   *reinterpret_cast<float4*>(d) = v;
 }
 
-template <typename T, int BM, bool kInt4>
+template <int BM, bool kInt4>
 __global__ void __launch_bounds__(kThreads)
     quant_matmul_kernel(Args a) {
-  using Tl = Tile<T, BM, kInt4>;
+  using Tl = Tile<BM, kInt4>;
   constexpr int BK = Tl::BK;
   constexpr int S = Tl::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* ws = reinterpret_cast<T*>(smem + S * Tl::kStageBytes);
+  float* ws = reinterpret_cast<float*>(smem + S * Tl::kStageBytes);
 
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kBN;
@@ -241,10 +225,10 @@ __global__ void __launch_bounds__(kThreads)
   const int t_end = static_cast<int>(
       static_cast<long long>(split + 1) * k_tiles / a.splits);
   const int nt = t_end - t_begin;
-  const T* __restrict__ x = static_cast<const T*>(a.x);
+  const float* __restrict__ x = static_cast<const float*>(a.x);
 
   auto stage_x = [&](int st) {
-    return reinterpret_cast<T*>(smem + st * Tl::kStageBytes);
+    return reinterpret_cast<float*>(smem + st * Tl::kStageBytes);
   };
   auto stage_raw = [&](int st) {
     return smem + st * Tl::kStageBytes + Tl::kXBytes;
@@ -257,7 +241,7 @@ __global__ void __launch_bounds__(kThreads)
   // tile t -> stage st, by cp.async
   auto issue = [&](int t, int st) {
     const int k0 = t * BK;
-    T* xs = stage_x(st);
+    float* xs = stage_x(st);
     for (int i = tid; i < Tl::kXChunks; i += kThreads) {
       const int r = i / (BK / Tl::kXPer);
       const int c = (i % (BK / Tl::kXPer)) * Tl::kXPer;
@@ -281,205 +265,94 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
-  // the raw bytes of stage st -> the weight tile ws, dequantized
+  // the raw bytes of stage st -> the weight tile ws, q * s in f32
   auto dequant = [&](int st) {
     const unsigned char* raw = stage_raw(st);
-    const float* srow = stage_scale(st);
     // every chunk of this thread covers the same 16 columns
     const int c = (tid % kWPR) * 16;
-    if constexpr (sizeof(T) == 2) {
-      // bf16(q) * bf16(s): the scale pairs rounded once per tile
-      __nv_bfloat162 sp[8];
+    const float* sc = stage_scale(st) + c;
+    for (int i = tid; i < Tl::kWChunks; i += kThreads) {
+      const int r = i / kWPR;
+      const uint4 u = *reinterpret_cast<const uint4*>(raw + r * kBN + c);
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(&u);
+      float v[16];
+      if (kInt4) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sp[j] = __floats2bfloat162_rn(srow[c + 2 * j], srow[c + 2 * j + 1]);
-      }
-      for (int i = tid; i < Tl::kWChunks; i += kThreads) {
-        const int r = i / kWPR;
-        const uint4 u = *reinterpret_cast<const uint4*>(raw + r * kBN + c);
-        const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
-        uint2 e[4], o[4];
+        for (int e = 0; e < 16; ++e) v[e] = sext4(b[e]) * sc[e];
+        store16(ws + (2 * r) * Tl::LDW + c, v);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (kInt4) {
-            dequant_i4(wd[j], sp + 2 * j, &e[j], &o[j]);
-          } else {
-            e[j] = dequant_i8(wd[j], sp + 2 * j);
-          }
-        }
-        const int row = kInt4 ? 2 * r : r;
-        uint4* dst = reinterpret_cast<uint4*>(ws + row * Tl::LDW + c);
-        dst[0] = make_uint4(e[0].x, e[0].y, e[1].x, e[1].y);
-        dst[1] = make_uint4(e[2].x, e[2].y, e[3].x, e[3].y);
-        if (kInt4) {
-          dst = reinterpret_cast<uint4*>(ws + (row + 1) * Tl::LDW + c);
-          dst[0] = make_uint4(o[0].x, o[0].y, o[1].x, o[1].y);
-          dst[1] = make_uint4(o[2].x, o[2].y, o[3].x, o[3].y);
-        }
-      }
-    } else {
-      // f32: q * s in f32
-      const float* sc = srow + c;
-      for (int i = tid; i < Tl::kWChunks; i += kThreads) {
-        const int r = i / kWPR;
-        const uint4 u = *reinterpret_cast<const uint4*>(raw + r * kBN + c);
-        const uint8_t* b = reinterpret_cast<const uint8_t*>(&u);
-        float v[16];
-        if (kInt4) {
-#pragma unroll
-          for (int e = 0; e < 16; ++e) v[e] = sext4(b[e]) * sc[e];
-          store16(ws + (2 * r) * Tl::LDW + c, v);
-#pragma unroll
-          for (int e = 0; e < 16; ++e) v[e] = sext4(b[e] >> 4) * sc[e];
-          store16(ws + (2 * r + 1) * Tl::LDW + c, v);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 16; ++e) {
-            v[e] = static_cast<float>(static_cast<int8_t>(b[e])) * sc[e];
-          }
-          store16(ws + r * Tl::LDW + c, v);
-        }
-      }
-    }
-  };
-
-  // the ring: S - 1 tiles in flight ahead of the one being multiplied
-  auto pipeline = [&](auto&& multiply) {
-#pragma unroll
-    for (int i = 0; i < S - 1; ++i) {
-      if (i < nt) issue(t_begin + i, i);
-      cp_async_commit();
-    }
-    for (int i = 0; i < nt; ++i) {
-      cp_async_wait<S - 2>();
-      __syncthreads();  // tile i landed; every warp is past tile i - 1
-      const int st = i % S;
-      dequant(st);
-      if (i + S - 1 < nt) issue(t_begin + i + S - 1, (i + S - 1) % S);
-      cp_async_commit();
-      __syncthreads();  // the weight tile is complete
-      multiply(stage_x(st));
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-  };
-
-  if constexpr (sizeof(T) == 2) {
-    // bf16: WMMA on the tensor cores
-    constexpr int kWarpsM = Cfg<T, BM>::kWarpsM;
-    constexpr int kWarpsN = 8 / kWarpsM;
-    constexpr int FM = BM / 16 / kWarpsM;
-    constexpr int FN = kBN / 16 / kWarpsN;
-    const int warp = tid >> 5;
-    const int wm = warp / kWarpsN;
-    const int wn = warp % kWarpsN;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-    for (int i = 0; i < FM; ++i) {
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    }
-    pipeline([&](const T* xs) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            fa[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            fb[FN];
-#pragma unroll
-        for (int i = 0; i < FM; ++i) {
-          wmma::load_matrix_sync(
-              fa[i], xs + ((wm * FM + i) * 16) * Tl::LDX + kk, Tl::LDX);
-        }
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::load_matrix_sync(
-              fb[j], ws + kk * Tl::LDW + (wn * FN + j) * 16, Tl::LDW);
-        }
-#pragma unroll
-        for (int i = 0; i < FM; ++i) {
-#pragma unroll
-          for (int j = 0; j < FN; ++j) {
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-          }
-        }
-      }
-    });
-    // the f32 results through shared memory (over the drained ring)
-    float* cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-    for (int i = 0; i < FM; ++i) {
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::store_matrix_sync(
-            cs + ((wm * FM + i) * 16) * Tl::LDC + (wn * FN + j) * 16,
-            acc[i][j], Tl::LDC, wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-    for (int idx = tid; idx < BM * kBN / 4; idx += kThreads) {
-      const int r = idx / (kBN / 4);
-      const int c = (idx % (kBN / 4)) * 4;
-      if (m0 + r >= a.m) continue;
-      const float4 v = *reinterpret_cast<const float4*>(cs + r * Tl::LDC + c);
-      const size_t o = static_cast<size_t>(m0 + r) * a.n + n0 + c;
-      if (a.splits == 1) {
-        store_out(static_cast<T*>(a.out) + o, v);
+        for (int e = 0; e < 16; ++e) v[e] = sext4(b[e] >> 4) * sc[e];
+        store16(ws + (2 * r + 1) * Tl::LDW + c, v);
       } else {
-        *reinterpret_cast<float4*>(
-            a.part + static_cast<size_t>(split) * a.m * a.n + o) = v;
-      }
-    }
-  } else {
-    // f32: FMA on the CUDA cores; thread (ty, tx) owns rows ty*RM.. and
-    // columns tx*8..tx*8+7 of the block's tile
-    constexpr int RM = BM / 16;
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-    float acc[RM][8];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    }
-    pipeline([&](const T* xs) {
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(ws + kk * Tl::LDW + tx * 8);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(ws + kk * Tl::LDW + tx * 8 + 4);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const float av = xs[(ty * RM + i) * Tl::LDX + kk];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+        for (int e = 0; e < 16; ++e) {
+          v[e] = static_cast<float>(static_cast<int8_t>(b[e])) * sc[e];
         }
+        store16(ws + r * Tl::LDW + c, v);
       }
-    });
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int row = m0 + ty * RM + i;
-      if (row >= a.m) continue;
-      const size_t o = static_cast<size_t>(row) * a.n + n0 + tx * 8;
-      const float4 v0 = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      const float4 v1 = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-      float* dst = a.splits == 1
-                       ? static_cast<float*>(a.out) + o
-                       : a.part + static_cast<size_t>(split) * a.m * a.n + o;
-      reinterpret_cast<float4*>(dst)[0] = v0;
-      reinterpret_cast<float4*>(dst)[1] = v1;
     }
+  };
+
+  // FMA on the CUDA cores; thread (ty, tx) owns rows ty*RM.. and columns
+  // tx*8..tx*8+7 of the block's tile
+  constexpr int RM = BM / 16;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  float acc[RM][8];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  // the ring: S - 1 tiles in flight ahead of the one being multiplied
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < nt) issue(t_begin + i, i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile i landed; every warp is past tile i - 1
+    const int st = i % S;
+    dequant(st);
+    if (i + S - 1 < nt) issue(t_begin + i + S - 1, (i + S - 1) % S);
+    cp_async_commit();
+    __syncthreads();  // the weight tile is complete
+    const float* xs = stage_x(st);
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(ws + kk * Tl::LDW + tx * 8);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(ws + kk * Tl::LDW + tx * 8 + 4);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float av = xs[(ty * RM + r) * Tl::LDX + kk];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(av, bv[j], acc[r][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = m0 + ty * RM + i;
+    if (row >= a.m) continue;
+    const size_t o = static_cast<size_t>(row) * a.n + n0 + tx * 8;
+    const float4 v0 = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    const float4 v1 = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    float* dst = a.splits == 1
+                     ? static_cast<float*>(a.out) + o
+                     : a.part + static_cast<size_t>(split) * a.m * a.n + o;
+    reinterpret_cast<float4*>(dst)[0] = v0;
+    reinterpret_cast<float4*>(dst)[1] = v1;
   }
 }
 
 // out[i] = sum over splits of part[split][i], in split order
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    split_sum_kernel(const float* __restrict__ part, T* __restrict__ out,
+    split_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
                      long long quads, int splits) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
@@ -495,6 +368,73 @@ __global__ void __launch_bounds__(kThreads)
   }
   store_out(out + 4 * i, v);
 }
+
+// ---------------------------------------------------------------------------
+// decode, bf16 x and m <= 16: skinny_matmul.cuh's kernel on int8 / int4
+// weights
+// ---------------------------------------------------------------------------
+
+// int8: thread (g, t) reads stored rows 4t .. 4t + 3 of its warp's 16,
+// bytes 16 g .. 16 g + 15 (its 16 columns)
+struct Int8W {
+  static constexpr int kElt = 1;
+  static constexpr int kKPer = 1;
+  static constexpr int kStages = 6;
+  static constexpr bool kScaled = true;
+  __device__ static int col(int g, int i) { return 16 * g + i; }
+  __device__ static void frags(const unsigned char* p, int g, int t,
+                               const __nv_bfloat162* sp,
+                               uint32_t (&a)[8][4]) {
+    p += 4 * t * skinny::kBN + 16 * g;
+    uint32_t w[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p + r * skinny::kBN);
+      w[r][0] = u.x;
+      w[r][1] = u.y;
+      w[r][2] = u.z;
+      w[r][3] = u.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // columns 4i .. 4i + 3
+      uint2 e[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) e[r] = dequant_i8(w[r][i], sp + 2 * i);
+      skinny::pair_rows(e[0].x, e[1].x, e[2].x, e[3].x, a[2 * i]);
+      skinny::pair_rows(e[0].y, e[1].y, e[2].y, e[3].y, a[2 * i + 1]);
+    }
+  }
+};
+
+// int4: thread (g, t) reads stored (byte) rows 2t and 2t + 1 of its warp's
+// 8 (k rows 4t .. 4t + 3), bytes 16 g .. 16 g + 15 (its 16 columns)
+struct Int4W {
+  static constexpr int kElt = 1;
+  static constexpr int kKPer = 2;
+  static constexpr int kStages = 10;
+  static constexpr bool kScaled = true;
+  __device__ static int col(int g, int i) { return 16 * g + i; }
+  __device__ static void frags(const unsigned char* p, int g, int t,
+                               const __nv_bfloat162* sp,
+                               uint32_t (&a)[8][4]) {
+    p += 2 * t * skinny::kBN + 16 * g;
+    const uint4 u0 = *reinterpret_cast<const uint4*>(p);
+    const uint4 u1 = *reinterpret_cast<const uint4*>(p + skinny::kBN);
+    const uint32_t w0[4] = {u0.x, u0.y, u0.z, u0.w};
+    const uint32_t w1[4] = {u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // columns 4i .. 4i + 3
+      uint2 r0, r1, r2, r3;  // k rows 4t .. 4t + 3
+      dequant_i4(w0[i], sp + 2 * i, &r0, &r1);
+      dequant_i4(w1[i], sp + 2 * i, &r2, &r3);
+      skinny::pair_rows(r0.x, r1.x, r2.x, r3.x, a[2 * i]);
+      skinny::pair_rows(r0.y, r1.y, r2.y, r3.y, a[2 * i + 1]);
+    }
+  }
+};
+
+// the column tiles' tickets of the decode kernel: 0 between launches
+__device__ unsigned g_tickets[skinny::kMaxTiles];
 
 // ---------------------------------------------------------------------------
 // prefill, bf16 x and m > 16: the warp-specialized wgmma kernel
@@ -517,134 +457,12 @@ constexpr int kPSmem = 1024 /* alignment slack */ + kXRing * kXTile +
                        kBRing * kBTile + kWRing * (kRawTile + kBN * 4) +
                        2 * kOTile;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-// spin until the barrier's phase of this parity has completed; a wait
-// that never ends (a ring fault) traps, so the launch fails instead of
-// hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t spins = 0;; ++spins) {
-    if (spins == (1u << 26)) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-  }
-}
-
-// TMA: a 2-d box of the tensor map at (c0 inner, c1 outer) -> shared
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
-                                       int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-// bulk copy of contiguous bytes (a multiple of 16) -> shared
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (bits 0-13, 16-29, 32-45, in 16-byte units),
-// layout type 1 (SWIZZLE_128B) in bits 62-63
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-#define QMM_ACC8(i)                                                     \
-  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d[64 x 128] += A[64 x 16] B[16 x 128]: A K-major, B N-major (transposed),
-// both bf16 in shared memory by descriptor; f32 accumulators in the m64nN
-// layout (d[4 j + e]: row 16 w + lane / 4 + 8 (e / 2), column 8 j + 2 (lane
-// % 4) + e % 2 for warp w of the warpgroup)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
-                                                 uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : QMM_ACC8(0), QMM_ACC8(8), QMM_ACC8(16), QMM_ACC8(24), QMM_ACC8(32),
-        QMM_ACC8(40), QMM_ACC8(48), QMM_ACC8(56)
-      : "l"(a), "l"(b), "r"(1));
-}
-#undef QMM_ACC8
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// named barrier over the 128 threads of consumer warpgroup w
-__device__ __forceinline__ void wg_sync(int w) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
-}
-
 // byte offset of weight element (kr, n) in a dequantized tile: N-major,
 // two 64-column halves of 8 KB, each 8 groups of 8 k rows of 128 bytes,
 // the 16-byte chunk index XORed with kr % 8 (the 128-byte swizzle)
 __device__ __forceinline__ uint32_t b_offset(int kr, int n) {
   return (n >> 6) * (kPBK * 128) + kr * 128 +
          ((((n & 63) >> 3) ^ (kr & 7)) << 4) + (n & 7) * 2;
-}
-
-// output tile t of the persistent walk -> (row tile, column tile): bands of
-// group_m row tiles, row tiles fastest within a band (`prefill_tile` in
-// quant_matmul.py is the same map)
-__device__ __forceinline__ void tile_of(int t, int tiles_m, int tiles_n,
-                                        int group_m, int* tm, int* tn) {
-  const int band = t / (group_m * tiles_n);
-  const int first = band * group_m;
-  const int rows = min(group_m, tiles_m - first);
-  const int local = t - band * group_m * tiles_n;
-  *tm = first + local % rows;
-  *tn = local / rows;
 }
 
 struct PArgs {
@@ -695,7 +513,7 @@ __global__ void __launch_bounds__(kPThreads, 1)
       mbar_init(smem_u32(&full_b[i]), 128);
       mbar_init(smem_u32(&empty_b[i]), 8);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -859,7 +677,7 @@ __global__ void __launch_bounds__(kPThreads, 1)
         *reinterpret_cast<__nv_bfloat162*>(stg + (r0 + 8) * kLdO + col) =
             __floats2bfloat162_rn(d[4 * j + 2], d[4 * j + 3]);
       }
-      wg_sync(w);
+      named_sync(1 + w, 128);
       const int row_base = tm * kPBM + w * 64;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -872,50 +690,9 @@ __global__ void __launch_bounds__(kPThreads, 1)
               *reinterpret_cast<const uint4*>(stg + r * kLdO + ch * 8);
         }
       }
-      wg_sync(w);  // the staging tile is free again
+      named_sync(1 + w, 128);  // the staging tile is free again
     }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up once through the runtime's
-// cudaGetDriverEntryPoint (so the library needs no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a 2-d tensor map over a row-major [rows, cols] array, boxes of
-// [box_rows, box_cols]
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elt,
-              const void* ptr, int rows, int cols, int box_rows, int box_cols,
-              CUtensorMapSwizzle swizzle) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elt};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  return enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool kInt4>
@@ -939,52 +716,43 @@ cudaError_t launch_prefill(const void* x, const void* q, const float* s,
   return cudaGetLastError();
 }
 
-// the kernel for (T, BM, int4), its dynamic shared memory allowed once
-template <typename T, int BM, bool kInt4>
-cudaError_t prepare(void (**fn)(Args), int* smem) {
-  static cudaError_t status = cudaFuncSetAttribute(
-      quant_matmul_kernel<T, BM, kInt4>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile<T, BM, kInt4>::kSmem);
-  *fn = quant_matmul_kernel<T, BM, kInt4>;
-  *smem = Tile<T, BM, kInt4>::kSmem;
-  return status;
-}
-
-// row tiles: 16 rows for decode's m <= 16; 64 for f32 at larger m (bf16
-// at m > 16 is the prefill kernel's, quant_matmul_prefill)
-constexpr int kSmallM = 16;
-constexpr int kLargeF32 = 64;
-
-cudaError_t select_any(int m, int is_int4, int is_bf16, void (**fn)(Args),
-                       int* smem, int* bm) {
-  *bm = m <= kSmallM ? kSmallM : kLargeF32;
-  if (is_bf16) {
-    if (m > kSmallM) return cudaErrorInvalidValue;
-    return is_int4 ? prepare<__nv_bfloat16, kSmallM, true>(fn, smem)
-                   : prepare<__nv_bfloat16, kSmallM, false>(fn, smem);
-  }
-  if (m <= kSmallM)
-    return is_int4 ? prepare<float, kSmallM, true>(fn, smem)
-                   : prepare<float, kSmallM, false>(fn, smem);
-  return is_int4 ? prepare<float, kLargeF32, true>(fn, smem)
-                 : prepare<float, kLargeF32, false>(fn, smem);
-}
-
 bool layout_ok(int m, int k, int n, int group_rows) {
   return m >= 0 && k > 0 && n > 0 && k % 64 == 0 && n % kBN == 0 &&
          group_rows > 0 && group_rows % 64 == 0 && k % group_rows == 0;
 }
 
+// f32 row tiles: 16 rows for decode's m <= 16, 64 at larger m
+constexpr int kSmallM = 16;
+constexpr int kLargeF32 = 64;
+
+template <int BM, bool kInt4>
+cudaError_t prepare(void (**fn)(Args), int* smem) {
+  static cudaError_t status = cudaFuncSetAttribute(
+      quant_matmul_kernel<BM, kInt4>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BM, kInt4>::kSmem);
+  *fn = quant_matmul_kernel<BM, kInt4>;
+  *smem = Tile<BM, kInt4>::kSmem;
+  return status;
+}
+
+cudaError_t select_f32(int m, int is_int4, void (**fn)(Args), int* smem,
+                       int* bm) {
+  *bm = m <= kSmallM ? kSmallM : kLargeF32;
+  if (m <= kSmallM)
+    return is_int4 ? prepare<kSmallM, true>(fn, smem)
+                   : prepare<kSmallM, false>(fn, smem);
+  return is_int4 ? prepare<kLargeF32, true>(fn, smem)
+                 : prepare<kLargeF32, false>(fn, smem);
+}
+
 }  // namespace
 
-// Blocks of the split kernel for (m, is_int4, is_bf16) that one SM holds
-// at once (the host sizes its k split from this), or -1 on a CUDA error or
-// a shape the split kernel does not take (bf16 at m > 16).
-extern "C" int quant_matmul_blocks_per_sm(int m, int is_int4, int is_bf16) {
+// Blocks of the f32 split kernel for (m, is_int4) that one SM holds at
+// once (the host sizes its k split from this), or -1 on a CUDA error.
+extern "C" int quant_matmul_blocks_per_sm(int m, int is_int4) {
   void (*fn)(Args) = nullptr;
   int smem = 0, bm = 0, blocks = 0;
-  if (select_any(m, is_int4, is_bf16, &fn, &smem, &bm) != cudaSuccess ||
+  if (select_f32(m, is_int4, &fn, &smem, &bm) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
                                                     smem) != cudaSuccess) {
     return -1;
@@ -992,23 +760,16 @@ extern "C" int quant_matmul_blocks_per_sm(int m, int is_int4, int is_bf16) {
   return blocks;
 }
 
-// The row tile of the split kernel for m: the host counts blocks with it.
-extern "C" int quant_matmul_row_tile(int m, int is_bf16) {
-  (void)is_bf16;
-  return m <= kSmallM ? kSmallM : kLargeF32;
-}
-
-// The split kernel: y = x @ dequant(q, s) (layouts above) for bf16 x at
-// m <= 16 and for float32 x at any m; all pointers 16-byte aligned and
-// contiguous; k % 64 == 0, n % 128 == 0, group_rows a multiple of 64 that
-// divides k, 1 <= splits <= k / 64 (part: [splits, m, n] f32 scratch when
-// splits > 1, else unused). is_bf16: x and y bfloat16, else float32; bf16
-// x at m > 16 is refused (quant_matmul_prefill takes it). Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// The f32 split kernel: y = x @ dequant(q, s) (layouts above) for float32
+// x and y at any m; all pointers 16-byte aligned and contiguous; k % 64 ==
+// 0, n % 128 == 0, group_rows a multiple of 64 that divides k, 1 <= splits
+// <= k / 64 (part: [splits, m, n] f32 scratch when splits > 1, else
+// unused). Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
 extern "C" int quant_matmul(const void* x, const void* q, const void* s,
                             void* out, void* part, int m, int k, int n,
                             int group_rows, int splits, int is_int4,
-                            int is_bf16, void* stream) {
+                            void* stream) {
   if (!layout_ok(m, k, n, group_rows) || splits < 1 || splits > k / 64 ||
       (splits > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1016,7 +777,7 @@ extern "C" int quant_matmul(const void* x, const void* q, const void* s,
   if (m == 0) return 0;
   void (*fn)(Args) = nullptr;
   int smem = 0, bm = 0;
-  cudaError_t e = select_any(m, is_int4, is_bf16, &fn, &smem, &bm);
+  cudaError_t e = select_f32(m, is_int4, &fn, &smem, &bm);
   if (e != cudaSuccess) return static_cast<int>(e);
   const Args a{x,      static_cast<const int8_t*>(q),
                static_cast<const float*>(s), out,
@@ -1029,14 +790,44 @@ extern "C" int quant_matmul(const void* x, const void* q, const void* s,
   const long long quads = static_cast<long long>(m) * n / 4;
   const unsigned blocks =
       static_cast<unsigned>((quads + kThreads - 1) / kThreads);
-  if (is_bf16) {
-    split_sum_kernel<__nv_bfloat16><<<blocks, kThreads, 0, st>>>(
-        a.part, static_cast<__nv_bfloat16*>(out), quads, splits);
-  } else {
-    split_sum_kernel<float><<<blocks, kThreads, 0, st>>>(
-        a.part, static_cast<float*>(out), quads, splits);
-  }
+  split_sum_kernel<<<blocks, kThreads, 0, st>>>(
+      a.part, static_cast<float*>(out), quads, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The decode kernel: y = x @ dequant(q, s) for bf16 x and y, 1 <= m <= 16,
+// the layouts and conditions of quant_matmul, group_rows 64, 128 or k;
+// `grid` blocks (1 .. n / 128 * ceil(k / 128)) share the weight's 128 x
+// 128 stages evenly (skinny_matmul.cuh). part: [grid + n / 128, m <= 8 ?
+// 1024 : 2048] f32 scratch. One launch on `stream`; returns
+// cudaGetLastError() (0 on success; cudaErrorInvalidValue also where the
+// CUDA tensor-map encoder is missing or refuses the arrays).
+extern "C" int quant_matmul_decode(const void* x, const void* q,
+                                   const void* s, void* out, void* part,
+                                   int m, int k, int n, int group_rows,
+                                   int is_int4, int grid, void* stream) {
+  if (!layout_ok(m, k, n, group_rows) || !skinny::shape_ok(m, k, n, grid) ||
+      (group_rows != k && group_rows != 64 && group_rows != 128) ||
+      part == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static unsigned* tickets = [] {
+    void* p = nullptr;
+    return cudaGetSymbolAddress(&p, g_tickets) == cudaSuccess
+               ? static_cast<unsigned*>(p)
+               : nullptr;
+  }();
+  if (tickets == nullptr) return static_cast<int>(cudaErrorInvalidSymbol);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* y = static_cast<__nv_bfloat16*>(out);
+  auto* p = static_cast<float*>(part);
+  const auto* sc = static_cast<const float*>(s);
+  const auto u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return static_cast<int>(
+      is_int4 ? skinny::launch<Int4W>(u8, x, q, sc, y, p, tickets, m, k, n,
+                                      group_rows, grid, st)
+              : skinny::launch<Int8W>(u8, x, q, sc, y, p, tickets, m, k, n,
+                                      group_rows, grid, st));
 }
 
 // The prefill kernel: y = x @ dequant(q, s) for bf16 x and y, m > 16, the

@@ -12,13 +12,18 @@ low nibble = even row), with f32 scales [n] (per channel) or [k / g, n]
   plain versions.
 - `quant_matmul` runs the plain version for CPU tensors and a kernel for
   CUDA tensors, at every m (the reference caps its single m block at 1024
-  and gives larger m to XLA; the kernels tile m): bf16 x at m > 16 goes to
-  the persistent wgmma kernel (`quant_matmul_prefill`, its walk over the
-  output tiles from `prefill_schedule`), decode's m <= 16 and float32 x to
-  the split kernel (`quant_matmul`, its k split from `_splits`). A CUDA
-  input the kernels do not take (`supports`) raises. `launches` counts the
-  launches of both. With a gradient, `QuantMatmulFunction` gives dx only, by the
-  plain transposed product, as the reference's `_fused_bwd` does.
+  and gives larger m to XLA; the kernels tile m), one launch per call for
+  bf16 x: at m > 16 the persistent wgmma kernel (`quant_matmul_prefill`,
+  its walk over the output tiles from `prefill_schedule`), at decode's m
+  <= 16 the streaming decode kernel (`quant_matmul_decode`, its split of
+  the weight from `matmul.decode_schedule`, reduced in the same launch);
+  float32 x goes to the split kernel (`quant_matmul`, its k split from
+  `_splits`, summed by a second kernel). A CUDA input the kernels do not
+  take (`supports`) raises. `launches` counts the calls that launched a
+  kernel, `kernel_launches` those of each kernel ("prefill", "decode",
+  "split"; `reset_launches` zeroes both). With a gradient,
+  `QuantMatmulFunction` gives dx only, by the plain transposed product, as
+  the reference's `_fused_bwd` does.
 """
 from __future__ import annotations
 
@@ -27,20 +32,26 @@ import ctypes
 import torch
 
 from . import _build
+from . import matmul as _mm
 
 launches = 0
+kernel_launches = {"prefill": 0, "decode": 0, "split": 0}
 
 GROUP_SIZES = (-1, 64, 128)
 _K_MULTIPLE = 64   # the kernels' k tile (bf16 inputs)
 _N_MULTIPLE = 128  # the kernels' n tile
-_SMALL_M = 16      # the split kernel's bf16 row tile: decode
+_SMALL_M = 16      # decode: the decode kernel's rows (bf16)
 PREFILL_TILE = 128  # the prefill kernel's output tile, rows and columns
-# the x band the prefill walk keeps in the 50 MB L2 while the weight
-# columns stream past it
-_BAND_BYTES = 24 << 20
+_BAND_BYTES = _mm._BAND_BYTES  # the x band the prefill walk keeps in L2
 _lib = None
-_slots: dict = {}  # (device, row tile, int4, bf16) -> blocks the card holds
-_sms: dict = {}  # device -> its SM count
+_slots: dict = {}  # (device, row tile, int4) -> blocks the card holds
+
+
+def reset_launches():
+    global launches
+    launches = 0
+    for kind in kernel_launches:
+        kernel_launches[kind] = 0
 
 
 def unpack_int4(qw):
@@ -148,12 +159,13 @@ def _kernel():
     if _lib is None:
         lib = _build.load("quant_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.quant_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.quant_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         lib.quant_matmul.restype = ctypes.c_int
-        lib.quant_matmul_blocks_per_sm.argtypes = [i, i, i]
+        lib.quant_matmul_blocks_per_sm.argtypes = [i, i]
         lib.quant_matmul_blocks_per_sm.restype = ctypes.c_int
-        lib.quant_matmul_row_tile.argtypes = [i, i]
-        lib.quant_matmul_row_tile.restype = ctypes.c_int
+        lib.quant_matmul_decode.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                            p]
+        lib.quant_matmul_decode.restype = ctypes.c_int
         lib.quant_matmul_prefill.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                              p]
         lib.quant_matmul_prefill.restype = ctypes.c_int
@@ -163,58 +175,45 @@ def _kernel():
 
 def prefill_schedule(m, k, n, sms):
     """The prefill kernel's walk for an [m, k] x [k, n] product on a card
-    of `sms` SMs: a dict of the 128 x 128 output tiles (`tiles_m` x
-    `tiles_n`), `grid` persistent blocks (one per SM, at most one per
-    tile), `group_m` (the row tiles of one band: the x rows of a band, at
-    most `_BAND_BYTES`, stay in L2 while every column tile of the band
-    uses them; the bands made even) and `rounds`, the tiles over the grid
-    (6.06 at m = 2512, n = 5120 on 132 SMs: the last round holds 8 tiles,
-    a tail that is not split)."""
-    tiles_m = -(-m // PREFILL_TILE)
-    tiles_n = n // PREFILL_TILE
-    tiles = tiles_m * tiles_n
-    fit = max(1, _BAND_BYTES // (PREFILL_TILE * k * 2))
-    bands = -(-tiles_m // min(fit, tiles_m))
-    return dict(tiles_m=tiles_m, tiles_n=tiles_n, grid=min(tiles, sms),
-                group_m=-(-tiles_m // bands), rounds=tiles / min(tiles, sms))
+    of `sms` SMs (`matmul.band_schedule` over 128 x 128 output tiles):
+    `tiles_m` x `tiles_n` tiles, `grid` persistent blocks, `group_m` row
+    tiles a band and `rounds`, the tiles over the grid (6.06 at m = 2512,
+    n = 5120 on 132 SMs: the last round holds 8 tiles, a tail that is not
+    split)."""
+    return _mm.band_schedule(m, k, n, sms, PREFILL_TILE, PREFILL_TILE)
 
 
 def prefill_tile(t, tiles_m, tiles_n, group_m):
-    """(row tile, column tile) of the t-th tile of the prefill walk: bands
-    of group_m row tiles (the last band may be shorter), row tiles fastest
-    within a band (the kernel's `tile_of`)."""
-    band = t // (group_m * tiles_n)
-    first = band * group_m
-    rows = min(group_m, tiles_m - first)
-    local = t - band * group_m * tiles_n
-    return first + local % rows, local // rows
+    """(row tile, column tile) of the t-th tile of the prefill walk
+    (`matmul.band_tile`)."""
+    return _mm.band_tile(t, tiles_m, tiles_n, group_m)
 
 
-def _splits(m, k, n, int4, bf16, dev):
-    """k splits of the grid: at decode's small m the n / 128 column blocks
-    alone leave most SMs idle, so split k until the blocks fill one wave
-    (every block resident at once, no tail wave); 1 where the m and n
-    blocks already fill it."""
-    lib = _kernel()
-    bm = lib.quant_matmul_row_tile(m, int(bf16))
-    key = (dev, bm, int4, bf16)
+def _splits(m, k, n, int4, dev):
+    """k splits of the f32 split kernel's grid: at small m the n / 128
+    column blocks alone leave most SMs idle, so split k until the blocks
+    fill one wave (every block resident at once, no tail wave); 1 where the
+    m and n blocks already fill it."""
+    bm = 16 if m <= _SMALL_M else 64
+    key = (dev, bm, int4)
     if key not in _slots:
         with torch.cuda.device(dev):
-            per_sm = lib.quant_matmul_blocks_per_sm(m, int(int4), int(bf16))
+            per_sm = _kernel().quant_matmul_blocks_per_sm(m, int(int4))
         if per_sm < 1:
             raise RuntimeError(f"quant_matmul kernel cannot be resident "
                                f"(occupancy query returned {per_sm})")
-        _slots[key] = per_sm * torch.cuda.get_device_properties(dev) \
-            .multi_processor_count
+        _slots[key] = per_sm * _mm.sm_count(dev)
     blocks = (n // _N_MULTIPLE) * -(-m // bm)
     return max(1, min(k // _K_MULTIPLE, _slots[key] // blocks))
 
 
 def _quant_matmul_cuda(x, qw, scales, weight_dtype, group_size,
                        splits=None):
-    """A kernel on [m, k] x: bf16 at m > 16 the prefill kernel, else the
-    split kernel; `splits` forces the split kernel's k split (measurement
-    only; None sizes it by `_splits`)."""
+    """A kernel on [m, k] x: bf16 at m > 16 the prefill kernel, at m <= 16
+    the decode kernel, f32 the split kernel. `splits` (measurement only;
+    None sizes the split itself): the decode kernel cuts every column tile
+    into that many equal k ranges of stages (a grid of tiles_n * splits
+    blocks, `matmul.decode_schedule`); the f32 kernel's k split."""
     global launches
     dev = x.device
     for name, t in (("x", x), ("qw", qw), ("scales", scales)):
@@ -241,42 +240,47 @@ def _quant_matmul_cuda(x, qw, scales, weight_dtype, group_size,
         raise ValueError("quant_matmul kernel takes 16-byte aligned tensors")
     group_rows = k if group_size == -1 else group_size
     int4, bf16 = weight_dtype == "int4", x.dtype == torch.bfloat16
+    out = torch.empty(m, n, dtype=x.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _kernel()
     if bf16 and m > _SMALL_M:
         if splits is not None:
             raise ValueError("quant_matmul: the prefill kernel (bf16, "
                              "m > 16) takes no k split")
-        if dev not in _sms:
-            _sms[dev] = torch.cuda.get_device_properties(dev) \
-                .multi_processor_count
-        sch = prefill_schedule(m, k, n, _sms[dev])
-        out = torch.empty(m, n, dtype=x.dtype, device=dev)
+        sch = prefill_schedule(m, k, n, _mm.sm_count(dev))
         with torch.cuda.device(dev):
-            rc = _kernel().quant_matmul_prefill(
+            rc = lib.quant_matmul_prefill(
                 x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
                 out.data_ptr(), m, k, n, group_rows, int(int4), sch["grid"],
-                sch["group_m"],
-                torch.cuda.current_stream(dev).cuda_stream)
-        if rc:
-            raise RuntimeError(f"quant_matmul prefill kernel launch failed: "
-                               f"CUDA error {rc}")
-        launches += 1
-        return out
-    if splits is None:
-        splits = _splits(m, k, n, int4, bf16, dev)
-    elif not 1 <= splits <= k // _K_MULTIPLE:
-        raise ValueError(f"quant_matmul: splits {splits} outside 1.."
-                         f"{k // _K_MULTIPLE}")
-    out = torch.empty(m, n, dtype=x.dtype, device=dev)
-    part = torch.empty(splits, m, n, dtype=torch.float32, device=dev) \
-        if splits > 1 else None
-    fn = _kernel().quant_matmul
-    with torch.cuda.device(dev):
-        rc = fn(x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
+                sch["group_m"], stream)
+        kind = "prefill"
+    elif bf16:
+        sch = _mm.decode_schedule(k, n, _mm.sm_count(dev), splits)
+        part = torch.empty(_mm.decode_part_shape(sch, m),
+                           dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.quant_matmul_decode(
+                x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), part.data_ptr(), m, k, n, group_rows,
+                int(int4), sch["grid"], stream)
+        kind = "decode"
+    else:
+        if splits is None:
+            splits = _splits(m, k, n, int4, dev)
+        elif not 1 <= splits <= k // _K_MULTIPLE:
+            raise ValueError(f"quant_matmul: splits {splits} outside 1.."
+                             f"{k // _K_MULTIPLE}")
+        part = torch.empty(splits, m, n, dtype=torch.float32, device=dev) \
+            if splits > 1 else None
+        with torch.cuda.device(dev):
+            rc = lib.quant_matmul(
+                x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
                 out.data_ptr(), None if part is None else part.data_ptr(),
-                m, k, n, group_rows, splits, int(int4), int(bf16),
-                torch.cuda.current_stream(dev).cuda_stream)
+                m, k, n, group_rows, splits, int(int4), stream)
+        kind = "split"
     if rc:
-        raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"quant_matmul {kind} kernel launch failed: CUDA "
+                           f"error {rc}")
     launches += 1
+    kernel_launches[kind] += 1
     return out

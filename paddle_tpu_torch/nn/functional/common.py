@@ -14,8 +14,8 @@ def _matmul(a, w):
     `_matmul`): with `FLAGS_autotune` off (the default), `torch.matmul`, as
     the JAX package leaves it to XLA. On or readonly, for a 2-D weight of
     a's float dtype and a shape the kernel takes, the tuner's `matmul`
-    winner for the shape's bucket: the CUDA kernel at its row tile, or
-    `torch.matmul`. CPU tensors consult the tuner only under a custom
+    winner for the shape's bucket: a CUDA kernel variant
+    (`kernels.matmul.variants`), or `torch.matmul`. CPU tensors consult the tuner only under a custom
     timer, as the reference does off the TPU. A kernel that fails raises."""
     if _at.enabled() and (a.is_cuda or _at.has_custom_timer()) \
             and w.dim() == 2 and a.dtype == w.dtype:

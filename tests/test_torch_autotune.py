@@ -288,12 +288,20 @@ def _by_name(times, default):
     return lambda fn, args: times.get(getattr(fn, "__name__", ""), default)
 
 
-def test_linear_routes_to_the_kernel_tile_that_won(tuner_env, monkeypatch):
-    # torch.matmul 5 ms; the kernel tiles 2 ms, but the m64 tile 1 ms
+@pytest.mark.parametrize("dtype,rows,win,names", [
+    ("float32", 64, "m64", ("m16", "m64")),
+    ("bfloat16", 64, "128x128", ("128x256", "128x128")),
+    ("bfloat16", 8, "m16", ("skinny", "m16"))])
+def test_linear_routes_to_the_kernel_tile_that_won(tuner_env, monkeypatch,
+                                                   dtype, rows, win, names):
+    # torch.matmul 5 ms; the kernel variants 2 ms, but `win` 1 ms; the
+    # candidates are the variants that take the bucket's m
+    dt = getattr(torch, dtype)
+
     def timer(fn, args):
         if fn is torch.matmul:
             return 5.0
-        return 1.0 if fn.__defaults__ == (64,) else 2.0
+        return 1.0 if fn.__defaults__ == (win,) else 2.0
 
     at.set_timer(timer)
     seen = []
@@ -302,15 +310,16 @@ def test_linear_routes_to_the_kernel_tile_that_won(tuner_env, monkeypatch):
                         lambda x, w, tile=None: seen.append(tile)
                         or real(x, w, tile))
     rng = np.random.RandomState(6)
-    x = torch.from_numpy(rng.randn(2, 32, 256).astype(np.float32))
-    w = torch.from_numpy(rng.randn(256, 128).astype(np.float32))
+    x = torch.from_numpy(rng.randn(1, rows, 256).astype(np.float32)).to(dt)
+    w = torch.from_numpy(rng.randn(256, 128).astype(np.float32)).to(dt)
     y = F.linear(x, w)
-    assert seen == [64]
-    torch.testing.assert_close(y, torch.matmul(x, w), rtol=0, atol=1e-5)
+    assert seen == [win]
+    assert torch.equal(y, torch.matmul(x, w))
     entry = at.get_tuner().lookup(at.Autotuner.make_key(
-        "matmul", (("m", 64), ("k", 256), ("n", 128), ("dt", "float32"))))
-    assert entry["winner"] == "cuda:m64"
-    assert set(entry["timings_ms"]) == {"torch", "cuda:m16", "cuda:m64"}
+        "matmul", (("m", rows), ("k", 256), ("n", 128), ("dt", dtype))))
+    assert entry["winner"] == f"cuda:{win}"
+    assert set(entry["timings_ms"]) == {"torch"} | {f"cuda:{v}"
+                                                    for v in names}
 
 
 def test_linear_keeps_torch_matmul_when_it_wins(tuner_env, monkeypatch):

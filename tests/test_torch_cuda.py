@@ -49,11 +49,17 @@ ones, against their plain versions given the same segment ids and seed
 points that reach them (`flash_attn_unpadded`, dropout SDPA with
 `FLAGS_flash_dropout_kernel`, the fused encoder layer, the lse entry).
 
-The dense matmul kernel is held row by row against `torch.matmul` on the
-f32 values of its inputs (`_MATMUL_TOL`): bf16 rows differ by the output's
-one rounding (2^-9 relative on average, below 5e-3), f32 rows by
-summation order (exact f32 products, 1e-5). A dropped k tile must exceed
-the bar. The grouped-fetch decode is held as the per-page kernel is (one
+The dense matmul's variants are held row by row against `torch.matmul`
+on the f32 values of its inputs (`_MATMUL_TOL`): bf16 rows differ by the
+output's one rounding (2^-9 relative on average, below 5e-3), f32 rows by
+summation order (exact f32 products, 1e-5), at the m tails 1, 16, 17,
+129 and 4095 and the n tails 256, 384 and 11008. A dropped k tile, and at
+an m tail a last row written from the row before it, must exceed the
+bar. The decode kernels (bf16, m <= 16: the dequant matmul's and the
+GEMM's "skinny" variant) launch one kernel a call (no split-summing
+kernel), give bitwise equal results from two calls and from a CUDA graph
+of the call, and at the 13B shapes match the plain version beside a
+reduce that misses one split partial. The grouped-fetch decode is held as the per-page kernel is (one
 output rounding at the largest magnitude), against the plain dense
 version and against the per-page kernel.
 """
@@ -414,6 +420,137 @@ def test_quant_matmul_prefill_kernel_matches_plain(cuda_device, m, k, n, wd,
         assert _row_rel_err(_without_k_tile(x, qw, sc, wd, tile), want) > tol
 
 
+def _kernel_names(fn):
+    """The device kernels one call of `fn` launches, by name."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kind = torch.autograd.DeviceType.CUDA
+    return [e.name for e in prof.events() if e.device_type == kind
+            and "emcpy" not in e.name and "emset" not in e.name]
+
+
+def _without_split_partial(x, qw, sc, wd, splits):
+    """The plain version without the first shared segment's partial of
+    the decode kernel's in-launch reduce (one column tile's k range) at a
+    k split of `splits`."""
+    k, n = x.shape[1], qw.shape[1]
+    sch = tmm.decode_schedule(k, n, tmm.sm_count(x.device), splits)
+    _, c, s0, s1, _ = next(s for s in tmm.decode_segments(sch)
+                           if s[4] is not None)
+    w = tqm.dequantize(qw, sc, wd, x.dtype)
+    t = tmm.DECODE_TILE
+    w[s0 * t:s1 * t, c * t:(c + 1) * t] = 0
+    return torch.matmul(x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd,gs", [("int8", -1), ("int8", 64), ("int4", -1),
+                                   ("int4", 128)])
+@pytest.mark.parametrize("k,n", [(5120, 5120), (5120, 13824),
+                                 (13824, 5120)])
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_quant_matmul_decode_kernel_matches_plain(cuda_device, m, k, n, wd,
+                                                  gs):
+    """The decode kernel (bf16, m <= 16) at LLaMA-2-13B's projections, row
+    by row against the plain version, with its default split and with
+    every column tile cut into 3 k ranges (the in-launch reduce at every
+    shape), beside a reduce that misses one split partial, which must fail
+    the same bar; two calls are bitwise equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    w = torch.randn(k, n, generator=g, device=cuda_device) * 0.02
+    x = torch.randn(m, k, generator=g, device=cuda_device).to(torch.bfloat16)
+    qw, sc = weight_quantize(w.to(torch.bfloat16), _ALGO[wd], group_size=gs)
+    want = tqm.quant_matmul_ref(x, qw, sc, wd)
+    tol = _QUANT_TOL[torch.bfloat16]
+    for splits in (None, 3):
+        n0 = tqm.kernel_launches["decode"]
+        got = tqm._quant_matmul_cuda(x, qw, sc, wd, gs, splits)
+        again = tqm._quant_matmul_cuda(x, qw, sc, wd, gs, splits)
+        torch.cuda.synchronize()
+        assert tqm.kernel_launches["decode"] == n0 + 2
+        assert torch.equal(got, again)
+        assert _row_rel_err(got, want) <= tol, splits
+    assert _row_rel_err(_without_split_partial(x, qw, sc, wd, 3), want) > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd,gs", [("int8", -1), ("int8", 64), ("int4", -1),
+                                   ("int4", 128)])
+@pytest.mark.parametrize("m", [5, 16])
+def test_decode_kernel_dequantizes_bit_for_bit(cuda_device, m, wd, gs):
+    """One-hot rows of x pick weight rows, so y is the dequantized weight
+    itself (times 1, plus exact zeros): the decode kernel's conversions
+    equal the plain `dequantize` (bf16(q) x bf16(s), one rounding) bit for
+    bit, over every int8 (or int4) value in every column position."""
+    k, n = 512, 256
+    levels, low = (256, -128) if wd == "int8" else (16, -8)
+    r = torch.arange(k, device=cuda_device)[:, None]
+    c = torch.arange(n, device=cuda_device)[None, :]
+    q = ((r + c) % levels + low).to(torch.int8)
+    if wd == "int4":
+        b = (q[0::2].to(torch.int32) & 0xF) | ((q[1::2].to(torch.int32)
+                                                & 0xF) << 4)
+        qw = torch.where(b >= 128, b - 256, b).to(torch.int8)
+    else:
+        qw = q
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    groups = 1 if gs == -1 else k // gs
+    sc = torch.rand(groups, n, generator=g, device=cuda_device) * 0.1 + 1e-3
+    if gs == -1:
+        sc = sc[0].contiguous()
+    rows = torch.randperm(k, generator=g, device=cuda_device)[:m]
+    x = torch.zeros(m, k, device=cuda_device, dtype=torch.bfloat16)
+    x[torch.arange(m, device=cuda_device), rows] = 1
+    got = tqm.quant_matmul(x, qw, sc, wd, gs)
+    want = tqm.dequantize(qw, sc, wd, torch.bfloat16)[rows]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["int8", "int4", "bf16", "int8_split"])
+def test_decode_kernels_launch_once_and_replay_in_a_graph(cuda_device, case):
+    """The decode kernels (the dequant matmul's and the GEMM's skinny
+    variant) launch exactly one kernel a call, no split-summing kernel;
+    a CUDA graph of the call replays to the eager result bit for bit (the
+    tickets reset themselves), as does a forced k split."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    k, n = 5120, 13824
+    x = torch.randn(8, k, generator=g, device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn(k, n, generator=g, device=cuda_device) * 0.02) \
+        .to(torch.bfloat16)
+    if case == "bf16":
+        def call():
+            return tmm.matmul_fused(x, w, "skinny")
+    else:
+        wd = case[:4]
+        qw, sc = weight_quantize(w, _ALGO[wd], group_size=-1)
+        sp = 3 if case.endswith("split") else None
+
+        def call():
+            return tqm._quant_matmul_cuda(x, qw, sc, wd, -1, sp)
+    names = _kernel_names(call)
+    assert len(names) == 1 and "skinny_kernel" in names[0], names
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert torch.equal(call(), eager)
+
+
 @pytest.mark.cuda
 def test_quant_matmul_refuses_what_it_does_not_take(cuda_device):
     x = torch.randn(4, 256, device=cuda_device)
@@ -567,8 +704,15 @@ def flags_restored(tmp_path):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(1, 128, 128), (8, 512, 384),
                                    (33, 256, 256), (300, 1024, 512),
-                                   (129, 4096, 128)])
+                                   (129, 4096, 128), (16, 320, 384),
+                                   (17, 512, 256), (4095, 1024, 384),
+                                   (129, 4096, 11008), (256, 192, 384)])
 def test_matmul_kernel_matches_plain(cuda_device, dtype, m, k, n):
+    """Every variant that takes m rows (bf16: the decode kernels at m <=
+    16, the wgmma tiles above; f32: the split kernel's row tiles), at the
+    m tails (1, 16, 17, 129, 4095), the n tails (256, 384: a 128 x 256
+    tile half past n; 11008) and a k % 128 == 64 tail, beside a dropped k
+    tile and, at an m tail, a last row written from the row before it."""
     g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
     x = torch.randn(m, k, generator=g, device=cuda_device).to(dtype)
     w = torch.randn(k, n, generator=g, device=cuda_device).to(dtype)
@@ -577,7 +721,11 @@ def test_matmul_kernel_matches_plain(cuda_device, dtype, m, k, n):
     x_cut[:, :64] = 0  # a dropped k tile
     fault = torch.matmul(x_cut.float(), w.float())
     assert _row_rel_err(fault, want) > _MATMUL_TOL[dtype]
-    for tile in tmm.tiles(dtype):
+    if m % 128 and m > 1:
+        wrong = want.clone()
+        wrong[-1] = want[-2]
+        assert _row_rel_err(wrong, want) > _MATMUL_TOL[dtype]
+    for tile in tmm.variants(dtype, m):
         n0 = tmm.launches
         got = tmm.matmul_fused(x, w, tile)
         torch.cuda.synchronize()
@@ -613,8 +761,12 @@ def test_matmul_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError):
         tmm.matmul_fused(x.half(), torch.randn(256, 128, device=cuda_device)
                          .half())
-    with pytest.raises(ValueError, match="tiles"):
+    with pytest.raises(ValueError, match="variants"):
         tmm.matmul_fused(x, torch.randn(256, 128, device=cuda_device), 128)
+    with pytest.raises(ValueError, match="variants"):  # m > 16
+        tmm.matmul_fused(torch.randn(17, 256, device=cuda_device).bfloat16(),
+                         torch.randn(256, 128, device=cuda_device).bfloat16(),
+                         "skinny")
 
 
 _GROUPED_LENS = (0, 1, 15, 16, 17, 127, 128, 129, 1000, 2049)
@@ -683,8 +835,9 @@ def test_decode_dispatch_follows_the_grouped_flag(cuda_device,
 @pytest.mark.cuda
 def test_tuner_times_the_kernels_on_the_card(cuda_device, flags_restored):
     """FLAGS_autotune=on: the default timer (a CUDA graph of launches timed
-    by events) times torch.matmul and every row tile of the kernel, and
-    the grouped and per-page decode, then saves the table."""
+    by events) times torch.matmul and every GEMM variant for the bucket's m
+    (m = 8: the two decode kernels), and the grouped and per-page decode,
+    then saves the table."""
     set_flags({"FLAGS_autotune": "on", "FLAGS_paged_grouped_kernel": True})
     win = tat.choose_matmul(8, 512, 256, torch.bfloat16)
     assert win is not None
@@ -697,7 +850,7 @@ def test_tuner_times_the_kernels_on_the_card(cuda_device, flags_restored):
     mm = [e for key, e in table.items() if key.startswith("matmul|")]
     pd = [e for key, e in table.items() if key.startswith("paged_decode|")]
     assert len(mm) == 1 and set(mm[0]["timings_ms"]) == {
-        "torch", "cuda:m16", "cuda:m64", "cuda:m128"}
+        "torch", "cuda:skinny", "cuda:m16"}
     assert len(pd) == 1 and set(pd[0]["timings_ms"]) == {"paged", "grouped"}
     for e in mm + pd:
         assert all(0 < t < 100 for t in e["timings_ms"].values())

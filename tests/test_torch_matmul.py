@@ -107,11 +107,139 @@ def test_supports_takes_every_shape_the_reference_takes():
     assert not tmm.supports(8, 128, 128, torch.float16)
 
 
-def test_tiles_and_default_tile():
-    assert tmm.tiles(torch.bfloat16) == (16, 64, 128)
-    assert tmm.tiles(torch.float32) == (16, 64)
-    assert tmm.default_tile(8) == 16 and tmm.default_tile(17) == 128
-    assert tmm.default_tile(300, torch.float32) == 64
+@pytest.mark.parametrize("dtype,m,n,names,default", [
+    (torch.bfloat16, 8, 4096, ("skinny", "m16"), "skinny"),
+    (torch.bfloat16, 16, 384, ("skinny", "m16"), "skinny"),
+    (torch.bfloat16, 17, 4096, ("128x256", "128x128"), "128x256"),
+    (torch.bfloat16, 4096, 11008, ("128x256", "128x128"), "128x256"),
+    (torch.bfloat16, 4096, 384, ("128x256", "128x128"), "128x128"),
+    (torch.float32, 8, 4096, ("m16", "m64"), "m16"),
+    (torch.float32, 300, 256, ("m16", "m64"), "m64"),
+    (torch.float16, 8, 128, (), None)])
+def test_tiles_and_default_tile(dtype, m, n, names, default):
+    """The kernel variants that take m rows (the tuner's candidates) and
+    the one a call without `tile` runs: bf16 the decode kernels at m <= 16
+    and the wgmma tiles above, the 128 x 128 tile where n is not a
+    multiple of 256; f32 the split kernel's row tiles."""
+    assert tmm.variants(dtype, m) == names
+    if default is not None:
+        assert tmm.default_variant(m, n, dtype) == default
+        assert default in tmm.variants(dtype, m)
+    assert set(names) <= set(tmm.variants(dtype))
+
+
+# LLaMA-2-7B's linears (4096->4096, ->11008, 11008->4096, ->32000) and the
+# tails: m not a multiple of 128, n not a multiple of 256
+_WALKS = [(m, k, n, bn, sms)
+          for m in (4096, 2512, 1, 17, 129, 4095)
+          for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
+                       (4096, 32000))
+          for bn, sms in ((256, 132), (128, 132))] + [
+    (17, 512, 384, 256, 132), (129, 256, 384, 256, 132),
+    (300, 1024, 384, 128, 20)]
+
+
+@pytest.mark.parametrize("m,k,n,bn,sms", _WALKS)
+def test_band_walk_visits_every_output_tile_once(m, k, n, bn, sms):
+    """The wgmma kernel's persistent walk (`band_tile`, the kernel's
+    `sm90::tile_of`) over 128 x bn output tiles: every tile once, in bands
+    of row tiles whose x rows fit the band budget, the band's row tiles
+    fastest; the blocks' strided shares cover the walk; a tile's columns
+    past n (n % 256 == 128 at bn 256) are whole 64-column atoms."""
+    sch = tmm.band_schedule(m, k, n, sms, 128, bn)
+    tm, tn = sch["tiles_m"], sch["tiles_n"]
+    assert (tm, tn) == (-(-m // 128), -(-n // bn))
+    assert sch["grid"] == min(tm * tn, sms)
+    g = sch["group_m"]
+    assert 1 <= g <= tm
+    assert g == tm or g * 128 * k * 2 <= tmm._BAND_BYTES
+    walk = [tmm.band_tile(t, tm, tn, g) for t in range(tm * tn)]
+    assert sorted(walk) == [(i, j) for i in range(tm) for j in range(tn)]
+    assert walk[:g] == [(i, 0) for i in range(g)]
+    mine = [t for b in range(sch["grid"])
+            for t in range(b, tm * tn, sch["grid"])]
+    assert sorted(mine) == list(range(tm * tn))
+    atoms = [min(bn // 64, (n - j * bn) // 64) for j in range(tn)]
+    assert sum(atoms) * 64 == n and all(a >= 1 for a in atoms)
+
+
+def test_band_walk_at_the_7b_shapes():
+    """m = 4096 on 132 SMs: 512 tiles of 128 x 256 at n = 4096 (3.88
+    rounds), 1376 at n = 11008 (10.4), 4000 at n = 32000 (30.3)."""
+    for n, tiles in ((4096, 512), (11008, 1376), (32000, 4000)):
+        sch = tmm.band_schedule(4096, 4096, n, 132, 128, 256)
+        assert sch["tiles_m"] * sch["tiles_n"] == tiles
+        assert sch["rounds"] == pytest.approx(tiles / 132)
+
+
+_DECODE = [(k, n, sms, splits)
+           for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
+                        (4096, 32000), (5120, 5120), (5120, 13824),
+                        (13824, 5120), (192, 384), (320, 128), (64, 128))
+           for sms, splits in ((132, None), (114, None), (132, 1),
+                               (132, 2))
+           if splits is None or splits <= -(-k // 128)] + [
+    (5120, 5120, 132, 40), (13824, 5120, 132, 9), (128, 128, 132, None),
+    (5120, 13824, 20, None)]
+
+
+@pytest.mark.parametrize("k,n,sms,splits", _DECODE)
+def test_decode_split_covers_k_once_in_order(k, n, sms, splits):
+    """The decode kernel's split (`decode_schedule`, `decode_segments`, the
+    kernel's unit ranges and `skinny::owner`) over column tiles of 128
+    columns and stages of 128 k rows: every (column tile, stage)
+    unit is walked by exactly one block; the blocks' shares differ by at
+    most one unit; a column tile's segments follow each other in block
+    order and cover its k stages once, in order, so its partials are added
+    in k order; a tile of one segment is written at once, the others each
+    take the slot block + tile, distinct and below grid + tiles_n; by
+    default every tile is cut into the same number of k ranges (where the
+    SMs hold them), and `splits` cuts every tile into that many."""
+    sch = tmm.decode_schedule(k, n, sms, splits)
+    kt, tiles_n, grid = sch["kt"], sch["tiles_n"], sch["grid"]
+    assert (kt, tiles_n) == (-(-k // 128), n // 128)
+    assert sch["units"] == kt * tiles_n
+    if splits is not None:
+        assert grid == tiles_n * splits
+    elif tiles_n <= sms:
+        assert grid % tiles_n == 0 and grid <= sms
+        assert grid == tiles_n * kt or grid + tiles_n > sms
+    else:
+        assert grid == sms
+    segs = tmm.decode_segments(sch)
+    share = [sum(e - s for b, _, s, e, _ in segs if b == blk)
+             for blk in range(grid)]
+    assert max(share) - min(share) <= 1 and min(share) >= 1
+    assert [b for b, *_ in segs] == sorted(b for b, *_ in segs)
+    slots = [slot for *_, slot in segs if slot is not None]
+    assert len(set(slots)) == len(slots)
+    assert all(0 <= s < grid + tiles_n for s in slots)
+    assert tmm.decode_part_shape(sch, 8)[0] == grid + tiles_n
+    per_tile = set()
+    for c in range(tiles_n):
+        mine = [(b, s, e, slot) for b, cc, s, e, slot in segs if cc == c]
+        blocks = [b for b, *_ in mine]
+        assert blocks == list(range(blocks[0], blocks[0] + len(blocks)))
+        assert blocks[0] == tmm.decode_owner(c * kt, sch["units"], grid)
+        assert blocks[-1] == tmm.decode_owner((c + 1) * kt - 1,
+                                              sch["units"], grid)
+        assert mine[0][1] == 0 and mine[-1][2] == kt
+        assert all(a[2] == b[1] for a, b in zip(mine, mine[1:]))
+        assert all((slot is None) == (len(mine) == 1)
+                   for *_, slot in mine)
+        per_tile.add(len(mine))
+        if splits is not None or tiles_n <= sms:
+            s_ = grid // tiles_n
+            assert len(mine) == s_
+            assert {e - s for _, s, e, _ in mine} <= {kt // s_, -(-kt // s_)}
+    assert len(per_tile) == 1 or tiles_n > sms
+
+
+def test_decode_split_refuses_more_splits_than_stages():
+    with pytest.raises(ValueError, match="splits"):
+        tmm.decode_schedule(512, 128, 132, 5)
+    with pytest.raises(ValueError, match="splits"):
+        tmm.decode_schedule(512, 128, 132, 0)
 
 
 def test_matmul_on_cpu_is_the_plain_version():

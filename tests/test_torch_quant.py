@@ -211,6 +211,29 @@ def test_prefill_schedule_at_the_13b_shapes():
         assert sch["rounds"] == pytest.approx(tiles / 132)
 
 
+@pytest.mark.parametrize("k,n,units,grid", [
+    (5120, 5120, 1600, 120), (5120, 13824, 4320, 108),
+    (13824, 5120, 4320, 120)])
+def test_decode_split_at_the_13b_shapes(k, n, units, grid):
+    """The decode kernel (bf16 x, m <= 16) at LLaMA-2-13B's projections on
+    132 SMs: 40 or 108 column tiles of 128 times stages of 128 k rows (40
+    or 108), every tile cut into the same number of equal k ranges (3, 1
+    and 3), so that the blocks of one range read the same weight rows at
+    once; 120 or 108 of the 132 SMs each stream 13-40 stages of 16 KB of
+    int8, and every column tile's stages are walked once, in k order
+    (`matmul.decode_segments`)."""
+    from paddle_tpu_torch.kernels import matmul as tmm
+
+    sch = tmm.decode_schedule(k, n, 132)
+    assert sch["units"] == units and sch["grid"] == grid
+    segs = tmm.decode_segments(sch)
+    for c in range(sch["tiles_n"]):
+        ranges = [(s, e) for _, cc, s, e, _ in segs if cc == c]
+        assert len(ranges) == grid // sch["tiles_n"]
+        assert ranges[0][0] == 0 and ranges[-1][1] == sch["kt"]
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
 @pytest.mark.parametrize("algo,gs", [("weight_only_int8", -1),
                                      ("weight_only_int4", 64)])
 def test_dx_backward_matches_reference_vjp(algo, gs):
