@@ -27,7 +27,17 @@ the parts named by `--parts` (all by default):
   sequence), beside `torch.matmul` (cuBLAS);
 - "decode": the dequant matmul at the three 13B shapes at m = 8, int8 per
   channel and int4 in groups of 128, beside `torch.matmul` on the
-  dequantized bf16 weight.
+  dequantized bf16 weight;
+- "rms": RMSNorm, bf16, at LLaMA-2-7B's and 13B's widths, [8, 4096] and
+  [8, 5120] (a decode step) and [4096, 4096] and [2512, 5120] (a training
+  sequence, a 2500-token prefill): the forward kernel without rstd (as
+  serving calls it) and the backward kernel (from the forward's rstd),
+  beside PyTorch's `F.rms_norm` and its autograd backward (dx and dw), the
+  yardstick. Every call of the kernels and the library's forward is timed
+  as a CUDA graph of 20 calls taking their inputs in turn from copies
+  worth 128 MB; the library's backward, which does not capture in a
+  graph, by its kernels' device time under torch.profiler, beside the
+  backward kernel's own ("bwd_kernel_time").
 
 In "gemm" and "decode" each call finds its weight out of the 50 MB L2, as
 on the serving path: the calls take turns over copies of the weight worth
@@ -55,7 +65,8 @@ QMM_CASES = (("int8", -1), ("int4", 128))
 GEMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
 GEMM_M = (8, 4096)
 DECODE_M = 8
-PARTS = ("flash", "prefill", "gemm", "decode")
+RMS_SHAPES = ((8, 4096), (8, 5120), (4096, 4096), (2512, 5120))
+PARTS = ("flash", "prefill", "gemm", "decode", "rms")
 ALGO = {"int8": "weight_only_int8", "int4": "weight_only_int4"}
 
 
@@ -106,6 +117,26 @@ def graph_ms(fn, iters=20, reps=5):
         times.append(start.elapsed_time(end) / iters)
     del graph
     return sorted(times)[reps // 2]
+
+
+def profiler_ms(fn, iters=20):
+    """Device ms per call of `fn`: the sum of the kernel intervals that
+    torch.profiler sees over `iters` calls (gaps between kernels left
+    out)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kind = torch.autograd.DeviceType.CUDA
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == kind)
+    return us / 1e3 / iters
 
 
 def turns(make, nbytes):
@@ -227,6 +258,44 @@ def time_decode(res, dev, gen):
         torch.cuda.empty_cache()
 
 
+def time_rms(res, dev, gen):
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels import rms_norm as krms
+
+    eps = 1e-6
+    for rows, cols in RMS_SHAPES:
+        # copies of x and g worth 128 MB, taken in turn: each call finds
+        # its inputs out of L2 (at [4096, 4096] two copies, a third of
+        # them in L2)
+        nbytes = rows * cols * 2
+        x, g = (turns(lambda: torch.randn(rows, cols, generator=gen,
+                                          device=dev).to(torch.bfloat16),
+                      nbytes) for _ in range(2))
+        w = torch.randn(cols, generator=gen, device=dev).to(torch.bfloat16)
+        x0, g0 = x(), g()
+        _, rstd = krms.rms_norm(x0, w, eps, with_rstd=True)
+        xl = x0.detach().requires_grad_()
+        wl = w.detach().requires_grad_()
+        yl = TF.rms_norm(xl, (cols,), wl, eps)
+        # the library's autograd backward does not capture in a CUDA
+        # graph: both backwards also by their kernels' device time under
+        # torch.profiler
+        row = {"fwd": graph_ms(lambda: krms.rms_norm(x(), w, eps)),
+               "library_fwd": graph_ms(
+                   lambda: TF.rms_norm(x(), (cols,), w, eps)),
+               "bwd": graph_ms(lambda: krms.rms_norm_bwd(x(), w, rstd,
+                                                         g())),
+               "bwd_kernel_time": profiler_ms(lambda: krms.rms_norm_bwd(
+                   x(), w, rstd, g())),
+               "library_bwd": profiler_ms(lambda: torch.autograd.grad(
+                   yl, (xl, wl), g(), retain_graph=True))}
+        res[f"rms {rows}x{cols}"] = row
+        del x, g, x0, g0, xl, wl, yl, rstd
+        torch.cuda.empty_cache()
+
+
 def time_root(root, parts):
     """One run: ms of each timed call for the port under `root`."""
     sys.path.insert(0, root)
@@ -236,7 +305,7 @@ def time_root(root, parts):
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {}
     steps = {"flash": time_flash, "prefill": time_prefill,
-             "gemm": time_gemm, "decode": time_decode}
+             "gemm": time_gemm, "decode": time_decode, "rms": time_rms}
     for part in parts:
         # each part from its own seed: the same inputs whatever else runs
         steps[part](res, dev, torch.Generator(device=dev).manual_seed(
@@ -264,8 +333,11 @@ def main():
     for root in (a, b, b, a):
         out = subprocess.run([sys.executable, __file__, "--time", root,
                               "--parts", ",".join(parts)],
-                             capture_output=True, text=True, check=True,
-                             timeout=1200)
+                             capture_output=True, text=True, timeout=1200)
+        if out.returncode:
+            sys.stderr.write(out.stderr[-4000:])
+            raise RuntimeError(f"the run of {root} failed (exit "
+                               f"{out.returncode})")
         ms = json.loads(out.stdout.strip().splitlines()[-1])
         runs.append(dict(root=root, ms=ms))
         print(json.dumps(runs[-1]), flush=True)

@@ -14,7 +14,14 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    masked rows, an f32 case, each held row by row and beside faults made
    from the plain versions, which must fail the same bar (the causal
    cases also beside the forward with its diagonal one key late); the
-   RMSNorm backward at [4096, 4096] and [8, 4096], bf16 and f32; the
+   RMSNorm forward and backward at LLaMA-2-7B's and 13B's decode and
+   prefill shapes ([8, 4096], [4096, 4096], [8, 5120], [2512, 5120] bf16,
+   the backward also f32) and float16, and untimed at odd widths (6,
+   4100), rows past the ring (32768, 131072), no weight, a float32 weight
+   and x 2 bytes off a 16-byte boundary, each row by row beside faults (a
+   16-byte vector of a row left out of its sum of squares, one block's dw
+   partial left out of the reduction), the backward called twice (dw
+   bitwise equal); the
    dequant matmul at LLaMA-2-13B's projections, 5120->5120, 5120->13824
    and 13824->5120, at m = 8 (the one-launch decode kernel) and 2512 (the
    persistent wgmma kernel), int8 and int4 weights per channel and in
@@ -156,8 +163,25 @@ TF32_FLOP_S = 495e12
 # the INT32 pipe.
 INT32_OPS_S = 132 * 64 * 1.98e9
 MASK_INT_OPS = 65
-# bf16: one output rounding (2^-7 relative); f32: summation order
-TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+# bf16 / f16: one output rounding (2^-7 / 2^-10 relative); f32: summation
+# order
+TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+       torch.float32: 1e-5}
+# RMSNorm, row by row (`rms_rows`): the kernel and the plain version
+# compute the same f32 expression but for rstd's summation order (about
+# 1e-7 relative), so a bf16 / f16 element differs by at most one rounding
+# and only where its f32 value lies that close to a rounding boundary:
+# rarely. A fault that moves rstd by 1e-4 and more flips a larger share of
+# a row (`rms_case`'s control); rstd itself within RSTD_TOL a row.
+RMS_SHARE = 0.01
+RSTD_TOL = 1e-5
+# RMSNorm cases checked but not timed: rows, cols, dtype, weight ("same",
+# "f32" or None), offset (elements off a 16-byte boundary)
+RMS_UNTIMED = [(37, 6, "bf16", "same", 0), (37, 4100, "bf16", "same", 0),
+               (5, 4100, "f32", "same", 0), (4, 32768, "bf16", "same", 0),
+               (3, 131072, "bf16", "f32", 0), (64, 4096, "bf16", None, 0),
+               (64, 4096, "bf16", "f32", 0), (64, 4096, "f16", "f32", 0),
+               (300, 4096, "bf16", "same", 1), (300, 5120, "f16", None, 1)]
 # flash: the largest error of a row (a query's out or dQ, a key's dK or dV)
 # relative to that row's norm (`row_rel_err`). bf16: P and dS rounded to
 # bf16 before their products, then the output rounding, which alone may
@@ -304,30 +328,117 @@ def max_err(got, want, dtype):
 # ---------------------------------------------------------------------------
 
 
-def rms_case(name, rows, cols, dtype, gen, dev):
-    x = (torch.randn(rows, cols, generator=gen, device=dev) * 2).to(dtype)
-    w = torch.randn(cols, generator=gen, device=dev).to(dtype)
-    got = krms.rms_norm(x, w, 1e-6)
+def rms_inputs(rows, cols, dtype, gen, dev, weight="same", offset=0,
+               grad=False):
+    """x (and g) [rows, cols] of `dtype`, `offset` elements into their
+    buffers (1: 2 bytes off a 16-byte boundary in bf16 and f16), and the
+    weight: "same" (x's dtype), "f32" or None."""
+    def make(scale):
+        buf = torch.randn(rows * cols + offset, generator=gen, device=dev)
+        return (buf * scale).to(dtype)[offset:].view(rows, cols)
+
+    x = make(2.0)
+    w = None if weight is None else torch.randn(
+        cols, generator=gen, device=dev).to(
+            dtype if weight == "same" else torch.float32)
+    return (x, w, make(1.0)) if grad else (x, w)
+
+
+def rms_rows(got, want):
+    """The row-by-row reading of an RMSNorm output against its plain
+    version. bf16 / f16: "ulps", the largest difference in units of the
+    last place of the plain value, and "share", the largest share of a
+    row's elements that differ at all, less one element; f32: "row_rel",
+    as `row_rel_err`."""
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        return dict(row_rel=row_rel_err(got, want))
+    mant = 7 if got.dtype == torch.bfloat16 else 10
+    tiny = torch.finfo(got.dtype).tiny
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(tiny))) - mant)
+    differ = (g != w).sum(dim=-1).float()
+    return dict(ulps=((g - w).abs() / ulp).max().item(),
+                share=((differ - 1).clamp_min(0) / got.shape[-1])
+                .max().item())
+
+
+def rms_pass(reading):
+    """The bar of `rms_rows`: bf16 / f16 every element within one rounding
+    and at most RMS_SHARE of a row's elements (beyond one) differing; f32
+    rows within TOL."""
+    if "row_rel" in reading:
+        return reading["row_rel"] <= TOL[torch.float32]
+    return reading["ulps"] <= 1.0 and reading["share"] <= RMS_SHARE
+
+
+def rstd_rel(got, want):
+    return ((got - want).abs() / want).max().item()
+
+
+def rms_vector_out(x, w, eps):
+    """(y, rstd) of the plain forward with one 16-byte vector of row 0 left
+    out of its sum of squares: the vector of the largest squares (at
+    131072 columns a vector of small ones moves rstd by less than f32
+    summation order does), the whole row where it is narrower."""
+    xf = x.float()
+    sq = xf.square()
+    n = 16 // x.element_size()
+    v = sq[0, :x.shape[-1] // n * n].view(-1, n).sum(dim=-1).argmax().item() \
+        if x.shape[-1] >= n else 0
+    sq[0, v * n:(v + 1) * n] = 0
+    rstd = torch.rsqrt(sq.mean(dim=-1) + eps)
+    y = xf * rstd[:, None]
+    return (y if w is None else y * w.float()).to(x.dtype), rstd
+
+
+def rms_case(name, rows, cols, dtype, gen, dev, weight="same", offset=0,
+             timed=True, eps=1e-6):
+    """The forward kernel against its plain version, row by row: y as
+    serving calls it (no rstd) by `rms_rows`, and with rstd (y bitwise the
+    same, rstd within RSTD_TOL a row); beside a fault, the plain version
+    with the 16-byte vector of row 0 with the largest squares left out of
+    its sum of squares, which must fail the same bar (in y's rows or in
+    rstd's)."""
+    x, w = rms_inputs(rows, cols, dtype, gen, dev, weight, offset)
+    route = krms.route(x, w, False, torch.empty_like(x))["route"]
+    got = krms.rms_norm(x, w, eps)
+    got2, rstd = krms.rms_norm(x, w, eps, with_rstd=True)
     torch.cuda.synchronize()
-    err, tol = max_err(got, krms.rms_norm_ref(x, w, 1e-6), dtype)
-    check(err <= tol, f"rms_norm {name}: max abs err {err} > tol {tol}")
+    want, rstd_ref = krms.rms_norm_ref(x, w, eps, with_rstd=True)
+    reading = rms_rows(got, want)
+    err_r = rstd_rel(rstd, rstd_ref)
+    check(rms_pass(reading) and err_r <= RSTD_TOL and torch.equal(got, got2),
+          f"rms_norm {name}: y {reading}, rstd rel err {err_r} (bars: "
+          f"{RMS_SHARE} share, 1 ulp, rstd {RSTD_TOL})")
+    y_f, rstd_f = rms_vector_out(x, w, eps)
+    fault = dict(rms_rows(y_f, want), rstd_rel=rstd_rel(rstd_f, rstd_ref))
+    check(not (rms_pass(fault) and fault["rstd_rel"] <= RSTD_TOL),
+          f"rms_norm {name}: the fault passes the bar: {fault}")
+    err = (got.float() - want.float()).abs().max().item()
+    out = dict(case=name, shape=[rows, cols],
+               dtype=str(dtype).split(".")[-1],
+               weight=None if w is None else str(w.dtype).split(".")[-1],
+               offset=offset, route=route, rows=reading, rstd_rel=err_r,
+               controls={"vector_out_of_sum": fault}, max_abs_err=err)
+    if not timed:
+        return out
     it = 500 if rows <= 64 else 100
     lib = getattr(TF, "rms_norm", None)
     elt = x.element_size()
-    b_ms, b_by = bound((2 * rows * cols + cols) * elt, 4 * rows * cols)
+    wbytes = 0 if w is None else cols * w.element_size()
+    b_ms, b_by = bound(2 * rows * cols * elt + wbytes, 4 * rows * cols)
 
     def timings():
-        ms, timer = time_ms(lambda: krms.rms_norm(x, w, 1e-6), it)
+        ms, timer = time_ms(lambda: krms.rms_norm(x, w, eps), it)
         return dict(
             ms=ms, timer=timer,
-            plain_ms=time_ms(lambda: krms.rms_norm_ref(x, w, 1e-6),
+            plain_ms=time_ms(lambda: krms.rms_norm_ref(x, w, eps),
                              it // 5)[0],
             library_ms=None if lib is None else time_ms(
-                lambda: lib(x, (cols,), w, 1e-6), it // 5)[0])
+                lambda: lib(x, (cols,), w, eps), it // 5)[0])
 
-    return dict(case=name, shape=[rows, cols],
-                dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol,
-                bound_ms=b_ms, bound_by=b_by, timings=timings)
+    out.update(bound_ms=b_ms, bound_by=b_by, timings=timings)
+    return out
 
 
 def sdpa_paged(q, k_pages, v_pages, tables, lens):
@@ -818,35 +929,72 @@ def grouped_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
         bound_by=b_by, timings=timings)
 
 
-def rms_bwd_case(name, rows, cols, dtype, gen, dev, eps=1e-6):
-    x = (torch.randn(rows, cols, generator=gen, device=dev) * 2).to(dtype)
-    w = torch.randn(cols, generator=gen, device=dev).to(dtype)
-    g = torch.randn(rows, cols, generator=gen, device=dev).to(dtype)
+def rms_bwd_case(name, rows, cols, dtype, gen, dev, weight="same", offset=0,
+                 timed=True, eps=1e-6):
+    """The backward kernel against its plain version given the kernel's
+    rstd, row by row: dx over the norm of the terms it cancels, rstd * wg
+    (a short row cancels to rounding), and dw, one row, over its norm (a
+    sum over few rows cancels in some columns), each within TOL; called
+    twice, dx and dw bitwise equal. Beside a fault, the plain dw without
+    one block's partial (the rows b, b + grid, ... of block b = 0), which
+    must fail the same bar."""
+    x, w, g = rms_inputs(rows, cols, dtype, gen, dev, weight, offset,
+                         grad=True)
+    r = krms.route(x, w, True, g, torch.empty_like(x))
     _, rstd = krms.rms_norm(x, w, eps, with_rstd=True)
     dx, dw = krms.rms_norm_bwd(x, w, rstd, g)
+    dx2, dw2 = krms.rms_norm_bwd(x, w, rstd, g)
     torch.cuda.synchronize()
-    _, rstd_ref = krms.rms_norm_ref(x, w, eps, with_rstd=True)
-    err_r = ((rstd - rstd_ref).abs() / rstd_ref).max().item()
-    check(err_r <= 1e-5, f"rms_norm rstd {name}: rel err {err_r} > 1e-5")
-    dx_ref, dw_ref = krms.rms_norm_bwd_ref(x, w, rstd_ref, g)
-    err_dx, tol_dx = max_err(dx, dx_ref, dtype)
-    err_dw, tol_dw = max_err(dw, dw_ref, dtype)
-    check(err_dx <= tol_dx, f"rms_norm_bwd {name} dx: {err_dx} > {tol_dx}")
-    check(err_dw <= tol_dw, f"rms_norm_bwd {name} dw: {err_dw} > {tol_dw}")
+    check(torch.equal(dx, dx2) and (w is None or torch.equal(dw, dw2)),
+          f"rms_norm_bwd {name}: two calls differ")
+    dx_ref, dw_ref = krms.rms_norm_bwd_ref(x, w, rstd, g)
+    wg = g.float() if w is None else g.float() * w.float()
+    terms = (rstd[:, None] * wg).norm(dim=-1)
+    err_dx = ((dx.float() - dx_ref.float()).norm(dim=-1) / terms).max().item()
+    check(err_dx <= TOL[dtype], f"rms_norm_bwd {name} dx: row err {err_dx} "
+          f"> {TOL[dtype]}")
+
+    def dw_reading(got):
+        return dict(row_rel=row_rel_err(got[None], dw_ref[None]))
+
+    def dw_pass(reading):
+        return reading["row_rel"] <= TOL[w.dtype]
+
+    controls, reading = {}, None
+    if w is not None:
+        reading = dw_reading(dw)
+        check(dw_pass(reading), f"rms_norm_bwd {name} dw: {reading}")
+        xh = x.float() * rstd[:, None]
+        block0 = (g.float()[::r["grid"]] * xh[::r["grid"]]).sum(dim=0)
+        fault = ((g.float() * xh).sum(dim=0) - block0).to(w.dtype)
+        controls["block_partial_out"] = dw_reading(fault)
+        check(not dw_pass(controls["block_partial_out"]),
+              f"rms_norm_bwd {name}: the fault passes the bar: {controls}")
+    err = (dx.float() - dx_ref.float()).abs().max().item()
+    out = dict(case=name, shape=[rows, cols],
+               dtype=str(dtype).split(".")[-1],
+               weight=None if w is None else str(w.dtype).split(".")[-1],
+               offset=offset, route=r["route"], grid=r["grid"],
+               dx_row_err=err_dx, dw=reading, controls=controls,
+               max_abs_err=err)
+    if not timed:
+        return out
     elt = x.element_size()
+    wbytes = 0 if w is None else 2 * cols * w.element_size()
     # x and g read, dx written, w read, dw written, rstd read; ~10 f32
     # operations per element
-    b_ms, b_by = bound((3 * rows * cols + 2 * cols) * elt + 4 * rows,
+    b_ms, b_by = bound(3 * rows * cols * elt + wbytes + 4 * rows,
                        10 * rows * cols)
     it = 500 if rows <= 64 else 100
     lib = getattr(TF, "rms_norm", None)
 
     def library():
         xl = x.detach().requires_grad_()
-        wl = w.detach().requires_grad_()
+        wl = None if w is None else w.detach().requires_grad_()
         y = lib(xl, (cols,), wl, eps)
         return time_ms(lambda: torch.autograd.grad(
-            y, (xl, wl), g, retain_graph=True), it // 5)[0]
+            y, (xl,) if w is None else (xl, wl), g, retain_graph=True),
+            it // 5)[0]
 
     def timings():
         ms, timer = time_ms(lambda: krms.rms_norm_bwd(x, w, rstd, g), it)
@@ -856,10 +1004,8 @@ def rms_bwd_case(name, rows, cols, dtype, gen, dev, eps=1e-6):
                              it // 5)[0],
             library_ms=None if lib is None else library())
 
-    return dict(case=name, shape=[rows, cols],
-                dtype=str(dtype).split(".")[-1],
-                max_abs_err=max(err_dx, err_dw), tol=min(tol_dx, tol_dw),
-                bound_ms=b_ms, bound_by=b_by, timings=timings)
+    out.update(bound_ms=b_ms, bound_by=b_by, timings=timings)
+    return out
 
 
 def visible_pairs(s_q, s_kv, causal, seg_q=None, seg_k=None):
@@ -2807,8 +2953,20 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     lens = [0, 1, 15, 16, 17, 1000, 2049, 4096]
     bf16, f32 = torch.bfloat16, torch.float32
+    f16 = torch.float16
+    # timed: LLaMA-2-7B's and 13B's decode (8 rows) and prefill widths,
+    # and float16; checked only: odd widths (the stream instances' edges),
+    # rows past the ring (the two-pass stream instance), no weight, a
+    # float32 weight, x 2 bytes off a 16-byte boundary
     rms = [rms_case("decode", 8, 4096, bf16, gen, dev),
-           rms_case("prefill", 4096, 4096, bf16, gen, dev)]
+           rms_case("prefill", 4096, 4096, bf16, gen, dev),
+           rms_case("decode_13b", 8, 5120, bf16, gen, dev),
+           rms_case("prefill_13b", 2512, 5120, bf16, gen, dev),
+           rms_case("prefill_f16", 4096, 4096, f16, gen, dev)]
+    rms += [rms_case(f"{rows}x{cols}_{dt}_w{wt}_off{off}", rows, cols,
+                     {"bf16": bf16, "f16": f16, "f32": f32}[dt], gen, dev,
+                     weight=wt, offset=off, timed=False)
+            for rows, cols, dt, wt, off in RMS_UNTIMED]
     paged = [paged_case("mha_bf16", bf16, 32, 32, gen, dev, lens),
              paged_case("gqa_bf16", bf16, 32, 8, gen, dev, lens),
              paged_case("mha_f32", f32, 32, 32, gen, dev, lens),
@@ -2818,7 +2976,14 @@ def main():
     rms_bwd = [rms_bwd_case("train", 4096, 4096, bf16, gen, dev),
                rms_bwd_case("rows8", 8, 4096, bf16, gen, dev),
                rms_bwd_case("train_f32", 4096, 4096, f32, gen, dev),
-               rms_bwd_case("rows8_f32", 8, 4096, f32, gen, dev)]
+               rms_bwd_case("rows8_f32", 8, 4096, f32, gen, dev),
+               rms_bwd_case("rows8_13b", 8, 5120, bf16, gen, dev),
+               rms_bwd_case("train_13b", 2512, 5120, bf16, gen, dev),
+               rms_bwd_case("train_f16", 4096, 4096, f16, gen, dev)]
+    rms_bwd += [rms_bwd_case(f"{rows}x{cols}_{dt}_w{wt}_off{off}", rows,
+                             cols, {"bf16": bf16, "f16": f16, "f32": f32}[dt],
+                             gen, dev, weight=wt, offset=off, timed=False)
+                for rows, cols, dt, wt, off in RMS_UNTIMED]
     qmm = [qmm_case(f"{k}->{n} m{m} {wd} g{gs}", m, k, n, wd, gs, bf16, gen,
                     dev)
            for k, n in ((5120, 5120), (5120, 13824), (13824, 5120))
@@ -2881,8 +3046,18 @@ def main():
              flash_case("rect_bf16", 32, 1024, 4096, True, bf16, gen, dev),
              flash_case("masked_bf16", 32, 256, 128, True, bf16, gen, dev),
              flash_case("causal_f32", 32, 1024, 1024, True, f32, gen, dev)]
-    for kind_, rs in (("rms_norm", rms), ("paged_attention", paged),
-                      ("rms_norm_bwd", rms_bwd)):
+    for r in rms:
+        log(f"kernel: rms_norm {r['case']} {r['dtype']} ({r['route']}): y "
+            f"rows {r['rows']}, rstd rel err {r['rstd_rel']:.3g} vs plain "
+            f"(bars: 1 ulp, share {RMS_SHARE}, f32 {TOL[f32]}, rstd "
+            f"{RSTD_TOL}); control (must fail a bar) "
+            f"{r['controls']['vector_out_of_sum']}")
+    for r in rms_bwd:
+        log(f"kernel: rms_norm_bwd {r['case']} {r['dtype']} ({r['route']}, "
+            f"grid {r['grid']}): dx row err {r['dx_row_err']:.3g} (bar "
+            f"{TOL[getattr(torch, r['dtype'])]:.3g}), dw {r['dw']}; control "
+            f"(must fail the bar) {r['controls']}")
+    for kind_, rs in (("paged_attention", paged),):
         for r in rs:
             log(f"kernel: {kind_} {r['case']} {r['dtype']}: max abs err "
                 f"{r['max_abs_err']:.3g} vs plain (tol {r['tol']:.3g})"
@@ -2917,6 +3092,8 @@ def main():
                       ("paged_attention_int8", paged_q8), ("matmul", mm),
                       ("paged_attention_grouped", grouped)):
         for r in rs:
+            if "timings" not in r:  # checked, not timed
+                continue
             r.update(r.pop("timings")())
             lib = "n/a" if r["library_ms"] is None \
                 else f"{r['library_ms']:.4f}"

@@ -17,27 +17,27 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
     return TF.layer_norm(x, list(normalized_shape), weight, bias, epsilon)
 
 
-def rms_norm(x, weight, epsilon=1e-6):
-    """RMSNorm over the last dim, output in x's dtype; differentiable.
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    """RMSNorm over the last dim, then `weight` where given; output in x's
+    dtype; differentiable. `name` is accepted and unused, as in the
+    reference.
 
     Without a gradient to take (serving) only the forward runs, and it
-    writes no rstd: the CUDA kernel for a CUDA tensor, which raises for an
-    input it does not take; the plain version for a CPU tensor. With one,
-    a shape the kernels take (`kernels.rms_norm.supports`) goes through
-    `RMSNormFunction`: the forward and backward kernels for a CUDA tensor,
-    their plain versions for a CPU tensor. Any other shape or dtype raises
-    on CUDA and takes the plain expression, under autograd, on the CPU."""
-    if not (torch.is_grad_enabled()
-            and (x.requires_grad or weight.requires_grad)):
+    writes no rstd; with one, `RMSNormFunction` runs the forward with rstd
+    and, on the way back, the backward. A CPU tensor takes the plain
+    versions (and a dtype the kernels do not take, the plain expression
+    under autograd); any other tensor launches the CUDA kernels, which take
+    every float32, bfloat16 or float16 x and a weight of x's dtype or
+    float32 (`kernels.rms_norm.supports`), or raises."""
+    x = x.contiguous()
+    weight = None if weight is None else weight.contiguous()
+    if not (torch.is_grad_enabled() and (
+            x.requires_grad or (weight is not None
+                                and weight.requires_grad))):
         return _krms.rms_norm(x, weight, epsilon)
-    if not _krms.supports(x, weight):
-        if x.device.type == "cpu":
-            return _krms.rms_norm_ref(x, weight, epsilon)
-        raise ValueError(
-            f"rms_norm: the CUDA kernels do not take x {tuple(x.shape)} "
-            f"{x.dtype} with weight {tuple(weight.shape)} {weight.dtype} "
-            "(kernels.rms_norm.supports)")
+    if x.device.type == "cpu" and not _krms.supports(x, weight):
+        return _krms.rms_norm_ref(x, weight, epsilon)
     shape = x.shape
-    y = _krms.RMSNormFunction.apply(x.reshape(-1, shape[-1]).contiguous(),
-                                    weight.contiguous(), float(epsilon))
+    y = _krms.RMSNormFunction.apply(x.reshape(-1, shape[-1]), weight,
+                                    float(epsilon))
     return y.reshape(shape)

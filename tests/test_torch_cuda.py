@@ -90,7 +90,8 @@ from paddle_tpu_torch.weights import (fused_encoder_state_from_numpy,
                                       llama_state_to_numpy,
                                       load_llama_state)
 
-_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+_TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+        torch.float32: 1e-5}
 _FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
 _QUANT_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-4}
 _MATMUL_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-5}
@@ -112,7 +113,8 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 @pytest.mark.parametrize("rows,cols", [(8, 4096), (1000, 4096), (3, 128),
                                        (5, 11008)])
 def test_rms_norm_kernel_matches_plain(cuda_device, dtype, rows, cols):
@@ -128,7 +130,8 @@ def test_rms_norm_kernel_matches_plain(cuda_device, dtype, rows, cols):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 @pytest.mark.parametrize("rows,cols", [(8, 4096), (4096, 4096), (512, 128),
                                        (5, 8192)])
 def test_rms_norm_backward_kernel_matches_plain(cuda_device, dtype, rows,
@@ -149,6 +152,124 @@ def test_rms_norm_backward_kernel_matches_plain(cuda_device, dtype, rows,
     dx_ref, dw_ref = trms.rms_norm_bwd_ref(x, w, rstd_ref, gy)
     assert _close(dx, dx_ref, dtype)
     assert _close(dw, dw_ref, dtype)
+
+
+def _rms_inputs(dev, rows, cols, dtype, weight, offset, seed):
+    """x and g [rows, cols] of `dtype` starting `offset` elements into
+    their buffers (offset 1 of a 2-byte dtype: 2 bytes off a 16-byte
+    boundary), and the weight: "same" (x's dtype), "f32" or None."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(scale):
+        buf = torch.randn(rows * cols + offset, generator=gen, device=dev)
+        return (buf * scale).to(dtype)[offset:].view(rows, cols)
+
+    x, g = make(2.0), make(1.0)
+    w = None if weight is None else torch.randn(
+        cols, generator=gen, device=dev).to(
+            dtype if weight == "same" else torch.float32)
+    return x, w, g
+
+
+# rows, cols, dtype, weight, offset: the model widths, odd widths (6, 4100:
+# the stream instances' edges), the widest ring rows (16384 bf16, 8192
+# f32), rows past the ring (32768, 131072 bf16: the stream instances), a
+# float32 weight under bf16 and f16 x, no weight, and x and g 2 bytes
+# (bf16) or 4 bytes (f32) off a 16-byte boundary
+_RMS_ANY = [
+    (8, 5120, torch.bfloat16, "same", 0),
+    (2512, 5120, torch.bfloat16, "same", 0),
+    (4096, 4096, torch.float16, "same", 0),
+    (64, 4096, torch.bfloat16, "f32", 0),
+    (64, 4096, torch.float16, "f32", 0),
+    (64, 4096, torch.bfloat16, None, 0),
+    (37, 6, torch.bfloat16, "same", 0),
+    (37, 4100, torch.bfloat16, "same", 0),
+    (5, 4100, torch.float32, "same", 0),
+    (9, 4100, torch.float16, None, 0),
+    (7, 16384, torch.bfloat16, "same", 0),
+    (3, 8192, torch.float32, None, 0),
+    (4, 32768, torch.bfloat16, "same", 0),
+    (3, 131072, torch.bfloat16, "f32", 0),
+    (300, 4096, torch.bfloat16, "same", 1),
+    (300, 4096, torch.float32, None, 1),
+    (1, 1, torch.float32, "same", 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,dtype,weight,offset", _RMS_ANY)
+def test_rms_norm_kernels_take_any_input(cuda_device, rows, cols, dtype,
+                                         weight, offset):
+    """Every float input launches one forward and one backward kernel,
+    held against the plain versions: y, dx and dw row by row within one
+    rounding of the output (`_TOL`; f32 summation order), rstd within
+    1e-5. dx = rstd * (wg - xh * mean(wg * xh)) cancels where a row is
+    short (at one column to rounding alone), so its rows are held over the
+    norm of the terms it cancels, rstd * wg."""
+    x, w, gy = _rms_inputs(cuda_device, rows, cols, dtype, weight, offset,
+                           seed=rows + cols)
+    assert x.data_ptr() % 16 == (2 * offset if dtype != torch.float32
+                                 else 4 * offset)
+    n0, b0 = trms.launches, trms.bwd_launches
+    y, rstd = trms.rms_norm(x, w, 1e-6, with_rstd=True)
+    y_serve = trms.rms_norm(x, w, 1e-6)
+    dx, dw = trms.rms_norm_bwd(x, w, rstd, gy)
+    torch.cuda.synchronize()
+    assert (trms.launches, trms.bwd_launches) == (n0 + 2, b0 + 1)
+    assert torch.equal(y, y_serve)
+    y_ref, rstd_ref = trms.rms_norm_ref(x, w, 1e-6, with_rstd=True)
+    tol = _TOL[dtype]
+    assert y.dtype == dtype and _row_rel_err(y, y_ref) <= tol
+    torch.testing.assert_close(rstd, rstd_ref, rtol=1e-5, atol=0)
+    dx_ref, dw_ref = trms.rms_norm_bwd_ref(x, w, rstd, gy)
+    wg = gy.float() if w is None else gy.float() * w.float()
+    terms = (rstd[:, None] * wg).norm(dim=-1)
+    assert dx.dtype == dtype
+    assert ((dx.float() - dx_ref.float()).norm(dim=-1) / terms).max() <= tol
+    if w is None:
+        assert dw is None
+    else:
+        assert dw.dtype == w.dtype
+        assert _row_rel_err(dw[None], dw_ref[None]) <= _TOL[w.dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,dtype", [(8, 4096, torch.bfloat16),
+                                             (4096, 4096, torch.bfloat16),
+                                             (37, 4100, torch.float32)])
+def test_rms_norm_backward_is_one_deterministic_graph_safe_launch(
+        cuda_device, rows, cols, dtype):
+    """The backward (dx and dw) is one CUDA launch; dw is bitwise equal
+    over two calls (its cross-block sum runs in a fixed order); replays of
+    a CUDA graph of the call equal the eager call."""
+    x, w, gy = _rms_inputs(cuda_device, rows, cols, dtype, "same", 0,
+                           seed=3)
+    _, rstd = trms.rms_norm(x, w, 1e-6, with_rstd=True)
+
+    def call():
+        return trms.rms_norm_bwd(x, w, rstd, gy)
+
+    names = _kernel_names(call)
+    assert len(names) == 1 and "rms_norm_bwd" in names[0], names
+    dx, dw = call()
+    dx2, dw2 = call()
+    assert torch.equal(dw, dw2) and torch.equal(dx, dx2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], dx) and torch.equal(out[1], dw)
+    assert torch.equal(call()[1], dw)
+    names = _kernel_names(lambda: trms.rms_norm(x, w, 1e-6))
+    assert len(names) == 1 and "rms_norm_fwd" in names[0], names
 
 
 def _row_rel_err(got, want):
@@ -213,29 +334,35 @@ def test_flash_attention_autograd_runs_the_kernels(cuda_device):
 
 @pytest.mark.cuda
 def test_rms_norm_functional_on_cuda_launches_or_raises(cuda_device):
-    """F.rms_norm never takes the plain version for a CUDA tensor: a
-    no-grad forward wider than the backward kernel takes still launches the
-    forward kernel; with a gradient, the kernels run or the call raises."""
+    """F.rms_norm never takes the plain version for a CUDA tensor: every
+    width launches the forward kernel, and with a gradient the forward and
+    backward kernels, with a weight, without one, and for a non-contiguous
+    x (made contiguous first); an integer x raises."""
     g = torch.Generator(device=cuda_device).manual_seed(11)
     x = torch.randn(5, 11008, generator=g, device=cuda_device)
     w = torch.randn(11008, generator=g, device=cuda_device)
     n0 = trms.launches
     with torch.no_grad():
         y = F.rms_norm(x, w, 1e-6)
+        y_strided = F.rms_norm(x.t().contiguous().t(), w, 1e-6)
     torch.cuda.synchronize()
-    assert trms.launches == n0 + 1
+    assert trms.launches == n0 + 2
     assert _close(y, trms.rms_norm_ref(x, w, 1e-6), torch.float32)
-    with pytest.raises(ValueError, match="supports"):
-        F.rms_norm(x.requires_grad_(), w, 1e-6)
-    xg = x[:, :8192].detach().contiguous().requires_grad_()
-    wg = w[:8192].clone().requires_grad_()
-    n0, b0 = trms.launches, trms.bwd_launches
-    F.rms_norm(xg, wg, 1e-6).sum().backward()
-    assert (trms.launches, trms.bwd_launches) == (n0 + 1, b0 + 1)
-    xr, wr = (t.detach().requires_grad_() for t in (xg, wg))
-    trms.rms_norm_ref(xr, wr, 1e-6).sum().backward()
-    assert _close(xg.grad, xr.grad, torch.float32)
-    assert _close(wg.grad, wr.grad, torch.float32)
+    assert torch.equal(y, y_strided)
+    for weight in (w, None):
+        xg = x.detach().clone().requires_grad_()
+        wg = None if weight is None else weight.clone().requires_grad_()
+        n0, b0 = trms.launches, trms.bwd_launches
+        F.rms_norm(xg, wg).sum().backward()
+        assert (trms.launches, trms.bwd_launches) == (n0 + 1, b0 + 1)
+        xr = x.detach().clone().requires_grad_()
+        wr = None if weight is None else weight.clone().requires_grad_()
+        trms.rms_norm_ref(xr, wr, 1e-6).sum().backward()
+        assert _close(xg.grad, xr.grad, torch.float32)
+        if weight is not None:
+            assert _close(wg.grad, wr.grad, torch.float32)
+    with pytest.raises(TypeError):
+        F.rms_norm(x.int(), None)
 
 
 def _decode_case(dev, dtype, b, q_heads, kv_heads, d, page, pages_per_seq,
@@ -277,7 +404,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         trms.rms_norm(x[:, ::2], torch.ones(128, device=cuda_device))
     with pytest.raises(TypeError):
-        trms.rms_norm(x.half(), torch.ones(256, device=cuda_device).half())
+        trms.rms_norm(x.int(), torch.ones(256, device=cuda_device))
+    with pytest.raises(TypeError):
+        trms.rms_norm(x.half(), torch.ones(256, device=cuda_device).bfloat16())
     args = _decode_case(cuda_device, torch.float32, 2, 4, 2, 96, 8, 4,
                         (3, 5))
     with pytest.raises(ValueError, match="head_dim"):

@@ -96,26 +96,63 @@ def test_rms_norm_functional_gradient_is_the_plain_backward():
 
 
 def test_rms_norm_functional_takes_the_kernel_by_shape():
-    x = torch.randn(4, 100, requires_grad=True)  # 100 % 4 == 0: kernel shape
-    assert trms.supports(x, torch.ones(100))
-    assert not trms.supports(x.half(), torch.ones(100).half())
-    assert not trms.supports(torch.randn(4, 6), torch.ones(6))  # 6 % 4
-    y = TF.rms_norm(torch.randn(3, 6, requires_grad=True),
-                    torch.ones(6, requires_grad=True))
+    """The kernels take every float32, bfloat16 or float16 x with a row and
+    a column, with no weight or one [cols] in x's dtype or float32; an
+    integer x, a float64 x or a weight of another shape or dtype they do
+    not. On the CPU a shape they do not take (float64) runs the plain
+    expression under autograd."""
+    x = torch.randn(4, 100, requires_grad=True)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for cols in (1, 6, 100, 20000):
+            xd = torch.randn(3, cols).to(dt)
+            assert trms.supports(xd)
+            assert trms.supports(xd, None)
+            assert trms.supports(xd, torch.ones(cols, dtype=dt))
+            assert trms.supports(xd, torch.ones(cols))  # a float32 weight
+    assert not trms.supports(x.double(), torch.ones(100).double())
+    assert not trms.supports(torch.ones(4, 100, dtype=torch.int32))
+    assert not trms.supports(x.half(), torch.ones(100).bfloat16())
+    assert not trms.supports(x, torch.ones(99))
+    assert not trms.supports(torch.randn(0, 100))
+    y = TF.rms_norm(torch.randn(3, 6, dtype=torch.float64,
+                                requires_grad=True),
+                    torch.ones(6, dtype=torch.float64, requires_grad=True))
     y.sum().backward()  # the plain expression, under autograd
 
 
 def test_rms_norm_functional_off_the_cpu_never_takes_the_plain_version():
     """Only a CPU tensor takes the plain version. A tensor on another device
-    (here `meta`, which no kernel takes) goes to the kernel's wrapper and
-    raises, whatever its width, with or without a gradient."""
+    (here `meta`, which no kernel takes) goes to the kernels' wrappers and
+    raises, whatever its width, weight or dtype, with or without a
+    gradient."""
     x = torch.empty(5, 11008, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         TF.rms_norm(x, torch.empty(11008, device="meta"))
-    for cols in (16384, 6):  # past the backward kernel's width; 6 % 4
-        x = torch.empty(3, cols, device="meta", requires_grad=True)
-        with pytest.raises(ValueError, match="supports"):
-            TF.rms_norm(x, torch.empty(cols, device="meta"))
+    for cols in (16384, 6, 131072):
+        for weight in (torch.empty(cols, device="meta"), None):
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
+                x = torch.empty(3, cols, device="meta", dtype=dt,
+                                requires_grad=True)
+                with pytest.raises(ValueError, match="CUDA"):
+                    TF.rms_norm(x, weight)
+                with pytest.raises(ValueError, match="CUDA"):
+                    TF.rms_norm(x.detach(), weight)
+
+
+def test_rms_norm_ring_takes_only_rows_on_16_byte_boundaries():
+    """The ring and direct instances' bulk copies and 16-byte loads need
+    every row of every array 16-byte aligned; anything else takes the
+    stream instance."""
+    x = torch.zeros(4, 4096, dtype=torch.bfloat16)
+    assert trms.ring_aligned((x, torch.empty_like(x)), 4096, 2)
+    off = torch.zeros(4 * 4096 + 1, dtype=torch.bfloat16)[1:].view(4, 4096)
+    assert off.data_ptr() % 16 == 2
+    assert not trms.ring_aligned((off,), 4096, 2)
+    assert not trms.ring_aligned((x, off), 4096, 2)
+    odd = torch.zeros(4, 4100, dtype=torch.bfloat16)  # rows 8200 bytes
+    assert not trms.ring_aligned((odd,), 4100, 2)
+    assert trms.ring_aligned((torch.zeros(3, 4100),), 4100, 4)  # f32 rows
+    assert not trms.ring_aligned((torch.zeros(3, 6),), 6, 4)
 
 
 def test_cuda_paths_raise_instead_of_falling_back():
