@@ -2,7 +2,7 @@
 """Time the kernels of two checkouts of the port on one NVIDIA GPU, in turns
 (A, B, B, A), each run in a process of its own.
 
-    python3 chip_flash_ab.py ROOT_A ROOT_B [--parts gemm,decode] [--out f.json]
+    python3 chip_flash_ab.py ROOT_A ROOT_B [--parts gemm,paged] [--out f.json]
 
 Each root is a checkout holding `paddle_tpu_torch/`; a run builds the
 kernels from that root's sources (into its own `build/kernels/`) and times
@@ -37,7 +37,20 @@ the parts named by `--parts` (all by default):
   as a CUDA graph of 20 calls taking their inputs in turn from copies
   worth 128 MB; the library's backward, which does not capture in a
   graph, by its kernels' device time under torch.profiler, beside the
-  backward kernel's own ("bwd_kernel_time").
+  backward kernel's own ("bwd_kernel_time");
+- "paged": the paged decode kernels at 16-token pages, head_dim 128, bf16
+  q, tables of 256 pages: the per-page kernel over bf16 pages at MHA
+  32/32, GQA 32/8 and MQA 32/1 query/kv heads, over int8 pages at 40/40
+  (LLaMA-2-13B) and 32/8, and the grouped-fetch kernel at 32/32 and 32/8;
+  each at three context mixes, "table" ([0, 1, 15, 16, 17, 1000, 2049,
+  4096]; grouped: [0, 1, 15, 16, 17, 127, 128, 129, 1000, 2049, 4096]),
+  "8x1000" (a balanced decode batch) and "1x4096" (a lone long request).
+  Every call is timed as a CUDA graph of 20 calls taking their pools and
+  tables in turn from copies worth at least 128 MB, beside the yardstick
+  the port never calls: the pages gathered dense, then PyTorch's SDPA
+  ("sdpa_paged"; int8: a dequantizing gather, then SDPA), as a graph of
+  10 calls; the last line also gives each case's bound (`paged_bound_ms`,
+  the formula of `chip_smoke.py`'s paged cases).
 
 In "gemm" and "decode" each call finds its weight out of the 50 MB L2, as
 on the serving path: the calls take turns over copies of the weight worth
@@ -66,7 +79,16 @@ GEMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
 GEMM_M = (8, 4096)
 DECODE_M = 8
 RMS_SHAPES = ((8, 4096), (8, 5120), (4096, 4096), (2512, 5120))
-PARTS = ("flash", "prefill", "gemm", "decode", "rms")
+PARTS = ("flash", "prefill", "gemm", "decode", "rms", "paged")
+PAGED_KERNELS = (("mha", 32, 32, "bf16"), ("gqa", 32, 8, "bf16"),
+                 ("mqa", 32, 1, "bf16"), ("int8_13b", 40, 40, "int8"),
+                 ("int8_gqa", 32, 8, "int8"),
+                 ("grouped_mha", 32, 32, "grouped"),
+                 ("grouped_gqa", 32, 8, "grouped"))
+PAGED_MIXES = {"table": [0, 1, 15, 16, 17, 1000, 2049, 4096],
+               "8x1000": [1000] * 8, "1x4096": [4096]}
+GROUPED_TABLE = [0, 1, 15, 16, 17, 127, 128, 129, 1000, 2049, 4096]
+PAGED_PPS = 256
 ALGO = {"int8": "weight_only_int8", "int4": "weight_only_int4"}
 
 
@@ -139,11 +161,11 @@ def profiler_ms(fn, iters=20):
     return us / 1e3 / iters
 
 
-def turns(make, nbytes):
+def turns(make, nbytes, least=1):
     """A function returning, call after call, the next of copies of
-    `make()` worth at least 128 MB together (each call finds its copy out
-    of the 50 MB L2)."""
-    copies = [make() for _ in range(max(1, -(-2 ** 27 // nbytes)))]
+    `make()` worth at least 128 MB together, and at least `least` of them
+    (each call finds its copy out of the 50 MB L2)."""
+    copies = [make() for _ in range(max(least, -(-2 ** 27 // nbytes)))]
     state = [0]
 
     def nxt():
@@ -296,6 +318,108 @@ def time_rms(res, dev, gen):
         torch.cuda.empty_cache()
 
 
+def sdpa_paged(q, k_pages, v_pages, tables, lens, k_scales=None,
+               v_scales=None):
+    """The yardstick: the pages gathered dense (int8: dequantized), then
+    PyTorch's SDPA with the context mask."""
+    import torch
+    import torch.nn.functional as TF
+
+    if k_scales is not None:
+        k_pages = k_pages.to(q.dtype) * k_scales[..., None].to(q.dtype)
+        v_pages = v_pages.to(q.dtype) * v_scales[..., None].to(q.dtype)
+    kvh, _, ps, d = k_pages.shape
+    b, qh, _ = q.shape
+    t = tables.long()
+    S = t.shape[1] * ps
+    kd = k_pages[:, t].reshape(kvh, b, S, d).transpose(0, 1)
+    vd = v_pages[:, t].reshape(kvh, b, S, d).transpose(0, 1)
+    if qh != kvh:
+        kd = kd.repeat_interleave(qh // kvh, dim=1)
+        vd = vd.repeat_interleave(qh // kvh, dim=1)
+    mask = torch.arange(S, device=q.device)[None, :] < lens.long()[:, None]
+    return TF.scaled_dot_product_attention(q[:, :, None, :], kd, vd,
+                                           attn_mask=mask[:, None, None, :])
+
+
+def paged_bound_ms(kind, qh, kvh, lens, d=128, page=16):
+    """The least time the H100 could take for a paged case, as
+    `chip_smoke.py`'s `paged_bound` bounds its paged cases: K and V rows of
+    every context token (int8: and their two f32 scales) read once, q read
+    and out written in bf16, the table entries and lengths read, over 3.35
+    TB/s; or q . k's 2 * ctx * q_heads * d flops over the tensor cores'
+    989 TFLOP/s of bf16 (bf16 q; bf16 and int8 K are exact in bf16) plus
+    P . V's as many over the 67 TFLOP/s of f32 (the weights stay f32),
+    whichever is larger."""
+    ctx = sum(lens)
+    row = 2 * (d + 4) if kind == "int8" else 2 * d * 2
+    nbytes = (ctx * kvh * row + 2 * len(lens) * qh * d * 2
+              + 4 * sum(-(-c // page) for c in lens) + 4 * len(lens))
+    flops = 2 * ctx * qh * d
+    return max(nbytes / 3.35e12, flops / 989e12 + flops / 67e12) * 1e3
+
+
+def paged_bounds():
+    """{case: bound ms} of every case of the "paged" part."""
+    return {f"paged {name} {mix}": paged_bound_ms(
+                kind, qh, kvh, GROUPED_TABLE
+                if kind == "grouped" and mix == "table" else lens)
+            for name, qh, kvh, kind in PAGED_KERNELS
+            for mix, lens in PAGED_MIXES.items()}
+
+
+def time_paged(res, dev, gen):
+    import torch
+
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    d, page = 128, 16
+    for name, qh, kvh, kind in PAGED_KERNELS:
+        for mix, lens in PAGED_MIXES.items():
+            if kind == "grouped" and mix == "table":
+                lens = GROUPED_TABLE
+            b = len(lens)
+            n_pages = b * PAGED_PPS
+            shape = (kvh, n_pages, page, d)
+
+            def make():
+                if kind == "int8":
+                    kp, ks = kpa._quant_kv_token(
+                        torch.randn(shape, generator=gen, device=dev))
+                    vp, vs = kpa._quant_kv_token(
+                        torch.randn(shape, generator=gen, device=dev))
+                    extra = (ks, vs)
+                else:
+                    kp, vp = (torch.randn(shape, generator=gen, device=dev)
+                              .to(torch.bfloat16) for _ in range(2))
+                    extra = ()
+                tables = torch.randperm(n_pages, generator=gen, device=dev) \
+                    .reshape(b, PAGED_PPS).to(torch.int32)
+                return (kp, vp, tables) + extra
+
+            elt = 1 if kind == "int8" else 2
+            pools = turns(make, 2 * kvh * n_pages * page * d * elt, least=2)
+            q = torch.randn(b, qh, d, generator=gen, device=dev) \
+                .to(torch.bfloat16)
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+            def kernel():
+                kp, vp, tables, *sc = pools()
+                if kind == "grouped":
+                    return kpa.paged_attention_grouped(q, kp, vp, tables, ln)
+                return kpa.paged_attention(q, kp, vp, tables, ln, None, *sc)
+
+            def library():
+                kp, vp, tables, *sc = pools()
+                return sdpa_paged(q, kp, vp, tables, ln, *sc)
+
+            res[f"paged {name} {mix}"] = {
+                "kernel": graph_ms(kernel),
+                "sdpa_paged": graph_ms(library, iters=10)}
+            del pools, q, ln
+            torch.cuda.empty_cache()
+
+
 def time_root(root, parts):
     """One run: ms of each timed call for the port under `root`."""
     sys.path.insert(0, root)
@@ -305,7 +429,8 @@ def time_root(root, parts):
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {}
     steps = {"flash": time_flash, "prefill": time_prefill,
-             "gemm": time_gemm, "decode": time_decode, "rms": time_rms}
+             "gemm": time_gemm, "decode": time_decode, "rms": time_rms,
+             "paged": time_paged}
     for part in parts:
         # each part from its own seed: the same inputs whatever else runs
         steps[part](res, dev, torch.Generator(device=dev).manual_seed(
@@ -351,13 +476,14 @@ def main():
         mean[root] = {case: {t: sum(r[case][t] for r in mine) / len(mine)
                              for t in timed}
                       for case, timed in mine[0].items()}
+    bounds = paged_bounds() if "paged" in parts else {}
     print(card)
-    print(json.dumps(dict(card=card, mean_ms=mean)))
+    print(json.dumps(dict(card=card, mean_ms=mean, bound_ms=bounds)))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, parts=parts, shapes=SHAPES,
-                           qmm_m=QMM_M, runs=runs, mean_ms=mean), f,
-                      indent=1)
+                           qmm_m=QMM_M, runs=runs, mean_ms=mean,
+                           bound_ms=bounds), f, indent=1)
     return 0
 
 

@@ -36,9 +36,12 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    beside faults (a k tile dropped, a column tile shifted, an m tail's
    last row wrong); the float, int8 and grouped paged decodes at MHA and GQA
    heads, at 32/1 (multi-query) and 64/2 heads, and the float and int8 at
-   head_dim 256, beside a fault with two chunks of a group's queries
-   swapped; each new case held row by row and beside faults made from the
-   plain version); after phase 4b, its device time, the plain version's, a
+   head_dim 256, each called twice (bitwise equal) and held beside faults
+   (two chunks of a group's queries swapped, one split's partial left out
+   of the in-launch combine), and untimed at contexts on the split edges
+   of each plan, one 4096-token row among rows of 0 and 1, batch 1 x 4096
+   and 5-token pages; each new case held row by row and beside faults made
+   from the plain version); after phase 4b, its device time, the plain version's, a
    library call's, and its bound;
 4. LLaMA-2-7B (32 layers, hidden 4096, bf16, random weights from --seed)
    served by the paged-KV ServingEngine: one 2500-token request decoding
@@ -305,6 +308,18 @@ def bound(nbytes, flops, flop_s=F32_FLOP_S, int_ops=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def paged_bound(nbytes, ctx, q_heads, d, dtype):
+    """`bound` of a paged decode over `ctx` context tokens in all: q . k's
+    2 * ctx * q_heads * d flops at the tensor cores' bf16 rate for bf16 q
+    (bf16 and int8 K are exact in bf16), else at f32's, then P . V's as
+    many at f32's (the softmax weights stay f32)."""
+    flops = 2 * ctx * q_heads * d
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    qk_rate = BF16_FLOP_S if dtype == torch.bfloat16 else F32_FLOP_S
+    t_ops = (flops / qk_rate + flops / F32_FLOP_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def row_rel_err(got, want):
     """Max over rows (the last dim) of ||got - want|| / ||want||, the
     denominator at least a quarter of the rms of the row norms: a row that
@@ -461,8 +476,7 @@ def chunk_swapped(out, kv_heads, chunk):
     """`out` [b, q_heads, d] with the first two `chunk`-query chunks of each
     kv head's group swapped, what a decode kernel that wrote one block's
     queries in another's place would give; None where the group is one
-    chunk. The per-page kernel's chunks are 16 queries (8 at head_dim 256),
-    the grouped kernel's 16."""
+    chunk. Both decode kernels take `kpa.QUERY_CHUNK` queries a unit."""
     b, qh, d = out.shape
     g = qh // kv_heads
     if g <= chunk:
@@ -473,8 +487,56 @@ def chunk_swapped(out, kv_heads, chunk):
     return out.reshape(b, kv_heads, g, d)[:, :, idx].reshape(b, qh, d)
 
 
+def decode_plan(q, kp, tables):
+    """The split plan the wrapper gives the decode kernel for these
+    inputs (`kpa.split_plan`)."""
+    b, qh, d = q.shape
+    kvh, _, page, _ = kp.shape
+    return kpa.split_plan(b, kvh, qh // kvh, d, page, tables.shape[1],
+                          kpa.sm_count(q.device))
+
+
+def split_lens(q_heads, kv_heads, d, page=16, pages_per_seq=256, b=8):
+    """Contexts at the decode kernel's split edges for its plan at this
+    shape: one split's tokens -1, +0 and +1, two splits' -1 and +1, the
+    full table, and 0."""
+    plan = kpa.split_plan(b, kv_heads, q_heads // kv_heads, d, page,
+                          pages_per_seq, kpa.sm_count(torch.device("cuda")))
+    span = plan["split_pages"] * page
+    full = pages_per_seq * page
+    return [0, span - 1, span, span + 1, 2 * span - 1, 2 * span + 1,
+            full - 1, full][:b]
+
+
+def without_split_partial_paged(args, scales, plan):
+    """The plain decode with the first split's partial left out of the
+    combine in every row combined from two or more (the fault of a combine
+    that skips a slot): such a row attends only the pages past its first
+    unit (`kpa.split_bounds`), its table shifted past them and its context
+    (clipped to the table) cut by them; None where no row has two live
+    splits."""
+    q, kp, vp, tables, ln = args
+    page = kp.shape[2]
+    cut_tables, cut_lens = tables.clone(), ln.clone()
+    for row, ctx in enumerate(ln.tolist()):
+        ctx = max(0, min(ctx, tables.shape[1] * page))  # as the kernel
+        bounds = kpa.split_bounds(ctx, page, plan["split_pages"])
+        if len(bounds) >= 2:
+            skip = bounds[0][1]
+            cut_tables[row] = tables[row].roll(-skip)
+            cut_lens[row] = ctx - skip * page
+    if torch.equal(cut_lens, ln):
+        return None
+    return kpa.paged_attention_ref(q, kp, vp, cut_tables, cut_lens, None,
+                                   **scales)
+
+
 def paged_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
-               page=16, pages_per_seq=256):
+               page=16, pages_per_seq=256, timed=True):
+    """The per-page decode against the dense plain version (one bf16 ulp at
+    the largest magnitude), bitwise equal over two calls, beside the faults
+    of a swapped query chunk and a split partial left out. `timed`: time it
+    after the serving phases (edge cases: no)."""
     b = len(lens)
     n_pages = b * pages_per_seq
     shape = (kv_heads, n_pages, page, d)
@@ -486,24 +548,33 @@ def paged_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
     args = (q, kp, vp, tables, ln)
     got = kpa.paged_attention(*args)
+    again = kpa.paged_attention(*args)
     torch.cuda.synchronize()
+    check(torch.equal(got, again), f"paged_attention {name}: two calls "
+          f"differ")
+    del again
     want = kpa.paged_attention_ref(*args)
     err, tol = max_err(got, want, dtype)
     check(err <= tol, f"paged_attention {name}: max abs err {err} > {tol}")
     check(not got[lens.index(0)].any() if 0 in lens else True,
           f"paged_attention {name}: a ctx 0 row is not zero")
     ctl = {}
-    swapped = chunk_swapped(want, kv_heads, 8 if d > 128 else 16)
+    swapped = chunk_swapped(want, kv_heads, kpa.QUERY_CHUNK)
     if swapped is not None:
         ctl["chunk_swapped"] = max_err(swapped, want, dtype)[0]
-        check(ctl["chunk_swapped"] > tol, f"paged_attention {name}: the "
-              f"chunk_swapped control reads {ctl}, within {tol}")
-    del got, want, swapped
+    plan = decode_plan(q, kp, tables)
+    cut = without_split_partial_paged(args, {}, plan)
+    if cut is not None:
+        ctl["split_partial_left_out"] = max_err(cut, want, dtype)[0]
+    for fault, r in ctl.items():
+        check(r > tol, f"paged_attention {name}: the {fault} control reads "
+              f"{r}, within {tol}")
+    del got, want, swapped, cut
     elt = q.element_size()
     ctx = sum(lens)
     nbytes = (2 * ctx * kv_heads * d * elt + 2 * q.numel() * elt
               + 4 * sum(math.ceil(c / page) for c in lens) + 4 * b)
-    b_ms, b_by = bound(nbytes, 4 * ctx * q_heads * d)
+    b_ms, b_by = paged_bound(nbytes, ctx, q_heads, d, dtype)
 
     def timings():
         ms, timer = time_ms(lambda: kpa.paged_attention(*args), 50)
@@ -515,8 +586,9 @@ def paged_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
     return dict(
         case=name, batch=b, q_heads=q_heads, kv_heads=kv_heads, head_dim=d,
         page=page, lens=list(lens), dtype=str(dtype).split(".")[-1],
+        split_pages=plan["split_pages"], n_splits=plan["n_splits"],
         max_abs_err=err, tol=tol, controls=ctl, bound_ms=b_ms,
-        bound_by=b_by, timings=timings)
+        bound_by=b_by, **({"timings": timings} if timed else {}))
 
 
 def swap_nibbles(qw):
@@ -711,7 +783,10 @@ def sdpa_paged_q8(q, k_pages, v_pages, tables, lens, k_scales, v_scales):
 
 
 def paged_q8_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
-                  page=16, pages_per_seq=256):
+                  page=16, pages_per_seq=256, timed=True):
+    """The int8 decode against the dense plain version, row by row
+    (QUANT_TOL), bitwise equal over two calls, beside the faults of the K
+    scales left out, a swapped query chunk and a split partial left out."""
     b = len(lens)
     n_pages = b * pages_per_seq
     shape = (kv_heads, n_pages, page, d)
@@ -726,7 +801,11 @@ def paged_q8_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
     args = (q, kp, vp, tables, ln)
     sc = dict(k_scales=ks, v_scales=vs)
     got = kpa.paged_attention(*args, **sc)
+    again = kpa.paged_attention(*args, **sc)
     torch.cuda.synchronize()
+    check(torch.equal(got, again), f"paged_attention_int8 {name}: two "
+          f"calls differ")
+    del again
     want = kpa.paged_attention_ref(*args, **sc)
     err = row_rel_err(got, want)
     tol = QUANT_TOL[dtype]
@@ -736,9 +815,14 @@ def paged_q8_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
           f"paged_attention_int8 {name}: a ctx 0 row is not zero")
     ctl = {"k_scales_left_out": row_rel_err(kpa.paged_attention_ref(
         *args, k_scales=torch.ones_like(ks), v_scales=vs), want)}
-    swapped = chunk_swapped(want, kv_heads, 8 if d > 128 else 16)
+    swapped = chunk_swapped(want, kv_heads, kpa.QUERY_CHUNK)
     if swapped is not None:
         ctl["chunk_swapped"] = row_rel_err(swapped, want)
+    plan = decode_plan(q, kp, tables)
+    cut = without_split_partial_paged(args, sc, plan)
+    if cut is not None:
+        ctl["split_partial_left_out"] = row_rel_err(cut, want)
+    del swapped, cut
     for fault, r in ctl.items():
         check(r > tol, f"paged_attention_int8 {name}: the {fault} control "
               f"reads {r}, within the bar {tol}")
@@ -749,7 +833,7 @@ def paged_q8_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
     # int8 K and V rows and their f32 scales, q read, out written, tables
     nbytes = (2 * ctx * kv_heads * (d + 4) + 2 * q.numel() * elt
               + 4 * sum(math.ceil(c / page) for c in lens) + 4 * b)
-    b_ms, b_by = bound(nbytes, 4 * ctx * q_heads * d)
+    b_ms, b_by = paged_bound(nbytes, ctx, q_heads, d, dtype)
 
     def timings():
         ms, timer = time_ms(lambda: kpa.paged_attention(*args, **sc), 50)
@@ -762,8 +846,10 @@ def paged_q8_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
     return dict(
         case=name, batch=b, q_heads=q_heads, kv_heads=kv_heads, head_dim=d,
         page=page, lens=list(lens), dtype=str(dtype).split(".")[-1],
+        split_pages=plan["split_pages"], n_splits=plan["n_splits"],
         row_rel_err=err, max_abs_err=abs_err, tol=tol, controls=ctl,
-        bound_ms=b_ms, bound_by=b_by, timings=timings)
+        bound_ms=b_ms, bound_by=b_by,
+        **({"timings": timings} if timed else {}))
 
 
 def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False, timed=True):
@@ -849,9 +935,10 @@ def grouped_controls(q, kp, vp, tables, ln, want):
     plain version, each against the sound plain output: "page_skipped",
     every row past two pages loses the second page of its first group;
     "pages_out_of_order", the K of a row's first two pages swapped (read
-    in the wrong order against their V); "chunk_swapped" (groups above 16
-    queries), two chunks of a group's queries swapped. Each must exceed
-    the bar."""
+    in the wrong order against their V); "chunk_swapped" (groups above
+    `kpa.QUERY_CHUNK` queries), two chunks of a group's queries swapped;
+    "split_partial_left_out", the first split's partial left out of every
+    row combined from two or more. Each must exceed the bar."""
     lens = ln.tolist()
     t_skip, l_skip = tables.clone(), ln.clone()
     kf = kp.clone()
@@ -865,17 +952,21 @@ def grouped_controls(q, kp, vp, tables, ln, want):
                q, kp, vp, t_skip, l_skip), want),
            "pages_out_of_order": row_rel_err(kpa.paged_attention_ref(
                q, kf, vp, tables, ln), want)}
-    swapped = chunk_swapped(want, kp.shape[0], 16)
+    swapped = chunk_swapped(want, kp.shape[0], kpa.QUERY_CHUNK)
     if swapped is not None:
         ctl["chunk_swapped"] = row_rel_err(swapped, want)
+    cut = without_split_partial_paged((q, kp, vp, tables, ln), {},
+                                      decode_plan(q, kp, tables))
+    if cut is not None:
+        ctl["split_partial_left_out"] = row_rel_err(cut, want)
     return ctl
 
 
 def grouped_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
-                 page=16, pages_per_seq=256):
+                 page=16, pages_per_seq=256, timed=True):
     """The grouped-fetch decode against the plain dense version, row by row
-    (bar GROUPED_TOL), beside the faults of `grouped_controls`, and against
-    the per-page kernel."""
+    (bar GROUPED_TOL), bitwise equal over two calls, beside the faults of
+    `grouped_controls`, and against the per-page kernel."""
     b = len(lens)
     n_pages = b * pages_per_seq
     shape = (kv_heads, n_pages, page, d)
@@ -887,8 +978,12 @@ def grouped_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
     args = (q, kp, vp, tables, ln)
     got = kpa.paged_attention_grouped(*args)
+    again = kpa.paged_attention_grouped(*args)
     paged = kpa.paged_attention(*args)
     torch.cuda.synchronize()
+    check(torch.equal(got, again), f"paged_attention_grouped {name}: two "
+          f"calls differ")
+    del again
     want = kpa.paged_attention_ref(*args)
     tol = GROUPED_TOL[dtype]
     err = row_rel_err(got, want)
@@ -909,7 +1004,7 @@ def grouped_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
     ctx = sum(lens)
     nbytes = (2 * ctx * kv_heads * d * elt + 2 * q.numel() * elt
               + 4 * sum(math.ceil(c / page) for c in lens) + 4 * b)
-    b_ms, b_by = bound(nbytes, 4 * ctx * q_heads * d)
+    b_ms, b_by = paged_bound(nbytes, ctx, q_heads, d, dtype)
 
     def timings():
         ms, timer = time_ms(lambda: kpa.paged_attention_grouped(*args), 50)
@@ -926,7 +1021,7 @@ def grouped_case(name, dtype, q_heads, kv_heads, gen, dev, lens, d=128,
         page=page, lens=list(lens), dtype=str(dtype).split(".")[-1],
         row_rel_err=err, row_rel_err_vs_per_page=vs_paged,
         max_abs_err=abs_err, tol=tol, controls=ctl, bound_ms=b_ms,
-        bound_by=b_by, timings=timings)
+        bound_by=b_by, **({"timings": timings} if timed else {}))
 
 
 def rms_bwd_case(name, rows, cols, dtype, gen, dev, weight="same", offset=0,
@@ -1264,7 +1359,8 @@ class ForwardLog:
 def profile_decode(eng, rng, card, steps=8, quant=False):
     """Profile `steps` pure decode steps at batch 8 (contexts ~1000): wall
     ms per step, device busy ms per step (the sum of kernel intervals on
-    the one stream), the device's idle share, and device time by kernel.
+    the one stream), the device's idle share, device time by kernel, and
+    the paged decode kernel's ms per step and share of device time.
     `quant`: also the dequant matmul's device ms per step, which must come
     from the one-launch decode kernel (no split-summing kernel)."""
     for _ in range(eng.max_batch):
@@ -1306,6 +1402,15 @@ def profile_decode(eng, rng, card, steps=8, quant=False):
         log(f"profile:   the dequant matmul (decode kernel): "
             f"{res['dequant_ms_per_step']:.3f} ms/step of "
             f"{res['device_busy_ms_per_step']:.3f} [{card}]")
+    res["paged_ms_per_step"] = sum(
+        us for n, us in by_name.items() if "paged_decode_kernel" in n) \
+        / 1e3 / steps
+    res["paged_share"] = res["paged_ms_per_step"] / max(
+        res["device_busy_ms_per_step"], 1e-9)
+    log(f"profile:   the paged decode kernel: "
+        f"{res['paged_ms_per_step']:.3f} ms/step of "
+        f"{res['device_busy_ms_per_step']:.3f}, share "
+        f"{res['paged_share']:.3f} [{card}]")
     for name, ms in res["top_kernels_ms_per_step"]:
         log(f"profile:   {ms:8.3f} ms/step  {name}")
     return res
@@ -2973,6 +3078,24 @@ def main():
              paged_case("mqa_bf16", bf16, 32, 1, gen, dev, lens),
              paged_case("g32_bf16", bf16, 64, 2, gen, dev, lens),
              paged_case("d256_bf16", bf16, 32, 2, gen, dev, lens, d=256)]
+    # checked, not timed: contexts at the split edges of each plan, one
+    # 4096-token row among rows of 0 and 1, batch 1 x 4096, and 5-token
+    # pages (page segments that cross a 32-token stage; int8: 20-byte scale
+    # rows, the kernel's second copy path)
+    lone = [0, 1, 0, 1, 4096, 1, 0, 1]
+    lens5 = [0, 1, 4, 5, 6, 1000, 2049, 4096]
+    paged += [paged_case(f"{tag}_bf16_split_edges", bf16, qh, kvh, gen, dev,
+                         split_lens(qh, kvh, 128), timed=False)
+              for tag, qh, kvh in (("mha", 32, 32), ("gqa", 32, 8),
+                                   ("mqa", 32, 1))]
+    paged += [paged_case("mha_bf16_lone_long", bf16, 32, 32, gen, dev, lone,
+                         timed=False),
+              paged_case("mha_bf16_b1", bf16, 32, 32, gen, dev, [4096],
+                         timed=False),
+              paged_case("gqa_bf16_page5", bf16, 32, 8, gen, dev, lens5,
+                         page=5, pages_per_seq=820, timed=False),
+              paged_case("mha_f32_page5", f32, 8, 8, gen, dev, lens5, page=5,
+                         pages_per_seq=820, timed=False)]
     rms_bwd = [rms_bwd_case("train", 4096, 4096, bf16, gen, dev),
                rms_bwd_case("rows8", 8, 4096, bf16, gen, dev),
                rms_bwd_case("train_f32", 4096, 4096, f32, gen, dev),
@@ -3007,6 +3130,18 @@ def main():
                 paged_q8_case("g32_bf16", bf16, 64, 2, gen, dev, lens),
                 paged_q8_case("d256_bf16", bf16, 32, 2, gen, dev, lens,
                               d=256)]
+    paged_q8 += [paged_q8_case(f"{tag}_split_edges", bf16, qh, kvh, gen,
+                               dev, split_lens(qh, kvh, 128), timed=False)
+                 for tag, qh, kvh in (("mha_bf16_13b", 40, 40),
+                                      ("gqa_bf16", 32, 8))]
+    paged_q8 += [paged_q8_case("mha_bf16_13b_lone_long", bf16, 40, 40, gen,
+                               dev, lone, timed=False),
+                 paged_q8_case("mha_bf16_13b_b1", bf16, 40, 40, gen, dev,
+                               [4096], timed=False),
+                 paged_q8_case("gqa_bf16_page5", bf16, 32, 8, gen, dev,
+                               lens5, page=5, pages_per_seq=820, timed=False),
+                 paged_q8_case("mha_f32_page5", f32, 8, 8, gen, dev, lens5,
+                               page=5, pages_per_seq=820, timed=False)]
     mm = [mm_case(f"{k}->{n} m{m}", m, k, n, bf16, gen, dev,
                   check_timer=(m, k, n) == (8, 4096, 4096))
           for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
@@ -3030,6 +3165,14 @@ def main():
                grouped_case("mqa_bf16", bf16, 32, 1, gen, dev, GROUPED_LENS),
                grouped_case("g32_bf16", bf16, 64, 2, gen, dev,
                             GROUPED_LENS)]
+    grouped += [grouped_case(f"{tag}_bf16_split_edges", bf16, qh, kvh, gen,
+                             dev, split_lens(qh, kvh, 128),
+                             timed=False)
+                for tag, qh, kvh in (("mha", 32, 32), ("gqa", 32, 8))]
+    grouped += [grouped_case("mha_bf16_lone_long", bf16, 32, 32, gen, dev,
+                             lone, timed=False),
+                grouped_case("mha_bf16_b1", bf16, 32, 32, gen, dev, [4096],
+                             timed=False)]
     for kind_, rs in (("quant_matmul", qmm + qmm_tails),
                       ("paged_attention_int8", paged_q8),
                       ("matmul", mm + mm_tails),

@@ -50,7 +50,7 @@ SCHEMA_VERSION = 1
 # measurements stale
 KERNEL_VERSIONS = {
     "matmul": "cu-mm-v2",
-    "paged_decode": "cu-pa-v1",
+    "paged_decode": "cu-pa-v2",
 }
 
 # ties go to the library baseline

@@ -19,23 +19,40 @@ owns a row of a block table listing its pages.
   with their scales), `paged_attention_ref` (the plain counterpart of
   `paged_attention_xla`) for CPU tensors. There is no crossover dispatch:
   on CUDA the kernel runs at every context length. It takes any query group
-  (q_heads = group * kv_heads: a multi-query model's 32 query heads on one
-  KV head run as two blocks of 16 per KV head) and head_dim 32, 64, 128 or
-  256 (`supports`); the reference takes any head_dim, and on CUDA another
-  one raises. `launches` counts the float kernel's launches, `q8_launches`
-  the int8 kernel's.
+  (q_heads = group * kv_heads) and head_dim 32, 64, 128 or 256
+  (`supports`); the reference takes any head_dim, and on CUDA another one
+  raises. `launches` counts the float kernel's launches, `q8_launches` the
+  int8 kernel's.
 - `paged_attention_grouped` is the grouped-fetch variant (the JAX
   `paged_attention_grouped`): the same function over float 16-token pages
   at head_dim 128 with tables a multiple of 8 pages wide, any query group
-  (`grouped_supports`), by the CUDA kernel that stages 8 pages at a time
-  for CUDA tensors and by `paged_attention_grouped_ref`, a plain walk over
-  the same groups, for CPU tensors. `grouped_launches` counts its kernel's
-  launches.
+  (`grouped_supports`), by the per-page CUDA kernel for CUDA tensors (the
+  reference's 8-page stages, one 128 KB block an SM, measured slower on
+  the H100 at 5 of the 6 shapes `chip_flash_ab.py --parts paged` times)
+  and by `paged_attention_grouped_ref`, a plain walk over the
+  reference's 8-page groups, for CPU tensors. `grouped_launches` counts
+  its entry's launches.
 - `paged_attention_dispatch` picks between them as the JAX dispatch does:
   the tuner's winner when `FLAGS_autotune` is on or readonly, else the
   grouped kernel when `FLAGS_paged_grouped_kernel` is set and the shape
   fits, else `paged_attention`. There is no XLA crossover at a mapped
   context of 2048 (a TPU measurement), and a tuner failure raises.
+
+The kernel is bound by bytes (each K and V row of the context read once),
+and what held its one-block-per-row predecessor back was parallelism: the
+longest row's blocks set the time. So it cuts every row's context into
+splits of whole pages (flash-decoding): a unit of work is (row, kv head,
+chunk of `QUERY_CHUNK` queries, split), `split_plan` picks the split length
+from the table's width, the page size, the heads, the group and the SM
+count (never from `context_lens`, which the host does not read: no device
+sync, and the launch captures in a CUDA graph), so that one full-length row
+alone fills the card. A unit stages its pages in shared memory by bulk
+copies and writes an f32 partial (m, l, acc) to a workspace allocated
+here; the last unit of each (row, kv head, chunk) to take a ticket sums the
+partials in split order in the same launch (deterministic), and a row whose
+context fits one split writes its output directly. One launch a call.
+`paged_attention_split_ref` is that computation in plain PyTorch (the
+tests' check of the plan and the combine).
 
 The scale pools are [kv_heads, n_pages, page_size] f32. The reference pads
 the last dim to 128 (`alloc_page_scales`: a TPU lane-tiling rule), which at
@@ -61,7 +78,13 @@ _HEAD_DIMS = (32, 64, 128, 256)  # the per-page kernel's widths
 GROUP_PAGES = 8      # pages per grouped-fetch step: 8 x 16 = 128 tokens
 _GROUPED_PAGE = 16
 _GROUPED_HEAD_DIM = 128
+QUERY_CHUNK = 8      # queries a unit takes; a larger group runs in chunks
+SPLIT_MIN_TOKENS = 128  # a split is at least this long (4 warp slices)
+UNITS_PER_SM = 2     # units one full-length row is cut into, per SM
+MAX_SPLITS = 256     # splits a row is cut into at most (the combine's room)
+_MAX_GROUPS = 1 << 16  # (row, kv head, chunk) tickets of the kernel
 _lib = None
+_sms: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +255,117 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
     return out.reshape(b, n_q_heads, head_dim).to(q.dtype)
 
 
+def query_bucket(group):
+    """Queries a unit of the kernel holds: the smallest of 1, 2, 4, 8 that
+    takes the group, else QUERY_CHUNK (the group then runs in chunks)."""
+    return next(g for g in (1, 2, 4, QUERY_CHUNK) if group <= g or
+                g == QUERY_CHUNK)
+
+
+def split_plan(batch, kv_heads, group, head_dim, page_size, pages_per_seq,
+               sms):
+    """The kernel's split of every row's table into `n_splits` splits of
+    `split_pages` whole pages, from shapes alone (the host never reads the
+    context lengths). One full-length row must fill the card by itself (a
+    lone long request, or the longest row of a mixed batch, sets the time):
+    its kv_heads * chunks * n_splits units come to UNITS_PER_SM a SM, each
+    split at least SPLIT_MIN_TOKENS long, at most MAX_SPLITS of them. The
+    batch shapes only the grid. Returns dict(split_pages, n_splits,
+    chunks, bucket, grid (x, y, z), workspace: the f32 partials' length, 0
+    where one split takes a row)."""
+    chunks = -(-group // QUERY_CHUNK)
+    heads = kv_heads * chunks
+    pps = max(pages_per_seq, 1)
+    want = max(1, -(-UNITS_PER_SM * sms // heads))
+    sp = min(pps, max(-(-SPLIT_MIN_TOKENS // page_size), pps // want,
+                      -(-pps // MAX_SPLITS)))
+    n_splits = -(-pps // sp)
+    bucket = query_bucket(group)
+    workspace = 0 if n_splits == 1 else \
+        batch * heads * n_splits * bucket * (head_dim + 2)
+    return dict(split_pages=sp, n_splits=n_splits, chunks=chunks,
+                bucket=bucket, grid=(n_splits, heads, batch),
+                workspace=workspace)
+
+
+def split_bounds(ctx, page_size, split_pages):
+    """The page bounds of a row's live units, as the kernel takes them: a
+    row of context `ctx` has n_live = ceil(ctx / (split_pages *
+    page_size)) live units (at least 1), over which its P live pages are
+    spread evenly in whole pages: unit s takes pages [s * P // n_live,
+    (s + 1) * P // n_live)."""
+    span = split_pages * page_size
+    n_live = max(1, -(-ctx // span))
+    live = -(-ctx // page_size)
+    return [(s * live // n_live, (s + 1) * live // n_live)
+            for s in range(n_live)]
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_tables,
+                              context_lens, scale=None, k_scales=None,
+                              v_scales=None, split_pages=1):
+    """The kernel's computation in plain PyTorch: every row's context cut
+    into its live units (`split_bounds`: ceil(ctx / (split_pages *
+    page_size)) units, the live pages spread evenly over them), each
+    unit's f32 partial (its max m, its sum l of exp(s - m), its acc = sum
+    of the weights times V, the int8 V scales on the weights and not in l)
+    over its own tokens, then the partials combined in split order: out =
+    sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), M the largest m_s. A
+    row with context 0 is zeros."""
+    b, n_q_heads, head_dim = q.shape
+    n_kv_heads, _, page_size, _ = k_pages.shape
+    group = n_q_heads // n_kv_heads
+    if scale is None:
+        scale = 1.0 / math.sqrt(head_dim)
+    pps = block_tables.shape[1]
+    S = pps * page_size
+    lens = context_lens.to(q.device).long().clamp(0, S)
+    # a table entry whose page starts at or past the context is not read
+    first = torch.arange(pps, device=q.device) * page_size
+    tables = torch.where(first[None, :] < lens[:, None],
+                         block_tables.long(), 0)
+    k_dense = k_pages[:, tables].reshape(n_kv_heads, b, S, head_dim).float()
+    v_dense = v_pages[:, tables].reshape(n_kv_heads, b, S, head_dim).float()
+    qf = q.reshape(b, n_kv_heads, group, head_dim).float()
+    s = torch.einsum("bhgd,hbsd->bhgs", qf, k_dense) * scale
+    if k_scales is not None:
+        ks = k_scales[:, tables].reshape(n_kv_heads, b, S).transpose(0, 1)
+        s = s * ks[:, :, None, :]
+    vw = torch.ones(b, n_kv_heads, S, device=q.device)
+    if v_scales is not None:
+        vw = v_scales[:, tables].reshape(n_kv_heads, b, S).transpose(0, 1)
+    # the unit of every token below its row's context (-1 past it)
+    unit = torch.full((b, S), -1, dtype=torch.long, device=q.device)
+    n_max = 0
+    for row, ctx in enumerate(lens.tolist()):
+        bounds = split_bounds(ctx, page_size, split_pages)
+        n_max = max(n_max, len(bounds))
+        for u, (p0, p1) in enumerate(bounds):
+            unit[row, p0 * page_size:min(ctx, p1 * page_size)] = u
+    parts = []
+    for u in range(n_max):
+        sel = (unit == u)[:, None, None, :]  # [b, 1, 1, S]
+        m = s.masked_fill(~sel, NEG_INF).amax(dim=-1)
+        p = torch.where(sel, torch.exp(s - m[..., None]), 0.0)
+        l = p.sum(dim=-1)
+        acc = torch.einsum("bhgs,hbsd->bhgd", p * vw[:, :, None, :],
+                           v_dense)
+        keep = sel.reshape(b, S).any(dim=-1)
+        parts.append((m, l, acc, keep[:, None, None]))
+    big = torch.full((b, n_kv_heads, group), NEG_INF, device=q.device)
+    for m, _, _, keep in parts:
+        big = torch.where(keep, torch.maximum(big, m), big)
+    num = torch.zeros(b, n_kv_heads, group, head_dim, device=q.device)
+    den = torch.zeros(b, n_kv_heads, group, device=q.device)
+    for m, l, acc, keep in parts:  # in split order
+        w = torch.where(keep, torch.exp(m - big), 0.0)
+        num = num + acc * w[..., None]
+        den = den + l * w
+    out = num / torch.where(den == 0, torch.ones_like(den), den)[..., None]
+    out = torch.where((lens > 0)[:, None, None, None], out, 0.0)
+    return out.reshape(b, n_q_heads, head_dim).to(q.dtype)
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                     scale=None, k_scales=None, v_scales=None):
     """Single-token decode attention over a paged KV cache.
@@ -377,15 +511,17 @@ def _kernel(quant, grouped=False):
     global _lib
     if _lib is None:
         lib = _build.load("paged_attention")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_longlong)
         lib.paged_attention_decode.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+            p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, f, i, p]
         lib.paged_attention_decode.restype = ctypes.c_int
         lib.paged_attention_decode_q8.argtypes = [
-            p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+            p, p, p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, f, i,
+            p]
         lib.paged_attention_decode_q8.restype = ctypes.c_int
         lib.paged_attention_decode_grouped.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
+            p, p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, f, i, p]
         lib.paged_attention_decode_grouped.restype = ctypes.c_int
         _lib = lib
     if grouped:
@@ -394,10 +530,17 @@ def _kernel(quant, grouped=False):
         else _lib.paged_attention_decode
 
 
+def sm_count(dev):
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev) \
+            .multi_processor_count
+    return _sms[dev]
+
+
 def _paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
                           scale, k_scales=None, v_scales=None, grouped=False):
-    """The per-page kernel (float or int8 pages), or with `grouped` the
-    grouped-fetch kernel (float pages)."""
+    """The split-KV kernel over float or int8 pages, `grouped` through the
+    grouped-fetch entry (float pages): one launch."""
     global launches, q8_launches, grouped_launches
     quant = k_scales is not None
     dev = q.device
@@ -450,19 +593,33 @@ def _paged_attention_cuda(q, k_pages, v_pages, block_tables, context_lens,
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("paged_attention kernel takes 16-byte aligned "
                          "q and pages")
+    group = n_q_heads // n_kv_heads
+    pps = block_tables.shape[1]
+    plan = split_plan(b, n_kv_heads, group, head_dim, page_size, pps,
+                      sm_count(dev))
+    if b * plan["grid"][1] > _MAX_GROUPS or plan["grid"][1] > 65535 or \
+            b > 65535:
+        raise ValueError(f"paged_attention kernel takes at most "
+                         f"{_MAX_GROUPS} (row, kv head, query chunk) "
+                         f"groups and 65535 rows, got batch {b} x "
+                         f"{plan['grid'][1]}")
     if scale is None:
         scale = 1.0 / math.sqrt(head_dim)
     out = torch.empty_like(q)
+    ws = torch.empty(plan["workspace"], dtype=torch.float32, device=dev) \
+        if plan["workspace"] else None
     fn = _kernel(quant, grouped)
-    sizes = (b, n_kv_heads, n_q_heads // n_kv_heads, n_pages, page_size,
-             block_tables.shape[1], head_dim, float(scale),
+    sizes = (b, n_kv_heads, group, n_pages, page_size, pps, head_dim,
+             plan["split_pages"], plan["n_splits"], float(scale),
              int(q.dtype == torch.bfloat16),
              torch.cuda.current_stream(dev).cuda_stream)
     pools = (k_pages.data_ptr(), v_pages.data_ptr()) + (
         (k_scales.data_ptr(), v_scales.data_ptr()) if quant else ())
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), *pools, block_tables.data_ptr(),
-                context_lens.data_ptr(), out.data_ptr(), *sizes)
+                context_lens.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), plan["workspace"],
+                *sizes)
     if rc:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {rc}")

@@ -398,6 +398,112 @@ def test_paged_attention_kernel_matches_plain(cuda_device, dtype, q_heads,
     assert not got[0].any()  # a ctx == 0 row writes zeros
 
 
+def _split_case(dev, kind, dtype, q_heads, kv_heads, lens, seed=0,
+                page=16, pps=256):
+    """Inputs of the split-KV decode (per-page "page", int8 "q8", grouped
+    "grouped") and the call that makes one launch of it."""
+    q, kp, vp, tables, ln = _decode_case(dev, dtype, len(lens), q_heads,
+                                         kv_heads, 128, page, pps, lens,
+                                         seed)
+    sc = {}
+    if kind == "q8":
+        kp, ks = tpa._quant_kv_token(kp.float())
+        vp, vs = tpa._quant_kv_token(vp.float())
+        sc = dict(k_scales=ks, v_scales=vs)
+    args = (q, kp, vp, tables, ln)
+    if kind == "grouped":
+        return args, sc, lambda: tpa.paged_attention_grouped(*args)
+    return args, sc, lambda: tpa.paged_attention(*args, **sc)
+
+
+def _split_lens(kind, q_heads, kv_heads, b=8, page=16, pps=256):
+    """Contexts at the kernel's split edges: one split's tokens -1, +0, +1,
+    two splits' -1 and +1, the full table, and 0."""
+    plan = tpa.split_plan(b, kv_heads, q_heads // kv_heads, 128, page, pps,
+                          tpa.sm_count(torch.device("cuda")))
+    span = plan["split_pages"] * page
+    return [0, span - 1, span, span + 1, 2 * span - 1, 2 * span + 1,
+            pps * page - 1, pps * page]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype", [
+    ("page", torch.bfloat16), ("page", torch.float32),
+    ("q8", torch.bfloat16), ("q8", torch.float32),
+    ("grouped", torch.bfloat16), ("grouped", torch.float32)])
+@pytest.mark.parametrize("q_heads,kv_heads", [(32, 32), (32, 8), (32, 1)])
+def test_paged_decode_kernel_at_its_split_edges(cuda_device, kind, dtype,
+                                                q_heads, kv_heads):
+    """The split-KV kernel against the dense plain version at contexts on
+    either side of its split edges, and against the plain split
+    computation at the same plan; int8 row by row (`_QUANT_TOL`), float
+    within one output rounding."""
+    lens = _split_lens(kind, q_heads, kv_heads)
+    args, sc, call = _split_case(cuda_device, kind, dtype, q_heads,
+                                 kv_heads, lens, seed=q_heads + kv_heads)
+    got = call()
+    torch.cuda.synchronize()
+    want = tpa.paged_attention_ref(*args, **sc)
+    plan = tpa.split_plan(len(lens), kv_heads, q_heads // kv_heads, 128, 16,
+                          256, tpa.sm_count(cuda_device))
+    split = tpa.paged_attention_split_ref(
+        *args, None, sc.get("k_scales"), sc.get("v_scales"),
+        plan["split_pages"])
+    if kind == "q8":
+        assert _row_rel_err(got[1:], want[1:]) <= _QUANT_TOL[dtype]
+        assert _row_rel_err(got[1:], split[1:]) <= _QUANT_TOL[dtype]
+    else:
+        assert _close(got, want, dtype) and _close(got, split, dtype)
+    assert not got[0].any()  # context 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["page", "q8", "grouped"])
+def test_paged_decode_launches_once_is_bitwise_and_replays(cuda_device,
+                                                           kind):
+    """Each decode entry makes one kernel launch a call (its counter moves
+    by one, the other entries' not at all; `chip_smoke.py`'s decode profile
+    counts the step's device operations), gives bitwise equal results from
+    two calls, and a CUDA graph captured once replays right with changed
+    context lengths (the tickets reset themselves). No torch.profiler
+    session here: late in this file's run the profiler keeps no device
+    records, and every session moves that point."""
+    lens = [0, 1, 15, 16, 17, 1000, 2049, 4096]
+    args, sc, call = _split_case(cuda_device, kind, torch.bfloat16, 32, 8,
+                                 lens, seed=5)
+    counter = {"page": "launches", "q8": "q8_launches",
+               "grouped": "grouped_launches"}[kind]
+    counts = ("launches", "q8_launches", "grouped_launches")
+    n0 = {c: getattr(tpa, c) for c in counts}
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert {c: getattr(tpa, c) - n0[c] for c in counts} == \
+        {c: 2 if c == counter else 0 for c in counts}
+    assert torch.equal(first, second)
+    ln = args[4]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for new in ([4096, 0, 1, 17, 2049, 1000, 15, 16],
+                [5, 600, 3000, 4096, 4095, 0, 1, 2], lens):
+        ln.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+        want = tpa.paged_attention_ref(*args, **sc)
+        if kind == "q8":
+            rows = [i for i, n in enumerate(new) if n]
+            assert _row_rel_err(out[rows], want[rows]) <= \
+                _QUANT_TOL[torch.bfloat16]
+        else:
+            assert _close(out, want, torch.bfloat16)
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     x = torch.randn(8, 256, device=cuda_device)
@@ -1274,3 +1380,4 @@ def test_flash_variants_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="regenerate"):
         tfa.flash_fwd(q, q, q, 0.1, False,
                       tfa.Variant(rate=0.1, seed=1, keep=keep))
+
