@@ -50,7 +50,21 @@ the parts named by `--parts` (all by default):
   the port never calls: the pages gathered dense, then PyTorch's SDPA
   ("sdpa_paged"; int8: a dequantizing gather, then SDPA), as a graph of
   10 calls; the last line also gives each case's bound (`paged_bound_ms`,
-  the formula of `chip_smoke.py`'s paged cases).
+  the formula of `chip_smoke.py`'s paged cases);
+- "adam": the AdamW update (lr 1e-4, weight decay 0.01, bf16 parameters
+  and gradients, f32 moments, no master weight) at LLaMA-2-7B's parameter
+  shapes ([4096, 4096], [4096, 11008], [11008, 4096], [32000, 4096],
+  [4096]) and over the whole parameter list of the 7B widths cut to 20
+  layers (183 tensors, 4.310 B elements: the training phase's optimizer
+  step): the root's `AdamW.step()` ("step"); where the root has the
+  one-pass kernel (`kernels/adam.py`), the kernel alone ("kernel") and its
+  plain version ("plain") on the same tensors; beside
+  `torch.optim.AdamW(fused=True)` over the same shapes ("library": its own
+  arithmetic, its moments in the parameters' bf16), the yardstick the
+  port never calls. Timed by CUDA events over back-to-back calls (the
+  [4096] case is shorter than a call's host launch: it measures the
+  host), the last line gives each case's bound (22 bytes an element over
+  3.35 TB/s).
 
 In "gemm" and "decode" each call finds its weight out of the 50 MB L2, as
 on the serving path: the calls take turns over copies of the weight worth
@@ -67,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 
@@ -79,7 +94,11 @@ GEMM_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
 GEMM_M = (8, 4096)
 DECODE_M = 8
 RMS_SHAPES = ((8, 4096), (8, 5120), (4096, 4096), (2512, 5120))
-PARTS = ("flash", "prefill", "gemm", "decode", "rms", "paged")
+PARTS = ("flash", "prefill", "gemm", "decode", "rms", "paged", "adam")
+ADAM_SHAPES = {"4096x4096": (4096, 4096), "4096x11008": (4096, 11008),
+               "11008x4096": (11008, 4096), "32000x4096": (32000, 4096),
+               "4096": (4096,)}
+ADAM_LAYERS = 20
 PAGED_KERNELS = (("mha", 32, 32, "bf16"), ("gqa", 32, 8, "bf16"),
                  ("mqa", 32, 1, "bf16"), ("int8_13b", 40, 40, "int8"),
                  ("int8_gqa", 32, 8, "int8"),
@@ -420,6 +439,85 @@ def time_paged(res, dev, gen):
             torch.cuda.empty_cache()
 
 
+def llama7b_shapes(layers=ADAM_LAYERS):
+    """The parameter shapes of LLaMA-2-7B's widths at `layers` layers, in
+    the port's [in, out] layout (embedding, per layer 4 attention and 3
+    MLP linears and 2 norms, the final norm, the head)."""
+    h, i, v = 4096, 11008, 32000
+    layer = [(h, h)] * 4 + [(h, i), (h, i), (i, h), (h,), (h,)]
+    return [(v, h)] + layer * layers + [(h,), (h, v)]
+
+
+def adam_bound_ms(numel):
+    """bf16 p and g read, p written, f32 m1 and m2 read and written: 22
+    bytes an element over 3.35 TB/s."""
+    return 22 * numel / 3.35e12 * 1e3
+
+
+def time_adam(res, dev, gen):
+    import importlib.util
+
+    import torch
+
+    from paddle_tpu_torch import optimizer as topt
+
+    kadam = None
+    if importlib.util.find_spec("paddle_tpu_torch.kernels.adam"):
+        from paddle_tpu_torch.kernels import adam as kadam
+
+    def params(shapes):
+        ps = []
+        for shape in shapes:
+            p = torch.nn.Parameter((torch.randn(shape, generator=gen,
+                                                device=dev) * 0.02)
+                                   .to(torch.bfloat16))
+            p.grad = (torch.randn(shape, generator=gen, device=dev) * 1e-3) \
+                .to(torch.bfloat16)
+            ps.append(p)
+        return ps
+
+    cases = dict(ADAM_SHAPES)
+    cases["7b_20_layers"] = None
+    for name, shape in cases.items():
+        shapes = llama7b_shapes() if shape is None else [shape]
+        iters = 3 if shape is None else 20
+        ps = params(shapes)
+        opt = topt.AdamW(learning_rate=1e-4, parameters=ps,
+                         weight_decay=0.01)
+        opt.step()
+        row = {"step": events_ms(opt.step, iters)}
+        if kadam is not None:
+            sts = [opt._accumulators[i] for i in range(len(ps))]
+
+            def run(fn):
+                def go():
+                    for p, st in zip(ps, sts):
+                        fn(p, p.grad, st["moment1"], st["moment2"], None,
+                           0.9, 0.999, 1e-8, 1e-4, 0.01, 0.0,
+                           1 - st["beta1_pow"], 1 - st["beta2_pow"])
+                return go
+
+            row["kernel"] = events_ms(run(kadam.adam_update), iters)
+            row["plain"] = events_ms(run(kadam.adam_update_ref), iters)
+        del opt, ps
+        torch.cuda.empty_cache()
+        ps = params(shapes)
+        lib = torch.optim.AdamW(ps, lr=1e-4, weight_decay=0.01, fused=True)
+        lib.step()
+        row["library"] = events_ms(lib.step, iters)
+        del lib, ps
+        torch.cuda.empty_cache()
+        res[f"adam {name}"] = row
+
+
+def adam_bounds():
+    out = {f"adam {n}": adam_bound_ms(math.prod(s))
+           for n, s in ADAM_SHAPES.items()}
+    out["adam 7b_20_layers"] = adam_bound_ms(
+        sum(math.prod(s) for s in llama7b_shapes()))
+    return out
+
+
 def time_root(root, parts):
     """One run: ms of each timed call for the port under `root`."""
     sys.path.insert(0, root)
@@ -430,7 +528,7 @@ def time_root(root, parts):
     res = {}
     steps = {"flash": time_flash, "prefill": time_prefill,
              "gemm": time_gemm, "decode": time_decode, "rms": time_rms,
-             "paged": time_paged}
+             "paged": time_paged, "adam": time_adam}
     for part in parts:
         # each part from its own seed: the same inputs whatever else runs
         steps[part](res, dev, torch.Generator(device=dev).manual_seed(
@@ -477,6 +575,8 @@ def main():
                              for t in timed}
                       for case, timed in mine[0].items()}
     bounds = paged_bounds() if "paged" in parts else {}
+    if "adam" in parts:
+        bounds.update(adam_bounds())
     print(card)
     print(json.dumps(dict(card=card, mean_ms=mean, bound_ms=bounds)))
     if args.out:

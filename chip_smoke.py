@@ -70,9 +70,9 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    seq 4096 of random ids from --seed repeated each step, through
    build_train_step: one warm step, then 5 timed steps with the kernels'
    launch counts reset just before and checked just after (per step: flash
-   forward and backward 20 each, RMSNorm forward and backward 41 each); then
-   one profiled step gives the device's busy time, idle share and top
-   kernels;
+   forward and backward 20 each, RMSNorm forward and backward 41 each, the
+   Adam kernel 183, once per parameter tensor); then one profiled step
+   gives the device's busy time, idle share and top kernels;
 7. a tiny f32 LLaMA (head_dim 128) takes 3 AdamW steps on CUDA, through the
    kernels, and on the CPU, through their plain versions, from the same
    weights: losses and updates agree;
@@ -100,7 +100,32 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    drop share of layer 0's mask within 0.005 of the rate; (d) the lse
    entry at [1, 4096, 32, 128] bf16 against the plain versions; (e) a tiny
    f32 encoder with attention dropout on CUDA and on the CPU from the same
-   weights and seed.
+   weights and seed;
+10. the rest of the training step: (a) the Adam / AdamW update kernel
+   against its plain version at LLaMA-2-7B's parameter shapes ([4096,
+   4096], [11008, 4096], [4096, 11008], [32000, 4096], [4096]) and a
+   4097-element tail, in bf16, bf16 with an f32 master weight and f32, as
+   Adam with L2 decay and as AdamW, at steps 1 and 1000 (moments within 2
+   f32 ulps of their summed terms, p and the master weight within one
+   rounding), beside three faults made from the plain version (the bias
+   corrections from the previous step's powers, the decay after the step,
+   the tail left out), each of which must fail the same bars where it can
+   show; the [11008, 4096] bf16 AdamW case timed beside the plain version
+   and `torch.optim.AdamW(fused=True)`; (b) phase 6's model made again
+   (LLaMA-2-7B widths, 20 layers, bf16 O2) through the new surface:
+   recompute, the chunked LM-head loss over 8 chunks, LinearWarmup over
+   CosineAnnealingDecay stepped each call, AdamW without decay on the norm
+   weights, gradient merge over 2 calls, batches from a DataLoader over a
+   TensorDataset of two seeded sequences through prefetch_batches: 2 warm
+   calls, then 4 counted from zero (per call flash forward 40, backward
+   20, RMSNorm forward 81, backward 41; Adam 183 on each applying call),
+   losses finite and falling, the peak memory beside phase 6's, and the
+   optimizer's device ms from one profiled applying call; (c) 4 layers of
+   those widths in f32 trained eagerly under auto_cast O1 (bf16) with a
+   GradScaler (2^15) and AdamW clipped by global norm 1.0: an inf planted
+   in one gradient skips that step (every parameter and moment bitwise
+   unchanged) and halves the scale; (d) a tiny f32 LLaMA (head_dim 128)
+   through (b)'s options on CUDA and on the CPU from the same weights.
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -129,18 +154,21 @@ from paddle_tpu_torch import amp, get_flags, set_flags
 from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
 from paddle_tpu_torch.inference import ServingEngine
+from paddle_tpu_torch.io import DataLoader, TensorDataset
 from paddle_tpu_torch.kernels import _build, autotune
+from paddle_tpu_torch.kernels import adam as kadam
 from paddle_tpu_torch.kernels import flash_attention as kfa
 from paddle_tpu_torch.kernels import matmul as kmm
 from paddle_tpu_torch.kernels import paged_attention as kpa
 from paddle_tpu_torch.kernels import quant_matmul as kqm
 from paddle_tpu_torch.kernels import rms_norm as krms
-from paddle_tpu_torch.models import build_train_step
+from paddle_tpu_torch.models import build_train_step, prefetch_batches
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-from paddle_tpu_torch.nn import Embedding, LayerNorm
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm, Embedding, LayerNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.quant import quantize_for_inference, weight_quantize
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import lr as lr_mod
 from paddle_tpu_torch.weights import (fused_encoder_state_from_numpy,
                                       fused_encoder_state_to_numpy,
                                       llama_state_to_numpy, load_llama_state)
@@ -1805,7 +1833,8 @@ def model_flops_per_token(cfg, seq_len, causal=True):
 TRAIN_COUNTERS = (("flash_fwd", kfa, "fwd_launches"),
                   ("flash_bwd", kfa, "bwd_launches"),
                   ("rms_norm", krms, "launches"),
-                  ("rms_norm_bwd", krms, "bwd_launches"))
+                  ("rms_norm_bwd", krms, "bwd_launches"),
+                  ("adam", kadam, "launches"))
 
 
 def _device_profile(fn):
@@ -1870,7 +1899,8 @@ def train_7b(seed, dev, card, layers=20, seq=4096, steps=5):
     losses = [float(v) for v in losses]
     per_step = {"flash_fwd": layers, "flash_bwd": layers,
                 "rms_norm": 2 * layers + 1,
-                "rms_norm_bwd": 2 * layers + 1}
+                "rms_norm_bwd": 2 * layers + 1,
+                "adam": n_param_tensors(layers)}
     for name, n in per_step.items():
         check(launches[name] == n * steps,
               f"train: {name} launched {launches[name]} times in {steps} "
@@ -1992,7 +2022,8 @@ DISPATCH_FLAGS = ("FLAGS_autotune", "FLAGS_autotune_cache_dir",
 DISPATCH_COUNTERS = (("matmul", kmm, "launches"),
                      ("paged_attention_grouped", kpa, "grouped_launches"),
                      ("paged_attention", kpa, "launches"),
-                     ("rms_norm", krms, "launches"))
+                     ("rms_norm", krms, "launches"),
+                     ("adam", kadam, "launches"))
 
 
 def linear_shapes(cfg):
@@ -2320,6 +2351,11 @@ def train_dispatch(seed, dev, card, layers=4, seq=4096, steps=2):
     n = res["readonly_pinned"]["launches"]["matmul"]
     check(n == (7 * layers + 1) * steps, f"dispatch (c): matmul launched {n} "
           f"times in {steps} steps, expected {7 * layers + 1} per forward")
+    for mode in ("off", "on", "readonly_pinned"):
+        got = res[mode]["launches"]["adam"]
+        check(got == n_param_tensors(layers) * steps, f"dispatch (c): "
+              f"{mode}: adam launched {got} times in {steps} steps, expected "
+              f"{n_param_tensors(layers)} per step")
     ref = res["off"]["losses"]
     for mode in ("on", "readonly_pinned"):
         rel = max(abs(a - b) / abs(b) for a, b in zip(res[mode]["losses"],
@@ -3014,6 +3050,422 @@ def flash_variants(seed, dev, card):
                 parity=parity), timed
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the training step: the Adam kernel, the 7B step
+# through the new surface, an O1 + GradScaler loop, tiny CUDA-vs-CPU parity
+# ---------------------------------------------------------------------------
+
+
+# (a) the Adam update's shapes: LLaMA-2-7B's parameters and an odd tail
+ADAM_SHAPES = ((4096, 4096), (11008, 4096), (4096, 11008), (32000, 4096),
+               (4096,), (4097,))
+ADAM_MODES = (("bf16", torch.bfloat16, False), ("bf16_master",
+                                                torch.bfloat16, True),
+              ("f32", torch.float32, False))
+ADAM_LR, ADAM_DECAY, ADAM_BETAS, ADAM_EPS = 1e-3, 0.1, (0.9, 0.999), 1e-8
+# the timed case (the kernels line's row): the 7B step's MLP weights
+ADAM_TIMED = ((11008, 4096), "bf16", "adamw", 1000)
+# bars: each moment within 2 f32 ulps of the larger of its two summed terms
+# and its value (a sum that cancels is held to its terms' rounding), p
+# and the master weight within one rounding of their dtype (one ulp of the
+# plain version's value)
+ADAM_MOMENT_ULPS = 2
+MANTISSA_BITS = {torch.float32: 24, torch.bfloat16: 8, torch.float16: 11}
+
+
+def ulp(x, dtype):
+    """One unit in the last place of each element of x in `dtype`."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       e - MANTISSA_BITS[dtype])
+
+
+def adam_plain_fault(fault, p, g, m1, m2, master, lr, coeff, wd, bc1, bc2,
+                     bc_prev):
+    """The plain update (`kadam.adam_update_ref`) with one fault:
+    "bias_previous" (the bias corrections from the previous step's
+    powers), "decay_after" (AdamW's decay applied after the step, not
+    before), "tail_left_out" (the numel % 8 elements past the last whole
+    8-element vector not updated)."""
+    b1, b2 = ADAM_BETAS
+    if fault == "bias_previous":
+        return kadam.adam_update_ref(p, g, m1, m2, master, b1, b2, ADAM_EPS,
+                                     lr, coeff, wd, *bc_prev)
+    if fault == "tail_left_out":
+        n = p.numel() - p.numel() % 8
+        flat = [None if t is None else t.view(-1)[:n]
+                for t in (p, g, m1, m2, master)]
+        return kadam.adam_update_ref(*flat, b1, b2, ADAM_EPS, lr, coeff, wd,
+                                     bc1, bc2)
+    # decay_after: the plain update without the decay, then the decay
+    kadam.adam_update_ref(p, g, m1, m2, master, b1, b2, ADAM_EPS, lr, 0.0,
+                          wd, bc1, bc2)
+    if coeff:
+        work = master if master is not None else p.detach().float()
+        work.mul_(1 - lr * coeff)
+        if work.data_ptr() != p.data_ptr():
+            p.copy_(work)
+
+
+def adam_case(shape, mode, kind, step, gen, dev, timed=False):
+    """One update from random state at `step` (its beta powers) by the
+    kernel and by the plain version on copies of the same tensors, held by
+    the bars above; each fault made from the plain version read against
+    the same bars (ratio of error to bar; > 1 fails). `kind` "adamw"
+    (decoupled decay ADAM_DECAY) or "adam" (L2 ADAM_DECAY). timed: also
+    the kernel's, the plain version's and `torch.optim.AdamW(fused=True)`'s
+    time (bf16 parameters and moments), CUDA events."""
+    name, dtype, with_master = mode
+    b1, b2 = ADAM_BETAS
+    p = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+    g = (torch.randn(shape, generator=gen, device=dev) * 1e-2).to(dtype)
+    m1 = torch.randn(shape, generator=gen, device=dev) * 1e-3
+    m2 = torch.randn(shape, generator=gen, device=dev).square() * 1e-6
+    master = p.float() + torch.randn(shape, generator=gen, device=dev) \
+        * 1e-5 if with_master else None
+    pows = [np.float32(1.0), np.float32(1.0)]
+    prev = pows
+    for _ in range(step):
+        prev = pows
+        pows = [np.float32(pows[0] * np.float32(b1)),
+                np.float32(pows[1] * np.float32(b2))]
+    bc = (1 - pows[0], 1 - pows[1])
+    bc_prev = (1 - prev[0], 1 - prev[1])
+    coeff, wd = (ADAM_DECAY, 0.0) if kind == "adamw" else (0.0, ADAM_DECAY)
+    state = (p, g, m1, m2, master)
+
+    def copy():
+        return [None if t is None else t.clone() for t in state]
+
+    def run(fn, ts):
+        fn(*ts, b1, b2, ADAM_EPS, ADAM_LR, coeff, wd, *bc)
+        return ts
+
+    n0 = kadam.launches
+    got = run(kadam.adam_update, copy())
+    check(kadam.launches == n0 + 1, "adam: the kernel did not launch")
+    want = run(kadam.adam_update_ref, copy())
+    torch.cuda.synchronize()
+    # each moment's two summed terms, from the inputs
+    gf = g.float() + (wd * (master if with_master else p.float())
+                      if wd else 0.0)
+    terms = {2: ((m1 * b1).abs(), (gf * (1 - b1)).abs()),
+             3: ((m2 * b2).abs(), (gf.square() * (1 - b2)).abs())}
+
+    def ratios(ts):
+        out = {}
+        for i, key in ((2, "m1"), (3, "m2")):
+            scale = torch.maximum(torch.maximum(*terms[i]), want[i].abs())
+            bar = ADAM_MOMENT_ULPS * ulp(scale, torch.float32)
+            out[key] = ((ts[i] - want[i]).abs() / bar).max().item()
+        out["p"] = ((ts[0].float() - want[0].float()).abs()
+                    / ulp(want[0], dtype)).max().item()
+        if with_master:
+            out["master"] = ((ts[4] - want[4]).abs()
+                             / ulp(want[4], torch.float32)).max().item()
+        return out
+
+    r = ratios(got)
+    check(max(r.values()) <= 1.0, f"adam {shape} {name} {kind} step {step}: "
+          f"kernel against plain, error over bar {r}")
+    controls = {}
+    for fault in ("bias_previous", "decay_after", "tail_left_out"):
+        ts = copy()
+        adam_plain_fault(fault, *ts, ADAM_LR, coeff, wd, *bc, bc_prev)
+        fr = ratios(ts)
+        # an inf or NaN reading (a bias correction of 1 - 1 = 0) fails
+        controls[fault] = max(v if math.isfinite(v) else math.inf
+                              for v in fr.values())
+    res = dict(case=f"{'x'.join(map(str, shape))} {name} {kind} step {step}",
+               dtype=str(dtype).split(".")[-1], ratios=r, controls=controls,
+               max_abs_err=(got[0].float() - want[0].float()).abs().max()
+               .item())
+    # where each fault can show, it must fail the bar: the previous
+    # powers at step 1 (1 - 1 = 0), the decay's place where the working
+    # copy is f32, the tail at an odd numel
+    if step == 1:
+        check(controls["bias_previous"] > 1.0,
+              f"adam {res['case']}: fault bias_previous passed the bar")
+    if kind == "adamw" and (dtype == torch.float32 or with_master):
+        check(controls["decay_after"] > 1.0,
+              f"adam {res['case']}: fault decay_after passed the bar")
+    if math.prod(shape) % 8:
+        check(controls["tail_left_out"] > 1.0,
+              f"adam {res['case']}: fault tail_left_out passed the bar")
+    if timed:
+        ts = copy()
+        res["ms"] = events_ms(lambda: run(kadam.adam_update, ts), 20)
+        res["plain_ms"] = events_ms(lambda: run(kadam.adam_update_ref, ts),
+                                    20)
+        q = torch.nn.Parameter(p.clone())
+        q.grad = g.clone()
+        lib = torch.optim.AdamW([q], lr=ADAM_LR, betas=ADAM_BETAS,
+                                eps=ADAM_EPS, weight_decay=ADAM_DECAY,
+                                fused=True)
+        res["library_ms"] = events_ms(lib.step, 20)
+        res["library_dtypes"] = f"{q.dtype} parameters and moments"
+        nbytes = p.numel() * (2 * p.element_size() + g.element_size() + 16
+                              + (8 if with_master else 0))
+        res["bound_ms"], res["bound_by"] = bound(nbytes, 15 * p.numel())
+        del lib, q
+    return res
+
+
+def adam_kernel_cases(gen, dev, card):
+    """(a) every shape x mode x kind at steps 1 and 1000, one of them
+    timed (`ADAM_TIMED`)."""
+    rows = []
+    for shape in ADAM_SHAPES:
+        for mode in ADAM_MODES:
+            for kind in ("adam", "adamw"):
+                for step in (1, 1000):
+                    rows.append(adam_case(
+                        shape, mode, kind, step, gen, dev,
+                        timed=(shape, mode[0], kind, step) == ADAM_TIMED))
+                    torch.cuda.empty_cache()
+    worst = {k: max(r["ratios"].get(k, 0.0) for r in rows)
+             for k in ("m1", "m2", "p", "master")}
+    shown = {f: sum(r["controls"][f] > 1.0 for r in rows)
+             for f in ("bias_previous", "decay_after", "tail_left_out")}
+    timed = next(r for r in rows if "ms" in r)
+    log(f"adam (a): {len(rows)} cases (shapes {ADAM_SHAPES}, bf16, bf16 "
+        f"with a master weight, f32; Adam-L2 and AdamW; steps 1 and 1000): "
+        f"largest error over its bar {worst} (bars: moments "
+        f"{ADAM_MOMENT_ULPS} f32 ulps of their terms, p and master one "
+        f"rounding); faults failing the bar in {shown} of {len(rows)} cases")
+    log(f"adam (a): {timed['case']}: kernel {timed['ms']:.4f} ms, plain "
+        f"{timed['plain_ms']:.4f} ms, torch.optim.AdamW(fused=True) "
+        f"{timed['library_ms']:.4f} ms ({timed['library_dtypes']}), bound "
+        f"{timed['bound_ms']:.4f} ms ({timed['bound_by']}), CUDA events "
+        f"[{card}]")
+    return dict(cases=rows, worst=worst, faults_failing=shown, timed=timed)
+
+
+def n_param_tensors(layers):
+    """Parameter tensors of the LLaMA model: the embedding, 9 per layer (7
+    linears, 2 norms), the final norm and the head."""
+    return 9 * layers + 3
+
+
+def surface_parts(cfg, model_params, seq, rows=2, seed=0, lr=1e-4,
+                  chunks=8):
+    """The new surface's pieces for a model: a scheduler (LinearWarmup over
+    CosineAnnealingDecay), AdamW without decay on the norm weights, and a
+    DataLoader over a TensorDataset of `rows` seeded sequences (labels the
+    next token, the last ignored)."""
+    sched = lr_mod.LinearWarmup(lr_mod.CosineAnnealingDecay(lr, 50), 2,
+                                lr / 10, lr)
+    opt = AdamW(learning_rate=sched, parameters=model_params,
+                weight_decay=0.01,
+                apply_decay_param_fun=lambda n: "norm" not in n)
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, cfg.vocab_size, (rows, seq)).astype(np.int64)
+    y = np.roll(x, -1, axis=1)
+    y[:, -1] = -100
+    loader = DataLoader(TensorDataset([x, y]), batch_size=1)
+    return sched, opt, loader
+
+
+def use_surface(model, chunks=8):
+    model.config.use_recompute = True
+    model.config.fused_ce_chunks = chunks
+    for layer in model.llama.layers:
+        layer.use_recompute = True
+
+
+def train_surface(peak6_gib, seed, dev, card, layers=20, seq=4096, warm=2,
+                  timed=4):
+    """(b) phase 6's model (LLaMA-2-7B widths, 20 layers, bf16 O2, made
+    again from the same seed) through
+    the new surface: recompute, the chunked loss over 8 chunks, the
+    scheduler stepped each call, AdamW without decay on the norms, gradient
+    merge over 2 calls, batches from a DataLoader through
+    prefetch_batches; `warm` calls, then `timed` calls with the launch
+    counts from zero (per call: flash forward 2L, backward L, RMSNorm
+    forward 4L + 1, backward 2L + 1; Adam once per tensor on every second
+    call); losses finite and each sequence's falling; the peak memory
+    against phase 6's; one profiled apply call gives the optimizer's
+    device ms."""
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = layers
+    model = amp.decorate(LlamaForCausalLM(cfg, device=dev, seed=seed),
+                         level="O2", dtype="bfloat16")
+    L = layers
+    use_surface(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sched, opt, loader = surface_parts(model.config, model.parameters(), seq,
+                                       seed=seed)
+    step = build_train_step(model, opt, gradient_merge_steps=2)
+    batches = prefetch_batches(step, (b for _ in range(warm + timed + 2)
+                                      for b in loader))
+    losses, call_ms = [], []
+
+    def call():
+        x, y = next(batches)
+        t0 = time.perf_counter()
+        loss = float(step(x, y))
+        torch.cuda.synchronize()
+        sched.step()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+
+    for _ in range(warm):
+        call()
+    for _, mod, attr in TRAIN_COUNTERS:
+        setattr(mod, attr, 0)
+    for _ in range(timed):
+        call()
+    launches = {name: getattr(mod, attr) for name, mod, attr in
+                TRAIN_COUNTERS}
+    want = {"flash_fwd": 2 * L * timed, "flash_bwd": L * timed,
+            "rms_norm": (4 * L + 1) * timed,
+            "rms_norm_bwd": (2 * L + 1) * timed,
+            "adam": n_param_tensors(L) * (timed // 2)}
+    for name, n in want.items():
+        check(launches[name] == n, f"surface: {name} launched "
+              f"{launches[name]} times in {timed} calls, expected {n}")
+    check(all(math.isfinite(v) for v in losses), f"surface: loss {losses}")
+    # the loader alternates two sequences: each one's loss must fall
+    check(losses[-2] < losses[0] and losses[-1] < losses[1],
+          f"surface: losses did not fall: {losses}")
+    check(opt._step_count == warm + timed, "surface: step count")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # one profiled merge cycle: the accumulating call, then the applying one
+    wall_a, dev_a = _device_profile(call)
+    wall_b, dev_b = _device_profile(call)
+    opt_ms = sum(us for n, us in dev_b.items() if "adam_kernel" in n) / 1e3
+    check(opt_ms > 0, "surface: the profiled apply call shows no Adam kernel")
+    busy_b = sum(dev_b.values()) / 1e3
+    timed_ms = call_ms[warm:warm + timed]
+    res = dict(card=card, layers=L, seq=seq, losses=losses,
+               call_ms=call_ms, accumulate_ms=timed_ms[0::2],
+               apply_ms=timed_ms[1::2], launches=launches,
+               max_memory_allocated_gib=peak_gib,
+               phase6_max_memory_allocated_gib=peak6_gib,
+               profile=dict(accumulate_wall_ms=wall_a,
+                            accumulate_busy_ms=sum(dev_a.values()) / 1e3,
+                            apply_wall_ms=wall_b, apply_busy_ms=busy_b,
+                            optimizer_device_ms=opt_ms))
+    log(f"surface (b): LLaMA-2-7B widths, {L} layers, batch 1 x {seq}, bf16 "
+        f"O2, recompute, chunked loss (8), LinearWarmup(cosine), AdamW "
+        f"(no decay on norms), gradient merge 2, DataLoader + "
+        f"prefetch_batches: losses {', '.join(f'{v:.4f}' for v in losses)}")
+    log(f"surface (b): timed calls {', '.join(f'{v:.1f}' for v in timed_ms)}"
+        f" ms (accumulate, apply, ...); peak {peak_gib:.2f} GiB allocated "
+        f"(phase 6: {peak6_gib:.2f}); launches {launches} [{card}]")
+    log(f"surface (b): profiled apply call {wall_b:.1f} ms wall, "
+        f"{busy_b:.1f} ms device busy, optimizer (Adam kernel) "
+        f"{opt_ms:.2f} ms device; accumulate call {wall_a:.1f} ms wall "
+        f"[{card}]")
+    del model, step, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def o1_scaler_loop(seed, dev, card, layers=4, seq=2048, steps=5,
+                   inf_step=2):
+    """(c) LLaMA-2-7B widths at 4 layers, f32 parameters, an eager loop
+    under auto_cast(O1, bf16) with GradScaler(2^15) and AdamW with
+    ClipGradByGlobalNorm(1.0): at `inf_step` an inf planted in one
+    gradient; that step is skipped (every parameter and moment bitwise
+    unchanged) and the scale halves; the other losses finite."""
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = layers
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq))).to(dev)
+    y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, seq))).to(dev)
+    losses, scales, n0 = [], [], kfa.fwd_launches
+    for i in range(steps):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model.compute_loss(model(x), y)
+        check(loss.dtype == torch.float32, f"O1: loss dtype {loss.dtype}")
+        scaler.scale(loss).backward()
+        before = scale = None
+        if i == inf_step:
+            model.llama.layers[1].mlp.up_proj.weight.grad[3, 5] = math.inf
+            before = [p.detach().clone() for p in model.parameters()]
+            moments = {k: v.clone() for k, v in opt.state_dict().items()
+                       if isinstance(v, torch.Tensor)}
+            scale = scaler.get_loss_scaling()
+        scaler.step(opt)
+        opt.clear_grad()
+        losses.append(loss.item())
+        scales.append(scaler.get_loss_scaling())
+        if before is not None:
+            check(all(torch.equal(b, p.detach()) for b, p in
+                      zip(before, model.parameters())),
+                  "O1: the step with an inf gradient changed a parameter")
+            check(all(torch.equal(v, opt.state_dict()[k])
+                      for k, v in moments.items()),
+                  "O1: the step with an inf gradient changed a moment")
+            check(scales[-1] == scale / 2, f"O1: scale {scale} -> "
+                  f"{scales[-1]}, expected half")
+    check(all(math.isfinite(v) for v in losses), f"O1: losses {losses}")
+    check(kfa.fwd_launches - n0 == layers * steps,
+          "O1: attention did not run the bf16 flash kernel")
+    log(f"o1 (c): LLaMA-2-7B widths, {layers} layers, f32 parameters, "
+        f"auto_cast O1 bf16, GradScaler(2^15), AdamW + "
+        f"ClipGradByGlobalNorm(1.0), batch 1 x {seq}: losses {losses}, "
+        f"scales {scales} (inf planted at step {inf_step}: skipped, every "
+        f"parameter and moment bitwise unchanged) [{card}]")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, scales=scales, inf_step=inf_step)
+
+
+def tiny_surface_parity(seed, dev, calls=4):
+    """(d) a tiny f32 LLaMA (head_dim 128) through (b)'s options on CUDA
+    and on the CPU from the same weights: losses within 1e-4 relative and
+    updates within 1e-2 of their norm, phase 7's bars."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2,
+                           seq=256)
+    cfg.num_key_value_heads = 1
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    load_llama_state(gpu, {k: v.numpy() for k, v in cpu.state_dict().items()})
+    before = {k: v.clone() for k, v in cpu.state_dict().items()}
+    losses = []
+    n0 = kadam.launches
+    for model in (cpu, gpu):
+        use_surface(model, chunks=8)
+        sched, opt, loader = surface_parts(cfg, model.parameters(), 256,
+                                           seed=seed, lr=1e-3)
+        step = build_train_step(model, opt, gradient_merge_steps=2)
+        seen = []
+        for _ in range(calls // 2):
+            for x, y in prefetch_batches(step, loader):
+                seen.append(float(step(x, y)))
+                sched.step()
+        losses.append(seen)
+    check(kadam.launches - n0 == n_param_tensors(2) * (calls // 2),
+          "tiny surface: the Adam kernel did not run on CUDA")
+    rel = max(abs(a - b) / abs(a) for a, b in zip(*losses))
+    check(rel <= 1e-4, f"tiny surface: losses cpu {losses[0]} cuda "
+          f"{losses[1]}")
+    worst = 0.0
+    g_state = gpu.state_dict()
+    for name, c in cpu.state_dict().items():
+        dc = c - before[name]
+        dg = g_state[name].cpu() - before[name]
+        worst = max(worst, ((dg - dc).norm() / dc.norm()).item())
+    check(worst <= 1e-2, f"tiny surface: updates differ by {worst} of norm")
+    log(f"parity (d): tiny f32 LLaMA (2 layers, 2 heads of 128) with "
+        f"recompute, chunked loss, scheduler, AdamW, gradient merge 2, "
+        f"DataLoader: losses cpu {losses[0]} cuda {losses[1]} (max rel "
+        f"diff {rel:.2e}); updates differ by at most {worst:.2e} of their "
+        f"norm")
+    return dict(losses_cpu=losses[0], losses_cuda=losses[1],
+                max_rel_loss_diff=rel, max_rel_update_diff=worst)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3295,6 +3747,16 @@ def main():
     # with attention dropout, the lse entry, a tiny CUDA-vs-CPU encoder
     variants, timed = flash_variants(args.seed, dev, card)
 
+    # 10. the rest of the training step: (a) the Adam kernel against its
+    # plain version at the 7B shapes; (b) the 7B-width step through the new
+    # surface; (c) an O1 + GradScaler eager loop; (d) tiny CUDA-vs-CPU
+    # parity of (b)'s options
+    adam_k = adam_kernel_cases(gen, dev, card)
+    surface = train_surface(training["max_memory_allocated_gib"], args.seed,
+                            dev, card)
+    o1 = o1_scaler_loop(args.seed, dev, card)
+    surface_parity = tiny_surface_parity(args.seed, dev)
+
     def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -3375,6 +3837,12 @@ def main():
             + dispatch["serving_pinned"]["launches"][
                 "paged_attention_grouped"]),
     ]
+    # the Adam update (no pallas_call: the reference's XLA-fused update);
+    # launches: phase 6's timed steps and phase 10 (b)'s timed calls
+    kernels.append(row("adam_update", csrc + "adam.cu",
+                       "paddle_tpu/optimizer/optimizer.py:248",
+                       adam_k["timed"],
+                       trained["adam"] + surface["launches"]["adam"]))
     # the variant bodies; launches: phase 9's counted runs, (b) (both
     # rates) and (c)'s timed steps
     counted = [run["launches"] for run in variants["varlen"]["runs"].values()]
@@ -3401,6 +3869,8 @@ def main():
                            train_parity=train_parity, matmul=mm,
                            paged_attention_grouped=grouped,
                            dispatch=dispatch, flash_variants=variants,
+                           adam=adam_k, surface=surface, o1_scaler=o1,
+                           surface_parity=surface_parity,
                            kernels=kernels),
                       f, indent=1)
     log(card)

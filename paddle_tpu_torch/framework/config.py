@@ -88,3 +88,7 @@ define_flag("FLAGS_flash_dropout_kernel", False,
             "threefry mask and a fresh seed per call. Off (the default): "
             "dropout attention takes the dense reference path with a "
             "bernoulli mask.")
+define_flag("FLAGS_prefetch_depth", 2,
+            "Batches `models.trainer.prefetch_batches` (and a "
+            "DevicePrefetcher given no depth) stages on the card ahead of "
+            "the step that uses them; <= 0 stages nothing ahead.")

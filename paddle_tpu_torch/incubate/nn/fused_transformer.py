@@ -58,6 +58,13 @@ class _Params:
                                        device=self.device))
 
 
+def _single_card(ring_id):
+    if ring_id != -1:
+        raise NotImplementedError(
+            f"ring_id={ring_id}: tensor-parallel groups are not ported (the "
+            "single-card default is -1)")
+
+
 def fused_multi_head_attention(x, qkv_weight, linear_weight,
                                pre_layer_norm=False, pre_ln_scale=None,
                                pre_ln_bias=None, ln_scale=None, ln_bias=None,
@@ -66,10 +73,12 @@ def fused_multi_head_attention(x, qkv_weight, linear_weight,
                                attn_mask=None, dropout_rate=0.5,
                                attn_dropout_rate=0.5, ln_epsilon=1e-05,
                                training=True, mode="upscale_in_train",
-                               add_residual=True):
+                               ring_id=-1, add_residual=True, name=None):
     """x [b, s, d]: (pre-LN) -> qkv projection (qkv_weight [3, heads,
     head_dim, d]) -> attention with `attn_dropout_rate` -> out projection
-    -> dropout -> + x -> (post-LN)."""
+    -> dropout -> + x -> (post-LN). `ring_id` (the tensor-parallel group)
+    takes only its single-card default -1; `name` is unused."""
+    _single_card(ring_id)
     if cache_kv is not None:
         raise NotImplementedError("fused_multi_head_attention: cache_kv is "
                                   "not ported")
@@ -102,9 +111,12 @@ def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
                       ln2_scale=None, ln2_bias=None, dropout1_rate=0.5,
                       dropout2_rate=0.5, activation="relu", ln1_epsilon=1e-5,
                       ln2_epsilon=1e-5, pre_layer_norm=False, training=True,
-                      mode="upscale_in_train", add_residual=True):
+                      mode="upscale_in_train", ring_id=-1, add_residual=True,
+                      name=None):
     """x [b, s, d]: (pre-LN) -> linear1 -> activation ("relu" or "gelu")
-    -> dropout -> linear2 -> dropout -> + x -> (post-LN)."""
+    -> dropout -> linear2 -> dropout -> + x -> (post-LN). `ring_id` takes
+    only its single-card default -1; `name` is unused."""
+    _single_card(ring_id)
     residual = x
     if pre_layer_norm:
         x = F.layer_norm(x, [x.shape[-1]], ln1_scale, ln1_bias, ln1_epsilon)

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("rms_norm", "paged_attention", "flash_attention",
            "flash_attention_seg", "flash_attention_drop",
-           "flash_attention_seg_drop", "quant_matmul", "matmul")
+           "flash_attention_seg_drop", "quant_matmul", "matmul", "adam")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,4 +1,5 @@
 from .llama import LlamaConfig, LlamaForCausalLM
-from .trainer import build_train_step
+from .trainer import build_train_step, prefetch_batches
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "build_train_step"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "build_train_step",
+           "prefetch_batches"]

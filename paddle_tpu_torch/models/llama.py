@@ -1,12 +1,17 @@
 """LLaMA-family causal LM (counterpart of `paddle_tpu/models/llama.py`): the
 training forward `forward` (causal attention through
 `F.scaled_dot_product_attention`, so the flash kernels at the shapes they
-take), the dense-cache forward `forward_cached` (batched prefill) and the
-paged single-token decode `forward_paged`.
+take; with a padding `attn_mask`, folded into the causal mask, the dense
+reference path, as in the reference), the dense-cache forward
+`forward_cached` (batched prefill) and the paged single-token decode
+`forward_paged`. `config.use_recompute` recomputes each decoder layer's
+activations in training (`distributed.fleet.utils.recompute`).
 
 Parameter names and shapes equal the JAX model's, linears in Paddle's
-[in, out] layout. Not ported: padding masks in `forward`, recompute, ring
-and zigzag context parallelism, scan-stacked layers.
+[in, out] layout. `config.scan_layers` is accepted and leaves the layer
+loop as it is (the reference's `lax.scan` over stacked layers shrinks a
+compiled program; an eager PyTorch loop has none to shrink).
+`config.cp_zigzag_stream=True` raises: context parallelism is not ported.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from ..framework.device import resolve_device, torch_dtype
 from ..nn import Embedding, Linear, ParallelCrossEntropy, RMSNorm
 from ..nn import functional as F
 from ..nn.functional import apply_rope, rope_tables
+from ..distributed.fleet.utils.recompute import recompute
 from .causal_lm import CausalLMBase
 from .paged_step import paged_attention_step
 
@@ -37,6 +43,14 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    use_recompute: bool = False
+    # the zigzag context-parallel token layout (not ported: True raises)
+    cp_zigzag_stream: bool = False
+    # accepted; the layers run as a plain loop either way
+    scan_layers: bool = False
+    # > 0: the training step's loss is the chunked LM-head cross entropy
+    # over this many token chunks (CausalLMBase.compute_loss_hidden)
+    fused_ce_chunks: int = 0
     dtype: str = "float32"
 
     @staticmethod
@@ -49,6 +63,13 @@ class LlamaConfig:
         return LlamaConfig(hidden_size=5120, intermediate_size=13824,
                            num_hidden_layers=40, num_attention_heads=40,
                            num_key_value_heads=40)
+
+    @staticmethod
+    def gpt3_1p3b():
+        return LlamaConfig(vocab_size=50304, hidden_size=2048,
+                           intermediate_size=8192, num_hidden_layers=24,
+                           num_attention_heads=16,
+                           max_position_embeddings=2048)
 
     @staticmethod
     def tiny(vocab=256, hidden=64, layers=2, heads=4, seq=128):
@@ -108,9 +129,12 @@ class LlamaAttention(nn.Module):
                                position_offset=offset, device=q.device)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
-    def forward(self, hidden_states):
+    def forward(self, hidden_states, attn_mask=None):
         """Causal self-attention over [b, s, hidden] from position 0 (the
-        training path): GQA repeats K/V to the query heads first."""
+        training path): GQA repeats K/V to the query heads first. A padding
+        `attn_mask` ([b, 1, 1, s], bool or additive) is folded into the
+        causal mask as the reference folds it: a bool mask by AND, an
+        additive one plus the dtype's lowest value above the diagonal."""
         b, s = hidden_states.shape[:2]
         q, k, v = self._qkv(hidden_states)
         q, k = self._rotate(q, k, 0)
@@ -118,8 +142,22 @@ class LlamaAttention(nn.Module):
         if rep != 1:
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                             training=self.training)
+        if attn_mask is not None:
+            causal = torch.ones(s, s, dtype=torch.bool,
+                                device=q.device).tril()[None, None]
+            if attn_mask.dtype == torch.bool:
+                mask = attn_mask.broadcast_to(
+                    tuple(attn_mask.shape[:2]) + (s, s)) & causal
+            else:
+                low = torch.finfo(attn_mask.dtype).min
+                mask = attn_mask + torch.where(
+                    causal, 0.0, low).to(attn_mask.dtype)
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=False,
+                training=self.training)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 training=self.training)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
     def forward_cached(self, hidden_states, kv_cache, cur_len):
@@ -174,14 +212,20 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
                                                 dtype, device)
         self.mlp = LlamaMLP(config, dtype, device)
+        self.use_recompute = config.use_recompute
 
     def _finish(self, residual, attn_out):
         h = residual + attn_out
         return h + self.mlp(self.post_attention_layernorm(h))
 
-    def forward(self, hidden_states):
+    def _inner(self, hidden_states, attn_mask=None):
         return self._finish(hidden_states, self.self_attn(
-            self.input_layernorm(hidden_states)))
+            self.input_layernorm(hidden_states), attn_mask))
+
+    def forward(self, hidden_states, attn_mask=None):
+        if self.use_recompute and self.training:
+            return recompute(self._inner, hidden_states, attn_mask)
+        return self._inner(hidden_states, attn_mask)
 
     def forward_cached(self, hidden_states, kv_cache, cur_len):
         h, cache = self.self_attn.forward_cached(
@@ -201,17 +245,17 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      dtype, device)
+                                      dtype=dtype, device=device)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config, dtype, device)
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtype,
                             device)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, attn_mask=None):
         h = self.embed_tokens(input_ids)
         for layer in self.layers:
-            h = layer(h)
+            h = layer(h, attn_mask)
         return self.norm(h)
 
     def forward_cached(self, input_ids, caches, cur_len):
@@ -243,6 +287,9 @@ class LlamaForCausalLM(CausalLMBase):
 
     def __init__(self, config, device=None, seed=0):
         super().__init__()
+        if config.cp_zigzag_stream:
+            raise NotImplementedError(
+                "cp_zigzag_stream=True: context parallelism is not ported")
         self.config = config
         dev = resolve_device(device)
         dtype = torch_dtype(config.dtype)
@@ -265,9 +312,10 @@ class LlamaForCausalLM(CausalLMBase):
             else:
                 p.normal_(0.0, std, generator=gen)
 
-    def forward(self, input_ids):
-        """[b, s] token ids -> [b, s, vocab] logits."""
-        return self._head(self.llama(input_ids))
+    def forward(self, input_ids, attn_mask=None):
+        """[b, s] token ids (and a padding mask [b, 1, 1, s], bool or
+        additive) -> [b, s, vocab] logits."""
+        return self._head(self.llama(input_ids, attn_mask))
 
     def forward_cached(self, input_ids, caches, cur_len):
         h, new_caches = self.llama.forward_cached(input_ids, caches, cur_len)

@@ -6,10 +6,10 @@ from __future__ import annotations
 import torch.nn.functional as TF
 
 
-def relu(x):
+def relu(x, name=None):
     return TF.relu(x)
 
 
-def gelu(x, approximate=False):
+def gelu(x, approximate=False, name=None):
     """Exact GELU, or its tanh approximation with `approximate`."""
     return TF.gelu(x, approximate="tanh" if approximate else "none")

@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from ...framework import amp_state as _amp
 from ...framework import config as _config
 from ...framework import random as _random
 from ...kernels import flash_attention as _fa
@@ -56,9 +57,13 @@ def _sdpa_reference(q, k, v, mask=None, causal=False, scale=None,
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
+                                 training=True, name=None):
     """Paddle layout: [batch, seq, num_heads, head_dim]; causal masking is
-    bottom-right aligned. `dropout_p` applies in training only."""
+    bottom-right aligned. `dropout_p` applies in training only. On the
+    auto-cast white list ("sdpa"): q, k, v and a float32 additive mask are
+    cast, as the reference casts them."""
+    query, key, value, attn_mask = _amp.cast_inputs(
+        "sdpa", query, key, value, attn_mask)
     p = dropout_p if training else 0.0
     s_q, d = query.shape[1], query.shape[3]
     flash = attn_mask is None and _fa.supports(s_q, key.shape[1], d,
@@ -78,9 +83,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
-                    training=True):
-    """`paddle.nn.functional.flash_attention.flash_attention` without
-    `return_softmax` (not ported): returns (out, None)."""
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None):
+    """`paddle.nn.functional.flash_attention.flash_attention`: SDPA, and
+    (out, None) even with `return_softmax`, as the reference returns.
+    `fixed_seed_offset`, `rng_name` and `name` are accepted and unused, as
+    in the reference (dropout seeds come from the global stream)."""
     out = scaled_dot_product_attention(query, key, value, dropout_p=dropout,
                                        is_causal=causal, training=training)
     return out, None
@@ -110,14 +118,18 @@ def _unpadded_dense(q, k, v, cu_q, cu_k, scale, causal):
 
 def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
                         max_seqlen_q, max_seqlen_k, scale=None, dropout=0.0,
-                        causal=False, return_softmax=False, training=True):
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
     """`paddle.nn.functional.flash_attention.flash_attn_unpadded`: varlen
     attention over packed [total_tokens, heads, head_dim] tensors with
     [n_seqs + 1] prefix sums; returns (out, None). head_dim 128 (f32 or
     bf16) runs the segment-id flash bodies (`kernels.flash_attention.
     flash_attn_unpadded`), with dropout in training on a fresh seed from
     the global stream; any other width the dense segment-masked path, which
-    raises on dropout in training, as the reference's does."""
+    raises on dropout in training, as the reference's does.
+    `fixed_seed_offset`, `rng_name` and `name` are accepted and unused, as
+    in the reference."""
     p = dropout if training else 0.0
     if _fa.supports(_fa.BLOCK, _fa.BLOCK, query.shape[-1], query.dtype):
         return _fa.flash_attn_unpadded(

@@ -1,9 +1,11 @@
 """Common functionals (counterpart of
-`paddle_tpu/nn/functional/common.py`): linear, dropout, embedding."""
+`paddle_tpu/nn/functional/common.py`): linear, dropout, embedding. `name`
+is accepted and unused, as in the reference."""
 from __future__ import annotations
 
 import torch
 
+from ...framework import amp_state as _amp
 from ...framework import random as _random
 from ...kernels import autotune as _at
 from ...kernels import matmul as _kmm
@@ -28,14 +30,16 @@ def _matmul(a, w):
     return torch.matmul(a, w)
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """Paddle weight layout: weight is [in_features, out_features]; bias
-    [out_features] or None."""
+    [out_features] or None. On the auto-cast white list ("linear")."""
+    x, weight, bias = _amp.cast_inputs("linear", x, weight, bias)
     out = _matmul(x, weight)
     return out if bias is None else out + bias
 
 
-def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
     """Paddle's dropout. In training, each element (or, with `axis`, each
     index along those axes, shared across the others) is kept with
     probability 1 - p; "upscale_in_train" scales the kept ones by
@@ -60,6 +64,16 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
     return torch.where(keep, x, torch.zeros_like(x))
 
 
-def embedding(ids, weight):
-    """Row gather: weight [vocab, hidden], ids [...] -> [..., hidden]."""
-    return weight[ids]
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Row gather: weight [vocab, hidden], ids x [...] -> [..., hidden]. The
+    rows of ids equal to `padding_idx` read 0. `sparse` (a sparse
+    gradient) takes only its dense default False."""
+    if sparse:
+        raise NotImplementedError("embedding(sparse=True): sparse "
+                                  "gradients are not ported")
+    out = weight[x]
+    if padding_idx is not None:
+        out = torch.where((x == padding_idx)[..., None],
+                          torch.zeros((), dtype=out.dtype,
+                                      device=out.device), out)
+    return out

@@ -37,16 +37,26 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    """weight [num_embeddings, embedding_dim]; ids -> rows."""
+    """weight [num_embeddings, embedding_dim]; ids -> rows. The row
+    `padding_idx` is zeroed here (the rest stay uninitialised) and reads 0
+    in the forward; `sparse` takes only its dense default False."""
 
-    def __init__(self, num_embeddings, embedding_dim, dtype=torch.float32,
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, name=None, *, dtype=torch.float32,
                  device=None):
         super().__init__()
+        if sparse:
+            raise NotImplementedError("Embedding(sparse=True): sparse "
+                                      "gradients are not ported")
+        self._padding_idx = padding_idx
         self.weight = nn.Parameter(torch.empty(
             num_embeddings, embedding_dim, dtype=dtype, device=device))
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0
 
-    def forward(self, ids):
-        return F.embedding(ids, self.weight)
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
 
 class RMSNorm(nn.Module):
@@ -63,10 +73,14 @@ class RMSNorm(nn.Module):
 
 class ParallelCrossEntropy(nn.Module):
     """Softmax cross entropy at tensor-parallel degree 1: per-token losses
-    with a trailing size-1 axis, [..., 1]."""
+    with a trailing size-1 axis, [..., 1]. `mp_group` (the model-parallel
+    group) takes only its single-card default None; `name` is unused."""
 
-    def __init__(self, ignore_index=-100):
+    def __init__(self, mp_group=None, name=None, ignore_index=-100):
         super().__init__()
+        if mp_group is not None:
+            raise NotImplementedError("ParallelCrossEntropy(mp_group=...): "
+                                      "tensor parallelism is not ported")
         self.ignore_index = ignore_index
 
     def forward(self, input, label):

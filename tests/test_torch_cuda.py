@@ -62,7 +62,14 @@ of the call, and at the 13B shapes match the plain version beside a
 reduce that misses one split partial. The grouped-fetch decode is held as the per-page kernel is (one
 output rounding at the largest magnitude), against the plain dense
 version and against the per-page kernel.
+
+The Adam / AdamW update kernel is held bit for bit against its plain
+version, which rounds each f32 operation on its own in the kernel's order,
+in bf16 (with and without an f32 master weight), f16 and f32, aligned and
+one element off a 16-byte boundary, at whole vectors and odd tails.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1381,3 +1388,82 @@ def test_flash_variants_refuse_what_they_do_not_take(cuda_device):
         tfa.flash_fwd(q, q, q, 0.1, False,
                       tfa.Variant(rate=0.1, seed=1, keep=keep))
 
+
+
+# ---------------------------------------------------------------------------
+# the Adam / AdamW update in one pass (csrc/adam.cu)
+# ---------------------------------------------------------------------------
+
+
+def _adam_inputs(shape, dtype, master, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+    g = (torch.randn(shape, generator=gen, device=dev) * 1e-2).to(dtype)
+    m1 = torch.randn(shape, generator=gen, device=dev) * 1e-3
+    m2 = torch.randn(shape, generator=gen, device=dev).square() * 1e-6
+    mw = p.float() + torch.randn(shape, generator=gen, device=dev) * 1e-5 \
+        if master else None
+    return [p, g, m1, m2, mw]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4096, 4096), (4097,), (7,), (3, 33)])
+@pytest.mark.parametrize("dtype,master", [(torch.bfloat16, False),
+                                          (torch.bfloat16, True),
+                                          (torch.float16, False),
+                                          (torch.float32, False)])
+@pytest.mark.parametrize("kind", ["adam", "adamw"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_adam_kernel_matches_plain(cuda_device, shape, dtype, master, kind,
+                                   offset):
+    """One update by the kernel and by its plain version (each f32
+    operation rounded on its own, in the same order) on copies of the same
+    tensors: equal bit for bit. offset 1: every tensor one element off a
+    16-byte boundary (the element-by-element path)."""
+    from paddle_tpu_torch.kernels import adam as kadam
+
+    n = math.prod(shape)
+    base = _adam_inputs((n + offset,), dtype, master, cuda_device)
+    ts = [None if t is None else t[offset:].reshape(shape) for t in base]
+    coeff, wd = (0.1, 0.0) if kind == "adamw" else (0.0, 0.1)
+    args = (0.9, 0.999, 1e-8, 1e-3, coeff, wd, np.float32(0.1),
+            np.float32(0.001))
+    got = [None if t is None else t.clone() for t in ts]
+    want = [None if t is None else t.clone() for t in ts]
+    if offset:  # clones are aligned: take unaligned views again
+        got = [None if t is None else
+               torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].reshape(shape)
+               for t in got]
+    n0 = kadam.launches
+    kadam.adam_update(*got, *args)
+    kadam.adam_update_ref(*want, *args)
+    torch.cuda.synchronize()
+    assert kadam.launches == n0 + 1
+    for a, b in zip(got, want):
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_adam_kernel_runs_the_optimizer_and_refuses_what_it_does_not_take(
+        cuda_device):
+    from paddle_tpu_torch.kernels import adam as kadam
+
+    ps = [torch.nn.Parameter(torch.randn(64, 32, device=cuda_device)
+                             .bfloat16()) for _ in range(3)]
+    opt = AdamW(learning_rate=1e-3, parameters=ps, multi_precision=True)
+    for p in ps:
+        p.grad = torch.randn_like(p)
+    n0 = kadam.launches
+    opt.step()
+    assert kadam.launches == n0 + 3
+    p, g, m1, m2, _ = _adam_inputs((16,), torch.float32, False, cuda_device)
+    args = (0.9, 0.999, 1e-8, 1e-3, 0.0, 0.0, 0.1, 0.001)
+    with pytest.raises(TypeError):
+        kadam.adam_update(p, g, m1.double(), m2, None, *args)
+    with pytest.raises(TypeError):
+        kadam.adam_update(p, g, m1, m2, m1.clone(), *args)
+    with pytest.raises(ValueError):
+        kadam.adam_update(p, g[:8], m1, m2, None, *args)
+    with pytest.raises(ValueError):
+        kadam.adam_update(p, g, m1.cpu(), m2, None, *args)

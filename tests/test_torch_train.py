@@ -219,8 +219,10 @@ def test_amp_decorate_o2_casts_parameters_to_bf16():
     assert amp.decorate(model, level="O2", dtype="bfloat16") is model
     assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
     assert all(p.requires_grad for p in model.parameters())
-    with pytest.raises(NotImplementedError):
-        amp.decorate(model, level="O1")
+    # O1 leaves the parameters as they are and returns the model, as the
+    # reference's decorate does
+    assert amp.decorate(model, level="O1") is model
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
 
 
 def test_bf16_train_step_keeps_f32_moments():
