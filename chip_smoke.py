@@ -125,7 +125,23 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    GradScaler (2^15) and AdamW clipped by global norm 1.0: an inf planted
    in one gradient skips that step (every parameter and moment bitwise
    unchanged) and halves the scale; (d) a tiny f32 LLaMA (head_dim 128)
-   through (b)'s options on CUDA and on the CPU from the same weights.
+   through (b)'s options on CUDA and on the CPU from the same weights;
+11. multi-step serving decode, each cell and mode in a process of its own
+   (`--phase11 CELL`, started by this script): phase 4's model and traffic
+   on an engine with decode_burst=8 (each (greedy or mixed, 1 or 8 steps)
+   program a captured CUDA graph, all four captured by `warmup`),
+   synchronous and then with async_depth=2: every greedy stream equal to
+   phase 4's eager one, sampled streams in the vocabulary and of their
+   length, no capture during traffic, no token emitted past a finish, the
+   launches inside the graphs counted from the profiler's device records
+   (paged decode L a step, RMSNorm 2L + 1 a forward) over the 10 requests
+   and over a profiled window of 3 bursts at batch 8 (context ~1000: wall,
+   device busy and operations per token step, idle share, beside phase
+   4's); the eos check and two planted faults that must each break the
+   check guarding them (a replay without the block-table copy; a burst
+   body that ignores eos); then phase 4b's 13B engine (int8 weights, int8
+   KV) the same way, held to its own eager engine's streams, the dequant
+   matmul's decode kernel counted inside the graphs (7L a step).
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -154,6 +170,7 @@ from paddle_tpu_torch import amp, get_flags, set_flags
 from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
 from paddle_tpu_torch.inference import ServingEngine
+from paddle_tpu_torch.inference import serving as tserving
 from paddle_tpu_torch.io import DataLoader, TensorDataset
 from paddle_tpu_torch.kernels import _build, autotune
 from paddle_tpu_torch.kernels import adam as kadam
@@ -1312,9 +1329,11 @@ def flash_case(name, bh, s_q, s_kv, causal, dtype, gen, dev, library=False):
 # ---------------------------------------------------------------------------
 
 
-def drive(eng, requests):
+def drive(eng, requests, via_run=False):
     """Queue `requests` [(prompt, max_new, kwargs)], step the engine until
-    idle, and time it: TTFT per request, and the steps that only decoded."""
+    idle, and time it: TTFT per request, and the steps that only decoded
+    (a step of a burst engine decodes k token steps). `via_run`: one
+    `eng.run()` instead (the async pipeline runs only there), timed whole."""
     t_add, t_first, n_tok = {}, {}, [0]
 
     def on_token(rid, _tok):
@@ -1327,7 +1346,10 @@ def drive(eng, requests):
                               on_token=on_token, **kw)
         t_add[rid] = time.perf_counter()
         want[rid] = max_new
-    finished, step_ms, dec_tok, dec_s = [], [], 0, 0.0
+    finished, step_ms, dec_tok, dec_s, token_steps = [], [], 0, 0.0, 0
+    t_all = time.perf_counter()
+    while via_run and eng.has_work():
+        finished += eng.run()
     while eng.has_work():
         p0, d0, k0 = eng.prefills, eng.decode_steps, n_tok[0]
         t0 = time.perf_counter()
@@ -1337,6 +1359,8 @@ def drive(eng, requests):
             step_ms.append(dt * 1e3)
             dec_tok += n_tok[0] - k0
             dec_s += dt
+            token_steps += eng.decode_steps - d0
+    wall = time.perf_counter() - t_all
     check(sorted(f.request_id for f in finished) == sorted(want),
           "not every request finished")
     vocab = eng.cfg.vocab_size
@@ -1354,7 +1378,10 @@ def drive(eng, requests):
                 decode_steps=len(step_ms),
                 ms_per_decode_step_p50=float(np.median(step_ms))
                 if step_ms else None,
-                decode_tokens_per_s=dec_tok / dec_s if dec_s else None)
+                decode_tokens_per_s=dec_tok / dec_s if dec_s else None,
+                ms_per_token_step=dec_s * 1e3 / token_steps
+                if token_steps else None,
+                wall_s=wall, tokens_per_s=n_tok[0] / wall)
 
 
 class ForwardLog:
@@ -3466,11 +3493,364 @@ def tiny_surface_parity(seed, dev, calls=4):
                 max_rel_loss_diff=rel, max_rel_update_diff=worst)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: multi-step serving decode (decode_burst as CUDA graphs, async)
+# ---------------------------------------------------------------------------
+
+BURST = 8        # decode steps a program runs (one captured graph)
+ASYNC_DEPTH = 2  # bursts kept in flight by the async engine
+
+
+def count_kernels(events, part):
+    return sum(part in e.name for e in events)
+
+
+def profiled(fn):
+    """fn() under torch.profiler (device records): (its result, wall s, the
+    records)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, _device_events(prof)
+
+
+def graph_launches(events, cfg, token_steps, forwards, quant):
+    """The kernels the device ran for `token_steps` decode steps and
+    `forwards` forwards in all (prefills and decode steps), counted from
+    the profiler's records (a graph replay bypasses the wrappers'
+    counters), and what they must be: the paged decode L a step, RMSNorm
+    2L + 1 a forward, with int8 weights the dequant matmul's decode kernel
+    7L a step and no split-summing kernel. Returns (got, want)."""
+    L = cfg.num_hidden_layers
+    got = dict(paged_attention=count_kernels(events, "paged_decode_kernel"),
+               rms_norm=count_kernels(events, "rms_norm_fwd"))
+    want = dict(paged_attention=L * token_steps,
+                rms_norm=(2 * L + 1) * forwards)
+    if quant:
+        got["quant_matmul_decode"] = count_kernels(events, "skinny_kernel")
+        want["quant_matmul_decode"] = 7 * L * token_steps
+        got["split_sum"] = count_kernels(events, "split_sum_kernel")
+        want["split_sum"] = 0
+    return got, want
+
+
+def counted(tag, run, card):
+    """run() -> (result, got, want) of one profiled window; once more if the
+    profiler's records fall short (it has lost a few records of a long
+    session late in a process), so the launches must be exact in one of
+    two windows. A window with MORE launches than the path implies fails
+    at once."""
+    res, got, want = run()
+    if got != want and all(got[k] <= want[k] for k in want):
+        log(f"phase 11 {tag}: the profiler kept {got} of {want} device "
+            f"records; the window runs once more [{card}]")
+        res, got, want = run()
+    check(got == want, f"{tag}: device launches {got}, expected {want}")
+    return res, got
+
+
+def burst_engine(model, seed, dev, kv, **kw):
+    """The phase-4 engine at decode_burst=BURST, warmed: its four programs
+    ((greedy or mixed) x (1 or BURST steps)) captured before traffic."""
+    eng = ServingEngine(model, max_batch=8, max_seq_len=4096, page_size=16,
+                        seed=seed, device=dev, kv_cache_quant=kv,
+                        decode_burst=BURST, **kw)
+    secs = eng.warmup(sampling=True)
+    keys = {(g, k) for g in (True, False) for k in (1, BURST)}
+    check(eng.graph_captures == 4 and set(eng._burst_fns) == keys,
+          f"warmup captured {eng.graph_captures} graphs, keys "
+          f"{sorted(eng._burst_fns)}")
+    return eng, secs
+
+
+def profile_burst(eng, rng, card, tag, bursts=3, via_run=False,
+                  quant=False):
+    """Profile `bursts` bursts of pure decode at batch 8 (contexts ~1000),
+    as `profile_decode` does for single steps: per token step, the wall
+    ms, device busy ms, device operations; the idle share; the kernels'
+    launches in the window, exact. Then as many bursts again with the
+    profiler off: the wall ms a token step without its cost on each
+    launch (a graph launch of ~1800 kernels is one host call, which the
+    profiler makes dearer). `via_run`: through `run()` (the async
+    pipeline), else one `step()` a burst."""
+    k = eng.decode_burst
+
+    def window():
+        d0 = eng.decode_steps
+        t0 = time.perf_counter()
+        if via_run:
+            eng.run(max_steps=bursts)
+        else:
+            for _ in range(bursts):
+                eng.step()
+        torch.cuda.synchronize()
+        return eng.decode_steps - d0, time.perf_counter() - t0
+
+    def run():
+        for _ in range(eng.max_batch):
+            eng.add_request(rng.randint(0, eng.cfg.vocab_size, 1000),
+                            max_new_tokens=k * (2 * bursts + 2) + 1)
+        eng.step()  # admission, batched prefill, first tokens, a burst
+        r0 = eng.graph_replays
+        (steps, _), wall, events = profiled(window)
+        check(steps == bursts * k and eng.graph_replays - r0 == bursts,
+              f"{tag}: {steps} token steps in {eng.graph_replays - r0} "
+              f"replays, expected {bursts * k} in {bursts}")
+        steps2, wall2 = window()
+        check(steps2 == steps, f"{tag}: the unprofiled window ran {steps2} "
+              f"token steps")
+        eng.run()
+        return ((wall, events, steps, wall2),
+                *graph_launches(events, eng.cfg, steps, steps, quant))
+
+    (wall, events, steps, wall2), launches = counted(f"{tag} window", run,
+                                                     card)
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    res = dict(token_steps=steps, bursts=bursts,
+               wall_ms_per_token_step=wall * 1e3 / steps,
+               unprofiled_wall_ms_per_token_step=wall2 * 1e3 / steps,
+               device_busy_ms_per_token_step=busy / 1e3 / steps,
+               idle_share=1.0 - busy / (wall * 1e6),
+               device_ops_per_token_step=len(events) / steps,
+               paged_ms_per_token_step=sum(
+                   us for n, us in by_name.items()
+                   if "paged_decode_kernel" in n) / 1e3 / steps,
+               launches=launches,
+               top_kernels_ms_per_token_step=[(n[:90], us / 1e3 / steps)
+                                              for n, us in top])
+    if quant:
+        res["dequant_ms_per_token_step"] = sum(
+            us for n, us in by_name.items() if "skinny_kernel" in n) \
+            / 1e3 / steps
+    log(f"phase 11 {tag}: batch-8 decode at context ~1000, {bursts} bursts "
+        f"of {k}: {res['wall_ms_per_token_step']:.3f} ms/token-step wall "
+        f"({res['unprofiled_wall_ms_per_token_step']:.3f} unprofiled), "
+        f"{res['device_busy_ms_per_token_step']:.3f} device busy, idle share "
+        f"{res['idle_share']:.3f}, {res['device_ops_per_token_step']:.0f} "
+        f"device operations a token step, paged kernel "
+        f"{res['paged_ms_per_token_step']:.3f} ms"
+        + (f", dequant decode kernel {res['dequant_ms_per_token_step']:.3f} "
+           f"ms" if quant else "") + f", launches {launches} [{card}]")
+    for name, ms in res["top_kernels_ms_per_token_step"]:
+        log(f"phase 11 {tag}:   {ms:8.4f} ms/token-step  {name}")
+    return res
+
+
+def burst_traffic(eng, long_req, batch, want, tag, card, via_run=False):
+    """Phase 4's traffic on a warmed burst engine: the lone request, then
+    the 10 requests under the profiler (launches counted from its
+    records); greedy streams against `want` (the eager engine's) must be
+    identical, no program may be captured during traffic, and no token may
+    be emitted past a finish."""
+    c0, r0 = eng.graph_captures, eng.graph_replays
+
+    def run():
+        lone = drive(eng, long_req, via_run=via_run)
+        p0, d0 = eng.prefills, eng.decode_steps
+        mixed, _, events = profiled(
+            lambda: drive(eng, batch, via_run=via_run))
+        steps = eng.decode_steps - d0
+        agree = stream_agreement(want, lone, mixed)
+        check(agree["greedy_identical"] == agree["greedy"] > 0,
+              f"{tag}: greedy streams against the eager engine's: {agree}")
+        return ((lone, mixed, agree),
+                *graph_launches(events, eng.cfg, steps,
+                                eng.prefills - p0 + steps,
+                                eng.kv_cache_quant == "int8"))
+
+    (lone, mixed, agree), launches = counted(f"{tag} traffic", run, card)
+    check(eng.graph_captures == c0 and eng.graph_replays > r0,
+          f"{tag}: {eng.graph_captures - c0} captures during traffic, "
+          f"{eng.graph_replays - r0} replays")
+    check(eng.discarded_tokens == 0,
+          f"{tag}: {eng.discarded_tokens} tokens emitted past a finish")
+    res = dict(lone_2500=lone, mixed_10=mixed, launches=launches,
+               streams_vs_eager=agree, captures=eng.graph_captures,
+               replays=eng.graph_replays, decode_steps=eng.decode_steps,
+               prefills=eng.prefills)
+    step_ms = "" if via_run else (
+        f"; lone {lone['ms_per_token_step']:.3f} ms/token-step, mixed "
+        f"{mixed['ms_per_token_step']:.3f}")
+    log(f"phase 11 {tag}: phase 4's traffic: TTFT lone "
+        f"{lone['ttft_ms'][0]:.1f} ms, mixed p50 "
+        f"{np.median(mixed['ttft_ms']):.1f} ms; {lone['tokens_per_s']:.1f} / "
+        f"{mixed['tokens_per_s']:.1f} tok/s whole{step_ms}; greedy streams "
+        f"{agree['greedy_identical']} of {agree['greedy']} identical to the "
+        f"eager engine's; {eng.graph_replays} replays of "
+        f"{eng.graph_captures} graphs; mixed launches {launches} [{card}]")
+    return res
+
+
+def planted_faults(eng, long_req, lone_stream, card):
+    """The eos check, and two faults that must break the check guarding
+    each: a replay without the block-table copy (guard: the lone
+    request's greedy stream equals the eager engine's), a burst body that
+    ignores eos (guard: the stream stops at eos and the device emits
+    nothing past it)."""
+    prompt, s = long_req[0][0], lone_stream
+    p = next(i for i in range(1, len(s))
+             if s[i] not in s[:i] and (i - 1) % BURST != BURST - 1)
+
+    def serve_lone(max_new, **kw):
+        rid = eng.add_request(prompt, max_new_tokens=max_new, **kw)
+        d0 = eng.discarded_tokens
+        out = {f.request_id: f.output_ids.tolist() for f in eng.run()}
+        return out[rid], eng.discarded_tokens - d0
+
+    got, discarded = serve_lone(len(s), eos_token_id=s[p])
+    check(got == s[:p + 1] and discarded == 0,
+          f"eos at stream position {p}: got {len(got)} tokens, "
+          f"{discarded} emitted past the eos")
+    # fault 1: the block table is never copied to the program's buffer
+    eng._buf.tables.zero_()
+    eng._put_tables = lambda: None
+    try:
+        bad, _ = serve_lone(16)
+    finally:
+        del eng._put_tables
+    first = next((i for i, (u, v) in enumerate(zip(bad, s)) if u != v), None)
+    check(first is not None, "planted fault (replay without the block-table "
+          "copy): the stream check did not catch it")
+    # fault 2: the burst body keeps a row active past its eos
+    rules = tserving.burst_rules
+    tserving.burst_rules = lambda tok, lens, act, rem, nxt, eos: rules(
+        tok, lens, act, rem, nxt, torch.full_like(eos, -1))
+    eng._burst_fns.clear()
+    try:
+        got2, discarded2 = serve_lone(len(s), eos_token_id=s[p])
+    finally:
+        tserving.burst_rules = rules
+        eng._burst_fns.clear()
+    check(discarded2 > 0, "planted fault (a burst body that ignores eos): "
+          "the check of tokens past the eos did not catch it")
+    res = dict(eos_position=p, eos_stream_ok=True,
+               no_table_copy_first_diff=first,
+               eos_ignored_tokens_past_eos=discarded2,
+               eos_ignored_stream_still_host_truncated=got2 == s[:p + 1])
+    log(f"phase 11 faults: eos at position {p} (mid-burst) stops the lone "
+        f"request there with nothing emitted past it; a replay without the "
+        f"block-table copy differs from the eager stream at token {first} "
+        f"(caught); a body that ignores eos emits {discarded2} tokens past "
+        f"it (caught) [{card}]")
+    return res
+
+
+CELLS = ("7b_sync", "7b_async", "13b_int8_sync", "13b_int8_async")
+
+
+def multi_step_cell(cell, seed, dev, card, io):
+    """One phase-11 cell and mode, in a process of its own: the 7B cell
+    (phase 4's model, LLaMA-2-7B bf16 from `seed`, against phase 4's
+    streams in io/phase4.json) or the 13B int8 cell (LLaMA-2-13B bf16 by
+    `init_default`, int8 weights but lm_head, int8 KV; its eager engine's
+    streams, taken by the sync process into io/eager13.json, are what
+    both modes are held to); phase 4's traffic on a burst engine,
+    synchronous or with async_depth, then a profiled burst window; the 7B
+    sync process also runs the planted faults."""
+    big = cell.startswith("13b")
+    mode = cell.rsplit("_", 1)[1]
+    cfg = LlamaConfig.llama2_13b() if big else LlamaConfig.llama2_7b()
+    cfg.dtype = "bfloat16"
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    kv = None
+    if big:
+        init_default(model, seed, dev)
+        quantize_for_inference(model, "weight_only_int8", -1,
+                               exclude=("lm_head",))
+        kv = "int8"
+        gc.collect()
+        torch.cuda.empty_cache()
+    rng = np.random.RandomState(seed)
+    long_req, batch = traffic(rng, cfg.vocab_size)
+    res = dict(card=card)
+    if not big or mode == "async":
+        with open(os.path.join(io, "eager13.json" if big
+                               else "phase4.json")) as f:
+            want = json.load(f)
+    else:
+        eng = ServingEngine(model, max_batch=8, max_seq_len=4096,
+                            page_size=16, seed=seed, device=dev,
+                            kv_cache_quant=kv)
+        want = res["eager"] = dict(lone_2500=drive(eng, long_req),
+                                   mixed_10=drive(eng, batch))
+        del eng
+        with open(os.path.join(io, "eager13.json"), "w") as f:
+            json.dump(want, f)
+    tag = f"{'13B int8' if big else '7B'} {mode}"
+    eng, secs = burst_engine(model, seed, dev, kv,
+                             async_depth=ASYNC_DEPTH if mode == "async"
+                             else 0)
+    log(f"phase 11 {tag}: warmup (4 graphs captured) {secs:.2f} s")
+    res.update(burst_traffic(eng, long_req, batch, want, tag, card,
+                             via_run=mode == "async"))
+    res["warmup_s"] = secs
+    res["profile"] = profile_burst(eng, rng, card, tag,
+                                   via_run=mode == "async", quant=big)
+    if not big and mode == "sync":
+        res["faults"] = planted_faults(
+            eng, long_req, want["lone_2500"]["streams"][0], card)
+    return res
+
+
+def multi_step_serving(seed, card, serving, serving13):
+    """Phase 11: each cell and mode in a process of its own (late in a long
+    run the profiler drops device records, and the launch counts here come
+    from them), fed phase 4's streams; prints the burst decode beside
+    phase 4's and 4b's single-step numbers."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="phase11-") as io:
+        with open(os.path.join(io, "phase4.json"), "w") as f:
+            json.dump({k: {"streams": serving[k]["streams"]}
+                       for k in ("lone_2500", "mixed_10")}, f)
+        for cell in CELLS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--phase11", cell, "--io", io], timeout=900)
+            check(proc.returncode == 0,
+                  f"phase 11 ({cell}) failed: exit {proc.returncode}")
+            with open(os.path.join(io, f"{cell}.json")) as f:
+                res[cell] = json.load(f)
+            res[cell]["process_s"] = time.perf_counter() - t0
+    for cell, base in (("7b", serving), ("13b_int8", serving13)):
+        eager = base["decode_profile"]
+        line = ", ".join(
+            f"{mode} {p['wall_ms_per_token_step']:.3f} ms/token-step wall "
+            f"({p['unprofiled_wall_ms_per_token_step']:.3f} unprofiled), "
+            f"{p['device_busy_ms_per_token_step']:.3f} device, idle "
+            f"{p['idle_share']:.3f}, {p['device_ops_per_token_step']:.0f} "
+            f"ops" for mode in ("sync", "async")
+            for p in (res[f"{cell}_{mode}"]["profile"],))
+        log(f"phase 11 {cell}: batch-8 decode at context ~1000, burst "
+            f"{BURST} graphs: {line}; phase 4's eager step: "
+            f"{eager['wall_ms_per_step']:.3f} ms wall, "
+            f"{eager['device_busy_ms_per_step']:.3f} device, idle "
+            f"{eager['idle_share']:.3f}, {eager['device_ops_per_step']:.0f} "
+            f"ops [{card}]")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--phase11", choices=CELLS, default=None,
+                    help="run one cell of phase 11 in this process (the "
+                    "script starts one process a cell itself)")
+    ap.add_argument("--io", default=None,
+                    help="with --phase11: the directory of the streams it "
+                    "is held to and of its result")
     args = ap.parse_args()
 
     # 1. device
@@ -3491,6 +3871,11 @@ def main():
     log(f"device: {kind}, count {count}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     log(card)
+    if args.phase11:
+        res = multi_step_cell(args.phase11, args.seed, dev, card, args.io)
+        with open(os.path.join(args.io, f"{args.phase11}.json"), "w") as f:
+            json.dump(res, f)
+        return 0
 
     # 2. build
     secs = _build.build()
@@ -3757,6 +4142,11 @@ def main():
     o1 = o1_scaler_loop(args.seed, dev, card)
     surface_parity = tiny_surface_parity(args.seed, dev)
 
+    # 11. multi-step serving decode: phase 4's and 4b's cells at
+    # decode_burst 8 (each program a CUDA graph), sync and async, in fresh
+    # processes
+    multi_step = multi_step_serving(args.seed, card, serving, serving13)
+
     def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -3796,16 +4186,29 @@ def main():
                   r, launches)
         out["ms"] = r["tile_ms"][v]
         return out
+    # phase 11's launches inside graphs, counted from the profiler's records
+    # of its traffic and burst windows (the 13B cell's paged decodes are
+    # the int8 kernel's)
+    def graphed(cell):
+        out = {}
+        for mode in ("sync", "async"):
+            r = multi_step[f"{cell}_{mode}"]
+            for part in (r["launches"], r["profile"]["launches"]):
+                for name, n in part.items():
+                    out[name] = out.get(name, 0) + n
+        return out
+
+    g7, g13 = graphed("7b"), graphed("13b_int8")
     kernels = [
         # launches: the serving runs' counts plus the training run's
         row("rms_norm", csrc + "rms_norm.cu", ref + "rms_norm.py:71", rms[0],
             served["rms_norm"] + q8["rms_norm"] + q4["rms_norm"]
-            + trained["rms_norm"]),
+            + trained["rms_norm"] + g7["rms_norm"] + g13["rms_norm"]),
         row("rms_norm_bwd", csrc + "rms_norm.cu", ref + "rms_norm.py:101",
             rms_bwd[0], trained["rms_norm_bwd"]),
         row("paged_attention", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged[0],
-            served["paged_attention"]),
+            served["paged_attention"] + g7["paged_attention"]),
         # the plain flash bodies: the training run's and phase 9 (d)'s
         row("flash_fwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:214", flash[0]["fwd"],
@@ -3825,10 +4228,11 @@ def main():
             q8by["prefill"] + q4by["prefill"]),
         row("quant_matmul_decode", csrc + "quant_matmul.cu",
             ref + "quant_matmul.py:208", case(qmm, "5120->13824 m8 int8 g-1"),
-            q8by["decode"] + q4by["decode"]),
+            q8by["decode"] + q4by["decode"] + g13["quant_matmul_decode"]),
         row("paged_attention_int8", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged_q8[0],
-            q8["paged_attention_int8"] + q4["paged_attention_int8"]),
+            q8["paged_attention_int8"] + q4["paged_attention_int8"]
+            + g13["paged_attention"]),
         # the GEMM's variants that ran; launches: phase 8's counted runs
         *[variant_row(v, n) for v, n in sorted(by_variant.items()) if n],
         row("paged_attention_grouped", csrc + "paged_attention.cu",
@@ -3871,7 +4275,7 @@ def main():
                            dispatch=dispatch, flash_variants=variants,
                            adam=adam_k, surface=surface, o1_scaler=o1,
                            surface_parity=surface_parity,
-                           kernels=kernels),
+                           multi_step=multi_step, kernels=kernels),
                       f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -92,3 +92,11 @@ define_flag("FLAGS_prefetch_depth", 2,
             "Batches `models.trainer.prefetch_batches` (and a "
             "DevicePrefetcher given no depth) stages on the card ahead of "
             "the step that uses them; <= 0 stages nothing ahead.")
+define_flag("FLAGS_scheduler_policy", "fifo",
+            "SchedulerPolicy the serving engine resolves at construction "
+            "(inference/scheduler.py registry): 'fifo' (default: head-of-"
+            "line admission, youngest-victim recompute preemption, pow2 / "
+            "page-multiple prefill buckets, {1, decode_burst} bursts) or "
+            "'slo' (TTFT-burn-aware; needs an injected firing_fn in the "
+            "port, so resolving it by name raises). An explicit scheduler= "
+            "argument to ServingEngine wins over the flag.")

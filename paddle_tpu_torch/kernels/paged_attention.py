@@ -13,7 +13,12 @@ owns a row of a block table listing its pages.
   masked writes by sending them to an out-of-range index (`mode="drop"`);
   on CUDA that index is a device assert, so these ops select the rows they
   write with an explicit mask instead. The mask is read where it lives: a
-  host (CPU) mask costs the device no synchronisation.
+  host (CPU) mask costs the device no synchronisation. The one-token
+  writers also take a `scratch_page` that no sequence owns (the serving
+  engine keeps one past its pool's pages): a masked row then writes there,
+  selected by `torch.where`, so a device mask costs no `nonzero` and the
+  write captures in a CUDA graph (duplicate indices land only on the
+  scratch page, and a stale table row is never read).
 - `paged_attention` is the decode attention: the CUDA kernel
   `csrc/paged_attention.cu` for CUDA tensors (float pages, or int8 pages
   with their scales), `paged_attention_ref` (the plain counterpart of
@@ -107,24 +112,42 @@ def _nonzero_on(mask, device):
     return tuple(i.to(device, non_blocking=True) for i in idx)
 
 
+def _token_targets(block_tables, context_lens, n_rows, dev, page_size,
+                   active, scratch_page):
+    """(rows, page_ids, slots) of the one-token writes: row b writes at
+    position context_lens[b] of its table. With `scratch_page` every row
+    writes, and a False row of `active` writes slot 0 of that page instead
+    (fixed shapes, no device sync, whatever its stale table row holds);
+    without, the False rows are left out by index (`_nonzero_on`)."""
+    lens = context_lens.to(dev, torch.long)
+    if active is not None and scratch_page is not None:
+        act = active.to(dev)
+        pos = torch.where(act, lens, 0)
+        page_ids = torch.where(
+            act, block_tables.gather(1, (pos // page_size)[:, None])[:, 0]
+            .long(), scratch_page)
+        return slice(None), page_ids, pos % page_size
+    if active is None:
+        rows = torch.arange(n_rows, device=dev)
+    else:
+        (rows,) = _nonzero_on(active, dev)
+    pos = lens[rows]
+    return rows, block_tables[rows, pos // page_size].long(), pos % page_size
+
+
 def update_paged_kv_cache(k_pages, v_pages, k_new, v_new, block_tables,
-                          context_lens, active=None):
+                          context_lens, active=None, scratch_page=None):
     """Write one new token per sequence into its page.
 
     k_new/v_new: [batch, kv_heads, head_dim]; context_lens[b] tokens are
     already cached, so the new token lands at that position. active:
-    optional [batch] bool; False rows write nothing (their block-table row
-    may be stale)."""
-    dev = k_pages.device
-    page_size = k_pages.shape[2]
-    lens = context_lens.to(dev, torch.long)
-    if active is None:
-        rows = torch.arange(k_new.shape[0], device=dev)
-    else:
-        (rows,) = _nonzero_on(active, dev)
-    pos = lens[rows]
-    page_ids = block_tables[rows, pos // page_size].long()
-    slots = pos % page_size
+    optional [batch] bool; False rows write nothing into any page a
+    sequence owns (their block-table row may be stale). scratch_page: a
+    page of the pools that no sequence owns; given, a False row writes
+    there instead (the write is then graph-safe: no `nonzero`, no sync)."""
+    rows, page_ids, slots = _token_targets(
+        block_tables, context_lens, k_new.shape[0], k_pages.device,
+        k_pages.shape[2], active, scratch_page)
     k_pages[:, page_ids, slots] = k_new[rows].to(k_pages.dtype).transpose(0, 1)
     v_pages[:, page_ids, slots] = v_new[rows].to(v_pages.dtype).transpose(0, 1)
     return k_pages, v_pages
@@ -170,20 +193,15 @@ def _quant_kv_token(x):
 
 
 def update_paged_kv_cache_q8(k_pages, k_scales, v_pages, v_scales, k_new,
-                             v_new, block_tables, context_lens, active=None):
+                             v_new, block_tables, context_lens, active=None,
+                             scratch_page=None):
     """int8 `update_paged_kv_cache`: quantize each row's new token per kv
-    head and write values and scales; False rows of `active` write
-    nothing. Returns (k_pages, k_scales, v_pages, v_scales)."""
-    dev = k_pages.device
-    page_size = k_pages.shape[2]
-    lens = context_lens.to(dev, torch.long)
-    if active is None:
-        rows = torch.arange(k_new.shape[0], device=dev)
-    else:
-        (rows,) = _nonzero_on(active, dev)
-    pos = lens[rows]
-    page_ids = block_tables[rows, pos // page_size].long()
-    slots = pos % page_size
+    head and write values and scales; False rows of `active` write nothing
+    into a sequence's pages (with `scratch_page`, they write there).
+    Returns (k_pages, k_scales, v_pages, v_scales)."""
+    rows, page_ids, slots = _token_targets(
+        block_tables, context_lens, k_new.shape[0], k_pages.device,
+        k_pages.shape[2], active, scratch_page)
     for pages, scales, new in ((k_pages, k_scales, k_new),
                                (v_pages, v_scales, v_new)):
         q, s = _quant_kv_token(new[rows])  # [r, kvh, d], [r, kvh]

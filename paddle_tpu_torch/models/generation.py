@@ -4,7 +4,11 @@
 Random draws come from an explicit `torch.Generator` on the logits' device.
 A generator and a `jax.random` key give different numbers from one seed, so
 sampled streams match the JAX package in distribution, not token for token;
-greedy streams match exactly.
+greedy streams match exactly. Every function here reads nothing back to the
+host, so it runs inside a captured CUDA graph; a graph that draws from a
+generator other than the device's default must have it registered
+(`CUDAGraph.register_generator_state`, as the serving engine does) so that
+each replay advances it. A greedy row's token never depends on the draws.
 """
 from __future__ import annotations
 

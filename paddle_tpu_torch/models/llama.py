@@ -190,7 +190,7 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out), (kc, vc)
 
     def forward_paged(self, hidden_states, paged_cache, block_tables,
-                      context_lens, active=None):
+                      context_lens, active=None, scratch_page=None):
         """Single-token decode over the paged cache (models.paged_step):
         (k_pages, v_pages), or with int8 pages (k_pages, v_pages, k_scales,
         v_scales). hidden_states: [b, 1, hidden]. Returns (out,
@@ -198,7 +198,7 @@ class LlamaAttention(nn.Module):
         q, k, v = self._qkv(hidden_states)
         out, cache = paged_attention_step(
             q, k, v, paged_cache, block_tables, context_lens, active=active,
-            rotate=self._rotate)
+            rotate=self._rotate, scratch_page=scratch_page)
         return self.o_proj(out), cache
 
 
@@ -233,10 +233,10 @@ class LlamaDecoderLayer(nn.Module):
         return self._finish(hidden_states, h), cache
 
     def forward_paged(self, hidden_states, paged_cache, block_tables,
-                      context_lens, active=None):
+                      context_lens, active=None, scratch_page=None):
         h, cache = self.self_attn.forward_paged(
             self.input_layernorm(hidden_states), paged_cache, block_tables,
-            context_lens, active=active)
+            context_lens, active=active, scratch_page=scratch_page)
         return self._finish(hidden_states, h), cache
 
 
@@ -269,12 +269,13 @@ class LlamaModel(nn.Module):
         return self.norm(h), new_caches
 
     def forward_paged(self, input_ids, paged_caches, block_tables,
-                      context_lens, active=None):
+                      context_lens, active=None, scratch_page=None):
         h = self.embed_tokens(input_ids)
         new_caches = []
         for layer, cache in zip(self.layers, paged_caches):
             h, nc = layer.forward_paged(h, cache, block_tables,
-                                        context_lens, active=active)
+                                        context_lens, active=active,
+                                        scratch_page=scratch_page)
             new_caches.append(nc)
         return self.norm(h), new_caches
 
@@ -322,10 +323,15 @@ class LlamaForCausalLM(CausalLMBase):
         return self._head(h), new_caches
 
     def forward_paged(self, input_ids, paged_caches, block_tables,
-                      context_lens, active=None):
+                      context_lens, active=None, scratch_page=None):
+        """Single-token decode of [b, 1] ids over the paged caches (per
+        layer `paged_step.paged_attention_step`'s cache tuple) -> ([b, 1,
+        vocab] logits, caches). `active` [b] bool and `scratch_page` as
+        there: with both on the pools' device the step reads nothing back
+        to the host."""
         h, new_caches = self.llama.forward_paged(
             input_ids, paged_caches, block_tables, context_lens,
-            active=active)
+            active=active, scratch_page=scratch_page)
         return self._head(h), new_caches
 
     def _backbone_embed_weight(self):

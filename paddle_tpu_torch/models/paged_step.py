@@ -15,14 +15,17 @@ from ..kernels import paged_attention as _pa
 
 
 def paged_attention_step(q, k, v, paged_cache, block_tables, context_lens,
-                         active=None, rotate=None):
+                         active=None, rotate=None, scratch_page=None):
     """q: [b, 1, heads, d]; k/v: [b, 1, kv_heads, d]. paged_cache:
     (k_pages, v_pages), or (k_pages, v_pages, k_scales, v_scales) for int8
     pages, written in place. context_lens [b] int32 on the pools' device:
     tokens already cached. active: optional [b] bool, False rows write
-    nothing and attend nothing (pass it on the host to keep the step free
-    of device syncs). rotate(q, k, lens) applies the position encoding.
-    Returns (out [b, 1, heads*d], paged_cache).
+    nothing into a sequence's pages and attend nothing. scratch_page: a
+    page no sequence owns, where False rows write instead (the serving
+    engine's: the step then reads nothing back to the host and captures in
+    a CUDA graph, whatever device `active` lives on; without it a device
+    mask costs a `nonzero` sync). rotate(q, k, lens) applies the position
+    encoding. Returns (out [b, 1, heads*d], paged_cache).
 
     Unlike the JAX step, an inactive row gets context 0 (a zero output,
     discarded by the caller) instead of reading its stale block-table row.
@@ -37,12 +40,14 @@ def paged_attention_step(q, k, v, paged_cache, block_tables, context_lens,
         k_pages, v_pages, k_scales, v_scales = paged_cache
         _pa.update_paged_kv_cache_q8(k_pages, k_scales, v_pages, v_scales,
                                      k[:, 0], v[:, 0], block_tables,
-                                     context_lens, active=active)
+                                     context_lens, active=active,
+                                     scratch_page=scratch_page)
     else:
         k_pages, v_pages = paged_cache
         k_scales = v_scales = None
         _pa.update_paged_kv_cache(k_pages, v_pages, k[:, 0], v[:, 0],
-                                  block_tables, context_lens, active=active)
+                                  block_tables, context_lens, active=active,
+                                  scratch_page=scratch_page)
     ctx = context_lens + 1
     if active is not None:
         ctx = ctx * active.to(ctx.device, non_blocking=True)

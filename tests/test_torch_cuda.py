@@ -559,6 +559,62 @@ def test_tiny_engine_greedy_streams_equal_on_cuda_and_cpu(cuda_device):
     assert streams[0] == streams[1]
 
 
+def _tiny_burst_streams(model, dev, prompts, sampled=False, **kw):
+    eng = ServingEngine(model, max_batch=3, max_seq_len=64, page_size=8,
+                        device=dev, seed=3, **kw)
+    for i, p in enumerate(prompts):
+        extra = dict(decode_strategy="sampling", temperature=0.8,
+                     top_k=20) if sampled and i % 2 else {}
+        eng.add_request(p, max_new_tokens=20 - i, **extra)
+    return {f.request_id: f.output_ids.tolist() for f in eng.run()}, eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"])
+@pytest.mark.parametrize("depth", [0, 2])
+def test_burst_graphs_equal_eager_and_cpu_streams(cuda_device, kv, depth):
+    """decode_burst=4 on the card replays captured graphs (one a program,
+    none captured twice) and gives the eager engine's and the CPU's greedy
+    streams (head_dim 128: the paged and RMSNorm kernels run)."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2, seq=64)
+    cfg.num_key_value_heads = 1
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    gpu = LlamaForCausalLM(cfg, device=cuda_device)
+    load_llama_state(gpu, {k: v.numpy() for k, v in cpu.state_dict().items()})
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 256, (n,)) for n in (5, 9, 17, 3, 40)]
+    want, _ = _tiny_burst_streams(cpu, "cpu", prompts, kv_cache_quant=kv)
+    eager, _ = _tiny_burst_streams(gpu, cuda_device, prompts,
+                                   kv_cache_quant=kv)
+    got, eng = _tiny_burst_streams(gpu, cuda_device, prompts,
+                                   kv_cache_quant=kv, decode_burst=4,
+                                   async_depth=depth)
+    assert got == eager == want
+    assert eng.graph_captures == len(eng._burst_fns) <= 2
+    assert eng.graph_replays > 0 and eng.discarded_tokens == 0
+
+
+@pytest.mark.cuda
+def test_burst_graph_sampling_is_seeded(cuda_device):
+    """The engine's generator is registered with the sampling graphs: a
+    replay draws new numbers, two engines of one seed draw the same, and
+    greedy rows beside sampled ones keep their streams."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2, seq=64)
+    cfg.num_key_value_heads = 1
+    gpu = LlamaForCausalLM(cfg, device=cuda_device, seed=0)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 256, (n,)) for n in (5, 9, 17, 3)]
+    greedy, _ = _tiny_burst_streams(gpu, cuda_device, prompts)
+    a, eng = _tiny_burst_streams(gpu, cuda_device, prompts, sampled=True,
+                                 decode_burst=4)
+    b, _ = _tiny_burst_streams(gpu, cuda_device, prompts, sampled=True,
+                               decode_burst=4)
+    assert a == b and eng.graph_replays > 0
+    assert all(a[r] == greedy[r] for r in (0, 2))
+    assert all(len(set(a[r])) > 1 for r in (1, 3))  # not one token repeated
+    assert all(0 <= t < 256 for s in a.values() for t in s)
+
+
 @pytest.mark.cuda
 def test_tiny_training_through_the_kernels_matches_cpu(cuda_device):
     """Head_dim 128, so CUDA trains through the flash and RMSNorm kernels

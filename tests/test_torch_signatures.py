@@ -12,11 +12,13 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.distributed.fleet.layers.mpu import \
     ParallelCrossEntropy as JaxParallelCrossEntropy
+from paddle_tpu.inference import ServingEngine as JaxServingEngine
 from paddle_tpu.incubate.nn import functional as JIF
 from paddle_tpu.models.llama import LlamaConfig as JaxLlamaConfig
 from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.incubate.nn import fused_transformer as TIF
+from paddle_tpu_torch.inference import ServingEngine
 from paddle_tpu_torch.models.llama import LlamaConfig
 from paddle_tpu_torch.nn import Embedding, ParallelCrossEntropy
 from paddle_tpu_torch.nn import functional as TF
@@ -50,13 +52,20 @@ PAIRS = {
     "fused_feedforward": (JIF.fused_feedforward, TIF.fused_feedforward),
     "fused_multi_head_attention": (JIF.fused_multi_head_attention,
                                    TIF.fused_multi_head_attention),
+    "ServingEngine": (JaxServingEngine.__init__, ServingEngine.__init__),
 }
+
+# the port's own trailing parameters (the entry point's device)
+PORT_ONLY = {"ServingEngine": ["device"]}
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
 def test_parameter_names_match_the_reference(name):
     ref, port = PAIRS[name]
-    assert _names(port) == _names(ref)
+    extra = PORT_ONLY.get(name, [])
+    names = _names(port)
+    assert names[len(names) - len(extra):] == extra
+    assert names[:len(names) - len(extra)] == _names(ref)
 
 
 def test_embedding_layer_takes_padding_idx_and_sparse():

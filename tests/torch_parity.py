@@ -36,3 +36,29 @@ def tiny_pair(seed=0, tie=False):
     tm = LlamaForCausalLM(tcfg, device="cpu")
     load_llama_state(tm, jax_state(jm))
     return jm, tm, tcfg
+
+
+def serving_pair(seed=0):
+    """(jax_model, torch_model) of the reference's serving tests
+    (`tests/test_serving_burst.py::_tiny_model`): 2 layers, hidden 32, 4
+    heads of 8, vocab 97, 64 positions, f32, identical weights."""
+    paddle.seed(seed)
+    jcfg = JaxLlamaConfig.tiny(vocab=97, hidden=32, layers=2, heads=4,
+                               seq=64)
+    jm = JaxLlama(jcfg)
+    jm.eval()
+    tm = LlamaForCausalLM(LlamaConfig.tiny(vocab=97, hidden=32, layers=2,
+                                           heads=4, seq=64), device="cpu")
+    load_llama_state(tm, jax_state(jm))
+    return jm, tm
+
+
+def serve(engine, prompts, max_news, **kw):
+    """Queue one request per prompt, run the engine dry, and return the
+    output streams (lists) in request order."""
+    rids = [engine.add_request(p, max_new_tokens=n, **kw)
+            for p, n in zip(prompts, max_news)]
+    done = {f.request_id: np.asarray(f.output_ids).tolist()
+            for f in engine.run()}
+    assert sorted(done) == sorted(rids)
+    return [done[r] for r in rids]
