@@ -141,7 +141,28 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    check guarding them (a replay without the block-table copy; a burst
    body that ignores eos); then phase 4b's 13B engine (int8 weights, int8
    KV) the same way, held to its own eager engine's streams, the dequant
-   matmul's decode kernel counted inside the graphs (7L a step).
+   matmul's decode kernel counted inside the graphs (7L a step);
+12. the prefix cache and chunked prefill, each cell in a process of its
+   own (`--phase12 CELL`): (a) phase 4's LLaMA-2-7B on phase 11's engine
+   (decode_burst 8, graphs captured by warmup) with `prefix_cache=1,
+   prefill_chunk=512`, with `prefix_cache=1` alone and with both off, each
+   serving the same greedy traffic: 12 requests that share a 1024-token
+   system prompt (the first alone, to fill the trie, then the other 11
+   together), each with its own 16-600-token tail and 32-64 new tokens,
+   then a lone 2500-token request; after every finished request the page
+   invariant (exact refcounts against the rows and the trie) and every
+   trie page's checksum since its insert; every greedy stream equal to
+   the off engine's, or differing first at a near tie (the off engine's
+   top-2 gap within the chunked-vs-dense first-token logit distance times
+   its largest |logit|); prefix hit and miss tokens, chunk rounds, TTFT
+   p50 with and without a hit, tokens/s, peak memory, launches (the
+   wrappers' counts plus the captured programs' replays times the kernels
+   a profiled replay holds); a fresh 2500-token prefill alone, chunked
+   (each round profiled) against dense; three planted faults, each caught
+   by the holds (a chunk round that ignores `limit_lens`, a match that
+   shares the partial tail page, a release that skips a decref); (b) phase
+   4b's LLaMA-2-13B (int8 weights, int8 KV) on the traffic's first 4
+   requests, chunked engine against the off engine, under the same holds.
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -170,6 +191,7 @@ from paddle_tpu_torch import amp, get_flags, set_flags
 from paddle_tpu_torch.framework import random as trandom
 from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
 from paddle_tpu_torch.inference import ServingEngine
+from paddle_tpu_torch.inference import prefix_cache as tpc
 from paddle_tpu_torch.inference import serving as tserving
 from paddle_tpu_torch.io import DataLoader, TensorDataset
 from paddle_tpu_torch.kernels import _build, autotune
@@ -3840,6 +3862,565 @@ def multi_step_serving(seed, card, serving, serving13):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the prefix cache and chunked prefill
+# ---------------------------------------------------------------------------
+
+SYSTEM_PROMPT = 1024  # tokens the shared requests start with (64 pages)
+CHUNK = 512           # prefill_chunk of the chunked engine
+PREFIX_CELLS = ("7b", "13b_int8")
+# (name, engine arguments): chunked prefill over the prefix cache, the cache
+# alone (a hit's suffix is one chunk round), and both off
+PREFIX_ENGINES = (("chunk_cache", dict(prefix_cache=1, prefill_chunk=CHUNK)),
+                  ("cache", dict(prefix_cache=1)), ("off", {}))
+PREFIX_PARTS = ("first", "shared_11", "lone_2500")
+
+
+def prefix_traffic(rng, vocab):
+    """Phase 12's requests, all greedy, in three parts run one after the
+    other: the first of 12 requests that share one 1024-token system
+    prompt, each with a tail of its own (16-600 tokens) and 32-64 new
+    tokens, alone (it fills the trie); the other 11 together (through 8
+    slots); a lone 2500-token prompt with 64 new tokens. Returns (the
+    system prompt, the parts)."""
+    system = rng.randint(0, vocab, SYSTEM_PROMPT)
+    shared = [(np.concatenate([system, rng.randint(0, vocab, int(
+        rng.randint(16, 601)))]), int(rng.randint(32, 65)), {})
+        for _ in range(12)]
+    return system, [shared[:1], shared[1:],
+                    [(rng.randint(0, vocab, 2500), 64, {})]]
+
+
+def page_pools(eng):
+    return eng.k_pages + eng.v_pages + (
+        eng.k_scales + eng.v_scales if eng.kv_cache_quant else [])
+
+
+def page_sums(eng, pages):
+    """An integer checksum of each page over every layer's K and V pools
+    (and int8 scales): the raw bits of each element times a weight of its
+    place, summed exactly in int64."""
+    idx = torch.tensor(pages, dtype=torch.long, device=eng.device)
+    total = torch.zeros(len(pages), dtype=torch.int64, device=eng.device)
+    bits = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+            torch.float32: torch.int32, torch.int8: torch.int8}
+    for j, pool in enumerate(page_pools(eng)):
+        x = pool[:, idx].transpose(0, 1).contiguous()
+        x = x.view(bits[pool.dtype]).reshape(len(pages), -1).long()
+        w = torch.arange(x.shape[1], device=x.device) % 65521 + 1 + j
+        total += (x * w).sum(dim=1)
+    return total.tolist()
+
+
+def page_invariant(eng):
+    """The page accounting after a request: the free list without
+    duplicates, held + free == n, no free page with a reference, a page in
+    two live rows owned by the trie, the scratch page off the books, and
+    (the exact form) every page's count equal to the rows that hold it
+    plus one if the trie owns it."""
+    refs, free, n = eng._page_refs, eng._free_pages, len(eng._page_refs)
+    trie = eng._prefix_cache
+    check(len(set(free)) == len(free), "page invariant: a page is twice on "
+          "the free list")
+    held = sum(1 for r in refs if r > 0)
+    check(held + len(free) == n, f"page invariant: held {held} + free "
+          f"{len(free)} != {n}")
+    check(all(refs[p] == 0 for p in free), "page invariant: a free page "
+          "has a reference")
+    check(eng._scratch == n and eng._scratch not in free, "page invariant: "
+          "the scratch page is on the books")
+    rows = {}
+    for si, s in enumerate(eng.slots):
+        if s.active:
+            for p in eng.block_tables[si, :s.n_pages].tolist():
+                rows[p] = rows.get(p, 0) + 1
+    for p, c in rows.items():
+        check(c == 1 or (trie is not None and trie.owns(p)),
+              f"page invariant: page {p} in {c} rows without the trie")
+    bad = [p for p in range(n) if refs[p] != rows.get(p, 0) + int(
+        trie is not None and trie.owns(p))]
+    check(not bad, f"page invariant: pages {bad[:8]} have counts "
+          f"{[refs[p] for p in bad[:8]]} against their rows and the trie")
+
+
+class PageHolds:
+    """The page invariant and the trie's pages: each page's checksum is
+    taken when it enters the trie and must stay the same until the trie
+    drops it (`check`)."""
+
+    def __init__(self, eng):
+        self.eng, self.sums, self.checks = eng, {}, 0
+        trie = eng._prefix_cache
+        if trie is None:
+            return
+        insert, drop = trie.insert, trie._drop
+
+        def held_insert(ctx, row):
+            n = insert(ctx, row)
+            new = [p for p in trie.pages() if p not in self.sums]
+            if new:
+                self.sums.update(zip(new, page_sums(eng, new)))
+            return n
+
+        def held_drop(node):
+            self.sums.pop(node.page, None)
+            drop(node)
+
+        trie.insert, trie._drop = held_insert, held_drop
+        held_insert([], [])  # the pages already cached (warmup's)
+
+    def check(self):
+        page_invariant(self.eng)
+        self.checks += 1
+        if not self.sums:
+            return
+        pages = sorted(self.sums)
+        now = dict(zip(pages, page_sums(self.eng, pages)))
+        moved = [p for p in pages if now[p] != self.sums[p]]
+        check(not moved, f"trie pages {moved[:8]} changed after their "
+              f"insert ({len(moved)} of {len(pages)})")
+
+
+def drive_held(eng, requests, holds):
+    """Queue `requests` [(prompt, max_new, kwargs)] and step the engine
+    until idle, the page holds after every step that finished a request:
+    TTFT per request, the streams, wall s and tokens."""
+    t_add, t_first, n_tok = {}, {}, [0]
+
+    def on_token(rid, _tok):
+        n_tok[0] += 1
+        t_first.setdefault(rid, time.perf_counter())
+
+    rids, out = [], {}
+    t0 = time.perf_counter()
+    for prompt, max_new, kw in requests:
+        rid = eng.add_request(prompt, max_new_tokens=max_new,
+                              on_token=on_token, **kw)
+        t_add[rid] = time.perf_counter()
+        rids.append((rid, max_new))
+    while eng.has_work():
+        done = eng.step()
+        for f in done:
+            out[f.request_id] = f.output_ids.tolist()
+        if done:
+            holds.check()
+    wall = time.perf_counter() - t0
+    holds.check()
+    check(sorted(out) == sorted(r for r, _ in rids)
+          and all(len(out[r]) == m for r, m in rids),
+          "phase 12: a request did not finish with its tokens")
+    return dict(ttft_ms=[1e3 * (t_first[r] - t_add[r]) for r, _ in rids],
+                streams=[out[r] for r, _ in rids], wall_s=wall,
+                tokens=n_tok[0])
+
+
+PREFIX_KERNELS = (("paged_attention", "paged_decode_kernel"),
+                  ("rms_norm", "rms_norm_fwd"),
+                  ("quant_matmul_decode", "skinny_kernel"))
+
+
+def graph_kernels(eng):
+    """The kernels each captured decode program holds, from the profiler's
+    records of one replay of it with every row inactive (it writes only
+    the scratch page); then each program's replays are counted. Returns
+    ({key: {kernel: n}}, {key: replays})."""
+    per_key, replays = {}, {}
+    for key, fn in list(eng._burst_fns.items()):
+        eng._buf.idle()
+        _, _, events = profiled(fn)
+        per_key[key] = {name: count_kernels(events, part)
+                        for name, part in PREFIX_KERNELS}
+
+        def counted_fn(_fn=fn, _key=key):
+            replays[_key] = replays.get(_key, 0) + 1
+            _fn()
+
+        eng._burst_fns[key] = counted_fn
+    return per_key, replays
+
+
+def reset_prefix_counters():
+    krms.launches = 0
+    kpa.launches = 0
+    kpa.q8_launches = 0
+    kqm.reset_launches()
+
+
+def prefix_launches(eng, per_key, replays):
+    """Every launch of the path's kernels since `reset_prefix_counters`:
+    the wrappers' counts (prefills and chunk rounds run eagerly) plus each
+    program's replays times the kernels it holds (a replay bypasses the
+    wrappers)."""
+    quant = eng.kv_cache_quant == "int8"
+    graph = {name: sum(n * per_key[k][name] for k, n in replays.items())
+             for name, _ in PREFIX_KERNELS}
+    out = dict(rms_norm=krms.launches + graph["rms_norm"])
+    out["paged_attention_int8" if quant else "paged_attention"] = \
+        (kpa.q8_launches if quant else kpa.launches) \
+        + graph["paged_attention"]
+    if kqm.launches or graph["quant_matmul_decode"]:
+        out["quant_matmul_prefill"] = kqm.kernel_launches["prefill"]
+        out["quant_matmul_decode"] = kqm.kernel_launches["decode"] \
+            + graph["quant_matmul_decode"]
+    return out
+
+
+def first_token_logits(eng):
+    """Record the logits every prefill-time sample is drawn from (dense
+    prefill and chunk rounds; decode samples inside its programs): a list
+    the engine's `_sample` appends to."""
+    seen = []
+    real = eng._sample
+
+    def sample(logits, all_greedy, params):
+        seen.append(logits.float().cpu())
+        return real(logits, all_greedy, params)
+
+    eng._sample = sample
+    return seen
+
+
+def logit_distance(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def profile_lone_prefill(eng, prompt, card, tag):
+    """A fresh prompt's prefill alone (the request ends at its first
+    token), each forward under the profiler on its own (the chunk rounds
+    one by one): device busy ms and wall ms a forward, the peak memory
+    above what was resident, and the first token's logits."""
+    rounds = []
+    real_chunk, real_batch = eng._prefill_chunk_round, eng._prefill_batch
+
+    def timed(real):
+        def run(*a):
+            _, wall, events = profiled(lambda: real(*a))
+            rounds.append(dict(device_ms=sum(
+                e.time_range.elapsed_us() for e in events) / 1e3,
+                wall_ms=wall * 1e3))
+        return run
+
+    eng._prefill_chunk_round = timed(real_chunk)
+    eng._prefill_batch = timed(real_batch)
+    seen = first_token_logits(eng)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        eng.add_request(prompt, max_new_tokens=1)
+        done = eng.run()
+    finally:
+        for name in ("_prefill_chunk_round", "_prefill_batch", "_sample"):
+            delattr(eng, name)
+    check(len(done) == 1, f"{tag}: the lone prefill did not finish")
+    res = dict(forwards=rounds, device_ms=sum(r["device_ms"] for r in rounds),
+               wall_ms=sum(r["wall_ms"] for r in rounds),
+               peak_above_resident_gib=(torch.cuda.max_memory_allocated()
+                                        - base) / 2 ** 30)
+    log(f"phase 12 {tag}: a {len(prompt)}-token prefill alone in "
+        f"{len(rounds)} forward(s): device " + ", ".join(
+            f"{r['device_ms']:.2f}" for r in rounds)
+        + f" ms (sum {res['device_ms']:.2f}), wall {res['wall_ms']:.1f} ms, "
+        f"peak {res['peak_above_resident_gib']:.3f} GiB above the resident "
+        f"[{card}]")
+    return res, seen[-1][0]
+
+
+def prefix_engine_run(model, name, kw, parts, seed, dev, card, kv, tag,
+                      lone_probe=None):
+    """One engine of phase 12 (decode_burst 8, its four programs captured
+    by warmup), the traffic's parts in turn under the page holds, the
+    launches counted from zero; with `lone_probe`, then a profiled
+    prefill of that fresh prompt alone."""
+    eng = ServingEngine(model, max_batch=8, max_seq_len=4096, page_size=16,
+                        seed=seed, device=dev, kv_cache_quant=kv,
+                        decode_burst=BURST, **kw)
+    secs = eng.warmup()
+    captures = eng.graph_captures
+    per_key, replays = graph_kernels(eng)
+    holds = PageHolds(eng)
+    logits = first_token_logits(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_prefix_counters()
+    r0, c0 = eng.graph_replays, eng.chunk_rounds
+    res = dict(engine=name, warmup_s=secs)
+    t0 = time.perf_counter()
+    for part, reqs in zip(PREFIX_PARTS, parts):
+        res[part] = drive_held(eng, reqs, holds)
+        if part == "first":
+            res["first_logits"] = logits[-1][0]
+    wall = time.perf_counter() - t0
+    del eng._sample
+    res["launches"] = prefix_launches(eng, per_key, replays)
+    check(eng.graph_captures == captures,
+          f"{tag} {name}: {eng.graph_captures - captures} captures during "
+          f"traffic")
+    check(sum(replays.values()) == eng.graph_replays - r0 > 0,
+          f"{tag} {name}: {sum(replays.values())} counted replays of "
+          f"{eng.graph_replays - r0}")
+    check(all(n > 0 for n in res["launches"].values()),
+          f"{tag} {name}: a kernel of the path never ran: "
+          f"{res['launches']}")
+    tokens = sum(res[p]["tokens"] for p in PREFIX_PARTS if p in res)
+    hit = res["shared_11"]["ttft_ms"] if eng._prefix_cache else []
+    miss = res["first"]["ttft_ms"] + res.get("lone_2500", {}).get(
+        "ttft_ms", []) + ([] if eng._prefix_cache
+                          else res["shared_11"]["ttft_ms"])
+    res.update(
+        hits=eng._prefix_hits_total, misses=eng._prefix_misses_total,
+        chunk_rounds=eng.chunk_rounds - c0, prefills=eng.prefills,
+        replays={f"{'greedy' if g else 'mixed'}_{k}": n
+                 for (g, k), n in replays.items()},
+        wall_s=wall, tokens_per_s=tokens / wall,
+        ttft_hit_p50_ms=float(np.median(hit)) if hit else None,
+        ttft_miss_p50_ms=float(np.median(miss)), holds_checked=holds.checks,
+        trie_pages=len(holds.sums), peak_gib=torch.cuda.max_memory_allocated()
+        / 2 ** 30)
+    log(f"phase 12 {tag} {name}: prefix hit {res['hits']} / miss "
+        f"{res['misses']} tokens, {res['chunk_rounds']} chunk rounds, "
+        f"{res['prefills']} dense prefills; TTFT p50 with a hit "
+        + ("n/a" if res["ttft_hit_p50_ms"] is None
+           else f"{res['ttft_hit_p50_ms']:.1f}")
+        + f" ms, without {res['ttft_miss_p50_ms']:.1f} ms; "
+        f"{res['tokens_per_s']:.1f} tok/s over the whole traffic "
+        f"({wall:.2f} s); peak {res['peak_gib']:.2f} GiB; holds checked "
+        f"{holds.checks} times over {len(holds.sums)} trie pages; launches "
+        f"{res['launches']}; warmup {secs:.2f} s [{card}]")
+    if lone_probe is not None:
+        res["lone_prefill"], res["lone_logits"] = profile_lone_prefill(
+            eng, lone_probe, card, f"{tag} {name}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def judge_streams(model, dev, prompts, got, want, dist, tag, card):
+    """Every stream of `got` equal to the off engine's `want`, or, where
+    one differs, the off engine's top-2 logit gap at the first differing
+    token at most `dist` times its largest |logit| (a near tie that a
+    change of summation order may flip). Returns the differences."""
+    diffs = []
+    for i, (prompt, g, w) in enumerate(zip(prompts, got, want)):
+        k = next((j for j, (u, v) in enumerate(zip(g, w)) if u != v), None)
+        if k is None:
+            continue
+        lg = last_logits(model, np.concatenate(
+            [prompt, np.asarray(w[:k], np.int64)]), dev)
+        top = torch.topk(lg, 2).values
+        gap, bar = float(top[0] - top[1]), dist * float(lg.abs().max())
+        diffs.append(dict(request=i, token=k, gap=gap, bar=bar))
+        log(f"phase 12 {tag}: request {i} first differs at token {k}: the "
+            f"off engine's top-2 gap {gap:.4g} against the bar {bar:.4g} "
+            f"[{card}]")
+        check(gap <= bar, f"{tag}: request {i} differs at token {k} where "
+              f"the off engine's top-2 gap {gap:.4g} exceeds {bar:.4g}")
+    return diffs
+
+
+def fault_caught(run, what):
+    """run() must fail a page hold: the hold's message."""
+    try:
+        run()
+    except AssertionError as e:
+        msg = str(e)
+        check(msg.startswith(("page invariant", "trie pages")),
+              f"planted fault ({what}) failed elsewhere: {msg}")
+        return msg
+    raise AssertionError(f"planted fault ({what}): the holds did not catch "
+                         f"it")
+
+
+class TailSharingCache(tpc.PrefixCache):
+    """Planted fault 2: a trie that caches a prompt's partial tail page too
+    and whose match shares it (padding the last chunk to a full page)."""
+
+    def _padded(self, ctx):
+        return list(ctx) + [-1] * (-len(ctx) % self.page_size)
+
+    def insert(self, ctx, page_row):
+        return super().insert(self._padded(ctx), page_row)
+
+    def match(self, ctx):
+        pages, _ = super().match(self._padded(ctx) + [-1])
+        return pages, min(len(pages) * self.page_size, len(ctx) - 1)
+
+
+def prefix_faults(model, system, rng, seed, dev, card):
+    """Three planted faults, each on a small fresh engine beside the same
+    scenario on a sound one (which must pass the holds): a chunk round that
+    ignores `limit_lens` (a short prompt's chunk then writes into the stale
+    tail of its table row, the trie pages of the slot's last tenant), a
+    match that also shares the partial tail page, a `_release_slot` that
+    skips one decref."""
+    vocab = model.config.vocab_size
+    long_p = np.concatenate([system, rng.randint(0, vocab, 100)])
+    short_p = rng.randint(0, vocab, 40)
+    tail_p = np.concatenate([system, rng.randint(0, vocab, 37)])
+
+    def engine(**kw):
+        eng = ServingEngine(model, max_batch=2, max_seq_len=2048,
+                            page_size=16, seed=seed, device=dev,
+                            prefix_cache=1, **kw)
+        return eng
+
+    def scenario(eng, prompts):
+        holds = PageHolds(eng)
+        for p in prompts:
+            drive_held(eng, [(p, 4, {})], holds)
+
+    def no_limit(real):
+        def fwd(ids, *a, limit_lens=None, **kw):
+            return real(ids, *a, **kw)
+        return fwd
+
+    def leaky_release(eng):
+        real_release, real_decref = eng._release_slot, eng._decref_page
+
+        def release(slot_idx):
+            skip = [True]
+
+            def decref(page):
+                if skip[0]:
+                    skip[0] = False
+                    return
+                real_decref(page)
+
+            eng._decref_page = decref
+            try:
+                real_release(slot_idx)
+            finally:
+                del eng._decref_page
+
+        eng._release_slot = release
+
+    def tail_sharing(eng):
+        eng._prefix_cache = TailSharingCache(eng.page_size, eng._page_refs,
+                                             eng._free_pages)
+
+    res = {}
+    cases = (("chunk_ignores_limit", dict(prefill_chunk=CHUNK),
+              [long_p, short_p], None),
+             ("match_shares_tail_page", {}, [tail_p, tail_p], tail_sharing),
+             ("release_skips_a_decref", {}, [tail_p], leaky_release))
+    for name, kw, prompts, plant in cases:
+        scenario(engine(**kw), prompts)  # sound: the holds pass
+        eng = engine(**kw)
+        if plant is not None:
+            plant(eng)
+            res[name] = fault_caught(lambda: scenario(eng, prompts), name)
+        else:
+            model.forward_paged = no_limit(model.forward_paged)
+            try:
+                res[name] = fault_caught(lambda: scenario(eng, prompts),
+                                         name)
+            finally:
+                del model.forward_paged
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 12 fault '{name}': caught by the holds: {res[name]} "
+            f"[{card}]")
+    return res
+
+
+def prefix_cell(cell, seed, dev, card):
+    """One phase-12 cell in a process of its own. 7b: LLaMA-2-7B bf16
+    from `seed` through the three engines (PREFIX_ENGINES), each the whole
+    traffic, then the streams judged against the off engine's and the
+    planted faults. 13b_int8: LLaMA-2-13B (`init_default`, int8 weights
+    but lm_head, int8 KV) through the chunked engine and the off engine on
+    the traffic's first 4 requests, at full depth."""
+    big = cell == "13b_int8"
+    cfg = LlamaConfig.llama2_13b() if big else LlamaConfig.llama2_7b()
+    cfg.dtype = "bfloat16"
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    kv = None
+    if big:
+        init_default(model, seed, dev)
+        quantize_for_inference(model, "weight_only_int8", -1,
+                               exclude=("lm_head",))
+        kv = "int8"
+        gc.collect()
+        torch.cuda.empty_cache()
+    rng = np.random.RandomState(seed + 12)
+    system, parts = prefix_traffic(rng, cfg.vocab_size)
+    lone_probe = rng.randint(0, cfg.vocab_size, 2500)
+    engines = PREFIX_ENGINES
+    tag = "13B int8" if big else "7B"
+    if big:
+        parts = [parts[0], parts[1][:3]]
+        engines = (engines[0], engines[2])
+    res = dict(card=card, layers=cfg.num_hidden_layers)
+    for name, kw in engines:
+        res[name] = prefix_engine_run(
+            model, name, kw, parts, seed, dev, card, kv, tag,
+            lone_probe=None if big or name == "cache" else lone_probe)
+    off = res["off"]
+    chunk = res["chunk_cache"]
+    dist = {"first": logit_distance(chunk["first_logits"],
+                                    off["first_logits"])}
+    if not big:
+        dist["lone_2500"] = logit_distance(chunk["lone_logits"],
+                                           off["lone_logits"])
+        a, b = chunk["lone_prefill"], off["lone_prefill"]
+        log(f"phase 12 {tag}: the lone 2500-token prefill, chunked at "
+            f"{CHUNK} against dense: device {a['device_ms']:.2f} against "
+            f"{b['device_ms']:.2f} ms, peak "
+            f"{a['peak_above_resident_gib']:.3f} against "
+            f"{b['peak_above_resident_gib']:.3f} GiB above the resident "
+            f"[{card}]")
+    bar = max(dist.values())
+    log(f"phase 12 {tag}: chunked-vs-dense first-token logit distance (max "
+        f"|a - b| over max |b|) " + ", ".join(
+            f"{k} {v:.4g}" for k, v in dist.items()) + f" [{card}]")
+    prompts = [p for part in parts for p, _, _ in part]
+    want = [s for part in PREFIX_PARTS if part in off
+            for s in off[part]["streams"]]
+    res["distance"] = dist
+    res["diffs"] = {}
+    for name, _ in engines[:-1]:
+        got = [s for part in PREFIX_PARTS if part in res[name]
+               for s in res[name][part]["streams"]]
+        res["diffs"][name] = judge_streams(model, dev, prompts, got, want,
+                                           bar, f"{tag} {name}", card)
+        log(f"phase 12 {tag} {name}: {len(got) - len(res['diffs'][name])} "
+            f"of {len(got)} greedy streams equal to the off engine's [{card}]")
+    for r in (res[name] for name, _ in engines):
+        for k in ("first_logits", "lone_logits"):
+            r.pop(k, None)
+    res["launches"] = {}
+    for name, _ in engines:
+        for k, n in res[name]["launches"].items():
+            res["launches"][k] = res["launches"].get(k, 0) + n
+    if not big:
+        res["faults"] = prefix_faults(model, system, rng, seed, dev, card)
+    return res
+
+
+def prefix_serving(seed, card):
+    """Phase 12: each cell in a process of its own (its launches inside the
+    captured programs come from profiled replays)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="phase12-") as io:
+        for cell in PREFIX_CELLS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--phase12", cell, "--io", io], timeout=900)
+            check(proc.returncode == 0,
+                  f"phase 12 ({cell}) failed: exit {proc.returncode}")
+            with open(os.path.join(io, f"{cell}.json")) as f:
+                res[cell] = json.load(f)
+            res[cell]["process_s"] = time.perf_counter() - t0
+            log(f"phase 12 {cell}: process {res[cell]['process_s']:.1f} s, "
+                f"launches {res[cell]['launches']} [{card}]")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3848,9 +4429,13 @@ def main():
     ap.add_argument("--phase11", choices=CELLS, default=None,
                     help="run one cell of phase 11 in this process (the "
                     "script starts one process a cell itself)")
+    ap.add_argument("--phase12", choices=PREFIX_CELLS, default=None,
+                    help="run one cell of phase 12 in this process (the "
+                    "script starts one process a cell itself)")
     ap.add_argument("--io", default=None,
                     help="with --phase11: the directory of the streams it "
-                    "is held to and of its result")
+                    "is held to and of its result; with --phase12: of its "
+                    "result")
     args = ap.parse_args()
 
     # 1. device
@@ -3874,6 +4459,11 @@ def main():
     if args.phase11:
         res = multi_step_cell(args.phase11, args.seed, dev, card, args.io)
         with open(os.path.join(args.io, f"{args.phase11}.json"), "w") as f:
+            json.dump(res, f)
+        return 0
+    if args.phase12:
+        res = prefix_cell(args.phase12, args.seed, dev, card)
+        with open(os.path.join(args.io, f"{args.phase12}.json"), "w") as f:
             json.dump(res, f)
         return 0
 
@@ -4147,6 +4737,11 @@ def main():
     # processes
     multi_step = multi_step_serving(args.seed, card, serving, serving13)
 
+    # 12. the prefix cache and chunked prefill: the 7B and 13B int8 cells,
+    # each in a fresh process
+    prefix = prefix_serving(args.seed, card)
+    p7, p13 = prefix["7b"]["launches"], prefix["13b_int8"]["launches"]
+
     def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -4203,12 +4798,14 @@ def main():
         # launches: the serving runs' counts plus the training run's
         row("rms_norm", csrc + "rms_norm.cu", ref + "rms_norm.py:71", rms[0],
             served["rms_norm"] + q8["rms_norm"] + q4["rms_norm"]
-            + trained["rms_norm"] + g7["rms_norm"] + g13["rms_norm"]),
+            + trained["rms_norm"] + g7["rms_norm"] + g13["rms_norm"]
+            + p7["rms_norm"] + p13["rms_norm"]),
         row("rms_norm_bwd", csrc + "rms_norm.cu", ref + "rms_norm.py:101",
             rms_bwd[0], trained["rms_norm_bwd"]),
         row("paged_attention", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged[0],
-            served["paged_attention"] + g7["paged_attention"]),
+            served["paged_attention"] + g7["paged_attention"]
+            + p7["paged_attention"]),
         # the plain flash bodies: the training run's and phase 9 (d)'s
         row("flash_fwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:214", flash[0]["fwd"],
@@ -4225,14 +4822,16 @@ def main():
         row("quant_matmul_prefill", csrc + "quant_matmul.cu",
             ref + "quant_matmul.py:208",
             case(qmm, "5120->13824 m2512 int8 g-1"),
-            q8by["prefill"] + q4by["prefill"]),
+            q8by["prefill"] + q4by["prefill"]
+            + p13["quant_matmul_prefill"]),
         row("quant_matmul_decode", csrc + "quant_matmul.cu",
             ref + "quant_matmul.py:208", case(qmm, "5120->13824 m8 int8 g-1"),
-            q8by["decode"] + q4by["decode"] + g13["quant_matmul_decode"]),
+            q8by["decode"] + q4by["decode"] + g13["quant_matmul_decode"]
+            + p13["quant_matmul_decode"]),
         row("paged_attention_int8", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged_q8[0],
             q8["paged_attention_int8"] + q4["paged_attention_int8"]
-            + g13["paged_attention"]),
+            + g13["paged_attention"] + p13["paged_attention_int8"]),
         # the GEMM's variants that ran; launches: phase 8's counted runs
         *[variant_row(v, n) for v, n in sorted(by_variant.items()) if n],
         row("paged_attention_grouped", csrc + "paged_attention.cu",
@@ -4275,7 +4874,8 @@ def main():
                            dispatch=dispatch, flash_variants=variants,
                            adam=adam_k, surface=surface, o1_scaler=o1,
                            surface_parity=surface_parity,
-                           multi_step=multi_step, kernels=kernels),
+                           multi_step=multi_step, prefix=prefix,
+                           kernels=kernels),
                       f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -100,3 +100,22 @@ define_flag("FLAGS_scheduler_policy", "fifo",
             "'slo' (TTFT-burn-aware; needs an injected firing_fn in the "
             "port, so resolving it by name raises). An explicit scheduler= "
             "argument to ServingEngine wins over the flag.")
+define_flag("FLAGS_prefix_cache", 0,
+            "Prefix-cache KV reuse in the serving engine "
+            "(inference/prefix_cache.py): when 1, freshly prefilled FULL "
+            "pages are cached in a content-addressed trie, and admission "
+            "shares the pages of the longest cached page-aligned prefix "
+            "(refcounted) into the new row's block table, so that only the "
+            "uncached suffix is prefilled. Pages only the trie holds are "
+            "evicted least-recently-used under pool pressure. 0 (default) "
+            "= off. The engine's prefix_cache argument wins. Not with a "
+            "separate draft_model.", type_=int)
+define_flag("FLAGS_prefill_chunk", 0,
+            "Chunked-prefill token budget of the serving engine: when > 0, "
+            "a prompt's prefill (the uncached suffix after a prefix-cache "
+            "hit) runs in page-aligned chunks of at most this many tokens "
+            "through the paged window step, one chunk round a step between "
+            "decode dispatches. The scheduler policy's "
+            "prefill_chunk_budget hook may shrink a round. 0 (default) = "
+            "one dense prefill. The engine's prefill_chunk argument wins. "
+            "Not with a separate draft_model.", type_=int)

@@ -6,8 +6,8 @@ decode bursts, preemption); a policy makes the decisions and mutates
 nothing: which pending request enters a free slot, which slot to evict when
 the page pool runs dry, the (batch, token) bucket of a batched prefill, the
 length of a decode burst, and the chunk and promotion budgets of chunked
-prefill and the KV tiers (hooks kept for the reference's surface; the port's
-engine serves neither yet).
+prefill (which the engine serves) and the KV tiers (a hook kept for the
+reference's surface; the port's engine has no tiers yet).
 
 `FifoSchedulerPolicy` (the default, `FLAGS_scheduler_policy="fifo"`) is
 strict head-of-line FIFO, youngest-admitted victim, next-pow2 batch buckets
@@ -43,11 +43,16 @@ class SchedulerPolicy:
 
     @staticmethod
     def _fits(engine, entry) -> bool:
-        """Admission takes only the context's pages; decode grows the
-        allocation on demand."""
+        """Admission takes only the context's pages (decode grows the
+        allocation on demand), counted against the free list plus the
+        prefix cache's evictable pages, which the engine reclaims at commit
+        (`_avail_pages`); an engine without that count (a test double) is
+        held to its free list."""
         _rid, ids, _max_new, prior = entry
         need = -(-(len(ids) + len(prior)) // engine.page_size)
-        return len(engine._free_pages) >= need
+        avail = engine._avail_pages() if hasattr(engine, "_avail_pages") \
+            else len(engine._free_pages)
+        return avail >= need
 
     def select_victim(self, engine, candidates: Sequence[int],
                       where: str = "page_stall") -> int:

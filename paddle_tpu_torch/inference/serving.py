@@ -47,9 +47,28 @@ overlapping launches).
 head, page, slot). A weight-only quantized model (`nn.quant.
 quantize_for_inference`) serves as it is.
 
+Prefix cache (`prefix_cache=1`): the full pages of every prefilled prompt
+enter a refcounted trie (`prefix_cache.PrefixCache`), and admission shares
+the pages of the longest cached page-aligned prefix into the new row. A
+page's count is one for the trie plus one for each row that holds it; it
+is on the free list exactly at 0, and pages only the trie holds are
+reclaimed least-recently-used when the pool runs short (`_avail_pages`,
+`_reclaim_pages`). The scratch page is never on the free list, never
+counted and never in the trie.
+
+Chunked prefill (`prefill_chunk=N`, page-aligned): the prompt, or after a
+cache hit only its uncached suffix, runs through the model's paged window
+step in chunk rounds of at most N tokens (the policy's
+`prefill_chunk_budget`), one round a step before the decode dispatch
+(`_prefill_chunk_round`). A prefilling row stays inactive in the decode
+programs (its writes go to the scratch page). A cache hit with chunking off
+runs one round that covers the suffix. A round runs eagerly over the
+prefilling rows alone; the last real position's logits sample the first
+token. Greedy streams equal the JAX engine's either way.
+
 Not ported (the constructor accepts their defaults and raises on anything
-else): tensor parallelism (`mesh`), speculative decoding, the prefix cache,
-chunked prefill, the KV tiers; nor OOM recovery, handoff or telemetry.
+else): tensor parallelism (`mesh`), speculative decoding, the KV tiers;
+nor OOM recovery, handoff or telemetry.
 """
 from __future__ import annotations
 
@@ -61,10 +80,12 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..framework import config as _cfg
 from ..framework.device import resolve_device
 from ..kernels import autotune as _at
 from ..kernels import paged_attention as _pa
 from ..models.generation import sample_logits, sample_logits_per_row
+from . import prefix_cache as _pc
 from . import scheduler as _sched
 
 
@@ -93,10 +114,6 @@ _NOT_PORTED = (
      "speculative decode, ROADMAP Queue 1 item 2"),
     ("draft_model", lambda v: v is None,
      "speculative decode, ROADMAP Queue 1 item 2"),
-    ("prefix_cache", lambda v: v is None or not int(v),
-     "the prefix cache, ROADMAP Queue 1 item 2"),
-    ("prefill_chunk", lambda v: v is None or int(v) <= 0,
-     "chunked prefill, ROADMAP Queue 1 item 2"),
     ("kv_host_cache_mb", lambda v: v is None or int(v) <= 0,
      "KV tiers, ROADMAP Queue 1 item 2"),
     ("kv_disk_cache_dir", lambda v: not v,
@@ -116,6 +133,13 @@ class _Slot:
     greedy: bool = True
     needs_first_sample: bool = False  # emit the prefill-time sample next
     first_token: int = -1
+    # chunked prefill: while `prefilling` the row owns its pages but is out
+    # of decode; `_pf_ctx` is the whole context, of which context_len
+    # tokens are cached so far; its suffix takes `_pf_n_chunks` rounds of
+    # the configured width
+    prefilling: bool = False
+    _pf_ctx: object = None
+    _pf_n_chunks: int = 0
 
 
 @dataclass
@@ -195,10 +219,19 @@ class ServingEngine:
                  device=None):
         given = dict(mesh=mesh, spec_decode=spec_decode,
                      spec_draft_layers=spec_draft_layers,
-                     draft_model=draft_model, prefix_cache=prefix_cache,
-                     prefill_chunk=prefill_chunk,
+                     draft_model=draft_model,
                      kv_host_cache_mb=kv_host_cache_mb,
                      kv_disk_cache_dir=kv_disk_cache_dir)
+        pc = prefix_cache if prefix_cache is not None \
+            else _cfg.get_flag("FLAGS_prefix_cache", 0)
+        ck = int(prefill_chunk if prefill_chunk is not None
+                 else _cfg.get_flag("FLAGS_prefill_chunk", 0))
+        if (bool(int(pc)) or ck > 0) and draft_model is not None:
+            raise ValueError(
+                "prefix_cache / prefill_chunk cannot serve with a separate "
+                "draft_model: the chunked continuation fills only the "
+                "target's pages, so the draft pools would decode against an "
+                "unwritten prompt")
         for name, off, item in _NOT_PORTED:
             if not off(given[name]):
                 raise NotImplementedError(
@@ -233,8 +266,24 @@ class ServingEngine:
         self.async_depth = max(0, int(async_depth))
         n_pages = max_batch * self.pages_per_seq
         self._free_pages = list(range(n_pages))
+        # references a page holds: one for each row that holds it, one for
+        # the trie; a page is on the free list exactly when its count is 0
+        self._page_refs = [0] * n_pages
         # one more page in each pool: the scratch page inactive rows write
+        # (never on the free list, never counted, never in the trie)
         self._scratch = n_pages
+        self.prefix_cache_enabled = bool(int(pc))
+        # page-aligned: a chunk writes whole pages of window positions
+        self.prefill_chunk = -(-ck // page_size) * page_size if ck > 0 \
+            else 0
+        # the trie mutates the two lists above in place (never rebind them)
+        self._prefix_cache = _pc.PrefixCache(
+            page_size, self._page_refs, self._free_pages) \
+            if self.prefix_cache_enabled else None
+        # this engine's token tallies: prompt tokens served from the trie
+        # and prompt tokens prefilled, counted at admission
+        self._prefix_hits_total = 0
+        self._prefix_misses_total = 0
         hd = cfg.hidden_size // cfg.num_attention_heads
         kvh, L = cfg.num_key_value_heads, cfg.num_hidden_layers
         # pages in the model's dtype, or int8 plus per-slot f32 scales; the
@@ -274,12 +323,13 @@ class ServingEngine:
                       for _ in range(self.async_depth + 2)]
         self._graphs = dev.type == "cuda" and self.decode_burst > 1
         self._burst_fns: Dict[tuple, object] = {}
-        # what ran: batched prefill calls, decode steps (one a token step:
-        # k a dispatch of k), preemptions, graph captures and replays, and
-        # tokens a program emitted for a row the host had already finished
-        # or aborted (0 without aborts: the programs' finish rules are the
-        # host's)
+        # what ran: batched prefill calls, chunk rounds, decode steps (one
+        # a token step: k a dispatch of k), preemptions, graph captures and
+        # replays, and tokens a program emitted for a row the host had
+        # already finished or aborted (0 without aborts: the programs'
+        # finish rules are the host's)
         self.prefills = 0
+        self.chunk_rounds = 0
         self.decode_steps = 0
         self.preemptions = 0
         self.graph_captures = 0
@@ -323,9 +373,23 @@ class ServingEngine:
     def has_work(self) -> bool:
         return bool(self._pending) or any(s.active for s in self.slots)
 
+    def admit_pending(self):
+        """One admission round without decoding: the batched prefill of
+        what fits, and the chunk rounds of rows on the chunked route (a
+        cache hit, or chunking on) run to their end."""
+        self._admit()
+        while True:
+            pf = [i for i, s in enumerate(self.slots)
+                  if s.active and s.prefilling]
+            if not pf:
+                break
+            self._prefill_chunk_round(pf)
+
     def _admit(self):
         """Admit every request that fits into a free slot, in the policy's
-        order, then prefill them all in one batched call."""
+        order. A prefix-cache match shares its pages into the row; rows on
+        the chunked route (a match, or chunking on) prefill in chunk
+        rounds, the others all in one batched call."""
         new = []  # (slot_idx, context_ids)
         while self._pending:
             slot_idx = next(
@@ -339,10 +403,23 @@ class ServingEngine:
             ctx = np.concatenate([ids, np.asarray(prior, np.int64)]) \
                 if prior else ids
             need = -(-len(ctx) // self.page_size)
-            if len(self._free_pages) < need:
+            # take the matched pages' references first, so that the reclaim
+            # below cannot evict the pages this admission is about to share
+            cached_pages, cached_tokens = [], 0
+            if self._prefix_cache is not None:
+                cached_pages, cached_tokens = self._prefix_cache.match(ctx)
+                for p in cached_pages:
+                    self._page_refs[p] += 1
+            need_fresh = need - len(cached_pages)
+            if len(self._free_pages) < need_fresh:
+                self._reclaim_pages(need_fresh - len(self._free_pages))
+            if len(self._free_pages) < need_fresh:
+                for p in cached_pages:  # roll the tentative references back
+                    self._page_refs[p] -= 1
                 break
             self._pending.pop(pick)
-            pages = [self._free_pages.pop() for _ in range(need)]
+            pages = cached_pages + [self._alloc_page()
+                                    for _ in range(need_fresh)]
             self.block_tables[slot_idx, :need] = np.asarray(pages, np.int32)
             s = self.slots[slot_idx]
             s.request_id, s.tokens = rid, list(prior)
@@ -351,10 +428,27 @@ class ServingEngine:
             s.greedy = self._req_params[rid]["greedy"]
             s.admit_seq = self._admit_seq
             self._admit_seq += 1
-            s.context_len = len(ctx)
-            s.needs_first_sample = True
+            if self._prefix_cache is not None:
+                self._prefix_hits_total += cached_tokens
+                self._prefix_misses_total += len(ctx) - cached_tokens
+            if self.prefill_chunk or cached_tokens:
+                # the chunked route: only the uncached suffix runs, in
+                # chunk rounds between decode dispatches; the row is out of
+                # decode until the suffix is cached
+                s.context_len = cached_tokens
+                s.prefilling = True
+                s._pf_ctx = ctx
+                s.needs_first_sample = False
+                suffix = len(ctx) - cached_tokens
+                cw = self.prefill_chunk or \
+                    -(-suffix // self.page_size) * self.page_size
+                s._pf_n_chunks = -(-suffix // cw)
+            else:
+                s.context_len = len(ctx)
+                s.prefilling = False
+                s.needs_first_sample = True
+                new.append((slot_idx, ctx))
             s.active = True
-            new.append((slot_idx, ctx))
         if new:
             self._prefill_batch(new)
 
@@ -417,12 +511,44 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # pages
     # ------------------------------------------------------------------
+    def _alloc_page(self) -> int:
+        page = self._free_pages.pop()
+        self._page_refs[page] += 1
+        return page
+
+    def _decref_page(self, page):
+        page = int(page)
+        self._page_refs[page] -= 1
+        if self._page_refs[page] == 0:
+            self._free_pages.append(page)
+
+    def _avail_pages(self) -> int:
+        """Pages admission may count on: the free list plus the pages
+        only the trie holds (reclaimed on demand). len(_free_pages) with
+        the cache off."""
+        n = len(self._free_pages)
+        if self._prefix_cache is not None:
+            n += self._prefix_cache.evictable()
+        return n
+
+    def _reclaim_pages(self, need: int) -> int:
+        """Evict up to `need` pages only the trie holds back to the free
+        list (least recently used first); returns the pages freed."""
+        if self._prefix_cache is None or need <= 0:
+            return 0
+        return self._prefix_cache.evict(need)
+
     def _release_slot(self, slot_idx):
+        """Drop a row's reference on each of its pages and deactivate it
+        (finish, preemption, abort). A page reaches the free list at count
+        0; pages the trie still holds stay for the next match."""
         s = self.slots[slot_idx]
-        self._free_pages.extend(
-            self.block_tables[slot_idx, :s.n_pages].tolist())
+        for page in self.block_tables[slot_idx, :s.n_pages].tolist():
+            self._decref_page(page)
         s.n_pages = 0
         s.active = False
+        s.prefilling = False
+        s._pf_ctx = None
         self._release_gen += 1
 
     def abort(self, request_id: int) -> bool:
@@ -451,9 +577,9 @@ class ServingEngine:
         s = self.slots[slot_idx]
         need = -(-(s.context_len + steps) // self.page_size)
         while s.n_pages < need:
-            if not self._free_pages:
+            if not self._free_pages and not self._reclaim_pages(1):
                 return False
-            self.block_tables[slot_idx, s.n_pages] = self._free_pages.pop()
+            self.block_tables[slot_idx, s.n_pages] = self._alloc_page()
             s.n_pages += 1
         return True
 
@@ -528,10 +654,73 @@ class ServingEngine:
                                            self.v_pages[li], kc[:n], vc[:n],
                                            tables, lens)
         del caches
+        if self._prefix_cache is not None:
+            # the full pages enter the trie; the partial tail page never
+            # does (decode keeps appending to it, in this row alone)
+            for si, ids in new:
+                self._prefix_cache.insert(ids, self.block_tables[si])
         first = first.cpu().numpy()
         for row, (si, _) in enumerate(new):
             self.slots[si].first_token = int(first[row])
         self.prefills += 1
+
+    @torch.no_grad()
+    def _prefill_chunk_round(self, pf):
+        """One chunk for every prefilling row in one window forward over
+        those rows alone (`forward_paged` at s = width, positions past a
+        row's take masked by `limit_lens`). The width is the policy's
+        `prefill_chunk_budget`, page-aligned and capped at prefill_chunk;
+        with chunking off (a cache-hit continuation) one chunk covers the
+        longest suffix. A row whose suffix completes enters the trie and
+        hands the sample of its last real position to the first-token path
+        of this same step. Admission allocated every prompt page, so no
+        page grows here. Runs eagerly: a round has enough work a launch."""
+        rem = {i: len(self.slots[i]._pf_ctx) - self.slots[i].context_len
+               for i in pf}
+        if self.prefill_chunk:
+            c = int(self.scheduler.prefill_chunk_budget(self, pf))
+            c = max(self.page_size, min(c, self.prefill_chunk))
+        else:
+            c = max(rem.values())
+        c = -(-c // self.page_size) * self.page_size
+        n = len(pf)
+        win = np.zeros((n, c), np.int64)
+        lens = np.zeros((n,), np.int32)
+        take = np.zeros((n,), np.int32)
+        for row, i in enumerate(pf):
+            s = self.slots[i]
+            take[row] = min(c, rem[i])
+            win[row, :take[row]] = \
+                s._pf_ctx[s.context_len:s.context_len + take[row]]
+            lens[row] = s.context_len
+        rids = [self.slots[i].request_id for i in pf]
+        all_greedy = all(self.slots[i].greedy for i in pf)
+        dev = self.device
+        # lens and limit stay on the host: the window attention reads them
+        # there without a sync
+        lens_t = torch.from_numpy(lens)
+        logits, _ = self.model.forward_paged(
+            torch.from_numpy(win).to(dev), self._caches,
+            torch.from_numpy(self.block_tables[pf]).to(dev), lens_t,
+            scratch_page=self._scratch,
+            limit_lens=lens_t + torch.from_numpy(take))
+        # the last real position of each row
+        last = logits[torch.arange(n, device=dev),
+                      torch.from_numpy(take.astype(np.int64) - 1).to(dev)]
+        first = self._sample(last, all_greedy, self._row_params(rids))
+        first = first.cpu().numpy()
+        self.chunk_rounds += 1
+        for row, i in enumerate(pf):
+            s = self.slots[i]
+            s.context_len += int(take[row])
+            if s.context_len >= len(s._pf_ctx):
+                if self._prefix_cache is not None:
+                    self._prefix_cache.insert(s._pf_ctx,
+                                              self.block_tables[i])
+                s.first_token = int(first[row])
+                s.needs_first_sample = True
+                s.prefilling = False
+                s._pf_ctx = None
 
     # ------------------------------------------------------------------
     # decode programs
@@ -706,11 +895,19 @@ class ServingEngine:
 
     @torch.no_grad()
     def step(self) -> List[FinishedRequest]:
-        """Admit and prefill what fits, then one decode dispatch (k steps,
-        the policy's `burst_k`) for every active slot. Returns the requests
-        that finished in this step."""
+        """Admit and prefill what fits, one chunk round for the rows on the
+        chunked route, then one decode dispatch (k steps, the policy's
+        `burst_k`) for every active slot that is not prefilling. Returns the
+        requests that finished in this step."""
         self._admit()
-        active = [i for i, s in enumerate(self.slots) if s.active]
+        pf = [i for i, s in enumerate(self.slots)
+              if s.active and s.prefilling]
+        if pf:
+            self._prefill_chunk_round(pf)
+        # a prefilling row has a partial context and no last token: it
+        # stays inactive in the decode programs (its writes go to scratch)
+        active = [i for i, s in enumerate(self.slots)
+                  if s.active and not s.prefilling]
         if not active:
             return []
         # a slot's first step emits its prefill-time sample
@@ -781,12 +978,13 @@ class ServingEngine:
     def _async_ok(self) -> bool:
         """Pipelined decode runs only in pure decode: no queue (admission
         would reuse pages an in-flight burst may still write), no pending
-        first tokens, and a row with more than one token of budget."""
+        first tokens, no row prefilling, and a row with more than one token
+        of budget."""
         if self.async_depth <= 0 or self.decode_burst <= 1 or self._pending:
             return False
         active = [i for i, s in enumerate(self.slots) if s.active]
         if not active or any(self.slots[i].needs_first_sample
-                             for i in active):
+                             or self.slots[i].prefilling for i in active):
             return False
         return max(self._rem_of(active).values()) > 1
 

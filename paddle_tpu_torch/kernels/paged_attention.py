@@ -19,6 +19,13 @@ owns a row of a block table listing its pages.
   selected by `torch.where`, so a device mask costs no `nonzero` and the
   write captures in a CUDA graph (duplicate indices land only on the
   scratch page, and a stale table row is never read).
+- The window step (s tokens a row: a chunked prefill's chunk, the
+  speculative verify) is plain PyTorch, as it is XLA code in the
+  reference: `scatter_paged_kv_window` / `_q8` write the window (positions
+  at or past `limit_lens`, and inactive rows, write nothing into a
+  sequence's pages: with a `scratch_page` they write there, else they are
+  left out by index) and `paged_attention_window` attends each position's
+  causal prefix over the live rows and the pages they hold.
 - `paged_attention` is the decode attention: the CUDA kernel
   `csrc/paged_attention.cu` for CUDA tensors (float pages, or int8 pages
   with their scales), `paged_attention_ref` (the plain counterpart of
@@ -229,6 +236,135 @@ def prefill_paged_kv_cache_q8(k_pages, k_scales, v_pages, v_scales, k_seq,
         pages[:, page_ids, slots] = q.transpose(0, 1)
         scales[:, page_ids, slots] = sc.transpose(0, 1)
     return k_pages, k_scales, v_pages, v_scales
+
+
+# ---------------------------------------------------------------------------
+# the window step: s tokens a row (chunked prefill, speculative verify)
+# ---------------------------------------------------------------------------
+
+
+def _window_targets(k_pages, block_tables, start_lens, s, limit_lens,
+                    active, scratch_page):
+    """(index, page_ids, slots) of a [b, s] token window's writes: row b's
+    token w lands at position start_lens[b] + w. A position at or past
+    limit_lens[b] (the window may overhang what the row holds), and every
+    position of a False row of `active`, writes nothing into a page a
+    sequence owns: with `scratch_page` it writes there (fixed shapes, no
+    sync; graph-safe), without it is left out by index, picked where the
+    masks live (a host mask costs no sync). `index` selects the written
+    entries of the flattened [b * s] window. The one copy of that rule,
+    shared by the float and int8 writers (the reference's
+    `_window_write_coords`)."""
+    dev = k_pages.device
+    page_size = k_pages.shape[2]
+    mdev = dev if scratch_page is not None else start_lens.device
+    start = start_lens.to(mdev, torch.long)
+    pos = start[:, None] + torch.arange(s, device=mdev)
+    limit = start[:, None] + s if limit_lens is None \
+        else limit_lens.to(mdev, torch.long)[:, None]
+    valid = pos < limit
+    if active is not None:
+        valid = valid & active.to(mdev)[:, None]
+    tables = block_tables.to(dev)
+    if scratch_page is not None:
+        col = (pos // page_size).clamp_(max=tables.shape[1] - 1)
+        page_ids = torch.where(valid, tables.gather(1, col).long(),
+                               scratch_page)
+        return slice(None), page_ids.reshape(-1), (pos % page_size).reshape(-1)
+    rows, cols = _nonzero_on(valid, dev)
+    p = pos.to(dev)[rows, cols]
+    return rows * s + cols, tables[rows, p // page_size].long(), \
+        p % page_size
+
+
+def scatter_paged_kv_window(k_pages, v_pages, k_seq, v_seq, block_tables,
+                            start_lens, limit_lens=None, active=None,
+                            scratch_page=None):
+    """Write a window of s new tokens a row into its pages (counterpart of
+    `scatter_paged_kv_window`; which positions write where:
+    `_window_targets`). k_seq/v_seq: [b, s, kv_heads, head_dim]. Writes the
+    pools in place and returns them."""
+    b, s = k_seq.shape[:2]
+    idx, page_ids, slots = _window_targets(
+        k_pages, block_tables, start_lens, s, limit_lens, active,
+        scratch_page)
+    for pages, seq in ((k_pages, k_seq), (v_pages, v_seq)):
+        pages[:, page_ids, slots] = seq.reshape(b * s, *seq.shape[2:])[idx] \
+            .to(pages.dtype).transpose(0, 1)
+    return k_pages, v_pages
+
+
+def scatter_paged_kv_window_q8(k_pages, k_scales, v_pages, v_scales, k_seq,
+                               v_seq, block_tables, start_lens,
+                               limit_lens=None, active=None,
+                               scratch_page=None):
+    """int8 `scatter_paged_kv_window`: each (row, token, kv head) quantized
+    symmetrically, values and scales written. Returns (k_pages, k_scales,
+    v_pages, v_scales)."""
+    b, s = k_seq.shape[:2]
+    idx, page_ids, slots = _window_targets(
+        k_pages, block_tables, start_lens, s, limit_lens, active,
+        scratch_page)
+    for pages, scales, seq in ((k_pages, k_scales, k_seq),
+                               (v_pages, v_scales, v_seq)):
+        q, sc = _quant_kv_token(seq.reshape(b * s, *seq.shape[2:])[idx])
+        pages[:, page_ids, slots] = q.transpose(0, 1)
+        scales[:, page_ids, slots] = sc.transpose(0, 1)
+    return k_pages, k_scales, v_pages, v_scales
+
+
+def paged_attention_window(q, k_pages, v_pages, block_tables, context_lens,
+                           scale=None, k_scales=None, v_scales=None,
+                           active=None):
+    """Window attention over the paged cache (counterpart of
+    `paged_attention_window_xla`): query w of row b attends positions <=
+    context_lens[b] + w of its table, its own just-written token
+    included, in f32 over float pages or int8 pages with f32 per-slot
+    scales. q: [b, s, q_heads, head_dim] -> [b, s, q_heads, head_dim].
+
+    Only the rows of `active` (every row without it) and the first
+    ceil((max context + s) / page_size) pages of their tables are
+    gathered: the positions past them are masked in the reference. A
+    False row's output is 0 (the reference's reads its stale table).
+    `context_lens` and `active` are read on the host: CPU tensors cost
+    nothing, CUDA ones one sync. Its scratch: one f32 [rows, q_heads, s,
+    positions] tensor (the scores, turned into weights in place) and the
+    gathered K and V in f32.
+    """
+    b, s, n_q_heads, head_dim = q.shape
+    n_kv_heads, _, page_size, _ = k_pages.shape
+    group = n_q_heads // n_kv_heads
+    if scale is None:
+        scale = 1.0 / math.sqrt(head_dim)
+    lens = context_lens.cpu().long()
+    out = torch.zeros_like(q)
+    rows = torch.arange(b) if active is None \
+        else torch.nonzero(active.cpu(), as_tuple=True)[0]
+    if rows.numel() == 0:
+        return out
+    n_pages = min(-(-(int(lens[rows].max()) + s) // page_size),
+                  block_tables.shape[1])
+    dev = q.device
+    rows_d = rows.to(dev)
+    tables = block_tables.to(dev)[rows_d, :n_pages].long()
+    r, S = rows.numel(), n_pages * page_size
+    kd = k_pages[:, tables].reshape(n_kv_heads, r, S, head_dim).float()
+    vd = v_pages[:, tables].reshape(n_kv_heads, r, S, head_dim).float()
+    if k_scales is not None:
+        kd = kd * k_scales[:, tables].reshape(n_kv_heads, r, S)[..., None]
+        vd = vd * v_scales[:, tables].reshape(n_kv_heads, r, S)[..., None]
+    qf = q[rows_d].reshape(r, s, n_kv_heads, group, head_dim).float()
+    sc = torch.einsum("bwhgd,hbsd->bhgws", qf, kd) * scale
+    q_pos = lens[rows].to(dev)[:, None] + torch.arange(s, device=dev)
+    mask = torch.arange(S, device=dev)[None, None, :] <= q_pos[:, :, None]
+    sc.masked_fill_(~mask[:, None, None], NEG_INF)
+    # softmax in place: one [rows, q_heads, s, positions] f32 tensor
+    sc -= sc.amax(dim=-1, keepdim=True)
+    sc.exp_()
+    sc /= sc.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgws,hbsd->bwhgd", sc, vd)
+    out[rows_d] = o.reshape(r, s, n_q_heads, head_dim).to(q.dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@ training forward `forward` (causal attention through
 `F.scaled_dot_product_attention`, so the flash kernels at the shapes they
 take; with a padding `attn_mask`, folded into the causal mask, the dense
 reference path, as in the reference), the dense-cache forward
-`forward_cached` (batched prefill) and the paged single-token decode
-`forward_paged`. `config.use_recompute` recomputes each decoder layer's
+`forward_cached` (batched prefill) and the paged step `forward_paged`
+(single-token decode, or a window of tokens: a prefill chunk). `config.use_recompute` recomputes each decoder layer's
 activations in training (`distributed.fleet.utils.recompute`).
 
 Parameter names and shapes equal the JAX model's, linears in Paddle's
@@ -190,15 +190,17 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out), (kc, vc)
 
     def forward_paged(self, hidden_states, paged_cache, block_tables,
-                      context_lens, active=None, scratch_page=None):
-        """Single-token decode over the paged cache (models.paged_step):
-        (k_pages, v_pages), or with int8 pages (k_pages, v_pages, k_scales,
-        v_scales). hidden_states: [b, 1, hidden]. Returns (out,
-        paged_cache)."""
+                      context_lens, active=None, scratch_page=None,
+                      limit_lens=None):
+        """Decode (s == 1) or a window of s tokens (s > 1) over the paged
+        cache (models.paged_step): (k_pages, v_pages), or with int8 pages
+        (k_pages, v_pages, k_scales, v_scales). hidden_states: [b, s,
+        hidden]. Returns (out, paged_cache)."""
         q, k, v = self._qkv(hidden_states)
         out, cache = paged_attention_step(
             q, k, v, paged_cache, block_tables, context_lens, active=active,
-            rotate=self._rotate, scratch_page=scratch_page)
+            rotate=self._rotate, scratch_page=scratch_page,
+            limit_lens=limit_lens)
         return self.o_proj(out), cache
 
 
@@ -233,10 +235,12 @@ class LlamaDecoderLayer(nn.Module):
         return self._finish(hidden_states, h), cache
 
     def forward_paged(self, hidden_states, paged_cache, block_tables,
-                      context_lens, active=None, scratch_page=None):
+                      context_lens, active=None, scratch_page=None,
+                      limit_lens=None):
         h, cache = self.self_attn.forward_paged(
             self.input_layernorm(hidden_states), paged_cache, block_tables,
-            context_lens, active=active, scratch_page=scratch_page)
+            context_lens, active=active, scratch_page=scratch_page,
+            limit_lens=limit_lens)
         return self._finish(hidden_states, h), cache
 
 
@@ -269,13 +273,15 @@ class LlamaModel(nn.Module):
         return self.norm(h), new_caches
 
     def forward_paged(self, input_ids, paged_caches, block_tables,
-                      context_lens, active=None, scratch_page=None):
+                      context_lens, active=None, scratch_page=None,
+                      limit_lens=None):
         h = self.embed_tokens(input_ids)
         new_caches = []
         for layer, cache in zip(self.layers, paged_caches):
             h, nc = layer.forward_paged(h, cache, block_tables,
                                         context_lens, active=active,
-                                        scratch_page=scratch_page)
+                                        scratch_page=scratch_page,
+                                        limit_lens=limit_lens)
             new_caches.append(nc)
         return self.norm(h), new_caches
 
@@ -323,15 +329,18 @@ class LlamaForCausalLM(CausalLMBase):
         return self._head(h), new_caches
 
     def forward_paged(self, input_ids, paged_caches, block_tables,
-                      context_lens, active=None, scratch_page=None):
-        """Single-token decode of [b, 1] ids over the paged caches (per
-        layer `paged_step.paged_attention_step`'s cache tuple) -> ([b, 1,
-        vocab] logits, caches). `active` [b] bool and `scratch_page` as
-        there: with both on the pools' device the step reads nothing back
-        to the host."""
+                      context_lens, active=None, scratch_page=None,
+                      limit_lens=None):
+        """Decode of [b, 1] ids, or a window of [b, s] ids at positions
+        context_lens..context_lens+s-1, over the paged caches (per layer
+        `paged_step.paged_attention_step`'s cache tuple) -> ([b, s, vocab]
+        logits, caches). `active` [b] bool, `scratch_page` and `limit_lens`
+        [b] (window positions at or past it write nothing) as there: at
+        s == 1 with `active` and `scratch_page` on the pools' device the
+        step reads nothing back to the host."""
         h, new_caches = self.llama.forward_paged(
             input_ids, paged_caches, block_tables, context_lens,
-            active=active, scratch_page=scratch_page)
+            active=active, scratch_page=scratch_page, limit_lens=limit_lens)
         return self._head(h), new_caches
 
     def _backbone_embed_weight(self):

@@ -1523,3 +1523,122 @@ def test_adam_kernel_runs_the_optimizer_and_refuses_what_it_does_not_take(
         kadam.adam_update(p, g[:8], m1, m2, None, *args)
     with pytest.raises(ValueError):
         kadam.adam_update(p, g, m1.cpu(), m2, None, *args)
+
+
+def _window_case(dev, dtype, quant, seed=0, d=128, kvh=2, q_heads=4):
+    """Pools of 12 pages of 16 tokens, 4 rows with 3-page tables, ragged
+    starts, a window of 20 tokens: row 0 overhangs its limit, row 2 is
+    inactive."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (kvh, 13, 16, d)  # page 12: the scratch page
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=g).to(torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=g).to(torch.int8)
+        ks = torch.rand(shape[:3], generator=g) * 0.02 + 0.001
+        vs = torch.rand(shape[:3], generator=g) * 0.02 + 0.001
+    else:
+        kp = torch.randn(shape, generator=g).to(dtype)
+        vp = torch.randn(shape, generator=g).to(dtype)
+        ks = vs = None
+    tables = torch.tensor([[3, 7, 0], [4, 5, 1], [6, 2, 8], [9, 10, 11]],
+                          dtype=torch.int32)
+    start = torch.tensor([5, 0, 14, 2], dtype=torch.int32)
+    limit = torch.tensor([20, 20, 34, 11], dtype=torch.int32)
+    active = torch.tensor([True, True, False, True])
+    q = torch.randn(4, 20, q_heads, d, generator=g).to(dtype)
+    k_seq = torch.randn(4, 20, kvh, d, generator=g).to(dtype)
+    v_seq = torch.randn(4, 20, kvh, d, generator=g).to(dtype)
+    host = (q, kp, vp, ks, vs, k_seq, v_seq)
+    on = tuple(None if t is None else t.to(dev) for t in host)
+    return host, on, (tables, start, limit, active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scratch", [False, True])
+@pytest.mark.parametrize("quant", [False, True])
+def test_window_writers_on_cuda_match_cpu(cuda_device, quant, scratch):
+    """The window writers on CUDA tensors write what they write on the
+    CPU: the same positions, float values bit for bit, int8 values within
+    one step and their scales within one f32 rounding (a division on
+    another unit). Host masks and tables on both."""
+    results = []
+    for side in (0, 1):
+        case = _window_case(cuda_device, torch.bfloat16, quant)
+        (_, kp, vp, ks, vs, k_seq, v_seq) = case[side]
+        tables, start, limit, active = case[2]
+        kw = dict(limit_lens=limit, active=active,
+                  scratch_page=12 if scratch else None)
+        if quant:
+            out = tpa.scatter_paged_kv_window_q8(kp, ks, vp, vs, k_seq,
+                                                 v_seq, tables, start, **kw)
+        else:
+            out = tpa.scatter_paged_kv_window(kp, vp, k_seq, v_seq, tables,
+                                              start, **kw)
+        torch.cuda.synchronize()
+        results.append([t[:, :12].cpu() for t in out])
+    for want, got in zip(*results):
+        if got.dtype == torch.int8:
+            assert (got.int() - want.int()).abs().max() <= 1
+        elif quant:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_window_attention_on_cuda_matches_cpu(cuda_device, dtype, quant):
+    """The window attention on CUDA tensors against the CPU's, f32 inside:
+    bf16 outputs within one rounding, f32 within summation order; an
+    inactive row is 0 on both."""
+    host, on, (tables, start, _limit, active) = _window_case(
+        cuda_device, dtype, quant)
+    outs = []
+    for q, kp, vp, ks, vs, _k, _v in (host, on):
+        outs.append(tpa.paged_attention_window(
+            q, kp, vp, tables.to(q.device), start, k_scales=ks, v_scales=vs,
+            active=active).cpu())
+    want, got = outs
+    assert not got[2].any()
+    assert _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_window_chunked_engine_on_cuda_equals_cpu(cuda_device, kv):
+    """The prefix cache and chunk rounds of 16 tokens on the card (burst 4:
+    prefilling rows stay inactive in the captured graphs): greedy streams
+    equal to the CPU's, the shared prompt hits, nothing is captured twice,
+    and the page counts close."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2, seq=64)
+    cfg.num_key_value_heads = 1
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=0)
+    gpu = LlamaForCausalLM(cfg, device=cuda_device)
+    load_llama_state(gpu, {k: v.numpy() for k, v in cpu.state_dict().items()})
+    rng = np.random.RandomState(1)
+    shared = rng.randint(0, 256, (24,))
+    prompts = [np.concatenate([shared, rng.randint(0, 256, (n,))])
+               for n in (3, 9, 1, 14)]
+    kw = dict(kv_cache_quant=kv, prefix_cache=1, prefill_chunk=16)
+    streams = []
+    for model, dev, extra in ((cpu, "cpu", {}),
+                              (gpu, cuda_device, dict(decode_burst=4))):
+        e = ServingEngine(model, max_batch=3, max_seq_len=64, page_size=8,
+                          device=dev, seed=3, **kw, **extra)
+        out = []
+        for p in prompts:  # one at a time: the later ones hit the trie
+            rid = e.add_request(p, max_new_tokens=12)
+            out.append({f.request_id: f.output_ids.tolist()
+                        for f in e.run()}[rid])
+        for p in prompts[1:]:  # together: chunk rounds between bursts
+            e.add_request(p, max_new_tokens=12)
+        out += [f.output_ids.tolist()
+                for f in sorted(e.run(), key=lambda f: f.request_id)]
+        streams.append(out)
+        assert e._prefix_hits_total > 0 and e.chunk_rounds > 0
+        refs = e._page_refs
+        assert sum(r > 0 for r in refs) + len(e._free_pages) == len(refs)
+        assert sum(refs) == len(e._prefix_cache)  # drained: the trie's
+    assert streams[0] == streams[1]
+    assert e.graph_captures == len(e._burst_fns) <= 2

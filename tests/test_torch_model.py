@@ -162,12 +162,24 @@ def test_forward_paged_logits_and_pages_match_jax():
 
 
 def test_forward_paged_rejects_windows():
+    """A window (s > 1) runs since the window step is ported, and rejects
+    the positions it must not write: those at or past `limit_lens` and
+    every position of an inactive row leave the pages as they were."""
     _, tm, _ = tiny_pair()
-    kp, vp = tpa.alloc_pages(4, PAGE, KV_HEADS, 32)
-    with pytest.raises(NotImplementedError):
-        tm.forward_paged(torch.zeros(1, 2, dtype=torch.long),
-                         [(kp, vp)] * 2, torch.zeros(1, 4, dtype=torch.int32),
-                         torch.zeros(1, dtype=torch.int32))
+    caches = [tpa.alloc_pages(5, PAGE, KV_HEADS, 32) for _ in range(2)]
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    lens = torch.tensor([3, 0], dtype=torch.int32)
+    with torch.no_grad():
+        logits, _ = tm.forward_paged(
+            torch.ones(2, 6, dtype=torch.long), caches, tables, lens,
+            active=torch.tensor([True, False]),
+            limit_lens=torch.tensor([7, 6], dtype=torch.int32))
+    assert logits.shape == (2, 6, 256) and torch.isfinite(logits).all()
+    for kp, vp in caches:
+        for pool in (kp, vp):
+            written = pool.abs().sum(dim=(0, 3)) != 0  # [page, slot]
+            assert written[0, 3:7].all()
+            assert written.sum() == 4  # positions 3..6 of row 0 alone
 
 
 def test_init_weights_is_seeded():

@@ -157,12 +157,17 @@ def test_optimizer_steps_match_reference(name, decay, dtype,
     extra = {"multi_precision": True} if multi_precision else {}
     jps = _jax_params(values, jdt)
     jopt = _make(paddle.optimizer, name, jps, decay, **extra)
-    tps = [torch.nn.Parameter(torch.from_numpy(v).to(tdt)) for v in values]
+    # each package gets its own buffers: `jnp.asarray` of a 64-byte-aligned
+    # numpy array aliases it on the CPU, and JAX runs its step
+    # asynchronously, so an in-place torch update of a shared buffer could
+    # land before the JAX step reads it
+    tps = [torch.nn.Parameter(torch.from_numpy(v.copy()).to(tdt))
+           for v in values]
     opt = _make(topt, name, tps, decay, **extra)
     for gs in grads:
         for jp, tp, g in zip(jps, tps, gs):
             jp.grad = paddle.to_tensor(jnp.asarray(g, jdt))
-            tp.grad = torch.from_numpy(g).to(tdt)
+            tp.grad = torch.from_numpy(g.copy()).to(tdt)
         jopt.step()
         opt.step()
     exact = dtype == "bfloat16"
@@ -379,7 +384,9 @@ def test_grad_scaler_sequence_matches_reference(dtype):
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     tdt = getattr(torch, dtype)
     jps = _jax_params(values, jdt)
-    tps = [torch.nn.Parameter(torch.from_numpy(v).to(tdt)) for v in values]
+    # own buffers, as in test_optimizer_steps_match_reference
+    tps = [torch.nn.Parameter(torch.from_numpy(v.copy()).to(tdt))
+           for v in values]
     jopt = paddle.optimizer.SGD(learning_rate=0.1, parameters=jps)
     opt = topt.SGD(learning_rate=0.1, parameters=tps)
     kw = dict(init_loss_scaling=2.0 ** 10, incr_every_n_steps=2,
@@ -394,7 +401,7 @@ def test_grad_scaler_sequence_matches_reference(dtype):
         before = [tp.detach().clone() for tp in tps]
         for jp, tp, g in zip(jps, tps, gs):
             jp.grad = paddle.to_tensor(jnp.asarray(g, jdt))
-            tp.grad = torch.from_numpy(g).to(tdt)
+            tp.grad = torch.from_numpy(g.copy()).to(tdt)
         jsc.step(jopt)
         sc.step(opt)
         scales.append((jsc.get_loss_scaling(), sc.get_loss_scaling()))

@@ -270,8 +270,6 @@ def test_engine_raises_on_unported_arguments(pair):
                               ("spec_decode", 4, "speculative"),
                               ("draft_model", tm, "speculative"),
                               ("spec_draft_layers", 1, "speculative"),
-                              ("prefix_cache", 1, "prefix cache"),
-                              ("prefill_chunk", 16, "chunked prefill"),
                               ("kv_host_cache_mb", 64, "KV tiers"),
                               ("kv_disk_cache_dir", "/x", "KV tiers")):
         with pytest.raises(NotImplementedError, match=item):

@@ -95,11 +95,13 @@ def test_adam_updates_match_reference(decoupled, dtype, multi_precision):
     state = jopt._init_state(types.SimpleNamespace(_data=jp))
     for g in grads:
         jp, state = jopt._update_param(jp, jnp.asarray(g, jdt), state, 0.01)
-    tp = torch.nn.Parameter(torch.from_numpy(p0).to(tdt))
+    # its own buffer: the JAX steps above may still be reading p0, which
+    # `jnp.asarray` can alias on the CPU (asynchronous dispatch)
+    tp = torch.nn.Parameter(torch.from_numpy(p0.copy()).to(tdt))
     opt = tcls(learning_rate=0.01, parameters=[tp], weight_decay=0.1,
                multi_precision=multi_precision)
     for g in grads:
-        tp.grad = torch.from_numpy(g).to(tdt)
+        tp.grad = torch.from_numpy(g.copy()).to(tdt)
         opt.step()
     assert tp.dtype == tdt
     st = opt.state_dict()
