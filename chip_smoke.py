@@ -162,7 +162,36 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    by the holds (a chunk round that ignores `limit_lens`, a match that
    shares the partial tail page, a release that skips a decref); (b) phase
    4b's LLaMA-2-13B (int8 weights, int8 KV) on the traffic's first 4
-   requests, chunked engine against the off engine, under the same holds.
+   requests, chunked engine against the off engine, under the same holds;
+13. speculative decoding, each cell in a process of its own (`--phase13
+   CELL`): (a) phase 4's LLaMA-2-7B on phase 11's engine (decode_burst 8)
+   over phase 4's 10 requests made greedy, off (the burst graphs alone)
+   and with spec_decode=4: shallow exit at the default 16 layers, at the
+   full 32 (the target's own decode: acceptance at least 0.9), a 2-layer
+   draft model at the same widths (weights from --seed + 1), and (in a
+   process of its own, `7b_target_draft`, beside its own off engine) the
+   target as its own draft model (acceptance at least 0.9), each
+   round's draft and verify captured CUDA graphs built by `warmup` and
+   the verify's attention on the paged decode kernel; every greedy stream
+   equal to the off engine's or differing first at a near tie (the off
+   engine's top-2 gap within the verify-vs-decode logit distance of a
+   first window times its largest |logit|), no capture during traffic, no
+   gathered window, no token past a finish; proposed and accepted drafts,
+   rounds, tokens/s, peak memory, the launches inside the graphs from the
+   profiler's device records (exact: per round n draft steps of the draft
+   depth and one verify of 32 layers); a profiled window of 3 rounds at
+   batch 8, context ~1000 (per round the draft's and the verify's device
+   ms, the round's wall ms, the idle share; device and wall ms per
+   committed token, beside the off engine's burst window); then the
+   shallow engine with the prefix cache and chunks of 512 over phase 12's
+   first 4 shared-prompt requests, the page holds after each, against the
+   off engine; four planted faults, each caught (a commit that also
+   accepts the draft at the first mismatch; a verify whose window
+   positions all attend up to lens + window; on the target as its own
+   draft model, a prefill that skips the draft's pools and a draft scan
+   one step short); (b) phase 4b's LLaMA-2-13B
+   (int8 weights, int8 KV), shallow, on the first 4 requests against its
+   off engine, the dequant matmul's kernels counted inside the graphs.
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -3560,7 +3589,7 @@ def graph_launches(events, cfg, token_steps, forwards, quant):
     return got, want
 
 
-def counted(tag, run, card):
+def counted(tag, run, card, phase=11):
     """run() -> (result, got, want) of one profiled window; once more if the
     profiler's records fall short (it has lost a few records of a long
     session late in a process), so the launches must be exact in one of
@@ -3568,7 +3597,7 @@ def counted(tag, run, card):
     at once."""
     res, got, want = run()
     if got != want and all(got[k] <= want[k] for k in want):
-        log(f"phase 11 {tag}: the profiler kept {got} of {want} device "
+        log(f"phase {phase} {tag}: the profiler kept {got} of {want} device "
             f"records; the window runs once more [{card}]")
         res, got, want = run()
     check(got == want, f"{tag}: device launches {got}, expected {want}")
@@ -3590,7 +3619,7 @@ def burst_engine(model, seed, dev, kv, **kw):
 
 
 def profile_burst(eng, rng, card, tag, bursts=3, via_run=False,
-                  quant=False):
+                  quant=False, phase=11):
     """Profile `bursts` bursts of pure decode at batch 8 (contexts ~1000),
     as `profile_decode` does for single steps: per token step, the wall
     ms, device busy ms, device operations; the idle share; the kernels'
@@ -3630,7 +3659,7 @@ def profile_burst(eng, rng, card, tag, bursts=3, via_run=False,
                 *graph_launches(events, eng.cfg, steps, steps, quant))
 
     (wall, events, steps, wall2), launches = counted(f"{tag} window", run,
-                                                     card)
+                                                     card, phase)
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -3652,9 +3681,9 @@ def profile_burst(eng, rng, card, tag, bursts=3, via_run=False,
         res["dequant_ms_per_token_step"] = sum(
             us for n, us in by_name.items() if "skinny_kernel" in n) \
             / 1e3 / steps
-    log(f"phase 11 {tag}: batch-8 decode at context ~1000, {bursts} bursts "
-        f"of {k}: {res['wall_ms_per_token_step']:.3f} ms/token-step wall "
-        f"({res['unprofiled_wall_ms_per_token_step']:.3f} unprofiled), "
+    log(f"phase {phase} {tag}: batch-8 decode at context ~1000, {bursts} "
+        f"bursts of {k}: {res['wall_ms_per_token_step']:.3f} ms/token-step "
+        f"wall ({res['unprofiled_wall_ms_per_token_step']:.3f} unprofiled), "
         f"{res['device_busy_ms_per_token_step']:.3f} device busy, idle share "
         f"{res['idle_share']:.3f}, {res['device_ops_per_token_step']:.0f} "
         f"device operations a token step, paged kernel "
@@ -3662,7 +3691,7 @@ def profile_burst(eng, rng, card, tag, bursts=3, via_run=False,
         + (f", dequant decode kernel {res['dequant_ms_per_token_step']:.3f} "
            f"ms" if quant else "") + f", launches {launches} [{card}]")
     for name, ms in res["top_kernels_ms_per_token_step"]:
-        log(f"phase 11 {tag}:   {ms:8.4f} ms/token-step  {name}")
+        log(f"phase {phase} {tag}:   {ms:8.4f} ms/token-step  {name}")
     return res
 
 
@@ -4196,7 +4225,8 @@ def prefix_engine_run(model, name, kw, parts, seed, dev, card, kv, tag,
     return res
 
 
-def judge_streams(model, dev, prompts, got, want, dist, tag, card):
+def judge_streams(model, dev, prompts, got, want, dist, tag, card,
+                  phase=12):
     """Every stream of `got` equal to the off engine's `want`, or, where
     one differs, the off engine's top-2 logit gap at the first differing
     token at most `dist` times its largest |logit| (a near tie that a
@@ -4211,9 +4241,9 @@ def judge_streams(model, dev, prompts, got, want, dist, tag, card):
         top = torch.topk(lg, 2).values
         gap, bar = float(top[0] - top[1]), dist * float(lg.abs().max())
         diffs.append(dict(request=i, token=k, gap=gap, bar=bar))
-        log(f"phase 12 {tag}: request {i} first differs at token {k}: the "
-            f"off engine's top-2 gap {gap:.4g} against the bar {bar:.4g} "
-            f"[{card}]")
+        log(f"phase {phase} {tag}: request {i} first differs at token "
+            f"{k}: the off engine's top-2 gap {gap:.4g} against the bar "
+            f"{bar:.4g} [{card}]")
         check(gap <= bar, f"{tag}: request {i} differs at token {k} where "
               f"the off engine's top-2 gap {gap:.4g} exceeds {bar:.4g}")
     return diffs
@@ -4421,6 +4451,719 @@ def prefix_serving(seed, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: speculative decoding (the draft and the verify as CUDA graphs)
+# ---------------------------------------------------------------------------
+
+SPEC_WINDOW = 4      # spec_decode of the speculative engines
+DRAFT_LAYERS = 2     # the separate draft model: LLaMA-2-7B widths, 2 layers
+FULL_ACCEPTANCE = 0.9  # the full-depth draft's acceptance at least
+# the target as its own draft model runs in a process of its own: beside
+# the 7B cell's engines its process outgrew what the profiler records
+# whole (a dropped device record, twice, in the last profiled program)
+SPEC_CELLS = ("7b", "7b_target_draft", "13b_int8")
+SPEC_KERNELS = (("paged_attention", "paged_decode_kernel"),
+                ("rms_norm", "rms_norm_fwd"),
+                ("quant_matmul_decode", "skinny_kernel"),
+                ("quant_matmul_prefill", "qmm_wgmma_kernel"),
+                ("split_sum", "split_sum_kernel"))
+
+
+def greedy(requests):
+    """The requests with their sampling arguments dropped: a sampling row in
+    the batch sends the whole round to the classic path."""
+    return [(p, n, {}) for p, n, _ in requests]
+
+
+def verify_distance(model, prompts, window, dev, kv):
+    """The verify-vs-decode logit distance of one window at the engine's
+    geometry (one row a prompt, 8 rows: the decode's linears then run at
+    m = 8 and the verify's at m = 8 * window, as in the engine): each
+    prompt's K/V in fresh pages of its row, its first token from its
+    prefill, `window` single-token decode steps (the decode kernel at
+    context lens + 1), each feeding the last one's greedy tokens, then the
+    verify's forward over the same windows on the same pages
+    (`window_rows`, the decode rows clamped to each row's limit). Returns
+    (max |verify - decode| over max |decode| of the row with the largest,
+    row 0's window)."""
+    cfg = model.config
+    kvh = cfg.num_key_value_heads
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    page = 16
+    b = len(prompts)
+    lens = [len(p) for p in prompts]
+    width = max(-(-(n + window) // page) for n in lens)
+    dtype = torch.int8 if kv else next(model.parameters()).dtype
+    pools = []
+    for _ in range(cfg.num_hidden_layers):
+        kp, vp = kpa.alloc_pages(b * width + 1, page, kvh, hd, dtype, dev)
+        sc = kpa.alloc_page_scales(b * width + 1, page, kvh, dev) if kv \
+            else ()
+        pools.append((kp, vp, *sc))
+    tables = torch.arange(b * width, dtype=torch.int32,
+                          device=dev).reshape(b, width)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        first = []
+        for r, prompt in enumerate(prompts):
+            logits, caches = model.forward_cached(
+                torch.from_numpy(prompt)[None].to(dev),
+                model.init_kv_caches(1, lens[r]), 0)
+            tserving.ServingEngine._write_prompts(
+                pools, caches, tables[r:r + 1],
+                torch.tensor([lens[r]], dtype=torch.int32), 1)
+            first.append(logits[0, -1].float().argmax())
+            del caches
+        tok = torch.stack(first)
+        win, dec = [], []
+        for j in range(window):
+            win.append(tok)
+            lg, _ = model.forward_paged(tok[:, None], pools, tables,
+                                        lens_t + j)
+            dec.append(lg[:, 0].float())
+            tok = lg[:, 0].float().argmax(dim=-1)
+        ver, _ = model.forward_paged(
+            torch.stack(win, dim=1), pools, tables, lens_t,
+            active=torch.ones(b, dtype=torch.bool, device=dev),
+            scratch_page=b * width, limit_lens=lens_t + window,
+            window_rows=True)
+    dec = torch.stack(dec, dim=1)  # [b, window, vocab]
+    dist = ((ver.float() - dec).abs().amax(dim=(1, 2))
+            / dec.abs().amax(dim=(1, 2)))
+    del pools
+    return float(dist.max()), torch.stack(win, dim=1)[0].tolist()
+
+
+def spec_engine(model, seed, dev, kv, **kw):
+    """An engine of phase 13 (phase 11's: decode_burst 8), warmed: a spec
+    engine's draft and verify graphs (and the single-step graph the last
+    tokens take) captured before traffic."""
+    eng = ServingEngine(model, max_batch=8, max_seq_len=4096, page_size=16,
+                        seed=seed, device=dev, kv_cache_quant=kv,
+                        decode_burst=BURST, **kw)
+    secs = eng.warmup()
+    if eng.spec_decode:
+        n_scan = eng.spec_decode - (eng._draft_model is None)
+        check(set(eng._spec_draft_fns) == {n_scan}
+              and set(eng._spec_verify_fns) == {eng.spec_decode},
+              f"warmup built draft programs {sorted(eng._spec_draft_fns)} "
+              f"and verify programs {sorted(eng._spec_verify_fns)}")
+    check(eng.graph_captures == len(eng._burst_fns) + len(
+        eng._spec_draft_fns) + len(eng._spec_verify_fns),
+          f"warmup captured {eng.graph_captures} graphs")
+    return eng, secs
+
+
+def spec_shape(eng):
+    """(scan length, draft depth, target depth) of a spec engine's round."""
+    L = eng.cfg.num_hidden_layers
+    if eng._draft_model is not None:
+        return eng.spec_decode, eng._draft_model.config.num_hidden_layers, L
+    return eng.spec_decode - 1, eng.spec_draft_layers, L
+
+
+class SpecCounts:
+    """What an engine ran from a mark on: prefills, classic token steps,
+    spec rounds, proposed and accepted drafts, and the wrappers' launches
+    (eager prefills and chunk rounds; a graph replay bypasses them)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.start = self.now()
+
+    def now(self):
+        e = self.eng
+        return dict(prefills=e.prefills, steps=e.decode_steps,
+                    rounds=e.spec_rounds, proposed=e._spec_proposed_total,
+                    accepted=e._spec_accepted_total,
+                    rms=krms.launches, paged=kpa.launches + kpa.q8_launches,
+                    qdec=kqm.kernel_launches["decode"],
+                    qpre=kqm.kernel_launches["prefill"],
+                    split=kqm.kernel_launches["split"])
+
+    def delta(self):
+        now = self.now()
+        return {k: now[k] - self.start[k] for k in now}
+
+    def want(self):
+        """The launches the device must have run since the mark: the eager
+        ones as the wrappers counted them, plus a single-step program's
+        kernels per classic token step and a draft's and a verify's per
+        spec round (`program_want`)."""
+        d = self.delta()
+        eng = self.eng
+        want = dict(paged_attention=d["paged"], rms_norm=d["rms"])
+        if eng.kv_cache_quant == "int8":
+            want.update(quant_matmul_decode=d["qdec"],
+                        quant_matmul_prefill=d["qpre"], split_sum=d["split"])
+        parts = [(d["steps"], program_want(eng, "burst", (True, 1)))]
+        if eng.spec_decode:
+            n = spec_shape(eng)[0]
+            parts += [(d["rounds"], program_want(eng, "draft", n)),
+                      (d["rounds"], program_want(eng, "verify",
+                                                 eng.spec_decode))]
+        for times, per in parts:
+            for name in want:
+                want[name] += times * per[name]
+        return want
+
+
+def spec_launches(events, quant):
+    names = [k for k in SPEC_KERNELS if quant or not k[0].startswith(
+        ("quant", "split"))]
+    return {name: count_kernels(events, part) for name, part in names}
+
+
+def library_attention(events):
+    """Names of attention kernels that are not the port's paged decode."""
+    return sorted({e.name[:60] for e in events
+                   if "paged_decode_kernel" not in e.name and any(
+                       w in e.name.lower()
+                       for w in ("fmha", "flash", "sdpa", "attention"))})
+
+
+def program_want(eng, kind, key):
+    """The kernels one replay of a captured program holds: a (greedy, k)
+    burst k forwards of the target (L paged decodes, 2L + 1 RMSNorms, 7L
+    dequant decode kernels each), a draft of n steps n forwards of the
+    draft depth Ld, a verify one forward of the target over window *
+    batch rows (its dequant linears at m > 16: the prefill kernel)."""
+    quant = eng.kv_cache_quant == "int8"
+    L = eng.cfg.num_hidden_layers
+    if kind == "verify":
+        steps, depth, dec, pre = 1, L, 0, 7 * L
+    elif kind == "draft":
+        steps, depth = key, spec_shape(eng)[1]
+        dec, pre = 7 * depth * key, 0
+    else:
+        steps, depth, dec, pre = key[1], L, 7 * L * key[1], 0
+    want = dict(paged_attention=steps * depth,
+                rms_norm=steps * (2 * depth + 1))
+    if quant:
+        want.update(quant_matmul_decode=dec, quant_matmul_prefill=pre,
+                    split_sum=0)
+    return want
+
+
+def program_kernels(eng, tag, card):
+    """The kernels each captured program of the engine holds, from the
+    profiler's records of one replay of it with every row inactive (it
+    writes only the scratch page), exact against `program_want`, with no
+    library attention; then each program's replays are counted. Returns
+    ({(kind, key): {kernel: n}}, {(kind, key): replays})."""
+    quant = eng.kv_cache_quant == "int8"
+    per, replays = {}, {}
+    for kind, fns in (("burst", eng._burst_fns),
+                      ("draft", eng._spec_draft_fns),
+                      ("verify", eng._spec_verify_fns)):
+        for key, fn in list(fns.items()):
+            def run(_fn=fn, _kind=kind, _key=key):
+                eng._buf.idle()
+                _, _, events = profiled(_fn)
+                check(not library_attention(events), f"{tag}: library "
+                      f"attention in {_kind} {_key}: "
+                      f"{library_attention(events)}")
+                return None, spec_launches(events, quant), program_want(
+                    eng, _kind, _key)
+
+            _, per[(kind, key)] = counted(f"{tag} {kind} {key}", run, card,
+                                          13)
+
+            def counting(_fn=fn, _k=(kind, key)):
+                replays[_k] = replays.get(_k, 0) + 1
+                _fn()
+
+            fns[key] = counting
+    return per, replays
+
+
+def spec_traffic_run(eng, requests, tag, card, holds=None):
+    """`requests` through the engine (one part after the other, each part
+    together, the page holds after every finish with `holds`): the
+    streams, tokens/s, what ran, and the launches: the wrappers' counts
+    (prefills and chunk rounds run eagerly) plus each program's replays
+    times the kernels a profiled replay of it holds (`program_kernels`).
+    No graph captured, no window gathered but in chunk rounds, no token
+    emitted past a finish."""
+    quant = eng.kv_cache_quant == "int8"
+    per, replays = program_kernels(eng, tag, card)
+    gathers = [0]
+    real_window = kpa.paged_attention_window
+
+    def counting(*a, **kw):
+        gathers[0] += 1
+        return real_window(*a, **kw)
+
+    counts = SpecCounts(eng)
+    c0, r0 = eng.graph_captures, eng.graph_replays
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kpa.paged_attention_window = counting
+    t0 = time.perf_counter()
+    try:
+        out = [drive(eng, requests)] if holds is None else [
+            drive_held(eng, part, holds) for part in requests]
+    finally:
+        kpa.paged_attention_window = real_window
+    wall = time.perf_counter() - t0
+    check(eng.graph_captures == c0, f"{tag}: "
+          f"{eng.graph_captures - c0} graphs captured during traffic")
+    check(sum(replays.values()) == eng.graph_replays - r0 > 0,
+          f"{tag}: {sum(replays.values())} counted replays of "
+          f"{eng.graph_replays - r0}")
+    d = counts.delta()
+    launches = dict(paged_attention=d["paged"], rms_norm=d["rms"])
+    if quant:
+        launches.update(quant_matmul_decode=d["qdec"],
+                        quant_matmul_prefill=d["qpre"], split_sum=d["split"])
+    for k, n in replays.items():
+        for name in launches:
+            launches[name] += n * per[k][name]
+    check(launches == counts.want(), f"{tag}: launches {launches}, "
+          f"expected {counts.want()}")
+    check(eng.discarded_tokens == 0,
+          f"{tag}: {eng.discarded_tokens} tokens emitted past a finish")
+    if eng.spec_decode and not eng.prefill_chunk:
+        check(gathers[0] == 0 and not eng.chunk_rounds,
+              f"{tag}: {gathers[0]} gathered windows")
+    streams = [s for part in out for s in part["streams"]]
+    tokens = sum(len(s) for s in streams)
+    res = dict(streams=streams, wall_s=wall, tokens=tokens,
+               tokens_per_s=tokens / wall, counts=d,
+               acceptance=d["accepted"] / d["proposed"]
+               if d["proposed"] else None,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               window_gathers=gathers[0], launches=launches,
+               replays={f"{kind}_{key}": n
+                        for (kind, key), n in replays.items()})
+    acc = "n/a" if res["acceptance"] is None else f"{res['acceptance']:.3f}"
+    log(f"phase 13 {tag}: {len(streams)} requests, {tokens} tokens in "
+        f"{wall:.2f} s ({res['tokens_per_s']:.1f} tok/s); {d['rounds']} "
+        f"spec rounds, proposed {d['proposed']}, accepted {d['accepted']} "
+        f"(acceptance {acc}); {d['steps']} classic token steps, "
+        f"{d['prefills']} prefills; peak {res['peak_gib']:.2f} GiB; "
+        f"launches {launches} ({res['replays']} replays) [{card}]")
+    return res
+
+
+def marked(fn):
+    """fn behind a `spin_kernel` of the device: the profiler's records of
+    a round then split at these markers."""
+    def run():
+        torch.cuda._sleep(1)
+        fn()
+    return run
+
+
+def split_round_events(events):
+    """Device ms of the draft replays, the verify replays and the copies,
+    from records whose draft and verify replays each follow a
+    `spin_kernel` (`marked`)."""
+    out = dict(draft=0.0, verify=0.0, copies=0.0, other=0.0)
+    part = "other"
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        us = e.time_range.elapsed_us()
+        if "spin_kernel" in e.name:
+            part = "verify" if part == "draft" else "draft"
+        elif e.name.startswith(("Memcpy", "Memset")):
+            out["copies"] += us / 1e3
+        else:
+            out[part] += us / 1e3
+    return out
+
+
+def profile_spec(eng, rng, card, tag, rounds=3):
+    """A window of `rounds` speculative rounds at batch 8, contexts ~1000,
+    under the profiler (each draft and verify replay behind a marker):
+    per round the device ms of the draft and of the verify replay, the
+    round's wall ms, the idle share; per committed token the device and
+    wall ms; the launches in the window, exact. Then as many rounds with
+    the profiler off: wall ms per committed token."""
+    w = eng.spec_decode
+    n = spec_shape(eng)[0]
+    quant = eng.kv_cache_quant == "int8"
+
+    def committed():
+        return sum(len(s.tokens) for s in eng.slots if s.active)
+
+    def window():
+        t0, r0 = committed(), eng.spec_rounds
+        for _ in range(rounds):
+            eng.step()
+        torch.cuda.synchronize()
+        check(eng.spec_rounds - r0 == rounds and
+              sum(s.active for s in eng.slots) == eng.max_batch,
+              f"{tag}: {eng.spec_rounds - r0} rounds in the window")
+        return committed() - t0
+
+    def run():
+        for _ in range(eng.max_batch):
+            eng.add_request(rng.randint(0, eng.cfg.vocab_size, 1000),
+                            max_new_tokens=w * (2 * rounds + 2) + 2)
+        eng.step()  # admission, batched prefill, first tokens, a round
+        fns = dict(eng._spec_draft_fns), dict(eng._spec_verify_fns)
+        eng._spec_draft_fns.update({k: marked(f)
+                                    for k, f in fns[0].items()})
+        eng._spec_verify_fns.update({k: marked(f)
+                                     for k, f in fns[1].items()})
+        try:
+            tokens, wall, events = profiled(window)
+        finally:
+            eng._spec_draft_fns.update(fns[0])
+            eng._spec_verify_fns.update(fns[1])
+        t1 = time.perf_counter()
+        tokens2 = window()
+        wall2 = time.perf_counter() - t1
+        eng.run()
+        draft, verify = (program_want(eng, "draft", n),
+                         program_want(eng, "verify", w))
+        want = {k: rounds * (draft[k] + verify[k]) for k in draft}
+        return (tokens, wall, events, tokens2, wall2), \
+            spec_launches(events, quant), want
+
+    (tokens, wall, events, tokens2, wall2), launches = counted(
+        f"{tag} window", run, card, 13)
+    parts = split_round_events(events)
+    busy = sum(e.time_range.elapsed_us() for e in events
+               if "spin_kernel" not in e.name) / 1e3
+    res = dict(rounds=rounds, committed_tokens=tokens,
+               draft_ms_per_round=parts["draft"] / rounds,
+               verify_ms_per_round=parts["verify"] / rounds,
+               copies_ms_per_round=parts["copies"] / rounds,
+               round_wall_ms=wall * 1e3 / rounds,
+               idle_share=1.0 - busy / (wall * 1e3),
+               device_ms_per_token=busy / tokens,
+               wall_ms_per_token=wall * 1e3 / tokens,
+               unprofiled_wall_ms_per_token=wall2 * 1e3 / tokens2,
+               unprofiled_committed_tokens=tokens2, launches=launches)
+    log(f"phase 13 {tag}: batch-8 spec rounds at context ~1000: per round "
+        f"draft {res['draft_ms_per_round']:.3f} ms + verify "
+        f"{res['verify_ms_per_round']:.3f} ms of device time (copies "
+        f"{res['copies_ms_per_round']:.3f}), {res['round_wall_ms']:.3f} ms "
+        f"wall, idle share {res['idle_share']:.3f}; {tokens} tokens "
+        f"committed in {rounds} rounds: {res['device_ms_per_token']:.3f} ms "
+        f"device, {res['wall_ms_per_token']:.3f} ms wall "
+        f"({res['unprofiled_wall_ms_per_token']:.3f} unprofiled, "
+        f"{tokens2} tokens) per committed token; launches {launches} "
+        f"[{card}]")
+    return res
+
+
+def accept_at_mismatch(eng):
+    """Planted fault 1: the commit also accepts the draft at the first
+    mismatch (the target's corrected token is replaced by the draft).
+    Returns its undo."""
+    real = eng._commit_spec
+
+    def commit(drafts, g, active, window):
+        g = g.copy()
+        for i in active:
+            for j in range(1, window):
+                if drafts[j - 1, i] != g[i, j - 1]:
+                    g[i, j - 1] = drafts[j - 1, i]
+                    break
+        return real(drafts, g, active, window)
+
+    eng._commit_spec = commit
+    return lambda: delattr(eng, "_commit_spec")
+
+
+def without_position_limit(_eng):
+    """Planted fault 2: the verify's decode rows from
+    `rows_without_position_limit`. Returns its undo."""
+    real = kpa.window_rows
+    kpa.window_rows = rows_without_position_limit
+
+    def undo():
+        kpa.window_rows = real
+    return undo
+
+
+def rows_without_position_limit(block_tables, context_lens, s,
+                                limit_lens=None, active=None):
+    """Planted fault 2: `window_rows` whose window positions all attend
+    up to lens + window (the per-position causal limit gone; still clamped
+    to the row's limit, so that a row reads only its own pages)."""
+    dev = block_tables.device
+    ctx = (context_lens.to(dev, torch.int32) + s)[:, None].expand(-1, s)
+    if limit_lens is not None:
+        ctx = torch.minimum(ctx, limit_lens.to(dev, torch.int32)[:, None])
+    if active is not None:
+        ctx = ctx * active.to(dev)[:, None]
+    return (block_tables.repeat_interleave(s, dim=0),
+            ctx.reshape(-1).to(torch.int32).contiguous())
+
+
+def skip_draft_prefill(eng):
+    """Planted fault 3: a prefill that writes the prompts into the
+    target's pools but not into the draft model's. Returns its undo."""
+    real = eng._write_prompts
+    eng._write_prompts = lambda pools, *a: None \
+        if pools is eng._draft_caches else real(pools, *a)
+    return lambda: delattr(eng, "_write_prompts")
+
+
+def no_extra_draft_step(eng):
+    """Planted fault 4: a draft model's scan of window - 1 steps, as
+    shallow exit's (the last draft's K/V never reaches its pools). Returns
+    its undo."""
+    real = eng._get_spec_draft_fn
+    eng._get_spec_draft_fn = lambda n: real(n - 1)
+    return lambda: delattr(eng, "_get_spec_draft_fn")
+
+
+def fault_requests(rng, vocab):
+    """The planted faults' requests: 4 short greedy prompts (8 tokens) with
+    24 new tokens each, where a window position's attention over 3 extra
+    tokens moves its output far more than over a long context."""
+    return [(rng.randint(0, vocab, 8), 24, {}) for _ in range(4)]
+
+
+def spec_fault_caught(run, what):
+    """run() must fail a hold of phase 13 (a stream or the acceptance):
+    the hold's message."""
+    try:
+        run()
+    except AssertionError as e:
+        msg = str(e)
+        check("differs at token" in msg or "acceptance" in msg,
+              f"planted fault ({what}) failed elsewhere: {msg}")
+        return msg
+    raise AssertionError(f"planted fault ({what}): the holds did not catch "
+                         f"it")
+
+
+def spec_cell(cell, seed, dev, card):
+    """One phase-13 cell in a process of its own. 7b: LLaMA-2-7B bf16 from
+    `seed` (phase 4's model) through phase 11's engine (decode_burst 8):
+    off (the burst graphs alone), shallow (spec_decode 4, the default 16
+    draft layers), full depth (32 draft layers: the target's own decode),
+    a 2-layer draft model at the same widths (weights from seed + 1), each
+    over phase 4's 10 requests made greedy and a profiled window; then the
+    shallow engine with the prefix cache and chunks of 512 over phase 12's
+    first 4 shared-prompt requests against the off engine, the page holds
+    after every finished request. 7b_target_draft: the same model, off and
+    the target as its own draft model (over pools of its own). The
+    full-depth and target-draft engines accept at least FULL_ACCEPTANCE;
+    the planted faults of `PLANTS` run on their engines. 13b_int8: LLaMA-2-13B
+    (`init_default`, int8 weights but lm_head, int8 KV), off and shallow
+    over the first 4 requests. Every spec engine's greedy streams equal
+    the off engine's or differ first at a near tie (the off engine's top-2
+    gap within the verify-vs-decode distance times its largest
+    |logit|)."""
+    big = cell == "13b_int8"
+    cfg = LlamaConfig.llama2_13b() if big else LlamaConfig.llama2_7b()
+    cfg.dtype = "bfloat16"
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    kv = None
+    if big:
+        init_default(model, seed, dev)
+        quantize_for_inference(model, "weight_only_int8", -1,
+                               exclude=("lm_head",))
+        kv = "int8"
+        gc.collect()
+        torch.cuda.empty_cache()
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(seed)
+    _long, batch = traffic(rng, cfg.vocab_size)
+    requests = greedy(batch[:4] if big else batch)
+    prompts = [p for p, _, _ in requests]
+    faults = fault_requests(np.random.RandomState(seed + 13), cfg.vocab_size)
+    tag = "13B int8" if big else "7B"
+    dist, window = verify_distance(
+        model, [p for p, _, _ in batch[:8]], SPEC_WINDOW, dev, kv)
+    log(f"phase 13 {tag}: verify-vs-decode logit distance of the first "
+        f"window of 8 rows (request 0's tokens {window}): {dist:.4g} "
+        f"[{card}]")
+    res = dict(card=card, layers=L, distance=dist, engines={}, faults={})
+    engines = [("off", {}), ("shallow", dict(spec_decode=SPEC_WINDOW))]
+    if cell == "7b_target_draft":
+        engines[1] = ("target_draft", dict(spec_decode=SPEC_WINDOW,
+                                           draft_model=model))
+    if cell == "7b":
+        dcfg = LlamaConfig.llama2_7b()
+        dcfg.dtype = "bfloat16"
+        dcfg.num_hidden_layers = DRAFT_LAYERS
+        engines += [("full_depth", dict(spec_decode=SPEC_WINDOW,
+                                        spec_draft_layers=L)),
+                    ("draft_model", dict(
+                        spec_decode=SPEC_WINDOW,
+                        draft_model=LlamaForCausalLM(dcfg, device=dev,
+                                                     seed=seed + 1)))]
+    want = fault_want = None
+    for name, kw in engines:
+        t0 = time.perf_counter()
+        eng, secs = spec_engine(model, seed, dev, kv, **kw)
+        r = spec_traffic_run(eng, requests, f"{tag} {name}", card)
+        r.update(warmup_s=secs, captures=eng.graph_captures)
+        if name == "off":
+            want = r["streams"]
+            if cell != "7b_target_draft":  # the 7B cell's profiles it
+                r["profile"] = profile_burst(eng, rng, card, f"{tag} off",
+                                             quant=big, phase=13)
+            if not big:
+                fault_want = drive(eng, faults)["streams"]
+        else:
+            r["diffs"] = judge_streams(model, dev, prompts, r["streams"],
+                                       want, dist, f"{tag} {name}", card,
+                                       phase=13)
+            r["profile"] = profile_spec(eng, rng, card, f"{tag} {name}")
+        if name in ("full_depth", "target_draft"):
+            check(r["acceptance"] >= FULL_ACCEPTANCE,
+                  f"{tag} {name}: acceptance {r['acceptance']:.3f} "
+                  f"below {FULL_ACCEPTANCE}")
+        for fault, plant, least in ([] if big else PLANTS.get(name, [])):
+            res["faults"][fault] = spec_fault(
+                model, dev, eng, faults, fault_want, dist, tag, card, fault,
+                plant, min_acceptance=least)
+        r.pop("streams")
+        res["engines"][name] = r
+        log(f"phase 13 {tag} {name}: {len(requests) - len(r.get('diffs', []))}"
+            f" of {len(requests)} greedy streams equal to the off engine's; "
+            f"warmup {secs:.2f} s ({eng.graph_captures} graphs), engine "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        del eng
+        kw.pop("draft_model", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if cell == "7b":
+        res["engines"]["prefix"] = spec_prefix_run(model, seed, dev, dist,
+                                                   tag, card)
+    res["launches"] = {}
+    for r in res["engines"].values():
+        for part in (r["launches"], r.get("profile", {}).get("launches",
+                                                             {})):
+            for k, n in part.items():
+                res["launches"][k] = res["launches"].get(k, 0) + n
+    return res
+
+
+# the planted faults of phase 13 by the engine they run on: (name, plant,
+# the acceptance the run must keep or None: the streams' hold alone)
+PLANTS = dict(
+    shallow=[("accept_at_mismatch", accept_at_mismatch, None)],
+    full_depth=[("no_position_limit", without_position_limit,
+                 FULL_ACCEPTANCE)],
+    target_draft=[("no_draft_prefill", skip_draft_prefill, FULL_ACCEPTANCE),
+                  ("no_extra_draft_step", no_extra_draft_step,
+                   FULL_ACCEPTANCE)])
+
+
+def spec_fault(model, dev, eng, faults, want, dist, tag, card, name, plant,
+               min_acceptance=None):
+    """A planted fault on `eng`, over the faults' short requests against
+    the off engine's streams for them: a sound run first (the holds must
+    pass), then `plant(eng)` (returning its undo), every program captured
+    anew, and a run that must fail the streams' hold or, with
+    `min_acceptance`, the acceptance's. Returns the hold's message."""
+    prompts = [p for p, _, _ in faults]
+
+    def serve(what):
+        p0, a0 = eng._spec_proposed_total, eng._spec_accepted_total
+        got = drive(eng, faults)["streams"]
+        acc = (eng._spec_accepted_total - a0) / max(
+            eng._spec_proposed_total - p0, 1)
+        log(f"phase 13 {tag} fault '{name}' ({what}): acceptance "
+            f"{acc:.3f} [{card}]")
+        judge_streams(model, dev, prompts, got, want, dist,
+                      f"{tag} fault {name} ({what})", card, phase=13)
+        if min_acceptance is not None:
+            check(acc >= min_acceptance, f"{tag} fault {name} ({what}): "
+                  f"acceptance {acc:.3f} below {min_acceptance}")
+
+    serve("sound")
+    undo = plant(eng)
+    eng._spec_draft_fns.clear()
+    eng._spec_verify_fns.clear()
+    try:
+        msg = spec_fault_caught(lambda: serve("planted"), name)
+    finally:
+        undo()
+        eng._spec_draft_fns.clear()
+        eng._spec_verify_fns.clear()
+    log(f"phase 13 {tag} fault '{name}': caught: {msg} [{card}]")
+    return msg
+
+
+def spec_prefix_run(model, seed, dev, dist, tag, card):
+    """The shallow spec engine with `prefix_cache=1, prefill_chunk=512`
+    over phase 12's first 4 shared-prompt requests (the first alone, then
+    3 together), the page holds after every finished request, against the
+    off engine over the same parts; the near-tie bar is the larger of the
+    verify-vs-decode distance and the first request's chunked-vs-dense
+    first-token distance (phase 12's)."""
+    rng = np.random.RandomState(seed + 12)
+    _system, parts = prefix_traffic(rng, model.config.vocab_size)
+    parts = [greedy(parts[0]), greedy(parts[1][:3])]
+    prompts = [p for part in parts for p, _, _ in part]
+    out, first = {}, {}
+    for name, kw in (("off", {}), ("shallow_cache_chunk", dict(
+            spec_decode=SPEC_WINDOW, prefix_cache=1, prefill_chunk=CHUNK))):
+        eng, secs = spec_engine(model, seed, dev, None, **kw)
+        holds = PageHolds(eng)
+        seen = first_token_logits(eng)
+        r = spec_traffic_run(eng, parts, f"{tag} prefix {name}", card,
+                             holds=holds)
+        # the first request's first token: its dense prefill, or the last
+        # of its chunk rounds (it runs alone, with no hit)
+        rounds0 = -(-len(prompts[0]) // CHUNK) if eng.prefill_chunk else 1
+        first[name] = seen[rounds0 - 1][0]
+        del eng._sample
+        r.update(warmup_s=secs, holds_checked=holds.checks,
+                 hits=eng._prefix_hits_total,
+                 chunk_rounds=eng.chunk_rounds)
+        out[name] = r
+        del eng, holds, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+    spec = out["shallow_cache_chunk"]
+    check(spec["hits"] > 0 and spec["chunk_rounds"] > 0,
+          f"{tag} prefix: {spec['hits']} hit tokens, "
+          f"{spec['chunk_rounds']} chunk rounds")
+    spec["chunk_distance"] = logit_distance(first["shallow_cache_chunk"],
+                                            first["off"])
+    bar = max(dist, spec["chunk_distance"])
+    log(f"phase 13 {tag} prefix: chunked-vs-dense first-token logit "
+        f"distance {spec['chunk_distance']:.4g}, verify-vs-decode "
+        f"{dist:.4g} [{card}]")
+    spec["diffs"] = judge_streams(model, dev, prompts, spec.pop("streams"),
+                                  out["off"].pop("streams"), bar,
+                                  f"{tag} prefix", card, phase=13)
+    log(f"phase 13 {tag} prefix: shallow spec with the prefix cache and "
+        f"chunks of {CHUNK}: {len(prompts) - len(spec['diffs'])} of "
+        f"{len(prompts)} streams equal to the off engine's; hit "
+        f"{spec['hits']} tokens, {spec['chunk_rounds']} chunk rounds, holds "
+        f"checked {spec['holds_checked']} times [{card}]")
+    launches = {}
+    for r in out.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    return out
+
+
+def spec_serving(seed, card):
+    """Phase 13: each cell in a process of its own (its launches inside the
+    captured programs come from the profiler's device records)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="phase13-") as io:
+        for cell in SPEC_CELLS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--phase13", cell, "--io", io], timeout=600)
+            check(proc.returncode == 0,
+                  f"phase 13 ({cell}) failed: exit {proc.returncode}")
+            with open(os.path.join(io, f"{cell}.json")) as f:
+                res[cell] = json.load(f)
+            res[cell]["process_s"] = time.perf_counter() - t0
+            log(f"phase 13 {cell}: process {res[cell]['process_s']:.1f} s, "
+                f"launches {res[cell]['launches']} [{card}]")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4432,10 +5175,13 @@ def main():
     ap.add_argument("--phase12", choices=PREFIX_CELLS, default=None,
                     help="run one cell of phase 12 in this process (the "
                     "script starts one process a cell itself)")
+    ap.add_argument("--phase13", choices=SPEC_CELLS, default=None,
+                    help="run one cell of phase 13 in this process (the "
+                    "script starts one process a cell itself)")
     ap.add_argument("--io", default=None,
                     help="with --phase11: the directory of the streams it "
-                    "is held to and of its result; with --phase12: of its "
-                    "result")
+                    "is held to and of its result; with --phase12 or "
+                    "--phase13: of its result")
     args = ap.parse_args()
 
     # 1. device
@@ -4464,6 +5210,11 @@ def main():
     if args.phase12:
         res = prefix_cell(args.phase12, args.seed, dev, card)
         with open(os.path.join(args.io, f"{args.phase12}.json"), "w") as f:
+            json.dump(res, f)
+        return 0
+    if args.phase13:
+        res = spec_cell(args.phase13, args.seed, dev, card)
+        with open(os.path.join(args.io, f"{args.phase13}.json"), "w") as f:
             json.dump(res, f)
         return 0
 
@@ -4742,6 +5493,13 @@ def main():
     prefix = prefix_serving(args.seed, card)
     p7, p13 = prefix["7b"]["launches"], prefix["13b_int8"]["launches"]
 
+    # 13. speculative decoding: the 7B, 7B target-as-draft and 13B int8
+    # cells, each in a fresh process
+    spec = spec_serving(args.seed, card)
+    s7, s13 = dict(spec["7b"]["launches"]), spec["13b_int8"]["launches"]
+    for name, n in spec["7b_target_draft"]["launches"].items():
+        s7[name] = s7.get(name, 0) + n
+
     def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -4799,13 +5557,14 @@ def main():
         row("rms_norm", csrc + "rms_norm.cu", ref + "rms_norm.py:71", rms[0],
             served["rms_norm"] + q8["rms_norm"] + q4["rms_norm"]
             + trained["rms_norm"] + g7["rms_norm"] + g13["rms_norm"]
-            + p7["rms_norm"] + p13["rms_norm"]),
+            + p7["rms_norm"] + p13["rms_norm"] + s7["rms_norm"]
+            + s13["rms_norm"]),
         row("rms_norm_bwd", csrc + "rms_norm.cu", ref + "rms_norm.py:101",
             rms_bwd[0], trained["rms_norm_bwd"]),
         row("paged_attention", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged[0],
             served["paged_attention"] + g7["paged_attention"]
-            + p7["paged_attention"]),
+            + p7["paged_attention"] + s7["paged_attention"]),
         # the plain flash bodies: the training run's and phase 9 (d)'s
         row("flash_fwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:214", flash[0]["fwd"],
@@ -4823,15 +5582,16 @@ def main():
             ref + "quant_matmul.py:208",
             case(qmm, "5120->13824 m2512 int8 g-1"),
             q8by["prefill"] + q4by["prefill"]
-            + p13["quant_matmul_prefill"]),
+            + p13["quant_matmul_prefill"] + s13["quant_matmul_prefill"]),
         row("quant_matmul_decode", csrc + "quant_matmul.cu",
             ref + "quant_matmul.py:208", case(qmm, "5120->13824 m8 int8 g-1"),
             q8by["decode"] + q4by["decode"] + g13["quant_matmul_decode"]
-            + p13["quant_matmul_decode"]),
+            + p13["quant_matmul_decode"] + s13["quant_matmul_decode"]),
         row("paged_attention_int8", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged_q8[0],
             q8["paged_attention_int8"] + q4["paged_attention_int8"]
-            + g13["paged_attention"] + p13["paged_attention_int8"]),
+            + g13["paged_attention"] + p13["paged_attention_int8"]
+            + s13["paged_attention"]),
         # the GEMM's variants that ran; launches: phase 8's counted runs
         *[variant_row(v, n) for v, n in sorted(by_variant.items()) if n],
         row("paged_attention_grouped", csrc + "paged_attention.cu",
@@ -4874,7 +5634,7 @@ def main():
                            dispatch=dispatch, flash_variants=variants,
                            adam=adam_k, surface=surface, o1_scaler=o1,
                            surface_parity=surface_parity,
-                           multi_step=multi_step, prefix=prefix,
+                           multi_step=multi_step, prefix=prefix, spec=spec,
                            kernels=kernels),
                       f, indent=1)
     log(card)

@@ -119,3 +119,23 @@ define_flag("FLAGS_prefill_chunk", 0,
             "prefill_chunk_budget hook may shrink a round. 0 (default) = "
             "one dense prefill. The engine's prefill_chunk argument wins. "
             "Not with a separate draft_model.", type_=int)
+define_flag("FLAGS_spec_decode", 0,
+            "Self-speculative decoding window for the serving engine "
+            "(inference/serving.py): when >= 2, greedy decode drafts "
+            "window-1 tokens with the cheap draft path, verifies the "
+            "whole window in ONE batched target forward over the paged "
+            "KV cache, and commits the greedy-exact accepted prefix "
+            "plus one corrected token (output token streams are "
+            "bit-identical to non-speculative greedy decoding, up to "
+            "near ties where the verify's int8-weight linears take "
+            "another kernel than decode's; "
+            "rejection rewinds by page-table/context truncation). 0 "
+            "(default) = off. Engine kwarg spec_decode overrides.",
+            type_=int)
+define_flag("FLAGS_spec_draft_layers", 0,
+            "Layers in the shallow-exit self-speculative draft path: "
+            "the draft runs the first N decoder layers + final norm + "
+            "lm head (LayerSkip-style), reusing the target's exact "
+            "paged KV for those layers. 0 (default) = half the model's "
+            "layers (rounded up). Ignored when the engine was given a "
+            "separate draft_model.", type_=int)

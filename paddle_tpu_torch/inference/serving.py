@@ -3,6 +3,8 @@
 
     engine = ServingEngine(model, max_batch=8, max_seq_len=4096,
                            decode_burst=8, async_depth=2)
+    # or speculative: ServingEngine(model, ..., spec_decode=4), shallow
+    # exit, or with draft_model=a_smaller_llama
     engine.warmup()                  # optional: capture before traffic
     rid = engine.add_request(prompt_ids, max_new_tokens=64)
     finished = engine.run()          # or: engine.step() in a loop
@@ -66,9 +68,29 @@ runs one round that covers the suffix. A round runs eagerly over the
 prefilling rows alone; the last real position's logits sample the first
 token. Greedy streams equal the JAX engine's either way.
 
+Speculative decoding (`spec_decode=W`, W >= 2; greedy batches with more
+than one token of budget left): a round drafts W - 1 tokens a row with a
+cheap path, the target's first `spec_draft_layers` layers over their own
+pages (shallow exit, half the depth by default) or a separate
+`draft_model` over pools of its own (prefilled beside the target's; it
+runs one draft step more, so that its last draft's K/V lands in its
+pools), then verifies the window [last token, drafts] in one target
+forward whose attention runs as W single-token decode rows a row through
+the paged decode kernel (`paged_attention_window_rows`), each row's
+context clamped to what it may commit. The host commits the accepted
+prefix plus the target's corrected token (`_commit_spec`), so greedy
+streams equal plain greedy decoding, up to near ties where the verify's
+linears take another kernel than decode's (int8 weights: the dequant
+matmul's m > 16 kernel at W * batch rows, its decode kernel at m <= 16)
+and sum in another order. The draft program (one per scan
+length) and the verify program read and write the same static buffers,
+and on CUDA each is a captured graph whatever `decode_burst` is; a round
+replays both back to back and reads the host once. Not with
+`async_depth`.
+
 Not ported (the constructor accepts their defaults and raises on anything
-else): tensor parallelism (`mesh`), speculative decoding, the KV tiers;
-nor OOM recovery, handoff or telemetry.
+else): tensor parallelism (`mesh`), the KV tiers; nor OOM recovery,
+handoff or telemetry.
 """
 from __future__ import annotations
 
@@ -108,12 +130,6 @@ def burst_rules(tok, lens, act, rem, nxt, eos):
 _NOT_PORTED = (
     ("mesh", lambda v: v is None,
      "tensor-parallel serving, ROADMAP Queue 1 item 4"),
-    ("spec_decode", lambda v: v is None or int(v) < 2,
-     "speculative decode, ROADMAP Queue 1 item 2"),
-    ("spec_draft_layers", lambda v: v is None,
-     "speculative decode, ROADMAP Queue 1 item 2"),
-    ("draft_model", lambda v: v is None,
-     "speculative decode, ROADMAP Queue 1 item 2"),
     ("kv_host_cache_mb", lambda v: v is None or int(v) <= 0,
      "KV tiers, ROADMAP Queue 1 item 2"),
     ("kv_disk_cache_dir", lambda v: not v,
@@ -140,6 +156,10 @@ class _Slot:
     prefilling: bool = False
     _pf_ctx: object = None
     _pf_n_chunks: int = 0
+    # speculative decoding: drafts this request could have committed, and
+    # those the verify accepted (reset at admission)
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
 
 @dataclass
@@ -154,11 +174,13 @@ class _LaunchBuffers:
     token, lens, active, budget, eos, sampling parameters) and the block
     table are written from the host before a dispatch; a program reads
     them, writes its k steps' tokens and emit flags into `toks[:k]` /
-    `emits[:k]`, and its final carry back into tok / lens / act / rem.
-    Every program uses these same tensors, so a captured graph replays on
-    whatever they hold."""
+    `emits[:k]`, and its final carry back into tok / lens / act / rem. A
+    speculative round also stages `limit` (each row's last writable
+    position plus one); its draft program writes `drafts[:n]` and its
+    verify the window's greedy tokens `g`. Every program uses these same
+    tensors, so a captured graph replays on whatever they hold."""
 
-    def __init__(self, batch, pages_per_seq, k_max, dev):
+    def __init__(self, batch, pages_per_seq, k_max, dev, window=0):
         def new(fill, dtype, *shape):
             return torch.full(shape or (batch,), fill, dtype=dtype,
                               device=dev)
@@ -175,6 +197,9 @@ class _LaunchBuffers:
         self.tables = new(0, torch.int32, batch, pages_per_seq)
         self.toks = new(0, torch.int64, k_max, batch)
         self.emits = new(False, torch.bool, k_max, batch)
+        self.limit = new(0, torch.int32)
+        self.drafts = new(0, torch.int64, max(window, 1), batch)
+        self.g = new(0, torch.int64, batch, max(window, 1))
 
     def stage(self, st, tokens):
         """Write a launch state (`ServingEngine._decode_launch_state`)."""
@@ -191,20 +216,25 @@ class _LaunchBuffers:
         for t, v in ((self.tok, 0), (self.lens, 0), (self.act, False),
                      (self.rem, 0), (self.eos, -1), (self.greedy, True),
                      (self.temp, 1.0), (self.top_k, 0), (self.top_p, 1.0),
-                     (self.tables, 0)):
+                     (self.tables, 0), (self.limit, 0), (self.drafts, 0)):
             t.fill_(v)
 
 
 class _HostSlot:
-    """Where one dispatch's tokens and emit flags land on the host: pinned
-    on CUDA, with the event recorded after the copies."""
+    """Where one dispatch's tokens and emit flags (a speculative round's
+    drafts and greedy tokens) land on the host: pinned on CUDA, with the
+    event recorded after the copies."""
 
-    def __init__(self, batch, k_max, dev):
+    def __init__(self, batch, k_max, dev, window=0):
         cuda = dev.type == "cuda"
-        self.toks = torch.zeros(k_max, batch, dtype=torch.int64,
-                                pin_memory=cuda)
-        self.emits = torch.zeros(k_max, batch, dtype=torch.bool,
-                                 pin_memory=cuda)
+
+        def new(dtype, *shape):
+            return torch.zeros(shape, dtype=dtype, pin_memory=cuda)
+
+        self.toks = new(torch.int64, k_max, batch)
+        self.emits = new(torch.bool, k_max, batch)
+        self.drafts = new(torch.int64, max(window, 1), batch)
+        self.g = new(torch.int64, batch, max(window, 1))
         self.event = torch.cuda.Event() if cuda else None
 
 
@@ -217,16 +247,24 @@ class ServingEngine:
                  scheduler=None, prefix_cache=None, prefill_chunk=None,
                  kv_host_cache_mb=None, kv_disk_cache_dir=None,
                  device=None):
-        given = dict(mesh=mesh, spec_decode=spec_decode,
-                     spec_draft_layers=spec_draft_layers,
-                     draft_model=draft_model,
-                     kv_host_cache_mb=kv_host_cache_mb,
+        given = dict(mesh=mesh, kv_host_cache_mb=kv_host_cache_mb,
                      kv_disk_cache_dir=kv_disk_cache_dir)
+        sd = int(spec_decode if spec_decode is not None
+                 else _cfg.get_flag("FLAGS_spec_decode", 0))
+        # the window: 0 (off) below 2
+        self.spec_decode = sd if sd >= 2 else 0
+        if self.spec_decode and int(async_depth) > 0:
+            raise ValueError(
+                "spec_decode and async_depth are mutually exclusive: the "
+                "speculative round already keeps the device busy across the "
+                "window, and the async pipeline's stale-carry pages cannot "
+                "express the verify rewind")
+        self._draft_model = draft_model if self.spec_decode else None
         pc = prefix_cache if prefix_cache is not None \
             else _cfg.get_flag("FLAGS_prefix_cache", 0)
         ck = int(prefill_chunk if prefill_chunk is not None
                  else _cfg.get_flag("FLAGS_prefill_chunk", 0))
-        if (bool(int(pc)) or ck > 0) and draft_model is not None:
+        if (bool(int(pc)) or ck > 0) and self._draft_model is not None:
             raise ValueError(
                 "prefix_cache / prefill_chunk cannot serve with a separate "
                 "draft_model: the chunked continuation fills only the "
@@ -303,6 +341,40 @@ class ServingEngine:
         self._caches = list(zip(
             self.k_pages, self.v_pages,
             *((self.k_scales, self.v_scales) if kv_cache_quant else ())))
+        # speculative decoding: the shallow-exit draft runs the target's
+        # first spec_draft_layers layers over their own pages (half the
+        # depth by default); a separate draft model decodes the same
+        # positions through the same block tables and lengths, over pools
+        # of its own (float or int8, and one scratch page like the
+        # target's)
+        self._draft_caches = None
+        if self._draft_model is not None:
+            self.spec_draft_layers = None
+            dcfg = self._draft_model.config
+            dparam = next(self._draft_model.parameters())
+            if dparam.device != dev:
+                raise ValueError(f"the draft model lives on {dparam.device} "
+                                 f"but the engine serves on {dev}")
+            dkvh = dcfg.num_key_value_heads
+            dhd = dcfg.hidden_size // dcfg.num_attention_heads
+            d_dtype = torch.int8 if kv_cache_quant else dparam.dtype
+            self._draft_caches = []
+            for _ in range(dcfg.num_hidden_layers):
+                kp, vp = _pa.alloc_pages(n_pages + 1, page_size, dkvh, dhd,
+                                         d_dtype, dev)
+                sc = _pa.alloc_page_scales(n_pages + 1, page_size, dkvh,
+                                           dev) if kv_cache_quant else ()
+                self._draft_caches.append((kp, vp, *sc))
+        else:
+            dl = int(spec_draft_layers if spec_draft_layers is not None
+                     else _cfg.get_flag("FLAGS_spec_draft_layers", 0))
+            self.spec_draft_layers = max(1, min(dl if dl > 0
+                                                else -(-L // 2), L))
+        self._spec_draft_fns: Dict[int, object] = {}
+        self._spec_verify_fns: Dict[int, object] = {}
+        # this engine's tallies of drafts proposed and accepted
+        self._spec_proposed_total = 0
+        self._spec_accepted_total = 0
         self.block_tables = np.zeros((max_batch, self.pages_per_seq),
                                      np.int32)
         self.slots = [_Slot() for _ in range(max_batch)]
@@ -318,19 +390,23 @@ class ServingEngine:
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(int(seed))
         self._buf = _LaunchBuffers(max_batch, self.pages_per_seq,
-                                   self.decode_burst, dev)
-        self._host = [_HostSlot(max_batch, self.decode_burst, dev)
+                                   self.decode_burst, dev, self.spec_decode)
+        self._host = [_HostSlot(max_batch, self.decode_burst, dev,
+                                self.spec_decode)
                       for _ in range(self.async_depth + 2)]
         self._graphs = dev.type == "cuda" and self.decode_burst > 1
+        # the speculative programs are graphs on CUDA whatever decode_burst
+        self._spec_graphs = dev.type == "cuda"
         self._burst_fns: Dict[tuple, object] = {}
         # what ran: batched prefill calls, chunk rounds, decode steps (one
-        # a token step: k a dispatch of k), preemptions, graph captures and
-        # replays, and tokens a program emitted for a row the host had
-        # already finished or aborted (0 without aborts: the programs'
-        # finish rules are the host's)
+        # a token step: k a dispatch of k), speculative rounds,
+        # preemptions, graph captures and replays, and tokens a program
+        # emitted for a row the host had already finished or aborted (0
+        # without aborts: the programs' finish rules are the host's)
         self.prefills = 0
         self.chunk_rounds = 0
         self.decode_steps = 0
+        self.spec_rounds = 0
         self.preemptions = 0
         self.graph_captures = 0
         self.graph_replays = 0
@@ -428,6 +504,8 @@ class ServingEngine:
             s.greedy = self._req_params[rid]["greedy"]
             s.admit_seq = self._admit_seq
             self._admit_seq += 1
+            s.spec_proposed = 0
+            s.spec_accepted = 0
             if self._prefix_cache is not None:
                 self._prefix_hits_total += cached_tokens
                 self._prefix_misses_total += len(ctx) - cached_tokens
@@ -455,11 +533,13 @@ class ServingEngine:
     def warmup(self, prompt_len=None, sampling=None):
         """Build every decode program before traffic: one throwaway greedy
         request end to end (its prefill bucket and, at decode_burst > 1, a
-        full burst), a second one of 2 tokens for the single-step program,
-        and the same with sampling when `sampling` (default: whenever the
-        engine's decode_strategy samples). On CUDA with decode_burst > 1
-        this captures the graphs. The engine must be idle. With
-        FLAGS_autotune on, the decode bucket is tuned first (a tuner
+        full burst; with spec_decode, a speculative round: its draft and
+        verify programs), a second one of 2 tokens for the single-step
+        program, and the same with sampling when `sampling` (default:
+        whenever the engine's decode_strategy samples). On CUDA with
+        decode_burst > 1 this captures the burst graphs, and with
+        spec_decode the draft and verify graphs. The engine must be idle.
+        With FLAGS_autotune on, the decode buckets are tuned first (a tuner
         failure raises). Returns wall seconds."""
         if self.has_work():
             raise RuntimeError(
@@ -469,15 +549,18 @@ class ServingEngine:
             sampling = self.decode_strategy != "greedy_search"
         t0 = time.perf_counter()
         # the first token comes from the prefill, so a burst engine asks
-        # for decode_burst + 1 to run one full burst
-        max_new = self.decode_burst + 1
+        # for decode_burst + 1 to run one full burst, a speculative one for
+        # window + 1 to run a whole round
+        max_new = max(self.decode_burst, self.spec_decode) + 1
         plen = int(prompt_len) if prompt_len is not None else max(
             1, min(self.page_size, self.max_seq_len - max_new))
-        if prompt_len is not None and self.decode_burst > 1 and \
+        if prompt_len is not None and \
+                (self.decode_burst > 1 or self.spec_decode) and \
                 plen + max_new > self.max_seq_len:
             raise ValueError(
                 f"warmup(prompt_len={plen}) leaves no room for a "
-                f"decode_burst={self.decode_burst} budget within "
+                f"decode_burst={self.decode_burst} / "
+                f"spec_decode={self.spec_decode} budget within "
                 f"max_seq_len={self.max_seq_len}: the burst program would "
                 f"not be built and the first real request would pay for "
                 f"it. Use a shorter prompt_len (<= "
@@ -498,15 +581,25 @@ class ServingEngine:
 
     def _autotune_decode_bucket(self):
         """With FLAGS_autotune on (or readonly), resolve the paged-decode
-        winner for this engine's cache geometry ahead of traffic. Unlike
-        the reference this catches nothing: a tuner failure raises."""
+        winner for this engine's cache geometry ahead of traffic: the
+        decode's max_batch rows and, with spec_decode, the verify's
+        max_batch * window rows (and a draft model's geometry). Unlike the
+        reference this catches nothing: a tuner failure raises."""
         if not _at.enabled():
             return
-        kvh, _n, page, hd = self.k_pages[0].shape
-        _at.choose_paged_decode(
-            self.max_batch, self.cfg.num_attention_heads, kvh, hd, page,
-            self.pages_per_seq, self.k_pages[0].dtype,
-            self.kv_cache_quant == "int8")
+        quant = self.kv_cache_quant == "int8"
+        buckets = [(self.cfg, self.k_pages[0], self.max_batch)]
+        if self.spec_decode:
+            buckets.append((self.cfg, self.k_pages[0],
+                            self.max_batch * self.spec_decode))
+        if self._draft_model is not None:
+            buckets.append((self._draft_model.config,
+                            self._draft_caches[0][0], self.max_batch))
+        for cfg, pages, rows in buckets:
+            kvh, _n, page, hd = pages.shape
+            _at.choose_paged_decode(rows, cfg.num_attention_heads, kvh, hd,
+                                    page, self.pages_per_seq, pages.dtype,
+                                    quant)
 
     # ------------------------------------------------------------------
     # pages
@@ -634,9 +727,9 @@ class ServingEngine:
         params = self._row_params(rids + [None] * (nb - n))
         all_greedy = all(self.slots[si].greedy for si, _ in new)
         dev = self.device
+        ids = torch.from_numpy(padded).to(dev)
         caches = self.model.init_kv_caches(nb, bucket)
-        logits, caches = self.model.forward_cached(
-            torch.from_numpy(padded).to(dev), caches, 0)
+        logits, caches = self.model.forward_cached(ids, caches, 0)
         # causal: position true_len - 1 never saw the padding
         last = logits[torch.arange(nb, device=dev),
                       torch.from_numpy(true_lens - 1).to(dev)]
@@ -644,16 +737,16 @@ class ServingEngine:
         tables = torch.from_numpy(
             self.block_tables[[si for si, _ in new]]).to(dev)
         lens = torch.from_numpy(true_lens[:n])  # host: masks without a sync
-        for li, (kc, vc) in enumerate(caches):
-            if self.kv_cache_quant:
-                _pa.prefill_paged_kv_cache_q8(
-                    self.k_pages[li], self.k_scales[li], self.v_pages[li],
-                    self.v_scales[li], kc[:n], vc[:n], tables, lens)
-            else:
-                _pa.prefill_paged_kv_cache(self.k_pages[li],
-                                           self.v_pages[li], kc[:n], vc[:n],
-                                           tables, lens)
+        self._write_prompts(self._caches, caches, tables, lens, n)
         del caches
+        if self._draft_model is not None:
+            # the draft model needs the prompts in its own pools too (its
+            # sample is not used)
+            dcaches = self._draft_model.init_kv_caches(nb, bucket)
+            _, dcaches = self._draft_model.forward_cached(ids, dcaches, 0)
+            self._write_prompts(self._draft_caches, dcaches, tables, lens,
+                                n)
+            del dcaches
         if self._prefix_cache is not None:
             # the full pages enter the trie; the partial tail page never
             # does (decode keeps appending to it, in this row alone)
@@ -663,6 +756,20 @@ class ServingEngine:
         for row, (si, _) in enumerate(new):
             self.slots[si].first_token = int(first[row])
         self.prefills += 1
+
+    @staticmethod
+    def _write_prompts(pools, caches, tables, lens, n):
+        """The first n rows of a dense prefill's per-layer (k, v) caches
+        into the page pools (per layer (k, v) or (k, v, k_scales,
+        v_scales))."""
+        for pool, (kc, vc) in zip(pools, caches):
+            if len(pool) == 4:
+                kp, vp, ks, vs = pool
+                _pa.prefill_paged_kv_cache_q8(kp, ks, vp, vs, kc[:n],
+                                              vc[:n], tables, lens)
+            else:
+                _pa.prefill_paged_kv_cache(pool[0], pool[1], kc[:n], vc[:n],
+                                           tables, lens)
 
     @torch.no_grad()
     def _prefill_chunk_round(self, pf):
@@ -839,6 +946,166 @@ class ServingEngine:
         return h.toks[:k].numpy(), h.emits[:k].numpy()
 
     # ------------------------------------------------------------------
+    # speculative decoding: draft cheaply, verify the window in one target
+    # forward, commit the greedy-exact accepted prefix plus one token
+    # ------------------------------------------------------------------
+    def _spec_draft_body(self, n):
+        """The n-step draft program: n greedy single-token steps from the
+        launch state (tok = where(active, next, tok), lens += active), each
+        token's K/V written at its position (a position at or past `limit`
+        writes the scratch page), the n drafts into `drafts[:n]`. Shallow
+        exit runs the target's first spec_draft_layers layers over their
+        own pages (the verify overwrites them); a draft model runs over its
+        own pools. The launch state is left as it was."""
+        b, scratch = self._buf, self._scratch
+        if self._draft_model is not None:
+            model, caches, depth = self._draft_model, self._draft_caches, \
+                None
+        else:
+            depth = self.spec_draft_layers
+            model, caches = self.model, self._caches[:depth]
+
+        @torch.no_grad()
+        def body():
+            tok, lens, act = b.tok, b.lens, b.act
+            drafts = []
+            for _ in range(n):
+                logits, _ = model.forward_paged(
+                    tok[:, None], caches, b.tables, lens, active=act,
+                    scratch_page=scratch, limit_lens=b.limit,
+                    max_layers=depth)
+                nxt = logits[:, 0].float().argmax(dim=-1)
+                tok = torch.where(act, nxt, tok)
+                lens = lens + act.to(lens.dtype)
+                drafts.append(nxt)
+            b.drafts[:n] = torch.stack(drafts)
+
+        return body
+
+    def _spec_verify_body(self, window):
+        """The verify program: one target forward over the window [last
+        token, drafts[:window - 1]] at positions lens..lens + window - 1
+        (positions at or past `limit` write the scratch page; attention as
+        decode rows, `paged_attention_window_rows`), the greedy token of
+        every position into `g`."""
+        b, model, caches, scratch = self._buf, self.model, self._caches, \
+            self._scratch
+
+        @torch.no_grad()
+        def body():
+            win = torch.cat([b.tok[:, None], b.drafts[:window - 1].t()],
+                            dim=1)
+            logits, _ = model.forward_paged(
+                win, caches, b.tables, b.lens, active=b.act,
+                scratch_page=scratch, limit_lens=b.limit, window_rows=True)
+            b.g.copy_(logits.float().argmax(dim=-1))
+
+        return body
+
+    def _get_spec_draft_fn(self, n):
+        """The n-step draft program, built at its first use: on CUDA a
+        captured graph's replay, else the eager body."""
+        fn = self._spec_draft_fns.get(n)
+        if fn is None:
+            body = self._spec_draft_body(n)
+            fn = self._capture(body, True) if self._spec_graphs else body
+            self._spec_draft_fns[n] = fn
+        return fn
+
+    def _get_spec_verify_fn(self, window):
+        """The verify program of a window, built at its first use: on CUDA
+        a captured graph's replay, else the eager body."""
+        fn = self._spec_verify_fns.get(window)
+        if fn is None:
+            body = self._spec_verify_body(window)
+            fn = self._capture(body, True) if self._spec_graphs else body
+            self._spec_verify_fns[window] = fn
+        return fn
+
+    def _spec_window(self, active, rem_of):
+        """This dispatch's speculative window, or 0 for the classic path:
+        spec off, a sampling row in the batch (acceptance is greedy-exact
+        prefix matching), or every row on its last token (nothing to
+        draft)."""
+        if self.spec_decode < 2 or max(rem_of.values()) <= 1:
+            return 0
+        if not all(self.slots[i].greedy for i in active):
+            return 0
+        return self.spec_decode
+
+    def _dispatch_spec(self, window, active, st, tokens):
+        """One speculative round for the active rows (their pages for
+        min(window, rem) positions are reserved): the launch state and
+        `limit` = lens + min(rem, window) staged, the draft program and the
+        verify program run back to back with no host read between them,
+        the drafts and greedy tokens copied out once and one event waited
+        on, then the host commit. A separate draft model runs one draft
+        step more than shallow exit, so that the last draft's K/V lands in
+        its own pools (the verify never writes them). Returns the requests
+        it finished."""
+        n_scan = window - 1 if self._draft_model is None else window
+        # built (on CUDA: captured, which idles the buffers) before staging
+        draft_fn = self._get_spec_draft_fn(n_scan)
+        verify_fn = self._get_spec_verify_fn(window)
+        b, h = self._buf, self._host[0]
+        limit = (st["lens"] + np.minimum(st["rem"], window)).astype(np.int32)
+        b.stage(st, tokens)
+        b.limit.copy_(torch.from_numpy(limit), non_blocking=True)
+        self._put_tables()
+        draft_fn()
+        verify_fn()
+        h.drafts.copy_(b.drafts, non_blocking=True)
+        h.g.copy_(b.g, non_blocking=True)
+        if h.event is not None:
+            h.event.record()
+            h.event.synchronize()
+        self.spec_rounds += 1
+        return self._commit_spec(h.drafts.numpy(), h.g.numpy(), active,
+                                 window)
+
+    def _commit_spec(self, drafts, g, active, window):
+        """Host replay of one speculative round (the reference's). drafts:
+        [n, B]; g: [B, window] the target's greedy tokens. A row commits
+        g[0] and then g[j] for as long as draft j - 1 equals g[j - 1] (the
+        stream plain greedy decoding gives), capped at its budget and cut
+        after its eos; `proposed` counts the drafts it could have committed
+        (min(window, rem) - 1). The rejected tail needs no rewind:
+        context_len advances over committed tokens only, and the pages past
+        it are rewritten before they are read. A request a callback aborts
+        gets nothing more."""
+        finished = []
+        for i in active:
+            s = self.slots[i]
+            if not s.active:
+                continue  # aborted from a callback
+            committed = [int(g[i, 0])]
+            for j in range(1, window):
+                if int(drafts[j - 1, i]) != int(g[i, j - 1]):
+                    break
+                committed.append(int(g[i, j]))
+            rem = s.max_new_tokens - len(s.tokens)
+            committed = committed[:max(rem, 0)]
+            eos = self._req_eos(s.request_id)
+            if eos is not None and eos in committed:
+                committed = committed[:committed.index(eos) + 1]
+            accepted = max(len(committed) - 1, 0)
+            proposed = max(min(window, rem) - 1, 0)
+            s.spec_proposed += proposed
+            s.spec_accepted += accepted
+            self._spec_proposed_total += proposed
+            self._spec_accepted_total += accepted
+            for tok in committed:
+                s.context_len += 1
+                s.tokens.append(tok)
+                self._stream(s.request_id, tok)
+                if not s.active:
+                    break  # the callback aborted this request
+                if self._done(s):
+                    finished.append(self._finish(i))
+                    break
+        return finished
+
+    # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
     def _rem_of(self, active):
@@ -896,9 +1163,10 @@ class ServingEngine:
     @torch.no_grad()
     def step(self) -> List[FinishedRequest]:
         """Admit and prefill what fits, one chunk round for the rows on the
-        chunked route, then one decode dispatch (k steps, the policy's
-        `burst_k`) for every active slot that is not prefilling. Returns the
-        requests that finished in this step."""
+        chunked route, then one decode dispatch for every active slot that
+        is not prefilling: a speculative round when `_spec_window` allows
+        one, else k steps (the policy's `burst_k`). Returns the requests
+        that finished in this step."""
         self._admit()
         pf = [i for i, s in enumerate(self.slots)
               if s.active and s.prefilling]
@@ -930,13 +1198,17 @@ class ServingEngine:
                 self._admit()
             return finished
         rem_of = self._rem_of(active)
+        # a speculative round replaces the burst when it can run
+        spec_w = self._spec_window(active, rem_of)
         k = self.decode_burst \
             if int(self.scheduler.burst_k(self, active, rem_of)) > 1 else 1
-        # on-demand pages for the positions this dispatch writes; an empty
-        # pool preempts the policy's victim and retries
+        # on-demand pages for the positions this dispatch writes (a spec
+        # round: min(window, rem)); an empty pool preempts the policy's
+        # victim and retries
+        reserve = spec_w or k
         while True:
             stalled = [i for i in active
-                       if not self._ensure_pages(i, min(k, rem_of[i]))]
+                       if not self._ensure_pages(i, min(reserve, rem_of[i]))]
             if not stalled:
                 break
             victim = self.scheduler.select_victim(self, stalled,
@@ -946,6 +1218,11 @@ class ServingEngine:
             if not active:
                 return finished
         st = self._decode_launch_state(active)
+        if spec_w:
+            finished.extend(self._dispatch_spec(spec_w, active, st, tokens))
+            if finished:
+                self._admit()
+            return finished
         fn = self._get_burst_fn(st["all_greedy"], k)
         self._buf.stage(st, tokens)
         toks, emits = self._harvest(*self._launch(fn, k, 0))

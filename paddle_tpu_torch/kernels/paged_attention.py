@@ -25,7 +25,11 @@ owns a row of a block table listing its pages.
   at or past `limit_lens`, and inactive rows, write nothing into a
   sequence's pages: with a `scratch_page` they write there, else they are
   left out by index) and `paged_attention_window` attends each position's
-  causal prefix over the live rows and the pages they hold.
+  causal prefix over the live rows and the pages they hold, gathered in
+  f32. `paged_attention_window_rows` is the same function as b * s decode
+  rows (`window_rows`, each row's context clamped to its `limit_lens`)
+  through the decode kernel (no gather, no host read: the speculative
+  verify's route, captured in a CUDA graph).
 - `paged_attention` is the decode attention: the CUDA kernel
   `csrc/paged_attention.cu` for CUDA tensors (float pages, or int8 pages
   with their scales), `paged_attention_ref` (the plain counterpart of
@@ -365,6 +369,43 @@ def paged_attention_window(q, k_pages, v_pages, block_tables, context_lens,
     o = torch.einsum("bhgws,hbsd->bwhgd", sc, vd)
     out[rows_d] = o.reshape(r, s, n_q_heads, head_dim).to(q.dtype)
     return out
+
+
+def window_rows(block_tables, context_lens, s, limit_lens=None,
+                active=None):
+    """The decode rows of a window of s tokens a row: (tables [b * s,
+    pages], ctx [b * s] int32), row b * s + w being window position w of
+    row b over row b's table with context min(context_lens[b] + w + 1,
+    limit_lens[b]), 0 for a False row of `active`. A forward builds them
+    once for all its layers (`paged_attention_window_rows`)."""
+    dev = block_tables.device
+    ctx = context_lens.to(dev, torch.int32)[:, None] + \
+        torch.arange(1, s + 1, device=dev, dtype=torch.int32)
+    if limit_lens is not None:
+        ctx = torch.minimum(ctx, limit_lens.to(dev, torch.int32)[:, None])
+    if active is not None:
+        ctx = ctx * active.to(dev)[:, None]
+    return (block_tables.repeat_interleave(s, dim=0),
+            ctx.reshape(-1).to(torch.int32))
+
+
+def paged_attention_window_rows(q, k_pages, v_pages, rows, scale=None,
+                                k_scales=None, v_scales=None):
+    """Window attention as b * s single-token decodes (the speculative
+    verify's route) over the decode rows of `window_rows`, through
+    `paged_attention_dispatch` (the per-page or the grouped kernel on CUDA,
+    the plain references on the CPU). Below `limit_lens` this is
+    `paged_attention_window`'s function; the clamp keeps a position the
+    caller never commits inside the pages its row holds. It reads nothing
+    on the host and gathers nothing, so it captures in a CUDA graph. q:
+    [b, s, q_heads, head_dim] -> the same shape."""
+    b, s, n_q_heads, head_dim = q.shape
+    tables, ctx = rows
+    out = paged_attention_dispatch(
+        q.reshape(b * s, n_q_heads, head_dim).contiguous(), k_pages,
+        v_pages, tables, ctx, scale=scale, k_scales=k_scales,
+        v_scales=v_scales)
+    return out.reshape(b, s, n_q_heads, head_dim)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ training forward `forward` (causal attention through
 take; with a padding `attn_mask`, folded into the causal mask, the dense
 reference path, as in the reference), the dense-cache forward
 `forward_cached` (batched prefill) and the paged step `forward_paged`
-(single-token decode, or a window of tokens: a prefill chunk). `config.use_recompute` recomputes each decoder layer's
+(single-token decode, or a window of tokens: a prefill chunk or a
+speculative verify; `max_layers` runs a shallow-exit draft). `config.use_recompute` recomputes each decoder layer's
 activations in training (`distributed.fleet.utils.recompute`).
 
 Parameter names and shapes equal the JAX model's, linears in Paddle's
@@ -23,6 +24,7 @@ import torch.nn.functional as TF
 from torch import nn
 
 from ..framework.device import resolve_device, torch_dtype
+from ..kernels import paged_attention as _pa
 from ..nn import Embedding, Linear, ParallelCrossEntropy, RMSNorm
 from ..nn import functional as F
 from ..nn.functional import apply_rope, rope_tables
@@ -191,7 +193,7 @@ class LlamaAttention(nn.Module):
 
     def forward_paged(self, hidden_states, paged_cache, block_tables,
                       context_lens, active=None, scratch_page=None,
-                      limit_lens=None):
+                      limit_lens=None, rows=None):
         """Decode (s == 1) or a window of s tokens (s > 1) over the paged
         cache (models.paged_step): (k_pages, v_pages), or with int8 pages
         (k_pages, v_pages, k_scales, v_scales). hidden_states: [b, s,
@@ -200,7 +202,7 @@ class LlamaAttention(nn.Module):
         out, cache = paged_attention_step(
             q, k, v, paged_cache, block_tables, context_lens, active=active,
             rotate=self._rotate, scratch_page=scratch_page,
-            limit_lens=limit_lens)
+            limit_lens=limit_lens, rows=rows)
         return self.o_proj(out), cache
 
 
@@ -236,11 +238,11 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward_paged(self, hidden_states, paged_cache, block_tables,
                       context_lens, active=None, scratch_page=None,
-                      limit_lens=None):
+                      limit_lens=None, rows=None):
         h, cache = self.self_attn.forward_paged(
             self.input_layernorm(hidden_states), paged_cache, block_tables,
             context_lens, active=active, scratch_page=scratch_page,
-            limit_lens=limit_lens)
+            limit_lens=limit_lens, rows=rows)
         return self._finish(hidden_states, h), cache
 
 
@@ -274,14 +276,24 @@ class LlamaModel(nn.Module):
 
     def forward_paged(self, input_ids, paged_caches, block_tables,
                       context_lens, active=None, scratch_page=None,
-                      limit_lens=None):
+                      limit_lens=None, max_layers=None, window_rows=False):
+        """max_layers: only the first N decoder layers run, over N cache
+        entries (the shallow-exit draft of speculative decoding); the final
+        norm still applies, so the head sees a normed early exit.
+        window_rows: a window attends as decode rows (`_pa.window_rows`,
+        built here once for every layer)."""
         h = self.embed_tokens(input_ids)
+        rows = _pa.window_rows(block_tables, context_lens,
+                               input_ids.shape[1], limit_lens, active) \
+            if window_rows and input_ids.shape[1] > 1 else None
+        layers = self.layers if max_layers is None \
+            else self.layers[:max_layers]
         new_caches = []
-        for layer, cache in zip(self.layers, paged_caches):
+        for layer, cache in zip(layers, paged_caches):
             h, nc = layer.forward_paged(h, cache, block_tables,
                                         context_lens, active=active,
                                         scratch_page=scratch_page,
-                                        limit_lens=limit_lens)
+                                        limit_lens=limit_lens, rows=rows)
             new_caches.append(nc)
         return self.norm(h), new_caches
 
@@ -330,17 +342,21 @@ class LlamaForCausalLM(CausalLMBase):
 
     def forward_paged(self, input_ids, paged_caches, block_tables,
                       context_lens, active=None, scratch_page=None,
-                      limit_lens=None):
+                      limit_lens=None, max_layers=None, window_rows=False):
         """Decode of [b, 1] ids, or a window of [b, s] ids at positions
         context_lens..context_lens+s-1, over the paged caches (per layer
         `paged_step.paged_attention_step`'s cache tuple) -> ([b, s, vocab]
-        logits, caches). `active` [b] bool, `scratch_page` and `limit_lens`
-        [b] (window positions at or past it write nothing) as there: at
-        s == 1 with `active` and `scratch_page` on the pools' device the
-        step reads nothing back to the host."""
+        logits, caches). `active` [b] bool, `scratch_page`, `limit_lens`
+        [b] (window positions at or past it write nothing) and
+        `window_rows` (a window's attention as b * s decode rows clamped to
+        `limit_lens`, the speculative verify's route) as there: at s == 1,
+        or with `window_rows`, with `active` and `scratch_page` on the
+        pools' device the step reads nothing back to the host. max_layers:
+        only the first N decoder layers run (`LlamaModel.forward_paged`)."""
         h, new_caches = self.llama.forward_paged(
             input_ids, paged_caches, block_tables, context_lens,
-            active=active, scratch_page=scratch_page, limit_lens=limit_lens)
+            active=active, scratch_page=scratch_page, limit_lens=limit_lens,
+            max_layers=max_layers, window_rows=window_rows)
         return self._head(h), new_caches
 
     def _backbone_embed_weight(self):

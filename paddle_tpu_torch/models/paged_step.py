@@ -6,11 +6,14 @@ Two shapes of step share the entry:
   (float, or int8 with scales), then run decode attention over the pages
   through `paged_attention_dispatch` (per-page or grouped-fetch kernel, as
   the flags and the tuner say);
-- s > 1, the window step (a chunked prefill's chunk; the speculative
-  verify reuses it): all s tokens' K/V land at positions lens..lens+s-1
-  (positions at or past `limit_lens` write nothing into a sequence's
-  pages: the window may overhang what a row holds), then every window
-  position attends its own causal prefix (`paged_attention_window`).
+- s > 1, the window step (a chunked prefill's chunk, the speculative
+  verify): all s tokens' K/V land at positions lens..lens+s-1 (positions
+  at or past `limit_lens` write nothing into a sequence's pages: the window
+  may overhang what a row holds), then every window position attends its
+  own causal prefix: gathered in f32 (`paged_attention_window`, a chunk
+  round), or given `rows` as b * s decode rows through the decode kernel,
+  each clamped to `limit_lens` (`paged_attention_window_rows`, the
+  speculative verify, which captures in a CUDA graph).
 
 The tensor-parallel shard_map of the JAX step is not ported.
 """
@@ -23,7 +26,7 @@ from ..kernels import paged_attention as _pa
 
 def paged_attention_step(q, k, v, paged_cache, block_tables, context_lens,
                          active=None, rotate=None, scratch_page=None,
-                         limit_lens=None):
+                         limit_lens=None, rows=None):
     """q: [b, s, heads, d]; k/v: [b, s, kv_heads, d]. paged_cache:
     (k_pages, v_pages), or (k_pages, v_pages, k_scales, v_scales) for int8
     pages, written in place. context_lens [b] int32: tokens already cached
@@ -34,9 +37,12 @@ def paged_attention_step(q, k, v, paged_cache, block_tables, context_lens,
     engine's: a decode step then reads nothing back to the host and
     captures in a CUDA graph, whatever device `active` lives on; without it
     a device mask costs a `nonzero` sync). limit_lens: optional [b],
-    positions at or past it write nothing (s == 1: the row's token).
-    rotate(q, k, lens) applies the position encoding. Returns (out [b, s,
-    heads*d], paged_cache).
+    positions at or past it write nothing (s == 1: the row's token, which
+    still attends lens + 1 positions, as in the reference). rows: the
+    decode rows of the window (`_pa.window_rows`, built once a forward):
+    an s > 1 window then attends through `paged_attention_window_rows`
+    (the speculative verify's route). rotate(q, k, lens) applies the
+    position encoding. Returns (out [b, s, heads*d], paged_cache).
 
     Unlike the JAX step, an inactive row gets context 0 (a zero output,
     discarded by the caller) instead of reading its stale block-table row.
@@ -61,9 +67,14 @@ def paged_attention_step(q, k, v, paged_cache, block_tables, context_lens,
                 k_pages, v_pages, k, v, block_tables, context_lens,
                 limit_lens=limit_lens, active=active,
                 scratch_page=scratch_page)
-        out = _pa.paged_attention_window(
-            q, k_pages, v_pages, block_tables, context_lens,
-            k_scales=k_scales, v_scales=v_scales, active=active)
+        if rows is not None:
+            out = _pa.paged_attention_window_rows(
+                q, k_pages, v_pages, rows, k_scales=k_scales,
+                v_scales=v_scales)
+        else:
+            out = _pa.paged_attention_window(
+                q, k_pages, v_pages, block_tables, context_lens,
+                k_scales=k_scales, v_scales=v_scales, active=active)
         return out.reshape(b, s, n_heads * head_dim), paged_cache
     write = active
     if limit_lens is not None:

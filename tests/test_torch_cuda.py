@@ -1642,3 +1642,115 @@ def test_window_chunked_engine_on_cuda_equals_cpu(cuda_device, kv):
         assert sum(refs) == len(e._prefix_cache)  # drained: the trie's
     assert streams[0] == streams[1]
     assert e.graph_captures == len(e._burst_fns) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [2, 5, 8])
+@pytest.mark.parametrize("heads", [(32, 8), (32, 32)], ids=["gqa", "mha"])
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, False),
+                                         (torch.float32, False),
+                                         (torch.bfloat16, True)])
+def test_spec_window_rows_kernel_matches_window_attention(
+        cuda_device, dtype, quant, heads, window):
+    """The speculative verify's attention (`paged_attention_window_rows`:
+    the window as decode rows through the paged decode kernel, one launch)
+    against the gathered window attention on the CPU at every position
+    below its row's limit (bf16 within one rounding, f32 within summation
+    order); a position at or past the limit against the CPU's decode at
+    the limit's context; an inactive row 0."""
+    q_heads, kvh = heads
+    g = torch.Generator().manual_seed(window)
+    shape = (kvh, 40, 16, 128)
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=g).to(torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=g).to(torch.int8)
+        ks = torch.rand(shape[:3], generator=g) * 0.02 + 0.001
+        vs = torch.rand(shape[:3], generator=g) * 0.02 + 0.001
+    else:
+        kp = torch.randn(shape, generator=g).to(dtype)
+        vp = torch.randn(shape, generator=g).to(dtype)
+        ks = vs = None
+    tables = torch.randperm(40, generator=g)[:32].reshape(4, 8) \
+        .to(torch.int32)
+    lens = torch.tensor([0, 15, 16, 100], dtype=torch.int32)
+    limit = lens + torch.tensor([window, 2, window, 1], dtype=torch.int32)
+    active = torch.tensor([True, True, True, False])
+    q = torch.randn(4, window, q_heads, 128, generator=g).to(dtype)
+    on = [None if t is None else t.to(cuda_device)
+          for t in (q, kp, vp, ks, vs, tables, lens, limit, active)]
+    counter = "q8_launches" if quant else "launches"
+    n0 = getattr(tpa, counter)
+    rows = tpa.window_rows(on[5], on[6], window, limit_lens=on[7],
+                           active=on[8])
+    got = tpa.paged_attention_window_rows(on[0], on[1], on[2], rows,
+                                          k_scales=on[3], v_scales=on[4])
+    torch.cuda.synchronize()
+    assert getattr(tpa, counter) == n0 + 1
+    got = got.cpu()
+    want = tpa.paged_attention_window(q, kp, vp, tables, lens, k_scales=ks,
+                                      v_scales=vs)
+    below = (lens[:, None] + torch.arange(window)) < limit[:, None]
+    keep = below & active[:, None]
+    assert _close(got[keep], want[keep], dtype)
+    assert not got[3].any()
+    for b, w in (~below & active[:, None]).nonzero().tolist():
+        at = tpa.paged_attention_ref(q[b:b + 1, w], kp, vp, tables[b:b + 1],
+                                     limit[b:b + 1], k_scales=ks,
+                                     v_scales=vs)
+        assert _close(got[b, w][None], at, dtype)
+
+
+def _tiny_spec_streams(model, dev, prompts, graphs=True, **kw):
+    eng = ServingEngine(model, max_batch=3, max_seq_len=64, page_size=8,
+                        device=dev, seed=3, spec_decode=4, **kw)
+    eng._spec_graphs = graphs and eng._spec_graphs
+    eng.warmup()
+    captures = eng.graph_captures
+    for i, p in enumerate(prompts):
+        eng.add_request(p, max_new_tokens=20 - i)
+    out = {f.request_id: f.output_ids.tolist() for f in eng.run()}
+    assert eng.graph_captures == captures  # nothing captured in traffic
+    return out, eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"])
+@pytest.mark.parametrize("draft", [None, "draft", "target"])
+def test_spec_graphs_equal_eager_and_cpu_streams(cuda_device, kv, draft):
+    """spec_decode=4 on the card: warmup captures the draft and the verify
+    graph, a round replays them, and the greedy streams equal the same
+    engine's run eagerly on the card and the CPU's, with the same proposed
+    and accepted totals (head_dim 128: the paged decode and RMSNorm
+    kernels run), shallow exit, with a 1-layer draft model and with the
+    target as its own draft model (every draft accepted: its pools hold
+    the prompts and each draft's K/V)."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2, seq=64)
+    cfg.num_key_value_heads = 1
+    dcfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=1, heads=2, seq=64)
+    dcfg.num_key_value_heads = 1
+    models = {}
+    for name, c, seed in (("target", cfg, 0), ("draft", dcfg, 5)):
+        cpu = LlamaForCausalLM(c, device="cpu", seed=seed)
+        gpu = LlamaForCausalLM(c, device=cuda_device)
+        load_llama_state(gpu, {k: v.numpy()
+                               for k, v in cpu.state_dict().items()})
+        models[name] = cpu, gpu
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 256, (n,)) for n in (5, 9, 17, 3, 40)]
+    runs = []
+    for side, dev, graphs in ((0, "cpu", False), (1, cuda_device, False),
+                              (1, cuda_device, True)):
+        kw = dict(kv_cache_quant=kv)
+        if draft:
+            kw["draft_model"] = models[draft][side]
+        runs.append(_tiny_spec_streams(models["target"][side], dev, prompts,
+                                       graphs=graphs, **kw))
+    (want, cpu_eng), (eager, _), (got, eng) = runs
+    assert got == eager == want
+    assert eng.graph_captures == 2 and eng.graph_replays > 0
+    assert set(eng._spec_draft_fns) == {4 if draft else 3}
+    assert eng.spec_rounds > 0
+    assert (eng._spec_proposed_total, eng._spec_accepted_total) == \
+        (cpu_eng._spec_proposed_total, cpu_eng._spec_accepted_total)
+    if draft == "target":
+        assert eng._spec_accepted_total == eng._spec_proposed_total

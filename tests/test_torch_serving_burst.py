@@ -267,9 +267,6 @@ def test_engine_raises_on_unported_arguments(pair):
                   prefill_chunk=0, kv_host_cache_mb=0, kv_disk_cache_dir="",
                   **kw)
     for name, value, item in (("mesh", object(), "Queue 1 item 4"),
-                              ("spec_decode", 4, "speculative"),
-                              ("draft_model", tm, "speculative"),
-                              ("spec_draft_layers", 1, "speculative"),
                               ("kv_host_cache_mb", 64, "KV tiers"),
                               ("kv_disk_cache_dir", "/x", "KV tiers")):
         with pytest.raises(NotImplementedError, match=item):

@@ -38,16 +38,17 @@ def tiny_pair(seed=0, tie=False):
     return jm, tm, tcfg
 
 
-def serving_pair(seed=0):
+def serving_pair(seed=0, layers=2):
     """(jax_model, torch_model) of the reference's serving tests
-    (`tests/test_serving_burst.py::_tiny_model`): 2 layers, hidden 32, 4
-    heads of 8, vocab 97, 64 positions, f32, identical weights."""
+    (`tests/test_serving_burst.py::_tiny_model`; 4 layers:
+    `tests/test_serving_spec.py::_tiny_model`): hidden 32, 4 heads of 8,
+    vocab 97, 64 positions, f32, identical weights."""
     paddle.seed(seed)
-    jcfg = JaxLlamaConfig.tiny(vocab=97, hidden=32, layers=2, heads=4,
+    jcfg = JaxLlamaConfig.tiny(vocab=97, hidden=32, layers=layers, heads=4,
                                seq=64)
     jm = JaxLlama(jcfg)
     jm.eval()
-    tm = LlamaForCausalLM(LlamaConfig.tiny(vocab=97, hidden=32, layers=2,
+    tm = LlamaForCausalLM(LlamaConfig.tiny(vocab=97, hidden=32, layers=layers,
                                            heads=4, seq=64), device="cpu")
     load_llama_state(tm, jax_state(jm))
     return jm, tm
