@@ -1,5 +1,5 @@
 """Incubating APIs (counterpart of `paddle_tpu/incubate/`): the fused
-transformer encoder layers."""
+transformer layers and functionals."""
 from . import nn
 
 __all__ = ["nn"]

@@ -323,7 +323,10 @@ class ServingEngine:
         self._prefix_hits_total = 0
         self._prefix_misses_total = 0
         hd = cfg.hidden_size // cfg.num_attention_heads
-        kvh, L = cfg.num_key_value_heads, cfg.num_hidden_layers
+        # a config without num_key_value_heads (GPT) has one KV head a
+        # query head, as the reference reads it
+        kvh = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+        L = cfg.num_hidden_layers
         # pages in the model's dtype, or int8 plus per-slot f32 scales; the
         # decode kernels accumulate in f32
         self.kv_cache_quant = kv_cache_quant
@@ -355,7 +358,8 @@ class ServingEngine:
             if dparam.device != dev:
                 raise ValueError(f"the draft model lives on {dparam.device} "
                                  f"but the engine serves on {dev}")
-            dkvh = dcfg.num_key_value_heads
+            dkvh = getattr(dcfg, "num_key_value_heads",
+                           dcfg.num_attention_heads)
             dhd = dcfg.hidden_size // dcfg.num_attention_heads
             d_dtype = torch.int8 if kv_cache_quant else dparam.dtype
             self._draft_caches = []

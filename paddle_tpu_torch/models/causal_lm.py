@@ -1,7 +1,7 @@
-"""Shared causal-LM pieces (counterpart of `paddle_tpu/models/causal_lm.py`):
-dense KV-cache allocation, the tied/untied vocab head, the dense loss and
-the chunked LM-head cross entropy (`forward_hidden` +
-`compute_loss_hidden`)."""
+"""Shared causal-LM pieces (counterpart of `paddle_tpu/models/causal_lm.py`)
+for the model families (LLaMA, GPT): dense KV-cache allocation,
+`generate`, the tied/untied vocab head, the dense loss and the chunked
+LM-head cross entropy (`forward_hidden` + `compute_loss_hidden`)."""
 from __future__ import annotations
 
 import torch
@@ -13,19 +13,44 @@ from ..framework import amp_state as _amp
 
 class CausalLMBase(nn.Module):
     """Subclass contract: set `self.config`, `self.lm_head` (None for a
-    tied head) and `self.loss_fn`, and implement `_backbone_embed_weight()`
-    returning the [vocab, hidden] embedding weight."""
+    tied head) and `self.loss_fn`, implement `_backbone_embed_weight()`
+    returning the [vocab, hidden] embedding weight, hold the backbone as
+    `self.llama` or `self.gpt`, and expose `forward_cached(input_ids,
+    caches, cur_len)`."""
 
-    def init_kv_caches(self, batch_size, max_length, dtype=torch.float32):
-        """Dense per-layer (k, v) caches [b, max_length, kv_heads, head_dim],
-        float32 by default as in the JAX package, on the model's device."""
+    def _kv_heads(self):
+        """The config's `num_key_value_heads`, or `num_attention_heads` for
+        a config without it (GPT)."""
         cfg = self.config
-        shape = (batch_size, max_length, cfg.num_key_value_heads,
+        return getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+
+    def init_kv_caches(self, batch_size, max_length, dtype=None):
+        """Dense per-layer (k, v) caches [b, max_length, kv_heads, head_dim],
+        float32 unless `dtype` says otherwise, as in the JAX package, on the
+        model's device."""
+        cfg = self.config
+        dtype = torch.float32 if dtype is None else dtype
+        shape = (batch_size, max_length, self._kv_heads(),
                  cfg.hidden_size // cfg.num_attention_heads)
         dev = self._backbone_embed_weight().device
         return [(torch.zeros(shape, dtype=dtype, device=dev),
                  torch.zeros(shape, dtype=dtype, device=dev))
                 for _ in range(cfg.num_hidden_layers)]
+
+    def generate(self, input_ids, max_length=None, max_new_tokens=None,
+                 decode_strategy="greedy_search", temperature=1.0,
+                 top_k=0, top_p=1.0, eos_token_id=None, pad_token_id=0,
+                 seed=None):
+        """`models.generation.generate` on this model: (new tokens [b,
+        n_new], scores [b])."""
+        from .generation import generate as _generate
+
+        return _generate(self, input_ids, max_length=max_length,
+                         max_new_tokens=max_new_tokens,
+                         decode_strategy=decode_strategy,
+                         temperature=temperature, top_k=top_k, top_p=top_p,
+                         eos_token_id=eos_token_id,
+                         pad_token_id=pad_token_id, seed=seed)
 
     def _head(self, h):
         if self.lm_head is None:
@@ -45,7 +70,13 @@ class CausalLMBase(nn.Module):
     def forward_hidden(self, input_ids, attn_mask=None):
         """The backbone's output (after the final norm), without the vocab
         head: the input of `compute_loss_hidden`."""
-        return self.llama(input_ids, attn_mask)
+        return self._backbone()(input_ids, attn_mask)
+
+    def _backbone(self):
+        for name in ("llama", "gpt"):
+            if hasattr(self, name):
+                return getattr(self, name)
+        raise NotImplementedError("subclass must expose its backbone")
 
     def compute_loss_hidden(self, hidden, labels, chunks=None):
         """The vocab head and the cross entropy in `chunks` slices of the

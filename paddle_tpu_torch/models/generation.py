@@ -1,5 +1,5 @@
-"""Token sampling (counterpart of `sample_logits` and
-`sample_logits_per_row` in `paddle_tpu/models/generation.py`).
+"""Token sampling and `generate` (counterpart of `sample_logits`,
+`sample_logits_per_row` and `generate` in `paddle_tpu/models/generation.py`).
 
 Random draws come from an explicit `torch.Generator` on the logits' device.
 A generator and a `jax.random` key give different numbers from one seed, so
@@ -12,7 +12,10 @@ each replay advances it. A greedy row's token never depends on the draws.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..framework import random as _random
 
 _MASKED = -1e30
 
@@ -93,3 +96,62 @@ def sample_logits_per_row(logits, generator, greedy, temperature, top_k,
                      _pick(torch.log_softmax(logits, dim=-1), greedy_tok),
                      _pick(torch.log_softmax(f, dim=-1), sampled))
     return tok, lp
+
+
+@torch.no_grad()
+def generate(model, input_ids, max_length=None, max_new_tokens=None,
+             decode_strategy="greedy_search", temperature=1.0, top_k=0,
+             top_p=1.0, eos_token_id=None, pad_token_id=0, seed=None):
+    """PaddleNLP-style generation over the model's dense caches: one
+    prefill of the prompt through `forward_cached` (`init_kv_caches` sized
+    for prompt + new tokens, f32), then one token a step through
+    `forward_cached` until `max_new_tokens` (PaddleNLP's `max_length`
+    counts generated tokens too; default 20) or every row has emitted
+    `eos_token_id`; a finished row takes `pad_token_id` and adds nothing to
+    its score. Returns (new tokens [b, n_new] int64, scores [b] f32: each
+    row's summed log-probabilities), on the model's device.
+
+    The loop runs eagerly, one host read a step for the stop test, where
+    the reference compiles it as one while loop. Decode steps take their
+    position as a tensor, as the reference's traced loop does, so a learned
+    position past `max_position_embeddings` clamps (GPT) rather than
+    raising. Sampling draws from a `torch.Generator` seeded by `seed`, or
+    from the global stream: other tokens than `jax.random`'s for one seed;
+    greedy streams are the reference's."""
+    dev = model._backbone_embed_weight().device
+    ids = torch.as_tensor(np.asarray(input_ids) if not torch.is_tensor(
+        input_ids) else input_ids).to(dev, torch.int64)
+    if ids.dim() == 1:
+        ids = ids[None, :]
+    batch, prompt_len = ids.shape
+    if max_new_tokens is None:
+        max_new_tokens = max_length if max_length is not None else 20
+    if int(max_new_tokens) < 1:
+        raise ValueError(
+            f"max_new_tokens/max_length must be >= 1, got {max_new_tokens}")
+    total_len = prompt_len + int(max_new_tokens)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed) if seed is not None else _random.next_seed())
+    caches = model.init_kv_caches(batch, total_len)
+    logits, caches = model.forward_cached(ids, caches, 0)
+    last = logits[:, -1, :]
+    tokens = torch.cat([ids, torch.full((batch, total_len - prompt_len),
+                                        pad_token_id, dtype=torch.int64,
+                                        device=dev)], dim=1)
+    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    scores = torch.zeros(batch, dtype=torch.float32, device=dev)
+    cur = prompt_len
+    while cur < total_len and not bool(done.all()):
+        tok, lp = sample_logits(last, gen, decode_strategy, temperature,
+                                top_k, top_p)
+        tok = torch.where(done, pad_token_id, tok)
+        scores = scores + torch.where(done, 0.0, lp)
+        tokens[:, cur] = tok
+        if eos_token_id is not None:
+            done = done | (tok == eos_token_id)
+        if cur + 1 < total_len:  # nothing left to predict after the last
+            logits, caches = model.forward_cached(
+                tok[:, None], caches, torch.tensor(cur))
+            last = logits[:, -1, :]
+        cur += 1
+    return tokens[:, prompt_len:], scores

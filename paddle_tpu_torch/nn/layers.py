@@ -16,24 +16,49 @@ under `torch.no_grad()`.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from . import functional as F
 
 
+def _fan_in_out(shape):
+    """The reference initialisers' fans (`nn/initializer._fan_in_out`)."""
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = math.prod(shape[2:])
+    return shape[1] * receptive, shape[0] * receptive
+
+
+def xavier_normal(shape, generator, dtype, device):
+    """A tensor of `shape` drawn from the reference's default weight
+    initialiser, Xavier normal (std sqrt(2 / (fan_in + fan_out))), on
+    `device` from `generator`, in f32 and then cast to `dtype`."""
+    fan_in, fan_out = _fan_in_out(shape)
+    w = torch.randn(shape, generator=generator, device=device)
+    return (w * math.sqrt(2.0 / (fan_in + fan_out))).to(dtype)
+
+
 class Linear(nn.Module):
-    """y = x @ weight, weight [in_features, out_features] (the LLaMA
-    linears have no bias)."""
+    """y = x @ weight (+ bias), weight [in_features, out_features]. With
+    `has_bias` (the reference's `has_bias`, or `bias_attr` other than
+    False) a bias [out_features] starts at 0; without it (the LLaMA
+    linears) `bias` is None and the state holds no bias."""
 
     def __init__(self, in_features, out_features, dtype=torch.float32,
-                 device=None):
+                 device=None, has_bias=False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
             in_features, out_features, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            out_features, dtype=dtype, device=device)) if has_bias else None
 
     def forward(self, x):
-        return F.linear(x, self.weight)
+        return F.linear(x, self.weight, self.bias)
 
 
 class Embedding(nn.Module):

@@ -2,8 +2,11 @@
 JAX model's `state_dict()`, each value turned into an array) onto the
 port's modules (`load_llama_state`), and back (`llama_state_to_numpy`, so
 trained parameters can be compared with the JAX model's); the same for the
-incubate fused encoder layers (`fused_encoder_state_from_numpy`,
-`fused_encoder_state_to_numpy`).
+incubate fused layers, `FusedMultiTransformer`'s per-layer lists
+(`qkv_weights.0`, ...) and the `nn/transformer.py` layers, any module whose
+names equal the JAX layer's (`fused_encoder_state_from_numpy`,
+`fused_encoder_state_to_numpy`); and a GPT state (`gpt_state_from_numpy`,
+`gpt_state_to_numpy`, `load_gpt_state`).
 
 The port keeps the JAX model's parameter names and Paddle's [in, out]
 layout for linears, so the map is one to one; these functions check that
@@ -132,9 +135,10 @@ def load_llama_state(model, state):
 
 
 def fused_encoder_state_from_numpy(state, module):
-    """{name: np.ndarray} (a JAX incubate layer's state: `FusedMultiHead
-    Attention`, `FusedFeedForward`, `FusedTransformerEncoderLayer`, or a
-    stack of them) -> {name: torch.Tensor} for the port's `module` of the
+    """{name: np.ndarray} (a JAX layer's state: an incubate layer such as
+    `FusedTransformerEncoderLayer` or `FusedMultiTransformer`, a
+    `nn/transformer.py` layer, or a stack of them) -> {name: torch.Tensor}
+    for the port's `module` of the
     same structure, each in its parameter's dtype and on its device, after
     checking that names and shapes agree; load it with
     `module.load_state_dict`."""
@@ -159,3 +163,63 @@ def fused_encoder_state_to_numpy(module):
     f32, named as the JAX layer's."""
     return {n: t.detach().cpu().float().numpy()
             for n, t in module.state_dict().items()}
+
+
+def gpt_param_shapes(config) -> dict:
+    """name -> shape of every parameter of `GPTForCausalLM(config)` (the
+    reference's names)."""
+    h, i, v = config.hidden_size, config.intermediate_size, config.vocab_size
+    shapes = {"gpt.embed_tokens.weight": (v, h),
+              "gpt.embed_positions.weight": (config.max_position_embeddings,
+                                             h)}
+    for n in range(config.num_hidden_layers):
+        p = f"gpt.layers.{n}."
+        for name, w in (("ln_1", None), ("attn.qkv_proj", (h, 3 * h)),
+                        ("attn.out_proj", (h, h)), ("ln_2", None),
+                        ("mlp.fc_in", (h, i)), ("mlp.fc_out", (i, h))):
+            shapes[p + name + ".weight"] = w or (h,)
+            shapes[p + name + ".bias"] = (w[1],) if w else (h,)
+    shapes["gpt.ln_f.weight"] = shapes["gpt.ln_f.bias"] = (h,)
+    if not config.tie_word_embeddings:
+        shapes["lm_head.weight"] = (h, v)
+    return shapes
+
+
+def gpt_state_from_numpy(state, config, dtype=torch.float32, device=None):
+    """{name: np.ndarray} (the JAX GPT's state) -> {name: torch.Tensor} in
+    `dtype` on `device`, after checking every name and shape against
+    `config`."""
+    shapes = gpt_param_shapes(config)
+    missing = sorted(set(shapes) - set(state))
+    extra = sorted(set(state) - set(shapes))
+    if missing or extra:
+        raise KeyError(f"GPT state dict mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    dev = resolve_device(device)
+    out = {}
+    for name, shape in shapes.items():
+        arr = np.asarray(state[name], dtype=np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
+        out[name] = torch.from_numpy(np.array(arr)).to(dev, dtype)
+    return out
+
+
+def gpt_state_to_numpy(model):
+    """The weights of a port `GPTForCausalLM` as {name: np.ndarray} in f32
+    (copies: a later step does not move them), checked against the GPT
+    layout of its config."""
+    state = {n: np.array(t.detach().cpu().float().numpy())
+             for n, t in model.state_dict().items()}
+    gpt_state_from_numpy(state, model.config, device="cpu")  # the check
+    return state
+
+
+def load_gpt_state(model, state):
+    """Replace the weights of a port `GPTForCausalLM` by `state` ({name:
+    np.ndarray}), in the model's dtype and on its device."""
+    ref = model._backbone_embed_weight()
+    model.load_state_dict(
+        gpt_state_from_numpy(state, model.config, ref.dtype, ref.device),
+        strict=True)
+    return model

@@ -63,6 +63,15 @@ reduce that misses one split partial. The grouped-fetch decode is held as the pe
 output rounding at the largest magnitude), against the plain dense
 version and against the per-page kernel.
 
+The GPT family (`-k gpt`): a tiny f32 GPT at head_dim 128 gives the same
+greedy streams on the card (burst graphs, shallow and draft-model
+speculation, int8 KV, `generate`) as on the CPU, the same training losses
+(1e-4 relative) and updates (1e-2 of their norm, the key part of the QKV
+bias, zero in exact arithmetic, left out); positions past the table clamp
+on the device (no device assert); `FusedMultiTransformer`'s context
+forward launches one flash kernel a layer and its decode at `time_step`
+equals the context forward's rows (f32 flash bar, 1e-3).
+
 The Adam / AdamW update kernel is held bit for bit against its plain
 version, which rounds each f32 operation on its own in the kernel's order,
 in bf16 (with and without an f32 master weight), f16 and f32, aligned and
@@ -84,7 +93,9 @@ from paddle_tpu_torch.kernels import matmul as tmm
 from paddle_tpu_torch.kernels import paged_attention as tpa
 from paddle_tpu_torch.kernels import quant_matmul as tqm
 from paddle_tpu_torch.kernels import rms_norm as trms
-from paddle_tpu_torch.models import build_train_step
+from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                     build_train_step)
 from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn import functional as F
@@ -94,7 +105,8 @@ from paddle_tpu_torch.nn.quant import (WeightOnlyLinear,
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.weights import (fused_encoder_state_from_numpy,
                                       fused_encoder_state_to_numpy,
-                                      llama_state_to_numpy,
+                                      gpt_state_to_numpy,
+                                      llama_state_to_numpy, load_gpt_state,
                                       load_llama_state)
 
 _TOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
@@ -1754,3 +1766,120 @@ def test_spec_graphs_equal_eager_and_cpu_streams(cuda_device, kv, draft):
         (cpu_eng._spec_proposed_total, cpu_eng._spec_accepted_total)
     if draft == "target":
         assert eng._spec_accepted_total == eng._spec_proposed_total
+
+
+def _gpt_pair(dev, layers=2, seq=128):
+    """A tiny f32 GPT (vocab 256, hidden 256, 2 heads of 128) on the CPU
+    and the same weights on `dev`, every bias and norm weight moved off its
+    initial value."""
+    cfg = GPTConfig.tiny(vocab=256, hidden=256, layers=layers, heads=2,
+                         seq=seq)
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=layers)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(7)
+        for p in cpu.parameters():
+            if p.dim() == 1:
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+    gpu = GPTForCausalLM(cfg, device=dev)
+    load_gpt_state(gpu, gpt_state_to_numpy(cpu))
+    return cpu, gpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["burst", "spec", "draft", "int8"])
+def test_gpt_engine_on_cuda_equals_cpu(cuda_device, mode):
+    """Greedy streams of a GPT (one KV head a query head, learned
+    positions per row) on the card equal the CPU's: burst graphs, shallow
+    speculation, a 1-layer GPT draft model, int8 KV under burst graphs."""
+    cpu, gpu = _gpt_pair(cuda_device)
+    kw = dict(burst=dict(decode_burst=4), spec=dict(spec_decode=4),
+              int8=dict(decode_burst=4, kv_cache_quant="int8"),
+              draft=dict(spec_decode=3))[mode]
+    drafts = _gpt_pair(cuda_device, layers=1) if mode == "draft" else None
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 256, (n,)) for n in (5, 9, 17, 3, 40)]
+    streams, n0 = [], tpa.launches + tpa.q8_launches
+    for side, (model, dev) in enumerate(((cpu, "cpu"), (gpu, cuda_device))):
+        extra = dict(kw)
+        if drafts is not None:
+            extra["draft_model"] = drafts[side]
+        eng = ServingEngine(model, max_batch=3, max_seq_len=128, page_size=8,
+                            device=dev, seed=3, **extra)
+        eng.warmup()
+        for i, p in enumerate(prompts):
+            eng.add_request(p, max_new_tokens=20 - i)
+        streams.append({f.request_id: f.output_ids.tolist()
+                        for f in eng.run()})
+    assert streams[0] == streams[1]
+    assert tpa.launches + tpa.q8_launches > n0
+    assert eng.graph_captures > 0 and eng.graph_replays > 0
+
+
+@pytest.mark.cuda
+def test_gpt_generate_and_training_on_cuda_match_cpu(cuda_device):
+    cpu, gpu = _gpt_pair(cuda_device, seq=256)
+    ids = torch.from_numpy(np.random.RandomState(3).randint(0, 256, (2, 7)))
+    outs = [m.generate(ids, max_new_tokens=12)[0].cpu() for m in (cpu, gpu)]
+    assert torch.equal(*outs)
+    before = {k: v.clone() for k, v in cpu.state_dict().items()}
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randint(0, 256, (2, 256)))
+    y = torch.from_numpy(rng.randint(0, 256, (2, 256)))
+    n0 = tfa.fwd_launches, tfa.bwd_launches
+    losses = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        step = build_train_step(model, AdamW(learning_rate=1e-3,
+                                             parameters=model.parameters()))
+        losses.append([step(x.to(dev), y.to(dev)).item() for _ in range(3)])
+    assert (tfa.fwd_launches, tfa.bwd_launches) == (n0[0] + 6, n0[1] + 6)
+    assert max(abs(a - b) / abs(a) for a, b in zip(*losses)) <= 1e-4
+    key = (torch.arange(768) % 384) // 128 == 1  # head-major [q | k | v]
+    g_state = gpu.state_dict()
+    for name, c in cpu.state_dict().items():
+        dc, dg = c - before[name], g_state[name].cpu() - before[name]
+        if name.endswith("qkv_proj.bias"):
+            dc, dg = dc[~key], dg[~key]
+        assert (dg - dc).norm() <= 1e-2 * dc.norm(), name
+
+
+@pytest.mark.cuda
+def test_gpt_positions_past_the_table_clamp_on_cuda(cuda_device):
+    """A window at positions 62..65 of a 64-row table: no device assert,
+    logits equal the CPU's (both clamp to the last row)."""
+    cpu, gpu = _gpt_pair(cuda_device, seq=64)
+    outs = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda_device)):
+        eng = ServingEngine(model, max_batch=1, max_seq_len=64, page_size=8,
+                            device=dev)
+        ids = torch.tensor([[5, 6, 7, 8]], device=dev)
+        lens = torch.tensor([62], dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            logits, _ = model.forward_paged(
+                ids, eng._caches, torch.from_numpy(eng.block_tables)
+                .to(dev), lens, scratch_page=eng._scratch,
+                limit_lens=lens + 2)
+        outs.append(logits.cpu())
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[1]).all()
+    assert _close(outs[1], outs[0], torch.float32)
+
+
+@pytest.mark.cuda
+def test_gpt_fused_multi_transformer_decode_on_cuda(cuda_device):
+    """f32, 2 layers at head_dim 128: the causal context forward launches
+    one flash kernel a layer; 8 decode steps at time_step over the dense
+    caches equal the context forward's rows (the f32 flash bar)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    mt = FusedMultiTransformer(256, 2, 512, num_layers=2, device=cuda_device,
+                               generator=g).eval()
+    x = torch.randn(2, 256, 256, generator=g, device=cuda_device)
+    with torch.no_grad():
+        n0 = tfa.fwd_launches
+        full = mt(x)
+        assert tfa.fwd_launches == n0 + 2
+        _, caches = mt(x[:, :248], caches=mt.gen_cache(2, 256), time_step=0)
+        for t in range(248, 256):
+            out, caches = mt(x[:, t:t + 1], caches=caches, time_step=t)
+            err = (out[:, 0] - full[:, t]).norm(dim=-1) \
+                / full[:, t].norm(dim=-1)
+            assert err.max().item() <= _FLASH_TOL[torch.float32], t

@@ -24,6 +24,16 @@ from paddle_tpu_torch.nn import Embedding, ParallelCrossEntropy
 from paddle_tpu_torch.nn import functional as TF
 
 JFA = importlib.import_module("paddle_tpu.nn.functional.attention")
+import paddle_tpu.incubate.nn as JINC  # noqa: E402
+JFL = importlib.import_module("paddle_tpu.incubate.nn.fused_linear")
+import paddle_tpu.models.generation as JGEN  # noqa: E402
+import paddle_tpu.nn.transformer as JTR  # noqa: E402
+from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT  # noqa: E402
+import paddle_tpu_torch.incubate.nn as TINC  # noqa: E402
+TFL = importlib.import_module("paddle_tpu_torch.incubate.nn.fused_linear")
+import paddle_tpu_torch.models.generation as TGEN  # noqa: E402
+import paddle_tpu_torch.nn.transformer as TTR  # noqa: E402
+from paddle_tpu_torch.models.gpt import GPTForCausalLM  # noqa: E402
 
 
 def _names(fn):
@@ -54,9 +64,63 @@ PAIRS = {
                                    TIF.fused_multi_head_attention),
     "ServingEngine": (JaxServingEngine.__init__, ServingEngine.__init__),
 }
+# the fused encoder layers' forwards
+for _cls in ("FusedMultiHeadAttention", "FusedFeedForward",
+             "FusedTransformerEncoderLayer"):
+    PAIRS[f"{_cls}.forward"] = (getattr(JINC, _cls).forward,
+                                getattr(TINC, _cls).forward)
+# the public names of the GPT family, nn.transformer and incubate.nn
+PAIRS.update({
+    "GPTForCausalLM": (JaxGPT.__init__, GPTForCausalLM.__init__),
+    "GPTForCausalLM.forward": (JaxGPT.forward, GPTForCausalLM.forward),
+    "GPTForCausalLM.forward_cached": (JaxGPT.forward_cached,
+                                      GPTForCausalLM.forward_cached),
+    "GPTForCausalLM.generate": (JaxGPT.generate, GPTForCausalLM.generate),
+    "GPTForCausalLM.init_kv_caches": (JaxGPT.init_kv_caches,
+                                      GPTForCausalLM.init_kv_caches),
+    "GPTForCausalLM.pp_embed": (JaxGPT.pp_embed, GPTForCausalLM.pp_embed),
+    "GPTForCausalLM.pp_head": (JaxGPT.pp_head, GPTForCausalLM.pp_head),
+    "generation.generate": (JGEN.generate, TGEN.generate),
+    "FusedMultiTransformer.gen_cache": (
+        JINC.FusedMultiTransformer.gen_cache,
+        TINC.FusedMultiTransformer.gen_cache),
+    "Transformer.generate_square_subsequent_mask": (
+        JTR.Transformer.generate_square_subsequent_mask,
+        TTR.Transformer.generate_square_subsequent_mask),
+})
+for _cls in ("MultiHeadAttention", "TransformerEncoderLayer",
+             "TransformerEncoder", "TransformerDecoderLayer",
+             "TransformerDecoder", "Transformer"):
+    for _fn in ("__init__", "forward", "gen_cache"):
+        if hasattr(getattr(JTR, _cls), _fn):
+            PAIRS[f"{_cls}.{_fn}"] = (getattr(getattr(JTR, _cls), _fn),
+                                      getattr(getattr(TTR, _cls), _fn))
+for _cls in ("FusedMultiTransformer", "FusedBiasDropoutResidualLayerNorm",
+             "FusedLinear", "FusedDropoutAdd", "FusedEcMoe"):
+    for _fn in ("__init__", "forward"):
+        PAIRS[f"{_cls}.{_fn}"] = (getattr(getattr(JINC, _cls), _fn),
+                                  getattr(getattr(TINC, _cls), _fn))
+for _fn in ("fused_bias_dropout_residual_layer_norm",
+            "softmax_mask_fuse_upper_triangle", "fused_dropout_add",
+            "fused_rms_norm", "fused_layer_norm", "fused_ec_moe",
+            "fused_matmul_bias", "fused_linear"):
+    PAIRS[f"incubate.functional.{_fn}"] = (getattr(JINC.functional, _fn),
+                                           getattr(TINC.functional, _fn))
+PAIRS["incubate.fused_linear_activation"] = (JFL.fused_linear_activation,
+                                             TFL.fused_linear_activation)
 
-# the port's own trailing parameters (the entry point's device)
-PORT_ONLY = {"ServingEngine": ["device"]}
+# the port's own trailing parameters (the entry point's device; a layer's
+# dtype, device and the generator its weights come from; a model's seed)
+_LAYER = ["dtype", "device", "generator"]
+PORT_ONLY = {"ServingEngine": ["device"],
+             "GPTForCausalLM": ["device", "seed"],
+             "Transformer.generate_square_subsequent_mask": ["device"],
+             "FusedBiasDropoutResidualLayerNorm.__init__": ["dtype",
+                                                            "device"]}
+PORT_ONLY.update({f"{c}.__init__": _LAYER for c in (
+    "MultiHeadAttention", "TransformerEncoderLayer",
+    "TransformerDecoderLayer", "Transformer", "FusedMultiTransformer",
+    "FusedLinear", "FusedEcMoe")})
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
