@@ -50,14 +50,15 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    before and checked just after; then a profiled warm 2500-token prefill
    and a profiled window of batch-8 decode steps give the device's busy
    time and idle share;
-4b. LLaMA-2-13B (40 layers, hidden 5120, bf16, random weights from
+4b. LLaMA-2-13B's widths at 20 of its 40 layers (hidden 5120; the
+   script's time limit, `SERVE13_LAYERS`), bf16, random weights from
    --seed, PyTorch's default initialisation): the last-position logits of
    a 64-token prompt in f32, in bf16, and after weight-only int8
    quantization (lm_head kept in bf16): int8 and bf16 agree within 0.05 of
    the largest, the bf16-f32 distance is read beside it; then served with an int8 paged KV cache, the same
    traffic as phase 4, the launch counts reset just before and checked
-   just after (dequant matmul 280 and RMSNorm 81 per forward, int8 paged
-   decode 40 per decode step, the float paged kernel none), a profiled
+   just after (dequant matmul 140 and RMSNorm 41 per forward, int8 paged
+   decode 20 per decode step, the float paged kernel none), a profiled
    prefill (its device time and the dequant matmul's share) and decode
    window; then a fresh bf16 13B model quantized to int4
    in groups of 128 serves the 10 requests with the same checks;
@@ -217,7 +218,28 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    written one slot late) that must fail the bar; (d) `tiny`: a tiny f32
    GPT at head_dim 128 on CUDA and on the CPU from the same weights: burst
    and shallow spec streams and `generate` equal, 3 AdamW steps' losses
-   and updates agree.
+   and updates agree;
+15. the data-parallel fine-tune, each part in processes of its own started
+   by `distributed.spawn`: (a) LLaMA-2-7B widths at 4 layers, bf16 O2,
+   AdamW(1e-4), batch 1 x 4096 of one seeded sequence, at world 1 over
+   NCCL (`init_parallel_env`, `init_mesh(dp=1)`, `DataParallel`, a
+   `DataLoader` of 2 worker processes over a `DistributedBatchSampler`):
+   NCCL's all_reduce, broadcast and all_gather return their inputs; 4
+   steps with the kernels' launches exact, the model's and the optimizer's
+   state_dict saved by `paddle_tpu_torch.save` after step 2; a new process
+   loads them (digests of the bits equal to the saved state's), resumes
+   steps 3-4 (loss 3 within 1e-6, loss 4 within 1e-3 of the uninterrupted
+   run's, the probe parameters within `FT_PARAM_BAR` of the update since
+   step 2) and, as the planted fault, resumes without the optimizer's
+   state, which the probe parameters must catch; save and load seconds,
+   step ms and tokens/s; (b) two ranks on the one card over gloo (named by
+   PADDLE_DISTRI_BACKEND) with CUDA tensors, a 2-layer f32 LLaMA at hidden
+   512: after `sync_gradients` each rank's gradients within 1e-5 of one
+   process's on the global batch, one all_reduce a bucket, bucketed equal
+   to per-parameter bit for bit, a bucket slice one element off caught;
+   (c) in (a)'s second process, the tensor checker names the op of a NaN
+   planted in a layer's output, and `check_numerics` passes clean logits.
+   `--phase15` runs the build and this phase alone.
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -1772,6 +1794,19 @@ def init_default(model, seed, dev):
                 p.uniform_(-b, b, generator=gen)
 
 
+# LLaMA-2-13B's widths at 20 of its 40 layers wherever the script builds
+# it (phases 4b, 11, 12 and 13): the 1200 s limit. With phase 15 added, a
+# run at full depth took 1247 s on one H100 and 1073 s on another; each 13B
+# process's work scales with its depth.
+SERVE13_LAYERS = 20
+
+
+def llama13b_cut():
+    cfg = LlamaConfig.llama2_13b()
+    cfg.num_hidden_layers = SERVE13_LAYERS
+    return cfg
+
+
 def serve_13b(seed, dev, card, algo, group_size, lone=True):
     """LLaMA-2-13B (random weights, `init_default`), quantized weight-only
     (lm_head kept in bf16) and served over an int8 paged KV cache: the
@@ -1780,7 +1815,7 @@ def serve_13b(seed, dev, card, algo, group_size, lone=True):
     read in f32 first, the floor bf16 rounding alone sets), then the
     phase-4 traffic (`lone`: also the 2500-token request) with the
     kernels' launch counts reset just before and checked just after."""
-    cfg = LlamaConfig.llama2_13b()
+    cfg = llama13b_cut()
     cfg.dtype = "float32" if lone else "bfloat16"
     gc.collect()
     torch.cuda.empty_cache()
@@ -3918,7 +3953,7 @@ def multi_step_cell(cell, seed, dev, card, io):
     sync process also runs the planted faults."""
     big = cell.startswith("13b")
     mode = cell.rsplit("_", 1)[1]
-    cfg = LlamaConfig.llama2_13b() if big else LlamaConfig.llama2_7b()
+    cfg = llama13b_cut() if big else LlamaConfig.llama2_7b()
     cfg.dtype = "bfloat16"
     model = LlamaForCausalLM(cfg, device=dev, seed=seed)
     kv = None
@@ -4471,9 +4506,9 @@ def prefix_cell(cell, seed, dev, card):
     traffic, then the streams judged against the off engine's and the
     planted faults. 13b_int8: LLaMA-2-13B (`init_default`, int8 weights
     but lm_head, int8 KV) through the chunked engine and the off engine on
-    the traffic's first 4 requests, at full depth."""
+    the traffic's first 4 requests, at `SERVE13_LAYERS` layers."""
     big = cell == "13b_int8"
-    cfg = LlamaConfig.llama2_13b() if big else LlamaConfig.llama2_7b()
+    cfg = llama13b_cut() if big else LlamaConfig.llama2_7b()
     cfg.dtype = "bfloat16"
     model = LlamaForCausalLM(cfg, device=dev, seed=seed)
     kv = None
@@ -5062,7 +5097,7 @@ def spec_cell(cell, seed, dev, card):
     gap within the verify-vs-decode distance times its largest
     |logit|)."""
     big = cell == "13b_int8"
-    cfg = LlamaConfig.llama2_13b() if big else LlamaConfig.llama2_7b()
+    cfg = llama13b_cut() if big else LlamaConfig.llama2_7b()
     cfg.dtype = "bfloat16"
     model = LlamaForCausalLM(cfg, device=dev, seed=seed)
     kv = None
@@ -5755,6 +5790,467 @@ def gpt_phase(seed, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the data-parallel fine-tune
+# ---------------------------------------------------------------------------
+
+FT_LAYERS = 4          # phase 8's depth of LLaMA-2-7B's widths
+FT_SEQ = 4096
+FT_STEPS = 4
+FT_SAVE_AFTER = 2      # the checkpoint: model and optimizer after step 2
+FT_LR = 1e-4
+# the resumed run against the uninterrupted one. Step 3's loss comes from
+# the loaded weights and the same batch through a forward without atomics:
+# equal within FT_LOSS3_TOL (bitwise where the forward repeats its
+# kernels' choices). Step 4's loss follows one backward whose bf16 dQ sums
+# by atomics (ROADMAP, deliberate differences): within FT_LOSS4_TOL. The
+# probe parameters after step 4 (`FT_PROBES`) differ from the
+# uninterrupted run's by at most FT_PARAM_BAR of the update since step 2
+# (rounding flips of the bf16 parameters where a gradient moved by the
+# atomics' order); a resume without the optimizer's state steps from
+# fresh moments and must exceed it.
+FT_LOSS3_TOL = 1e-6
+FT_LOSS4_TOL = 1e-3
+FT_PARAM_BAR = 0.25
+FT_PROBES = ("llama.layers.0.self_attn.q_proj.weight",
+             "llama.layers.3.mlp.down_proj.weight", "lm_head.weight")
+# (b): gloo ranks on one card against one process on the global batch:
+# f32 sums of two ranks' gradients in another order than the global
+# batch's GEMMs, 1e-5 of each gradient's norm
+FT_GRAD_TOL = 1e-5
+FT_GLOO = dict(vocab=1024, hidden=512, layers=2, heads=4, seq=256)
+
+
+FT_DATA_VOCAB = 1000   # the fine-tune's text draws from these ids alone
+
+
+def ft_data(seed, steps=FT_STEPS, seq=FT_SEQ):
+    """A TensorDataset of `steps` seeded rows (one a step), ids and their
+    next-token labels, drawn from the first FT_DATA_VOCAB ids: the loss
+    falls from about ln(32000) as the model learns that narrower
+    distribution (random ids over the whole vocabulary would hold it at
+    ln(32000); one row repeated drives it to 0.006 by step 3)."""
+    rng = np.random.RandomState(seed + 15)
+    ids = rng.randint(0, FT_DATA_VOCAB, (steps, seq + 1))
+    return TensorDataset([ids[:, :-1].copy(), ids[:, 1:].copy()])
+
+
+def ft_digest(state):
+    """{key: (dtype, shape, two integer sums of the bits)} of a state's
+    tensors, summed on the card: two states have equal digests when their
+    tensors are equal bit for bit (a linear hash of the bits; any one
+    changed element changes the position-weighted sum)."""
+    out = {}
+    for k, v in state.items():
+        if not isinstance(v, torch.Tensor):
+            out[k] = repr(v)
+            continue
+        t = v.detach().reshape(-1)
+        bits = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[t.element_size()]
+        b = t.view(bits).to(torch.int64)
+        w = torch.arange(1, b.numel() + 1, device=b.device) % 65521 + 1
+        out[k] = (str(v.dtype), list(v.shape), int(b.sum()),
+                  int((b * w).sum()))
+    return out
+
+
+def ft_rank(mode, io, seed, card):
+    """Phase 15 (a), in a rank started by `distributed.spawn(nprocs=1)`:
+    NCCL at world 1, a dp=1 mesh, DataParallel, a DataLoader of 2 worker
+    processes over a DistributedBatchSampler. mode "full": steps 1-4,
+    saving the model's and the optimizer's state_dict after step 2;
+    "resume": a new process loads them, checks them against the saved
+    digests and runs steps 3-4, then (the planted fault) again from the
+    loaded weights without the optimizer's state; then phase 15 (c)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.io import DistributedBatchSampler
+
+    t_start = time.perf_counter()
+    D.init_parallel_env()
+    dev = D.env.device()
+    check(D.get_backend() == "nccl" and D.get_world_size() == 1,
+          f"phase 15 (a): backend {D.get_backend()}, world "
+          f"{D.get_world_size()}")
+    D.init_mesh(dp=1)
+    res = dict(mode=mode, backend=D.get_backend(), device=str(dev))
+    if mode == "full":  # NCCL at world 1: each collective returns its input
+        x = torch.randn(1000, device=dev)
+        C.reset_calls()
+        ok = dict(all_reduce=torch.equal(D.all_reduce(x.clone()), x),
+                  broadcast=torch.equal(D.broadcast(x.clone(), 0), x))
+        got = D.all_gather([], x)
+        ok["all_gather"] = len(got) == 1 and torch.equal(got[0], x)
+        torch.cuda.synchronize()
+        check(all(ok.values()) and dict(C.calls) == dict(
+            all_reduce=1, broadcast=1, all_gather=1),
+            f"phase 15 (a): NCCL at world 1: {ok}, calls {dict(C.calls)}")
+        res["nccl_world1"] = ok
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = FT_LAYERS
+    model = amp.decorate(LlamaForCausalLM(
+        cfg, device=dev, seed=seed if mode == "full" else seed + 1),
+        level="O2", dtype="bfloat16")
+    dp = D.DataParallel(model)
+    ds = ft_data(seed)
+    loader = DataLoader(ds, batch_sampler=DistributedBatchSampler(ds, 1),
+                        num_workers=2, multiprocess=True,
+                        shm_capacity=8 << 20)
+    ckpt = os.path.join(io, "finetune.pdckpt")
+    res["setup_s"] = time.perf_counter() - t_start
+
+    def run(opt, first, steps):
+        """Steps `first`.. of the loader's batches: (losses, step ms)."""
+        losses, ms = [], []
+        for i, (x, y) in enumerate(loader):
+            if i < first:
+                continue
+            if i >= first + steps:
+                break
+            t0 = time.perf_counter()
+            x, y = x.to(dev, non_blocking=True), y.to(dev, non_blocking=True)
+            loss = model.compute_loss(dp(x).float(), y)  # an f32 loss
+            loss.backward()
+            dp.sync_gradients()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if mode == "full" and i + 1 == FT_SAVE_AFTER:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ptt.save({"model": model.state_dict(),
+                          "opt": opt.state_dict()}, ckpt)
+                res["save_s"] = time.perf_counter() - t1
+                res["ckpt_bytes"] = os.path.getsize(ckpt)
+                res["digest"] = dict(
+                    model=ft_digest(model.state_dict()),
+                    opt=ft_digest(opt.state_dict()))
+        return losses, ms
+
+    if mode == "full":
+        opt = AdamW(learning_rate=FT_LR, parameters=dp.parameters())
+        for _, mod, attr in TRAIN_COUNTERS:
+            setattr(mod, attr, 0)
+        losses, ms = run(opt, 0, FT_STEPS)
+        res["launches"] = {n: getattr(mod, a) for n, mod, a in
+                           TRAIN_COUNTERS}
+        ptt.save({k: v for k, v in model.state_dict().items()
+                  if k in FT_PROBES}, os.path.join(io, "probes4.pd"))
+        res.update(losses=losses, step_ms=ms)
+    else:
+        t1 = time.perf_counter()
+        state = ptt.load(ckpt, device=dev)
+        torch.cuda.synchronize()
+        res["load_s"] = time.perf_counter() - t1
+        with open(os.path.join(io, "ft_full.json")) as f:
+            saved = json.load(f)["digest"]
+        got = dict(model=ft_digest(state["model"]),
+                   opt=ft_digest(state["opt"]))
+        bad = [k for part in ("model", "opt") for k in saved[part]
+               if json.loads(json.dumps(got[part][k])) != saved[part][k]]
+        check(not bad and len(got["opt"]) == len(saved["opt"]),
+              f"phase 15 (a): the loaded state differs from the saved one "
+              f"at {bad[:5]}")
+        res["state_tensors"] = {p: len(saved[p]) for p in saved}
+        want4 = ptt.load(os.path.join(io, "probes4.pd"), device=dev)
+
+        def resumed(with_opt_state):
+            model.load_state_dict(state["model"])
+            opt = AdamW(learning_rate=FT_LR, parameters=dp.parameters())
+            if with_opt_state:
+                opt.set_state_dict(state["opt"])
+            for _, mod, attr in TRAIN_COUNTERS:
+                setattr(mod, attr, 0)
+            losses, ms = run(opt, FT_SAVE_AFTER, FT_STEPS - FT_SAVE_AFTER)
+            launches = {n: getattr(mod, a) for n, mod, a in TRAIN_COUNTERS}
+            cur = model.state_dict()
+            dist = {}
+            for k in FT_PROBES:
+                moved = (want4[k].float() - state["model"][k].float()).norm()
+                check(moved > 0, f"phase 15 (a): {k} did not move in steps "
+                      "3-4 of the uninterrupted run")
+                dist[k] = float((cur[k].float() - want4[k].float()).norm()
+                                / moved)
+            return dict(losses=losses, step_ms=ms, launches=launches,
+                        param_dist=dist)
+
+        res["resumed"] = resumed(True)
+        res["fault_no_opt_state"] = resumed(False)
+        del state, want4
+        res["checker"] = ft_checker(seed, dev, card)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["process_s"] = time.perf_counter() - t_start
+    with open(os.path.join(io, f"ft_{mode}.json"), "w") as f:
+        json.dump(res, f)
+    D.destroy_process_group()
+
+
+def ft_gloo_rank(io, seed):
+    """Phase 15 (b), one of two ranks on the one card: gloo (named by
+    PADDLE_DISTRI_BACKEND) over CUDA tensors, a dp=2 mesh, a tiny f32
+    LLaMA in DataParallel on row `rank` of a 2-row global batch; the
+    synced gradients against one process's on the whole batch, the
+    bucketed sums against the per-parameter ones, one all_reduce a
+    bucket, and a bucket slice one element off (the planted fault)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import parallel as P
+
+    t_start = time.perf_counter()
+    D.init_parallel_env()
+    dev, rank = D.env.device(), D.get_rank()
+    check(D.get_backend() == "gloo" and dev.type == "cuda",
+          f"phase 15 (b): backend {D.get_backend()} on {dev}")
+    D.init_mesh(dp=2)
+    g = FT_GLOO
+    cfg = LlamaConfig.tiny(vocab=g["vocab"], hidden=g["hidden"],
+                           layers=g["layers"], heads=g["heads"],
+                           seq=g["seq"])
+    # rank 1 starts from other weights: the construction broadcasts rank 0's
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed + rank)
+    dp = D.DataParallel(model)
+    ref = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    rng = np.random.RandomState(seed + 16)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (2, g["seq"] + 1))).to(dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+    ref.compute_loss(ref(x), y).backward()
+    want = [p.grad for p in ref.parameters()]
+    for _, mod, attr in TRAIN_COUNTERS:
+        setattr(mod, attr, 0)
+    model.compute_loss(dp(x[rank:rank + 1]), y[rank:rank + 1]).backward()
+    launches = {n: getattr(mod, a) for n, mod, a in TRAIN_COUNTERS}
+    local = [p.grad.clone() for p in model.parameters()]
+
+    def sync(overlap, reduce_bucket=None):
+        for p, l in zip(model.parameters(), local):
+            p.grad = l.clone()
+        set_flags({"FLAGS_train_overlap": overlap})
+        saved = P._reduce_bucket
+        if reduce_bucket is not None:
+            P._reduce_bucket = reduce_bucket
+        try:
+            C.reset_calls()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dp.sync_gradients()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            P._reduce_bucket = saved
+        grads = [p.grad.clone() for p in model.parameters()]
+        worst = max(float((a - b).norm() / b.norm())
+                    for a, b in zip(grads, want))
+        return grads, worst, C.calls["all_reduce"], ms
+
+    def off_by_one(bucket):
+        """The fault: each gradient copied back from one element further
+        along the reduced buffer."""
+        flat = torch.cat([p.grad.reshape(-1) for p in bucket]
+                         + [torch.zeros(1, device=dev)])
+        D.all_reduce(flat, op=C.ReduceOp.AVG, group="dp")
+        off = 0
+        for p in bucket:
+            n = p.grad.numel()
+            p.grad.copy_(flat[off + 1:off + 1 + n].view_as(p.grad))
+            off += n
+
+    n_buckets = len(P._bucket_grads(list(model.parameters())))
+    sync(True)  # gloo's first CUDA all_reduces set up its staging: untimed
+    per_param, err_p, calls_p, ms_p = sync(False)
+    bucketed, err_b, calls_b, ms_b = sync(True)
+    _, err_fault, _, _ = sync(True, off_by_one)
+    set_flags({"FLAGS_train_overlap": True})
+    res = dict(rank=rank, backend=D.get_backend(), device=str(dev),
+               n_params=len(local), n_buckets=n_buckets,
+               calls_bucketed=calls_b, calls_per_param=calls_p,
+               grad_rel_err=err_b, grad_rel_err_per_param=err_p,
+               fault_grad_rel_err=err_fault,
+               bitwise=all(torch.equal(a, b)
+                           for a, b in zip(bucketed, per_param)),
+               sync_ms=ms_b, sync_ms_per_param=ms_p, launches=launches,
+               process_s=time.perf_counter() - t_start)
+    with open(os.path.join(io, f"gloo_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    D.destroy_process_group()
+
+
+def ft_checker(seed, dev, card):
+    """Phase 15 (c): the tensor checker on CUDA tensors names the op of a
+    NaN planted in a layer's output (layer 1's MLP output times a mask
+    holding one NaN); check_numerics passes the clean logits."""
+    from paddle_tpu_torch.amp import debugging
+
+    g = FT_GLOO
+    cfg = LlamaConfig.tiny(vocab=g["vocab"], hidden=g["hidden"],
+                           layers=g["layers"], heads=g["heads"],
+                           seq=g["seq"])
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    x = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (1, g["seq"]))).to(dev)
+    with torch.no_grad():
+        clean = model(x)
+    check(debugging.check_numerics(clean, "llama", "logits") is clean,
+          "phase 15 (c): check_numerics refused clean logits")
+    mask = torch.ones(1, g["seq"], g["hidden"], device=dev)
+    mask[0, 7, 3] = float("nan")
+    hook = model.llama.layers[1].mlp.register_forward_hook(
+        lambda mod, inp, out: out * mask)
+    debugging.enable_tensor_checker()
+    try:
+        with torch.no_grad():
+            model(x)
+        msg = None
+    except RuntimeError as e:
+        msg = str(e)
+    finally:
+        debugging.disable_tensor_checker()
+        hook.remove()
+    want = (f"NaN/Inf detected in output 0 of op 'aten.mul.Tensor' (shape "
+            f"(1, {g['seq']}, {g['hidden']}), dtype torch.float32)")
+    check(msg is not None and msg.startswith(want),
+          f"phase 15 (c): the checker read {msg!r}")
+    try:
+        debugging.check_numerics(torch.log(clean.new_zeros(3)), "log", "z")
+        caught = False
+    except FloatingPointError:
+        caught = True
+    check(caught, "phase 15 (c): check_numerics passed an Inf")
+    return dict(message=msg, card=card)
+
+
+def finetune_phase(seed, card):
+    """Phase 15: (a) the fine-tune, its uninterrupted run and its resume in
+    two processes started by `spawn(nprocs=1)`, (c) the tensor checker at
+    the end of the second; (b) two gloo ranks on the card."""
+    from paddle_tpu_torch.distributed import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {}
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase15-") as io:
+        for mode in ("full", "resume"):
+            t0 = time.perf_counter()
+            spawn(ft_rank, args=(mode, io, seed, card), nprocs=1,
+                  timeout=300)
+            with open(os.path.join(io, f"ft_{mode}.json")) as f:
+                res[mode] = json.load(f)
+            res[mode]["spawn_s"] = time.perf_counter() - t0
+        prev = os.environ.get("PADDLE_DISTRI_BACKEND")
+        os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
+        try:
+            t0 = time.perf_counter()
+            spawn(ft_gloo_rank, args=(io, seed), nprocs=2, timeout=300)
+            res["gloo_spawn_s"] = time.perf_counter() - t0
+        finally:
+            if prev is None:
+                os.environ.pop("PADDLE_DISTRI_BACKEND")
+            else:
+                os.environ["PADDLE_DISTRI_BACKEND"] = prev
+        res["gloo"] = []
+        for r in range(2):
+            with open(os.path.join(io, f"gloo_rank{r}.json")) as f:
+                res["gloo"].append(json.load(f))
+    full, resume = res["full"], res["resume"]
+    L = FT_LAYERS
+    losses = full["losses"]
+    got, fault = resume["resumed"], resume["fault_no_opt_state"]
+    tail = losses[FT_SAVE_AFTER:]
+    d3 = abs(got["losses"][0] - tail[0]) / abs(tail[0])
+    d4 = abs(got["losses"][1] - tail[1]) / abs(tail[1])
+    dist = max(got["param_dist"].values())
+    dist_fault = max(fault["param_dist"].values())
+    res["resume_check"] = dict(loss3_rel=d3, loss4_rel=d4, param_dist=dist,
+                               fault_param_dist=dist_fault,
+                               fault_loss4_rel=abs(fault["losses"][1]
+                                                   - tail[1]) / abs(tail[1]),
+                               loss3_bitwise=got["losses"][0] == tail[0])
+    p50 = float(np.median(full["step_ms"][1:]))
+    res["step_ms_p50"], res["tokens_per_s"] = p50, FT_SEQ / (p50 / 1e3)
+    log(f"phase 15 (a): LLaMA-2-7B widths, {L} layers, bf16 O2, AdamW, batch "
+        f"1 x {FT_SEQ}, NCCL world 1, DataLoader of 2 worker processes: "
+        f"losses {losses}; steps 2-4 p50 {p50:.1f} ms (steps "
+        f"{[round(m, 1) for m in full['step_ms']]}), "
+        f"{res['tokens_per_s']:.1f} tokens/s; save {full['save_s']:.2f} s "
+        f"({full['ckpt_bytes'] / 2 ** 30:.2f} GiB), load "
+        f"{resume['load_s']:.2f} s; setup {full['setup_s']:.1f} / "
+        f"{resume['setup_s']:.1f} s; processes {full['process_s']:.1f} / "
+        f"{resume['process_s']:.1f} s; peak {full['peak_gib']:.2f} / "
+        f"{resume['peak_gib']:.2f} GiB [{card}]")
+    log(f"phase 15 (a): resumed losses {got['losses']} against {tail}: "
+        f"step 3 rel {d3:.3g} (bitwise {got['losses'][0] == tail[0]}, bar "
+        f"{FT_LOSS3_TOL}), step 4 rel {d4:.3g} (bar {FT_LOSS4_TOL}); probe "
+        f"parameters after step 4 {got['param_dist']} of the update since "
+        f"step 2 (bar {FT_PARAM_BAR}); the fault (no optimizer state): "
+        f"{fault['param_dist']}, losses {fault['losses']}; the loaded state "
+        f"against the saved one's digests at {resume['state_tensors']} "
+        f"tensors; launches full {full['launches']}, resumed "
+        f"{got['launches']}")
+    per_step = {"flash_fwd": L, "flash_bwd": L, "rms_norm": 2 * L + 1,
+                "rms_norm_bwd": 2 * L + 1, "adam": n_param_tensors(L)}
+    for tag, launches, steps in (
+            ("full", full["launches"], FT_STEPS),
+            ("resumed", got["launches"], FT_STEPS - FT_SAVE_AFTER)):
+        for name, n in per_step.items():
+            check(launches[name] == n * steps,
+                  f"phase 15 (a) {tag}: {name} launched {launches[name]} "
+                  f"times in {steps} steps, expected {n * steps}")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"phase 15 (a): losses {losses}")
+    check(d3 <= FT_LOSS3_TOL and d4 <= FT_LOSS4_TOL and dist <= FT_PARAM_BAR,
+          f"phase 15 (a): resumed losses {got['losses']} against {tail} "
+          f"(rel {d3:.3g}, {d4:.3g}), probe parameters {got['param_dist']}")
+    check(dist_fault > FT_PARAM_BAR,
+          f"phase 15 (a): a resume without the optimizer's state passed: "
+          f"{fault['param_dist']}")
+    ranks = res["gloo"]
+    nb = ranks[0]["n_buckets"]
+    log(f"phase 15 (b): 2 ranks on the card over gloo (CUDA tensors), f32 "
+        f"LLaMA {FT_GLOO}: gradients within "
+        f"{[r['grad_rel_err'] for r in ranks]} (per parameter "
+        f"{[r['grad_rel_err_per_param'] for r in ranks]}) of the global "
+        f"batch's (bar {FT_GRAD_TOL}); {nb} buckets, all_reduces "
+        f"{[r['calls_bucketed'] for r in ranks]} bucketed, "
+        f"{[r['calls_per_param'] for r in ranks]} per parameter of "
+        f"{ranks[0]['n_params']}; bitwise {[r['bitwise'] for r in ranks]}; "
+        f"the off-by-one slice reads "
+        f"{[r['fault_grad_rel_err'] for r in ranks]}; sync "
+        f"{[round(r['sync_ms'], 3) for r in ranks]} ms bucketed, "
+        f"{[round(r['sync_ms_per_param'], 3) for r in ranks]} ms per "
+        f"parameter; processes {[round(r['process_s'], 1) for r in ranks]} "
+        f"s [{card}]")
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["device"].startswith("cuda"),
+              f"phase 15 (b): rank {r['rank']} on {r['device']} over "
+              f"{r['backend']}")
+        check(r["grad_rel_err"] <= FT_GRAD_TOL and
+              r["grad_rel_err_per_param"] <= FT_GRAD_TOL,
+              f"phase 15 (b): rank {r['rank']}: gradients "
+              f"{r['grad_rel_err']:.3g} / {r['grad_rel_err_per_param']:.3g} "
+              f"from the global batch's (bar {FT_GRAD_TOL})")
+        check(r["calls_bucketed"] == r["n_buckets"] == nb
+              and r["calls_per_param"] == r["n_params"],
+              f"phase 15 (b): rank {r['rank']}: {r['calls_bucketed']} "
+              f"all_reduces for {r['n_buckets']} buckets")
+        check(r["bitwise"], f"phase 15 (b): rank {r['rank']}: bucketed "
+              "gradients differ from the per-parameter ones")
+        check(r["fault_grad_rel_err"] > FT_GRAD_TOL,
+              f"phase 15 (b): the off-by-one bucket slice passed: "
+              f"{r['fault_grad_rel_err']}")
+    res["checker"] = resume["checker"]
+    res["processes_s"] = time.perf_counter() - t_all
+    log(f"phase 15 (c): the tensor checker on CUDA: "
+        f"{res['checker']['message'].split(';')[0]}; check_numerics passed "
+        f"the clean logits and refused an Inf [{card}]")
+    log(f"phase 15: {res['processes_s']:.1f} s (spawns: full "
+        f"{full['spawn_s']:.1f}, resume {resume['spawn_s']:.1f}, gloo "
+        f"{res['gloo_spawn_s']:.1f}) [{card}]")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5772,6 +6268,9 @@ def main():
     ap.add_argument("--phase14", choices=GPT_CELLS, default=None,
                     help="run one cell of phase 14 in this process (the "
                     "script starts one process a cell itself)")
+    ap.add_argument("--phase15", action="store_true",
+                    help="build the kernels and run phase 15 alone (a probe: "
+                    "no kernels line, no final line)")
     ap.add_argument("--io", default=None,
                     help="with --phase11: the directory of the streams it "
                     "is held to and of its result; with --phase12, "
@@ -5817,6 +6316,12 @@ def main():
             json.dump(res, f)
         return 0
 
+    t_script = time.perf_counter()
+
+    def mark(what):
+        log(f"timeline: {what} done at "
+            f"{time.perf_counter() - t_script:.1f} s")
+
     # 2. build
     secs = _build.build()
     log(f"build: {len(_build.SOURCES)} kernels in {secs:.1f} s")
@@ -5828,6 +6333,10 @@ def main():
                     line.split("Function properties for", 1)[1].strip())
             elif "registers" in line or "spill" in line:
                 log(f"build: {name}: {fn}: {line.strip()}")
+
+    if args.phase15:
+        finetune_phase(args.seed, card)
+        return 0
 
     # 3. kernels against their plain versions at the serving and training
     # shapes (the timings wait until after the serving run, so that no
@@ -5997,14 +6506,17 @@ def main():
                 f"the bar {r['tol']:.3g}): row rel err " + ", ".join(
                     f"{key} {err:.3g}" for key, err in readings.items()))
 
+    mark("phase 3 (checks)")
     # 4. the serving path: LLaMA-2-7B
     serving = serve_7b(args.seed, dev, card)
+    mark("phase 4")
 
     # 4b. quantized serving: LLaMA-2-13B, int8 weights, then int4 g128,
     # over an int8 KV cache
     serving13 = serve_13b(args.seed, dev, card, "weight_only_int8", -1)
     serving13_int4 = serve_13b(args.seed, dev, card, "weight_only_int4", 128,
                                lone=False)
+    mark("phase 4b")
 
     # 3, continued: times at the serving and training shapes
     for kind_, rs in (("rms_norm", rms), ("paged_attention", paged),
@@ -6049,6 +6561,7 @@ def main():
                 f"{t['ms']:.4f} ms{extra}, bound {t['bound_ms']:.4f} ms "
                 f"({t['bound_by']}), device time ({t['timer']}) [{card}]")
     split_sweep = qmm_split_sweep(gen, dev, card)
+    mark("phase 3 (times)")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6057,20 +6570,25 @@ def main():
     quant_parity = tiny_quant_parity(args.seed, dev)
     mqa_parity = tiny_mqa_parity(args.seed, dev)
 
+    mark("phase 5")
     # 6. the training path: 20-layer LLaMA-2-7B widths, batch 1 x 4096
     training = train_7b(args.seed, dev, card)
+    mark("phase 6")
 
     # 7. tiny training: CUDA kernels against the CPU's plain versions
     train_parity = tiny_train_parity(args.seed, dev)
 
     # 8. measured dispatch: serving and training with FLAGS_autotune and
     # FLAGS_paged_grouped_kernel on, then off again
+    mark("phase 7")
     dispatch = measured_dispatch(args.seed, dev, card, serving)
+    mark("phase 8")
 
     # 9. varlen and dropout flash attention: the seg, drop and seg_drop
     # kernels, packed LLaMA-2-7B attention, the fused GPT-3 1.3B encoder
     # with attention dropout, the lse entry, a tiny CUDA-vs-CPU encoder
     variants, timed = flash_variants(args.seed, dev, card)
+    mark("phase 9")
 
     # 10. the rest of the training step: (a) the Adam kernel against its
     # plain version at the 7B shapes; (b) the 7B-width step through the new
@@ -6081,20 +6599,24 @@ def main():
                             dev, card)
     o1 = o1_scaler_loop(args.seed, dev, card)
     surface_parity = tiny_surface_parity(args.seed, dev)
+    mark("phase 10")
 
     # 11. multi-step serving decode: phase 4's and 4b's cells at
     # decode_burst 8 (each program a CUDA graph), sync and async, in fresh
     # processes
     multi_step = multi_step_serving(args.seed, card, serving, serving13)
+    mark("phase 11")
 
     # 12. the prefix cache and chunked prefill: the 7B and 13B int8 cells,
     # each in a fresh process
     prefix = prefix_serving(args.seed, card)
+    mark("phase 12")
     p7, p13 = prefix["7b"]["launches"], prefix["13b_int8"]["launches"]
 
     # 13. speculative decoding: the 7B, 7B target-as-draft and 13B int8
     # cells, each in a fresh process
     spec = spec_serving(args.seed, card)
+    mark("phase 13")
     s7, s13 = dict(spec["7b"]["launches"]), spec["13b_int8"]["launches"]
     for name, n in spec["7b_target_draft"]["launches"].items():
         s7[name] = s7.get(name, 0) + n
@@ -6103,9 +6625,20 @@ def main():
     # FusedMultiTransformer, a tiny GPT on CUDA against the CPU, each cell
     # in a fresh process
     gpt = gpt_phase(args.seed, card)
+    mark("phase 14")
     g_serve = gpt["serve"]["launches"]
     g_train = gpt["train"]["launches"]
     g_fwd = g_train["flash_fwd"] + gpt["fmt"]["launches"]["flash_fwd"]
+
+    # 15. the data-parallel fine-tune: the uninterrupted run and the resume
+    # (each spawned at world 1 over NCCL), two gloo ranks on the card, the
+    # tensor checker; the kernels' launches on its main path (the full run
+    # and the resumed steps)
+    finetune = finetune_phase(args.seed, card)
+    mark("phase 15")
+    ft = {n: finetune["full"]["launches"][n]
+          + finetune["resume"]["resumed"]["launches"][n]
+          for n in finetune["full"]["launches"]}
 
     def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
@@ -6165,9 +6698,9 @@ def main():
             served["rms_norm"] + q8["rms_norm"] + q4["rms_norm"]
             + trained["rms_norm"] + g7["rms_norm"] + g13["rms_norm"]
             + p7["rms_norm"] + p13["rms_norm"] + s7["rms_norm"]
-            + s13["rms_norm"]),
+            + s13["rms_norm"] + ft["rms_norm"]),
         row("rms_norm_bwd", csrc + "rms_norm.cu", ref + "rms_norm.py:101",
-            rms_bwd[0], trained["rms_norm_bwd"]),
+            rms_bwd[0], trained["rms_norm_bwd"] + ft["rms_norm_bwd"]),
         row("paged_attention", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged[0],
             served["paged_attention"] + g7["paged_attention"]
@@ -6176,17 +6709,18 @@ def main():
         # the plain flash bodies: the training run's and phase 9 (d)'s
         row("flash_fwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:214", flash[0]["fwd"],
-            trained["flash_fwd"] + lse_launches["fwd_plain"] + g_fwd),
+            trained["flash_fwd"] + lse_launches["fwd_plain"] + g_fwd
+            + ft["flash_fwd"]),
         # the one backward kernel, under both sites it replaces: the dK/dV
         # pass and the dQ pass
         row("flash_bwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:473", flash[0]["bwd"],
             trained["flash_bwd"] + lse_launches["bwd_plain"]
-            + g_train["flash_bwd"]),
+            + g_train["flash_bwd"] + ft["flash_bwd"]),
         row("flash_bwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:534", flash[0]["bwd"],
             trained["flash_bwd"] + lse_launches["bwd_plain"]
-            + g_train["flash_bwd"]),
+            + g_train["flash_bwd"] + ft["flash_bwd"]),
         # the dequant matmul's two bf16 kernels: m > 16 and m <= 16
         row("quant_matmul_prefill", csrc + "quant_matmul.cu",
             ref + "quant_matmul.py:208",
@@ -6216,7 +6750,7 @@ def main():
                        "paddle_tpu/optimizer/optimizer.py:248",
                        adam_k["timed"],
                        trained["adam"] + surface["launches"]["adam"]
-                       + g_train["adam"]))
+                       + g_train["adam"] + ft["adam"]))
     # the variant bodies; launches: phase 9's counted runs, (b) (both
     # rates) and (c)'s timed steps
     counted = [run["launches"] for run in variants["varlen"]["runs"].values()]
@@ -6246,7 +6780,7 @@ def main():
                            adam=adam_k, surface=surface, o1_scaler=o1,
                            surface_parity=surface_parity,
                            multi_step=multi_step, prefix=prefix, spec=spec,
-                           gpt=gpt, kernels=kernels),
+                           gpt=gpt, finetune=finetune, kernels=kernels),
                       f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

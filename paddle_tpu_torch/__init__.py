@@ -11,12 +11,16 @@ tensor it launches the kernel or raises. `set_flags` and `get_flags` read
 and set the `FLAGS_*` registry (`framework.config`), which is seeded from
 the environment at import; `seed` restarts the global random stream
 (`framework.random`) that dropout and the layers' initial weights draw
-from.
+from. `save` and `load` write and read checkpoints that the JAX package
+reads and writes too (`framework.io`); `DataParallel` is
+`distributed.parallel`'s.
 """
 __version__ = "0.1.0"
 
+from .distributed.parallel import DataParallel
 from .framework.config import get_flags, set_flags
+from .framework.io import load, save
 from .framework.random import get_rng_state, get_seed, seed, set_rng_state
 
-__all__ = ["get_flags", "get_rng_state", "get_seed", "seed", "set_flags",
-           "set_rng_state"]
+__all__ = ["DataParallel", "get_flags", "get_rng_state", "get_seed", "load",
+           "save", "seed", "set_flags", "set_rng_state"]

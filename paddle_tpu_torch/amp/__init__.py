@@ -1,7 +1,7 @@
 """Mixed precision (counterpart of `paddle_tpu/amp/__init__.py`):
 `auto_cast` (the reference's op lists, `framework.amp_state`), `decorate`
-(O2: parameters cast in place), `GradScaler` and the dtype-support
-queries. `debugging` is not ported."""
+(O2: parameters cast in place), `GradScaler`, the dtype-support queries
+and `debugging` (the tensor checker, `check_numerics`, operator stats)."""
 from __future__ import annotations
 
 import contextlib
@@ -10,6 +10,7 @@ import torch
 
 from ..framework import amp_state as _state
 from ..framework.device import torch_dtype
+from . import debugging
 from .grad_scaler import GradScaler
 
 
@@ -69,5 +70,5 @@ def is_bfloat16_supported(device=None):
     return True
 
 
-__all__ = ["GradScaler", "amp_guard", "auto_cast", "decorate",
+__all__ = ["GradScaler", "amp_guard", "auto_cast", "debugging", "decorate",
            "is_bfloat16_supported", "is_float16_supported"]

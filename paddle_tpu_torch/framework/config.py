@@ -51,6 +51,15 @@ def get_flags(names):
     return {n: _FLAGS[n].value for n in names if n in _FLAGS}
 
 
+_WATCHERS: Dict[str, list] = {}
+
+
+def watch_flag(name: str, fn):
+    """Call `fn(value)` whenever `set_flags` sets `name` (the tensor
+    checker's mode follows FLAGS_check_nan_inf and FLAGS_benchmark)."""
+    _WATCHERS.setdefault(name, []).append(fn)
+
+
 def set_flags(flags: Dict[str, Any]):
     """Set flags by name; a string is parsed to the flag's type. An unknown
     name defines a new flag with that value."""
@@ -60,6 +69,8 @@ def set_flags(flags: Dict[str, Any]):
         else:
             _FLAGS[k].value = _parse(v, _FLAGS[k].type) \
                 if isinstance(v, str) else v
+        for fn in _WATCHERS.get(k, ()):
+            fn(_FLAGS[k].value)
 
 
 def get_flag(name: str, default=None):
@@ -67,6 +78,20 @@ def get_flag(name: str, default=None):
     return f.value if f is not None else default
 
 
+define_flag("FLAGS_check_nan_inf", False,
+            "Check every op's floating outputs for NaN/Inf and raise naming "
+            "the op (amp.debugging's tensor checker: a TorchDispatchMode "
+            "on the thread that turns the flag on).")
+define_flag("FLAGS_benchmark", False,
+            "Count every op dispatched (amp.debugging's operator stats).")
+define_flag("FLAGS_train_overlap", True,
+            "DataParallel.sync_gradients coalesces the gradients into "
+            "flat buckets of at most FLAGS_grad_bucket_mb MiB in reverse "
+            "parameter order, one all_reduce a bucket; off: one all_reduce "
+            "a parameter. The sums are the same either way.")
+define_flag("FLAGS_grad_bucket_mb", 25,
+            "The gradient buckets' size cap in MiB (<= 0: one parameter a "
+            "bucket).")
 define_flag("FLAGS_paged_grouped_kernel", False,
             "Route float decode attention over 16-token pages (tables a "
             "multiple of 8 pages wide, head_dim 128) to the grouped-fetch "

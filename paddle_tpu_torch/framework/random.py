@@ -2,7 +2,7 @@
 `paddle_tpu/framework/random.py`: `seed`, `get_seed`, `next_key`,
 `get_rng_state` / `set_rng_state`).
 
-One explicit host `torch.Generator`, seeded by `seed(n)`, feeds every
+One explicit host `torch.Generator`, seeded by `seed(s)`, feeds every
 random draw of the port that is not given its own generator:
 
 - `next_seed()` draws the int32 seed of one attention-dropout call (the
@@ -27,11 +27,11 @@ _generator = torch.Generator().manual_seed(_DEFAULT_SEED)
 _seed = _DEFAULT_SEED
 
 
-def seed(n: int) -> torch.Generator:
-    """`paddle.seed`: restart the global stream from `n`; returns its host
+def seed(s: int) -> torch.Generator:
+    """`paddle.seed`: restart the global stream from `s`; returns its host
     generator."""
     global _seed
-    _seed = int(n)
+    _seed = int(s)
     _generator.manual_seed(_seed)
     return _generator
 

@@ -9,6 +9,8 @@ import torch
 import torch.nn.functional as TF
 
 from ...nn import functional as F
+from ...nn.functional.rope import \
+    fused_rotary_position_embedding  # noqa: F401
 from .fused_linear import fused_linear, fused_matmul_bias  # noqa: F401
 from .fused_transformer import (  # noqa: F401
     fused_feedforward,

@@ -50,6 +50,31 @@ class _Params:
         return nn.Parameter(torch.full(shape, float(value), dtype=self.dtype,
                                        device=self.device))
 
+    def bias(self, attr, value, *shape):
+        """A bias (or norm) parameter of `value`, or None for attr False."""
+        return None if attr is False else self.const(value, *shape)
+
+
+def _attrs(layer, biases=(), **attrs):
+    """The layers' `*_attr` arguments (ParamAttr) take only None, and a
+    bias's also False (no such parameter): initialisers and names wait for
+    `nn/initializer`."""
+    for name, a in attrs.items():
+        if a is None or (a is False and name in biases):
+            continue
+        raise NotImplementedError(
+            f"{layer}({name}={a!r}): parameter attributes are not ported "
+            "(pass None" + (", or False for no bias)" if name in biases
+                            else ")"))
+
+
+def _single_layer(layer, nranks, ring_id):
+    if nranks != 1:
+        raise NotImplementedError(
+            f"{layer}(nranks={nranks}): tensor-parallel layers are not "
+            "ported (the single-card default is 1)")
+    _single_card(ring_id)
+
 
 def _single_card(ring_id):
     if ring_id != -1:
@@ -127,13 +152,40 @@ def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
 
 class FusedMultiHeadAttention(nn.Module):
     """Self-attention block over x [b, s, embed_dim] (`fused_multi_head_
-    attention` with the layer's parameters and training flag)."""
+    attention` with the layer's parameters and training flag). `kdim` and
+    `vdim` take None or `embed_dim` (self-attention), `need_weights` only
+    False, `nranks` only 1 and `ring_id` only -1 (one card); the `*_attr`
+    arguments take None, a bias's also False (no bias); `name` is
+    unused."""
 
     def __init__(self, embed_dim, num_heads, dropout_rate=0.5,
-                 attn_dropout_rate=0.5, normalize_before=False,
-                 epsilon=1e-5, dtype=torch.float32, device=None,
-                 generator=None):
+                 attn_dropout_rate=0.5, kdim=None, vdim=None,
+                 normalize_before=False, need_weights=False,
+                 qkv_weight_attr=None, qkv_bias_attr=None,
+                 linear_weight_attr=None, linear_bias_attr=None,
+                 pre_ln_scale_attr=None, pre_ln_bias_attr=None,
+                 ln_scale_attr=None, ln_bias_attr=None, epsilon=1e-5,
+                 nranks=1, ring_id=-1, name=None, dtype=torch.float32,
+                 device=None, generator=None):
         super().__init__()
+        for arg, dim in (("kdim", kdim), ("vdim", vdim)):
+            if dim not in (None, embed_dim):
+                raise NotImplementedError(
+                    f"FusedMultiHeadAttention({arg}={dim}): only "
+                    "self-attention (None or embed_dim) is ported")
+        if need_weights:
+            raise NotImplementedError("FusedMultiHeadAttention(need_weights="
+                                      "True): the weights are not returned")
+        _single_layer("FusedMultiHeadAttention", nranks, ring_id)
+        _attrs("FusedMultiHeadAttention",
+               biases=("qkv_bias_attr", "linear_bias_attr",
+                       "pre_ln_bias_attr", "ln_bias_attr"),
+               qkv_weight_attr=qkv_weight_attr, qkv_bias_attr=qkv_bias_attr,
+               linear_weight_attr=linear_weight_attr,
+               linear_bias_attr=linear_bias_attr,
+               pre_ln_scale_attr=pre_ln_scale_attr,
+               pre_ln_bias_attr=pre_ln_bias_attr,
+               ln_scale_attr=ln_scale_attr, ln_bias_attr=ln_bias_attr)
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -144,13 +196,14 @@ class FusedMultiHeadAttention(nn.Module):
         mk = _Params(dtype, device, generator)
         d = embed_dim
         self.qkv_weight = mk.xavier(3, num_heads, self.head_dim, d)
-        self.qkv_bias = mk.const(0.0, 3, num_heads, self.head_dim)
+        self.qkv_bias = mk.bias(qkv_bias_attr, 0.0, 3, num_heads,
+                                self.head_dim)
         self.linear_weight = mk.xavier(d, d)
-        self.linear_bias = mk.const(0.0, d)
+        self.linear_bias = mk.bias(linear_bias_attr, 0.0, d)
         self.pre_ln_scale = mk.const(1.0, d)
-        self.pre_ln_bias = mk.const(0.0, d)
+        self.pre_ln_bias = mk.bias(pre_ln_bias_attr, 0.0, d)
         self.ln_scale = mk.const(1.0, d)
-        self.ln_bias = mk.const(0.0, d)
+        self.ln_bias = mk.bias(ln_bias_attr, 0.0, d)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -170,13 +223,29 @@ class FusedMultiHeadAttention(nn.Module):
 
 class FusedFeedForward(nn.Module):
     """Feed-forward block over x [b, s, d_model] (`fused_feedforward` with
-    the layer's parameters and training flag)."""
+    the layer's parameters and training flag). The `*_attr` arguments take
+    None, a bias's also False (no bias); `nranks` only 1 and `ring_id`
+    only -1; `name` is unused."""
 
     def __init__(self, d_model, dim_feedforward, dropout_rate=0.1,
                  epsilon=1e-05, activation="relu", act_dropout_rate=None,
-                 normalize_before=False, dtype=torch.float32, device=None,
-                 generator=None):
+                 normalize_before=False, linear1_weight_attr=None,
+                 linear1_bias_attr=None, linear2_weight_attr=None,
+                 linear2_bias_attr=None, ln1_scale_attr=None,
+                 ln1_bias_attr=None, ln2_scale_attr=None, ln2_bias_attr=None,
+                 nranks=1, ring_id=-1, name=None, dtype=torch.float32,
+                 device=None, generator=None):
         super().__init__()
+        _single_layer("FusedFeedForward", nranks, ring_id)
+        _attrs("FusedFeedForward",
+               biases=("linear1_bias_attr", "linear2_bias_attr",
+                       "ln1_bias_attr", "ln2_bias_attr"),
+               linear1_weight_attr=linear1_weight_attr,
+               linear1_bias_attr=linear1_bias_attr,
+               linear2_weight_attr=linear2_weight_attr,
+               linear2_bias_attr=linear2_bias_attr,
+               ln1_scale_attr=ln1_scale_attr, ln1_bias_attr=ln1_bias_attr,
+               ln2_scale_attr=ln2_scale_attr, ln2_bias_attr=ln2_bias_attr)
         self.normalize_before = normalize_before
         self.activation = activation
         self.dropout_rate = dropout_rate
@@ -185,13 +254,13 @@ class FusedFeedForward(nn.Module):
         self._epsilon = epsilon
         mk = _Params(dtype, device, generator)
         self.linear1_weight = mk.xavier(d_model, dim_feedforward)
-        self.linear1_bias = mk.const(0.0, dim_feedforward)
+        self.linear1_bias = mk.bias(linear1_bias_attr, 0.0, dim_feedforward)
         self.linear2_weight = mk.xavier(dim_feedforward, d_model)
-        self.linear2_bias = mk.const(0.0, d_model)
+        self.linear2_bias = mk.bias(linear2_bias_attr, 0.0, d_model)
         self.ln1_scale = mk.const(1.0, d_model)
-        self.ln1_bias = mk.const(0.0, d_model)
+        self.ln1_bias = mk.bias(ln1_bias_attr, 0.0, d_model)
         self.ln2_scale = mk.const(1.0, d_model)
-        self.ln2_bias = mk.const(0.0, d_model)
+        self.ln2_bias = mk.bias(ln2_bias_attr, 0.0, d_model)
 
     def forward(self, src, cache=None):
         """`cache` is accepted and unused, as in the reference."""
@@ -205,27 +274,34 @@ class FusedFeedForward(nn.Module):
 
 class FusedTransformerEncoderLayer(nn.Module):
     """`FusedMultiHeadAttention` then `FusedFeedForward`; attention dropout
-    defaults to `dropout_rate`."""
+    defaults to `dropout_rate`. `weight_attr` takes only None and
+    `bias_attr` None or False (the sublayers without biases)."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout_rate=0.1,
                  activation="relu", attn_dropout_rate=None,
                  act_dropout_rate=None, normalize_before=False,
-                 dtype=torch.float32, device=None, generator=None):
+                 weight_attr=None, bias_attr=None, dtype=torch.float32,
+                 device=None, generator=None):
         super().__init__()
+        _attrs("FusedTransformerEncoderLayer", biases=("bias_attr",),
+               weight_attr=weight_attr, bias_attr=bias_attr)
         device = resolve_device(device)
         if generator is None:
             generator = _random.generator(device)
+        b = bias_attr
         self.fused_attn = FusedMultiHeadAttention(
             d_model, nhead, dropout_rate=dropout_rate,
             attn_dropout_rate=dropout_rate if attn_dropout_rate is None
             else attn_dropout_rate,
-            normalize_before=normalize_before, dtype=dtype, device=device,
-            generator=generator)
+            normalize_before=normalize_before, qkv_bias_attr=b,
+            linear_bias_attr=b, pre_ln_bias_attr=b, ln_bias_attr=b,
+            dtype=dtype, device=device, generator=generator)
         self.ffn = FusedFeedForward(
             d_model, dim_feedforward, dropout_rate=dropout_rate,
             activation=activation, act_dropout_rate=act_dropout_rate,
-            normalize_before=normalize_before, dtype=dtype, device=device,
-            generator=generator)
+            normalize_before=normalize_before, linear1_bias_attr=b,
+            linear2_bias_attr=b, ln1_bias_attr=b, ln2_bias_attr=b,
+            dtype=dtype, device=device, generator=generator)
 
     def forward(self, src, src_mask=None, cache=None):
         """`cache` is accepted and unused, as in the reference."""

@@ -534,6 +534,15 @@ class ServingEngine:
         if new:
             self._prefill_batch(new)
 
+    def refresh_params(self):
+        """Take the model's weights as they are now (after a live reload).
+        The engine keeps no copy: the eager programs and the captured
+        graphs read the model's own parameter tensors, which
+        `weights.load_llama_state` / `load_gpt_state` update in place, so
+        there is nothing to drop. A reload that rebinds a parameter to a
+        new tensor instead needs a new engine, since a captured graph keeps
+        the addresses it was captured with."""
+
     def warmup(self, prompt_len=None, sampling=None):
         """Build every decode program before traffic: one throwaway greedy
         request end to end (its prefill bucket and, at decode_burst > 1, a

@@ -1,6 +1,8 @@
-"""Counterpart of `paddle_tpu/io`: datasets, samplers and the in-process
-DataLoader with its device prefetcher."""
-from .dataloader import DataLoader, DevicePrefetcher, default_collate_fn
+"""Counterpart of `paddle_tpu/io`: datasets, samplers and the DataLoader
+(read-ahead thread or worker processes over shared memory) with its device
+prefetcher."""
+from .dataloader import (DataLoader, DevicePrefetcher, WorkerInfo,
+                         default_collate_fn, get_worker_info)
 from .dataset import (ChainDataset, ComposeDataset, ConcatDataset, Dataset,
                       IterableDataset, Subset, TensorDataset, random_split)
 from .sampler import (BatchSampler, DistributedBatchSampler, RandomSampler,
@@ -11,5 +13,5 @@ __all__ = ["BatchSampler", "ChainDataset", "ComposeDataset",
            "ConcatDataset", "DataLoader", "Dataset", "DevicePrefetcher",
            "DistributedBatchSampler", "IterableDataset", "RandomSampler",
            "Sampler", "SequenceSampler", "Subset", "SubsetRandomSampler",
-           "TensorDataset", "WeightedRandomSampler", "default_collate_fn",
-           "random_split"]
+           "TensorDataset", "WeightedRandomSampler", "WorkerInfo",
+           "default_collate_fn", "get_worker_info", "random_split"]

@@ -1,22 +1,31 @@
-"""DataLoader (counterpart of `paddle_tpu/io/dataloader.py`), in process.
+"""DataLoader (counterpart of `paddle_tpu/io/dataloader.py`).
 
 - `num_workers == 0`: each batch is read and collated when the loop asks
   for it; `num_workers > 0`: one thread reads and collates ahead into a
   queue of 2 * num_workers batches, as the reference's default transport
   does.
+- `num_workers > 0, multiprocess=True` (with `use_shared_memory`, a
+  batch sampler): worker processes, started by `mp_start_method`
+  (default "forkserver", as the reference's: a trainer that holds CUDA or
+  other threads must not fork), each reading every num_workers-th batch of
+  the sampler and sending it pickled through a shared-memory ring of its
+  own (`io/shm_queue.py` over `native/shm_ring.cc`). Workers collate into
+  numpy arrays and never touch CUDA; the trainer turns the arrays into
+  tensors (pinned when a card is present) and reads the rings in turn, so
+  batches arrive in sampler order. A worker's exception re-raises in the
+  trainer with its traceback; a worker that dies without finishing raises.
 - `default_collate_fn` stacks samples into CPU tensors, in pinned memory
   when a card is present (so a copy to the card can run asynchronously).
 - `DevicePrefetcher` stages batches on the card ahead of their use, from a
   thread, on a side CUDA stream; the consumer's stream waits on the
   batch's event and the staged tensors are `record_stream`ed to it.
-
-The reference's worker processes over shared memory (`multiprocess=True`,
-`io/shm_queue.py` over a native ring) are not ported: that raises.
 """
 from __future__ import annotations
 
+import pickle
 import queue
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -64,6 +73,195 @@ def default_collate_fn(batch):
     when CUDA is available), dicts and sequences field by field, strings
     kept as lists."""
     return _pin_all(_stack(batch))
+
+
+def numpy_collate_fn(batch):
+    """`default_collate_fn`'s structure with numpy leaves: the worker
+    processes' collate (the trainer makes the tensors)."""
+    sample = batch[0]
+    if isinstance(sample, torch.Tensor):
+        return np.stack([s.numpy() for s in batch])
+    if isinstance(sample, np.ndarray):
+        return np.stack(batch)
+    if isinstance(sample, (bool, int, float, np.number)):
+        return np.asarray(batch)
+    if isinstance(sample, (str, bytes)):
+        return batch
+    if isinstance(sample, dict):
+        return {k: numpy_collate_fn([d[k] for d in batch]) for k in sample}
+    if isinstance(sample, (list, tuple)):
+        return [numpy_collate_fn(list(group)) for group in zip(*batch)]
+    return batch
+
+
+def _tensorize(obj):
+    if isinstance(obj, np.ndarray) and obj.dtype != object:
+        return _pin(torch.from_numpy(obj))
+    if isinstance(obj, dict):
+        return {k: _tensorize(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_tensorize(v) for v in obj]
+    return obj
+
+
+class WorkerInfo:
+    """The identity of a DataLoader worker process (None in the trainer):
+    id, num_workers, dataset."""
+
+    def __init__(self, id, num_workers, dataset):  # noqa: A002
+        self.id = id
+        self.num_workers = num_workers
+        self.dataset = dataset
+
+    def __repr__(self):
+        return (f"WorkerInfo(id={self.id}, "
+                f"num_workers={self.num_workers})")
+
+
+_worker_info = None
+
+
+def get_worker_info():
+    """Inside a worker process its `WorkerInfo`; in the trainer None."""
+    return _worker_info
+
+
+_END = "__pdtpu_worker_end__"
+_ERR = "__pdtpu_worker_err__"
+
+
+def _mp_worker_loop(dataset, batch_lists, ring_name, collate, init_fn,
+                    worker_id, num_workers):
+    """A worker process: reads its batches, ships each pickled through its
+    ring, then the end mark; an exception ships its traceback."""
+    global _worker_info
+    from .shm_queue import ShmRing
+
+    ring = ShmRing(ring_name, open_existing=True)
+    try:
+        _worker_info = WorkerInfo(worker_id, num_workers, dataset)
+        if init_fn is not None:
+            init_fn(worker_id)
+        for indices in batch_lists:
+            ring.put(collate([dataset[i] for i in indices]))
+        ring.put(_END)
+    except KeyboardInterrupt:  # the trainer's teardown
+        pass
+    except Exception:  # noqa: BLE001 - re-raised in the trainer
+        import traceback
+
+        try:
+            ring.put((_ERR, worker_id, traceback.format_exc()), timeout=5)
+        except Exception:  # noqa: BLE001 - the trainer sees the exit
+            pass
+    finally:
+        ring.close()
+
+
+class _MultiProcessIter:
+    """Worker processes over shared-memory rings; batches in sampler
+    order (batch i comes from worker i % num_workers)."""
+
+    def __init__(self, loader):
+        import multiprocessing as mp
+
+        from .shm_queue import ShmRing, ring_name
+
+        self.loader = loader
+        W = loader.num_workers
+        batches = list(loader.batch_sampler)
+        per_worker = [batches[w::W] for w in range(W)]
+        collate = loader.collate_fn or numpy_collate_fn
+        self._wrap = loader.collate_fn is None
+        cap = max(8 << 20, loader.shm_capacity)
+        ctx = mp.get_context(loader.mp_start_method)
+        if loader.mp_start_method == "forkserver":
+            # the server imports the workers' module (and torch) once;
+            # each worker forks from it (no effect once it runs)
+            ctx.set_forkserver_preload([__name__])
+        self.rings, self.procs = [], []
+        try:
+            for w in range(W):
+                name = ring_name(f"pdtpu_dl{w}")
+                self.rings.append(ShmRing(name, capacity=cap))
+                p = ctx.Process(
+                    target=_mp_worker_loop,
+                    args=(loader.dataset, per_worker[w], name, collate,
+                          loader.worker_init_fn, w, W),
+                    daemon=True)
+                p.start()
+                self.procs.append(p)
+        except (pickle.PicklingError, AttributeError, TypeError) as e:
+            self.close()
+            raise RuntimeError(
+                "DataLoader worker start failed to pickle the dataset, "
+                "collate_fn or worker_init_fn (the 'forkserver' and 'spawn' "
+                "start methods send them by pickle): define them at module "
+                "level, or pass mp_start_method='fork' in a process that "
+                "holds no CUDA context or other threads") from e
+        self._next = 0
+        self._done = [False] * W
+
+    def _get(self, w):
+        """Worker w's next item; raises if the worker died without its end
+        mark, or after the loader's `timeout` seconds (0: no limit)."""
+        deadline = None if not self.loader.timeout else \
+            time.monotonic() + self.loader.timeout
+        while True:
+            try:
+                return self.rings[w].get(timeout=1.0)
+            except TimeoutError:
+                if not self.procs[w].is_alive():
+                    code = self.procs[w].exitcode
+                    self.close()
+                    raise RuntimeError(
+                        f"DataLoader worker {w} died (exit code {code}) "
+                        "without finishing its batches") from None
+                if deadline is not None and time.monotonic() > deadline:
+                    self.close()
+                    raise
+
+    def __next__(self):
+        while True:
+            if all(self._done):
+                raise StopIteration
+            w = self._next % len(self.rings)
+            if self._done[w]:
+                self._next += 1
+                continue
+            item = self._get(w)
+            if isinstance(item, str) and item == _END:
+                self._done[w] = True
+                self.procs[w].join()
+                self._next += 1
+                continue
+            if isinstance(item, tuple) and len(item) == 3 and \
+                    item[0] == _ERR:
+                self.close()
+                raise RuntimeError(
+                    f"DataLoader worker {item[1]} raised:\n{item[2]}")
+            self._next += 1
+            return _tensorize(item) if self._wrap else item
+
+    def __iter__(self):
+        return self
+
+    def close(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+        for p in self.procs:
+            p.join(timeout=2)
+        for r in self.rings:
+            r.close()
+        self.procs, self.rings = [], []
+        self._done = []
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 class _StageError:
@@ -251,9 +449,10 @@ class DevicePrefetcher:
 class DataLoader:
     """Batches of `dataset` through `batch_sampler` (or a `BatchSampler` of
     `batch_size`, `shuffle`, `drop_last`) and `collate_fn` (default
-    `default_collate_fn`). `num_workers > 0` reads ahead in one thread.
-    The reference's other arguments are accepted; `multiprocess=True`
-    (worker processes over shared memory) is not ported and raises."""
+    `default_collate_fn`). `num_workers > 0` reads ahead in one thread, or,
+    with `multiprocess=True`, in that many worker processes
+    (`mp_start_method`, default "forkserver"; rings of `shm_capacity`
+    bytes). The reference's other arguments are accepted."""
 
     def __init__(self, dataset, feed_list=None, places=None,
                  return_list=True, batch_sampler=None, batch_size=1,
@@ -262,11 +461,6 @@ class DataLoader:
                  use_shared_memory=True, timeout=0, worker_init_fn=None,
                  persistent_workers=False, multiprocess=False,
                  shm_capacity=64 << 20, mp_start_method=None):
-        if multiprocess:
-            raise NotImplementedError(
-                "DataLoader(multiprocess=True): worker processes over "
-                "shared memory are not ported; num_workers > 0 reads ahead "
-                "in a thread")
         self.dataset = dataset
         self.collate_fn = collate_fn
         self.num_workers = num_workers
@@ -274,8 +468,10 @@ class DataLoader:
         self.drop_last = drop_last
         self.use_shared_memory = use_shared_memory
         self.multiprocess = multiprocess
+        self.shm_capacity = shm_capacity
         self.timeout = timeout
         self.worker_init_fn = worker_init_fn
+        self.mp_start_method = mp_start_method or "forkserver"
         if batch_sampler is not None:
             self.batch_sampler = batch_sampler
             self.batch_size = getattr(batch_sampler, "batch_size",
@@ -288,10 +484,13 @@ class DataLoader:
             self.batch_sampler = None
 
     def __iter__(self):
+        if (self.multiprocess and self.num_workers > 0
+                and self.use_shared_memory
+                and self.batch_sampler is not None):
+            return _MultiProcessIter(self)
         return _Iter(self)
 
     def __len__(self):
         if self.batch_sampler is not None:
             return len(self.batch_sampler)
         raise TypeError("DataLoader over IterableDataset has no len()")
-

@@ -26,13 +26,39 @@ def rope_tables(seq_len, head_dim, base=10000.0, dtype=torch.float32,
     return freqs.cos().to(dtype), freqs.sin().to(dtype)
 
 
-def apply_rope(x, cos, sin):
-    """Rotate-half (neox) rope. x: [batch, seq, heads, head_dim]; cos/sin:
-    [seq, head_dim/2] or per-row [batch, seq, head_dim/2]."""
+def apply_rope(x, cos, sin, neox=True):
+    """x: [batch, seq, heads, head_dim]; cos/sin: [seq, head_dim/2] or
+    per-row [batch, seq, head_dim/2]. neox=True rotates halves; False
+    rotates interleaved (GPT-J style) pairs."""
     if cos.dim() == 3:
         c, s = cos[:, :, None, :], sin[:, :, None, :]
     else:
         c, s = cos[None, :, None, :], sin[None, :, None, :]
-    d2 = x.shape[-1] // 2
-    x1, x2 = x[..., :d2], x[..., d2:]
-    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    if neox:
+        d2 = x.shape[-1] // 2
+        x1, x2 = x[..., :d2], x[..., d2:]
+        return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    return torch.stack([x1 * c - x2 * s, x2 * c + x1 * s],
+                       dim=-1).reshape(x.shape)
+
+
+def fused_rotary_position_embedding(q, k, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style=True, name=None):
+    """`paddle.incubate.nn.functional.fused_rotary_position_embedding`:
+    q, k (and v, rotated too when given) [batch, seq, heads, head_dim].
+    Without `sin` / `cos` the tables are `rope_tables(seq, head_dim)` in
+    q's dtype; given ones are read as [seq, >= head_dim/2] (the first
+    head_dim/2 columns). `position_ids` is unused, as in the reference.
+    Returns (q, k, v or None)."""
+    seq, hd = q.shape[1], q.shape[3]
+    if cos is None or sin is None:
+        cos_t, sin_t = rope_tables(seq, hd, dtype=q.dtype, device=q.device)
+    else:
+        cos_t = cos.reshape(seq, -1)[:, :hd // 2]
+        sin_t = sin.reshape(seq, -1)[:, :hd // 2]
+    neox = bool(use_neox_rotary_style)
+    outs = [apply_rope(t, cos_t, sin_t, neox) for t in (q, k)]
+    return outs[0], outs[1], \
+        None if v is None else apply_rope(v, cos_t, sin_t, neox)

@@ -64,15 +64,19 @@ class Linear(nn.Module):
 class Embedding(nn.Module):
     """weight [num_embeddings, embedding_dim]; ids -> rows. The row
     `padding_idx` is zeroed here (the rest stay uninitialised) and reads 0
-    in the forward; `sparse` takes only its dense default False."""
+    in the forward; `sparse` takes only its dense default False and
+    `weight_attr` only None (until `nn/initializer`); `name` is unused."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
-                 sparse=False, name=None, *, dtype=torch.float32,
-                 device=None):
+                 sparse=False, weight_attr=None, name=None, *,
+                 dtype=torch.float32, device=None):
         super().__init__()
         if sparse:
             raise NotImplementedError("Embedding(sparse=True): sparse "
                                       "gradients are not ported")
+        if weight_attr is not None:
+            raise NotImplementedError("Embedding(weight_attr=...): parameter "
+                                      "attributes are not ported (pass None)")
         self._padding_idx = padding_idx
         self.weight = nn.Parameter(torch.empty(
             num_embeddings, embedding_dim, dtype=dtype, device=device))
@@ -135,9 +139,9 @@ class LayerNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    """`F.dropout` with the module's training flag."""
+    """`F.dropout` with the module's training flag; `name` is unused."""
 
-    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
         super().__init__()
         self.p, self.axis, self.mode = p, axis, mode
 

@@ -120,7 +120,7 @@ class WeightOnlyLinear(nn.Module):
     `Linear`."""
 
     def __init__(self, in_features, out_features, algo="weight_only_int8",
-                 group_size=-1, device=None):
+                 group_size=-1, name=None, device=None):
         super().__init__()
         _check_algo(algo, layer=True)
         groups, _ = _group_shape(in_features, group_size)

@@ -568,3 +568,114 @@ class Rprop(Optimizer):
 __all__ = ["ASGD", "Adadelta", "Adagrad", "Adam", "AdamW", "Adamax",
            "L1Decay", "L2Decay", "Lamb", "Momentum", "NAdam", "Optimizer",
            "RAdam", "RMSProp", "Rprop", "SGD"]
+
+
+class LBFGS(Optimizer):
+    """L-BFGS as the reference has it: the two-loop recursion over a
+    history of at most `history_size` (s, y) pairs, on the parameters
+    flattened to one f32 vector, driven by a closure that clears the
+    gradients, re-evaluates the loss and calls backward. Each step runs at
+    most `max_iter` iterations and `max_eval` closure calls (default
+    max_iter * 5 // 4), stopping when the largest gradient element is at
+    most `tolerance_grad` or the largest step element below
+    `tolerance_change`. `line_search_fn="strong_wolfe"` is the reference's
+    stand-in: backtracking from the learning rate, halving until the
+    Armijo decrease (c1 = 1e-4) holds, at most 20 tries; without it each
+    iteration steps by the learning rate. `weight_decay` and `grad_clip`
+    are accepted and unused, as in the reference."""
+
+    def __init__(self, learning_rate=1.0, max_iter=20, max_eval=None,
+                 tolerance_grad=1e-7, tolerance_change=1e-9,
+                 history_size=100, line_search_fn=None, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._max_iter = max_iter
+        self._max_eval = max_eval if max_eval is not None \
+            else max_iter * 5 // 4
+        self._tol_grad = tolerance_grad
+        self._tol_change = tolerance_change
+        self._history_size = history_size
+        self._line_search_fn = line_search_fn
+        self._s_hist: list = []
+        self._y_hist: list = []
+
+    def _flat_params(self):
+        return torch.cat([p.detach().float().reshape(-1)
+                          for p in self._parameter_list])
+
+    def _flat_grads(self):
+        return torch.cat([
+            (p.grad if p.grad is not None else torch.zeros_like(p))
+            .detach().float().reshape(-1) for p in self._parameter_list])
+
+    @torch.no_grad()
+    def _write_params(self, flat):
+        ofs = 0
+        for p in self._parameter_list:
+            n = p.numel()
+            p.copy_(flat[ofs:ofs + n].reshape(p.shape))
+            ofs += n
+
+    def step(self, closure=None):
+        if closure is None:
+            raise ValueError("LBFGS.step requires a closure that "
+                             "re-evaluates the loss and calls backward()")
+        loss = closure()
+        flat_g = self._flat_grads()
+        evals = 1
+        tiny = 1e-10
+        for _ in range(self._max_iter):
+            if float(flat_g.abs().max()) <= self._tol_grad:
+                break
+            # two-loop recursion
+            q = flat_g
+            alphas = []
+            for s, y in zip(reversed(self._s_hist), reversed(self._y_hist)):
+                rho = 1.0 / torch.clamp(torch.dot(y, s), min=tiny)
+                a = rho * torch.dot(s, q)
+                q = q - a * y
+                alphas.append((rho, a, s, y))
+            if self._y_hist:
+                y_last, s_last = self._y_hist[-1], self._s_hist[-1]
+                gamma = torch.dot(s_last, y_last) / torch.clamp(
+                    torch.dot(y_last, y_last), min=tiny)
+                r = gamma * q
+            else:
+                r = q
+            for rho, a, s, y in reversed(alphas):
+                b = rho * torch.dot(y, r)
+                r = r + (a - b) * s
+            direction = -r
+            x0 = self._flat_params()
+            t = float(self.get_lr())
+            if self._line_search_fn == "strong_wolfe":
+                f0 = float(loss.detach())
+                gd = float(torch.dot(flat_g, direction))
+                for _bt in range(20):
+                    self._write_params(x0 + t * direction)
+                    loss = closure()
+                    evals += 1
+                    if float(loss.detach()) <= f0 + 1e-4 * t * gd or \
+                            evals >= self._max_eval:
+                        break
+                    t *= 0.5
+            else:
+                self._write_params(x0 + t * direction)
+                loss = closure()
+                evals += 1
+            new_g = self._flat_grads()
+            s_vec = self._flat_params() - x0
+            y_vec = new_g - flat_g
+            if float(torch.dot(s_vec, y_vec)) > tiny:
+                self._s_hist.append(s_vec)
+                self._y_hist.append(y_vec)
+                if len(self._s_hist) > self._history_size:
+                    self._s_hist.pop(0)
+                    self._y_hist.pop(0)
+            flat_g = new_g
+            if float(s_vec.abs().max()) < self._tol_change:
+                break
+            if evals >= self._max_eval:
+                break
+        self._step_count += 1
+        return loss

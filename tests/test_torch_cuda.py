@@ -76,6 +76,12 @@ The Adam / AdamW update kernel is held bit for bit against its plain
 version, which rounds each f32 operation on its own in the kernel's order,
 in bf16 (with and without an f32 master weight), f16 and f32, aligned and
 one element off a 16-byte boundary, at whole vectors and odd tails.
+
+The fine-tune's surface on the card: a `decode_burst=8` engine serves
+reloaded weights after `refresh_params()` with the graphs it captured on
+the old ones; LBFGS on CUDA tensors matches the CPU (1e-4: f32 dot
+products in another order); `save` / `load` round-trip CUDA tensors bit
+for bit and an AdamW state resumes; the tensor checker names an op.
 """
 import math
 
@@ -102,7 +108,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.quant import (WeightOnlyLinear,
                                        quantize_for_inference,
                                        weight_quantize)
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import LBFGS, AdamW
 from paddle_tpu_torch.weights import (fused_encoder_state_from_numpy,
                                       fused_encoder_state_to_numpy,
                                       gpt_state_to_numpy,
@@ -1883,3 +1889,105 @@ def test_gpt_fused_multi_transformer_decode_on_cuda(cuda_device):
             err = (out[:, 0] - full[:, t]).norm(dim=-1) \
                 / full[:, t].norm(dim=-1)
             assert err.max().item() <= _FLASH_TOL[torch.float32], t
+
+
+@pytest.mark.cuda
+def test_refresh_params_under_burst_graphs_serves_new_weights(cuda_device):
+    """A `decode_burst=8` engine whose graphs were captured on the old
+    weights serves the reloaded ones after `refresh_params()`: its greedy
+    streams equal a fresh engine's on the new weights (the graphs read
+    the parameters that `load_llama_state` copies into)."""
+    cfg = LlamaConfig.tiny(vocab=256, hidden=256, layers=2, heads=2, seq=64)
+    old = LlamaForCausalLM(cfg, device=cuda_device, seed=0)
+    new = LlamaForCausalLM(cfg, device=cuda_device, seed=1)
+    kw = dict(max_batch=2, max_seq_len=64, page_size=8, decode_burst=8,
+              device=cuda_device)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 256, (n,)) for n in (5, 11)]
+
+    def serve(e):
+        rids = [e.add_request(p, max_new_tokens=17) for p in prompts]
+        done = {f.request_id: f.output_ids.tolist() for f in e.run()}
+        return [done[r] for r in rids]
+
+    eng = ServingEngine(old, **kw)
+    eng.warmup()
+    before = serve(eng)
+    captured = eng.graph_captures
+    load_llama_state(old, llama_state_to_numpy(new))
+    eng.refresh_params()
+    after = serve(eng)
+    assert eng.graph_captures == captured  # the same graphs replayed
+    assert after == serve(ServingEngine(new, **kw)) and after != before
+
+
+@pytest.mark.cuda
+def test_lbfgs_on_cuda_matches_cpu(cuda_device):
+    rng = np.random.RandomState(0)
+    w0 = rng.randn(8, 8).astype(np.float32) * 0.3
+    x = rng.randn(16, 8).astype(np.float32)
+    y = rng.randn(16, 8).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        w = torch.nn.Parameter(torch.from_numpy(w0.copy()).to(dev))
+        opt = LBFGS(learning_rate=0.2, max_iter=6, parameters=[w])
+        tx, ty = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+        def closure():
+            opt.clear_grad()
+            loss = ((tx @ w - ty) ** 2).mean()
+            loss.backward()
+            return loss
+
+        loss = opt.step(closure)
+        assert loss.device.type == torch.device(dev).type
+        out.append(w.detach().cpu().numpy())
+    np.testing.assert_allclose(out[1], out[0], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_save_and_load_of_cuda_tensors(cuda_device, tmp_path):
+    """A state on the card round-trips bit for bit (bf16 and f32, with
+    requires_grad), lands on the card by default and on the CPU when asked;
+    an AdamW state with CUDA moments resumes."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.nn.Parameter(torch.randn(64, 32, device=cuda_device,
+                                       generator=g).bfloat16())
+    st = {"w": w, "f": torch.randn(7, device=cuda_device, generator=g),
+          "ids": torch.arange(5, device=cuda_device)}
+    path = str(tmp_path / "s.pd")
+    ptt.save(st, path)
+    got = ptt.load(path)
+    for k, v in st.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k], v.detach())
+    assert got["w"].requires_grad and not got["f"].requires_grad
+    assert ptt.load(path, device="cpu")["w"].device.type == "cpu"
+    opt = AdamW(learning_rate=1e-3, parameters=[w])
+    w.grad = torch.randn_like(w)
+    opt.step()
+    ptt.save(opt.state_dict(), path)
+    fresh = AdamW(learning_rate=1e-3, parameters=[w])
+    fresh.set_state_dict(ptt.load(path))
+    a, b = opt.state_dict(), fresh.state_dict()
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], torch.Tensor):
+            assert torch.equal(a[k], b[k]) and b[k].is_cuda
+
+
+@pytest.mark.cuda
+def test_tensor_checker_names_an_op_on_cuda(cuda_device):
+    from paddle_tpu_torch.amp import debugging
+
+    x = torch.tensor([0.0, 1.0], device=cuda_device)
+    debugging.enable_tensor_checker()
+    try:
+        with pytest.raises(RuntimeError, match="aten.log"):
+            torch.log(x)
+        torch.exp(x)  # finite: passes
+    finally:
+        debugging.disable_tensor_checker()
+    assert debugging.check_numerics(x) is x
+    with pytest.raises(FloatingPointError):
+        debugging.check_numerics(torch.log(x))

@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_loader_data
 from paddle_tpu import io as jio
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch.models import build_train_step, prefetch_batches
@@ -123,11 +124,66 @@ def test_device_prefetcher_stages_in_order_and_reraises(depth):
     pf.close()
 
 
-def test_multiprocess_loader_is_not_ported():
-    ids, _ = _data()
-    with pytest.raises(NotImplementedError):
-        tio.DataLoader(tio.TensorDataset([ids]), num_workers=2,
-                       multiprocess=True)
+@pytest.mark.parametrize("num_workers", [1, 2, 3])
+def test_worker_processes_yield_the_reference_batches_in_order(num_workers):
+    """`multiprocess=True` (forkserver workers over shared-memory rings)
+    gives the reference's in-process batches, value for value and in
+    sampler order (the reference's own worker transport is a slow test
+    there, `tests/test_native.py:232`)."""
+    ds = torch_loader_data.Pairs()
+    np.random.seed(3)
+    want = [[np.asarray(t._data) for t in b]
+            for b in jio.DataLoader(ds, batch_size=5, shuffle=True)]
+    np.random.seed(3)
+    got = list(tio.DataLoader(ds, batch_size=5, shuffle=True,
+                              num_workers=num_workers, multiprocess=True,
+                              timeout=60))
+    assert len(got) == len(want) == 8
+    for (gx, gi), (wx, wi) in zip(got, want):
+        assert isinstance(gx, torch.Tensor) and gx.dtype == torch.float32
+        np.testing.assert_array_equal(gx.numpy(), wx)
+        np.testing.assert_array_equal(gi.numpy(), wi)
+
+
+def test_a_worker_error_reraises_in_the_trainer():
+    dl = tio.DataLoader(torch_loader_data.Poison(), batch_size=2,
+                        num_workers=2, multiprocess=True, timeout=60)
+    with pytest.raises(RuntimeError, match="poison sample"):
+        list(dl)
+
+
+def test_a_worker_that_dies_raises_instead_of_hanging():
+    dl = tio.DataLoader(torch_loader_data.Dies(), batch_size=2,
+                        num_workers=2, multiprocess=True, timeout=60)
+    with pytest.raises(RuntimeError, match="died"):
+        list(dl)
+
+
+def test_workers_know_themselves_and_take_every_nth_batch():
+    """Batch i comes from worker i % num_workers (`get_worker_info`); a
+    user collate_fn runs in the worker and its output is kept as it is;
+    another start method ("spawn") is honoured."""
+    got = list(tio.DataLoader(torch_loader_data.WhoReads(), batch_size=3,
+                              num_workers=2, multiprocess=True,
+                              timeout=60))
+    assert [b["worker"].tolist() for b in got] == [[0] * 3, [1] * 3] * 2
+    assert [b["i"].tolist() for b in got] == [[0, 1, 2], [3, 4, 5],
+                                              [6, 7, 8], [9, 10, 11]]
+    assert all(b["n"].tolist() == [2] * 3 for b in got)
+    assert tio.get_worker_info() is None
+    sums = list(tio.DataLoader(torch_loader_data.Pairs(), batch_size=10,
+                               num_workers=2, multiprocess=True, timeout=60,
+                               collate_fn=torch_loader_data.sum_collate,
+                               mp_start_method="spawn"))
+    assert sums == [45.0, 145.0, 245.0, 345.0]
+
+
+def test_worker_batches_stage_through_the_device_prefetcher():
+    loader = tio.DataLoader(torch_loader_data.Pairs(), batch_size=8,
+                            num_workers=2, multiprocess=True, timeout=60)
+    pf = tio.DevicePrefetcher(iter(loader), lambda b: b[1] * 2, depth=2)
+    assert [t.tolist() for t in pf] == [[2 * i for i in range(s, s + 8)]
+                                        for s in range(0, 40, 8)]
 
 
 def test_read_ahead_thread_reraises_a_dataset_error():
