@@ -50,15 +50,16 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    before and checked just after; then a profiled warm 2500-token prefill
    and a profiled window of batch-8 decode steps give the device's busy
    time and idle share;
-4b. LLaMA-2-13B's widths at 20 of its 40 layers (hidden 5120; the
-   script's time limit, `SERVE13_LAYERS`), bf16, random weights from
-   --seed, PyTorch's default initialisation): the last-position logits of
-   a 64-token prompt in f32, in bf16, and after weight-only int8
-   quantization (lm_head kept in bf16): int8 and bf16 agree within 0.05 of
-   the largest, the bf16-f32 distance is read beside it; then served with an int8 paged KV cache, the same
-   traffic as phase 4, the launch counts reset just before and checked
-   just after (dequant matmul 140 and RMSNorm 41 per forward, int8 paged
-   decode 20 per decode step, the float paged kernel none), a profiled
+4b. LLaMA-2-13B's widths at 10 of its 40 layers (hidden 5120; the
+   script's time limit, `SERVE13_LAYERS`; phases 12-13 build it at 20),
+   bf16, random weights from --seed, PyTorch's default initialisation):
+   the last-position logits of a 64-token prompt in f32, in bf16, and
+   after weight-only int8 quantization (lm_head kept in bf16): int8 and
+   bf16 agree within 0.05 of the largest, the bf16-f32 distance is read
+   beside it; then served with an int8 paged KV cache, the same traffic as
+   phase 4, the launch counts reset just before and checked just after
+   (dequant matmul 7L and RMSNorm 2L + 1 per forward, int8 paged decode L
+   per decode step, the float paged kernel none), a profiled
    prefill (its device time and the dequant matmul's share) and decode
    window; then a fresh bf16 13B model quantized to int4
    in groups of 128 serves the 10 requests with the same checks;
@@ -128,11 +129,12 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    unchanged) and halves the scale; (d) a tiny f32 LLaMA (head_dim 128)
    through (b)'s options on CUDA and on the CPU from the same weights;
 11. multi-step serving decode, each cell and mode in a process of its own
-   (`--phase11 CELL`, started by this script): phase 4's model and traffic
-   on an engine with decode_burst=8 (each (greedy or mixed, 1 or 8 steps)
-   program a captured CUDA graph, all four captured by `warmup`),
+   (`--phase11 CELL`, started by this script): phase 4's model cut to
+   `CELL7_LAYERS` (16) of its 32 layers (the script's time) and phase 4's
+   traffic on an engine with decode_burst=8 (each (greedy or mixed, 1 or 8
+   steps) program a captured CUDA graph, all four captured by `warmup`),
    synchronous and then with async_depth=2: every greedy stream equal to
-   phase 4's eager one, sampled streams in the vocabulary and of their
+   its eager engine's, sampled streams in the vocabulary and of their
    length, no capture during traffic, no token emitted past a finish, the
    launches inside the graphs counted from the profiler's device records
    (paged decode L a step, RMSNorm 2L + 1 a forward) over the 10 requests
@@ -144,7 +146,8 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    KV) the same way, held to its own eager engine's streams, the dequant
    matmul's decode kernel counted inside the graphs (7L a step);
 12. the prefix cache and chunked prefill, each cell in a process of its
-   own (`--phase12 CELL`): (a) phase 4's LLaMA-2-7B on phase 11's engine
+   own (`--phase12 CELL`): (a) LLaMA-2-7B's widths at `CELL7_LAYERS` (16)
+   of its 32 layers (the script's time) on phase 11's engine
    (decode_burst 8, graphs captured by warmup) with `prefix_cache=1,
    prefill_chunk=512`, with `prefix_cache=1` alone and with both off, each
    serving the same greedy traffic: 12 requests that share a 1024-token
@@ -165,10 +168,11 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    4b's LLaMA-2-13B (int8 weights, int8 KV) on the traffic's first 4
    requests, chunked engine against the off engine, under the same holds;
 13. speculative decoding, each cell in a process of its own (`--phase13
-   CELL`): (a) phase 4's LLaMA-2-7B on phase 11's engine (decode_burst 8)
-   over phase 4's 10 requests made greedy, off (the burst graphs alone)
-   and with spec_decode=4: shallow exit at the default 16 layers, at the
-   full 32 (the target's own decode: acceptance at least 0.9), a 2-layer
+   CELL`): (a) LLaMA-2-7B's widths at `CELL7_LAYERS` (16) of its 32 layers
+   on phase 11's engine (decode_burst 8) over phase 4's 10 requests made
+   greedy, off (the burst graphs alone) and with spec_decode=4: shallow
+   exit at the default half depth, at the full depth (the target's own
+   decode: acceptance at least 0.9), a 2-layer
    draft model at the same widths (weights from --seed + 1), and (in a
    process of its own, `7b_target_draft`, beside its own off engine) the
    target as its own draft model (acceptance at least 0.9), each
@@ -239,7 +243,33 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    to per-parameter bit for bit, a bucket slice one element off caught;
    (c) in (a)'s second process, the tensor checker names the op of a NaN
    planted in a layer's output, and `check_numerics` passes clean logits.
-   `--phase15` runs the build and this phase alone.
+   `--phase15` runs the build and this phase alone;
+16. tensor parallelism through fleet: `fleet.init` (mp_degree),
+   `distributed_model` (TensorParallel), `distributed_optimizer`
+   (HybridParallelOptimizer) and `build_train_step`, every rank on the one
+   card over gloo (named by PADDLE_DISTRI_BACKEND; NCCL refuses two ranks a
+   card), each cell held against this process training the same full
+   model at tp 1 from the same seeded weights (drawn on the card per
+   tensor, then sliced to each rank's shard): (a) GPT-3 1.3B (24 layers,
+   hidden 2048, 16 heads of 128, vocab 50304; BASELINE.json config 3) at
+   TP 4, bf16 O2, AdamW(1e-4, f32 masters) under ClipGradByGlobalNorm(1.0),
+   batch 1 x 2048, 3 steps through the chunked vocab-parallel loss; (b)
+   LLaMA-2-7B widths at 2 layers at TP 2, batch 1 x 4096, 2 steps, the
+   dense head into ParallelCrossEntropy, with sequence parallelism where
+   gloo carries all_gather and reduce_scatter on CUDA tensors (probed
+   first). Held: every rank's losses bit for bit equal, each step's loss
+   within `TP_LOSS_TOL` of tp 1's, the probe parameters' gradients at the
+   initial weights within `TP_GRAD_BAR` of their norm and their f32
+   masters after the last step within `TP_PARAM_BAR` of their update
+   (replicated ones equal on every rank), the global norm the clip scales
+   by within 1e-3, the flash, RMSNorm and Adam launches a rank exact; in
+   (a) three planted faults caught (a `_c_identity` without its backward
+   all_reduce in layer 0 and a vocab-parallel cross entropy at the wrong
+   rank offset, each held by its loss and gradients; the program's
+   `HybridParallelClipGrad` taking every parameter for a shard, which
+   counts the replicated gradients 4 times); step ms, all_reduces and
+   bytes a step (four ranks on one card: no tensor-parallel speed).
+   `--phase16` runs the build and this phase alone.
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -1794,16 +1824,28 @@ def init_default(model, seed, dev):
                 p.uniform_(-b, b, generator=gen)
 
 
-# LLaMA-2-13B's widths at 20 of its 40 layers wherever the script builds
-# it (phases 4b, 11, 12 and 13): the 1200 s limit. With phase 15 added, a
-# run at full depth took 1247 s on one H100 and 1073 s on another; each 13B
-# process's work scales with its depth.
-SERVE13_LAYERS = 20
+# The depths the 1200 s limit leaves: LLaMA-2-13B's widths at 10 of its 40
+# layers in phases 4b and 11 and at 20 in phases 12's and 13's cells (at
+# 10 the phase-12 cell's chunked stream differed from the dense one at a
+# top-2 gap of 0.0156 against its near-tie bar of 0.0132, on one H100),
+# and LLaMA-2-7B's at 16 of 32 in phases 11's, 12's and 13's cells, each
+# held to its own eager or off engine. With phase 16 the whole script took
+# 1029-1184 s on H100s where the script without it had taken 802-1247 s;
+# the cells' host-bound work scales with their depth (PERF.md, §5).
+SERVE13_LAYERS = 10
+CELL13_LAYERS = 20
+CELL7_LAYERS = 16
 
 
-def llama13b_cut():
+def llama13b_cut(layers=SERVE13_LAYERS):
     cfg = LlamaConfig.llama2_13b()
-    cfg.num_hidden_layers = SERVE13_LAYERS
+    cfg.num_hidden_layers = layers
+    return cfg
+
+
+def llama7b_cell():
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = CELL7_LAYERS
     return cfg
 
 
@@ -3944,16 +3986,20 @@ CELLS = ("7b_sync", "7b_async", "13b_int8_sync", "13b_int8_async")
 
 def multi_step_cell(cell, seed, dev, card, io):
     """One phase-11 cell and mode, in a process of its own: the 7B cell
-    (phase 4's model, LLaMA-2-7B bf16 from `seed`, against phase 4's
-    streams in io/phase4.json) or the 13B int8 cell (LLaMA-2-13B bf16 by
-    `init_default`, int8 weights but lm_head, int8 KV; its eager engine's
-    streams, taken by the sync process into io/eager13.json, are what
-    both modes are held to); phase 4's traffic on a burst engine,
+    (phase 4's model, LLaMA-2-7B bf16 from `seed`, at `CELL7_LAYERS` of
+    its layers) or the 13B int8 cell (LLaMA-2-13B bf16 by `init_default`,
+    int8 weights but lm_head, int8 KV); each cell's eager engine's
+    streams, taken by its sync process into io/eager_<cell>.json, are what
+    both modes are held to; phase 4's traffic on a burst engine,
     synchronous or with async_depth, then a profiled burst window; the 7B
     sync process also runs the planted faults."""
     big = cell.startswith("13b")
     mode = cell.rsplit("_", 1)[1]
-    cfg = llama13b_cut() if big else LlamaConfig.llama2_7b()
+    if big:
+        cfg = llama13b_cut()
+    else:
+        cfg = LlamaConfig.llama2_7b()
+        cfg.num_hidden_layers = CELL7_LAYERS
     cfg.dtype = "bfloat16"
     model = LlamaForCausalLM(cfg, device=dev, seed=seed)
     kv = None
@@ -3966,10 +4012,10 @@ def multi_step_cell(cell, seed, dev, card, io):
         torch.cuda.empty_cache()
     rng = np.random.RandomState(seed)
     long_req, batch = traffic(rng, cfg.vocab_size)
-    res = dict(card=card)
-    if not big or mode == "async":
-        with open(os.path.join(io, "eager13.json" if big
-                               else "phase4.json")) as f:
+    res = dict(card=card, layers=cfg.num_hidden_layers)
+    eager_file = os.path.join(io, f"eager_{cell.rsplit('_', 1)[0]}.json")
+    if mode == "async":
+        with open(eager_file) as f:
             want = json.load(f)
     else:
         eng = ServingEngine(model, max_batch=8, max_seq_len=4096,
@@ -3978,7 +4024,7 @@ def multi_step_cell(cell, seed, dev, card, io):
         want = res["eager"] = dict(lone_2500=drive(eng, long_req),
                                    mixed_10=drive(eng, batch))
         del eng
-        with open(os.path.join(io, "eager13.json"), "w") as f:
+        with open(eager_file, "w") as f:
             json.dump(want, f)
     tag = f"{'13B int8' if big else '7B'} {mode}"
     eng, secs = burst_engine(model, seed, dev, kv,
@@ -3999,15 +4045,13 @@ def multi_step_cell(cell, seed, dev, card, io):
 def multi_step_serving(seed, card, serving, serving13):
     """Phase 11: each cell and mode in a process of its own (late in a long
     run the profiler drops device records, and the launch counts here come
-    from them), fed phase 4's streams; prints the burst decode beside
-    phase 4's and 4b's single-step numbers."""
+    from them), each cell's sync process taking its eager engine's streams
+    for both modes; prints the burst decode beside phase 4's and 4b's
+    single-step numbers."""
     gc.collect()
     torch.cuda.empty_cache()
     res = {}
     with tempfile.TemporaryDirectory(prefix="phase11-") as io:
-        with open(os.path.join(io, "phase4.json"), "w") as f:
-            json.dump({k: {"streams": serving[k]["streams"]}
-                       for k in ("lone_2500", "mixed_10")}, f)
         for cell in CELLS:
             t0 = time.perf_counter()
             proc = subprocess.run(
@@ -4018,7 +4062,9 @@ def multi_step_serving(seed, card, serving, serving13):
             with open(os.path.join(io, f"{cell}.json")) as f:
                 res[cell] = json.load(f)
             res[cell]["process_s"] = time.perf_counter() - t0
-    for cell, base in (("7b", serving), ("13b_int8", serving13)):
+    for cell, base, depth in (
+            ("7b", serving, LlamaConfig.llama2_7b().num_hidden_layers),
+            ("13b_int8", serving13, SERVE13_LAYERS)):
         eager = base["decode_profile"]
         line = ", ".join(
             f"{mode} {p['wall_ms_per_token_step']:.3f} ms/token-step wall "
@@ -4027,8 +4073,10 @@ def multi_step_serving(seed, card, serving, serving13):
             f"{p['idle_share']:.3f}, {p['device_ops_per_token_step']:.0f} "
             f"ops" for mode in ("sync", "async")
             for p in (res[f"{cell}_{mode}"]["profile"],))
-        log(f"phase 11 {cell}: batch-8 decode at context ~1000, burst "
-            f"{BURST} graphs: {line}; phase 4's eager step: "
+        log(f"phase 11 {cell} ({res[f'{cell}_sync']['layers']} layers): "
+            f"batch-8 decode at context ~1000, burst {BURST} graphs: {line}; "
+            f"phase {'4b' if cell.startswith('13b') else '4'}'s eager step "
+            f"({depth} layers): "
             f"{eager['wall_ms_per_step']:.3f} ms wall, "
             f"{eager['device_busy_ms_per_step']:.3f} device, idle "
             f"{eager['idle_share']:.3f}, {eager['device_ops_per_step']:.0f} "
@@ -4501,14 +4549,15 @@ def prefix_faults(model, system, rng, seed, dev, card):
 
 
 def prefix_cell(cell, seed, dev, card):
-    """One phase-12 cell in a process of its own. 7b: LLaMA-2-7B bf16
-    from `seed` through the three engines (PREFIX_ENGINES), each the whole
+    """One phase-12 cell in a process of its own. 7b: LLaMA-2-7B's widths
+    at `CELL7_LAYERS` layers, bf16 from `seed`, through the three engines
+    (PREFIX_ENGINES), each the whole
     traffic, then the streams judged against the off engine's and the
     planted faults. 13b_int8: LLaMA-2-13B (`init_default`, int8 weights
     but lm_head, int8 KV) through the chunked engine and the off engine on
-    the traffic's first 4 requests, at `SERVE13_LAYERS` layers."""
+    the traffic's first 4 requests, at `CELL13_LAYERS` layers."""
     big = cell == "13b_int8"
-    cfg = llama13b_cut() if big else LlamaConfig.llama2_7b()
+    cfg = llama13b_cut(CELL13_LAYERS) if big else llama7b_cell()
     cfg.dtype = "bfloat16"
     model = LlamaForCausalLM(cfg, device=dev, seed=seed)
     kv = None
@@ -5079,10 +5128,10 @@ def spec_fault_caught(run, what):
 
 
 def spec_cell(cell, seed, dev, card):
-    """One phase-13 cell in a process of its own. 7b: LLaMA-2-7B bf16 from
-    `seed` (phase 4's model) through phase 11's engine (decode_burst 8):
-    off (the burst graphs alone), shallow (spec_decode 4, the default 16
-    draft layers), full depth (32 draft layers: the target's own decode),
+    """One phase-13 cell in a process of its own. 7b: LLaMA-2-7B's widths
+    at `CELL7_LAYERS` layers, bf16 from `seed`, through phase 11's engine
+    (decode_burst 8): off (the burst graphs alone), shallow (spec_decode 4,
+    the default half-depth draft), full depth (the target's own decode),
     a 2-layer draft model at the same widths (weights from seed + 1), each
     over phase 4's 10 requests made greedy and a profiled window; then the
     shallow engine with the prefix cache and chunks of 512 over phase 12's
@@ -5097,7 +5146,7 @@ def spec_cell(cell, seed, dev, card):
     gap within the verify-vs-decode distance times its largest
     |logit|)."""
     big = cell == "13b_int8"
-    cfg = llama13b_cut() if big else LlamaConfig.llama2_7b()
+    cfg = llama13b_cut(CELL13_LAYERS) if big else llama7b_cell()
     cfg.dtype = "bfloat16"
     model = LlamaForCausalLM(cfg, device=dev, seed=seed)
     kv = None
@@ -6251,6 +6300,573 @@ def finetune_phase(seed, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: tensor parallelism through fleet
+# ---------------------------------------------------------------------------
+
+# (a) GPT-3 1.3B (BASELINE.json config 3) at TP 4 and (b) LLaMA-2-7B's
+# widths at TP 2, each against one process training the same full model
+# at tp 1. Every rank runs on the one card over gloo (NCCL refuses two
+# ranks a card), so the times are no tensor-parallel speed.
+TP_CELLS = {
+    # (a) the loss: the chunked vocab-parallel cross entropy (8 chunks)
+    "gpt": dict(tp=4, layers=24, seq=2048, steps=3, ce_chunks=8),
+    # (b) the loss: the dense head's f32 logits into ParallelCrossEntropy
+    "llama": dict(tp=2, layers=2, seq=4096, steps=2, ce_chunks=0),
+}
+TP_LR = 1e-4
+TP_CLIP_TOL = 1e-3
+TP_DATA_VOCAB = 1000   # the batch's ids, as phase 15's (a falling loss)
+
+
+def tp_probes(cell, layers):
+    """The parameters whose f32 master weights phase 16 compares: split by
+    columns, by rows, and replicated (the last two below layer 0's
+    attention, where the planted `_c_identity` fault acts)."""
+    if cell == "gpt":
+        return ("gpt.layers.0.attn.qkv_proj.weight",
+                f"gpt.layers.{layers - 1}.mlp.fc_out.weight",
+                "gpt.embed_positions.weight", "gpt.layers.0.ln_1.weight")
+    return ("llama.layers.0.self_attn.q_proj.weight",
+            f"llama.layers.{layers - 1}.mlp.down_proj.weight",
+            "llama.layers.0.input_layernorm.weight", "llama.norm.weight")
+
+
+def tp_full_shapes(cell, cfg):
+    from paddle_tpu_torch import weights as W
+
+    return W.gpt_param_shapes(cfg) if cell == "gpt" \
+        else W.llama_param_shapes(cfg)
+
+
+@torch.no_grad()
+def tp_load(model, cell, seed):
+    """Seeded weights, identical in every process: each full tensor drawn
+    on the card from a generator of its own (the seed and the tensor's
+    position among the full model's names), then this rank's shard copied
+    in (`weights.tp_split_axis`). 2-D weights N(0, 0.02), biases
+    N(0, 0.02), norm weights 1 + N(0, 0.1)."""
+    from paddle_tpu_torch import weights as W
+
+    shapes = tp_full_shapes(cell, model.config)
+    order = {n: i for i, n in enumerate(sorted(shapes))}
+    tp, rank = model.tp_degree, model.tp_rank
+    for name, p in model.named_parameters():
+        full = shapes[name]
+        gen = torch.Generator(device=p.device).manual_seed(
+            seed * 100003 + order[name])
+        w = torch.randn(full, generator=gen, device=p.device)
+        if len(full) == 1 and not name.endswith(".bias"):
+            w = 1.0 + 0.1 * w
+        else:
+            w = 0.02 * w
+        ax = W.tp_split_axis(name)
+        if ax is not None and tp > 1:
+            n = full[ax] // tp
+            w = w.narrow(ax, rank * n, n)
+        p.copy_(w)
+        del w
+
+
+def tp_model(cell, seed, dev, sp=False):
+    """The cell's model (LLaMA with sequence parallelism at `sp`), bf16
+    O2, its seeded weights loaded."""
+    c = TP_CELLS[cell]
+    if cell == "gpt":
+        cfg = GPTConfig.gpt3_1p3b()
+        cfg.dtype = "bfloat16"
+        cfg.num_hidden_layers = c["layers"]
+        cfg.fused_ce_chunks = c["ce_chunks"]
+        model = GPTForCausalLM(cfg, device=dev, seed=seed)
+    else:
+        cfg = LlamaConfig.llama2_7b()
+        cfg.dtype = "bfloat16"
+        cfg.num_hidden_layers = c["layers"]
+        cfg.fused_ce_chunks = c["ce_chunks"]
+        cfg.sequence_parallel = sp
+        model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    tp_load(model, cell, seed)
+    return model
+
+
+def tp_batch(cell, seed, dev):
+    rng = np.random.RandomState(seed + 16)
+    ids = rng.randint(0, TP_DATA_VOCAB, (1, TP_CELLS[cell]["seq"] + 1))
+    ids = torch.from_numpy(ids).to(dev)
+    return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+
+def tp_masters(opt, model, names):
+    """{name: the f32 master weight (a CPU copy)} of `names`."""
+    inner = getattr(opt, "_inner_opt", opt)
+    pos = {id(p): i for i, p in enumerate(inner._parameter_list)}
+    params = dict(model.named_parameters())
+    return {n: inner._state_for(pos[id(params[n])])["master_weight"]
+            .detach().cpu().clone() for n in names}
+
+
+class _IdentityNoReduce(torch.autograd.Function):
+    """The planted fault: `_c_identity` without its backward all_reduce."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def plant_identity_without_reduce(lin):
+    """Layer 0's fused QKV projection takes its input through
+    `_IdentityNoReduce`; returns the undo."""
+    def forward(x):
+        return F.linear(_IdentityNoReduce.apply(x), lin.weight, lin.bias)
+
+    lin.forward = forward
+    return lambda: delattr(lin, "forward")
+
+
+def clip_every_square_summed(clip):
+    """The planted clip fault: the program's `HybridParallelClipGrad`
+    taking every parameter for a shard, so its norm sums every gradient's
+    squares over "tp" and counts the replicated ones tp times."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        HybridParallelClipGrad
+
+    class EverySquareSummed(HybridParallelClipGrad):
+        @staticmethod
+        def _sharded(p):
+            return True
+
+    return EverySquareSummed(clip)
+
+
+def plant_ce_offset(model):
+    """The vocab-parallel cross entropy (the chunked one reads the loss
+    layer's rank too) offsets its labels by the next rank's first vocab
+    row; returns the undo."""
+    ce = model.loss_fn
+    ce.rank = (ce.rank + 1) % ce.world_size
+    return lambda: setattr(ce, "rank", model.tp_rank)
+
+
+def tp_loss(model, out, y):
+    """The cell's loss of the model's output: the chunked cross entropy
+    of the hidden states, or the mean one of f32 logits."""
+    if model.config.fused_ce_chunks:
+        return model.compute_loss_hidden(out, y)
+    return model.compute_loss(out.float(), y)
+
+
+def gloo_cuda_ops(dev):
+    """Which collectives gloo runs on CUDA tensors in this torch, each
+    tried once ({op: True or gloo's error})."""
+    from paddle_tpu_torch import distributed as D
+
+    x = torch.ones(256, device=dev)
+    tries = {
+        "all_reduce_sum": lambda: D.all_reduce(x.clone()),
+        "all_reduce_max": lambda: D.all_reduce(x.clone(), op="max"),
+        "broadcast": lambda: D.broadcast(x.clone(), src=0),
+        "all_gather": lambda: D.all_gather([], x),
+        "reduce_scatter": lambda: D.reduce_scatter(
+            torch.empty(128, device=dev), list(x.clone().chunk(2))),
+    }
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = True
+        except RuntimeError as e:  # gloo's own error for an op it lacks
+            out[name] = str(e).splitlines()[0][:120]
+    return out
+
+
+def tp_cell(cell, seed, dev, faults=False, sp=False):
+    """One process's part of phase 16 for `cell`: the whole model at tp 1,
+    or this rank's shards through fleet.distributed_model /
+    distributed_optimizer (the mesh exists). At the initial weights: the
+    loss, the probes' gradients and the clip's global norm (and, at tp >
+    1, that of the clip fault that counts the replicated gradients tp
+    times); then `steps` steps of build_train_step with the kernels'
+    launches, the all_reduces and their bytes counted, and the probe
+    masters after the last; with `faults`, two planted faults, each a
+    forward and backward from the initial weights (loss and gradients)."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+
+    c = TP_CELLS[cell]
+    res = {}
+    t0 = time.perf_counter()
+    model = tp_model(cell, seed, dev, sp)
+    tp = model.tp_degree
+    names = tp_probes(cell, c["layers"])
+    dm = fleet.distributed_model(model) if tp > 1 else model
+    if tp > 1:  # before the clip's backward (the step would register them)
+        fleet.utils.register_sequence_parallel_allreduce_hooks(model)
+
+    def make_opt():
+        inner = AdamW(learning_rate=TP_LR, parameters=dm.parameters(),
+                      multi_precision=True,
+                      grad_clip=ClipGradByGlobalNorm(1.0))
+        return fleet.distributed_optimizer(inner) if tp > 1 else inner
+
+    x, y = tp_batch(cell, seed, dev)
+    params = dict(model.named_parameters())
+    res["init"] = {n: params[n].detach().float().cpu() for n in names}
+    torch.cuda.synchronize()
+    res["setup_s"] = time.perf_counter() - t0
+    fused = bool(model.config.fused_ce_chunks)
+
+    def backward():
+        """One forward and backward from the current weights, as the step
+        computes them; returns (the loss, the probes' gradients)."""
+        loss = tp_loss(model, model.forward_hidden(x) if fused else dm(x),
+                       y)
+        loss.backward()
+        return float(loss), {n: params[n].grad.float().cpu()
+                             for n in names}
+
+    res["loss0"], res["grads0"] = backward()
+    pg = [(p, p.grad) for p in model.parameters()]
+    opt = make_opt()
+    # the norm the clip scales the gradients by (its `_params_norm`)
+    res["clip_norm"] = float(opt._grad_clip._params_norm(pg))
+    if tp > 1:
+        res["clip_fault_norm"] = float(clip_every_square_summed(
+            opt._grad_clip)._params_norm(pg))
+    del pg
+    opt.clear_grad()
+    # the chunked loss is build_train_step's own; (b) casts the logits
+    criterion = None if fused else (  # noqa: E731
+        lambda out, lab: tp_loss(model, out, lab))
+    step = build_train_step(dm, opt, criterion=criterion)
+    torch.cuda.synchronize()
+    for _, mod, attr in TRAIN_COUNTERS:
+        setattr(mod, attr, 0)
+    # the collectives of the steps: calls and the bytes a rank puts in
+    # (all_reduce: its tensor; all_gather: its shard; reduce_scatter: its
+    # whole input)
+    comm = {op: {"calls": 0, "bytes": 0}
+            for op in ("all_reduce", "all_gather", "reduce_scatter")}
+    plain = {op: getattr(C, op) for op in comm}
+
+    def counting(op):
+        def call(*a, **kw):
+            put = a[1] if op != "all_reduce" else [a[0]]
+            if op == "all_gather":
+                put = [put]
+            n = sum(x.numel() * x.element_size() for x in put)
+            comm[op]["calls"] += 1
+            comm[op]["bytes"] += n
+            return plain[op](*a, **kw)
+        return call
+
+    for op in comm:
+        setattr(C, op, counting(op))
+    losses, ms = [], []
+    try:
+        for s in range(c["steps"]):
+            t1 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        for op, fn in plain.items():
+            setattr(C, op, fn)
+    res["launches"] = {n: getattr(mod, a) for n, mod, a in TRAIN_COUNTERS}
+    res.update(losses=losses, step_ms=ms, n_tensors=len(list(
+        model.parameters())), collectives=comm,
+        probes=tp_masters(opt, model, names))
+    if faults:
+        undo_layer0 = model.gpt.layers[0].attn.qkv_proj \
+            if cell == "gpt" else model.llama.layers[0].self_attn.q_proj
+        res["faults"] = {}
+        tp_load(model, cell, seed)
+        for fault, plant in (
+                ("identity_without_reduce",
+                 lambda: plant_identity_without_reduce(undo_layer0)),
+                ("ce_rank_offset", lambda: plant_ce_offset(model))):
+            opt.clear_grad()
+            undo = plant()
+            try:
+                loss, grads = backward()
+            finally:
+                undo()
+            res["faults"][fault] = dict(loss=loss, grads=grads)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, dm, opt, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank_proc(io, seed, cell):
+    """One rank of phase 16's `cell`: gloo over CUDA tensors on the one
+    card (PADDLE_DISTRI_BACKEND), fleet.init at the cell's mp_degree."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet
+
+    t0 = time.perf_counter()
+    D.init_parallel_env()
+    dev = D.env.device()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = dict(dp_degree=1, mp_degree=TP_CELLS[cell]["tp"])
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    res = dict(rank=D.get_rank(), tp_rank=hcg.get_model_parallel_rank(),
+               backend=D.get_backend(), device=str(dev),
+               mesh=tuple(D.get_mesh().mesh_dim_names))
+    sp = False
+    if cell == "llama":
+        # sequence parallelism needs all_gather and reduce_scatter on the
+        # card's tensors, which gloo may lack
+        res["gloo_cuda_ops"] = ops = gloo_cuda_ops(dev)
+        sp = ops["all_gather"] is True and ops["reduce_scatter"] is True
+    res["sequence_parallel"] = sp
+    res.update(tp_cell(cell, seed, dev, faults=cell == "gpt", sp=sp))
+    res["process_s"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(io, f"tp_{cell}_rank{res['rank']}.pt"))
+    D.destroy_process_group()
+
+
+def tp_dist(got, want, init):
+    """||got - want|| over the update ||want - init|| (f32 masters)."""
+    moved = float((want - init).norm())
+    check(moved > 0, "phase 16: a probe parameter did not move")
+    return float((got - want).norm()) / moved
+
+
+def tp_grad_dist(got, want):
+    """||got - want|| over ||want|| (gradients)."""
+    size = float(want.norm())
+    check(size > 0, "phase 16: a probe parameter took no gradient")
+    return float((got - want).norm()) / size
+
+
+def tp_gathered(parts):
+    """{name: the full probe} from every rank's {name: shard} (rank
+    order), and "_replicated_equal": whether each replicated probe is
+    equal on every rank, bit for bit."""
+    from paddle_tpu_torch import weights as W
+
+    out = {"_replicated_equal": True}
+    for n in parts[0]:
+        ps = [p[n] for p in parts]
+        ax = W.tp_split_axis(n)
+        if ax is None:
+            out["_replicated_equal"] &= all(torch.equal(p, ps[0])
+                                            for p in ps[1:])
+            out[n] = ps[0]
+        else:
+            out[n] = torch.cat(ps, dim=ax)
+    return out
+
+
+# the bars, set from phase 16's probe runs (PERF.md, §6): bf16 partial
+# products summed over the ranks by the all_reduces against one f32
+# accumulation rounded once. The losses; the probes' gradients at the
+# initial weights against the tp = 1 run's, over their norm (where the
+# planted faults are held: no optimizer between); the f32 masters after
+# the last step against the tp = 1 run's, over their update (Adam's first
+# steps turn rounding-level gradient differences into sign flips of small
+# elements, so this bar stands above the gradients')
+TP_LOSS_TOL = 2e-3
+TP_GRAD_BAR = 0.05
+TP_PARAM_BAR = 0.12
+
+
+def tp_phase(seed, card):
+    """Phase 16: the tp = 1 runs in this process, then (b) 2 ranks and (a)
+    4 ranks on the card over gloo, each a group of its own; every reading
+    is logged before any check."""
+    from paddle_tpu_torch.distributed import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {}
+    t_all = time.perf_counter()
+    ref = {}
+    for cell in TP_CELLS:
+        t0 = time.perf_counter()
+        ref[cell] = tp_cell(cell, seed, torch.device("cuda", 0))
+        res[f"{cell}_ref_s"] = time.perf_counter() - t0
+    ranks = {}
+    with tempfile.TemporaryDirectory(prefix="phase16-") as io:
+        prev = os.environ.get("PADDLE_DISTRI_BACKEND")
+        os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
+        try:
+            for cell in ("llama", "gpt"):
+                t0 = time.perf_counter()
+                n = TP_CELLS[cell]["tp"]
+                spawn(tp_rank_proc, args=(io, seed, cell), nprocs=n,
+                      timeout=400)
+                res[f"{cell}_spawn_s"] = time.perf_counter() - t0
+                ranks[cell] = [torch.load(os.path.join(
+                    io, f"tp_{cell}_rank{r}.pt")) for r in range(n)]
+        finally:
+            if prev is None:
+                os.environ.pop("PADDLE_DISTRI_BACKEND")
+            else:
+                os.environ["PADDLE_DISTRI_BACKEND"] = prev
+    res["processes_s"] = time.perf_counter() - t_all
+    labels = {"gpt": "(a) GPT-3 1.3B", "llama": "(b) LLaMA-2-7B widths"}
+    for cell in ("gpt", "llama"):
+        res[cell] = tp_readings(cell, labels[cell], ranks[cell], ref[cell],
+                                card)
+    ops = ranks["llama"][0]["gloo_cuda_ops"]
+    sp = ranks["llama"][0]["sequence_parallel"]
+    res["gloo_cuda_ops"], res["sequence_parallel"] = ops, sp
+    log(f"phase 16 (b): gloo on CUDA tensors in torch {torch.__version__}: "
+        f"{ops}; " + ("(b) ran with sequence parallelism on (LLaMA's "
+                      "config.sequence_parallel)" if sp else
+                      "sequence parallelism needs all_gather and "
+                      "reduce_scatter, so it is held on the CPU only "
+                      "(tests/test_torch_sequence_parallel.py, "
+                      "test_torch_tensor_parallel.py)") + f" [{card}]")
+    log(f"phase 16: {res['processes_s']:.1f} s (tp 1 in this process: (a) "
+        f"{res['gpt_ref_s']:.1f}, (b) {res['llama_ref_s']:.1f}; spawns: "
+        f"(b) {res['llama_spawn_s']:.1f}, (a) {res['gpt_spawn_s']:.1f}) "
+        f"[{card}]")
+    for cell in ("gpt", "llama"):
+        tp_verify(cell, labels[cell], res[cell])
+    res["launches"] = {}
+    for cell in ("gpt", "llama"):
+        for name, v in res[cell]["launches"].items():
+            res["launches"][name] = res["launches"].get(name, 0) + v
+    return res
+
+
+def tp_readings(cell, label, ranks, ref, card):
+    """Phase 16's readings of one cell, the ranks against the tp = 1 run,
+    logged (the checks are `tp_verify`'s)."""
+    c = TP_CELLS[cell]
+    L, tp = c["layers"], c["tp"]
+    init = ref["init"]
+    losses = ranks[0]["losses"]
+    out = dict(label=cell, losses=losses, ref_losses=ref["losses"])
+    out["ranks"] = [dict(rank=r["rank"], backend=r["backend"],
+                         device=r["device"], mesh=r["mesh"],
+                         losses=r["losses"], launches=r["launches"],
+                         n_tensors=r["n_tensors"]) for r in ranks]
+    out["loss_rel"] = rel = [abs(a - b) / abs(b)
+                             for a, b in zip(losses, ref["losses"])]
+    got = tp_gathered([r["probes"] for r in ranks])
+    out["replicated_equal"] = got.pop("_replicated_equal")
+    out["probe_dist"] = dist = {n: tp_dist(got[n], ref["probes"][n], init[n])
+                                for n in got}
+    g0 = tp_gathered([r["grads0"] for r in ranks])
+    out["grads_replicated_equal"] = g0.pop("_replicated_equal")
+    out["grad_dist"] = gdist = {n: tp_grad_dist(g0[n], ref["grads0"][n])
+                                for n in g0}
+    out["clip_rel"] = clip_rel = [
+        abs(r["clip_norm"] - ref["clip_norm"]) / ref["clip_norm"]
+        for r in ranks]
+    ms = [float(np.median(r["step_ms"])) for r in ranks]
+    comm = {op: v for op, v in ranks[0]["collectives"].items()
+            if v["calls"]}
+    sp = " with sequence parallelism" if ranks[0].get("sequence_parallel") \
+        else ""
+    log(f"phase 16 {label}: TP {tp}{sp} over gloo, {L} layers, bf16 O2, "
+        f"AdamW({TP_LR}, f32 masters) under ClipGradByGlobalNorm(1.0), "
+        f"batch 1 x {c['seq']}, {c['steps']} steps: losses {losses} (every "
+        f"rank's equal: {all(r['losses'] == losses for r in ranks)}) "
+        f"against tp 1's {ref['losses']}: rel {[f'{v:.3g}' for v in rel]} "
+        f"(bar {TP_LOSS_TOL}); probe gradients at the initial weights over "
+        f"their norm " + ", ".join(f"{n} {d:.3g}" for n, d in gdist.items())
+        + f" (bar {TP_GRAD_BAR}); probe masters after step {c['steps']} over "
+        f"their update " + ", ".join(f"{n} {d:.3g}" for n, d in dist.items())
+        + f" (bar {TP_PARAM_BAR}; replicated ones equal on every rank: "
+        f"{out['replicated_equal']}); the clip's global norm "
+        f"{ranks[0]['clip_norm']:.6g} against {ref['clip_norm']:.6g}: rel "
+        f"{max(clip_rel):.3g} (bar {TP_CLIP_TOL}) [{card}]")
+    log(f"phase 16 {label}: {tp} ranks on ONE card over gloo (host-staged "
+        f"collectives; no tensor-parallel speed): step ms p50 by rank "
+        f"{[round(v, 1) for v in ms]} (tp 1 on the card: "
+        f"{float(np.median(ref['step_ms'])):.1f}); a step a rank: "
+        + ", ".join(f"{op} {v['calls'] / c['steps']:.0f} calls, "
+                    f"{v['bytes'] / c['steps'] / 2 ** 20:.1f} MiB"
+                    for op, v in comm.items()) + "; "
+        f"launches a rank {ranks[0]['launches']}; setup "
+        f"{[round(r['setup_s'], 1) for r in ranks]} s, processes "
+        f"{[round(r['process_s'], 1) for r in ranks]} s, peak "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB [{card}]")
+    faults = {"clip_counts_replicated_tp_times": min(
+        abs(r["clip_fault_norm"] - ref["clip_norm"]) / ref["clip_norm"]
+        for r in ranks)}
+    if "faults" in ranks[0]:
+        for fault in ranks[0]["faults"]:
+            fg = tp_gathered([r["faults"][fault]["grads"] for r in ranks])
+            fg.pop("_replicated_equal")
+            faults[fault] = dict(
+                loss_rel=abs(ranks[0]["faults"][fault]["loss"]
+                             - ref["loss0"]) / abs(ref["loss0"]),
+                grad_dist=max(tp_grad_dist(fg[n], ref["grads0"][n])
+                              for n in fg))
+        log(f"phase 16 {label}: planted faults, each a forward and "
+            f"backward from the initial weights (each must exceed a bar): "
+            f"{faults} [{card}]")
+    out.update(faults=faults, step_ms_p50=ms, ref_step_ms=ref["step_ms"],
+               collectives=comm, launches={
+                   n: sum(r["launches"][n] for r in ranks)
+                   for n in ranks[0]["launches"]})
+    return out
+
+
+def tp_verify(cell, label, out):
+    """Phase 16's checks of one cell's readings (`tp_readings`)."""
+    c = TP_CELLS[cell]
+    L, tp = c["layers"], c["tp"]
+    losses = out["losses"]
+    for r in out["ranks"]:
+        check(r["backend"] == "gloo" and r["device"].startswith("cuda")
+              and r["mesh"] == ("tp",),
+              f"phase 16 {label}: rank {r['rank']} on {r['device']} over "
+              f"{r['backend']}, mesh {r['mesh']}")
+        check(r["losses"] == losses,
+              f"phase 16 {label}: rank {r['rank']}'s losses {r['losses']} "
+              f"differ from rank 0's {losses}")
+        want = {"flash_fwd": L, "flash_bwd": L, "adam": r["n_tensors"],
+                "rms_norm": 2 * L + 1 if cell == "llama" else 0,
+                "rms_norm_bwd": 2 * L + 1 if cell == "llama" else 0}
+        for name, n in want.items():
+            check(r["launches"][name] == n * c["steps"],
+                  f"phase 16 {label}: rank {r['rank']}: {name} launched "
+                  f"{r['launches'][name]} times in {c['steps']} steps, "
+                  f"expected {n * c['steps']}")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"phase 16 {label}: losses {losses}")
+    check(max(out["loss_rel"]) <= TP_LOSS_TOL,
+          f"phase 16 {label}: losses {losses} against {out['ref_losses']}")
+    check(out["replicated_equal"],
+          f"phase 16 {label}: a replicated probe differs across ranks")
+    check(out["grads_replicated_equal"],
+          f"phase 16 {label}: a replicated probe's gradient differs across "
+          f"ranks")
+    check(max(out["grad_dist"].values()) <= TP_GRAD_BAR,
+          f"phase 16 {label}: probe gradients {out['grad_dist']}")
+    check(max(out["probe_dist"].values()) <= TP_PARAM_BAR,
+          f"phase 16 {label}: probe masters {out['probe_dist']}")
+    check(max(out["clip_rel"]) <= TP_CLIP_TOL,
+          f"phase 16 {label}: clip norms off by {out['clip_rel']}")
+    f = out["faults"]
+    if "ce_rank_offset" not in f:
+        # (LLaMA's replicated gradients, its norms' weights alone, are too
+        # small a share of the norm for the clip fault to show there)
+        return
+    check(f["clip_counts_replicated_tp_times"] > TP_CLIP_TOL,
+          f"phase 16 {label}: a clip counting the replicated gradients "
+          f"{tp} times passed: {f['clip_counts_replicated_tp_times']}")
+    for fault in ("identity_without_reduce", "ce_rank_offset"):
+        check(f[fault]["loss_rel"] > TP_LOSS_TOL
+              or f[fault]["grad_dist"] > TP_GRAD_BAR,
+              f"phase 16 {label}: the planted fault {fault} passed: "
+              f"{f[fault]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6270,6 +6886,9 @@ def main():
                     "script starts one process a cell itself)")
     ap.add_argument("--phase15", action="store_true",
                     help="build the kernels and run phase 15 alone (a probe: "
+                    "no kernels line, no final line)")
+    ap.add_argument("--phase16", action="store_true",
+                    help="build the kernels and run phase 16 alone (a probe: "
                     "no kernels line, no final line)")
     ap.add_argument("--io", default=None,
                     help="with --phase11: the directory of the streams it "
@@ -6336,6 +6955,9 @@ def main():
 
     if args.phase15:
         finetune_phase(args.seed, card)
+        return 0
+    if args.phase16:
+        tp_phase(args.seed, card)
         return 0
 
     # 3. kernels against their plain versions at the serving and training
@@ -6640,6 +7262,14 @@ def main():
           + finetune["resume"]["resumed"]["launches"][n]
           for n in finetune["full"]["launches"]}
 
+    # 16. tensor parallelism through fleet: GPT-3 1.3B at TP 4 and
+    # LLaMA-2-7B's widths at TP 2 over gloo on the card, against tp 1; the
+    # kernels' launches of every rank's counted steps
+    tensor_parallel = tp_phase(args.seed, card)
+    mark("phase 16")
+    # phases 15 and 16's launches, one sum a kernel
+    par = {n: ft[n] + tensor_parallel["launches"][n] for n in ft}
+
     def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -6698,9 +7328,9 @@ def main():
             served["rms_norm"] + q8["rms_norm"] + q4["rms_norm"]
             + trained["rms_norm"] + g7["rms_norm"] + g13["rms_norm"]
             + p7["rms_norm"] + p13["rms_norm"] + s7["rms_norm"]
-            + s13["rms_norm"] + ft["rms_norm"]),
+            + s13["rms_norm"] + par["rms_norm"]),
         row("rms_norm_bwd", csrc + "rms_norm.cu", ref + "rms_norm.py:101",
-            rms_bwd[0], trained["rms_norm_bwd"] + ft["rms_norm_bwd"]),
+            rms_bwd[0], trained["rms_norm_bwd"] + par["rms_norm_bwd"]),
         row("paged_attention", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged[0],
             served["paged_attention"] + g7["paged_attention"]
@@ -6710,17 +7340,17 @@ def main():
         row("flash_fwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:214", flash[0]["fwd"],
             trained["flash_fwd"] + lse_launches["fwd_plain"] + g_fwd
-            + ft["flash_fwd"]),
+            + par["flash_fwd"]),
         # the one backward kernel, under both sites it replaces: the dK/dV
         # pass and the dQ pass
         row("flash_bwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:473", flash[0]["bwd"],
             trained["flash_bwd"] + lse_launches["bwd_plain"]
-            + g_train["flash_bwd"] + ft["flash_bwd"]),
+            + g_train["flash_bwd"] + par["flash_bwd"]),
         row("flash_bwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:534", flash[0]["bwd"],
             trained["flash_bwd"] + lse_launches["bwd_plain"]
-            + g_train["flash_bwd"] + ft["flash_bwd"]),
+            + g_train["flash_bwd"] + par["flash_bwd"]),
         # the dequant matmul's two bf16 kernels: m > 16 and m <= 16
         row("quant_matmul_prefill", csrc + "quant_matmul.cu",
             ref + "quant_matmul.py:208",
@@ -6750,7 +7380,7 @@ def main():
                        "paddle_tpu/optimizer/optimizer.py:248",
                        adam_k["timed"],
                        trained["adam"] + surface["launches"]["adam"]
-                       + g_train["adam"] + ft["adam"]))
+                       + g_train["adam"] + par["adam"]))
     # the variant bodies; launches: phase 9's counted runs, (b) (both
     # rates) and (c)'s timed steps
     counted = [run["launches"] for run in variants["varlen"]["runs"].values()]
@@ -6780,7 +7410,8 @@ def main():
                            adam=adam_k, surface=surface, o1_scaler=o1,
                            surface_parity=surface_parity,
                            multi_step=multi_step, prefix=prefix, spec=spec,
-                           gpt=gpt, finetune=finetune, kernels=kernels),
+                           gpt=gpt, finetune=finetune,
+                           tensor_parallel=tensor_parallel, kernels=kernels),
                       f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

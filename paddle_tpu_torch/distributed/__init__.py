@@ -3,8 +3,10 @@ process a rank over `torch.distributed`: the collectives (`collective`,
 `stream`), the environment (`env`: `init_parallel_env` over NCCL or
 gloo), `spawn`, the rendezvous store (`store.TCPStore`), the mesh
 (`mesh`: a DeviceMesh with an axis's group per dimension,
-`CommunicateTopology`, `HybridCommunicateGroup`) and `DataParallel` with
-its gradient buckets. Of `fleet`, only `utils.recompute` is ported."""
+`CommunicateTopology`, `HybridCommunicateGroup`), `DataParallel` with
+its gradient buckets, and `fleet` (`fleet.init` / `distributed_model` /
+`distributed_optimizer`, the tensor-parallel layers, sequence parallelism,
+`TensorParallel`, `HybridParallelOptimizer`, recompute)."""
 from . import collective  # noqa: F401
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401

@@ -48,12 +48,15 @@ class DataParallel(nn.Module):
             self._broadcast_state()
 
     @torch.no_grad()
-    def _broadcast_state(self):
-        pg, _ = _collective._resolve("dp")
+    def _broadcast_state(self, axis="dp", skip=None):
+        """Broadcast each parameter and buffer of the layers from `axis`'s
+        first rank, but those `skip(tensor)` is true of."""
+        pg, _ = _collective._resolve(axis)
         src = _collective._global_rank(pg, 0)
         for t in list(self._layers.parameters()) + \
                 list(self._layers.buffers()):
-            _collective.broadcast(t, src=src, group="dp")
+            if skip is None or not skip(t):
+                _collective.broadcast(t, src=src, group=axis)
 
     def forward(self, *inputs, **kwargs):
         return self._layers(*inputs, **kwargs)
@@ -76,24 +79,18 @@ class DataParallel(nn.Module):
         params = list(self._layers.parameters())
         if (not _config.get_flag("FLAGS_train_overlap", True)
                 or self._bucket_fallback):
-            self._sync_per_param(params)
+            average_gradients(params)
             return
         sig = _membership_signature(params)
         if self._bucket_signature is None:
             self._bucket_signature = sig
         elif sig != self._bucket_signature:
             self._bucket_fallback = True
-            self._sync_per_param(params)
+            average_gradients(params)
             return
         for bucket in _bucket_grads(
                 [p for p in params if p.grad is not None]):
             _reduce_bucket(bucket)
-
-    def _sync_per_param(self, params):
-        for p in params:
-            if p.grad is not None:
-                _collective.all_reduce(p.grad, op=_collective.ReduceOp.AVG,
-                                       group="dp")
 
     def state_dict(self, *args, **kwargs):
         return self._layers.state_dict(*args, **kwargs)
@@ -108,6 +105,18 @@ class DataParallel(nn.Module):
 
     def apply_collective_grads(self):
         self.sync_gradients()
+
+
+@torch.no_grad()
+def average_gradients(params):
+    """Average the gradient of each of `params` over the mesh's "dp" axis,
+    one all_reduce a parameter; nothing at dp 1 (or without a mesh)."""
+    if _mesh.axis_size("dp") <= 1:
+        return
+    for p in params:
+        if p.grad is not None:
+            _collective.all_reduce(p.grad, op=_collective.ReduceOp.AVG,
+                                   group="dp")
 
 
 def _membership_signature(params):

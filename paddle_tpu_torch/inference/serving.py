@@ -275,6 +275,11 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"ServingEngine({name}={given[name]!r}): {item} is not "
                     f"ported")
+        if getattr(model, "tp_degree", 1) > 1:
+            raise NotImplementedError(
+                "ServingEngine: a model built at tensor-parallel degree "
+                f"{model.tp_degree}: tensor-parallel serving, ROADMAP Queue "
+                "1 item 4, is not ported")
         if kv_cache_quant not in (None, "int8"):
             raise ValueError("kv_cache_quant must be None or 'int8'")
         if max_seq_len % page_size:

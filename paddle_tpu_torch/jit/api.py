@@ -1,7 +1,8 @@
-"""`train_step` (counterpart of `paddle_tpu/jit/api.py::train_step`), on one
-card and eager: the reference compiles forward, loss, gradients and the
-update into one XLA program; here they run as PyTorch operations and the
-port's kernels, in the same order and with the same arithmetic.
+"""`train_step` (counterpart of `paddle_tpu/jit/api.py::train_step`), eager,
+on one card or one rank of a mesh: the reference compiles forward, loss,
+gradients and the update into one XLA program; here they run as PyTorch
+operations and the port's kernels, in the same order and with the same
+arithmetic.
 
 The step matches the reference's compiled step, which differs from its
 eager `Optimizer.step()`:
@@ -21,6 +22,17 @@ eager `Optimizer.step()`:
   it and zeroes the accumulators. `optimizer._step_count` counts every
   call; the optimizer's state (Adam's beta powers) advances only when a
   merged gradient is applied.
+
+With `mesh` (the global mesh of `fleet.init` / `distributed.init_mesh`,
+axes "dp" and "tp"; one process a rank) each rank passes its own dp shard
+of the batch. After the backward, every gradient is averaged over "dp"
+(the model's `sync_gradients` when it is a `DataParallel` /
+`TensorParallel`, else one all_reduce a parameter); parameters marked
+sequence-parallel have their gradients summed over "tp" by
+`register_sequence_parallel_allreduce_hooks`, which the step registers;
+the returned loss is the mean over "dp". The tensor-parallel layers run
+their own collectives in the forward and backward. A mesh with "pp",
+"sharding", "sep", "sp", "cp" or "ep" raises, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,6 +40,45 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+# the mesh axes a train step does not take yet, and their ROADMAP items
+_AXES_NOT_PORTED = {
+    "pp": "pipeline parallelism (Queue 1 item 4: pipeline.py)",
+    "sharding": "ZeRO sharding (Queue 1 item 4: meta_parallel/sharding/)",
+    "sep": "context parallelism (Queue 1 item 4: context_parallel.py)",
+    "sp": "context parallelism (Queue 1 item 4: context_parallel.py)",
+    "cp": "context parallelism (Queue 1 item 4: context_parallel.py)",
+    "ep": "expert parallelism (Queue 1 item 4: MoE)",
+}
+
+
+def check_mesh(mesh):
+    """`mesh` if it is the global mesh and holds only "dp" and "tp" axes;
+    raises NotImplementedError otherwise, naming what is missing."""
+    from ..distributed import mesh as _mesh
+
+    if mesh is not _mesh.get_mesh(optional=True):
+        raise NotImplementedError(
+            f"train step: mesh {mesh!r} is not the global mesh; build it "
+            "with fleet.init or distributed.init_mesh")
+    for ax in mesh.mesh_dim_names or ():
+        if ax in _AXES_NOT_PORTED:
+            raise NotImplementedError(
+                f"train step: a mesh with a {ax!r} axis: "
+                f"{_AXES_NOT_PORTED[ax]} is not ported")
+    return mesh
+
+
+def _dp_sync(model):
+    """Average every gradient over "dp": the model's own bucketed sync
+    when it has one (`DataParallel`, `TensorParallel`), else
+    `distributed.parallel.average_gradients`."""
+    from ..distributed.parallel import average_gradients
+
+    if hasattr(model, "sync_gradients"):
+        model.sync_gradients()
+    else:
+        average_gradients(model.parameters())
 
 
 def train_step(model, criterion: Callable, optimizer, donate=True,
@@ -38,12 +89,22 @@ def train_step(model, criterion: Callable, optimizer, donate=True,
     criterion(model_call(model, inputs), *labels) (`model_call` defaults
     to model(inputs)), its gradients, one update; the gradients are
     cleared. `donate` is accepted (PyTorch updates in place anyway).
-    `sharding_stage` (0 or 1: replicated) and `mesh` (None) take their
-    single-card values; any other raises."""
-    if mesh is not None or sharding_stage not in (None, 0, 1):
+    `sharding_stage` takes 0 or 1 (replicated); 2-3 raise. `mesh`: None
+    (one card) or the global mesh over "dp" and "tp" (`check_mesh`)."""
+    if sharding_stage not in (None, 0, 1):
         raise NotImplementedError(
-            "train_step: a mesh and ZeRO sharding stages 2-3 are not ported "
-            f"(mesh={mesh!r}, sharding_stage={sharding_stage!r})")
+            "train_step: ZeRO sharding stages 2-3 are not ported (ROADMAP "
+            f"Queue 1 item 4), sharding_stage={sharding_stage!r}")
+    dp = tp = 1
+    if mesh is not None:
+        from ..distributed.fleet.utils import sequence_parallel_utils as _sp
+
+        check_mesh(mesh)
+        names = mesh.mesh_dim_names or ()
+        dp = mesh["dp"].size() if "dp" in names else 1
+        tp = mesh["tp"].size() if "tp" in names else 1
+        if tp > 1:
+            _sp.register_sequence_parallel_allreduce_hooks(model)
     call = model_call or (lambda m, x: m(x))
     k_merge = max(int(gradient_merge_steps), 1)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
@@ -84,11 +145,18 @@ def train_step(model, criterion: Callable, optimizer, donate=True,
         out = call(model, args[0])
         loss = criterion(out, *args[1:], **kwargs)
         loss.backward()
+        loss = loss.detach()
+        if dp > 1:
+            from ..distributed import collective as _c
+
+            _dp_sync(model)
+            loss = _c.all_reduce(loss.clone(), op=_c.ReduceOp.AVG,
+                                 group="dp")
         apply(lr)
         for _, p in named:
             p.grad = None
         optimizer._step_count += 1
-        return loss.detach()
+        return loss
 
     step._merge = merge
     return step

@@ -1,14 +1,50 @@
 """Shared causal-LM pieces (counterpart of `paddle_tpu/models/causal_lm.py`)
 for the model families (LLaMA, GPT): dense KV-cache allocation,
 `generate`, the tied/untied vocab head, the dense loss and the chunked
-LM-head cross entropy (`forward_hidden` + `compute_loss_hidden`)."""
+LM-head cross entropy (`forward_hidden` + `compute_loss_hidden`).
+
+At tensor-parallel degree tp > 1 (`tp_setup`) the head's logits are this
+rank's vocab shard: the loss is `ParallelCrossEntropy`'s (the chunked one
+all_reduces each chunk's max and sums), the tied head reads the
+vocab-parallel embedding's shard, the hidden states' gradient is
+all_reduced over "tp" where the head consumes them (`_c_identity`), the
+dense KV caches hold kv_heads / tp heads, and `generate` gathers the logits
+(`_c_concat`) before it samples. Every rank then samples the same token:
+the gathered logits are equal on every rank and each draws from a
+generator seeded alike (`seed`, or the global stream, which the ranks
+advance alike when seeded alike)."""
 from __future__ import annotations
 
 import torch
 import torch.utils.checkpoint as _ckpt
 from torch import nn
 
+from .. import weights as _weights
+from ..distributed import mesh as _mesh
+from ..distributed.fleet.layers.mpu import mp_layers as _mp
 from ..framework import amp_state as _amp
+
+
+def tp_setup(model, heads):
+    """Set `model.tp_degree`, `tp_rank` and `_tp_group` from the global
+    mesh's "tp" axis. Raises where tp does not divide a head count of
+    `heads` ({config field: count}; replicating KV heads over the ranks
+    belongs to tensor-parallel serving), and on a mesh with "sp" or "sep"
+    > 1 (context parallelism)."""
+    for ax in ("sp", "sep"):
+        if _mesh.axis_size(ax) > 1:
+            raise NotImplementedError(
+                f"a mesh with {ax} = {_mesh.axis_size(ax)}: context "
+                "parallelism (context_parallel.py, ROADMAP Queue 1 item 4) "
+                "is not ported")
+    group, tp, rank = _mp.tp_group()
+    for name, n in heads.items():
+        if n % tp:
+            raise ValueError(
+                f"{name} = {n} is not divisible by the tensor-parallel "
+                f"degree {tp}: replicating KV heads over the ranks belongs "
+                "to tensor-parallel serving (ROADMAP Queue 1 item 4)")
+    model.tp_degree, model.tp_rank, model._tp_group = tp, rank, group
 
 
 class CausalLMBase(nn.Module):
@@ -18,11 +54,30 @@ class CausalLMBase(nn.Module):
     `self.llama` or `self.gpt`, and expose `forward_cached(input_ids,
     caches, cur_len)`."""
 
+    def _normal_full_(self, name, p, std, gen):
+        """Fill parameter `name` with this rank's slice of a full-size
+        N(0, std^2) draw from `gen`: the full tensor is drawn whatever the
+        tensor-parallel degree (`weights.tp_split_axis`), so the ranks hold
+        different shards and a model built at tp > 1 equals the tp = 1
+        model of the same seed."""
+        ax = _weights.tp_split_axis(name)
+        if ax is None or self.tp_degree == 1:
+            p.normal_(0.0, std, generator=gen)
+            return
+        full = list(p.shape)
+        full[ax] *= self.tp_degree
+        w = torch.empty(full, dtype=p.dtype, device=p.device)
+        w.normal_(0.0, std, generator=gen)
+        n = p.shape[ax]
+        p.copy_(w.narrow(ax, self.tp_rank * n, n))
+
     def _kv_heads(self):
-        """The config's `num_key_value_heads`, or `num_attention_heads` for
-        a config without it (GPT)."""
+        """This rank's KV heads: the config's `num_key_value_heads` (or
+        `num_attention_heads` for a config without it, GPT) over the
+        tensor-parallel degree."""
         cfg = self.config
-        return getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+        return getattr(cfg, "num_key_value_heads", cfg.num_attention_heads) \
+            // self.tp_degree
 
     def init_kv_caches(self, batch_size, max_length, dtype=None):
         """Dense per-layer (k, v) caches [b, max_length, kv_heads, head_dim],
@@ -56,10 +111,18 @@ class CausalLMBase(nn.Module):
         if self.lm_head is None:
             # tied head: the [vocab, hidden] embedding weight, transposed
             # (the reference's "matmul", on the auto-cast white list)
+            if self.tp_degree > 1:
+                h = _mp._c_identity(h, self._tp_group)
             h, w = _amp.cast_inputs("matmul", h,
                                     self._backbone_embed_weight())
             return torch.matmul(h, w.t())
         return self.lm_head(h)
+
+    def gather_logits(self, logits):
+        """The whole vocabulary's logits from this rank's shard (every
+        rank's, gathered along the last axis; as they are at degree 1)."""
+        return _mp._c_concat(logits, self._tp_group) \
+            if self.tp_degree > 1 else logits
 
     def compute_loss(self, logits, labels):
         """mean(loss_fn(logits, labels)), averaged over every token (rows
@@ -88,7 +151,9 @@ class CausalLMBase(nn.Module):
         `torch.utils.checkpoint`, so the backward recomputes one slice's
         logits at a time. Rows with the ignore label add 0, and the sum is
         divided by all tokens, ignored ones included, as `compute_loss`
-        divides."""
+        divides. At tensor-parallel degree > 1 each slice's loss is
+        `parallel_cross_entropy`'s over this rank's vocab shard, with the
+        group and rank of `loss_fn` (a `ParallelCrossEntropy`)."""
         cfg = self.config
         if chunks is None:
             chunks = int(getattr(cfg, "fused_ce_chunks", 0)) or 8
@@ -98,6 +163,9 @@ class CausalLMBase(nn.Module):
         n = hidden.shape[0] * hidden.shape[1]
         hf = hidden.reshape(n, hidden.shape[2])
         yf = labels.reshape(n).long()
+        tp = self.tp_degree
+        if tp > 1:
+            hf = _mp._c_identity(hf, self._tp_group)
         c = max(min(int(chunks), n), 1)
         while n % c:
             c -= 1
@@ -105,6 +173,10 @@ class CausalLMBase(nn.Module):
 
         def body(hs, ys, w):
             logits = torch.matmul(hs, w.t() if tied else w).float()
+            if tp > 1:
+                ce = self.loss_fn
+                return _mp.parallel_cross_entropy(
+                    logits, ys, ce._group, ce.rank, ignore_index).sum()
             logz = torch.logsumexp(logits, dim=-1)
             valid = ys != ignore_index
             picked = logits.gather(1, torch.where(valid, ys, 0)[:, None])

@@ -134,7 +134,7 @@ def generate(model, input_ids, max_length=None, max_new_tokens=None,
     gen.manual_seed(int(seed) if seed is not None else _random.next_seed())
     caches = model.init_kv_caches(batch, total_len)
     logits, caches = model.forward_cached(ids, caches, 0)
-    last = logits[:, -1, :]
+    last = model.gather_logits(logits[:, -1, :])
     tokens = torch.cat([ids, torch.full((batch, total_len - prompt_len),
                                         pad_token_id, dtype=torch.int64,
                                         device=dev)], dim=1)
@@ -152,6 +152,6 @@ def generate(model, input_ids, max_length=None, max_new_tokens=None,
         if cur + 1 < total_len:  # nothing left to predict after the last
             logits, caches = model.forward_cached(
                 tok[:, None], caches, torch.tensor(cur))
-            last = logits[:, -1, :]
+            last = model.gather_logits(logits[:, -1, :])
         cur += 1
     return tokens[:, prompt_len:], scores

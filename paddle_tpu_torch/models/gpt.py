@@ -21,6 +21,15 @@ row on the device, which is what the reference's gather does (an embedding
 lookup past the table on CUDA would instead fire a device assert). The
 speculative draft steps and the verify window embed positions past a row's
 limit; those positions are never committed.
+
+Tensor parallelism (a global mesh with "tp" > 1): the reference's layout
+(`paddle_tpu/models/gpt.py:80-85, 171-175, 225, 310`): the fused QKV and
+`fc_in` column-parallel without gather (their biases sharded), `out_proj`
+and `fc_out` row-parallel with `input_is_parallel` (biases replicated,
+added after the all_reduce), a vocab-parallel token embedding, replicated
+positions, a column-parallel untied head. The QKV columns are head-major,
+so a rank's contiguous column shard holds whole heads (q, k and v of
+heads / tp heads); each rank runs those heads.
 """
 from __future__ import annotations
 
@@ -29,12 +38,15 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..distributed.fleet.layers.mpu.mp_layers import (ColumnParallelLinear,
+                                                      RowParallelLinear,
+                                                      VocabParallelEmbedding)
 from ..distributed.fleet.utils.recompute import recompute
 from ..framework.device import resolve_device, torch_dtype
 from ..kernels import paged_attention as _pa
-from ..nn import Embedding, LayerNorm, Linear, ParallelCrossEntropy
+from ..nn import Embedding, LayerNorm, ParallelCrossEntropy
 from ..nn import functional as F
-from .causal_lm import CausalLMBase
+from .causal_lm import CausalLMBase, tp_setup
 from .paged_step import paged_attention_step
 
 
@@ -79,17 +91,20 @@ class GPTConfig:
 
 
 class GPTAttention(nn.Module):
-    """Causal self-attention through one fused QKV projection with bias."""
+    """Causal self-attention through one fused QKV projection with bias;
+    `num_heads`: this rank's heads."""
 
-    def __init__(self, config, dtype, device):
+    def __init__(self, config, dtype, device, tp=1):
         super().__init__()
         h = config.hidden_size
-        self.num_heads = config.num_attention_heads
-        self.head_dim = h // self.num_heads
-        self.qkv_proj = Linear(h, 3 * h, dtype=dtype, device=device,
-                               has_bias=True)
-        self.out_proj = Linear(h, h, dtype=dtype, device=device,
-                               has_bias=True)
+        self.num_heads = config.num_attention_heads // tp
+        self.head_dim = h // config.num_attention_heads
+        self.qkv_proj = ColumnParallelLinear(h, 3 * h, has_bias=True,
+                                             gather_output=False,
+                                             dtype=dtype, device=device)
+        self.out_proj = RowParallelLinear(h, h, has_bias=True,
+                                          input_is_parallel=True,
+                                          dtype=dtype, device=device)
 
     def _qkv(self, hidden_states):
         """[b, s, 3 * hidden] -> q, k, v [b, s, heads, d]. The fused
@@ -154,20 +169,23 @@ class GPTMLP(nn.Module):
     def __init__(self, config, dtype, device):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        self.fc_in = Linear(h, i, dtype=dtype, device=device, has_bias=True)
-        self.fc_out = Linear(i, h, dtype=dtype, device=device,
-                             has_bias=True)
+        self.fc_in = ColumnParallelLinear(h, i, has_bias=True,
+                                          gather_output=False, dtype=dtype,
+                                          device=device)
+        self.fc_out = RowParallelLinear(i, h, has_bias=True,
+                                        input_is_parallel=True, dtype=dtype,
+                                        device=device)
 
     def forward(self, x):
         return self.fc_out(F.gelu(self.fc_in(x), approximate=True))
 
 
 class GPTDecoderLayer(nn.Module):
-    def __init__(self, config, dtype, device):
+    def __init__(self, config, dtype, device, tp=1):
         super().__init__()
         h, eps = config.hidden_size, config.layer_norm_epsilon
         self.ln_1 = LayerNorm(h, eps, dtype=dtype, device=device)
-        self.attn = GPTAttention(config, dtype, device)
+        self.attn = GPTAttention(config, dtype, device, tp)
         self.ln_2 = LayerNorm(h, eps, dtype=dtype, device=device)
         self.mlp = GPTMLP(config, dtype, device)
         self.use_recompute = config.use_recompute
@@ -201,16 +219,16 @@ class GPTDecoderLayer(nn.Module):
 
 
 class GPTModel(nn.Module):
-    def __init__(self, config, dtype, device):
+    def __init__(self, config, dtype, device, tp=1):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        self.embed_tokens = Embedding(config.vocab_size, h, dtype=dtype,
-                                      device=device)
+        self.embed_tokens = VocabParallelEmbedding(config.vocab_size, h,
+                                                   dtype=dtype, device=device)
         self.embed_positions = Embedding(config.max_position_embeddings, h,
                                          dtype=dtype, device=device)
         self.layers = nn.ModuleList(
-            [GPTDecoderLayer(config, dtype, device)
+            [GPTDecoderLayer(config, dtype, device, tp)
              for _ in range(config.num_hidden_layers)])
         self.ln_f = LayerNorm(h, config.layer_norm_epsilon, dtype=dtype,
                               device=device)
@@ -294,11 +312,14 @@ class GPTForCausalLM(CausalLMBase):
     def __init__(self, config, device=None, seed=0):
         super().__init__()
         self.config = config
+        tp_setup(self, {"num_attention_heads": config.num_attention_heads})
         dev = resolve_device(device)
         dtype = torch_dtype(config.dtype)
-        self.gpt = GPTModel(config, dtype, dev)
-        self.lm_head = None if config.tie_word_embeddings else Linear(
-            config.hidden_size, config.vocab_size, dtype=dtype, device=dev)
+        self.gpt = GPTModel(config, dtype, dev, self.tp_degree)
+        self.lm_head = None if config.tie_word_embeddings else \
+            ColumnParallelLinear(config.hidden_size, config.vocab_size,
+                                 has_bias=False, gather_output=False,
+                                 dtype=dtype, device=dev)
         self.loss_fn = ParallelCrossEntropy()
         self.init_weights(seed)
 
@@ -306,7 +327,9 @@ class GPTForCausalLM(CausalLMBase):
     def init_weights(self, seed, std=0.02):
         """Linear and embedding weights ~ N(0, std^2); LayerNorm weights 1;
         every bias 0. Drawn on the model's own device from a generator
-        seeded with `seed`."""
+        seeded with `seed`. A sharded weight is this rank's slice of the
+        full tensor (`_normal_full_`), so the model equals the tp = 1 model
+        of the same seed."""
         dev = self._backbone_embed_weight().device
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
@@ -316,7 +339,7 @@ class GPTForCausalLM(CausalLMBase):
             elif ".ln_" in name:
                 p.fill_(1.0)
             else:
-                p.normal_(0.0, std, generator=gen)
+                self._normal_full_(name, p, std, gen)
 
     def forward(self, input_ids, attn_mask=None):
         return self._head(self.gpt(input_ids, attn_mask))

@@ -13,6 +13,23 @@ Parameter names and shapes equal the JAX model's, linears in Paddle's
 loop as it is (the reference's `lax.scan` over stacked layers shrinks a
 compiled program; an eager PyTorch loop has none to shrink).
 `config.cp_zigzag_stream=True` raises: context parallelism is not ported.
+
+Tensor parallelism: built under a global mesh with a "tp" axis of degree
+tp > 1 (`fleet.init` with `mp_degree`), the model holds this rank's shards
+as the reference lays them out (`paddle_tpu/models/llama.py:99-136, 390,
+455-463`): q/k/v/gate/up column-parallel without gather, o/down
+row-parallel with `input_is_parallel`, a vocab-parallel embedding, a
+column-parallel head without gather into `ParallelCrossEntropy`; each rank
+runs num_heads / tp query heads and kv_heads / tp KV heads. Heads that tp
+does not divide raise (the GQA replication of KV heads belongs to
+tensor-parallel serving), as does a mesh with "sp" or "sep" > 1 (context
+parallelism). `config.sequence_parallel` (PaddleNLP's switch; the
+reference's LLaMA has none) at tp > 1 runs the training forward with
+Megatron sequence parallelism (`fleet/utils/sequence_parallel_utils.py`):
+the activations between the blocks are split along the sequence over
+"tp", the projections into a block are `ColumnSequenceParallelLinear`s and
+out of it `RowSequenceParallelLinear`s, and the norms' weights are marked
+sequence-parallel; the final norm's output is gathered whole.
 """
 from __future__ import annotations
 
@@ -25,11 +42,15 @@ from torch import nn
 
 from ..framework.device import resolve_device, torch_dtype
 from ..kernels import paged_attention as _pa
-from ..nn import Embedding, Linear, ParallelCrossEntropy, RMSNorm
+from ..distributed.fleet.layers.mpu.mp_layers import (ColumnParallelLinear,
+                                                      RowParallelLinear,
+                                                      VocabParallelEmbedding)
+from ..distributed.fleet.utils import sequence_parallel_utils as _sp
+from ..distributed.fleet.utils.recompute import recompute
+from ..nn import ParallelCrossEntropy, RMSNorm
 from ..nn import functional as F
 from ..nn.functional import apply_rope, rope_tables
-from ..distributed.fleet.utils.recompute import recompute
-from .causal_lm import CausalLMBase
+from .causal_lm import CausalLMBase, tp_setup
 from .paged_step import paged_attention_step
 
 
@@ -48,6 +69,9 @@ class LlamaConfig:
     use_recompute: bool = False
     # the zigzag context-parallel token layout (not ported: True raises)
     cp_zigzag_stream: bool = False
+    # at tensor-parallel degree > 1: sequence parallelism in the training
+    # forward (the serving forwards raise)
+    sequence_parallel: bool = False
     # accepted; the layers run as a plain loop either way
     scan_layers: bool = False
     # > 0: the training step's loss is the chunked LM-head cross entropy
@@ -83,47 +107,65 @@ class LlamaConfig:
                            max_position_embeddings=seq)
 
 
+def _linears(sp):
+    """The (column, row) tensor-parallel linear classes: the
+    sequence-parallel pair with `sp`."""
+    if sp:
+        return _sp.ColumnSequenceParallelLinear, _sp.RowSequenceParallelLinear
+    return ColumnParallelLinear, RowParallelLinear
+
+
 class LlamaMLP(nn.Module):
-    def __init__(self, config, dtype, device):
+    def __init__(self, config, dtype, device, sp=False):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        self.gate_proj = Linear(h, i, dtype=dtype, device=device)
-        self.up_proj = Linear(h, i, dtype=dtype, device=device)
-        self.down_proj = Linear(i, h, dtype=dtype, device=device)
+        column, row = _linears(sp)
+        col = dict(has_bias=False, gather_output=False, dtype=dtype,
+                   device=device)
+        self.gate_proj = column(h, i, **col)
+        self.up_proj = column(h, i, **col)
+        self.down_proj = row(i, h, has_bias=False, input_is_parallel=True,
+                             dtype=dtype, device=device)
 
     def forward(self, x):
         return self.down_proj(TF.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, config, dtype, device):
+    """`num_heads` / `num_kv_heads`: this rank's heads (all of them at
+    tensor-parallel degree 1)."""
+
+    def __init__(self, config, dtype, device, tp=1, sp=False):
         super().__init__()
-        self.num_heads = config.num_attention_heads
-        self.num_kv_heads = config.num_key_value_heads
-        if self.num_heads % self.num_kv_heads:
+        heads, kv_heads = config.num_attention_heads, \
+            config.num_key_value_heads
+        if heads % kv_heads:
             raise ValueError(
-                f"num_attention_heads ({self.num_heads}) must be divisible "
-                f"by num_key_value_heads ({self.num_kv_heads})")
-        self.head_dim = config.hidden_size // self.num_heads
+                f"num_attention_heads ({heads}) must be divisible "
+                f"by num_key_value_heads ({kv_heads})")
+        self.num_heads, self.num_kv_heads = heads // tp, kv_heads // tp
+        self.head_dim = config.hidden_size // heads
         self.rope_theta = config.rope_theta
         hs = config.hidden_size
-        kv = self.num_kv_heads * self.head_dim
-        self.q_proj = Linear(hs, self.num_heads * self.head_dim, dtype=dtype,
-                             device=device)
-        self.k_proj = Linear(hs, kv, dtype=dtype, device=device)
-        self.v_proj = Linear(hs, kv, dtype=dtype, device=device)
-        self.o_proj = Linear(self.num_heads * self.head_dim, hs, dtype=dtype,
-                             device=device)
+        kv = kv_heads * self.head_dim
+        column, row = _linears(sp)
+        col = dict(has_bias=False, gather_output=False, dtype=dtype,
+                   device=device)
+        self.q_proj = column(hs, heads * self.head_dim, **col)
+        self.k_proj = column(hs, kv, **col)
+        self.v_proj = column(hs, kv, **col)
+        self.o_proj = row(heads * self.head_dim, hs, has_bias=False,
+                          input_is_parallel=True, dtype=dtype, device=device)
 
     def _qkv(self, hidden_states):
-        b, s = hidden_states.shape[:2]
-        q = self.q_proj(hidden_states).reshape(b, s, self.num_heads,
-                                               self.head_dim)
-        k = self.k_proj(hidden_states).reshape(b, s, self.num_kv_heads,
-                                               self.head_dim)
-        v = self.v_proj(hidden_states).reshape(b, s, self.num_kv_heads,
-                                               self.head_dim)
-        return q, k, v
+        """q, k, v [b, s, heads, d]; s is the projections' (the whole
+        sequence, where sequence parallelism gathers a shard's)."""
+        q, k, v = (self.q_proj(hidden_states), self.k_proj(hidden_states),
+                   self.v_proj(hidden_states))
+        b, s = q.shape[:2]
+        return (q.reshape(b, s, self.num_heads, self.head_dim),
+                k.reshape(b, s, self.num_kv_heads, self.head_dim),
+                v.reshape(b, s, self.num_kv_heads, self.head_dim))
 
     def _rotate(self, q, k, offset):
         cos, sin = rope_tables(q.shape[1], self.head_dim,
@@ -137,8 +179,8 @@ class LlamaAttention(nn.Module):
         `attn_mask` ([b, 1, 1, s], bool or additive) is folded into the
         causal mask as the reference folds it: a bool mask by AND, an
         additive one plus the dtype's lowest value above the diagonal."""
-        b, s = hidden_states.shape[:2]
         q, k, v = self._qkv(hidden_states)
+        b, s = q.shape[:2]
         q, k = self._rotate(q, k, 0)
         rep = self.num_heads // self.num_kv_heads
         if rep != 1:
@@ -207,15 +249,18 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config, dtype, device):
+    def __init__(self, config, dtype, device, tp=1, sp=False):
         super().__init__()
         eps = config.rms_norm_eps
         self.input_layernorm = RMSNorm(config.hidden_size, eps, dtype,
                                        device)
-        self.self_attn = LlamaAttention(config, dtype, device)
+        self.self_attn = LlamaAttention(config, dtype, device, tp, sp)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
                                                 dtype, device)
-        self.mlp = LlamaMLP(config, dtype, device)
+        self.mlp = LlamaMLP(config, dtype, device, sp)
+        if sp:  # each rank's norms see a sequence shard
+            for norm in (self.input_layernorm, self.post_attention_layernorm):
+                _sp.mark_as_sequence_parallel_parameter(norm.weight)
         self.use_recompute = config.use_recompute
 
     def _finish(self, residual, attn_out):
@@ -247,26 +292,49 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, config, dtype, device):
+    """`sp`: sequence parallelism (`config.sequence_parallel` at tp >
+    1)."""
+
+    def __init__(self, config, dtype, device, tp=1):
         super().__init__()
         self.config = config
-        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      dtype=dtype, device=device)
+        self.tp = tp
+        self.sp = bool(config.sequence_parallel) and tp > 1
+        self.embed_tokens = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size, dtype=dtype,
+            device=device)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, dtype, device)
+            [LlamaDecoderLayer(config, dtype, device, tp, self.sp)
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtype,
                             device)
+        if self.sp:
+            _sp.mark_as_sequence_parallel_parameter(self.norm.weight)
 
     def forward(self, input_ids, attn_mask=None):
         h = self.embed_tokens(input_ids)
+        if self.sp:
+            if h.shape[1] % self.tp:
+                raise ValueError(
+                    f"sequence parallelism: the sequence length "
+                    f"{h.shape[1]} is not divisible by the tensor-parallel "
+                    f"degree {self.tp}")
+            h = _sp.ScatterOp.apply(h, axis=1)
         for layer in self.layers:
             h = layer(h, attn_mask)
-        return self.norm(h)
+        h = self.norm(h)
+        return _sp.GatherOp.apply(h, axis=1) if self.sp else h
+
+    def _serving(self):
+        if self.sp:
+            raise NotImplementedError(
+                "a sequence-parallel LLaMA runs the training forward only; "
+                "build it without config.sequence_parallel to decode")
 
     def forward_cached(self, input_ids, caches, cur_len):
         """caches: per-layer (k_cache, v_cache). Returns (hidden,
         caches)."""
+        self._serving()
         h = self.embed_tokens(input_ids)
         new_caches = []
         for layer, cache in zip(self.layers, caches):
@@ -282,6 +350,7 @@ class LlamaModel(nn.Module):
         norm still applies, so the head sees a normed early exit.
         window_rows: a window attends as decode rows (`_pa.window_rows`,
         built here once for every layer)."""
+        self._serving()
         h = self.embed_tokens(input_ids)
         rows = _pa.window_rows(block_tables, context_lens,
                                input_ids.shape[1], limit_lens, active) \
@@ -310,18 +379,25 @@ class LlamaForCausalLM(CausalLMBase):
             raise NotImplementedError(
                 "cp_zigzag_stream=True: context parallelism is not ported")
         self.config = config
+        tp_setup(self, {"num_attention_heads": config.num_attention_heads,
+                        "num_key_value_heads": config.num_key_value_heads})
         dev = resolve_device(device)
         dtype = torch_dtype(config.dtype)
-        self.llama = LlamaModel(config, dtype, dev)
-        self.lm_head = None if config.tie_word_embeddings else Linear(
-            config.hidden_size, config.vocab_size, dtype=dtype, device=dev)
+        self.llama = LlamaModel(config, dtype, dev, self.tp_degree)
+        self.lm_head = None if config.tie_word_embeddings else \
+            ColumnParallelLinear(config.hidden_size, config.vocab_size,
+                                 has_bias=False, gather_output=False,
+                                 dtype=dtype, device=dev)
         self.loss_fn = ParallelCrossEntropy()
         self.init_weights(seed)
 
     @torch.no_grad()
     def init_weights(self, seed, std=0.02):
         """Linear and embedding weights ~ N(0, std^2), norm weights 1, drawn
-        on the model's own device from a generator seeded with `seed`."""
+        on the model's own device from a generator seeded with `seed`. A
+        sharded weight is this rank's slice of the full tensor
+        (`_normal_full_`), so the model equals the tp = 1 model of the same
+        seed."""
         dev = self._backbone_embed_weight().device
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
@@ -329,7 +405,7 @@ class LlamaForCausalLM(CausalLMBase):
             if name.endswith("layernorm.weight") or name == "llama.norm.weight":
                 p.fill_(1.0)
             else:
-                p.normal_(0.0, std, generator=gen)
+                self._normal_full_(name, p, std, gen)
 
     def forward(self, input_ids, attn_mask=None):
         """[b, s] token ids (and a padding mask [b, 1, 1, s], bool or

@@ -1,6 +1,7 @@
 """The training step (counterpart of `paddle_tpu/models/trainer.py`
-`build_train_step` and `prefetch_batches`), on one card: no mesh, no
-pipeline, no ZeRO sharding.
+`build_train_step` and `prefetch_batches`), on one card or over the
+global mesh's "dp" and "tp" axes (`jit.train_step`); no pipeline, no ZeRO
+sharding.
 
 `build_train_step` is `jit.train_step` (eager; see there how it matches
 the reference's compiled step) with the model's loss: with
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+from ..distributed import mesh as _mesh
 from ..framework import config as _config
 from ..io.dataloader import DevicePrefetcher
 from ..jit.api import train_step
@@ -29,34 +31,42 @@ def build_train_step(model, optimizer, criterion: Optional[Callable] = None,
     """step(input_ids, labels) -> loss, a detached 0-d tensor on the
     model's device. `gradient_merge_steps` defaults to the optimizer's
     `_gradient_merge_k` (or 1), the averaging to its `_gradient_merge_avg`
-    (or True), as in the reference. The pipeline and sharding arguments
-    (`mesh`, `num_microbatches`, `pipeline_schedule`, `virtual_pp_degree`,
-    `sharding_stage` 2-3) take their single-card defaults; any other
-    raises. On the card the step carries `_data_put`, which moves a batch
-    to the model's device (`prefetch_batches` stages with it)."""
-    if mesh is not None or num_microbatches not in (None, 1) \
-            or pipeline_schedule is not None or virtual_pp_degree != 1:
+    (or True), as in the reference. `mesh` defaults to the global mesh
+    (`fleet.init`), as in the reference; it may hold "dp" and "tp" axes
+    (`jit.api.check_mesh`). `model` may be the wrapper
+    `fleet.distributed_model` returns (its `_layers` give the config and
+    the loss). The pipeline and sharding arguments (`num_microbatches`,
+    `pipeline_schedule`, `virtual_pp_degree`, `sharding_stage` 2-3) take
+    their defaults; any other raises. On the card the step carries
+    `_data_put`, which moves a batch to the model's device
+    (`prefetch_batches` stages with it)."""
+    if num_microbatches not in (None, 1) or pipeline_schedule is not None \
+            or virtual_pp_degree != 1:
         raise NotImplementedError(
-            "build_train_step: meshes and pipeline schedules are not ported")
+            "build_train_step: pipeline schedules are not ported (ROADMAP "
+            "Queue 1 item 4: pipeline.py)")
+    if mesh is None:
+        mesh = _mesh.get_mesh(optional=True)
     if sharding_stage is None:
         sharding_stage = getattr(optimizer, "stage", 1)
     if gradient_merge_steps is None:
         gradient_merge_steps = int(getattr(optimizer, "_gradient_merge_k",
                                            1))
     merge_avg = bool(getattr(optimizer, "_gradient_merge_avg", True))
-    fused_ce = int(getattr(getattr(model, "config", None),
+    inner = getattr(model, "_layers", model)
+    fused_ce = int(getattr(getattr(inner, "config", None),
                            "fused_ce_chunks", 0) or 0)
     model_call = None
     if criterion is None:
-        if fused_ce > 0 and hasattr(model, "compute_loss_hidden"):
-            model_call = lambda m, x: m.forward_hidden(x)  # noqa: E731
-            criterion = lambda h, y: model.compute_loss_hidden(  # noqa: E731
+        if fused_ce > 0 and hasattr(inner, "compute_loss_hidden"):
+            model_call = lambda m, x: inner.forward_hidden(x)  # noqa: E731
+            criterion = lambda h, y: inner.compute_loss_hidden(  # noqa: E731
                 h, y, chunks=fused_ce)
         else:
-            criterion = model.compute_loss
+            criterion = inner.compute_loss
     step = train_step(model, criterion, optimizer, donate=donate,
                       model_call=model_call, sharding_stage=sharding_stage,
-                      gradient_merge_steps=gradient_merge_steps,
+                      mesh=mesh, gradient_merge_steps=gradient_merge_steps,
                       gradient_merge_avg=merge_avg)
     dev = next(model.parameters()).device
     if dev.type == "cuda":

@@ -69,8 +69,12 @@ class ClipGradByGlobalNorm(ClipGradBase):
             return None
         return torch.stack(sq).sum().sqrt()
 
+    def _params_norm(self, params_grads):
+        """The global norm of (parameter, gradient) pairs."""
+        return self.global_norm([g for _, g in params_grads])
+
     def _clip(self, params_grads):
-        gn = self.global_norm([g for _, g in params_grads])
+        gn = self._params_norm(params_grads)
         if gn is None:
             return params_grads
         scale = self.clip_norm / torch.clamp(gn, min=self.clip_norm)

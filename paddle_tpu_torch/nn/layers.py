@@ -4,9 +4,10 @@ on a single rank.
 `Linear` stands for `Linear`, `ColumnParallelLinear` and
 `RowParallelLinear` (`paddle_tpu/distributed/fleet/layers/mpu/mp_layers.py`)
 at tensor-parallel degree 1, `Embedding` for `VocabParallelEmbedding`, and
-`RMSNorm` for `paddle_tpu/nn/norm_layers.py::RMSNorm`, and
-`ParallelCrossEntropy` for its namesake in `mp_layers.py`; `LayerNorm` and
-`Dropout` stand for `paddle_tpu/nn/norm_layers.py::LayerNorm` and
+`RMSNorm` for `paddle_tpu/nn/norm_layers.py::RMSNorm`;
+`ParallelCrossEntropy` is its namesake in `mp_layers.py` at any degree;
+`LayerNorm` and `Dropout` stand for
+`paddle_tpu/nn/norm_layers.py::LayerNorm` and
 `paddle_tpu/nn/common_layers.py::Dropout`. Parameter names
 and shapes equal the JAX layers', so a state dict maps across by name
 (`paddle_tpu_torch.weights`). Parameters are trainable and allocated
@@ -101,18 +102,28 @@ class RMSNorm(nn.Module):
 
 
 class ParallelCrossEntropy(nn.Module):
-    """Softmax cross entropy at tensor-parallel degree 1: per-token losses
-    with a trailing size-1 axis, [..., 1]. `mp_group` (the model-parallel
-    group) takes only its single-card default None; `name` is unused."""
+    """Softmax cross entropy: per-token losses with a trailing size-1 axis,
+    [..., 1]; rows labelled `ignore_index` read 0. At tensor-parallel
+    degree > 1 (`mp_group`, a `distributed.collective.Group` or a mesh
+    axis name, by default the global mesh's "tp" axis, read here) the
+    logits' last axis is this rank's vocab shard and the loss is
+    `distributed.fleet.layers.mpu.mp_layers.parallel_cross_entropy`'s.
+    `name` is unused."""
 
     def __init__(self, mp_group=None, name=None, ignore_index=-100):
         super().__init__()
-        if mp_group is not None:
-            raise NotImplementedError("ParallelCrossEntropy(mp_group=...): "
-                                      "tensor parallelism is not ported")
+        from ..distributed.fleet.layers.mpu import mp_layers
+
+        self._group, self.world_size, self.rank = mp_layers.tp_group(
+            mp_group)
         self.ignore_index = ignore_index
 
     def forward(self, input, label):
+        if self.world_size > 1:
+            from ..distributed.fleet.layers.mpu import mp_layers
+
+            return mp_layers.parallel_cross_entropy(
+                input, label, self._group, self.rank, self.ignore_index)
         return F.cross_entropy(input, label, reduction="none",
                                ignore_index=self.ignore_index).unsqueeze(-1)
 

@@ -3,7 +3,10 @@
     quantize_for_inference(model, algo="weight_only_int8",
                            exclude=("lm_head",))
 
-swaps every `Linear` of a model for a `WeightOnlyLinear` holding int8 (or
+swaps every `Linear` of a model (`ColumnParallelLinear` and
+`RowParallelLinear` are `Linear`s; their shards at tensor-parallel degree
+> 1 raise until tensor-parallel serving) for a `WeightOnlyLinear` holding
+int8 (or
 nibble-packed int4) weights and f32 scales, per output channel or per group
 of 64 or 128 input rows. The layouts and the quantization are the
 reference's (`weight_quantize`: symmetric absmax, round half to even), and
@@ -24,7 +27,6 @@ from torch import nn
 from ...framework.device import torch_dtype
 from ...kernels.quant_matmul import dequantize, quant_matmul
 from ..layers import Linear
-
 __all__ = ["weight_quantize", "weight_dequantize", "weight_only_linear",
            "WeightOnlyLinear", "quantize_for_inference"]
 
@@ -143,6 +145,12 @@ class WeightOnlyLinear(nn.Module):
     def from_source(cls, layer, algo="weight_only_int8", group_size=-1):
         """Quantize a float `Linear` ([in, out] weight) into a new layer on
         the same device."""
+        if getattr(layer, "world_size", 1) > 1:
+            raise NotImplementedError(
+                f"WeightOnlyLinear.from_source: a {type(layer).__name__} "
+                f"shard (tensor-parallel degree {layer.world_size}): "
+                "quantized tensor-parallel linears come with "
+                "tensor-parallel serving, ROADMAP Queue 1 item 4")
         w = layer.weight
         k, n = w.shape
         obj = cls(k, n, algo=algo, group_size=group_size, device="meta")

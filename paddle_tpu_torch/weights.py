@@ -15,6 +15,18 @@ over, then convert. A weight-only quantized linear carries its int8
 `quant_weight` and f32 `weight_scale` in place of `weight` (both packages'
 `quantize_for_inference`); loading such a state needs a port model
 quantized with the same algorithm and group size.
+
+Tensor parallelism: a model built at tensor-parallel degree tp > 1 holds
+this rank's shards (`distributed/fleet/layers/mpu/mp_layers.py`), where the
+reference's state holds full arrays. `llama_state_from_numpy` /
+`gpt_state_from_numpy` take `tp_rank` / `tp_degree` and slice a full state
+into that rank's shards (`load_*_state` slices for the model's own rank),
+`*_state_to_numpy` returns a rank's shards, and `gather_llama_state` /
+`gather_gpt_state` build the full state back from every rank's, in
+tensor-parallel rank order. The split axis of a weight (`tp_split_axis`)
+is its layer's: a column-parallel weight and bias by columns, a
+row-parallel weight and a vocab-parallel embedding by rows; everything
+else is replicated.
 """
 from __future__ import annotations
 
@@ -22,6 +34,83 @@ import numpy as np
 import torch
 
 from .framework.device import resolve_device
+
+# the tensor-parallel split of each weight, by the end of its name: 1 for a
+# column-parallel weight, 0 for a row-parallel weight, a vocab-parallel
+# embedding and a column-parallel bias; absent: replicated
+_TP_SPLIT = {
+    "embed_tokens.weight": 0, "lm_head.weight": 1,
+    "q_proj.weight": 1, "k_proj.weight": 1, "v_proj.weight": 1,
+    "gate_proj.weight": 1, "up_proj.weight": 1,
+    "o_proj.weight": 0, "down_proj.weight": 0,
+    "qkv_proj.weight": 1, "qkv_proj.bias": 0, "fc_in.weight": 1,
+    "fc_in.bias": 0, "out_proj.weight": 0, "fc_out.weight": 0,
+}
+
+
+def tp_split_axis(name):
+    """The axis a tensor-parallel model splits weight `name` along, or
+    None for a replicated one."""
+    for suffix, axis in _TP_SPLIT.items():
+        if name.endswith("." + suffix) or name == suffix:
+            return axis
+    return None
+
+
+def _tp_shapes(shapes, tp):
+    """`shapes` with each split axis divided by `tp` (raising where tp
+    does not divide it)."""
+    out = {}
+    for name, shape in shapes.items():
+        ax = tp_split_axis(name)
+        if ax is not None and tp > 1:
+            if shape[ax] % tp:
+                raise ValueError(f"{name}: axis {ax} of {shape} is not "
+                                 f"divisible by the tensor-parallel degree "
+                                 f"{tp}")
+            shape = shape[:ax] + (shape[ax] // tp,) + shape[ax + 1:]
+        out[name] = shape
+    return out
+
+
+def _tp_slice(name, arr, tp_rank, tp_degree):
+    ax = tp_split_axis(name)
+    if ax is None or tp_degree == 1:
+        return arr
+    n = arr.shape[ax] // tp_degree
+    idx = [slice(None)] * arr.ndim
+    idx[ax] = slice(tp_rank * n, (tp_rank + 1) * n)
+    return arr[tuple(idx)]
+
+
+def _gather(states, shapes, family):
+    """The full state from every tensor-parallel rank's shards (rank
+    order), checked against `shapes`; a replicated array must be equal on
+    every rank."""
+    tp = len(states)
+    want = _tp_shapes(shapes, tp)
+    for r, st in enumerate(states):
+        if set(st) != set(shapes):
+            raise KeyError(f"{family} state of rank {r}: missing "
+                           f"{sorted(set(shapes) - set(st))}, unexpected "
+                           f"{sorted(set(st) - set(shapes))}")
+        for name, shape in want.items():
+            if tuple(np.shape(st[name])) != shape:
+                raise ValueError(f"rank {r}: {name} has shape "
+                                 f"{np.shape(st[name])}, expected {shape}")
+    out = {}
+    for name in shapes:
+        ax = tp_split_axis(name)
+        parts = [np.asarray(st[name]) for st in states]
+        if ax is None:
+            for r, a in enumerate(parts[1:], 1):
+                if not np.array_equal(a, parts[0]):
+                    raise ValueError(f"{name}: replicated, but rank {r}'s "
+                                     "differs from rank 0's")
+            out[name] = parts[0]
+        else:
+            out[name] = np.concatenate(parts, axis=ax)
+    return out
 
 
 def llama_param_shapes(config) -> dict:
@@ -79,13 +168,20 @@ def _check_quant(name, qw, scale, shape):
                          f"{scale.shape} does not fit [{k}, {n}]")
 
 
-def llama_state_from_numpy(state, config, dtype=torch.float32, device=None):
+def llama_state_from_numpy(state, config, dtype=torch.float32, device=None,
+                           tp_rank=0, tp_degree=1):
     """{name: np.ndarray} -> {name: torch.Tensor} on `device`, after
     checking the names and shapes against `config`. Float weights become
     `dtype`; a quantized linear (`<p>.quant_weight` int8 and
     `<p>.weight_scale` f32 in place of `<p>.weight`, as the JAX
-    `quantize_for_inference` leaves them) keeps its int8 and f32."""
+    `quantize_for_inference` leaves them) keeps its int8 and f32. With
+    `tp_degree` > 1, the full float state is sliced into rank `tp_rank`'s
+    shards."""
     layout = _layout(config, set(state))
+    if tp_degree > 1 and layout.keys() != llama_param_shapes(config).keys():
+        raise NotImplementedError(
+            "llama_state_from_numpy: quantized tensor-parallel shards come "
+            "with tensor-parallel serving (ROADMAP Queue 1 item 4)")
     missing = sorted(set(layout) - set(state))
     extra = sorted(set(state) - set(layout))
     if missing or extra:
@@ -106,6 +202,7 @@ def llama_state_from_numpy(state, config, dtype=torch.float32, device=None):
             if arr.shape != layout[name]:
                 raise ValueError(f"{name}: shape {arr.shape}, expected "
                                  f"{layout[name]}")
+            arr = _tp_slice(name, arr, tp_rank, tp_degree)
             out[name] = torch.from_numpy(
                 np.array(arr, dtype=np.float32)).to(dev, dtype)
     return out
@@ -115,21 +212,35 @@ def llama_state_to_numpy(model):
     """The weights of a port `LlamaForCausalLM` as {name: np.ndarray}: float
     weights in f32 (the inverse of `load_llama_state` on an f32 model),
     quantized linears as their int8 `quant_weight` and f32 `weight_scale`;
-    checked against the LLaMA layout of the model's config."""
+    checked against the LLaMA layout of the model's config. At
+    tensor-parallel degree > 1, this rank's shards (`gather_llama_state`
+    joins the ranks')."""
     state = {}
     for n, t in model.state_dict().items():
         t = t.detach().cpu()
         state[n] = (t if t.dtype == torch.int8 else t.float()).numpy()
-    llama_state_from_numpy(state, model.config, device="cpu")  # the check
+    if model.tp_degree > 1:
+        _gather([state], _tp_shapes(llama_param_shapes(model.config),
+                                    model.tp_degree), "LLaMA")  # the check
+    else:
+        llama_state_from_numpy(state, model.config, device="cpu")
     return state
+
+
+def gather_llama_state(states, config):
+    """The full LLaMA state from every tensor-parallel rank's
+    `llama_state_to_numpy` (in rank order)."""
+    return _gather(states, llama_param_shapes(config), "LLaMA")
 
 
 def load_llama_state(model, state):
     """Replace the weights of a port `LlamaForCausalLM` by `state`
-    ({name: np.ndarray}), in the model's dtype and on its device."""
+    ({name: np.ndarray}, the full state), in the model's dtype and on its
+    device; at tensor-parallel degree > 1, its rank's shards."""
     ref = model._backbone_embed_weight()
     model.load_state_dict(
-        llama_state_from_numpy(state, model.config, ref.dtype, ref.device),
+        llama_state_from_numpy(state, model.config, ref.dtype, ref.device,
+                               model.tp_rank, model.tp_degree),
         strict=True)
     return model
 
@@ -185,10 +296,11 @@ def gpt_param_shapes(config) -> dict:
     return shapes
 
 
-def gpt_state_from_numpy(state, config, dtype=torch.float32, device=None):
+def gpt_state_from_numpy(state, config, dtype=torch.float32, device=None,
+                         tp_rank=0, tp_degree=1):
     """{name: np.ndarray} (the JAX GPT's state) -> {name: torch.Tensor} in
     `dtype` on `device`, after checking every name and shape against
-    `config`."""
+    `config`; with `tp_degree` > 1, rank `tp_rank`'s shards."""
     shapes = gpt_param_shapes(config)
     missing = sorted(set(shapes) - set(state))
     extra = sorted(set(state) - set(shapes))
@@ -201,6 +313,7 @@ def gpt_state_from_numpy(state, config, dtype=torch.float32, device=None):
         arr = np.asarray(state[name], dtype=np.float32)
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
+        arr = _tp_slice(name, arr, tp_rank, tp_degree)
         out[name] = torch.from_numpy(np.array(arr)).to(dev, dtype)
     return out
 
@@ -208,18 +321,28 @@ def gpt_state_from_numpy(state, config, dtype=torch.float32, device=None):
 def gpt_state_to_numpy(model):
     """The weights of a port `GPTForCausalLM` as {name: np.ndarray} in f32
     (copies: a later step does not move them), checked against the GPT
-    layout of its config."""
+    layout of its config; at tensor-parallel degree > 1, this rank's
+    shards."""
     state = {n: np.array(t.detach().cpu().float().numpy())
              for n, t in model.state_dict().items()}
-    gpt_state_from_numpy(state, model.config, device="cpu")  # the check
+    _gather([state], _tp_shapes(gpt_param_shapes(model.config),
+                                model.tp_degree), "GPT")  # the check
     return state
+
+
+def gather_gpt_state(states, config):
+    """The full GPT state from every tensor-parallel rank's
+    `gpt_state_to_numpy` (in rank order)."""
+    return _gather(states, gpt_param_shapes(config), "GPT")
 
 
 def load_gpt_state(model, state):
     """Replace the weights of a port `GPTForCausalLM` by `state` ({name:
-    np.ndarray}), in the model's dtype and on its device."""
+    np.ndarray}, the full state), in the model's dtype and on its device;
+    at tensor-parallel degree > 1, its rank's shards."""
     ref = model._backbone_embed_weight()
     model.load_state_dict(
-        gpt_state_from_numpy(state, model.config, ref.dtype, ref.device),
+        gpt_state_from_numpy(state, model.config, ref.dtype, ref.device,
+                             model.tp_rank, model.tp_degree),
         strict=True)
     return model

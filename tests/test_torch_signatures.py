@@ -202,6 +202,78 @@ PAIRS.update({
     "io.DataLoader": (paddle.io.DataLoader.__init__, TDataLoader.__init__),
 })
 
+# the tensor-parallel slice's public names: fleet, the strategy, the
+# mp_layers, the sequence-parallel linears and ops, the meta_parallel
+# wrappers and the RNG tracker
+import paddle_tpu.distributed.fleet as JFL  # noqa: E402
+import paddle_tpu.distributed.fleet.layers.mpu.random as JMPR  # noqa: E402
+import paddle_tpu.distributed.fleet.utils.sequence_parallel_utils as JSPU  # noqa: E402,E501
+import paddle_tpu.framework.random as JRND  # noqa: E402
+import paddle_tpu_torch.distributed.fleet as TFL  # noqa: E402
+import paddle_tpu_torch.distributed.fleet.layers.mpu.random as TMPR  # noqa: E402,E501
+import paddle_tpu_torch.distributed.fleet.utils.sequence_parallel_utils as TSPU  # noqa: E402,E501
+import paddle_tpu_torch.framework.random as TRND  # noqa: E402
+from paddle_tpu.distributed.fleet import meta_parallel as JMP  # noqa: E402
+from paddle_tpu.distributed.fleet.layers import mpu as JMPU  # noqa: E402
+from paddle_tpu.distributed.fleet.meta_parallel import \
+    hybrid_optimizer as JHO  # noqa: E402
+from paddle_tpu_torch.distributed.fleet import meta_parallel as TMP  # noqa: E402,E501
+from paddle_tpu_torch.distributed.fleet.layers import mpu as TMPU  # noqa: E402
+from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+    hybrid_optimizer as THO  # noqa: E402
+for _fn in ("init", "distributed_model", "distributed_optimizer",
+            "get_hybrid_communicate_group", "worker_index", "worker_num",
+            "is_first_worker", "is_worker", "is_server", "worker_endpoints",
+            "barrier_worker", "init_worker", "stop_worker", "init_server",
+            "run_server"):
+    PAIRS[f"fleet.{_fn}"] = (getattr(JFL, _fn), getattr(TFL, _fn))
+for _fn in ("save", "load_model"):
+    PAIRS[f"fleet.Fleet.{_fn}"] = (getattr(JFL.Fleet, _fn),
+                                   getattr(TFL.Fleet, _fn))
+for _cls in ("UserDefinedRoleMaker", "PaddleCloudRoleMaker"):
+    PAIRS[f"fleet.{_cls}"] = (getattr(JFL, _cls).__init__,
+                              getattr(TFL, _cls).__init__)
+for _fn in ("all_reduce", "barrier", "get_file_shard"):
+    PAIRS[f"fleet.util.{_fn}"] = (getattr(JFL.UtilBase, _fn),
+                                  getattr(TFL.UtilBase, _fn))
+for _cls in ("ColumnParallelLinear", "RowParallelLinear",
+             "VocabParallelEmbedding", "ParallelCrossEntropy"):
+    PAIRS[f"mpu.{_cls}"] = (getattr(JMPU, _cls).__init__,
+                            getattr(TMPU, _cls).__init__)
+    PAIRS[f"mpu.{_cls}.forward"] = (getattr(JMPU, _cls).forward,
+                                    getattr(TMPU, _cls).forward)
+for _cls in ("ColumnSequenceParallelLinear", "RowSequenceParallelLinear"):
+    PAIRS[f"sp.{_cls}"] = (getattr(JSPU, _cls).__init__,
+                           getattr(TSPU, _cls).__init__)
+for _cls in ("ScatterOp", "GatherOp", "AllGatherOp", "ReduceScatterOp"):
+    PAIRS[f"sp.{_cls}.apply"] = (getattr(JSPU, _cls).apply,
+                                 getattr(TSPU, _cls).apply)
+for _fn in ("mark_as_sequence_parallel_parameter",
+            "register_sequence_parallel_allreduce_hooks"):
+    PAIRS[f"sp.{_fn}"] = (getattr(JSPU, _fn), getattr(TSPU, _fn))
+for _fn in ("model_parallel_random_seed", "get_rng_state_tracker"):
+    PAIRS[f"random.{_fn}"] = (getattr(JRND, _fn), getattr(TRND, _fn))
+for _fn in ("add", "reset", "get_states_tracker", "set_states_tracker",
+            "rng_state"):
+    PAIRS[f"RNGStatesTracker.{_fn}"] = (
+        getattr(JRND.RNGStatesTracker, _fn),
+        getattr(TRND.RNGStatesTracker, _fn))
+for _fn in ("dropout", "determinate_seed"):
+    PAIRS[f"mpu.random.{_fn}"] = (getattr(JMPR, _fn), getattr(TMPR, _fn))
+PAIRS.update({
+    "fleet.DistributedStrategy": (JFL.DistributedStrategy.__init__,
+                                  TFL.DistributedStrategy.__init__),
+    "HybridParallelOptimizer": (JMP.HybridParallelOptimizer.__init__,
+                                TMP.HybridParallelOptimizer.__init__),
+    "HybridParallelOptimizer.minimize": (
+        JMP.HybridParallelOptimizer.minimize,
+        TMP.HybridParallelOptimizer.minimize),
+    "HybridParallelClipGrad": (JHO.HybridParallelClipGrad.__init__,
+                               THO.HybridParallelClipGrad.__init__),
+    "TensorParallel": (JMP.TensorParallel.__init__,
+                       TMP.TensorParallel.__init__),
+})
+
 # the port's own trailing parameters (the entry point's device; a layer's
 # dtype, device and the generator its weights come from; a model's seed)
 _LAYER = ["dtype", "device", "generator"]
@@ -214,6 +286,11 @@ PORT_ONLY = {"ServingEngine": ["device"],
              # the rank's device and the rendezvous' time limit
              "distributed.init_parallel_env": ["device", "timeout"],
              "WeightOnlyLinear": ["device"]}
+# the tensor-parallel layers' dtype and device
+PORT_ONLY.update({n: ["dtype", "device"] for n in (
+    "mpu.ColumnParallelLinear", "mpu.RowParallelLinear",
+    "mpu.VocabParallelEmbedding", "sp.ColumnSequenceParallelLinear",
+    "sp.RowSequenceParallelLinear")})
 PORT_ONLY.update({f"{c}.__init__": _LAYER for c in (
     "MultiHeadAttention", "TransformerEncoderLayer",
     "TransformerDecoderLayer", "Transformer", "FusedMultiTransformer",
@@ -387,8 +464,14 @@ def test_parallel_cross_entropy_takes_the_reference_order():
     np.testing.assert_allclose(got.numpy(), np.asarray(want._data),
                                rtol=1e-6, atol=1e-6)
     assert got[0, 0, 0] == 0
-    with pytest.raises(NotImplementedError):
-        ParallelCrossEntropy(mp_group=object())
+    # mp_group is taken: the tensor-parallel group, here the "tp" axis of
+    # no mesh, a group of one rank (the parallel path:
+    # tests/test_torch_mp_layers.py)
+    one = ParallelCrossEntropy(mp_group="tp", ignore_index=2)
+    assert one.world_size == 1
+    np.testing.assert_array_equal(
+        one(torch.from_numpy(logits), torch.from_numpy(lab)).numpy(),
+        got.numpy())
 
 
 def test_fused_functionals_take_ring_id_and_name():
