@@ -269,7 +269,35 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    `HybridParallelClipGrad` taking every parameter for a shard, which
    counts the replicated gradients 4 times); step ms, all_reduces and
    bytes a step (four ranks on one card: no tensor-parallel speed).
-   `--phase16` runs the build and this phase alone.
+   `--phase16` runs the build and this phase alone;
+17. tensor-parallel serving: two ranks on the one card over gloo, each
+   running `fleet.init` (mp_degree 2), building its model under the mesh
+   (its shards; weights drawn per tensor on the card, `tp_load`) and
+   serving through its own `ServingEngine` (the global mesh; no CUDA graph
+   at tp > 1), against this process serving the same full model at tp 1:
+   (a) LLaMA-2-7B's widths at `CELL7_LAYERS` (16) of its 32 layers, bf16,
+   max_batch 8, 4096 positions, page 16, 8 requests of 5-1000 tokens with
+   32 new each, greedy and sampled alternating, on the eager engine and at
+   decode_burst 8, the GEMM's buckets tuned on each rank and the kernel
+   pinned in every one (the ranks time candidates against each other);
+   (b) LLaMA-2-13B's widths at `SERVE13_LAYERS` (10), int8 weights per
+   channel (lm_head kept) and int8 KV, 4 of (a)'s requests made greedy.
+   First the kernels at the shard shapes against their plain versions
+   (decode at 16 heads of 128 and int8 decode at 20, the dequant matmul's
+   row shard 6912 -> 5120 and column shard 5120 -> 6912, the GEMM at the
+   head's shard 4096 -> 16000). Held: every rank's streams equal bit for
+   bit, greedy and sampled; each greedy stream equal to tp 1's or first
+   differing at a near tie (`TPS_LOGIT_BAR`, set before the first run),
+   the prefill's gathered last logits within that bar of tp 1's; each
+   rank's pools at kv_heads / 2; the paged decode, RMSNorm, GEMM and
+   dequant matmul launches exact a rank; in (b) the probes' quantized
+   shards equal to slices of the tp-1 quantization bit for bit. Three
+   planted faults caught: layer 0's o_proj without its all_reduce (the
+   logits bar), the engine sampling the rank's vocab shard (the streams),
+   a row shard quantized with its local absmax (the slice check). Logged:
+   decode ms a step and collectives and bytes a step by rank (two ranks
+   on one card: no tensor-parallel speed). `--phase17` runs the build and
+   this phase alone.
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -1791,12 +1819,12 @@ def serve_7b(seed, dev, card):
 
 def last_logits(model, ids, dev):
     """f32 logits of the last position of one prompt (dense-cache
-    forward, the prefill path)."""
+    forward, the prefill path; at tp > 1 the vocab shards gathered)."""
     with torch.no_grad():
         logits, _ = model.forward_cached(
             torch.from_numpy(ids)[None].to(dev),
             model.init_kv_caches(1, len(ids)), 0)
-    return logits[0, -1].float()
+        return model.gather_logits(logits[:, -1])[0].float()
 
 
 QUANT_COUNTERS = (("quant_matmul", kqm, "launches"),
@@ -6485,6 +6513,40 @@ def gloo_cuda_ops(dev):
     return out
 
 
+class CommCount:
+    """Counts collectives (`ops`) through the module attributes the
+    mp_layers call, until `close`: their calls and the bytes a rank puts
+    in (all_reduce: its tensor; all_gather: its shard; reduce_scatter: its
+    whole input)."""
+
+    def __init__(self, ops):
+        from paddle_tpu_torch.distributed import collective as C
+
+        self.C = C
+        self.n = {op: {"calls": 0, "bytes": 0} for op in ops}
+        self.plain = {op: getattr(C, op) for op in ops}
+
+        def counting(op):
+            def call(*a, **kw):
+                put = a[0] if op == "all_reduce" else a[1]
+                put = put if isinstance(put, (list, tuple)) else [put]
+                self.n[op]["calls"] += 1
+                self.n[op]["bytes"] += sum(x.numel() * x.element_size()
+                                           for x in put)
+                return self.plain[op](*a, **kw)
+            return call
+
+        for op in ops:
+            setattr(C, op, counting(op))
+
+    def read(self):
+        return {op: dict(v) for op, v in self.n.items()}
+
+    def close(self):
+        for op, fn in self.plain.items():
+            setattr(self.C, op, fn)
+
+
 def tp_cell(cell, seed, dev, faults=False, sp=False):
     """One process's part of phase 16 for `cell`: the whole model at tp 1,
     or this rank's shards through fleet.distributed_model /
@@ -6495,7 +6557,6 @@ def tp_cell(cell, seed, dev, faults=False, sp=False):
     launches, the all_reduces and their bytes counted, and the probe
     masters after the last; with `faults`, two planted faults, each a
     forward and backward from the initial weights (loss and gradients)."""
-    from paddle_tpu_torch.distributed import collective as C
     from paddle_tpu_torch.distributed import fleet
 
     c = TP_CELLS[cell]
@@ -6547,26 +6608,7 @@ def tp_cell(cell, seed, dev, faults=False, sp=False):
     torch.cuda.synchronize()
     for _, mod, attr in TRAIN_COUNTERS:
         setattr(mod, attr, 0)
-    # the collectives of the steps: calls and the bytes a rank puts in
-    # (all_reduce: its tensor; all_gather: its shard; reduce_scatter: its
-    # whole input)
-    comm = {op: {"calls": 0, "bytes": 0}
-            for op in ("all_reduce", "all_gather", "reduce_scatter")}
-    plain = {op: getattr(C, op) for op in comm}
-
-    def counting(op):
-        def call(*a, **kw):
-            put = a[1] if op != "all_reduce" else [a[0]]
-            if op == "all_gather":
-                put = [put]
-            n = sum(x.numel() * x.element_size() for x in put)
-            comm[op]["calls"] += 1
-            comm[op]["bytes"] += n
-            return plain[op](*a, **kw)
-        return call
-
-    for op in comm:
-        setattr(C, op, counting(op))
+    comm = CommCount(("all_reduce", "all_gather", "reduce_scatter"))
     losses, ms = [], []
     try:
         for s in range(c["steps"]):
@@ -6575,11 +6617,10 @@ def tp_cell(cell, seed, dev, faults=False, sp=False):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t1) * 1e3)
     finally:
-        for op, fn in plain.items():
-            setattr(C, op, fn)
+        comm.close()
     res["launches"] = {n: getattr(mod, a) for n, mod, a in TRAIN_COUNTERS}
     res.update(losses=losses, step_ms=ms, n_tensors=len(list(
-        model.parameters())), collectives=comm,
+        model.parameters())), collectives=comm.read(),
         probes=tp_masters(opt, model, names))
     if faults:
         undo_layer0 = model.gpt.layers[0].attn.qkv_proj \
@@ -6867,6 +6908,591 @@ def tp_verify(cell, label, out):
               f"{f[fault]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+# (a) LLaMA-2-7B's widths at CELL7_LAYERS and (b) LLaMA-2-13B's at
+# SERVE13_LAYERS, int8 weights and KV, each served by two engines, one a
+# rank, on the one card over gloo, against this process serving the same
+# full model at tp 1. The times are no tensor-parallel speed.
+TPS_TP = 2
+TPS_ENGINE = dict(max_batch=8, max_seq_len=4096, page_size=16)
+TPS_NEW = 32
+TPS_BURST = 8
+TPS_13B_REQUESTS = 4
+# planted fault 2's small run: the first requests of (a)'s traffic, greedy
+TPS_FAULT_REQUESTS, TPS_FAULT_NEW = 2, 8
+# the linears whose quantized shards (b) holds against the tp-1
+# quantization, bit for bit: column shards and row shards
+TPS_PROBES = ("llama.layers.0.self_attn.q_proj",
+              "llama.layers.0.self_attn.o_proj",
+              "llama.layers.0.mlp.up_proj", "llama.layers.0.mlp.down_proj")
+# the bar on the tp-2 prefill's last-position logits (gathered) against tp
+# 1's, max |diff| over max |logit|: bf16 partial products rounded on each
+# rank and summed in bf16, against one f32 accumulation rounded once. On
+# an H100 (PERF.md, §6) (a) reads about 0.05, the size of the bf16
+# tp-1 model's own distance from its f32 copy, which the phase reads
+# beside it; a row linear without its all_reduce reads 1.3. It also
+# bounds a near tie: a greedy stream may leave tp 1's only where tp 1's
+# top-2 gap is within it times the largest |logit|
+TPS_LOGIT_BAR = 0.1
+
+
+def tps_traffic(seed, vocab):
+    """(a)'s 8 requests: 5-1000 tokens, TPS_NEW new each, greedy and
+    sampled alternating."""
+    rng = np.random.RandomState(seed + 17)
+    reqs = []
+    for i in range(8):
+        kw = {} if i % 2 == 0 else dict(decode_strategy="sampling",
+                                        temperature=0.8, top_k=50,
+                                        top_p=0.95)
+        reqs.append((rng.randint(0, vocab, int(rng.randint(5, 1001))),
+                     TPS_NEW, kw))
+    return reqs
+
+
+def tps_greedy(reqs, n=None, new=None):
+    """The first `n` requests of `reqs`, greedy (with `new` tokens)."""
+    return [(p, m if new is None else new, {}) for p, m, _ in reqs[:n]]
+
+
+def tps_model(cell, seed, dev):
+    """The cell's float model at the mesh's degree (tp 1 without one),
+    bf16, its weights from `tp_load` (drawn per tensor on the card)."""
+    cfg = llama7b_cell() if cell == "7b" else llama13b_cut()
+    cfg.dtype = "bfloat16"
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    tp_load(model, "llama", seed)
+    return model
+
+
+def tps_probe(seed, vocab):
+    return np.random.RandomState(seed + 170).randint(0, vocab, 200)
+
+
+def plant_row_without_reduce(lin):
+    """Planted fault 1: a row-parallel linear's forward without its
+    all_reduce (each rank keeps its partial product); returns the undo."""
+    lin.forward = lambda x: F.linear(x, lin.weight, lin.bias)
+    return lambda: delattr(lin, "forward")
+
+
+def tps_shard_shapes(cfg, tp):
+    """(k, n) of the linears of one forward at a rank's shards: q, k, v,
+    gate, up and the head by columns, o and down by rows."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * (h // cfg.num_attention_heads)
+    return sorted({(h, h // tp), (h, kv // tp), (h // tp, h), (h, i // tp),
+                   (i // tp, h), (h, cfg.vocab_size // tp)})
+
+
+def comm_delta(after, before, k=1):
+    """`CommCount` readings between two reads, over `k` steps."""
+    return {op: {n: (after[op][n] - before[op][n]) / k for n in after[op]}
+            for op in after}
+
+
+def tps_per_decode_step(eng, comm):
+    """Wrap `eng.step` so that each step that only decoded records its
+    collectives (calls and bytes) a token step; returns the list."""
+    per, real = [], eng.step
+
+    def step():
+        before, p0, d0 = comm.read(), eng.prefills, eng.decode_steps
+        out = real()
+        k = eng.decode_steps - d0
+        if eng.prefills == p0 and k > 0:
+            per.append(comm_delta(comm.read(), before, k))
+        return out
+
+    eng.step = step
+    return per
+
+
+def tps_launch_counters():
+    krms.launches = kpa.launches = kpa.q8_launches = 0
+    kqm.reset_launches()
+    kmm.reset_launches()
+
+
+def tps_read_launches():
+    return dict(rms_norm=krms.launches, paged_attention=kpa.launches,
+                paged_attention_int8=kpa.q8_launches,
+                quant_matmul_prefill=kqm.kernel_launches["prefill"],
+                quant_matmul_decode=kqm.kernel_launches["decode"],
+                quant_matmul_split=kqm.kernel_launches["split"],
+                matmul=kmm.launches,
+                matmul_by_variant=dict(kmm.variant_launches))
+
+
+def tps_counted(eng, reqs, comm):
+    """`drive` the engine over `reqs` with the kernels' counts set to 0
+    just before and read just after; the collectives a decode step."""
+    per = tps_per_decode_step(eng, comm)
+    f0, d0 = eng.prefills, eng.decode_steps
+    tps_launch_counters()
+    c0 = comm.read()
+    try:
+        out = drive(eng, reqs)
+    finally:
+        del eng.step
+    out["launches"] = tps_read_launches()
+    out.update(prefills=eng.prefills - f0, token_steps=eng.decode_steps - d0,
+               collectives=comm_delta(comm.read(), c0),
+               per_decode_step=per[-1] if per else None)
+    return out
+
+
+def tps_rank_7b(seed, dev, tune_dir, comm):
+    """Cell (a) on this rank: the tuner fills this rank's own table (the
+    decode bucket at the rank's heads through `warmup`, the GEMM's buckets
+    of the traffic's shard linears), the GEMM kernel is pinned in every
+    bucket (`pin_kernel_winners`: the ranks time candidates against each
+    other on one card), then, readonly, the traffic on the eager engine
+    and on decode_burst 8, counted from zero; planted faults 1 and 2."""
+    model = tps_model("7b", seed, dev)
+    cfg = model.config
+    reqs = tps_traffic(seed, cfg.vocab_size)
+    res = dict(q_heads=model.llama.layers[0].self_attn.num_heads)
+    set_flags({"FLAGS_autotune": "on", "FLAGS_autotune_cache_dir": tune_dir,
+               "FLAGS_paged_grouped_kernel": False})
+    autotune.reset_tuner()
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, seed=seed, device=dev, **TPS_ENGINE)
+    eng.warmup()
+    # every request is admitted at once: one prefill of 8 rows of the
+    # longest prompt, page-rounded, then decode at 8 rows
+    page = TPS_ENGINE["page_size"]
+    m_prefill = 8 * -(-max(len(p) for p, _, _ in reqs) // page) * page
+    for k, n in tps_shard_shapes(cfg, TPS_TP):
+        for m in (m_prefill, TPS_ENGINE["max_batch"]):
+            check(kmm.supports(m, k, n, torch.bfloat16),
+                  f"phase 17 (a): the GEMM does not take [{m}, {k}] x "
+                  f"[{k}, {n}]")
+            autotune.choose_matmul(m, k, n, torch.bfloat16)
+    res["table"] = pin_kernel_winners()
+    set_flags({"FLAGS_autotune": "readonly"})
+    res["tune_s"] = time.perf_counter() - t0
+    res["pools"] = tuple(eng.k_pages[0].shape)
+    res["graphs"] = (eng._graphs, eng._spec_graphs)
+    res["sync"] = tps_counted(eng, reqs, comm)
+    del eng
+    torch.cuda.empty_cache()
+    eng = ServingEngine(model, seed=seed, device=dev,
+                        decode_burst=TPS_BURST, **TPS_ENGINE)
+    res["burst"] = tps_counted(eng, reqs, comm)
+    res["burst"]["graph_captures"] = eng.graph_captures
+    # planted fault 1: layer 0's o_proj without its all_reduce, read by
+    # the prefill's last logits (both ranks skip it alike)
+    probe = tps_probe(seed, cfg.vocab_size)
+    res["logits"] = last_logits(model, probe, dev).cpu()
+    undo = plant_row_without_reduce(model.llama.layers[0].self_attn.o_proj)
+    try:
+        res["fault_no_reduce_logits"] = last_logits(model, probe, dev).cpu()
+    finally:
+        undo()
+    # planted fault 2: the engine samples from the rank's vocab shard
+    model.gather_logits = lambda logits: logits
+    try:
+        res["fault_shard_sampled"] = drive(eng, tps_greedy(
+            reqs, TPS_FAULT_REQUESTS, TPS_FAULT_NEW))["streams"]
+    finally:
+        del model.gather_logits
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    set_flags({"FLAGS_autotune": "off"})
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tps_rank_13b(seed, dev, comm):
+    """Cell (b) on this rank: the float shards, planted fault 3 (layer 0's
+    o_proj shard quantized with its local absmax), `quantize_for_inference`
+    (int8 per channel, lm_head kept), the probes' quantized shards, then
+    4 greedy requests over int8 KV counted from zero."""
+    model = tps_model("13b", seed, dev)
+    o = model.llama.layers[0].self_attn.o_proj
+    res = dict(fault_local_absmax=[t.cpu() for t in weight_quantize(
+        o.weight, "weight_only_int8")])
+    quantize_for_inference(model, exclude=("lm_head",))
+    mods = dict(model.named_modules())
+    res["probes"] = {n: (mods[n].quant_weight.cpu(),
+                         mods[n].weight_scale.cpu(), mods[n]._shard[0])
+                     for n in TPS_PROBES}
+    reqs = tps_greedy(tps_traffic(seed, model.config.vocab_size),
+                      TPS_13B_REQUESTS)
+    eng = ServingEngine(model, seed=seed, device=dev, kv_cache_quant="int8",
+                        **TPS_ENGINE)
+    res["pools"] = tuple(eng.k_pages[0].shape)
+    res["scales"] = tuple(eng.k_scales[0].shape)
+    res["run"] = tps_counted(eng, reqs, comm)
+    res["logits"] = last_logits(
+        model, tps_probe(seed, model.config.vocab_size), dev).cpu()
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tps_rank_proc(io, seed):
+    """One rank of phase 17: gloo over CUDA tensors on the one card
+    (PADDLE_DISTRI_BACKEND), fleet.init at mp_degree 2, cells (a) and
+    (b)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet
+
+    t0 = time.perf_counter()
+    # the ranks' host work is the engine's and gloo's staging: a few
+    # threads each keep them off one another's cores
+    torch.set_num_threads(2)
+    D.init_parallel_env()
+    dev = D.env.device()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = dict(dp_degree=1, mp_degree=TPS_TP)
+    fleet.init(is_collective=True, strategy=strategy)
+    rank = D.get_rank()
+    res = dict(rank=rank, backend=D.get_backend(), device=str(dev),
+               mesh=tuple(D.get_mesh().mesh_dim_names))
+    comm = CommCount(("all_reduce", "all_gather"))
+    try:
+        t1 = time.perf_counter()
+        res["7b"] = tps_rank_7b(seed, dev, os.path.join(io, f"tune{rank}"),
+                                comm)
+        res["7b_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        res["13b_int8"] = tps_rank_13b(seed, dev, comm)
+        res["13b_int8_s"] = time.perf_counter() - t1
+    finally:
+        comm.close()
+    res["process_s"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(io, f"tps_rank{rank}.pt"))
+    D.destroy_process_group()
+
+
+def tps_reference(seed, dev):
+    """This process at tp 1: (a) the eager engine over the traffic (and
+    fault 2's small run), the probe's logits; (b) the 13B model quantized
+    whole (its probes' int8 weights and scales: the tp-1 quantization)
+    serving 4 greedy requests over int8 KV. The models stay for the
+    near-tie reads."""
+    set_flags({"FLAGS_autotune": "off"})
+    out = {}
+    t0 = time.perf_counter()
+    model = tps_model("7b", seed, dev)
+    reqs = tps_traffic(seed, model.config.vocab_size)
+    eng = ServingEngine(model, seed=seed, device=dev, **TPS_ENGINE)
+    probe = tps_probe(seed, model.config.vocab_size)
+    out["7b"] = dict(sync=drive(eng, reqs), fault_small=drive(
+        eng, tps_greedy(reqs, TPS_FAULT_REQUESTS, TPS_FAULT_NEW))["streams"],
+        logits=last_logits(model, probe, dev).cpu(), model=model, reqs=reqs)
+    del eng
+    torch.cuda.empty_cache()
+    # the bf16 rounding's own size: the same weights in f32
+    cfg32 = llama7b_cell()
+    f32 = LlamaForCausalLM(cfg32, device=dev, seed=seed)
+    f32.load_state_dict(model.state_dict())
+    out["7b"]["logits_f32"] = last_logits(f32, probe, dev).cpu()
+    del f32
+    model = tps_model("13b", seed, dev)
+    quantize_for_inference(model, exclude=("lm_head",))
+    mods = dict(model.named_modules())
+    reqs13 = tps_greedy(reqs, TPS_13B_REQUESTS)
+    eng = ServingEngine(model, seed=seed, device=dev, kv_cache_quant="int8",
+                        **TPS_ENGINE)
+    out["13b_int8"] = dict(
+        run=drive(eng, reqs13), model=model, reqs=reqs13,
+        probes={n: (mods[n].quant_weight.cpu(), mods[n].weight_scale.cpu())
+                for n in TPS_PROBES},
+        logits=last_logits(model, tps_probe(seed, model.config.vocab_size),
+                           dev).cpu())
+    del eng
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def tps_kernel_checks(seed, dev):
+    """The kernels at the ranks' shard shapes against their plain versions
+    (phase 3's cases): decode at 16 heads of 128 (7B) and int8 decode at
+    20 (13B), the dequant matmul at 13B's row shard (6912 -> 5120) and
+    column shard (5120 -> 6912) at 8 rows, the GEMM at 7B's head shard
+    (4096 -> 16000) at 8 rows. Launches here are not the main path's."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    bf16 = torch.bfloat16
+    lens = [0, 1, 15, 16, 17, 1000, 2049, 4096]
+    out = dict(
+        paged=paged_case("tp2_7b_shard", bf16, 16, 16, gen, dev, lens,
+                         timed=False),
+        paged_q8=paged_q8_case("tp2_13b_shard", bf16, 20, 20, gen, dev,
+                               lens, timed=False),
+        qmm_row=qmm_case("tp2_13b_row 6912->5120 m8", 8, 6912, 5120, "int8",
+                         -1, bf16, gen, dev, timed=False),
+        qmm_column=qmm_case("tp2_13b_column 5120->6912 m8", 8, 5120, 6912,
+                            "int8", -1, bf16, gen, dev, timed=False),
+        mm=mm_case("tp2_7b_head 4096->16000 m8", 8, 4096, 16000, bf16, gen,
+                   dev, timed=False))
+    return out
+
+
+def tps_streams_hold(model, dev, reqs, ranks, want, tag, card):
+    """The stream holds: every rank's streams equal bit for bit, and each
+    greedy one equal to tp 1's or first differing at a near tie
+    (`judge_streams` at TPS_LOGIT_BAR). Raises on a failure."""
+    for r in ranks[1:]:
+        check(r == ranks[0], f"phase 17 {tag}: the ranks' streams differ")
+    greedy = [i for i, (_, _, kw) in enumerate(reqs) if not kw]
+    return judge_streams(model, dev, [reqs[i][0] for i in greedy],
+                         [ranks[0][i] for i in greedy],
+                         [want[i] for i in greedy], TPS_LOGIT_BAR, tag,
+                         card, phase=17)
+
+
+def tps_phase(seed, card):
+    """Phase 17: the kernels at the shard shapes, the tp-1 runs in this
+    process, then both cells on two gloo ranks spawned once; every reading
+    logged before its check."""
+    from paddle_tpu_torch.distributed import spawn
+
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_all = time.perf_counter()
+    res = dict(kernels=tps_kernel_checks(seed, dev))
+    for name, r in res["kernels"].items():
+        log(f"phase 17: kernel {name} {r['case']} at the shard shape: "
+            + (f"row rel err {r['row_rel_err']:.3g} (bar {r['tol']:.3g})"
+               if "row_rel_err" in r else
+               f"max abs err {r['max_abs_err']:.3g} (tol {r['tol']:.3g})")
+            + " vs plain; controls " + ", ".join(
+                f"{k} {v:.3g}" for k, v in r.get("controls", {}).items())
+            + f" [{card}]")
+    res["kernels_s"] = time.perf_counter() - t_all
+    t0 = time.perf_counter()
+    ref = tps_reference(seed, dev)
+    res["ref_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase17-") as io:
+        prev = os.environ.get("PADDLE_DISTRI_BACKEND")
+        os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
+        try:
+            spawn(tps_rank_proc, args=(io, seed), nprocs=TPS_TP, timeout=300)
+        finally:
+            if prev is None:
+                os.environ.pop("PADDLE_DISTRI_BACKEND")
+            else:
+                os.environ["PADDLE_DISTRI_BACKEND"] = prev
+        ranks = [torch.load(os.path.join(io, f"tps_rank{r}.pt"))
+                 for r in range(TPS_TP)]
+    res["spawn_s"] = time.perf_counter() - t0
+    res["7b"] = tps_cell_7b(ranks, ref["7b"], dev, card)
+    res["13b_int8"] = tps_cell_13b(ranks, ref["13b_int8"], dev, card)
+    res["phase_s"] = time.perf_counter() - t_all
+    log(f"phase 17: {res['phase_s']:.1f} s (kernel checks "
+        f"{res['kernels_s']:.1f}, tp 1 in this process {res['ref_s']:.1f}, "
+        f"the ranks' spawn {res['spawn_s']:.1f}: processes "
+        f"{[round(r['process_s'], 1) for r in ranks]} s, (a) "
+        f"{[round(r['7b_s'], 1) for r in ranks]}, (b) "
+        f"{[round(r['13b_int8_s'], 1) for r in ranks]}) [{card}]")
+    launches = {}
+    for r in ranks:
+        for run in (r["7b"]["sync"], r["7b"]["burst"], r["13b_int8"]["run"]):
+            for name, n in run["launches"].items():
+                if name == "matmul_by_variant":
+                    for v, k in n.items():
+                        launches.setdefault(name, {})
+                        launches[name][v] = launches[name].get(v, 0) + k
+                else:
+                    launches[name] = launches.get(name, 0) + n
+    res["launches"] = launches
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tps_rank_checks(ranks, cell, kvh):
+    """Each rank on gloo over the card, in a mesh of "tp", its pools at
+    kv_heads / 2."""
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["device"].startswith("cuda")
+              and r["mesh"] == ("tp",),
+              f"phase 17: rank {r['rank']} on {r['device']} over "
+              f"{r['backend']}, mesh {r['mesh']}")
+        check(r[cell]["pools"][0] == kvh // TPS_TP,
+              f"phase 17 {cell}: rank {r['rank']}'s pools hold "
+              f"{r[cell]['pools'][0]} KV heads, expected {kvh // TPS_TP}")
+
+
+def tps_cell_7b(ranks, ref, dev, card):
+    model, reqs = ref["model"], ref["reqs"]
+    cfg = model.config
+    L, label = cfg.num_hidden_layers, "(a) LLaMA-2-7B widths"
+    a = [r["7b"] for r in ranks]
+    out = {}
+    dist = logit_distance(a[0]["logits"], ref["logits"])
+    fault1 = logit_distance(a[0]["fault_no_reduce_logits"], ref["logits"])
+    # readings, not gates: each bf16 run against the f32 copy
+    out["f32_dist"] = dict(
+        tp2=logit_distance(a[0]["logits"], ref["logits_f32"]),
+        tp1=logit_distance(ref["logits"], ref["logits_f32"]))
+    out.update(logit_dist=dist, fault_no_reduce_dist=fault1,
+               logits_equal=all(torch.equal(x["logits"], a[0]["logits"])
+                                for x in a))
+    for mode in ("sync", "burst"):
+        runs = [x[mode] for x in a]
+        per = runs[0]["per_decode_step"]
+        out[mode] = dict(
+            ms_per_decode_step_p50=[x["ms_per_decode_step_p50"]
+                                    for x in runs],
+            ttft_ms=[x["ttft_ms"] for x in runs],
+            prefills=runs[0]["prefills"], token_steps=runs[0]["token_steps"],
+            launches=[x["launches"] for x in runs],
+            collectives=runs[0]["collectives"], per_decode_step=per)
+        how = f"decode_burst {TPS_BURST}" if mode == "burst" \
+            else "one step a dispatch"
+        out[mode]["ms_per_token_step"] = [x["ms_per_token_step"]
+                                          for x in runs]
+        log(f"phase 17 {label} at {L} of 32 layers, TP {TPS_TP} over gloo, "
+            f"bf16, {mode} ({how}; eager at tp > 1): "
+            f"{runs[0]['prefills']} prefills, {runs[0]['token_steps']} token "
+            f"steps; decode ms a token step by rank "
+            f"{out[mode]['ms_per_token_step']} (tp 1 eager: "
+            f"{ref['sync']['ms_per_token_step']}); TTFT p50 by rank "
+            f"{[float(np.median(x['ttft_ms'])) for x in runs]} ms; a decode "
+            f"step a rank: " + ", ".join(
+                f"{op} {v['calls']:.0f} calls, {v['bytes'] / 2 ** 10:.1f} KiB"
+                for op, v in (per or {}).items())
+            + "; the run a rank: " + ", ".join(
+                f"{op} {v['calls']:.0f} calls, {v['bytes'] / 2 ** 20:.1f} MiB"
+                for op, v in runs[0]["collectives"].items())
+            + f"; launches a rank {runs[0]['launches']} (two ranks share "
+            f"ONE card: no tensor-parallel speed) [{card}]")
+    log(f"phase 17 {label}: the prefill's last logits of a 200-token probe, "
+        f"tp 2 against tp 1: {dist:.4g} of the largest (bar "
+        f"{TPS_LOGIT_BAR}), equal on both ranks: {out['logits_equal']}; "
+        f"against the same weights in f32: tp 2 {out['f32_dist']['tp2']:.4g}"
+        f", tp 1 {out['f32_dist']['tp1']:.4g}; "
+        f"planted fault 1 (layer 0's o_proj without its all_reduce): "
+        f"{fault1:.4g} (must exceed the bar); the GEMM's buckets pinned on "
+        f"each rank: {len(a[0]['table'])} entries, tuned in "
+        f"{[round(x['tune_s'], 1) for x in a]} s [{card}]")
+    check(out["logits_equal"], f"phase 17 {label}: the ranks' logits differ")
+    check(dist <= TPS_LOGIT_BAR, f"phase 17 {label}: logits {dist:.4g} off")
+    check(fault1 > TPS_LOGIT_BAR,
+          f"phase 17 {label}: planted fault 1 passed the bar: {fault1:.4g}")
+    kvh = cfg.num_key_value_heads
+    tps_rank_checks(ranks, "7b", kvh)
+    want = ref["sync"]["streams"]
+    for mode in ("sync", "burst"):
+        out[mode]["diffs"] = tps_streams_hold(
+            model, dev, reqs, [x[mode]["streams"] for x in a], want,
+            f"{label} {mode}", card)
+        for r, x in zip(ranks, a):
+            run = x[mode]
+            la = run["launches"]
+            fwd = run["prefills"] + run["token_steps"]
+            for name, n in (("paged_attention", L * run["token_steps"]),
+                            ("rms_norm", (2 * L + 1) * fwd),
+                            ("matmul", (7 * L + 1) * fwd),
+                            ("paged_attention_int8", 0),
+                            ("quant_matmul_decode", 0)):
+                check(la[name] == n and (n > 0 or name.endswith(
+                    ("int8", "decode"))),
+                      f"phase 17 {label} {mode}: rank {r['rank']}: {name} "
+                      f"launched {la[name]} times, expected {n}")
+    for r, x in zip(ranks, a):
+        check(x["graphs"] == (False, False)
+              and x["burst"]["graph_captures"] == 0,
+              f"phase 17 {label}: rank {r['rank']} captured a graph at tp 2")
+        check(x["q_heads"] == cfg.num_attention_heads // TPS_TP,
+              f"phase 17 {label}: rank {r['rank']} runs {x['q_heads']} heads")
+    # planted fault 2: sampling from the vocab shard, held by the streams
+    small = tps_greedy(reqs, TPS_FAULT_REQUESTS, TPS_FAULT_NEW)
+    try:
+        tps_streams_hold(model, dev, small,
+                         [x["fault_shard_sampled"] for x in a],
+                         ref["fault_small"], f"{label} fault 2", card)
+        caught = None
+    except AssertionError as e:
+        caught = str(e)
+    out["fault_shard_sampled"] = caught
+    log(f"phase 17 {label}: planted fault 2 (the engine samples the rank's "
+        f"vocab shard): streams by rank "
+        f"{[x['fault_shard_sampled'] for x in a]} against tp 1's "
+        f"{ref['fault_small']}: caught: {caught} [{card}]")
+    check(caught is not None,
+          f"phase 17 {label}: planted fault 2 passed the stream holds")
+    out["peak_gib"] = [x["peak_gib"] for x in a]
+    return out
+
+
+def tps_cell_13b(ranks, ref, dev, card):
+    model, reqs = ref["model"], ref["reqs"]
+    cfg = model.config
+    L, label = cfg.num_hidden_layers, "(b) LLaMA-2-13B widths int8"
+    b = [r["13b_int8"] for r in ranks]
+    tps_rank_checks(ranks, "13b_int8", cfg.num_key_value_heads)
+    out = dict(logit_dist=logit_distance(b[0]["logits"], ref["logits"]))
+    # the quantized shards against the tp-1 quantization's slices
+    mismatched = []
+    for rank, x in enumerate(b):
+        for name, (qw, sc, kind) in x["probes"].items():
+            fq, fs = ref["probes"][name]
+            ax = 1 if kind == "column" else 0
+            n = fq.shape[ax] // TPS_TP
+            want_q = fq.narrow(ax, rank * n, n)
+            want_s = fs.narrow(0, rank * n, n) if kind == "column" else fs
+            if not (torch.equal(qw, want_q) and torch.equal(sc, want_s)):
+                mismatched.append((rank, name))
+    fq, fs = ref["probes"]["llama.layers.0.self_attn.o_proj"]
+    n = fq.shape[0] // TPS_TP
+    fault3 = [not (torch.equal(x["fault_local_absmax"][0],
+                               fq.narrow(0, r * n, n))
+                   and torch.equal(x["fault_local_absmax"][1], fs))
+              for r, x in enumerate(b)]
+    run = [x["run"] for x in b]
+    out.update(mismatched=mismatched, fault_local_absmax_caught=fault3,
+               ms_per_decode_step_p50=[x["ms_per_decode_step_p50"]
+                                       for x in run],
+               launches=[x["launches"] for x in run],
+               collectives=run[0]["collectives"],
+               per_decode_step=run[0]["per_decode_step"])
+    log(f"phase 17 {label} at {L} of 40 layers, TP {TPS_TP} over gloo, int8 "
+        f"weights per channel (lm_head bf16) and int8 KV, "
+        f"{TPS_13B_REQUESTS} greedy requests: decode ms a step p50 by rank "
+        f"{[x['ms_per_decode_step_p50'] for x in run]} (tp 1: "
+        f"{ref['run']['ms_per_decode_step_p50']}); a decode step a rank: "
+        + ", ".join(f"{op} {v['calls']:.0f} calls, "
+                    f"{v['bytes'] / 2 ** 10:.1f} KiB"
+                    for op, v in (run[0]["per_decode_step"] or {}).items())
+        + f"; launches a rank {run[0]['launches']}; probe logits tp 2 vs tp "
+        f"1 {out['logit_dist']:.4g}; quantized shards that are not slices of "
+        f"the tp-1 quantization: {mismatched}; planted fault 3 (a row shard "
+        f"quantized with its local absmax) caught by rank: {fault3} "
+        f"[{card}]")
+    check(not mismatched, f"phase 17 {label}: shards {mismatched} are not "
+          f"slices of the tp-1 quantization")
+    check(all(fault3), f"phase 17 {label}: planted fault 3 passed: {fault3}")
+    check(all(x["scales"][0] == cfg.num_key_value_heads // TPS_TP
+              for x in b), f"phase 17 {label}: the scale pools' heads")
+    out["diffs"] = tps_streams_hold(model, dev, reqs,
+                                    [x["streams"] for x in run],
+                                    ref["run"]["streams"], label, card)
+    for r, x in zip(ranks, run):
+        la, fwd = x["launches"], x["prefills"] + x["token_steps"]
+        for name, n in (("paged_attention_int8", L * x["token_steps"]),
+                        ("paged_attention", 0),
+                        ("rms_norm", (2 * L + 1) * fwd),
+                        ("quant_matmul_decode", 7 * L * x["token_steps"]),
+                        ("quant_matmul_prefill", 7 * L * x["prefills"])):
+            check(la[name] == n, f"phase 17 {label}: rank {r['rank']}: "
+                  f"{name} launched {la[name]} times, expected {n}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6889,6 +7515,9 @@ def main():
                     "no kernels line, no final line)")
     ap.add_argument("--phase16", action="store_true",
                     help="build the kernels and run phase 16 alone (a probe: "
+                    "no kernels line, no final line)")
+    ap.add_argument("--phase17", action="store_true",
+                    help="build the kernels and run phase 17 alone (a probe: "
                     "no kernels line, no final line)")
     ap.add_argument("--io", default=None,
                     help="with --phase11: the directory of the streams it "
@@ -6958,6 +7587,9 @@ def main():
         return 0
     if args.phase16:
         tp_phase(args.seed, card)
+        return 0
+    if args.phase17:
+        tps_phase(args.seed, card)
         return 0
 
     # 3. kernels against their plain versions at the serving and training
@@ -7270,6 +7902,13 @@ def main():
     # phases 15 and 16's launches, one sum a kernel
     par = {n: ft[n] + tensor_parallel["launches"][n] for n in ft}
 
+    # 17. tensor-parallel serving: LLaMA-2-7B's widths and LLaMA-2-13B's
+    # int8 at TP 2, two engines on gloo ranks on the card, against tp 1;
+    # the kernels' launches of both ranks' counted runs
+    tp_serving = tps_phase(args.seed, card)
+    mark("phase 17")
+    t17 = tp_serving["launches"]
+
     def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -7286,9 +7925,13 @@ def main():
     q4by = q4["quant_matmul_by_kernel"]
     # the GEMM's variants in phase 8's counted runs
     by_variant = {}
-    for run in (dispatch["serving"], dispatch["serving_pinned"],
-                dispatch["training"]["readonly_pinned"]):
-        for v, n in run["launches"]["matmul_by_variant"].items():
+    for counts in (dispatch["serving"]["launches"]["matmul_by_variant"],
+                   dispatch["serving_pinned"]["launches"][
+                       "matmul_by_variant"],
+                   dispatch["training"]["readonly_pinned"]["launches"][
+                       "matmul_by_variant"],
+                   t17.get("matmul_by_variant", {})):
+        for v, n in counts.items():
             by_variant[v] = by_variant.get(v, 0) + n
     check(sum(by_variant.get(v, 0) for v in ("128x256", "128x128")) > 0
           and sum(by_variant.get(v, 0) for v in ("skinny", "m16")) > 0,
@@ -7328,14 +7971,14 @@ def main():
             served["rms_norm"] + q8["rms_norm"] + q4["rms_norm"]
             + trained["rms_norm"] + g7["rms_norm"] + g13["rms_norm"]
             + p7["rms_norm"] + p13["rms_norm"] + s7["rms_norm"]
-            + s13["rms_norm"] + par["rms_norm"]),
+            + s13["rms_norm"] + par["rms_norm"] + t17["rms_norm"]),
         row("rms_norm_bwd", csrc + "rms_norm.cu", ref + "rms_norm.py:101",
             rms_bwd[0], trained["rms_norm_bwd"] + par["rms_norm_bwd"]),
         row("paged_attention", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged[0],
             served["paged_attention"] + g7["paged_attention"]
             + p7["paged_attention"] + s7["paged_attention"]
-            + g_serve["paged_attention"]),
+            + g_serve["paged_attention"] + t17["paged_attention"]),
         # the plain flash bodies: the training run's and phase 9 (d)'s
         row("flash_fwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:214", flash[0]["fwd"],
@@ -7356,16 +7999,18 @@ def main():
             ref + "quant_matmul.py:208",
             case(qmm, "5120->13824 m2512 int8 g-1"),
             q8by["prefill"] + q4by["prefill"]
-            + p13["quant_matmul_prefill"] + s13["quant_matmul_prefill"]),
+            + p13["quant_matmul_prefill"] + s13["quant_matmul_prefill"]
+            + t17["quant_matmul_prefill"]),
         row("quant_matmul_decode", csrc + "quant_matmul.cu",
             ref + "quant_matmul.py:208", case(qmm, "5120->13824 m8 int8 g-1"),
             q8by["decode"] + q4by["decode"] + g13["quant_matmul_decode"]
-            + p13["quant_matmul_decode"] + s13["quant_matmul_decode"]),
+            + p13["quant_matmul_decode"] + s13["quant_matmul_decode"]
+            + t17["quant_matmul_decode"]),
         row("paged_attention_int8", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged_q8[0],
             q8["paged_attention_int8"] + q4["paged_attention_int8"]
             + g13["paged_attention"] + p13["paged_attention_int8"]
-            + s13["paged_attention"]),
+            + s13["paged_attention"] + t17["paged_attention_int8"]),
         # the GEMM's variants that ran; launches: phase 8's counted runs
         *[variant_row(v, n) for v, n in sorted(by_variant.items()) if n],
         row("paged_attention_grouped", csrc + "paged_attention.cu",
@@ -7411,7 +8056,8 @@ def main():
                            surface_parity=surface_parity,
                            multi_step=multi_step, prefix=prefix, spec=spec,
                            gpt=gpt, finetune=finetune,
-                           tensor_parallel=tensor_parallel, kernels=kernels),
+                           tensor_parallel=tensor_parallel,
+                           tp_serving=tp_serving, kernels=kernels),
                       f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

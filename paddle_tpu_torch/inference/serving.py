@@ -88,9 +88,29 @@ and on CUDA each is a captured graph whatever `decode_burst` is; a round
 replays both back to back and reads the host once. Not with
 `async_depth`.
 
+Tensor parallelism (`mesh`, default the global mesh; its "tp" axis): one
+engine a rank, as Paddle's predictor runs under fleet, where the reference
+runs one engine over a device mesh. Each rank builds its model under the
+mesh (`fleet.init` with `mp_degree`), so the model holds the rank's shards;
+a model whose `tp_degree` is not the mesh's "tp" raises (the reference's
+`place_model` reshards a whole model; the port builds shards at
+construction). The rank's pools, and their int8 scale pools, hold kv_heads
+/ tp heads (tp must divide the KV heads, as in the reference); the vocab
+head's output is the rank's vocab shard, and every place that chooses a
+token gathers the whole vocabulary first (`model.gather_logits`) on the
+rows and positions it samples: the prefill's last real positions, a chunk
+round's, a decode step's, a draft step's and the verify's window. Every
+rank adds the same requests in the same order; the host state (admission,
+pages, preemption victims, the trie, chunk rounds, speculative commits) is
+a function of the requests and the committed tokens, and the committed
+tokens are equal on every rank, since the gathered logits are and each
+rank samples from a generator seeded alike. A rank whose decisions diverge
+hangs its next collective. At tp > 1 no program is a CUDA graph: the
+burst, draft and verify bodies run eagerly (the ranks' collectives on one
+card go over gloo, which stages through the host and cannot be captured).
+
 Not ported (the constructor accepts their defaults and raises on anything
-else): tensor parallelism (`mesh`), the KV tiers; nor OOM recovery,
-handoff or telemetry.
+else): the KV tiers; nor OOM recovery, handoff or telemetry.
 """
 from __future__ import annotations
 
@@ -102,6 +122,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..distributed import mesh as _mesh
 from ..framework import config as _cfg
 from ..framework.device import resolve_device
 from ..kernels import autotune as _at
@@ -125,11 +146,44 @@ def burst_rules(tok, lens, act, rem, nxt, eos):
     return tok, lens, act, rem, emitted
 
 
+def _tp_degree(mesh):
+    """The "tp" axis's degree of a `DeviceMesh` (1 without a mesh or an
+    axis of that name)."""
+    if mesh is None:
+        return 1
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        raise TypeError(f"ServingEngine(mesh=...) takes a DeviceMesh with "
+                        f"named dimensions, got {type(mesh).__name__}")
+    return int(mesh["tp"].size()) if "tp" in names else 1
+
+
+def _kv_heads_of(model, tp, what="model"):
+    """This rank's KV heads of `model` at degree `tp`: the config's (a
+    config without num_key_value_heads, GPT, has one a query head) over
+    tp. Raises, as the reference's engine does, where tp does not divide
+    them, and where the model was built at another degree than the mesh's
+    (the model must be built under the mesh, so that it holds its
+    shards)."""
+    cfg = model.config
+    kvh = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+    if tp > 1 and kvh % tp:
+        raise ValueError(
+            f"TP serving shards the {kvh} kv heads over tp={tp}; "
+            f"the kv-head count must be divisible by tp")
+    built = getattr(model, "tp_degree", 1)
+    if built != tp:
+        raise ValueError(
+            f"ServingEngine: the {what} was built at tensor-parallel degree "
+            f"{built} but the mesh's \"tp\" axis has degree {tp}; build it "
+            f"under the mesh (fleet.init with mp_degree={tp}) so that it "
+            f"holds this rank's shards")
+    return kvh // tp
+
+
 # constructor arguments of the reference whose features are not ported:
 # (name, is the value the feature's off state, ROADMAP item)
 _NOT_PORTED = (
-    ("mesh", lambda v: v is None,
-     "tensor-parallel serving, ROADMAP Queue 1 item 4"),
     ("kv_host_cache_mb", lambda v: v is None or int(v) <= 0,
      "KV tiers, ROADMAP Queue 1 item 2"),
     ("kv_disk_cache_dir", lambda v: not v,
@@ -247,7 +301,7 @@ class ServingEngine:
                  scheduler=None, prefix_cache=None, prefill_chunk=None,
                  kv_host_cache_mb=None, kv_disk_cache_dir=None,
                  device=None):
-        given = dict(mesh=mesh, kv_host_cache_mb=kv_host_cache_mb,
+        given = dict(kv_host_cache_mb=kv_host_cache_mb,
                      kv_disk_cache_dir=kv_disk_cache_dir)
         sd = int(spec_decode if spec_decode is not None
                  else _cfg.get_flag("FLAGS_spec_decode", 0))
@@ -275,11 +329,6 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"ServingEngine({name}={given[name]!r}): {item} is not "
                     f"ported")
-        if getattr(model, "tp_degree", 1) > 1:
-            raise NotImplementedError(
-                "ServingEngine: a model built at tensor-parallel degree "
-                f"{model.tp_degree}: tensor-parallel serving, ROADMAP Queue "
-                "1 item 4, is not ported")
         if kv_cache_quant not in (None, "int8"):
             raise ValueError("kv_cache_quant must be None or 'int8'")
         if max_seq_len % page_size:
@@ -296,6 +345,9 @@ class ServingEngine:
                              f"engine serves on {dev}")
         self.model = model
         self.cfg = cfg = model.config
+        self.mesh = mesh if mesh is not None else _mesh.get_mesh(
+            optional=True)
+        self.tp = tp = _tp_degree(self.mesh)
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len
         self.page_size = page_size
@@ -329,8 +381,9 @@ class ServingEngine:
         self._prefix_misses_total = 0
         hd = cfg.hidden_size // cfg.num_attention_heads
         # a config without num_key_value_heads (GPT) has one KV head a
-        # query head, as the reference reads it
-        kvh = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+        # query head, as the reference reads it; each rank's pools hold
+        # its kv_heads / tp
+        kvh = _kv_heads_of(model, tp)
         L = cfg.num_hidden_layers
         # pages in the model's dtype, or int8 plus per-slot f32 scales; the
         # decode kernels accumulate in f32
@@ -363,8 +416,7 @@ class ServingEngine:
             if dparam.device != dev:
                 raise ValueError(f"the draft model lives on {dparam.device} "
                                  f"but the engine serves on {dev}")
-            dkvh = getattr(dcfg, "num_key_value_heads",
-                           dcfg.num_attention_heads)
+            dkvh = _kv_heads_of(self._draft_model, tp, "draft model")
             dhd = dcfg.hidden_size // dcfg.num_attention_heads
             d_dtype = torch.int8 if kv_cache_quant else dparam.dtype
             self._draft_caches = []
@@ -403,9 +455,12 @@ class ServingEngine:
         self._host = [_HostSlot(max_batch, self.decode_burst, dev,
                                 self.spec_decode)
                       for _ in range(self.async_depth + 2)]
-        self._graphs = dev.type == "cuda" and self.decode_burst > 1
+        # no CUDA graph at tp > 1: the programs hold the ranks' collectives
+        # (the class docstring)
+        self._graphs = dev.type == "cuda" and self.decode_burst > 1 \
+            and tp == 1
         # the speculative programs are graphs on CUDA whatever decode_burst
-        self._spec_graphs = dev.type == "cuda"
+        self._spec_graphs = dev.type == "cuda" and tp == 1
         self._burst_fns: Dict[tuple, object] = {}
         # what ran: batched prefill calls, chunk rounds, decode steps (one
         # a token step: k a dispatch of k), speculative rounds,
@@ -601,8 +656,9 @@ class ServingEngine:
         """With FLAGS_autotune on (or readonly), resolve the paged-decode
         winner for this engine's cache geometry ahead of traffic: the
         decode's max_batch rows and, with spec_decode, the verify's
-        max_batch * window rows (and a draft model's geometry). Unlike the
-        reference this catches nothing: a tuner failure raises."""
+        max_batch * window rows (and a draft model's geometry), at this
+        rank's head counts. Unlike the reference this catches nothing: a
+        tuner failure raises."""
         if not _at.enabled():
             return
         quant = self.kv_cache_quant == "int8"
@@ -614,10 +670,11 @@ class ServingEngine:
             buckets.append((self._draft_model.config,
                             self._draft_caches[0][0], self.max_batch))
         for cfg, pages, rows in buckets:
+            # this rank's heads: its query heads over its pools' KV heads
             kvh, _n, page, hd = pages.shape
-            _at.choose_paged_decode(rows, cfg.num_attention_heads, kvh, hd,
-                                    page, self.pages_per_seq, pages.dtype,
-                                    quant)
+            _at.choose_paged_decode(rows, cfg.num_attention_heads // self.tp,
+                                    kvh, hd, page, self.pages_per_seq,
+                                    pages.dtype, quant)
 
     # ------------------------------------------------------------------
     # pages
@@ -749,8 +806,9 @@ class ServingEngine:
         caches = self.model.init_kv_caches(nb, bucket)
         logits, caches = self.model.forward_cached(ids, caches, 0)
         # causal: position true_len - 1 never saw the padding
-        last = logits[torch.arange(nb, device=dev),
-                      torch.from_numpy(true_lens - 1).to(dev)]
+        last = self.model.gather_logits(
+            logits[torch.arange(nb, device=dev),
+                   torch.from_numpy(true_lens - 1).to(dev)])
         first = self._sample(last, all_greedy, params)
         tables = torch.from_numpy(
             self.block_tables[[si for si, _ in new]]).to(dev)
@@ -830,8 +888,9 @@ class ServingEngine:
             scratch_page=self._scratch,
             limit_lens=lens_t + torch.from_numpy(take))
         # the last real position of each row
-        last = logits[torch.arange(n, device=dev),
-                      torch.from_numpy(take.astype(np.int64) - 1).to(dev)]
+        last = self.model.gather_logits(
+            logits[torch.arange(n, device=dev),
+                   torch.from_numpy(take.astype(np.int64) - 1).to(dev)])
         first = self._sample(last, all_greedy, self._row_params(rids))
         first = first.cpu().numpy()
         self.chunk_rounds += 1
@@ -862,9 +921,10 @@ class ServingEngine:
             logits, _ = model.forward_paged(tok[:, None], caches, b.tables,
                                             lens, active=act,
                                             scratch_page=scratch)
+            logits = model.gather_logits(logits[:, 0])
             if all_greedy:
-                return sample_logits(logits[:, 0], gen, "greedy_search")[0]
-            return sample_logits_per_row(logits[:, 0], gen, b.greedy, b.temp,
+                return sample_logits(logits, gen, "greedy_search")[0]
+            return sample_logits_per_row(logits, gen, b.greedy, b.temp,
                                          b.top_k, b.top_p)[0]
 
         return core
@@ -992,7 +1052,8 @@ class ServingEngine:
                     tok[:, None], caches, b.tables, lens, active=act,
                     scratch_page=scratch, limit_lens=b.limit,
                     max_layers=depth)
-                nxt = logits[:, 0].float().argmax(dim=-1)
+                nxt = model.gather_logits(logits[:, 0]).float().argmax(
+                    dim=-1)
                 tok = torch.where(act, nxt, tok)
                 lens = lens + act.to(lens.dtype)
                 drafts.append(nxt)
@@ -1016,7 +1077,7 @@ class ServingEngine:
             logits, _ = model.forward_paged(
                 win, caches, b.tables, b.lens, active=b.act,
                 scratch_page=scratch, limit_lens=b.limit, window_rows=True)
-            b.g.copy_(logits.float().argmax(dim=-1))
+            b.g.copy_(model.gather_logits(logits).float().argmax(dim=-1))
 
         return body
 

@@ -28,9 +28,9 @@ from ..framework import amp_state as _amp
 def tp_setup(model, heads):
     """Set `model.tp_degree`, `tp_rank` and `_tp_group` from the global
     mesh's "tp" axis. Raises where tp does not divide a head count of
-    `heads` ({config field: count}; replicating KV heads over the ranks
-    belongs to tensor-parallel serving), and on a mesh with "sp" or "sep"
-    > 1 (context parallelism)."""
+    `heads` ({config field: count}; each rank holds whole heads, where the
+    reference's GSPMD splits the columns wherever they fall), and on a
+    mesh with "sp" or "sep" > 1 (context parallelism)."""
     for ax in ("sp", "sep"):
         if _mesh.axis_size(ax) > 1:
             raise NotImplementedError(
@@ -42,8 +42,8 @@ def tp_setup(model, heads):
         if n % tp:
             raise ValueError(
                 f"{name} = {n} is not divisible by the tensor-parallel "
-                f"degree {tp}: replicating KV heads over the ranks belongs "
-                "to tensor-parallel serving (ROADMAP Queue 1 item 4)")
+                f"degree {tp}: each rank holds whole heads (heads that tp "
+                "does not divide: ROADMAP Queue 1 item 4)")
     model.tp_degree, model.tp_rank, model._tp_group = tp, rank, group
 
 

@@ -20,15 +20,17 @@ as the reference lays them out (`paddle_tpu/models/llama.py:99-136, 390,
 455-463`): q/k/v/gate/up column-parallel without gather, o/down
 row-parallel with `input_is_parallel`, a vocab-parallel embedding, a
 column-parallel head without gather into `ParallelCrossEntropy`; each rank
-runs num_heads / tp query heads and kv_heads / tp KV heads. Heads that tp
-does not divide raise (the GQA replication of KV heads belongs to
-tensor-parallel serving), as does a mesh with "sp" or "sep" > 1 (context
-parallelism). `config.sequence_parallel` (PaddleNLP's switch; the
-reference's LLaMA has none) at tp > 1 runs the training forward with
-Megatron sequence parallelism (`fleet/utils/sequence_parallel_utils.py`):
-the activations between the blocks are split along the sequence over
-"tp", the projections into a block are `ColumnSequenceParallelLinear`s and
-out of it `RowSequenceParallelLinear`s, and the norms' weights are marked
+runs num_heads / tp query heads and kv_heads / tp KV heads; the serving
+forwards (`forward_cached`, `forward_paged`) return the rank's vocab shard
+of the logits, which the serving engine and `generate` gather. Heads that
+tp does not divide raise (each rank holds whole heads), as does a mesh
+with "sp" or "sep" > 1 (context parallelism). `config.sequence_parallel`
+(PaddleNLP's switch; the reference's LLaMA has none) at tp > 1 runs the
+training forward with Megatron sequence parallelism
+(`fleet/utils/sequence_parallel_utils.py`): the activations between the
+blocks are split along the sequence over "tp", the projections into a
+block are `ColumnSequenceParallelLinear`s and out of it
+`RowSequenceParallelLinear`s, and the norms' weights are marked
 sequence-parallel; the final norm's output is gathered whole.
 """
 from __future__ import annotations

@@ -15,7 +15,11 @@ Two shapes of step share the entry:
   each clamped to `limit_lens` (`paged_attention_window_rows`, the
   speculative verify, which captures in a CUDA graph).
 
-The tensor-parallel shard_map of the JAX step is not ported.
+Tensor parallelism: the JAX step runs in a `shard_map` over "tp", the
+pools and scale pools sharded on the KV-head axis. Here each rank already
+holds its heads (the model's column shards give q, k and v of heads / tp
+and kv_heads / tp heads, the engine's pools kv_heads / tp), so the step
+reads the rank's head counts from the tensors and shards nothing.
 """
 from __future__ import annotations
 

@@ -4,15 +4,26 @@
                            exclude=("lm_head",))
 
 swaps every `Linear` of a model (`ColumnParallelLinear` and
-`RowParallelLinear` are `Linear`s; their shards at tensor-parallel degree
-> 1 raise until tensor-parallel serving) for a `WeightOnlyLinear` holding
-int8 (or
-nibble-packed int4) weights and f32 scales, per output channel or per group
-of 64 or 128 input rows. The layouts and the quantization are the
+`RowParallelLinear` are `Linear`s) for a `WeightOnlyLinear` holding int8
+(or nibble-packed int4) weights and f32 scales, per output channel or per
+group of 64 or 128 input rows. The layouts and the quantization are the
 reference's (`weight_quantize`: symmetric absmax, round half to even), and
 the values are bit-identical to its numpy code. Quantization runs on the
 weight's own device, one linear at a time, so a model's float weights are
 freed as it goes and a large model never passes through host memory.
+
+A tensor-parallel shard (a `ColumnParallelLinear` or `RowParallelLinear`
+at degree > 1) is quantized as the whole weight would be, and the rank
+keeps its slice: the reference's "same int8 lattice; GSPMD only changes
+the layout". A column shard owns whole output columns, so its scales are
+local. A row shard owns a slice of the input rows: a per-channel scale is
+the column's absmax over the whole k, all_reduced (MAX) over the group
+before the rank quantizes; groups must lie whole inside the rank's rows
+(k / tp a multiple of the group size; int4: k / tp even). The quantized
+layer keeps the source's shard contract: a column shard's output stays the
+rank's columns (or is gathered, with `gather_output`); a row shard takes
+the rank's slice of its input (split first without `input_is_parallel`),
+all_reduces the partial products, then adds its replicated bias once.
 
 The products run through `kernels.quant_matmul` (the CUDA dequant-matmul on
 the GPU). `algo="llm.int8"` (the reference's int8 x int8 decomposition, XLA
@@ -58,7 +69,6 @@ def _weight_dtype(algo):
     return "int4" if algo == "weight_only_int4" else "int8"
 
 
-@torch.no_grad()
 def weight_quantize(x, algo="weight_only_int8", arch=None, group_size=-1):
     """Quantize a [in_features, out_features] float weight on its device.
 
@@ -68,6 +78,14 @@ def weight_quantize(x, algo="weight_only_int8", arch=None, group_size=-1):
     group in f32: scale = max(absmax / qmax, tiny), q = clip(round(w /
     scale), -qmax, qmax) with qmax 127 (int8) or 7 (int4). `arch` is
     accepted for signature parity and ignored."""
+    return _quantize(x, algo, group_size)
+
+
+@torch.no_grad()
+def _quantize(x, algo, group_size, absmax_group=None):
+    """`weight_quantize`; with `absmax_group` (a row shard's tensor-parallel
+    group) the [groups, n] absmax is all_reduced MAX over it before the
+    scales are taken."""
     _check_algo(algo)
     w = x.detach().to(torch.float32)
     if w.dim() != 2:
@@ -78,7 +96,13 @@ def weight_quantize(x, algo="weight_only_int8", arch=None, group_size=-1):
     qmax = (1 << (bits - 1)) - 1
     groups, gsz = _group_shape(k, group_size)
     wg = w.reshape(groups, gsz, n)
-    scale = wg.abs().amax(dim=1) / qmax  # [groups, n]
+    absmax = wg.abs().amax(dim=1)  # [groups, n]
+    if absmax_group is not None:
+        from ...distributed import collective as _collective
+
+        _collective.all_reduce(absmax, op=_collective.ReduceOp.MAX,
+                               group=absmax_group)
+    scale = absmax / qmax
     scale = scale.clamp_min(torch.finfo(torch.float32).tiny)
     q = torch.round(wg / scale[:, None, :]).clamp_(-qmax, qmax)
     q = q.reshape(k, n).to(torch.int8)
@@ -140,36 +164,93 @@ class WeightOnlyLinear(nn.Module):
         self.register_buffer("weight_scale", torch.zeros(
             sshape, dtype=torch.float32, device=device))
         self.bias = None
+        # a tensor-parallel shard's contract: None, or (kind, group, flag):
+        # ("column", group, gather_output), ("row", group,
+        # input_is_parallel)
+        self._shard = None
 
     @classmethod
     def from_source(cls, layer, algo="weight_only_int8", group_size=-1):
         """Quantize a float `Linear` ([in, out] weight) into a new layer on
-        the same device."""
-        if getattr(layer, "world_size", 1) > 1:
-            raise NotImplementedError(
-                f"WeightOnlyLinear.from_source: a {type(layer).__name__} "
-                f"shard (tensor-parallel degree {layer.world_size}): "
-                "quantized tensor-parallel linears come with "
-                "tensor-parallel serving, ROADMAP Queue 1 item 4")
+        the same device. A tensor-parallel shard is quantized as the whole
+        weight would be and keeps its slice and its shard contract (the
+        module docstring)."""
+        shard = _shard_of(layer)
         w = layer.weight
         k, n = w.shape
+        absmax_group = None
+        if shard is not None and shard[0] == "row":
+            _check_row_shard(layer, k, algo, group_size)
+            if group_size == -1:
+                absmax_group = shard[1]
         obj = cls(k, n, algo=algo, group_size=group_size, device="meta")
-        qw, scale = weight_quantize(w, algo, group_size=group_size)
+        qw, scale = _quantize(w, algo, group_size, absmax_group)
         obj.quant_weight = qw
         obj.weight_scale = scale
         obj.bias = getattr(layer, "bias", None)
+        obj._shard = shard
         obj.eval()
         return obj
 
     def forward(self, x):
-        return weight_only_linear(x, self.quant_weight, self.bias,
-                                  self.weight_scale, self._weight_dtype,
-                                  group_size=self._group_size)
+        if self._shard is None:
+            return weight_only_linear(x, self.quant_weight, self.bias,
+                                      self.weight_scale, self._weight_dtype,
+                                      group_size=self._group_size)
+        from ...distributed.fleet.layers.mpu import mp_layers as _mp
+
+        kind, group, flag = self._shard
+        if kind == "column":
+            out = weight_only_linear(
+                _mp._c_identity(x, group), self.quant_weight, self.bias,
+                self.weight_scale, self._weight_dtype,
+                group_size=self._group_size)
+            return _mp._c_concat(out, group) if flag else out
+        if not flag:
+            x = _mp._c_split(x, group)
+        out = _mp._mp_allreduce(weight_only_linear(
+            x, self.quant_weight, None, self.weight_scale,
+            self._weight_dtype, group_size=self._group_size), group)
+        return out if self.bias is None else out + self.bias
 
     def extra_repr(self):
         return (f"in_features={self._in_features}, "
                 f"out_features={self._out_features}, algo={self._algo}, "
                 f"group_size={self._group_size}")
+
+
+def _shard_of(layer):
+    """The shard contract of a tensor-parallel linear at degree > 1 (see
+    `WeightOnlyLinear._shard`), or None. The sequence-parallel linears run
+    the training forward only and raise."""
+    if getattr(layer, "world_size", 1) <= 1:
+        return None
+    from ...distributed.fleet.layers.mpu.mp_layers import (
+        ColumnParallelLinear, RowParallelLinear)
+
+    if type(layer) is ColumnParallelLinear:
+        return "column", layer._group, bool(layer.gather_output)
+    if type(layer) is RowParallelLinear:
+        return "row", layer._group, bool(layer.input_is_parallel)
+    raise NotImplementedError(
+        f"WeightOnlyLinear.from_source: a {type(layer).__name__} shard: "
+        "sequence-parallel linears run the training forward only; build "
+        "the model without config.sequence_parallel to serve it")
+
+
+def _check_row_shard(layer, k, algo, group_size):
+    """A row shard's k rows must hold whole groups (and, for int4, whole
+    bytes of two rows): a group across two ranks would need scales the
+    rank cannot form alone."""
+    what = (f"a RowParallelLinear shard of in_features {k} (of "
+            f"{layer.in_features}, tensor-parallel degree "
+            f"{layer.world_size})")
+    if group_size != -1 and k % group_size:
+        raise ValueError(f"{what} is not a whole number of groups of "
+                         f"{group_size}: a group would straddle two ranks")
+    if algo == "weight_only_int4" and k % 2:
+        raise ValueError(f"{what}: int4 packs two rows a byte and needs "
+                         f"an even shard")
 
 
 def quantize_for_inference(model, algo="weight_only_int8", group_size=-1,

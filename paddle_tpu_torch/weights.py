@@ -180,8 +180,11 @@ def llama_state_from_numpy(state, config, dtype=torch.float32, device=None,
     layout = _layout(config, set(state))
     if tp_degree > 1 and layout.keys() != llama_param_shapes(config).keys():
         raise NotImplementedError(
-            "llama_state_from_numpy: quantized tensor-parallel shards come "
-            "with tensor-parallel serving (ROADMAP Queue 1 item 4)")
+            "llama_state_from_numpy: slicing a quantized state into "
+            "tensor-parallel shards is not ported (ROADMAP Queue 1 item 4); "
+            "load the float state and quantize the shards "
+            "(nn.quant.quantize_for_inference), which gives each rank the "
+            "slice of the whole weight's quantization")
     missing = sorted(set(layout) - set(state))
     extra = sorted(set(state) - set(layout))
     if missing or extra:

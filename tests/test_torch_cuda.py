@@ -1991,3 +1991,33 @@ def test_tensor_checker_names_an_op_on_cuda(cuda_device):
     assert debugging.check_numerics(x) is x
     with pytest.raises(FloatingPointError):
         debugging.check_numerics(torch.log(x))
+
+
+@pytest.mark.cuda
+def test_tp_serving_two_gloo_ranks_on_the_card_match_tp1(cuda_device,
+                                                         monkeypatch):
+    """Two gloo ranks on the card (NCCL refuses two ranks a card) serve a
+    2-layer f32 LLaMA at tp 2 through the paged engine (decode_burst 4,
+    eager at tp > 1): both ranks' greedy streams equal, and equal to the
+    same engine's at tp 1 on the card; the paged decode kernel launched
+    once a layer a decode step on each rank."""
+    from torch_dist_workers import run_group
+    from torch_tp_workers import (CARD_LLAMA, card_serving_main,
+                                  card_streams)
+
+    cfg = LlamaConfig(**CARD_LLAMA)
+    src = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    # every matrix x 4: greedy streams that do not settle on one token
+    state = {k: (v * 4.0 if v.ndim == 2 else v).copy()
+             for k, v in llama_state_to_numpy(src).items()}
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)) for n in (5, 21, 40)]
+    monkeypatch.setenv("PADDLE_DISTRI_BACKEND", "gloo")
+    ranks = run_group(card_serving_main, 2, state, prompts, 12)
+    one = load_llama_state(LlamaForCausalLM(cfg, device=cuda_device), state)
+    want, _, _ = card_streams(one, cuda_device, prompts, 12)
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["device"].startswith("cuda")
+        assert r["q_proj"] == (256, 128)  # one head of 128 a rank
+        assert r["streams"] == want
+        assert r["launches"] == cfg.num_hidden_layers * r["decode_steps"]

@@ -266,11 +266,14 @@ def test_engine_raises_on_unported_arguments(pair):
     ServingEngine(tm, mesh=None, spec_decode=0, prefix_cache=0,
                   prefill_chunk=0, kv_host_cache_mb=0, kv_disk_cache_dir="",
                   **kw)
-    for name, value, item in (("mesh", object(), "Queue 1 item 4"),
-                              ("kv_host_cache_mb", 64, "KV tiers"),
+    for name, value, item in (("kv_host_cache_mb", 64, "KV tiers"),
                               ("kv_disk_cache_dir", "/x", "KV tiers")):
         with pytest.raises(NotImplementedError, match=item):
             ServingEngine(tm, **{name: value}, **kw)
+    # tensor-parallel serving is ported: `mesh` takes a DeviceMesh
+    # (tests/test_torch_serving_tp.py), and refuses anything else
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        ServingEngine(tm, mesh=object(), **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The rank programs of the port's tensor-parallel tests
 (`tests/test_torch_mp_layers.py`, `test_torch_sequence_parallel.py`,
-`test_torch_fleet.py`, `test_torch_tensor_parallel.py`), run over gloo on
+`test_torch_fleet.py`, `test_torch_tensor_parallel.py`,
+`test_torch_serving_tp.py`, `test_torch_quant_tp.py`), run over gloo on
 the CPU by `torch_dist_workers.run_group`. They import torch and the port
 only. Every input, weight and upstream gradient comes from the test as a
 full numpy array; a rank takes its shard, and returns its shards of the
@@ -431,3 +432,254 @@ def train_runs_main(out_dir, runs):
     rank = D.get_rank()
     D.destroy_process_group()
     _save(out_dir, rank, out)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving (`tests/test_torch_serving_tp.py`)
+# ---------------------------------------------------------------------------
+
+
+def serving_model(family, cfg, state):
+    """A tiny LLaMA or GPT (`cfg`: its config's fields) built under the
+    global mesh, so it holds this rank's shards, and loaded from the full
+    numpy `state`."""
+    from paddle_tpu_torch import weights as W
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    if family == "llama":
+        return W.load_llama_state(
+            LlamaForCausalLM(LlamaConfig(**cfg), device="cpu"), state)
+    return W.load_gpt_state(GPTForCausalLM(GPTConfig(**cfg), device="cpu"),
+                            state)
+
+
+def serve_case(c):
+    """One configuration of `c` (a dict: the model's family, config and
+    full state, the quantization, a draft model, the engine's arguments,
+    pages withheld from the pool, warmup, and `phases`: lists of (prompt,
+    max_new_tokens, add_request kwargs), each queued and then run dry) on
+    this rank's engine. Returns the streams in request order, the gathered
+    logits of the first sampled position (after warmup), the pools'
+    shapes and the engine's counters."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.nn.quant import (WeightOnlyLinear,
+                                           quantize_for_inference)
+
+    model = serving_model(c["family"], c["cfg"], c["state"])
+    if c.get("quant"):
+        quantize_for_inference(model, *c["quant"], exclude=("lm_head",))
+    draft = serving_model(c["family"], c["draft_cfg"], c["draft_state"]) \
+        if c.get("draft_cfg") else None
+    eng = ServingEngine(model, device="cpu", draft_model=draft,
+                        **c["engine"])
+    if c.get("withhold"):
+        del eng._free_pages[-c["withhold"]:]
+    if c.get("warmup"):
+        eng.warmup(sampling=True)
+    logits = []
+    sample = eng._sample
+
+    def recording(last, *args):
+        if not logits:
+            logits.append(_n(last))
+        return sample(last, *args)
+
+    eng._sample = recording
+    rids, streams = [], {}
+    for phase in c["phases"]:
+        for prompt, n, kw in phase:
+            rids.append(eng.add_request(prompt, max_new_tokens=n, **kw))
+        for f in eng.run():
+            streams[f.request_id] = f.output_ids.tolist()
+    return dict(
+        streams=[streams[r] for r in rids], first_logits=logits[0],
+        pools=tuple(eng.k_pages[0].shape),
+        scales=None if eng.k_scales is None else tuple(eng.k_scales[0].shape),
+        draft_pools=None if eng._draft_caches is None
+        else tuple(eng._draft_caches[0][0].shape),
+        counters=dict(prefills=eng.prefills, chunk_rounds=eng.chunk_rounds,
+                      decode_steps=eng.decode_steps,
+                      spec_rounds=eng.spec_rounds,
+                      preemptions=eng.preemptions,
+                      prefix_hits=eng._prefix_hits_total,
+                      graph_captures=eng.graph_captures,
+                      free_pages=len(eng._free_pages)),
+        quantized=sum(isinstance(m, WeightOnlyLinear)
+                      and m._shard is not None for m in model.modules()),
+        graphs=(eng._graphs, eng._spec_graphs), tp=eng.tp)
+
+
+def serving_refusals(cfg):
+    """What the engine raises under the tp mesh for a model built at tp 1
+    with `cfg` (the messages), with the mesh handed in and with the global
+    one."""
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    mesh = M.get_mesh()
+    out = {}
+    for tag, kvh in (("kv_heads", 1), ("built_at_tp1", cfg[
+            "num_key_value_heads"])):
+        M.set_mesh(None)
+        try:
+            model = LlamaForCausalLM(LlamaConfig(**dict(
+                cfg, num_key_value_heads=kvh)), device="cpu")
+        finally:
+            M.set_mesh(mesh)
+        try:
+            ServingEngine(model, device="cpu", max_seq_len=cfg[
+                "max_position_embeddings"], page_size=8,
+                mesh=mesh if tag == "kv_heads" else None)
+            out[tag] = None
+        except ValueError as e:
+            out[tag] = str(e)
+    return out
+
+
+def serving_runs_main(out_dir, cases, refusal_cfg):
+    """Each case of `cases` (`serve_case`) on this rank, under fleet.init
+    at the case's mp_degree (dp_degree: the rest of the world); then the
+    engine's refusals at tp 2. Each rank saves {tag: result}."""
+    import paddle_tpu_torch.distributed as D
+
+    torch.set_num_threads(1)
+    D.init_parallel_env(device="cpu", timeout=60)
+    world = D.get_world_size()
+    out, tp = {}, None
+    for c in sorted(cases, key=lambda c: c["tp"]):
+        if c["tp"] != tp:
+            tp = c["tp"]
+            _, hcg = _fleet_init(dp=world // tp, tp=tp)
+        out[c["tag"]] = serve_case(c)
+        out[c["tag"]].update(tp_rank=hcg.get_model_parallel_rank(),
+                             dp_rank=hcg.get_data_parallel_rank())
+    _fleet_init(dp=world // 2, tp=2)
+    out["refusals"] = serving_refusals(refusal_cfg)
+    rank = D.get_rank()
+    D.destroy_process_group()
+    _save(out_dir, rank, out)
+
+
+# ---------------------------------------------------------------------------
+# quantized tensor-parallel linears (`tests/test_torch_quant_tp.py`)
+# ---------------------------------------------------------------------------
+
+
+def quant_layers(c, r, tp):
+    """For each (algo, group_size) of `c["schemes"]`: a ColumnParallelLinear
+    (no gather) into a RowParallelLinear (`input_is_parallel`), both with
+    biases, from this rank's shards of `c`'s full weights, quantized
+    (`quantize_for_inference`, as a Sequential); their quantized weights
+    and scales and the pair's output on `c["x"]`. Then what quantizing a
+    row shard whose rows split a group (or, int4, a byte) raises, and what
+    the rank's column output is with `gather_output`."""
+    from paddle_tpu_torch.distributed.fleet.layers.mpu import (
+        ColumnParallelLinear, RowParallelLinear)
+    from paddle_tpu_torch.nn.quant import WeightOnlyLinear
+    from paddle_tpu_torch.nn.quant import quantize_for_inference
+
+    k1, n1 = c["w"].shape
+    n2 = c["w2"].shape[1]
+    res = {}
+    for algo, gs in c["schemes"]:
+        col = ColumnParallelLinear(k1, n1, has_bias=True,
+                                   gather_output=False, device="cpu")
+        row = RowParallelLinear(n1, n2, has_bias=True,
+                                input_is_parallel=True, device="cpu")
+        _load(col, weight=_shard(c["w"], r, tp, 1),
+              bias=_shard(c["b"], r, tp, 0))
+        _load(row, weight=_shard(c["w2"], r, tp, 0), bias=c["b2"])
+        m = quantize_for_inference(torch.nn.Sequential(col, row), algo,
+                                   group_size=gs)
+        with torch.no_grad():
+            y = m(torch.from_numpy(c["x"]))
+        res[f"{algo}_{gs}"] = dict(
+            y=_n(y), types=[type(x).__name__ for x in m],
+            col=(_n(m[0].quant_weight), _n(m[0].weight_scale)),
+            row=(_n(m[1].quant_weight), _n(m[1].weight_scale)))
+    raised = {}
+    for name, (k, algo, gs) in c["straddle"].items():
+        lin = RowParallelLinear(k, 128, has_bias=False,
+                                input_is_parallel=True, device="cpu")
+        try:
+            WeightOnlyLinear.from_source(lin, algo, gs)
+            raised[name] = None
+        except ValueError as e:
+            raised[name] = str(e)
+    res["straddle"] = raised
+    col = ColumnParallelLinear(k1, n1, has_bias=True, gather_output=True,
+                               device="cpu")
+    _load(col, weight=_shard(c["w"], r, tp, 1), bias=_shard(c["b"], r, tp, 0))
+    with torch.no_grad():
+        res["gathered"] = _n(WeightOnlyLinear.from_source(col)(
+            torch.from_numpy(c["x"])))
+    return res
+
+
+def quant_model(state, cfg):
+    """A tiny LLaMA at the mesh's degree from the full `state`, quantized
+    int8 per channel (lm_head kept): each quantized linear's weight and
+    scales."""
+    from paddle_tpu_torch.nn.quant import (WeightOnlyLinear,
+                                           quantize_for_inference)
+
+    model = quantize_for_inference(serving_model("llama", cfg, state),
+                                   exclude=("lm_head",))
+    return {n: (_n(m.quant_weight), _n(m.weight_scale), m._shard[0])
+            for n, m in model.named_modules()
+            if isinstance(m, WeightOnlyLinear)}
+
+
+def quant_main(out_dir, case, state, cfg):
+    _, hcg = _fleet_init(tp=2)
+    r = hcg.get_model_parallel_rank()
+    _finish(out_dir, r, dict(layers=quant_layers(case, r, 2),
+                             model=quant_model(state, cfg), tp_rank=r))
+
+
+# ---------------------------------------------------------------------------
+# the card test of tensor-parallel serving (`tests/test_torch_cuda.py -k
+# tp_serving`): gloo ranks over CUDA tensors on one card
+# ---------------------------------------------------------------------------
+
+# a 2-layer f32 LLaMA at head_dim 128 (the paged decode kernel's), one head
+# a rank at tp 2
+CARD_LLAMA = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
+                  num_hidden_layers=2, num_attention_heads=2,
+                  num_key_value_heads=2, max_position_embeddings=128)
+CARD_ENGINE = dict(max_batch=3, max_seq_len=128, page_size=16,
+                   decode_burst=4)
+
+
+def card_streams(model, dev, prompts, n_new):
+    """Greedy streams of CARD_ENGINE's engine over `prompts`, in request
+    order, and the paged decode kernel's launches while it served."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.kernels import paged_attention as kpa
+
+    eng = ServingEngine(model, device=dev, **CARD_ENGINE)
+    n0 = kpa.launches
+    rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
+    done = {f.request_id: f.output_ids.tolist() for f in eng.run()}
+    return [done[r] for r in rids], kpa.launches - n0, eng.decode_steps
+
+
+def card_serving_main(out_dir, state, prompts, n_new):
+    """One rank on the card (gloo, named by PADDLE_DISTRI_BACKEND): the
+    CARD_LLAMA model at tp 2 from the full `state`, served by
+    `card_streams`."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch import weights as W
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    _, hcg = _fleet_init(tp=2, device=None)
+    dev = D.env.device()
+    model = W.load_llama_state(
+        LlamaForCausalLM(LlamaConfig(**CARD_LLAMA), device=dev), state)
+    streams, launches, steps = card_streams(model, dev, prompts, n_new)
+    _finish(out_dir, hcg.get_model_parallel_rank(), dict(
+        streams=streams, launches=launches, decode_steps=steps,
+        device=str(dev), backend=D.get_backend(),
+        q_proj=tuple(model.llama.layers[0].self_attn.q_proj.weight.shape)))
