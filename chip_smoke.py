@@ -297,7 +297,32 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    a row shard quantized with its local absmax (the slice check). Logged:
    decode ms a step and collectives and bytes a step by rank (two ranks
    on one card: no tensor-parallel speed). `--phase17` runs the build and
-   this phase alone.
+   this phase alone;
+18. ZeRO: two ranks on the one card over gloo, `fleet.init`
+   (sharding_degree 2), LLaMA-2-7B's widths at `ZERO_LAYERS` (2) layers,
+   bf16 O2, AdamW(1e-4) with f32 masters, the chunked LM-head loss, batch
+   1 x 4096 a rank (each rank its own rows), 2 steps of build_train_step
+   at each stage in turn from the same seeded weights: 0 (each gradient
+   averaged over "sharding"), 1 (`fleet.distributed_optimizer`), 2 and 3
+   (`group_sharded_parallel`). Held: every rank's losses equal, each
+   stage's within `TP_LOSS_TOL` of stage 0's, the probes' f32 masters
+   (their pieces joined over the ranks) within `TP_PARAM_BAR` of stage 0's
+   over their update and first moments within `ZERO_MOMENT_BAR` (bit
+   equality logged: the flash backward's dQ atomics make two backwards
+   differ by a rounding); the bytes a rank holds (optimizer state from
+   stage 1, gradients after the backward from stage 2, parameters between
+   steps at stage 3: half of stage 0's) and `max_memory_allocated`
+   falling from stage to stage; flash, RMSNorm and Adam launches exact a
+   rank (Adam once a piece of the rank's slice). Three planted faults
+   caught: a reduce_scatter without its division (the first moments),
+   rank 1 gathering its slice at rank 0's offset (the next step's loss),
+   stage 3 without the gather before a block's backward (the first
+   moments). DTensor: `shard_tensor` / `reshard` of a [4096, 11008] bf16
+   tensor on the card over both ranks (or at world 1 over NCCL where gloo
+   does not carry DTensor's collectives on CUDA tensors), each local shard
+   equal to the slice of the whole. Logged: step ms, reduce_scatters,
+   all_gathers and bytes a step by rank (two ranks on one card: no ZeRO
+   speed). `--phase18` runs the build and this phase alone.
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -7493,6 +7518,573 @@ def tps_cell_13b(ranks, ref, dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: ZeRO stages 1-3 and the auto-parallel API
+# ---------------------------------------------------------------------------
+
+# LLaMA-2-7B's widths at ZERO_LAYERS, bf16 O2, AdamW with f32 masters,
+# batch 1 x ZERO_SEQ a rank, on two gloo ranks of the one card over a
+# "sharding" axis of 2: stages 0 (the per-parameter average), 1
+# (`fleet.distributed_optimizer`), 2 and 3 (`group_sharded_parallel`) in
+# turn from the same seeded weights. The times are no ZeRO speed.
+ZERO_N = 2
+ZERO_LAYERS = 2
+ZERO_SEQ = 4096
+ZERO_STEPS = 2
+ZERO_LR = 1e-4
+ZERO_CE_CHUNKS = 8
+ZERO_LEVEL = {2: "os_g", 3: "p_g_os"}
+# the f32 masters (and first moments) compared across the stages: a
+# column- and a row-split linear of layer 0, layer 1's output projection,
+# and two norms (the final one in stage 3's root block)
+ZERO_PROBES = ("llama.layers.0.self_attn.q_proj.weight",
+               "llama.layers.1.self_attn.o_proj.weight",
+               "llama.layers.0.input_layernorm.weight", "llama.norm.weight")
+ZERO_MOMENT_BAR = TP_GRAD_BAR  # first moments: the gradients' bar
+ZERO_DT_SHAPE = (4096, 11008)
+
+
+def zero_model(seed, dev):
+    """LLaMA-2-7B's widths at ZERO_LAYERS, bf16 O2, the chunked LM-head
+    loss, the seeded weights of phase 16 (`tp_load`)."""
+    cfg = LlamaConfig.llama2_7b()
+    cfg.dtype = "bfloat16"
+    cfg.num_hidden_layers = ZERO_LAYERS
+    cfg.fused_ce_chunks = ZERO_CE_CHUNKS
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    tp_load(model, "llama", seed)
+    return model
+
+
+def zero_batch(seed, rank, dev):
+    """This rank's own rows (the batch goes over dp x sharding)."""
+    rng = np.random.RandomState(seed + 18 + 1000 * rank)
+    ids = torch.from_numpy(rng.randint(0, TP_DATA_VOCAB,
+                                       (1, ZERO_SEQ + 1))).to(dev)
+    return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+
+def zero_probe_state(opt, eng, model):
+    """{name: (lo, hi, f32 master piece, first-moment piece)} of the
+    probes on this rank (the whole at stage 0; lo == hi where the rank
+    holds none), CPU copies."""
+    inner = getattr(opt, "_inner_opt", opt)
+    pos = {id(p): i for i, p in enumerate(inner._parameter_list)}
+    params = dict(model.named_parameters())
+    out = {}
+    for n in ZERO_PROBES:
+        p = params[n]
+        lo, hi = 0, p.numel()
+        if eng is not None:
+            b, j = eng._where[id(p)]
+            lo = hi = 0
+            for jj, a, z, _ in b.pieces:
+                if jj == j:
+                    lo, hi = a, z
+        st = inner._accumulators.get(pos[id(p)])
+        if st is None or lo == hi:
+            out[n] = (0, 0, None, None)
+            continue
+        out[n] = (lo, hi, st["master_weight"].detach().reshape(-1).cpu()
+                  .clone(), st["moment1"].detach().reshape(-1).cpu().clone())
+    return out
+
+
+def zero_dist(pieces, base, init=None):
+    """Squared distance of this rank's pieces from the whole stage-0
+    values `base` (and squared size: of the update from `init`, else of
+    `base`), over the pieces: (sq diff, sq size, bit-equal)."""
+    diff = size = 0.0
+    equal = True
+    for lo, hi, got in pieces:
+        if got is None:
+            continue
+        want = base[lo:hi]
+        ref = want - init[lo:hi] if init is not None else want
+        diff += float((got - want).double().square().sum())
+        size += float(ref.double().square().sum())
+        equal &= torch.equal(got, want)
+    return diff, size, equal
+
+
+class ZeroFaults:
+    """The planted faults, each on one engine instance (the rank's
+    collectives stay the same, so no rank hangs)."""
+
+    @staticmethod
+    def reduce_without_divide(eng):
+        """The reduce_scatter sums over the axis and does not divide by N."""
+        from paddle_tpu_torch.distributed import collective as C
+
+        def reduce(b, flat):
+            out = torch.empty(b.shard_size, dtype=flat.dtype,
+                              device=flat.device)
+            C.reduce_scatter(out, list(flat.chunk(eng.n)),
+                             op=C.ReduceOp.SUM, group=eng.axis)
+            return out
+
+        eng._reduce = reduce
+
+    @staticmethod
+    def gather_at_rank0_offset(eng):
+        """Rank 1 writes the gathered rank-0 slice where its own goes."""
+        plain = eng._all_gather
+
+        def gather(full, mine):
+            plain(full, mine)
+            if eng.rank == 1:
+                chunks = full.chunk(eng.n)
+                chunks[1].copy_(chunks[0])
+
+        eng._all_gather = gather
+
+    @staticmethod
+    def no_gather_before_backward(eng):
+        """Stage 3 without the gather before a block's backward: the block's
+        storage is grown back but nothing is gathered into it (zeros;
+        reading the released storage itself would be an illegal address,
+        which ends the process's CUDA context)."""
+        def regrow(u):
+            for b in u.buckets:
+                if not b.gathered:
+                    b.full.untyped_storage().resize_(
+                        b.size * b.full.element_size())
+                    b.full.zero_()
+                    b.gathered = True
+
+        def after(u, out):
+            if torch._C._current_graph_task_id() != -1:
+                return
+            eng.free_unit(u)
+            if u.kind != "layer" or not torch.is_grad_enabled():
+                return
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor) and t.requires_grad:
+                    t.register_hook(lambda g, u=u: regrow(u))
+
+        eng._after_block = after
+
+
+def zero_stage(stage, seed, dev, rank, steps=ZERO_STEPS, fault=None):
+    """One stage's run on this rank: the model and optimizer built fresh,
+    `steps` steps of build_train_step with the kernels' launches and the
+    engine's collectives counted; the bytes of gradients this rank holds
+    after the backward, of optimizer state and parameters after the last
+    step, the peak; the probes' masters and moments. `fault` plants one of
+    `ZeroFaults` first."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import \
+        group_sharded_parallel
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding \
+        .group_sharded import held_bytes
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = zero_model(seed, dev)
+    init = {n: p.detach().float().reshape(-1).cpu().clone()
+            for n, p in model.named_parameters() if n in ZERO_PROBES} \
+        if stage == 0 and fault is None else None
+    inner = AdamW(learning_rate=ZERO_LR, parameters=model.parameters(),
+                  multi_precision=True)
+    if stage == 0:
+        opt = inner
+        step = build_train_step(model, opt, sharding_stage=0)
+    elif stage == 1:
+        opt = fleet.distributed_optimizer(inner)
+        step = build_train_step(model, opt)
+    else:
+        model, opt, _ = group_sharded_parallel(model, inner,
+                                               level=ZERO_LEVEL[stage])
+        step = build_train_step(model, opt)
+    eng = step._zero
+    check((eng is None) == (stage == 0) and (eng is None or (
+        eng.stage == stage and eng.axis == "sharding" and eng.n == ZERO_N)),
+        f"phase 18: stage {stage}'s step has engine {eng}")
+    if fault is not None:
+        getattr(ZeroFaults, fault)(eng)
+    x, y = zero_batch(seed, rank, dev)
+    held = {}
+
+    def measure_grads(fn):
+        def call(*a, **k):
+            if "grads" not in held:
+                held["grads"] = held_bytes(inner, eng)["grads"]
+            return fn(*a, **k)
+        return call
+
+    if eng is None:
+        inner.apply_gradients = measure_grads(inner.apply_gradients)
+    else:
+        eng.grad_slices = measure_grads(eng.grad_slices)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for _, mod, attr in TRAIN_COUNTERS:
+        setattr(mod, attr, 0)
+    D.collective.reset_calls()
+    losses, ms, probes = [], [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(float(step(x, y)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        probes.append(zero_probe_state(opt, eng, model))
+    launches = {n: getattr(mod, a) for n, mod, a in TRAIN_COUNTERS}
+    calls = dict(D.collective.calls)
+    after = held_bytes(inner, eng)
+    # each parameter's sum and sum of squares (f64), equal on every rank
+    # where the ranks hold equal parameters (not at stage 3: slices)
+    digest = None if stage == 3 else {
+        n: (float(p.detach().double().sum()),
+            float(p.detach().double().square().sum()))
+        for n, p in model.named_parameters()}
+    res = dict(stage=stage, losses=losses, step_ms=ms, launches=launches,
+               calls=calls, traffic=dict(eng.traffic) if eng else {},
+               pieces=sum(len(b.pieces) for b in eng.buckets) if eng
+               else None, buckets=len(eng.buckets) if eng else 0,
+               n_tensors=len(list(model.parameters())),
+               grads_bytes=held["grads"], state_bytes=after["state"],
+               params_bytes=after["params"], probes=probes, init=init,
+               digest=digest,
+               n_params=sum(p.numel() for p in model.parameters()),
+               setup_s=setup_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, opt, inner, step, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def zero_dtensor(rank, n, dev):
+    """`shard_tensor` / `reshard` of a bf16 ZERO_DT_SHAPE tensor on the
+    card over a ProcessMesh of the `n` ranks: each local shard against the
+    slice of the whole; each collective tried once (gloo's own error where
+    it does not carry it on CUDA tensors)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.auto_parallel import (
+        ProcessMesh, Replicate, Shard, shard_tensor)
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    whole = torch.randn(ZERO_DT_SHAPE, generator=gen, device=dev).to(
+        torch.bfloat16)
+    mesh = ProcessMesh(list(range(n)), dim_names=["x"])
+    t = shard_tensor(whole, mesh, [Shard(0)])
+    out = dict(shard0=torch.equal(t.to_local(), whole.chunk(n)[rank]),
+               device=str(t.to_local().device))
+    for name, placements, want in (
+            ("replicate", [Replicate()], whole),
+            ("shard1", [Shard(1)], whole.chunk(n, 1)[rank])):
+        try:
+            got = D.reshard(t, mesh, placements).to_local()
+            torch.cuda.synchronize()
+            out[name] = torch.equal(got, want)
+        except RuntimeError as e:  # the backend's own error
+            out[name] = "raises: " + str(e).splitlines()[0][:160]
+    return out
+
+
+def zero_rank_proc(io, seed):
+    """One rank of phase 18: gloo over CUDA tensors on the one card,
+    fleet.init at sharding_degree 2; the four stages, then the three
+    planted faults."""
+    import faulthandler
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet
+
+    faulthandler.enable()
+    t0 = time.perf_counter()
+    D.init_parallel_env()
+    dev = D.env.device()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = dict(dp_degree=1, sharding_degree=ZERO_N)
+    fleet.init(is_collective=True, strategy=strategy)
+    rank = fleet.get_hybrid_communicate_group().get_sharding_parallel_rank()
+    res = dict(rank=D.get_rank(), sharding_rank=rank,
+               backend=D.get_backend(), device=str(dev),
+               mesh=tuple(D.get_mesh().mesh_dim_names))
+    for stage in (0, 1, 2, 3):
+        res[f"stage{stage}"] = zero_stage(stage, seed, dev, rank)
+        log(f"phase 18: rank {rank}: stage {stage} at "
+            f"{time.perf_counter() - t0:.1f} s")
+    res["faults"] = dict(
+        reduce_without_divide=zero_stage(
+            1, seed, dev, rank, steps=1, fault="reduce_without_divide"),
+        gather_at_rank0_offset=zero_stage(
+            2, seed, dev, rank, fault="gather_at_rank0_offset"),
+        no_gather_before_backward=zero_stage(
+            3, seed, dev, rank, steps=1, fault="no_gather_before_backward"))
+    res["process_s"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(io, f"zero_rank{res['rank']}.pt"))
+    # last, after the results are saved: DTensor's shard / reshard over
+    # gloo on the card's tensors (a backend that lacks an op on them may
+    # end the process: gloo's reshard does in torch 2.11)
+    torch.save(zero_dtensor(rank, ZERO_N, dev),
+               os.path.join(io, f"zero_dtensor_rank{res['rank']}.pt"))
+    D.destroy_process_group()
+
+
+def zero_dtensor_nccl(dev):
+    """The DTensor check at world 1 over NCCL, in this process (a group
+    of one rank, torn down after)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.spawn import free_port
+
+    keys = ("PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID", "PADDLE_LOCAL_SIZE",
+            "PADDLE_LOCAL_RANK", "PADDLE_MASTER", "PADDLE_DISTRI_BACKEND")
+    prev = {k: os.environ.pop(k, None) for k in keys}
+    os.environ.update(PADDLE_TRAINERS_NUM="1", PADDLE_TRAINER_ID="0",
+                      PADDLE_MASTER=f"127.0.0.1:{free_port()}")
+    try:
+        D.init_parallel_env(device=dev)
+        return dict(backend=D.get_backend(), world=D.get_world_size(),
+                    dtensor=zero_dtensor(0, 1, dev))
+    finally:
+        D.destroy_process_group()
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def zero_probe_dist(ranks, run, step, what):
+    """{probe: (rel, bit-equal)}: the f32 masters ("master", over their
+    update from the initial weights) or first moments ("moment", over
+    their norm) of the pieces `run(rank result)` holds after `step`,
+    against stage 0's, summed over both ranks."""
+    k = 2 if what == "master" else 3
+    out = {}
+    for n in ZERO_PROBES:
+        diff = size = 0.0
+        equal = True
+        for r in ranks:
+            lo, hi, *vals = run(r)["probes"][step][n]
+            base = r["stage0"]["probes"][step][n][k]
+            init = r["stage0"]["init"][n] if what == "master" else None
+            d, s, e = zero_dist([(lo, hi, vals[k - 2])], base, init)
+            diff, size, equal = diff + d, size + s, equal and e
+        out[n] = (math.sqrt(diff / size) if size else float("inf"), equal)
+    return out
+
+
+def zero_phase(seed, card):
+    """Phase 18: two gloo ranks on the card run every stage and the
+    faults in one spawn; every reading logged before its check."""
+    from paddle_tpu_torch.distributed import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phase18-") as io:
+        prev = os.environ.get("PADDLE_DISTRI_BACKEND")
+        os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
+        try:
+            spawn(zero_rank_proc, args=(io, seed), nprocs=ZERO_N, timeout=300)
+            ended = None
+        except RuntimeError as e:  # spawn's report; the results say more
+            ended = str(e).splitlines()[0][:200]
+        finally:
+            if prev is None:
+                os.environ.pop("PADDLE_DISTRI_BACKEND")
+            else:
+                os.environ["PADDLE_DISTRI_BACKEND"] = prev
+        paths = [os.path.join(io, f"zero_rank{r}.pt") for r in range(ZERO_N)]
+        if not all(os.path.exists(p) for p in paths):
+            raise RuntimeError(f"phase 18: a rank ended before its results: "
+                               f"{ended}")
+        ranks = sorted((torch.load(p) for p in paths),
+                       key=lambda r: r["sharding_rank"])
+        dts = [os.path.join(io, f"zero_dtensor_rank{r}.pt")
+               for r in range(ZERO_N)]
+        dt = [torch.load(p) for p in dts] if ended is None else \
+            [dict(ranks_ended=ended)]
+    spawn_s = time.perf_counter() - t_all
+    carried = all(d.get(k) is True for d in dt
+                  for k in ("shard0", "replicate", "shard1"))
+    t0 = time.perf_counter()
+    nccl = None if carried else zero_dtensor_nccl(torch.device("cuda", 0))
+    dtensor_s = time.perf_counter() - t0
+    res = dict(spawn_s=spawn_s, dtensor_s=dtensor_s, dtensor=dt,
+               dtensor_nccl=nccl, gloo_carries_dtensor=carried)
+    log(f"phase 18: DTensor on the card over gloo, {ZERO_DT_SHAPE} bf16 on "
+        f"2 ranks: {dt}" + ("" if carried else
+                           f"; gloo does not carry DTensor's collectives on "
+                           f"CUDA tensors, so the check ran at world 1 over "
+                           f"NCCL: {nccl}") + f" ({dtensor_s:.1f} s) [{card}]")
+    stages = {s: [r[f"stage{s}"] for r in ranks] for s in (0, 1, 2, 3)}
+    base = stages[0][0]
+    n_params = base["n_params"]
+    for s, rs in stages.items():
+        masters = zero_probe_dist(ranks, lambda r: r[f"stage{s}"], -1,
+                                  "master")
+        moments = zero_probe_dist(ranks, lambda r: r[f"stage{s}"], -1,
+                                  "moment")
+        rel = [abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"],
+                                                   base["losses"])]
+        res[f"stage{s}"] = dict(
+            losses=[r["losses"] for r in rs], loss_rel=rel,
+            masters=masters, moments=moments,
+            bytes=[dict(state=r["state_bytes"], grads=r["grads_bytes"],
+                        params=r["params_bytes"]) for r in rs],
+            peak_gib=[r["peak_gib"] for r in rs],
+            step_ms=[r["step_ms"] for r in rs],
+            launches=[r["launches"] for r in rs],
+            pieces=[r["pieces"] for r in rs],
+            traffic=[r["traffic"] for r in rs], calls=[r["calls"] for r in rs])
+        traffic = rs[0]["traffic"]
+        log(f"phase 18 stage {s}: LLaMA-2-7B widths, {ZERO_LAYERS} layers, "
+            f"bf16 O2, AdamW({ZERO_LR}, f32 masters), batch 1 x {ZERO_SEQ} "
+            f"a rank, {ZERO_STEPS} steps: losses by rank "
+            f"{[r['losses'] for r in rs]} against stage 0's "
+            f"{base['losses']} (rel {[f'{v:.3g}' for v in rel]}, bar "
+            f"{TP_LOSS_TOL}); probe masters over their update, (rel, "
+            f"bit-equal): {masters} (bar {TP_PARAM_BAR}); first moments "
+            f"{moments} (bar {ZERO_MOMENT_BAR}) [{card}]")
+        log(f"phase 18 stage {s}: bytes a rank (state, grads after the "
+            f"backward, params between steps): "
+            + "; ".join(f"{r['state_bytes'] / 1e9:.3f}, "
+                        f"{r['grads_bytes'] / 1e9:.3f}, "
+                        f"{r['params_bytes'] / 1e9:.3f} GB" for r in rs)
+            + f"; peak {[round(r['peak_gib'], 2) for r in rs]} GiB; step ms "
+            f"by rank {[[round(v, 1) for v in r['step_ms']] for r in rs]}; "
+            f"a step a rank: "
+            + (", ".join(f"{k} {v / ZERO_STEPS:.0f}" if "bytes" not in k
+                         else f"{k} {v / ZERO_STEPS / 2 ** 20:.1f} MiB"
+                         for k, v in sorted(traffic.items())) or
+               f"all_reduce calls {rs[0]['calls'].get('all_reduce', 0) / ZERO_STEPS:.0f}")
+            + f"; launches a rank {rs[0]['launches']}; pieces "
+            f"{[r['pieces'] for r in rs]} (two ranks on ONE card over "
+            f"gloo: counts, not a speed) [{card}]")
+    faults = {}
+    f = {k: [r["faults"][k] for r in ranks] for k in ranks[0]["faults"]}
+    def fault(name):
+        return lambda r: r["faults"][name]
+
+    faults["reduce_without_divide"] = dict(
+        moments=zero_probe_dist(ranks, fault("reduce_without_divide"), 0,
+                                "moment"),
+        masters=zero_probe_dist(ranks, fault("reduce_without_divide"), 0,
+                                "master"))
+    g = f["gather_at_rank0_offset"]
+    # step 2's loss against stage 0's; the parameters' digests across the
+    # ranks after step 2
+    faults["gather_at_rank0_offset"] = dict(
+        step2_loss_rel=abs(g[0]["losses"][1] - base["losses"][1])
+        / abs(base["losses"][1]),
+        digests_differ=sorted(n for n in g[0]["digest"]
+                              if g[0]["digest"][n] != g[1]["digest"][n]))
+    faults["no_gather_before_backward"] = dict(
+        moments=zero_probe_dist(ranks, fault("no_gather_before_backward"), 0,
+                                "moment"),
+        loss=f["no_gather_before_backward"][0]["losses"])
+    res["faults"] = faults
+    log(f"phase 18: planted faults (each must exceed its bar): {faults} "
+        f"[{card}]")
+    res["process_s"] = [r["process_s"] for r in ranks]
+    res["phase_s"] = time.perf_counter() - t_all
+    log(f"phase 18: {res['phase_s']:.1f} s (the ranks' spawn {spawn_s:.1f}: "
+        f"processes {[round(v, 1) for v in res['process_s']]} s; DTensor "
+        f"{dtensor_s:.1f}) [{card}]")
+    zero_verify(ranks, stages, res, n_params)
+    launches = {}
+    for rs in stages.values():
+        for r in rs:
+            for name, n in r["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+    res["launches"] = launches
+    return res
+
+
+def zero_verify(ranks, stages, res, n_params):
+    """Phase 18's checks (`zero_phase` logged every reading first)."""
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["device"].startswith("cuda")
+              and r["mesh"] == ("sharding",),
+              f"phase 18: rank {r['rank']} on {r['device']} over "
+              f"{r['backend']}, mesh {r['mesh']}")
+    dts = res["dtensor"] if res["gloo_carries_dtensor"] else \
+        [res["dtensor_nccl"]["dtensor"]]
+    for d in dts:
+        check(d["shard0"] is True and d["replicate"] is True
+              and d["shard1"] is True and d["device"].startswith("cuda"),
+              f"phase 18: DTensor shards differ from slices of the whole: "
+              f"{d}")
+    whole = stages[0][0]
+    for s, rs in stages.items():
+        out = res[f"stage{s}"]
+        for r in rs:
+            check(r["losses"] == rs[0]["losses"]
+                  and all(math.isfinite(v) for v in r["losses"]),
+                  f"phase 18 stage {s}: the ranks' losses differ: "
+                  f"{out['losses']}")
+            want = dict(flash_fwd=ZERO_LAYERS, flash_bwd=ZERO_LAYERS,
+                        rms_norm=2 * ZERO_LAYERS + 1,
+                        rms_norm_bwd=2 * ZERO_LAYERS + 1,
+                        adam=r["n_tensors"] if s == 0 else r["pieces"])
+            for name, n in want.items():
+                check(r["launches"][name] == n * ZERO_STEPS,
+                      f"phase 18 stage {s}: {name} launched "
+                      f"{r['launches'][name]} times in {ZERO_STEPS} steps, "
+                      f"expected {n * ZERO_STEPS}")
+            if s:
+                t = r["traffic"]
+                check(t["reduce_scatter"] == r["buckets"] * ZERO_STEPS,
+                      f"phase 18 stage {s}: {t}")
+            if s < 3:
+                check(r["digest"] == rs[0]["digest"],
+                      f"phase 18 stage {s}: the ranks' parameters differ")
+        check(max(out["loss_rel"]) <= TP_LOSS_TOL,
+              f"phase 18 stage {s}: losses {out['losses']}")
+        check(max(v for v, _ in out["masters"].values()) <= TP_PARAM_BAR,
+              f"phase 18 stage {s}: probe masters {out['masters']}")
+        check(max(v for v, _ in out["moments"].values()) <= ZERO_MOMENT_BAR,
+              f"phase 18 stage {s}: probe moments {out['moments']}")
+        # the bytes a rank holds: 1/N of the state from stage 1, of the
+        # gradients from stage 2, of the parameters at stage 3
+        for k, first in (("state", 1), ("grads", 2), ("params", 3)):
+            w = dict(state=whole["state_bytes"], grads=whole["grads_bytes"],
+                     params=whole["params_bytes"])[k]
+            got = [b[k] for b in out["bytes"]]
+            if s >= first:
+                check(all(0.45 * w < v < 0.55 * w for v in got),
+                      f"phase 18 stage {s}: {k} bytes {got} are not half of "
+                      f"stage 0's {w}")
+            else:
+                check(all(v == w for v in got),
+                      f"phase 18 stage {s}: {k} bytes {got}, stage 0's {w}")
+        if s:
+            check(sum(b["state"] for b in out["bytes"])
+                  == whole["state_bytes"],
+                  f"phase 18 stage {s}: the ranks' state does not add up")
+            # the peak comes at the backward's start, before the gradients,
+            # where stages 1 and 2 hold the same: it may only tie there
+            prev = res[f"stage{s - 1}"]["peak_gib"]
+            check(all(a < b or (s == 2 and a == b)
+                      for a, b in zip(out["peak_gib"], prev)),
+                  f"phase 18 stage {s}: peak {out['peak_gib']} GiB does not "
+                  f"fall below stage {s - 1}'s {prev}")
+    check(whole["state_bytes"] == 12 * n_params,
+          f"phase 18: stage 0 holds {whole['state_bytes']} bytes of state "
+          f"for {n_params} parameters")
+    f = res["faults"]
+    check(max(v for v, _ in f["reduce_without_divide"]["moments"].values())
+          > ZERO_MOMENT_BAR,
+          f"phase 18: a reduce_scatter without its division passed: "
+          f"{f['reduce_without_divide']}")
+    check(f["gather_at_rank0_offset"]["step2_loss_rel"] > TP_LOSS_TOL
+          and f["gather_at_rank0_offset"]["digests_differ"],
+          f"phase 18: rank 1 gathering at rank 0's offset passed: "
+          f"{f['gather_at_rank0_offset']}")
+    check(max(v for v, _ in f["no_gather_before_backward"]["moments"]
+              .values()) > ZERO_MOMENT_BAR,
+          f"phase 18: stage 3 without the gather before the backward passed: "
+          f"{f['no_gather_before_backward']}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7518,6 +8110,9 @@ def main():
                     "no kernels line, no final line)")
     ap.add_argument("--phase17", action="store_true",
                     help="build the kernels and run phase 17 alone (a probe: "
+                    "no kernels line, no final line)")
+    ap.add_argument("--phase18", action="store_true",
+                    help="build the kernels and run phase 18 alone (a probe: "
                     "no kernels line, no final line)")
     ap.add_argument("--io", default=None,
                     help="with --phase11: the directory of the streams it "
@@ -7590,6 +8185,9 @@ def main():
         return 0
     if args.phase17:
         tps_phase(args.seed, card)
+        return 0
+    if args.phase18:
+        zero_phase(args.seed, card)
         return 0
 
     # 3. kernels against their plain versions at the serving and training
@@ -7909,6 +8507,13 @@ def main():
     mark("phase 17")
     t17 = tp_serving["launches"]
 
+    # 18. ZeRO stages 0-3 at LLaMA-2-7B's widths on two gloo ranks of the
+    # card, and DTensor's shard / reshard there; the kernels' launches of
+    # every stage's counted steps on both ranks, added to phases 15-16's
+    zero = zero_phase(args.seed, card)
+    mark("phase 18")
+    par = {n: par[n] + zero["launches"].get(n, 0) for n in par}
+
     def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -8057,7 +8662,8 @@ def main():
                            multi_step=multi_step, prefix=prefix, spec=spec,
                            gpt=gpt, finetune=finetune,
                            tensor_parallel=tensor_parallel,
-                           tp_serving=tp_serving, kernels=kernels),
+                           tp_serving=tp_serving, zero=zero,
+                           kernels=kernels),
                       f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -8,6 +8,12 @@ each by 1 / scale in f32 and raises one device flag on a non-finite
 value) and the flag is read once a step. The scale stays a power of two
 from a power-of-two start, so the multiply gives the reference's values
 in every dtype.
+
+Under ZeRO (a `DygraphShardingOptimizer` whose gradients are this rank's
+slices) the slices are unscaled, and the found-inf flag is all_reduced
+(MAX) over the ZeRO axis (and "dp" where both are > 1) before it is read:
+otherwise one rank would step and another skip, and their parameters
+would drift apart.
 """
 from __future__ import annotations
 
@@ -46,12 +52,16 @@ class GradScaler:
     def _unscale(self, optimizer):
         if not self._enable:
             return
-        grads = [p.grad for p in optimizer._parameter_list or ()
-                 if p.grad is not None]
-        if not grads:
+        zero = getattr(optimizer, "_zero_engine", None)
+        if zero is not None:
+            grads = [g for g in zero.grad_slices() if g is not None]
+        else:
+            grads = [p.grad for p in optimizer._parameter_list or ()
+                     if p.grad is not None]
+        if not grads and zero is None:
             self._found_inf = False
             return
-        dev = grads[0].device
+        dev = grads[0].device if grads else zero.buckets[0].device
         found = torch.zeros((), dtype=torch.float32, device=dev)
         inv = torch.full((), 1.0 / self._scale, dtype=torch.float32,
                          device=dev)
@@ -61,6 +71,12 @@ class GradScaler:
         for group in by_dtype.values():
             torch._amp_foreach_non_finite_check_and_unscale_(group, found,
                                                              inv)
+        if zero is not None:
+            from ..distributed import collective as _c
+
+            for ax in (zero.axis, zero.dp_axis):
+                if ax is not None:
+                    _c.all_reduce(found, op=_c.ReduceOp.MAX, group=ax)
         self._found_inf = bool(found.item())
 
     def step(self, optimizer):

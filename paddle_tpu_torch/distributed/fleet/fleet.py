@@ -7,10 +7,12 @@
 `strategy.hybrid_configs` (`dp_degree`, `mp_degree`, `pp_degree`,
 `sharding_degree`, `sep_degree`: an axis of degree 1 is dropped).
 `distributed_model` returns `TensorParallel` at mp_degree > 1,
-`DataParallel` at dp_degree > 1 alone, and the model itself otherwise;
-`distributed_optimizer` returns `HybridParallelOptimizer`. Pipeline
-parallelism (pp_degree > 1) and ZeRO sharding (sharding_degree > 1) raise
-there, naming their ROADMAP items; so do `save` and `load_model` until
+`DataParallel` at dp_degree > 1 alone, and the model itself otherwise (at
+sharding_degree > 1 the model is left to the optimizer's stage, as in the
+reference); `distributed_optimizer` returns `DygraphShardingOptimizer`
+(ZeRO stage 1 over "sharding") at sharding_degree > 1, else
+`HybridParallelOptimizer`. Pipeline parallelism (pp_degree > 1) raises,
+naming its ROADMAP item; so do `save` and `load_model` until
 `distributed/checkpoint.py` is ported. The worker and role API is the
 reference's; the parameter-server half raises.
 """
@@ -90,10 +92,10 @@ class Fleet:
     def distributed_optimizer(self, optimizer, strategy=None):
         strat = strategy or self._strategy or DistributedStrategy()
         if int(strat.hybrid_configs.get("sharding_degree", 1)) > 1:
-            raise NotImplementedError(
-                "fleet.distributed_optimizer: ZeRO sharding (sharding_degree "
-                "> 1) is not ported yet (ROADMAP Queue 1 item 4: "
-                "meta_parallel/sharding/)")
+            from .meta_parallel.sharding.sharding_optimizer import \
+                DygraphShardingOptimizer
+
+            return DygraphShardingOptimizer(optimizer, self._hcg)
         from .meta_parallel.hybrid_optimizer import HybridParallelOptimizer
 
         return HybridParallelOptimizer(optimizer, self._hcg, strat)

@@ -1,8 +1,8 @@
 """meta_parallel (counterpart of
 `paddle_tpu/distributed/fleet/meta_parallel/`): the tensor-parallel
-layers, `TensorParallel` and `HybridParallelOptimizer`. Pipeline
-parallelism and ZeRO sharding are later bullets of ROADMAP Queue 1 item
-4: their classes raise."""
+layers, `TensorParallel`, `HybridParallelOptimizer` and ZeRO's
+`DygraphShardingOptimizer` (`sharding/`). Pipeline parallelism is a later
+bullet of ROADMAP Queue 1 item 4: its classes raise."""
 from ..layers.mpu import (  # noqa: F401
     ColumnParallelLinear,
     ParallelCrossEntropy,
@@ -14,6 +14,7 @@ from .hybrid_optimizer import (  # noqa: F401
     HybridParallelClipGrad,
     HybridParallelOptimizer,
 )
+from .sharding.sharding_optimizer import DygraphShardingOptimizer  # noqa: F401,E501
 from .tensor_parallel import TensorParallel  # noqa: F401
 
 
@@ -33,7 +34,3 @@ class PipelineParallel(_NotPorted):
 
 class PipelineLayer(_NotPorted):
     _what = "pipeline parallelism: meta_parallel/pp_layers.py"
-
-
-class DygraphShardingOptimizer(_NotPorted):
-    _what = "ZeRO sharding: meta_parallel/sharding/"

@@ -6,7 +6,11 @@ The clip's norm is the whole model's: each rank holds a shard of every
 `is_distributed` parameter and a full copy of the others, so the squares
 of the distributed gradients are summed over the "tp" axis and the
 replicated ones are counted once (summing every square over "tp" would
-count them tp times). The reference sees global arrays and needs neither.
+count them tp times). Under ZeRO (`DygraphShardingOptimizer`, which sets
+`_zero_axes`) each gradient is this rank's slice, so both sums are also
+summed over the ZeRO axis, and every rank joins those all_reduces whether
+or not it holds a slice. The reference sees global arrays and needs
+neither.
 Gradient merge (`strategy.gradient_merge`) is wired to
 `build_train_step` through `_gradient_merge_k` / `_gradient_merge_avg`.
 """
@@ -24,6 +28,9 @@ from ..layers.mpu.mp_layers import is_distributed
 class HybridParallelClipGrad(ClipGradByGlobalNorm):
     """`ClipGradByGlobalNorm` over the whole tensor-parallel model."""
 
+    # the axes the gradients are sliced over (ZeRO); () for whole ones
+    _zero_axes = ()
+
     def __init__(self, clip, hcg=None):
         super().__init__(getattr(clip, "clip_norm", clip))
         self._hcg = hcg
@@ -37,6 +44,8 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
             if g is not None:
                 sq = torch.linalg.vector_norm(g, dtype=torch.float32).square()
                 (dist_sq if self._sharded(p) else rep_sq).append(sq)
+        if self._zero_axes:
+            return self._sliced_norm(rep_sq, dist_sq)
         if not dist_sq and not rep_sq:
             return None
         total = torch.stack(rep_sq).sum() if rep_sq else None
@@ -46,6 +55,22 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
                 d = _collective.all_reduce(d.reshape(1), group="tp")[0]
             total = d if total is None else total + d
         return total.sqrt()
+
+    def _sliced_norm(self, rep_sq, dist_sq):
+        """The global norm from this rank's slices' squares: summed over
+        the ZeRO axes, the distributed ones also over "tp"."""
+        from ... import env as _env
+
+        dev = (rep_sq or dist_sq)[0].device if rep_sq or dist_sq \
+            else (_env.device() or torch.device("cpu"))
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        both = torch.stack([torch.stack(rep_sq).sum() if rep_sq else zero,
+                            torch.stack(dist_sq).sum() if dist_sq else zero])
+        for ax in self._zero_axes:
+            _collective.all_reduce(both, group=ax)
+        if _mesh.axis_size("tp") > 1:
+            both[1:] = _collective.all_reduce(both[1:].clone(), group="tp")
+        return both.sum().sqrt()
 
     @staticmethod
     def _sharded(p):

@@ -7,7 +7,7 @@ name an axis as their `group`. The axes keep the reference's `AXIS_ORDER`
 (outermost first) and its rule: an axis of degree 1 is dropped, and `dp`
 stays when every axis is dropped. `CommunicateTopology` and
 `HybridCommunicateGroup` are the reference's rank arithmetic.
-`named_sharding` waits for the port's DTensor layer and raises.
+`named_sharding` gives a spec's DTensor placements over the global mesh.
 """
 from __future__ import annotations
 
@@ -82,9 +82,20 @@ def axis_size(name: str) -> int:
 
 
 def named_sharding(*spec):
-    raise NotImplementedError(
-        "named_sharding: DTensor placements are not ported yet (ROADMAP "
-        "Queue 1 item 4)")
+    """The placements over the global mesh of a spec (per tensor
+    dimension a mesh axis, a tuple of axes, or None): for each mesh
+    dimension, `Shard(d)` of the tensor dimension that names it, else
+    `Replicate()`. The reference returns a `NamedSharding`; `distribute_tensor`
+    / `DTensor.redistribute` take these."""
+    from .auto_parallel import Replicate, Shard
+
+    m = get_mesh()
+    out = []
+    for ax in m.mesh_dim_names or ():
+        dims = [d for d, s in enumerate(spec)
+                if s == ax or (isinstance(s, (tuple, list)) and ax in s)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
 
 
 class CommunicateTopology:

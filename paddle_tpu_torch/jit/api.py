@@ -24,15 +24,25 @@ eager `Optimizer.step()`:
   merged gradient is applied.
 
 With `mesh` (the global mesh of `fleet.init` / `distributed.init_mesh`,
-axes "dp" and "tp"; one process a rank) each rank passes its own dp shard
-of the batch. After the backward, every gradient is averaged over "dp"
+axes "dp", "sharding" and "tp"; one process a rank) each rank passes its
+own shard of the batch, which goes over dp x sharding (the reference
+splits its global batch over "dp" alone; both give the global batch's
+mean loss). At `sharding_stage` 0 every gradient is averaged over "dp"
 (the model's `sync_gradients` when it is a `DataParallel` /
-`TensorParallel`, else one all_reduce a parameter); parameters marked
-sequence-parallel have their gradients summed over "tp" by
+`TensorParallel`, else one all_reduce a parameter) and over "sharding".
+At stages 1-3 with a ZeRO axis of more than one rank ("sharding", else
+"dp") the step is ZeRO's (`distributed/fleet/meta_parallel/sharding/`):
+the gradients are reduce_scattered into this rank's slices (in the
+backward at stages 2-3), the update runs on the rank's pieces (one Adam
+launch a piece), the parameters are all_gathered after it (stages 1-2)
+or kept as slices between steps (stage 3), and gradient merge
+accumulates f32 slices. The optimizer may be a `DygraphShardingOptimizer`
+(its engine is used) or a plain one (the step builds the engine). Parameters
+marked sequence-parallel have their gradients summed over "tp" by
 `register_sequence_parallel_allreduce_hooks`, which the step registers;
-the returned loss is the mean over "dp". The tensor-parallel layers run
-their own collectives in the forward and backward. A mesh with "pp",
-"sharding", "sep", "sp", "cp" or "ep" raises, naming its ROADMAP item.
+the returned loss is the mean over dp x sharding. The tensor-parallel
+layers run their own collectives in the forward and backward. A mesh with
+"pp", "sep", "sp", "cp" or "ep" raises, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -44,7 +54,6 @@ import torch
 # the mesh axes a train step does not take yet, and their ROADMAP items
 _AXES_NOT_PORTED = {
     "pp": "pipeline parallelism (Queue 1 item 4: pipeline.py)",
-    "sharding": "ZeRO sharding (Queue 1 item 4: meta_parallel/sharding/)",
     "sep": "context parallelism (Queue 1 item 4: context_parallel.py)",
     "sp": "context parallelism (Queue 1 item 4: context_parallel.py)",
     "cp": "context parallelism (Queue 1 item 4: context_parallel.py)",
@@ -53,8 +62,9 @@ _AXES_NOT_PORTED = {
 
 
 def check_mesh(mesh):
-    """`mesh` if it is the global mesh and holds only "dp" and "tp" axes;
-    raises NotImplementedError otherwise, naming what is missing."""
+    """`mesh` if it is the global mesh and holds only "dp", "sharding"
+    and "tp" axes; raises NotImplementedError otherwise, naming what is
+    missing."""
     from ..distributed import mesh as _mesh
 
     if mesh is not _mesh.get_mesh(optional=True):
@@ -81,6 +91,16 @@ def _dp_sync(model):
         average_gradients(model.parameters())
 
 
+def _data_mean(t):
+    """`t` averaged in place over "dp", then over "sharding" (each an
+    identity where the mesh lacks it)."""
+    from ..distributed import collective as _c
+
+    for ax in ("dp", "sharding"):
+        _c.all_reduce(t, op=_c.ReduceOp.AVG, group=ax)
+    return t
+
+
 def train_step(model, criterion: Callable, optimizer, donate=True,
                model_call: Optional[Callable] = None, sharding_stage=0,
                mesh=None, gradient_merge_steps: int = 1,
@@ -89,26 +109,35 @@ def train_step(model, criterion: Callable, optimizer, donate=True,
     criterion(model_call(model, inputs), *labels) (`model_call` defaults
     to model(inputs)), its gradients, one update; the gradients are
     cleared. `donate` is accepted (PyTorch updates in place anyway).
-    `sharding_stage` takes 0 or 1 (replicated); 2-3 raise. `mesh`: None
-    (one card) or the global mesh over "dp" and "tp" (`check_mesh`)."""
-    if sharding_stage not in (None, 0, 1):
-        raise NotImplementedError(
-            "train_step: ZeRO sharding stages 2-3 are not ported (ROADMAP "
-            f"Queue 1 item 4), sharding_stage={sharding_stage!r}")
-    dp = tp = 1
+    `sharding_stage` 0-3 (ZeRO; see the module's docstring; without a mesh,
+    or with a ZeRO axis of one rank, every stage is stage 0). `mesh`: None
+    (one card) or the global mesh over "dp", "sharding" and "tp"
+    (`check_mesh`)."""
+    stage = int(sharding_stage or 0)
+    if stage not in (0, 1, 2, 3):
+        raise ValueError(f"train_step: sharding_stage {sharding_stage!r} is "
+                         "not 0, 1, 2 or 3")
+    data_ranks = 1
+    zero = None
     if mesh is not None:
         from ..distributed.fleet.utils import sequence_parallel_utils as _sp
 
         check_mesh(mesh)
         names = mesh.mesh_dim_names or ()
-        dp = mesh["dp"].size() if "dp" in names else 1
+        for ax in ("dp", "sharding"):
+            data_ranks *= mesh[ax].size() if ax in names else 1
         tp = mesh["tp"].size() if "tp" in names else 1
         if tp > 1:
             _sp.register_sequence_parallel_allreduce_hooks(model)
+        if stage >= 1:
+            zero = _zero_engine(model, optimizer, stage)
+    inner_opt = getattr(optimizer, "_inner_opt", optimizer) \
+        if zero is not None else optimizer
     call = model_call or (lambda m, x: m(x))
     k_merge = max(int(gradient_merge_steps), 1)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     merge = {"accum": None, "count": 0}
+    scale = float(np.float32(1.0 / k_merge if gradient_merge_avg else 1.0))
 
     def grad_of(p):
         return p.grad if p.grad is not None else torch.zeros_like(p)
@@ -129,8 +158,6 @@ def train_step(model, criterion: Callable, optimizer, donate=True,
         merge["count"] += 1
         if merge["count"] < k_merge:
             return
-        scale = float(np.float32(1.0 / k_merge if gradient_merge_avg
-                                 else 1.0))
         # one merged gradient at a time (a generator): no second copy of
         # every gradient is alive at once
         optimizer.apply_gradients(
@@ -140,23 +167,87 @@ def train_step(model, criterion: Callable, optimizer, donate=True,
             a.zero_()
         merge["count"] = 0
 
+    @torch.no_grad()
+    def apply_zero(lr):
+        """ZeRO's update: True when the parameters moved."""
+        grads = zero.grad_slices()
+        names = {id(p): n for n, p in named}
+        if k_merge == 1:
+            zero.update(lr, grads, names)
+            return True
+        if merge["accum"] is None:
+            merge["accum"] = [torch.zeros(b.shard_size, dtype=torch.float32,
+                                          device=b.device)
+                              for b in zero.buckets]
+        for a, g in zip(merge["accum"], grads):
+            if g is not None:
+                a.add_(g.float())
+        merge["count"] += 1
+        if merge["count"] < k_merge:
+            return False
+        zero.update(lr, [(a * scale).to(b.dtype) for a, b in
+                         zip(merge["accum"], zero.buckets)], names)
+        for a in merge["accum"]:
+            a.zero_()
+        merge["count"] = 0
+        return True
+
     def step(*args, **kwargs):
-        lr = np.float32(optimizer.get_lr())
+        lr = np.float32(inner_opt.get_lr())
+        if zero is not None:
+            zero.begin()
         out = call(model, args[0])
         loss = criterion(out, *args[1:], **kwargs)
+        if zero is not None:
+            zero.after_forward(loss)
         loss.backward()
         loss = loss.detach()
-        if dp > 1:
-            from ..distributed import collective as _c
-
-            _dp_sync(model)
-            loss = _c.all_reduce(loss.clone(), op=_c.ReduceOp.AVG,
-                                 group="dp")
-        apply(lr)
+        if data_ranks > 1:
+            if zero is None:
+                _dp_sync(model)
+                _sharding_sync(named)
+            loss = _data_mean(loss.clone())
+        if zero is not None:
+            zero.end(updated=apply_zero(lr))
+        else:
+            apply(lr)
         for _, p in named:
             p.grad = None
-        optimizer._step_count += 1
+        inner_opt._step_count += 1
         return loss
 
     step._merge = merge
+    step._zero = zero
     return step
+
+
+def _zero_engine(model, optimizer, stage):
+    """The ZeRO engine of this step: the `DygraphShardingOptimizer`'s own,
+    else one over the plain `optimizer`; None when the ZeRO axis has one
+    rank."""
+    from ..distributed import collective as _c
+    from ..distributed import mesh as _mesh
+    from ..distributed.fleet.meta_parallel.sharding import group_sharded \
+        as _gs
+    from ..distributed.fleet.meta_parallel.sharding.sharding_optimizer \
+        import DygraphShardingOptimizer
+
+    inner = getattr(model, "_layers", model)
+    if isinstance(optimizer, DygraphShardingOptimizer):
+        return optimizer._attach(inner, stage)
+    if _c._size(_gs.zero_axis_for(_mesh.get_mesh(optional=True))) <= 1:
+        return None
+    return _gs.ZeroEngine(optimizer, stage, inner)
+
+
+def _sharding_sync(named):
+    """Stage 0 on a mesh with "sharding": each gradient averaged over it
+    too (the batch goes over dp x sharding)."""
+    from ..distributed import collective as _c
+    from ..distributed import mesh as _mesh
+
+    if _mesh.axis_size("sharding") <= 1:
+        return
+    for _, p in named:
+        if p.grad is not None:
+            _c.all_reduce(p.grad, op=_c.ReduceOp.AVG, group="sharding")

@@ -1,7 +1,7 @@
 """The training step (counterpart of `paddle_tpu/models/trainer.py`
 `build_train_step` and `prefetch_batches`), on one card or over the
-global mesh's "dp" and "tp" axes (`jit.train_step`); no pipeline, no ZeRO
-sharding.
+global mesh's "dp", "sharding" and "tp" axes, with ZeRO stages 1-3
+(`jit.train_step`); no pipeline.
 
 `build_train_step` is `jit.train_step` (eager; see there how it matches
 the reference's compiled step) with the model's loss: with
@@ -32,14 +32,18 @@ def build_train_step(model, optimizer, criterion: Optional[Callable] = None,
     model's device. `gradient_merge_steps` defaults to the optimizer's
     `_gradient_merge_k` (or 1), the averaging to its `_gradient_merge_avg`
     (or True), as in the reference. `mesh` defaults to the global mesh
-    (`fleet.init`), as in the reference; it may hold "dp" and "tp" axes
-    (`jit.api.check_mesh`). `model` may be the wrapper
+    (`fleet.init`), as in the reference; it may hold "dp", "sharding" and
+    "tp" axes (`jit.api.check_mesh`). `model` may be the wrapper
     `fleet.distributed_model` returns (its `_layers` give the config and
-    the loss). The pipeline and sharding arguments (`num_microbatches`,
-    `pipeline_schedule`, `virtual_pp_degree`, `sharding_stage` 2-3) take
-    their defaults; any other raises. On the card the step carries
-    `_data_put`, which moves a batch to the model's device
-    (`prefetch_batches` stages with it)."""
+    the loss). `sharding_stage` defaults to the optimizer's `stage` (a
+    `DygraphShardingOptimizer`, or `group_sharded_parallel`'s), else 0:
+    the reference defaults to 1, where a plain optimizer's moments are laid
+    out over "dp" (`shard_opt_state`); here a plain optimizer keeps whole
+    moments unless the stage is passed (the numbers are the same). The
+    pipeline arguments (`num_microbatches`, `pipeline_schedule`,
+    `virtual_pp_degree`) take their defaults; any other raises. On the
+    card the step carries `_data_put`, which moves a batch to the model's
+    device (`prefetch_batches` stages with it)."""
     if num_microbatches not in (None, 1) or pipeline_schedule is not None \
             or virtual_pp_degree != 1:
         raise NotImplementedError(
@@ -48,7 +52,7 @@ def build_train_step(model, optimizer, criterion: Optional[Callable] = None,
     if mesh is None:
         mesh = _mesh.get_mesh(optional=True)
     if sharding_stage is None:
-        sharding_stage = getattr(optimizer, "stage", 1)
+        sharding_stage = getattr(optimizer, "stage", 0)
     if gradient_merge_steps is None:
         gradient_merge_steps = int(getattr(optimizer, "_gradient_merge_k",
                                            1))

@@ -27,6 +27,15 @@ tensor-parallel rank order. The split axis of a weight (`tp_split_axis`)
 is its layer's: a column-parallel weight and bias by columns, a
 row-parallel weight and a vocab-parallel embedding by rows; everything
 else is replicated.
+
+ZeRO stage 3: a model whose parameters a stage-3 engine stores as slices
+(`distributed/fleet/meta_parallel/sharding/`) holds only this rank's piece
+of each. `*_state_to_numpy` then returns the pieces (1-D arrays) with a
+`ZERO_KEY` entry naming each piece's range of the flattened (tensor-parallel
+shard of the) weight and the rank's tensor-parallel coordinate;
+`gather_*_state` joins every rank's pieces, then the tensor-parallel
+shards, into the full state; `load_*_state` writes a full state into the
+rank's pieces.
 """
 from __future__ import annotations
 
@@ -34,6 +43,9 @@ import numpy as np
 import torch
 
 from .framework.device import resolve_device
+
+# the entry of a stage-3 rank's numpy state that describes its pieces
+ZERO_KEY = "@zero"
 
 # the tensor-parallel split of each weight, by the end of its name: 1 for a
 # column-parallel weight, 0 for a row-parallel weight, a vocab-parallel
@@ -217,7 +229,10 @@ def llama_state_to_numpy(model):
     quantized linears as their int8 `quant_weight` and f32 `weight_scale`;
     checked against the LLaMA layout of the model's config. At
     tensor-parallel degree > 1, this rank's shards (`gather_llama_state`
-    joins the ranks')."""
+    joins the ranks'); under ZeRO stage 3, this rank's pieces
+    (`ZERO_KEY`)."""
+    if _zero3(model) is not None:
+        return _zero_pieces(model)
     state = {}
     for n, t in model.state_dict().items():
         t = t.detach().cpu()
@@ -232,20 +247,22 @@ def llama_state_to_numpy(model):
 
 def gather_llama_state(states, config):
     """The full LLaMA state from every tensor-parallel rank's
-    `llama_state_to_numpy` (in rank order)."""
-    return _gather(states, llama_param_shapes(config), "LLaMA")
+    `llama_state_to_numpy` (in rank order), or from every rank's pieces
+    under ZeRO stage 3 (any order)."""
+    shapes = llama_param_shapes(config)
+    return _gather(_join_zero(states, shapes), shapes, "LLaMA")
 
 
 def load_llama_state(model, state):
     """Replace the weights of a port `LlamaForCausalLM` by `state`
     ({name: np.ndarray}, the full state), in the model's dtype and on its
-    device; at tensor-parallel degree > 1, its rank's shards."""
-    ref = model._backbone_embed_weight()
-    model.load_state_dict(
-        llama_state_from_numpy(state, model.config, ref.dtype, ref.device,
-                               model.tp_rank, model.tp_degree),
-        strict=True)
-    return model
+    device; at tensor-parallel degree > 1, its rank's shards; under ZeRO
+    stage 3, its rank's pieces of them."""
+    ref = model._backbone_embed_weight()  # dtype and device: metadata
+    tensors = llama_state_from_numpy(state, model.config, ref.dtype,
+                                     ref.device, model.tp_rank,
+                                     model.tp_degree)
+    return _load(model, tensors)
 
 
 def fused_encoder_state_from_numpy(state, module):
@@ -326,6 +343,8 @@ def gpt_state_to_numpy(model):
     (copies: a later step does not move them), checked against the GPT
     layout of its config; at tensor-parallel degree > 1, this rank's
     shards."""
+    if _zero3(model) is not None:
+        return _zero_pieces(model)
     state = {n: np.array(t.detach().cpu().float().numpy())
              for n, t in model.state_dict().items()}
     _gather([state], _tp_shapes(gpt_param_shapes(model.config),
@@ -335,8 +354,10 @@ def gpt_state_to_numpy(model):
 
 def gather_gpt_state(states, config):
     """The full GPT state from every tensor-parallel rank's
-    `gpt_state_to_numpy` (in rank order)."""
-    return _gather(states, gpt_param_shapes(config), "GPT")
+    `gpt_state_to_numpy` (in rank order), or from every rank's pieces
+    under ZeRO stage 3 (any order)."""
+    shapes = gpt_param_shapes(config)
+    return _gather(_join_zero(states, shapes), shapes, "GPT")
 
 
 def load_gpt_state(model, state):
@@ -344,8 +365,82 @@ def load_gpt_state(model, state):
     np.ndarray}, the full state), in the model's dtype and on its device;
     at tensor-parallel degree > 1, its rank's shards."""
     ref = model._backbone_embed_weight()
-    model.load_state_dict(
-        gpt_state_from_numpy(state, model.config, ref.dtype, ref.device,
-                             model.tp_rank, model.tp_degree),
-        strict=True)
+    return _load(model, gpt_state_from_numpy(
+        state, model.config, ref.dtype, ref.device, model.tp_rank,
+        model.tp_degree))
+
+
+# ---------------------------------------------------------------------------
+# ZeRO stage 3: a rank's pieces
+
+
+def _zero3(model):
+    """The stage-3 ZeRO engine that stores `model`'s parameters as slices,
+    or None."""
+    eng = getattr(model, "_zero_engine", None)
+    return eng if eng is not None and eng.stage == 3 else None
+
+
+def _load(model, tensors):
+    eng = _zero3(model)
+    if eng is None:
+        model.load_state_dict(tensors, strict=True)
+        return model
+    params = dict(model.named_parameters())
+    if set(params) != set(tensors):
+        raise KeyError(f"state dict mismatch: missing "
+                       f"{sorted(set(params) - set(tensors))}, unexpected "
+                       f"{sorted(set(tensors) - set(params))}")
+    for n, p in params.items():
+        eng.load_param(p, tensors[n])
     return model
+
+
+def _zero_pieces(model):
+    """{name: this rank's piece (1-D f32)} and `ZERO_KEY`: {"tp_rank",
+    "tp_degree", "pieces": {name: (lo, hi, shape)}}."""
+    eng = _zero3(model)
+    state, pieces = {}, {}
+    for n, p in model.named_parameters():
+        lo, hi, values = eng.piece_of(p)
+        state[n] = values.detach().cpu().float().numpy().copy()
+        pieces[n] = (int(lo), int(hi), tuple(p.shape))
+    state[ZERO_KEY] = {"tp_rank": int(model.tp_rank),
+                       "tp_degree": int(model.tp_degree), "pieces": pieces}
+    return state
+
+
+def _join_zero(states, shapes):
+    """`states` as tensor-parallel rank states (rank order): stage-3 pieces
+    joined (a dp replica's pieces must equal; every element covered),
+    other states as they are."""
+    if not states or ZERO_KEY not in states[0]:
+        return states
+    tp = states[0][ZERO_KEY]["tp_degree"]
+    want = _tp_shapes(shapes, tp)
+    out = []
+    for t in range(tp):
+        group = [st for st in states if st[ZERO_KEY]["tp_rank"] == t]
+        joined = {}
+        for name, shape in want.items():
+            flat = np.zeros(int(np.prod(shape)), dtype=np.float32)
+            seen = np.zeros(flat.shape, dtype=bool)
+            for st in group:
+                lo, hi, got_shape = st[ZERO_KEY]["pieces"][name]
+                if tuple(got_shape) != tuple(shape):
+                    raise ValueError(f"{name}: a piece of shape {got_shape}, "
+                                     f"expected {shape}")
+                piece = np.asarray(st[name])
+                both = seen[lo:hi]
+                if both.any() and not np.array_equal(flat[lo:hi][both],
+                                                      piece[both]):
+                    raise ValueError(f"{name}: replicas' pieces differ")
+                flat[lo:hi] = piece
+                seen[lo:hi] = True
+            if not seen.all():
+                raise ValueError(f"{name}: the pieces of tensor-parallel "
+                                 f"rank {t} do not cover it")
+            joined[name] = flat.reshape(shape)
+        out.append(joined)
+    return out
+

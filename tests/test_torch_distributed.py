@@ -369,7 +369,14 @@ def test_hybrid_group_over_the_mesh(group):
 
 
 def test_named_sharding_waits_for_dtensor():
-    with pytest.raises(NotImplementedError):
+    """Without a global mesh `named_sharding` raises as the reference's
+    does (`get_mesh`); with one it gives DTensor placements
+    (`tests/test_torch_auto_parallel.py` holds them against the
+    reference's shards)."""
+    jmesh.set_mesh(None)
+    with pytest.raises(RuntimeError):
+        jmesh.named_sharding("dp")
+    with pytest.raises(RuntimeError):
         tmesh.named_sharding("dp")
 
 

@@ -274,6 +274,42 @@ PAIRS.update({
                        TMP.TensorParallel.__init__),
 })
 
+# the ZeRO and auto-parallel slice's public names
+import paddle_tpu.distributed as JDIST  # noqa: E402
+import paddle_tpu.distributed.auto_parallel as JAP  # noqa: E402
+import paddle_tpu.distributed.fleet.meta_parallel.sharding.sharding_optimizer as JSO  # noqa: E402,E501
+import paddle_tpu.distributed.sharding_utils as JSU  # noqa: E402
+import paddle_tpu_torch.distributed as TDIST  # noqa: E402
+import paddle_tpu_torch.distributed.auto_parallel as TAP  # noqa: E402
+import paddle_tpu_torch.distributed.fleet.meta_parallel.sharding.sharding_optimizer as TSO  # noqa: E402,E501
+import paddle_tpu_torch.distributed.sharding_utils as TSU  # noqa: E402
+for _fn in ("group_sharded_parallel", "zero_axis_for", "zero_extend_spec",
+            "shard_spec_for"):
+    PAIRS[f"sharding.{_fn}"] = (getattr(JSO, _fn), getattr(TSO, _fn))
+for _fn in ("__init__", "step", "minimize", "state_spec_pytree"):
+    PAIRS[f"DygraphShardingOptimizer.{_fn}"] = (
+        getattr(JSO.DygraphShardingOptimizer, _fn),
+        getattr(TSO.DygraphShardingOptimizer, _fn))
+for _fn in ("shard_tensor", "reshard", "shard_layer", "dtensor_from_fn",
+            "shard_op", "set_mesh", "get_mesh"):
+    PAIRS[f"auto_parallel.{_fn}"] = (getattr(JAP, _fn), getattr(TAP, _fn))
+for _cls in ("ProcessMesh", "DistAttr", "Shard", "Partial"):
+    PAIRS[f"auto_parallel.{_cls}"] = (getattr(JAP, _cls).__init__,
+                                      getattr(TAP, _cls).__init__)
+PAIRS["auto_parallel.ProcessMesh.get_dim_size"] = (
+    JAP.ProcessMesh.get_dim_size, TAP.ProcessMesh.get_dim_size)
+for _fn in ("clean_spec", "in_manual_region", "shard_tensor",
+            "mark_sharding", "get_param_spec"):
+    PAIRS[f"sharding_utils.{_fn}"] = (getattr(JSU, _fn), getattr(TSU, _fn))
+for _fn in ("shard_tensor", "mark_sharding", "get_param_spec", "split",
+            "named_sharding", "reshard", "shard_layer", "dtensor_from_fn",
+            "shard_op"):
+    PAIRS[f"distributed.{_fn}"] = (getattr(JDIST, _fn), getattr(TDIST, _fn))
+PAIRS["distributed.mesh.named_sharding"] = (JDM.named_sharding,
+                                            TDM.named_sharding)
+PAIRS["meta_parallel.DygraphShardingOptimizer"] = (
+    JMP.DygraphShardingOptimizer.__init__, TMP.DygraphShardingOptimizer.__init__)
+
 # the port's own trailing parameters (the entry point's device; a layer's
 # dtype, device and the generator its weights come from; a model's seed)
 _LAYER = ["dtype", "device", "generator"]
