@@ -323,6 +323,30 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    equal to the slice of the whole. Logged: step ms, reduce_scatters,
    all_gathers and bytes a step by rank (two ranks on one card: no ZeRO
    speed). `--phase18` runs the build and this phase alone.
+19. Pipeline parallelism, in phase 18's two spawned ranks (after its
+   results are saved, before its DTensor check): `fleet.init` at
+   pp_degree 2, LLaMA-2-7B's widths at `PP_LAYERS` (4) of 32 layers, bf16
+   O2, AdamW(1e-4) with f32 masters, the dense loss (of f32 logits),
+   batch 4 x 4096 (the
+   same rows on both stages) cut into M = 4 microbatches, 2 steps of
+   build_train_step at each of "gpipe", "1f1b" and "vpp" (v = 2: rank r
+   holds layers r and 2 + r) from the same seeded weights (`tp_load`),
+   against pp = 1 on rank 0 (the mesh set aside, one plain step over the
+   batch). Held: every rank's losses equal and each schedule's within
+   `TP_LOSS_TOL` of pp 1's; the probes' f32 masters (each from the stage
+   that holds it) within `TP_PARAM_BAR` of pp 1's over their update;
+   stage 0's `max_memory_allocated` lower under 1F1B than under GPipe (at
+   most 2 microbatches in flight against 4); flash, RMSNorm and Adam
+   launches exact a rank; (2v - 1) M sends and receives a step a rank,
+   each a staged [1, 4096, 4096] bf16 activation. Three planted faults
+   caught: a 1F1B that skips the last microbatch's backward (the masters),
+   the last stage sending zeros for its cotangent (stage 0's masters), a
+   loss not divided by M (the loss against pp 1). Logged: step ms, sends,
+   receives and staged bytes a step by rank (two ranks on one card over
+   gloo: no pipeline speed). Then GPT-3 1.3B whole, the tied embedding on
+   both stages, 2 1F1B steps of 4 x 2048 against pp 1 (losses, masters,
+   the tied copies equal). `--phase19` runs the build and this phase
+   alone.
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -7786,19 +7810,40 @@ def zero_dtensor(rank, n, dev):
     return out
 
 
-def zero_rank_proc(io, seed):
-    """One rank of phase 18: gloo over CUDA tensors on the one card,
-    fleet.init at sharding_degree 2; the four stages, then the three
-    planted faults."""
+def zero_rank_proc(io, seed, phases=("18", "19")):
+    """One rank of phases 18 and 19 (or of one of them): gloo over CUDA
+    tensors on the one card; phase 18: fleet.init at sharding_degree 2,
+    the four stages, then the three planted faults; phase 19
+    (`pp_rank_part`): fleet.init at pp_degree 2, its runs; phase 18's
+    DTensor check last."""
     import faulthandler
 
     from paddle_tpu_torch import distributed as D
-    from paddle_tpu_torch.distributed import fleet
 
     faulthandler.enable()
     t0 = time.perf_counter()
     D.init_parallel_env()
     dev = D.env.device()
+    if "18" in phases:
+        rank = zero_rank_part(io, seed, dev, t0)
+    if "19" in phases:
+        pp = pp_rank_part(seed, dev, t0)
+        pp["process_s"] = time.perf_counter() - t0
+        torch.save(pp, os.path.join(io, f"pp_rank{pp['rank']}.pt"))
+    if "18" in phases:
+        # last, after the results are saved: DTensor's shard / reshard over
+        # gloo on the card's tensors (a backend that lacks an op on them
+        # may end the process: gloo's reshard does in torch 2.11)
+        torch.save(zero_dtensor(rank, ZERO_N, dev),
+                   os.path.join(io, f"zero_dtensor_rank{D.get_rank()}.pt"))
+    D.destroy_process_group()
+
+
+def zero_rank_part(io, seed, dev, t0):
+    """Phase 18 on this rank; its results saved; its sharding rank."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet
+
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs = dict(dp_degree=1, sharding_degree=ZERO_N)
     fleet.init(is_collective=True, strategy=strategy)
@@ -7819,12 +7864,7 @@ def zero_rank_proc(io, seed):
             3, seed, dev, rank, steps=1, fault="no_gather_before_backward"))
     res["process_s"] = time.perf_counter() - t0
     torch.save(res, os.path.join(io, f"zero_rank{res['rank']}.pt"))
-    # last, after the results are saved: DTensor's shard / reshard over
-    # gloo on the card's tensors (a backend that lacks an op on them may
-    # end the process: gloo's reshard does in torch 2.11)
-    torch.save(zero_dtensor(rank, ZERO_N, dev),
-               os.path.join(io, f"zero_dtensor_rank{res['rank']}.pt"))
-    D.destroy_process_group()
+    return rank
 
 
 def zero_dtensor_nccl(dev):
@@ -7871,19 +7911,24 @@ def zero_probe_dist(ranks, run, step, what):
     return out
 
 
-def zero_phase(seed, card):
-    """Phase 18: two gloo ranks on the card run every stage and the
-    faults in one spawn; every reading logged before its check."""
+def zero_phase(seed, card, phases=("18", "19")):
+    """Phases 18 and 19 (or one of them): two gloo ranks on the card run
+    every ZeRO stage and its faults, then the pipeline's runs and faults,
+    in one spawn (phase 17's ranks spent most of their time starting);
+    every reading logged before its check. {"18": phase 18's results,
+    "19": phase 19's}."""
     from paddle_tpu_torch.distributed import spawn
 
     gc.collect()
     torch.cuda.empty_cache()
     t_all = time.perf_counter()
+    out = {}
     with tempfile.TemporaryDirectory(prefix="phase18-") as io:
         prev = os.environ.get("PADDLE_DISTRI_BACKEND")
         os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
         try:
-            spawn(zero_rank_proc, args=(io, seed), nprocs=ZERO_N, timeout=300)
+            spawn(zero_rank_proc, args=(io, seed, phases), nprocs=ZERO_N,
+                  timeout=600)
             ended = None
         except RuntimeError as e:  # spawn's report; the results say more
             ended = str(e).splitlines()[0][:200]
@@ -7892,17 +7937,38 @@ def zero_phase(seed, card):
                 os.environ.pop("PADDLE_DISTRI_BACKEND")
             else:
                 os.environ["PADDLE_DISTRI_BACKEND"] = prev
-        paths = [os.path.join(io, f"zero_rank{r}.pt") for r in range(ZERO_N)]
-        if not all(os.path.exists(p) for p in paths):
-            raise RuntimeError(f"phase 18: a rank ended before its results: "
-                               f"{ended}")
-        ranks = sorted((torch.load(p) for p in paths),
-                       key=lambda r: r["sharding_rank"])
-        dts = [os.path.join(io, f"zero_dtensor_rank{r}.pt")
-               for r in range(ZERO_N)]
-        dt = [torch.load(p) for p in dts] if ended is None else \
-            [dict(ranks_ended=ended)]
+        if "19" in phases:
+            paths = [os.path.join(io, f"pp_rank{r}.pt") for r in range(PP_N)]
+            if not all(os.path.exists(p) for p in paths):
+                raise RuntimeError(f"phase 19: a rank ended before its "
+                                   f"results: {ended}")
+            pp_ranks = sorted((torch.load(p) for p in paths),
+                              key=lambda r: r["stage"])
+        if "18" in phases:
+            paths = [os.path.join(io, f"zero_rank{r}.pt")
+                     for r in range(ZERO_N)]
+            if not all(os.path.exists(p) for p in paths):
+                raise RuntimeError(f"phase 18: a rank ended before its "
+                                   f"results: {ended}")
+            ranks = sorted((torch.load(p) for p in paths),
+                           key=lambda r: r["sharding_rank"])
+            dts = [os.path.join(io, f"zero_dtensor_rank{r}.pt")
+                   for r in range(ZERO_N)]
+            dt = [torch.load(p) for p in dts] if ended is None else \
+                [dict(ranks_ended=ended)]
+        elif ended is not None:
+            raise RuntimeError(f"phase 19: the ranks failed: {ended}")
     spawn_s = time.perf_counter() - t_all
+    if "19" in phases:
+        out["19"] = pp_phase(pp_ranks, card, spawn_s)
+    if "18" in phases:
+        out["18"] = zero_results(ranks, dt, card, spawn_s)
+    return out
+
+
+def zero_results(ranks, dt, card, spawn_s):
+    """Phase 18's readings and checks."""
+    t_res = time.perf_counter()
     carried = all(d.get(k) is True for d in dt
                   for k in ("shard0", "replicate", "shard1"))
     t0 = time.perf_counter()
@@ -7985,9 +8051,10 @@ def zero_phase(seed, card):
     log(f"phase 18: planted faults (each must exceed its bar): {faults} "
         f"[{card}]")
     res["process_s"] = [r["process_s"] for r in ranks]
-    res["phase_s"] = time.perf_counter() - t_all
-    log(f"phase 18: {res['phase_s']:.1f} s (the ranks' spawn {spawn_s:.1f}: "
-        f"processes {[round(v, 1) for v in res['process_s']]} s; DTensor "
+    res["phase_s"] = spawn_s + time.perf_counter() - t_res
+    log(f"phases 18-19: {res['phase_s']:.1f} s (the ranks' spawn "
+        f"{spawn_s:.1f}; phase 18 in the processes "
+        f"{[round(v, 1) for v in res['process_s']]} s; DTensor "
         f"{dtensor_s:.1f}) [{card}]")
     zero_verify(ranks, stages, res, n_params)
     launches = {}
@@ -8085,6 +8152,441 @@ def zero_verify(ranks, stages, res, n_params):
           f"{f['no_gather_before_backward']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: pipeline parallelism
+# ---------------------------------------------------------------------------
+
+# LLaMA-2-7B's widths at PP_LAYERS of its 32 layers, bf16 O2, AdamW with
+# f32 masters, the dense loss, batch PP_ROWS x PP_SEQ (every pp rank the
+# same rows) cut into PP_M microbatches, on phase 18's two gloo ranks of the
+# one card at pp_degree 2: the "gpipe", "1f1b" and "vpp" (v = 2) schedules
+# in turn from the same seeded weights, against pp = 1 on rank 0 (the mesh
+# set aside). The loss is the dense cross entropy of f32 logits. Two ranks
+# share one card: no pipeline speed.
+PP_N = 2
+PP_LAYERS = 4
+PP_ROWS, PP_SEQ, PP_M = 4, 4096, 4
+PP_STEPS = 2
+PP_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("vpp", 2))
+# the f32 masters compared with pp 1's: a column- and a row-split linear,
+# a norm, each layer once under both layouts (1f1b: rank 0 holds layers 0
+# and 1; vpp: 0 and 2), the embedding (first stage) and the final norm
+# (last stage)
+PP_PROBES = ("llama.layers.0.self_attn.q_proj.weight",
+             "llama.layers.1.mlp.down_proj.weight",
+             "llama.layers.2.self_attn.o_proj.weight",
+             "llama.layers.3.input_layernorm.weight",
+             "llama.embed_tokens.weight", "llama.norm.weight")
+# then GPT-3 1.3B (all 24 layers, the tied embedding on both stages), two
+# 1F1B steps of 4 x 2048 in 4 microbatches against pp 1, the masters held
+# after the last (Adam's first update is the sign of each gradient, which
+# rounding flips for the near-zero ones: layer 0's fc_in read 0.090 of its
+# update after one step on an H100); no QKV probe: at the initial weights
+# attention is near uniform and the key columns' gradients near zero (0.113
+# after one step, near the bar; PERF.md, the pipeline slice's runs)
+PP_GPT_SEQ = 2048
+PP_GPT_PROBES = ("gpt.layers.0.mlp.fc_in.weight",
+                 "gpt.layers.23.mlp.fc_out.weight",
+                 "gpt.embed_tokens.weight")
+# each probe's first elements (the embedding's first 256 rows: the batch
+# draws its ids below TP_DATA_VOCAB)
+PP_PROBE_ELEMS = 1 << 20
+
+
+def pp_model(seed, dev, v=1, family="llama"):
+    """LLaMA-2-7B's widths at PP_LAYERS (or GPT-3 1.3B whole), bf16 O2,
+    the dense loss, this rank's stage under the global mesh (the whole
+    model without one), the seeded weights of phase 16 (`tp_load`: one
+    generator a tensor, so the stages hold the slices of the pp = 1
+    model)."""
+    if family == "gpt":
+        cfg = GPTConfig.gpt3_1p3b()
+    else:
+        cfg = LlamaConfig.llama2_7b()
+        cfg.num_hidden_layers = PP_LAYERS
+    cfg.dtype = "bfloat16"
+    cfg.fused_ce_chunks = 0
+    cfg.virtual_pp_degree = v
+    cls = GPTForCausalLM if family == "gpt" else LlamaForCausalLM
+    model = cls(cfg, device=dev, seed=seed)
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    tp_load(model, family, seed)
+    return model
+
+
+def pp_loss(model):
+    """The dense loss of f32 logits (phase 16's): a bf16 loss rounds to
+    1 part in 256, too coarse for `TP_LOSS_TOL`."""
+    return lambda logits, y: model.compute_loss(logits.float(), y)
+
+
+def pp_batch(seed, dev, seq=None):
+    """The rows of the one dp coordinate (every pp rank reads the same)."""
+    rng = np.random.RandomState(seed + 19)
+    ids = torch.from_numpy(rng.randint(0, TP_DATA_VOCAB, (
+        PP_ROWS, (seq or PP_SEQ) + 1))).to(dev)
+    return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+
+def pp_probes(opt, model, names=PP_PROBES):
+    """{probe: its f32 master (CPU copy)} of the probes this rank holds."""
+    inner = getattr(opt, "_inner_opt", opt)
+    pos = {id(p): i for i, p in enumerate(inner._parameter_list)}
+    params = dict(model.named_parameters())
+    return {n: inner._accumulators[pos[id(params[n])]]["master_weight"]
+            .detach().reshape(-1)[:PP_PROBE_ELEMS].float().cpu().clone()
+            for n in names if n in params}
+
+
+class PPFaults:
+    """The planted faults; each acts alike on every rank where the
+    transfers depend on it, so no rank waits on a message never sent."""
+
+    @staticmethod
+    def skip_last_backward(step):
+        """A 1F1B that never runs the last microbatch's backward (on both
+        stages: no cotangent is sent for it, none awaited)."""
+        from paddle_tpu_torch.distributed import pipeline as P
+
+        plain = P.schedule_program
+
+        def program(schedule, S, stage, M, virtual=1):
+            return [op for op in plain(schedule, S, stage, M, virtual)
+                    if op != ("b", 0, M - 1)]
+
+        P.schedule_program = program
+        return lambda: setattr(P, "schedule_program", plain)
+
+    @staticmethod
+    def cotangent_dropped(step):
+        """The last stage sends zeros back in place of its input's
+        cotangent."""
+        link = step._link
+        if link.stage != link.num_stages - 1:
+            return lambda: None
+        plain = link.send_backward
+        link.send_backward = lambda g: plain(torch.zeros_like(g))
+        return lambda: delattr(link, "send_backward")
+
+    @staticmethod
+    def loss_not_divided(step):
+        """The step's loss is the sum of the microbatch losses, not their
+        mean."""
+        from paddle_tpu_torch.distributed import pipeline as P
+
+        plain = P._mean_loss
+        P._mean_loss = lambda losses, link, inv_m, dev: plain(
+            losses, link, 1.0, dev)
+        return lambda: setattr(P, "_mean_loss", plain)
+
+
+def pp_run(seed, dev, schedule, v, steps=PP_STEPS, fault=None,
+           family="llama"):
+    """One schedule's run on this rank: the stage's model and optimizer
+    built fresh, `steps` steps of build_train_step with the kernels'
+    launches counted; each step's ms and transfers; the peak of
+    `max_memory_allocated` over the steps; the probes' masters after each
+    step. `fault` plants one of `PPFaults` first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = pp_model(seed, dev, v, family)
+    probe_names = PP_GPT_PROBES if family == "gpt" else PP_PROBES
+    opt = AdamW(learning_rate=ZERO_LR, parameters=model.parameters(),
+                multi_precision=True)
+    step = build_train_step(model, opt, criterion=pp_loss(model),
+                            num_microbatches=PP_M,
+                            pipeline_schedule=schedule, virtual_pp_degree=v)
+    undo = getattr(PPFaults, fault)(step) if fault else (lambda: None)
+    x, y = pp_batch(seed, dev, PP_GPT_SEQ if family == "gpt" else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    setup_s = time.perf_counter() - t0
+    for _, mod, attr in TRAIN_COUNTERS:
+        setattr(mod, attr, 0)
+    losses, ms, comm, probes = [], [], [], []
+    try:
+        for _ in range(steps):
+            step._link.reset_stats()
+            t1 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            comm.append(step._link.stats())
+            probes.append(pp_probes(opt, model, probe_names))
+    finally:
+        undo()
+    launches = {n: getattr(mod, a) for n, mod, a in TRAIN_COUNTERS}
+    # the tied embedding's two copies must stay equal: a digest of each
+    tied = {n: (float(p.detach().double().sum()),
+                float(p.detach().double().square().sum()))
+            for n, p in model.named_parameters()
+            if getattr(p, "pp_shared_stages", None) is not None}
+    res = dict(schedule=schedule, v=v, fault=fault, losses=losses,
+               tied=tied,
+               step_ms=ms, comm=comm, probes=probes, launches=launches,
+               stage=model.pp.stage, last=model.pp.last,
+               layers=[int(i) for i in model.pp.layer_ids],
+               n_tensors=len(list(model.parameters())), setup_s=setup_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def pp_baseline(seed, dev, steps=PP_STEPS, family="llama"):
+    """pp = 1 in this process, the global mesh set aside: the whole model,
+    one plain step over the whole batch; the probes' initial values and
+    their masters after each step."""
+    from paddle_tpu_torch.distributed import mesh as M
+
+    keep = M.get_mesh(optional=True)
+    M.set_mesh(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        model = pp_model(seed, dev, family=family)
+        names = PP_GPT_PROBES if family == "gpt" else PP_PROBES
+        init = {n: p.detach().reshape(-1)[:PP_PROBE_ELEMS].float().cpu()
+                .clone() for n, p in model.named_parameters() if n in names}
+        opt = AdamW(learning_rate=ZERO_LR, parameters=model.parameters(),
+                    multi_precision=True)
+        step = build_train_step(model, opt, criterion=pp_loss(model))
+        x, y = pp_batch(seed, dev, PP_GPT_SEQ if family == "gpt" else None)
+        for _, mod, attr in TRAIN_COUNTERS:
+            setattr(mod, attr, 0)
+        losses, probes, ms = [], [], []
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            probes.append(pp_probes(opt, model, names))
+        launches = {n: getattr(mod, a) for n, mod, a in TRAIN_COUNTERS}
+        res = dict(losses=losses, probes=probes, init=init, step_ms=ms,
+                   launches=launches)
+        del model, opt, step
+    finally:
+        M.set_mesh(keep)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def pp_rank_part(seed, dev, t0):
+    """Phase 19 on this rank (inside phase 18's spawned ranks): fleet.init
+    at pp_degree 2, pp = 1 on rank 0 while rank 1 waits, the three
+    schedules, then the three planted faults."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = dict(dp_degree=1, pp_degree=PP_N)
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    stage = hcg.get_stage_id()
+    res = dict(rank=D.get_rank(), stage=stage, backend=D.get_backend(),
+               device=str(dev), mesh=tuple(D.get_mesh().mesh_dim_names),
+               first=hcg.is_first_stage, last=hcg.is_last_stage,
+               next=hcg._get_p2p_next_rank())
+    t1 = time.perf_counter()
+    if stage == 0:
+        res["pp1"] = pp_baseline(seed, dev)
+    D.barrier()
+    res["pp1_s"] = time.perf_counter() - t1
+    log(f"phase 19: rank {stage}: pp 1 at {time.perf_counter() - t0:.1f} s")
+    for schedule, v in PP_SCHEDULES:
+        res[schedule] = pp_run(seed, dev, schedule, v)
+        log(f"phase 19: rank {stage}: {schedule} at "
+            f"{time.perf_counter() - t0:.1f} s")
+    res["faults"] = {f: pp_run(seed, dev, "1f1b", 1, steps=1, fault=f)
+                     for f in ("skip_last_backward", "cotangent_dropped",
+                               "loss_not_divided")}
+    t1 = time.perf_counter()
+    if stage == 0:
+        res["gpt_pp1"] = pp_baseline(seed, dev, family="gpt")
+    D.barrier()
+    res["gpt"] = pp_run(seed, dev, "1f1b", 1, family="gpt")
+    res["gpt_s"] = time.perf_counter() - t1
+    log(f"phase 19: rank {stage}: GPT-3 1.3B at "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def pp_masters(ranks, run, step, base, names=PP_PROBES):
+    """{probe: rel}: the probes' masters after `step` (each from the rank
+    that holds it) against pp 1's, over their update from the initial
+    weights."""
+    out = {}
+    for n in names:
+        got = next(run(r)["probes"][step][n] for r in ranks
+                   if n in run(r)["probes"][step])
+        want = base["probes"][step][n]
+        size = float((want - base["init"][n]).double().norm())
+        out[n] = float((got - want).double().norm()) / size if size \
+            else float("inf")
+    return out
+
+
+def pp_phase(ranks, card, spawn_s):
+    """Phase 19's readings from the ranks' results (every one logged before
+    its check), then the checks."""
+    t0 = time.perf_counter()
+    base = ranks[0]["pp1"]
+    res = dict(pp1=dict(losses=base["losses"], step_ms=base["step_ms"]))
+    log(f"phase 19: pp 1 (rank 0, the mesh set aside): LLaMA-2-7B widths, "
+        f"{PP_LAYERS} layers, bf16 O2, AdamW({ZERO_LR}, f32 masters), the "
+        f"dense loss, batch {PP_ROWS} x {PP_SEQ}: losses {base['losses']}, "
+        f"step ms {[round(v, 1) for v in base['step_ms']]} [{card}]")
+    for schedule, v in PP_SCHEDULES:
+        rs = [r[schedule] for r in ranks]
+        rel = [abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"],
+                                                   base["losses"])]
+        masters = pp_masters(ranks, lambda r: r[schedule], -1, base)
+        res[schedule] = dict(
+            losses=[r["losses"] for r in rs], loss_rel=rel, masters=masters,
+            peak_gib=[r["peak_gib"] for r in rs],
+            step_ms=[r["step_ms"] for r in rs],
+            comm=[r["comm"] for r in rs],
+            launches=[r["launches"] for r in rs],
+            layers=[r["layers"] for r in rs])
+        log(f"phase 19 {schedule} (v {v}): LLaMA-2-7B widths, {PP_LAYERS} "
+            f"layers over pp {PP_N} (layers by rank "
+            f"{[r['layers'] for r in rs]}), M {PP_M} of 1 x {PP_SEQ}, "
+            f"{PP_STEPS} steps: losses by rank {[r['losses'] for r in rs]} "
+            f"against pp 1's {base['losses']} (rel "
+            f"{[f'{v_:.3g}' for v_ in rel]}, bar {TP_LOSS_TOL}); probe "
+            f"masters over their update: "
+            f"{ {k: round(v_, 5) for k, v_ in masters.items()} } (bar "
+            f"{TP_PARAM_BAR}) [{card}]")
+        log(f"phase 19 {schedule}: peak {[round(r['peak_gib'], 3) for r in rs]}"
+            f" GiB by rank; step ms by rank "
+            f"{[[round(v_, 1) for v_ in r['step_ms']] for r in rs]}; a step "
+            f"by rank (sends, recvs, staged MiB): "
+            + "; ".join(f"{c['sends']}, {c['recvs']}, "
+                        f"{c['staged_bytes'] / 2 ** 20:.1f}"
+                        for c in (r["comm"][-1] for r in rs))
+            + f"; launches by rank {[r['launches'] for r in rs]} (two ranks "
+            f"on ONE card over gloo: counts, not a speed) [{card}]")
+    faults = {}
+    for f in ("skip_last_backward", "cotangent_dropped"):
+        faults[f] = pp_masters(ranks, lambda r, f=f: r["faults"][f], 0, base)
+    ln = ranks[0]["faults"]["loss_not_divided"]["losses"][0]
+    faults["loss_not_divided"] = dict(
+        loss=ln, loss_rel=abs(ln - base["losses"][0]) / abs(base["losses"][0]))
+    res["faults"] = faults
+    log(f"phase 19: planted faults (each must exceed its bar): {faults} "
+        f"[{card}]")
+    gb = ranks[0]["gpt_pp1"]
+    gs = [r["gpt"] for r in ranks]
+    res["gpt"] = dict(
+        losses=[r["losses"] for r in gs], pp1_losses=gb["losses"],
+        loss_rel=max(abs(a - b) / abs(b) for a, b in zip(gs[0]["losses"],
+                                                          gb["losses"])),
+        masters=pp_masters(ranks, lambda r: r["gpt"], -1, gb,
+                           PP_GPT_PROBES),
+        tied=[r["tied"] for r in gs], layers=[len(r["layers"]) for r in gs],
+        step_ms=[r["step_ms"] for r in gs], launches=[r["launches"]
+                                                     for r in gs],
+        comm=[r["comm"][-1] for r in gs], pp1_step_ms=gb["step_ms"])
+    g = res["gpt"]
+    log(f"phase 19 GPT-3 1.3B: 24 layers over pp 2 (layers by rank "
+        f"{g['layers']}), the tied embedding on both stages, {PP_STEPS} "
+        f"1F1B steps of {PP_ROWS} x {PP_GPT_SEQ} in M {PP_M}: losses by rank "
+        f"{g['losses']} against pp 1's {g['pp1_losses']} (rel "
+        f"{g['loss_rel']:.3g}, bar {TP_LOSS_TOL}); probe masters over their "
+        f"update {g['masters']} (bar {TP_PARAM_BAR}); the tied copies' "
+        f"digests {g['tied']}; step ms by rank {g['step_ms']} (pp 1: "
+        f"{g['pp1_step_ms']}); a step by rank {g['comm']}; launches by rank "
+        f"{g['launches']} [{card}]")
+    res["process_s"] = spawn_s
+    log(f"phase 19: readings {time.perf_counter() - t0:.1f} s; pp 1 took "
+        f"{ranks[0]['pp1_s']:.1f} s of the ranks' time [{card}]")
+    pp_verify(ranks, res)
+    launches = {}
+    for r in ranks:
+        for run in [r[s] for s, _ in PP_SCHEDULES] + [
+                r.get("pp1"), r["gpt"], r.get("gpt_pp1")]:
+            for name, n in (run or {}).get("launches", {}).items():
+                launches[name] = launches.get(name, 0) + n
+    res["launches"] = launches
+    log(f"phase 19: launches of its counted runs, both ranks: {launches} "
+        f"[{card}]")
+    return res
+
+
+def pp_verify(ranks, res):
+    """Phase 19's checks."""
+    for r in ranks:
+        check(r["backend"] == "gloo" and r["device"].startswith("cuda")
+              and r["mesh"] == ("pp",)
+              and (r["first"], r["last"]) == (r["stage"] == 0,
+                                              r["stage"] == PP_N - 1)
+              and r["next"] == 1 - r["rank"],
+              f"phase 19: rank {r['rank']}: {r['device']} over "
+              f"{r['backend']}, mesh {r['mesh']}, stage {r['stage']}")
+    for schedule, _ in PP_SCHEDULES:
+        out = res[schedule]
+        rs = [r[schedule] for r in ranks]
+        for r in rs:
+            check(r["losses"] == rs[0]["losses"]
+                  and all(math.isfinite(v) for v in r["losses"]),
+                  f"phase 19 {schedule}: the ranks' losses differ: "
+                  f"{out['losses']}")
+            L = len(r["layers"])
+            norms = 2 * L + (1 if r["last"] else 0)
+            want = dict(flash_fwd=L * PP_M, flash_bwd=L * PP_M,
+                        rms_norm=norms * PP_M, rms_norm_bwd=norms * PP_M,
+                        adam=r["n_tensors"])
+            for name, n in want.items():
+                check(r["launches"][name] == n * PP_STEPS,
+                      f"phase 19 {schedule} stage {r['stage']}: {name} "
+                      f"launched {r['launches'][name]} times in {PP_STEPS} "
+                      f"steps, expected {n * PP_STEPS}")
+            # each logical stage but the first receives its input and
+            # each but the last sends its output, and the cotangents go
+            # back the same way: (2v - 1) M messages each way a rank, every
+            # one a [1, seq, hidden] bf16 activation staged on the host
+            v = 2 if schedule == "vpp" else 1
+            c = r["comm"][-1]
+            act = PP_SEQ * LlamaConfig.llama2_7b().hidden_size * 2
+            check(c["sends"] == c["recvs"] == (2 * v - 1) * PP_M
+                  and c["staged_bytes"] == (c["sends"] + c["recvs"]) * act,
+                  f"phase 19 {schedule} stage {r['stage']}: transfers {c}")
+        check(max(out["loss_rel"]) <= TP_LOSS_TOL,
+              f"phase 19 {schedule}: losses {out['losses']}")
+        check(max(out["masters"].values()) <= TP_PARAM_BAR,
+              f"phase 19 {schedule}: probe masters {out['masters']}")
+    gpipe, f1b = res["gpipe"]["peak_gib"][0], res["1f1b"]["peak_gib"][0]
+    check(f1b < gpipe, f"phase 19: stage 0's peak under 1F1B {f1b} GiB is "
+          f"not below GPipe's {gpipe}")
+    g = res["gpt"]
+    check(g["losses"][0] == g["losses"][1]
+          and g["loss_rel"] <= TP_LOSS_TOL
+          and max(g["masters"].values()) <= TP_PARAM_BAR
+          and g["tied"][0] == g["tied"][1] and len(g["tied"][0]) == 1,
+          f"phase 19 GPT-3 1.3B: {g}")
+    for r in (r["gpt"] for r in ranks):
+        L = len(r["layers"])
+        for name, n in dict(flash_fwd=L * PP_M, flash_bwd=L * PP_M,
+                            adam=r["n_tensors"]).items():
+            check(r["launches"][name] == n * PP_STEPS,
+                  f"phase 19 GPT-3 1.3B stage {r['stage']}: {name} launched "
+                  f"{r['launches'][name]} times, expected {n * PP_STEPS}")
+    f = res["faults"]
+    check(max(f["skip_last_backward"].values()) > TP_PARAM_BAR,
+          f"phase 19: a 1F1B without the last backward passed: "
+          f"{f['skip_last_backward']}")
+    stage0 = {n: v for n, v in f["cotangent_dropped"].items()
+              if n in ranks[0]["1f1b"]["probes"][0]}
+    check(stage0 and min(stage0.values()) > TP_PARAM_BAR,
+          f"phase 19: a dropped cotangent passed stage 0's masters: {stage0}")
+    check(f["loss_not_divided"]["loss_rel"] > TP_LOSS_TOL,
+          f"phase 19: a loss not divided by M passed: "
+          f"{f['loss_not_divided']}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8113,6 +8615,9 @@ def main():
                     "no kernels line, no final line)")
     ap.add_argument("--phase18", action="store_true",
                     help="build the kernels and run phase 18 alone (a probe: "
+                    "no kernels line, no final line)")
+    ap.add_argument("--phase19", action="store_true",
+                    help="build the kernels and run phase 19 alone (a probe: "
                     "no kernels line, no final line)")
     ap.add_argument("--io", default=None,
                     help="with --phase11: the directory of the streams it "
@@ -8186,8 +8691,8 @@ def main():
     if args.phase17:
         tps_phase(args.seed, card)
         return 0
-    if args.phase18:
-        zero_phase(args.seed, card)
+    if args.phase18 or args.phase19:
+        zero_phase(args.seed, card, ("18",) if args.phase18 else ("19",))
         return 0
 
     # 3. kernels against their plain versions at the serving and training
@@ -8508,11 +9013,15 @@ def main():
     t17 = tp_serving["launches"]
 
     # 18. ZeRO stages 0-3 at LLaMA-2-7B's widths on two gloo ranks of the
-    # card, and DTensor's shard / reshard there; the kernels' launches of
-    # every stage's counted steps on both ranks, added to phases 15-16's
-    zero = zero_phase(args.seed, card)
-    mark("phase 18")
-    par = {n: par[n] + zero["launches"].get(n, 0) for n in par}
+    # card, and DTensor's shard / reshard there; 19. in the same ranks, the
+    # pipeline schedules at pp 2 against pp 1; the kernels' launches of
+    # every stage's and schedule's counted steps on both ranks, added to
+    # phases 15-16's
+    both = zero_phase(args.seed, card)
+    zero, pipeline = both["18"], both["19"]
+    mark("phases 18-19")
+    par = {n: par[n] + zero["launches"].get(n, 0)
+           + pipeline["launches"].get(n, 0) for n in par}
 
     def row(name, source, replaces, r, launches):
         return dict(name=name, route="cuda", source=source,
@@ -8663,7 +9172,7 @@ def main():
                            gpt=gpt, finetune=finetune,
                            tensor_parallel=tensor_parallel,
                            tp_serving=tp_serving, zero=zero,
-                           kernels=kernels),
+                           pipeline=pipeline, kernels=kernels),
                       f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -13,7 +13,9 @@ Under ZeRO (a `DygraphShardingOptimizer` whose gradients are this rank's
 slices) the slices are unscaled, and the found-inf flag is all_reduced
 (MAX) over the ZeRO axis (and "dp" where both are > 1) before it is read:
 otherwise one rank would step and another skip, and their parameters
-would drift apart.
+would drift apart. At pipeline degree > 1 each stage unscales its own
+gradients and the flag is MAX-reduced over "pp" as well, so every stage
+skips together.
 """
 from __future__ import annotations
 
@@ -58,10 +60,23 @@ class GradScaler:
         else:
             grads = [p.grad for p in optimizer._parameter_list or ()
                      if p.grad is not None]
-        if not grads and zero is None:
+        from ..distributed import mesh as _mesh
+
+        axes = [ax for ax in ((zero.axis, zero.dp_axis) if zero is not None
+                              else ()) if ax is not None]
+        if _mesh.axis_size("pp") > 1:
+            axes.append("pp")
+        if not grads and not axes:
             self._found_inf = False
             return
-        dev = grads[0].device if grads else zero.buckets[0].device
+        if grads:
+            dev = grads[0].device
+        elif zero is not None:
+            dev = zero.buckets[0].device
+        else:
+            from ..distributed import env as _env
+
+            dev = _env.device() or torch.device("cpu")
         found = torch.zeros((), dtype=torch.float32, device=dev)
         inv = torch.full((), 1.0 / self._scale, dtype=torch.float32,
                          device=dev)
@@ -71,12 +86,11 @@ class GradScaler:
         for group in by_dtype.values():
             torch._amp_foreach_non_finite_check_and_unscale_(group, found,
                                                              inv)
-        if zero is not None:
+        if axes:
             from ..distributed import collective as _c
 
-            for ax in (zero.axis, zero.dp_axis):
-                if ax is not None:
-                    _c.all_reduce(found, op=_c.ReduceOp.MAX, group=ax)
+            for ax in axes:
+                _c.all_reduce(found, op=_c.ReduceOp.MAX, group=ax)
         self._found_inf = bool(found.item())
 
     def step(self, optimizer):

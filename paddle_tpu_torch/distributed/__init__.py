@@ -10,7 +10,8 @@ its gradient buckets, and `fleet` (`fleet.init` / `distributed_model` /
 `DygraphShardingOptimizer` and `group_sharded_parallel`, recompute), the
 auto-parallel API over DTensor (`auto_parallel`: `ProcessMesh`,
 `shard_tensor`, `reshard`, ...), the spec annotations of `sharding_utils`
-and `split`."""
+and `split`, and the pipeline schedules (`pipeline`: `spmd_pipeline` and
+the per-rank programs `build_train_step` runs at pp > 1)."""
 import torch
 
 from . import auto_parallel  # noqa: F401
@@ -57,6 +58,7 @@ from .mesh import (  # noqa: F401
     set_mesh,
 )
 from .parallel import DataParallel  # noqa: F401
+from .pipeline import spmd_pipeline  # noqa: F401
 from .spawn import spawn  # noqa: F401
 from . import sharding_utils  # noqa: F401
 from .auto_parallel import (  # noqa: F401

@@ -6,14 +6,18 @@
 `init_parallel_env(device="cpu")` first) and builds the global mesh from
 `strategy.hybrid_configs` (`dp_degree`, `mp_degree`, `pp_degree`,
 `sharding_degree`, `sep_degree`: an axis of degree 1 is dropped).
-`distributed_model` returns `TensorParallel` at mp_degree > 1,
+`distributed_model` returns `PipelineParallel` at pp_degree > 1 (over a
+`PipelineLayer`, or over a LLaMA / GPT built under the mesh, which holds
+its stage: Paddle has users hand a `PipelineLayer`, the reference its
+models; both are taken), `TensorParallel` at mp_degree > 1,
 `DataParallel` at dp_degree > 1 alone, and the model itself otherwise (at
 sharding_degree > 1 the model is left to the optimizer's stage, as in the
 reference); `distributed_optimizer` returns `DygraphShardingOptimizer`
 (ZeRO stage 1 over "sharding") at sharding_degree > 1, else
-`HybridParallelOptimizer`. Pipeline parallelism (pp_degree > 1) raises,
-naming its ROADMAP item; so do `save` and `load_model` until
-`distributed/checkpoint.py` is ported. The worker and role API is the
+`HybridParallelOptimizer` (over the rank's stage at pp > 1).
+`strategy.pipeline_configs` (`accumulate_steps`, `micro_batch_size`,
+`schedule_mode`) is read by `PipelineParallel`. `save` and `load_model`
+raise until `distributed/checkpoint.py` is ported. The worker and role API is the
 reference's; the parameter-server half raises.
 """
 from __future__ import annotations
@@ -77,10 +81,9 @@ class Fleet:
         strategy = self._strategy or DistributedStrategy()
         hc = strategy.hybrid_configs
         if int(hc.get("pp_degree", 1)) > 1:
-            raise NotImplementedError(
-                "fleet.distributed_model: pipeline parallelism (pp_degree > "
-                "1) is not ported yet (ROADMAP Queue 1 item 4: pipeline.py, "
-                "meta_parallel/pipeline_parallel.py)")
+            from .meta_parallel.pipeline_parallel import PipelineParallel
+
+            return PipelineParallel(model, self._hcg, strategy)
         if int(hc.get("mp_degree", 1)) > 1:
             from .meta_parallel.tensor_parallel import TensorParallel
 

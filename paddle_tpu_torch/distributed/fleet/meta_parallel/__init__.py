@@ -1,8 +1,9 @@
 """meta_parallel (counterpart of
 `paddle_tpu/distributed/fleet/meta_parallel/`): the tensor-parallel
-layers, `TensorParallel`, `HybridParallelOptimizer` and ZeRO's
-`DygraphShardingOptimizer` (`sharding/`). Pipeline parallelism is a later
-bullet of ROADMAP Queue 1 item 4: its classes raise."""
+layers, `TensorParallel`, the pipeline's `PipelineParallel`, `LayerDesc`,
+`SharedLayerDesc` and `PipelineLayer` (with the point-to-point transfers
+of `pp_utils`), `HybridParallelOptimizer` and ZeRO's
+`DygraphShardingOptimizer` (`sharding/`)."""
 from ..layers.mpu import (  # noqa: F401
     ColumnParallelLinear,
     ParallelCrossEntropy,
@@ -10,27 +11,12 @@ from ..layers.mpu import (  # noqa: F401
     VocabParallelEmbedding,
     get_rng_state_tracker,
 )
+from . import pp_utils  # noqa: F401
 from .hybrid_optimizer import (  # noqa: F401
     HybridParallelClipGrad,
     HybridParallelOptimizer,
 )
+from .pipeline_parallel import PipelineParallel  # noqa: F401
+from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc  # noqa: F401
 from .sharding.sharding_optimizer import DygraphShardingOptimizer  # noqa: F401,E501
 from .tensor_parallel import TensorParallel  # noqa: F401
-
-
-class _NotPorted:
-    _what = ""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet ({self._what}, "
-            "ROADMAP Queue 1 item 4)")
-
-
-class PipelineParallel(_NotPorted):
-    _what = "pipeline parallelism: pipeline.py, meta_parallel/"\
-        "pipeline_parallel.py"
-
-
-class PipelineLayer(_NotPorted):
-    _what = "pipeline parallelism: meta_parallel/pp_layers.py"

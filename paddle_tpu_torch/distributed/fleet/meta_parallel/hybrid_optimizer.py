@@ -9,8 +9,10 @@ replicated ones are counted once (summing every square over "tp" would
 count them tp times). Under ZeRO (`DygraphShardingOptimizer`, which sets
 `_zero_axes`) each gradient is this rank's slice, so both sums are also
 summed over the ZeRO axis, and every rank joins those all_reduces whether
-or not it holds a slice. The reference sees global arrays and needs
-neither.
+or not it holds a slice. At pipeline degree > 1 each stage holds distinct
+parameters, so both sums are also summed over "pp"; a weight shared by
+stages (a tied embedding) is counted on its first stage only. The
+reference sees global arrays and needs none of this.
 Gradient merge (`strategy.gradient_merge`) is wired to
 `build_train_step` through `_gradient_merge_k` / `_gradient_merge_avg`.
 """
@@ -39,13 +41,17 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
         """The global norm (an f32 device scalar) of the (parameter,
         gradient) pairs over the model's every shard, or None without
         gradients."""
+        from ...pipeline import is_shared_copy
+
         dist_sq, rep_sq = [], []
         for p, g in params_grads:
-            if g is not None:
+            if g is not None and not is_shared_copy(p):
                 sq = torch.linalg.vector_norm(g, dtype=torch.float32).square()
                 (dist_sq if self._sharded(p) else rep_sq).append(sq)
-        if self._zero_axes:
-            return self._sliced_norm(rep_sq, dist_sq)
+        axes = tuple(self._zero_axes) + (
+            ("pp",) if _mesh.axis_size("pp") > 1 else ())
+        if axes:
+            return self._sliced_norm(rep_sq, dist_sq, axes)
         if not dist_sq and not rep_sq:
             return None
         total = torch.stack(rep_sq).sum() if rep_sq else None
@@ -56,9 +62,10 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
             total = d if total is None else total + d
         return total.sqrt()
 
-    def _sliced_norm(self, rep_sq, dist_sq):
-        """The global norm from this rank's slices' squares: summed over
-        the ZeRO axes, the distributed ones also over "tp"."""
+    def _sliced_norm(self, rep_sq, dist_sq, axes):
+        """The global norm from this rank's squares (of its slices, its
+        stage): summed over `axes` (the ZeRO axes, "pp"), the distributed
+        ones also over "tp"."""
         from ... import env as _env
 
         dev = (rep_sq or dist_sq)[0].device if rep_sq or dist_sq \
@@ -66,7 +73,7 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         both = torch.stack([torch.stack(rep_sq).sum() if rep_sq else zero,
                             torch.stack(dist_sq).sum() if dist_sq else zero])
-        for ax in self._zero_axes:
+        for ax in axes:
             _collective.all_reduce(both, group=ax)
         if _mesh.axis_size("tp") > 1:
             both[1:] = _collective.all_reduce(both[1:].clone(), group="tp")
@@ -82,12 +89,13 @@ class HybridParallelClipGrad(ClipGradByGlobalNorm):
 
 class HybridParallelOptimizer:
     """Wraps `optimizer`: a `ClipGradByGlobalNorm` becomes
-    `HybridParallelClipGrad`; in hybrid mode (tp > 1), where the model is a
-    `TensorParallel`, `step` averages the gradients over "dp" before the
-    inner step, as Paddle's does (an eager loop calls `step` alone); in
-    data-parallel mode the `DataParallel` model's `sync_gradients` averages
-    them and `step` does not again. Every other attribute is the inner
-    optimizer's."""
+    `HybridParallelClipGrad`; in hybrid mode (tp > 1 or pp > 1), where the
+    model is a `TensorParallel` or `PipelineParallel`, `step` averages the
+    gradients over "dp" before the inner step, as Paddle's does (an eager
+    loop calls `step` alone); in data-parallel mode the `DataParallel`
+    model's `sync_gradients` averages them and `step` does not again. At
+    pp > 1 the inner optimizer holds the rank's stage parameters. Every
+    other attribute is the inner optimizer's."""
 
     _OWN = ("_inner_opt", "_hcg", "_strategy", "_gradient_merge_k",
             "_gradient_merge_avg")
@@ -118,10 +126,10 @@ class HybridParallelOptimizer:
 
     @torch.no_grad()
     def step(self):
-        # Paddle's `_dp_enable`: in hybrid mode (tp > 1) the optimizer
-        # averages over "dp"; in data-parallel mode the model's
+        # Paddle's `_dp_enable`: in hybrid mode (tp > 1 or pp > 1) the
+        # optimizer averages over "dp"; in data-parallel mode the model's
         # `sync_gradients` (DataParallel) has done it
-        if _mesh.axis_size("tp") > 1:
+        if _mesh.axis_size("tp") > 1 or _mesh.axis_size("pp") > 1:
             average_gradients(self._inner_opt._parameter_list or [])
         self._inner_opt.step()
 

@@ -74,6 +74,14 @@ def init_mesh(**degrees) -> DeviceMesh:
     return set_mesh(build_mesh(**degrees))
 
 
+def axis_groups(mesh: DeviceMesh, axis: str):
+    """Every group of `mesh`'s `axis` as a list of global ranks in axis
+    order, one a coordinate of the other axes."""
+    names = list(mesh.mesh_dim_names or ())
+    grid = mesh.mesh.movedim(names.index(axis), -1)
+    return grid.reshape(-1, grid.shape[-1]).tolist()
+
+
 def axis_size(name: str) -> int:
     m = get_mesh(optional=True)
     if m is None or name not in (m.mesh_dim_names or ()):
@@ -156,8 +164,11 @@ class CommunicateTopology:
 class HybridCommunicateGroup:
     """The reference's facade over the mesh and a topology: sizes and this
     rank's coordinate per Paddle axis name ("data", "pipe", "model",
-    "sharding", "sep"). Group handles are the mesh's axis names, which the
-    collectives take as `group`."""
+    "sharding", "sep"), read from the mesh where it has the axis. Group
+    handles are the mesh's axis names, which the collectives take as
+    `group`. The pipeline's accessors: `is_first_stage`, `is_last_stage`,
+    the neighbouring stages' global ranks and this coordinate's "pp"
+    group (`get_pipe_parallel_ranks`)."""
 
     _AXES = {"data": "dp", "pipe": "pp", "model": "tp",
              "sharding": "sharding", "sep": "sep"}
@@ -180,14 +191,17 @@ class HybridCommunicateGroup:
         return int(m[name].size())
 
     def _rank_in(self, paddle_name):
+        # the mesh's coordinate where it has the axis: its groups are the
+        # ones the collectives run over (its axes are "pp"-outermost, where
+        # the topology's names put "data" first)
+        name = self._AXES[paddle_name]
+        m = self._mesh
+        if m is not None and name in (m.mesh_dim_names or ()):
+            return int(m.get_local_rank(name))
         if self._topo is not None:
             coord = self._topo.get_coord(self.global_rank)
             return coord[self._topo._parallel_names.index(paddle_name)]
-        name = self._AXES[paddle_name]
-        m = self._mesh
-        if m is None or name not in (m.mesh_dim_names or ()):
-            return 0
-        return int(m.get_local_rank(name))
+        return 0
 
     def get_data_parallel_world_size(self):
         return self._size("data")
@@ -236,8 +250,43 @@ class HybridCommunicateGroup:
         return None
 
     def get_rank_from_stage(self, stage_id, **kwargs):
+        """The global rank of pipeline stage `stage_id` at this rank's
+        coordinate of the other axes."""
+        ranks = self.get_pipe_parallel_ranks()
+        if ranks is not None:
+            return ranks[stage_id]
         if self._topo is None:
             return stage_id
         coord = list(self._topo.get_coord(self.global_rank))
         coord[self._topo._parallel_names.index("pipe")] = stage_id
         return self._topo._coord_to_rank[tuple(coord)]
+
+    # the pipeline's neighbours (Paddle's HybridCommunicateGroup)
+
+    def get_pipe_parallel_ranks(self):
+        """The global ranks of this rank's "pp" group in stage order (one
+        group a coordinate of the other axes), or None without the axis."""
+        m = self._mesh
+        if m is None or "pp" not in (m.mesh_dim_names or ()):
+            return None
+        return next((row for row in axis_groups(m, "pp")
+                     if self.global_rank in row), None)
+
+    @property
+    def is_first_stage(self):
+        return self.get_stage_id() == 0
+
+    @property
+    def is_last_stage(self):
+        return self.get_stage_id() == self.get_pipe_parallel_world_size() - 1
+
+    def _get_p2p_next_rank(self):
+        """The global rank of the next stage (the first after the last)."""
+        s = self.get_pipe_parallel_world_size()
+        return self.get_rank_from_stage((self.get_stage_id() + 1) % s)
+
+    def _get_p2p_prev_rank(self):
+        """The global rank of the previous stage (the last before the
+        first)."""
+        s = self.get_pipe_parallel_world_size()
+        return self.get_rank_from_stage((self.get_stage_id() - 1) % s)

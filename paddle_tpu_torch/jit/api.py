@@ -41,8 +41,11 @@ accumulates f32 slices. The optimizer may be a `DygraphShardingOptimizer`
 marked sequence-parallel have their gradients summed over "tp" by
 `register_sequence_parallel_allreduce_hooks`, which the step registers;
 the returned loss is the mean over dp x sharding. The tensor-parallel
-layers run their own collectives in the forward and backward. A mesh with
-"pp", "sep", "sp", "cp" or "ep" raises, naming its ROADMAP item.
+layers run their own collectives in the forward and backward. With "pp"
+> 1 the step is the pipeline's (`models.trainer.build_pipeline_train_step`:
+each rank holds its stage, and every pp rank of one dp coordinate passes
+the same rows). A mesh with "sep", "sp", "cp" or "ep" raises, naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -53,7 +56,6 @@ import torch
 
 # the mesh axes a train step does not take yet, and their ROADMAP items
 _AXES_NOT_PORTED = {
-    "pp": "pipeline parallelism (Queue 1 item 4: pipeline.py)",
     "sep": "context parallelism (Queue 1 item 4: context_parallel.py)",
     "sp": "context parallelism (Queue 1 item 4: context_parallel.py)",
     "cp": "context parallelism (Queue 1 item 4: context_parallel.py)",
@@ -62,9 +64,9 @@ _AXES_NOT_PORTED = {
 
 
 def check_mesh(mesh):
-    """`mesh` if it is the global mesh and holds only "dp", "sharding"
-    and "tp" axes; raises NotImplementedError otherwise, naming what is
-    missing."""
+    """`mesh` if it is the global mesh and holds only "pp", "dp",
+    "sharding" and "tp" axes; raises NotImplementedError otherwise, naming
+    what is missing."""
     from ..distributed import mesh as _mesh
 
     if mesh is not _mesh.get_mesh(optional=True):
@@ -111,9 +113,23 @@ def train_step(model, criterion: Callable, optimizer, donate=True,
     cleared. `donate` is accepted (PyTorch updates in place anyway).
     `sharding_stage` 0-3 (ZeRO; see the module's docstring; without a mesh,
     or with a ZeRO axis of one rank, every stage is stage 0). `mesh`: None
-    (one card) or the global mesh over "dp", "sharding" and "tp"
-    (`check_mesh`)."""
+    (one card) or the global mesh over "pp", "dp", "sharding" and "tp"
+    (`check_mesh`; at "pp" > 1 the pipeline's step, which takes neither
+    `model_call` nor gradient merge)."""
     stage = int(sharding_stage or 0)
+    from ..distributed import pipeline as _pipe
+
+    if mesh is not None and _pipe.pp_size(mesh) > 1:
+        from ..models.trainer import build_pipeline_train_step
+
+        if model_call is not None or int(gradient_merge_steps) > 1:
+            raise NotImplementedError(
+                "train_step at pp > 1: the pipeline's step takes the "
+                "model's stage forward and no gradient merge (raise "
+                "num_microbatches instead)")
+        return build_pipeline_train_step(model, optimizer, criterion,
+                                         mesh=check_mesh(mesh),
+                                         sharding_stage=stage)
     if stage not in (0, 1, 2, 3):
         raise ValueError(f"train_step: sharding_stage {sharding_stage!r} is "
                          "not 0, 1, 2 or 3")

@@ -47,12 +47,71 @@ def tp_setup(model, heads):
     model.tp_degree, model.tp_rank, model._tp_group = tp, rank, group
 
 
+def pp_setup(model, num_layers):
+    """Set `model.pp`, the model's `distributed.pipeline.Layout`, from the
+    global mesh's "pp" axis and the config's `virtual_pp_degree` (1 unless
+    the config sets it; PaddleNLP's field). With a tied head at more than
+    two stages, the group of the first and last stages is made here, on
+    every rank alike."""
+    from ..distributed import pipeline as _pipe
+
+    cfg = model.config
+    model.pp = _pipe.Layout(num_layers, getattr(cfg, "virtual_pp_degree", 1))
+    if model.pp.split and cfg.tie_word_embeddings:
+        from ..distributed.fleet.meta_parallel.pp_utils.p2p_communication \
+            import link_for
+
+        link_for().group_of((0, model.pp.num_stages - 1))
+
+
 class CausalLMBase(nn.Module):
     """Subclass contract: set `self.config`, `self.lm_head` (None for a
     tied head) and `self.loss_fn`, implement `_backbone_embed_weight()`
     returning the [vocab, hidden] embedding weight, hold the backbone as
     `self.llama` or `self.gpt`, and expose `forward_cached(input_ids,
     caches, cur_len)`."""
+
+    def _ref_param(self):
+        """A parameter this rank holds (the model's dtype and device)."""
+        return next(self.parameters())
+
+    def _mark_tied(self):
+        """At pp > 1 with a tied head, the embedding weight is held by the
+        first stage (its owner) and the last (for the head); its gradient
+        is summed over both (`pipeline.allreduce_shared_weight_gradients`)."""
+        pp = self.pp
+        if pp.split and self.config.tie_word_embeddings and \
+                (pp.first or pp.last):
+            from ..distributed import pipeline as _pipe
+
+            _pipe.mark_shared(self._backbone_embed_weight(),
+                              (0, pp.num_stages - 1), owner=pp.first)
+
+    def _seeded_init(self, seed, std, rule, full_shapes):
+        """Fill the parameters from a generator seeded with `seed`, on the
+        model's device: `rule(name)` gives "one", "zero" or "normal"
+        (N(0, std^2), `_normal_full_`). At pp > 1 the whole model's
+        parameters are walked in their order (`full_shapes`), the draws of
+        the layers other stages hold made and dropped, so each rank holds
+        the slice of the pp = 1 model of the same seed."""
+        ref = self._ref_param()
+        gen = torch.Generator(device=ref.device)
+        gen.manual_seed(int(seed))
+        params = dict(self.named_parameters())
+        for name in (full_shapes if self.pp.split else params):
+            kind, p = rule(name), params.get(name)
+            if kind == "one":
+                if p is not None:
+                    p.fill_(1.0)
+            elif kind == "zero":
+                if p is not None:
+                    p.zero_()
+            elif p is not None:
+                self._normal_full_(name, p, std, gen)
+            else:
+                torch.empty(full_shapes[name], dtype=ref.dtype,
+                            device=ref.device).normal_(0.0, std,
+                                                       generator=gen)
 
     def _normal_full_(self, name, p, std, gen):
         """Fill parameter `name` with this rank's slice of a full-size
@@ -87,7 +146,8 @@ class CausalLMBase(nn.Module):
         dtype = torch.float32 if dtype is None else dtype
         shape = (batch_size, max_length, self._kv_heads(),
                  cfg.hidden_size // cfg.num_attention_heads)
-        dev = self._backbone_embed_weight().device
+        self.pp.refuse("init_kv_caches")
+        dev = self._ref_param().device
         return [(torch.zeros(shape, dtype=dtype, device=dev),
                  torch.zeros(shape, dtype=dtype, device=dev))
                 for _ in range(cfg.num_hidden_layers)]
@@ -100,6 +160,7 @@ class CausalLMBase(nn.Module):
         n_new], scores [b])."""
         from .generation import generate as _generate
 
+        self.pp.refuse("generate")
         return _generate(self, input_ids, max_length=max_length,
                          max_new_tokens=max_new_tokens,
                          decode_strategy=decode_strategy,

@@ -30,6 +30,11 @@ added after the all_reduce), a vocab-parallel token embedding, replicated
 positions, a column-parallel untied head. The QKV columns are head-major,
 so a rank's contiguous column shard holds whole heads (q, k and v of
 heads / tp heads); each rank runs those heads.
+
+Pipeline parallelism (a global mesh with "pp" > 1): as LLaMA's, the model
+holds its stage; the token and position embeddings sit on the first
+stage, the final LayerNorm on the last, and the tied head's token
+embedding on both (its gradient summed over the two).
 """
 from __future__ import annotations
 
@@ -42,11 +47,12 @@ from ..distributed.fleet.layers.mpu.mp_layers import (ColumnParallelLinear,
                                                       RowParallelLinear,
                                                       VocabParallelEmbedding)
 from ..distributed.fleet.utils.recompute import recompute
+from ..distributed.pipeline import StageLayers
 from ..framework.device import resolve_device, torch_dtype
 from ..kernels import paged_attention as _pa
 from ..nn import Embedding, LayerNorm, ParallelCrossEntropy
 from ..nn import functional as F
-from .causal_lm import CausalLMBase, tp_setup
+from .causal_lm import CausalLMBase, pp_setup, tp_setup
 from .paged_step import paged_attention_step
 
 
@@ -219,19 +225,42 @@ class GPTDecoderLayer(nn.Module):
 
 
 class GPTModel(nn.Module):
-    def __init__(self, config, dtype, device, tp=1):
+    """`layout` (a `distributed.pipeline.Layout`): at pp > 1 only the
+    stage's layers (`StageLayers`, by global index), the token and
+    position embeddings on the first stage (the token embedding also on
+    the last where `embed` asks for it: the tied head), the final
+    LayerNorm on the last."""
+
+    def __init__(self, config, dtype, device, tp=1, layout=None,
+                 embed=False):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        self.embed_tokens = VocabParallelEmbedding(config.vocab_size, h,
-                                                   dtype=dtype, device=device)
-        self.embed_positions = Embedding(config.max_position_embeddings, h,
-                                         dtype=dtype, device=device)
-        self.layers = nn.ModuleList(
-            [GPTDecoderLayer(config, dtype, device, tp)
-             for _ in range(config.num_hidden_layers)])
+        split = layout is not None and layout.split
+        self.split = split
+        first = not split or layout.first
+        self.embed_tokens = VocabParallelEmbedding(
+            config.vocab_size, h, dtype=dtype, device=device) \
+            if first or embed else None
+        self.embed_positions = Embedding(
+            config.max_position_embeddings, h, dtype=dtype,
+            device=device) if first else None
+        if split:
+            self.layers = StageLayers(
+                {i: GPTDecoderLayer(config, dtype, device, tp)
+                 for i in layout.layer_ids})
+        else:
+            self.layers = nn.ModuleList(
+                [GPTDecoderLayer(config, dtype, device, tp)
+                 for _ in range(config.num_hidden_layers)])
         self.ln_f = LayerNorm(h, config.layer_norm_epsilon, dtype=dtype,
-                              device=device)
+                              device=device) if not split or layout.last \
+            else None
+        self._layout = layout
+
+    def _whole(self, what):
+        if self.split:
+            self._layout.refuse(what)
 
     def _positions(self, pos):
         """Position ids clamped to the table's last row (the reference's
@@ -263,12 +292,14 @@ class GPTModel(nn.Module):
         return self.embed_tokens(input_ids) + self.embed_positions(pos[None])
 
     def forward(self, input_ids, attn_mask=None):
+        self._whole("GPTModel.forward")
         h = self._embed(input_ids)
         for layer in self.layers:
             h = layer(h, attn_mask)
         return self.ln_f(h)
 
     def forward_cached(self, input_ids, caches, cur_len):
+        self._whole("serving")
         h = self._embed(input_ids, position_offset=cur_len)
         new_caches = []
         for layer, cache in zip(self.layers, caches):
@@ -282,6 +313,7 @@ class GPTModel(nn.Module):
         """Per-row learned positions: row b's s tokens sit at
         context_lens[b]..+s-1 (clamped on the device). max_layers and
         window_rows as `LlamaModel.forward_paged`'s."""
+        self._whole("serving")
         dev = input_ids.device
         s = input_ids.shape[1]
         pos = context_lens.to(dev, torch.int64, non_blocking=True)[:, None] \
@@ -313,14 +345,18 @@ class GPTForCausalLM(CausalLMBase):
         super().__init__()
         self.config = config
         tp_setup(self, {"num_attention_heads": config.num_attention_heads})
+        pp_setup(self, config.num_hidden_layers)
         dev = resolve_device(device)
         dtype = torch_dtype(config.dtype)
-        self.gpt = GPTModel(config, dtype, dev, self.tp_degree)
-        self.lm_head = None if config.tie_word_embeddings else \
+        tie = config.tie_word_embeddings
+        self.gpt = GPTModel(config, dtype, dev, self.tp_degree, self.pp,
+                            embed=tie and self.pp.last)
+        self.lm_head = None if tie or not self.pp.last else \
             ColumnParallelLinear(config.hidden_size, config.vocab_size,
                                  has_bias=False, gather_output=False,
                                  dtype=dtype, device=dev)
         self.loss_fn = ParallelCrossEntropy()
+        self._mark_tied()
         self.init_weights(seed)
 
     @torch.no_grad()
@@ -329,17 +365,16 @@ class GPTForCausalLM(CausalLMBase):
         every bias 0. Drawn on the model's own device from a generator
         seeded with `seed`. A sharded weight is this rank's slice of the
         full tensor (`_normal_full_`), so the model equals the tp = 1 model
-        of the same seed."""
-        dev = self._backbone_embed_weight().device
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        for name, p in self.named_parameters():
+        of the same seed; at pp > 1 each rank holds its stage's slice of
+        the pp = 1 model of the seed (`_seeded_init`)."""
+        from ..weights import gpt_param_shapes
+
+        def rule(name):
             if name.endswith(".bias"):
-                p.zero_()
-            elif ".ln_" in name:
-                p.fill_(1.0)
-            else:
-                self._normal_full_(name, p, std, gen)
+                return "zero"
+            return "one" if ".ln_" in name else "normal"
+
+        self._seeded_init(seed, std, rule, gpt_param_shapes(self.config))
 
     def forward(self, input_ids, attn_mask=None):
         return self._head(self.gpt(input_ids, attn_mask))
@@ -368,6 +403,7 @@ class GPTForCausalLM(CausalLMBase):
         return self.gpt._embed(input_ids)
 
     def pp_layers(self):
+        """The decoder layers this rank holds, in order."""
         return list(self.gpt.layers)
 
     def pp_head(self, hidden):

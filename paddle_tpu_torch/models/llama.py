@@ -32,6 +32,15 @@ blocks are split along the sequence over "tp", the projections into a
 block are `ColumnSequenceParallelLinear`s and out of it
 `RowSequenceParallelLinear`s, and the norms' weights are marked
 sequence-parallel; the final norm's output is gathered whole.
+
+Pipeline parallelism: built under a global mesh with a "pp" axis of S > 1
+stages, the model holds only its stage (`distributed.pipeline.Layout`):
+the decoder layers of `stage_layer_ids` (with `config.virtual_pp_degree`
+v > 1, the interleaved layout), the embedding on the first stage, the
+final norm and head on the last, a tied embedding on both. The
+decomposition `pp_embed` / `pp_layers` / `pp_head` is the reference's;
+the schedules run it (`models.trainer.build_pipeline_train_step`,
+`PipelineParallel`), and the whole-model forwards raise.
 """
 from __future__ import annotations
 
@@ -49,10 +58,11 @@ from ..distributed.fleet.layers.mpu.mp_layers import (ColumnParallelLinear,
                                                       VocabParallelEmbedding)
 from ..distributed.fleet.utils import sequence_parallel_utils as _sp
 from ..distributed.fleet.utils.recompute import recompute
+from ..distributed.pipeline import StageLayers
 from ..nn import ParallelCrossEntropy, RMSNorm
 from ..nn import functional as F
 from ..nn.functional import apply_rope, rope_tables
-from .causal_lm import CausalLMBase, tp_setup
+from .causal_lm import CausalLMBase, pp_setup, tp_setup
 from .paged_step import paged_attention_step
 
 
@@ -80,6 +90,9 @@ class LlamaConfig:
     # over this many token chunks (CausalLMBase.compute_loss_hidden)
     fused_ce_chunks: int = 0
     dtype: str = "float32"
+    # at pipeline degree > 1: the chunks a rank holds for the interleaved
+    # schedule (PaddleNLP's field; the layout of `pipeline.stage_layer_ids`)
+    virtual_pp_degree: int = 1
 
     @staticmethod
     def llama2_7b():
@@ -295,39 +308,65 @@ class LlamaDecoderLayer(nn.Module):
 
 class LlamaModel(nn.Module):
     """`sp`: sequence parallelism (`config.sequence_parallel` at tp >
-    1)."""
+    1). `layout` (a `distributed.pipeline.Layout`): at pp > 1 only the
+    stage's layers (`StageLayers`, by global index), the embedding on the
+    first stage (and on the last where `embed` asks for it: a tied head),
+    the final norm on the last."""
 
-    def __init__(self, config, dtype, device, tp=1):
+    def __init__(self, config, dtype, device, tp=1, layout=None,
+                 embed=False):
         super().__init__()
         self.config = config
         self.tp = tp
         self.sp = bool(config.sequence_parallel) and tp > 1
-        self.embed_tokens = VocabParallelEmbedding(
-            config.vocab_size, config.hidden_size, dtype=dtype,
-            device=device)
-        self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, dtype, device, tp, self.sp)
-             for _ in range(config.num_hidden_layers)])
+        split = layout is not None and layout.split
+        self.split = split
+        if not split or layout.first or embed:
+            self.embed_tokens = VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, dtype=dtype,
+                device=device)
+        else:
+            self.embed_tokens = None
+        if split:
+            self.layers = StageLayers(
+                {i: LlamaDecoderLayer(config, dtype, device, tp, self.sp)
+                 for i in layout.layer_ids})
+        else:
+            self.layers = nn.ModuleList(
+                [LlamaDecoderLayer(config, dtype, device, tp, self.sp)
+                 for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, dtype,
-                            device)
-        if self.sp:
+                            device) if not split or layout.last else None
+        if self.sp and self.norm is not None:
             _sp.mark_as_sequence_parallel_parameter(self.norm.weight)
+        self._layout = layout
+
+    def scatter(self, h):
+        """The embedding's output cut to this rank's sequence shard under
+        sequence parallelism (as it is otherwise)."""
+        if not self.sp:
+            return h
+        if h.shape[1] % self.tp:
+            raise ValueError(
+                f"sequence parallelism: the sequence length "
+                f"{h.shape[1]} is not divisible by the tensor-parallel "
+                f"degree {self.tp}")
+        return _sp.ScatterOp.apply(h, axis=1)
+
+    def _whole(self, what):
+        if self.split:
+            self._layout.refuse(what)
 
     def forward(self, input_ids, attn_mask=None):
-        h = self.embed_tokens(input_ids)
-        if self.sp:
-            if h.shape[1] % self.tp:
-                raise ValueError(
-                    f"sequence parallelism: the sequence length "
-                    f"{h.shape[1]} is not divisible by the tensor-parallel "
-                    f"degree {self.tp}")
-            h = _sp.ScatterOp.apply(h, axis=1)
+        self._whole("LlamaModel.forward")
+        h = self.scatter(self.embed_tokens(input_ids))
         for layer in self.layers:
             h = layer(h, attn_mask)
         h = self.norm(h)
         return _sp.GatherOp.apply(h, axis=1) if self.sp else h
 
     def _serving(self):
+        self._whole("serving")
         if self.sp:
             raise NotImplementedError(
                 "a sequence-parallel LLaMA runs the training forward only; "
@@ -383,14 +422,18 @@ class LlamaForCausalLM(CausalLMBase):
         self.config = config
         tp_setup(self, {"num_attention_heads": config.num_attention_heads,
                         "num_key_value_heads": config.num_key_value_heads})
+        pp_setup(self, config.num_hidden_layers)
         dev = resolve_device(device)
         dtype = torch_dtype(config.dtype)
-        self.llama = LlamaModel(config, dtype, dev, self.tp_degree)
-        self.lm_head = None if config.tie_word_embeddings else \
+        tie = config.tie_word_embeddings
+        self.llama = LlamaModel(config, dtype, dev, self.tp_degree, self.pp,
+                                embed=tie and self.pp.last)
+        self.lm_head = None if tie or not self.pp.last else \
             ColumnParallelLinear(config.hidden_size, config.vocab_size,
                                  has_bias=False, gather_output=False,
                                  dtype=dtype, device=dev)
         self.loss_fn = ParallelCrossEntropy()
+        self._mark_tied()
         self.init_weights(seed)
 
     @torch.no_grad()
@@ -399,20 +442,40 @@ class LlamaForCausalLM(CausalLMBase):
         on the model's own device from a generator seeded with `seed`. A
         sharded weight is this rank's slice of the full tensor
         (`_normal_full_`), so the model equals the tp = 1 model of the same
-        seed."""
-        dev = self._backbone_embed_weight().device
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        for name, p in self.named_parameters():
-            if name.endswith("layernorm.weight") or name == "llama.norm.weight":
-                p.fill_(1.0)
-            else:
-                self._normal_full_(name, p, std, gen)
+        seed; at pp > 1 each rank holds its stage's slice of the pp = 1
+        model of the seed (`_seeded_init`)."""
+        from ..weights import llama_param_shapes
+
+        def rule(name):
+            return "one" if name.endswith("layernorm.weight") or \
+                name == "llama.norm.weight" else "normal"
+
+        self._seeded_init(seed, std, rule, llama_param_shapes(self.config))
 
     def forward(self, input_ids, attn_mask=None):
         """[b, s] token ids (and a padding mask [b, 1, 1, s], bool or
         additive) -> [b, s, vocab] logits."""
         return self._head(self.llama(input_ids, attn_mask))
+
+    # the pipeline decomposition (the reference's, `models/llama.py:
+    # 491-499`): the embedding, the decoder layers, the final norm and head
+    def pp_embed(self, input_ids):
+        """The first stage's input: the embedding (this rank's sequence
+        shard under sequence parallelism)."""
+        return self.llama.scatter(self.llama.embed_tokens(input_ids))
+
+    def pp_layers(self):
+        """The decoder layers this rank holds, in order (all of them at
+        pp 1)."""
+        return list(self.llama.layers)
+
+    def pp_head(self, hidden):
+        """The last stage's logits: the final norm (the whole sequence
+        gathered under sequence parallelism) and the head."""
+        h = self.llama.norm(hidden)
+        if self.llama.sp:
+            h = _sp.GatherOp.apply(h, axis=1)
+        return self._head(h)
 
     def forward_cached(self, input_ids, caches, cur_len):
         h, new_caches = self.llama.forward_cached(input_ids, caches, cur_len)

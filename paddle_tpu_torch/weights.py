@@ -36,6 +36,19 @@ shard of the) weight and the rank's tensor-parallel coordinate;
 `gather_*_state` joins every rank's pieces, then the tensor-parallel
 shards, into the full state; `load_*_state` writes a full state into the
 rank's pieces.
+
+Pipeline parallelism: a model built at pp degree S > 1 holds its stage's
+parameters under the whole model's names (`llama.layers.5...`: the layers
+of `distributed.pipeline.stage_layer_ids`, the embedding on the first
+stage, the final norm and head on the last, a tied embedding on both).
+`*_state_from_numpy` take `pp_stage` / `pp_degree` / `virtual_pp_degree`
+and keep that stage's part of a full state (`load_*_state` for the
+model's own stage); `*_state_to_numpy` return the stage's part with a
+`PP_KEY` entry naming the stage and the tensor-parallel coordinate; and
+`gather_*_state` joins every rank's (any order, dp replicas equal; a
+weight two stages hold must be equal on both) into the full state.
+`paddle_tpu_torch.save` of a pp model's state writes one file a rank until
+`distributed/checkpoint.py`.
 """
 from __future__ import annotations
 
@@ -46,6 +59,8 @@ from .framework.device import resolve_device
 
 # the entry of a stage-3 rank's numpy state that describes its pieces
 ZERO_KEY = "@zero"
+# the entry of a pipeline stage's numpy state that names the stage
+PP_KEY = "@pp"
 
 # the tensor-parallel split of each weight, by the end of its name: 1 for a
 # column-parallel weight, 0 for a row-parallel weight, a vocab-parallel
@@ -125,6 +140,74 @@ def _gather(states, shapes, family):
     return out
 
 
+def _layer_index(name):
+    parts = name.split(".")
+    if len(parts) > 2 and parts[1] == "layers":
+        return int(parts[2])
+    return None
+
+
+def stage_names(names, config, stage, num_stages, virtual=1):
+    """The names of `names` (a LLaMA's or GPT's) that pipeline rank
+    `stage` of `num_stages` holds: its layers (`stage_layer_ids`), the
+    embeddings on the first stage (the token embedding also on the last
+    with a tied head), the final norm and the head on the last."""
+    from .distributed.pipeline import stage_layer_ids
+
+    if num_stages <= 1:
+        return list(names)
+    ids = set(stage_layer_ids(config.num_hidden_layers, stage, num_stages,
+                              virtual))
+    first, last = stage == 0, stage == num_stages - 1
+    out = []
+    for n in names:
+        i = _layer_index(n)
+        if i is not None:
+            keep = i in ids
+        elif n.endswith("embed_tokens.weight"):
+            keep = first or (last and config.tie_word_embeddings)
+        elif n.endswith("embed_positions.weight"):
+            keep = first
+        else:  # the final norm, the head
+            keep = last
+        if keep:
+            out.append(n)
+    return out
+
+
+def _pp_entry(model):
+    pp = model.pp
+    return {"stage": pp.stage, "pp_degree": pp.num_stages,
+            "virtual": pp.virtual, "tp_rank": int(model.tp_rank),
+            "tp_degree": int(model.tp_degree)}
+
+
+def _join_pp(states, shapes):
+    """`states` of pipeline stages (any order; dp replicas too) as the
+    tensor-parallel rank states (rank order) of the whole model; every
+    name covered, every copy equal. States without `PP_KEY` pass as they
+    are."""
+    if not states or PP_KEY not in states[0]:
+        return states
+    tp = states[0][PP_KEY]["tp_degree"]
+    out = []
+    for t in range(tp):
+        group = [st for st in states if st[PP_KEY]["tp_rank"] == t]
+        joined = {}
+        for name in shapes:
+            held = [np.asarray(st[name]) for st in group if name in st]
+            if not held:
+                raise KeyError(f"{name}: no pipeline stage of "
+                               f"tensor-parallel rank {t} holds it")
+            for a in held[1:]:
+                if not np.array_equal(a, held[0]):
+                    raise ValueError(f"{name}: the copies of two pipeline "
+                                     "stages (or dp replicas) differ")
+            joined[name] = held[0]
+        out.append(joined)
+    return out
+
+
 def llama_param_shapes(config) -> dict:
     """name -> shape of every parameter of `LlamaForCausalLM(config)`."""
     h, i, v = config.hidden_size, config.intermediate_size, config.vocab_size
@@ -181,14 +264,16 @@ def _check_quant(name, qw, scale, shape):
 
 
 def llama_state_from_numpy(state, config, dtype=torch.float32, device=None,
-                           tp_rank=0, tp_degree=1):
+                           tp_rank=0, tp_degree=1, pp_stage=0, pp_degree=1,
+                           virtual_pp_degree=1):
     """{name: np.ndarray} -> {name: torch.Tensor} on `device`, after
     checking the names and shapes against `config`. Float weights become
     `dtype`; a quantized linear (`<p>.quant_weight` int8 and
     `<p>.weight_scale` f32 in place of `<p>.weight`, as the JAX
     `quantize_for_inference` leaves them) keeps its int8 and f32. With
     `tp_degree` > 1, the full float state is sliced into rank `tp_rank`'s
-    shards."""
+    shards; with `pp_degree` > 1, only the names pipeline rank `pp_stage`
+    holds are kept (`stage_names`)."""
     layout = _layout(config, set(state))
     if tp_degree > 1 and layout.keys() != llama_param_shapes(config).keys():
         raise NotImplementedError(
@@ -203,8 +288,12 @@ def llama_state_from_numpy(state, config, dtype=torch.float32, device=None,
         raise KeyError(f"LLaMA state dict mismatch: missing {missing}, "
                        f"unexpected {extra}")
     dev = resolve_device(device)
+    keep = set(stage_names(layout, config, pp_stage, pp_degree,
+                           virtual_pp_degree))
     out = {}
     for name in layout:
+        if name not in keep:
+            continue
         arr = np.asarray(state[name])
         if name.endswith(".quant_weight"):
             p = name[:-len("quant_weight")]
@@ -237,7 +326,11 @@ def llama_state_to_numpy(model):
     for n, t in model.state_dict().items():
         t = t.detach().cpu()
         state[n] = (t if t.dtype == torch.int8 else t.float()).numpy()
-    if model.tp_degree > 1:
+    if model.pp.split:
+        _check_stage(state, llama_param_shapes(model.config), model,
+                     "LLaMA")
+        state[PP_KEY] = _pp_entry(model)
+    elif model.tp_degree > 1:
         _gather([state], _tp_shapes(llama_param_shapes(model.config),
                                     model.tp_degree), "LLaMA")  # the check
     else:
@@ -245,12 +338,23 @@ def llama_state_to_numpy(model):
     return state
 
 
+def _check_stage(state, shapes, model, family):
+    """A pipeline stage's state: the stage's names, each of its
+    tensor-parallel shard's shape."""
+    pp = model.pp
+    names = stage_names(shapes, model.config, pp.stage, pp.num_stages,
+                        pp.virtual)
+    _gather([state], _tp_shapes({n: shapes[n] for n in names},
+                                model.tp_degree), family)
+
+
 def gather_llama_state(states, config):
     """The full LLaMA state from every tensor-parallel rank's
     `llama_state_to_numpy` (in rank order), or from every rank's pieces
-    under ZeRO stage 3 (any order)."""
+    under ZeRO stage 3, or every pipeline rank's stage (any order)."""
     shapes = llama_param_shapes(config)
-    return _gather(_join_zero(states, shapes), shapes, "LLaMA")
+    return _gather(_join_pp(_join_zero(states, shapes), shapes), shapes,
+                   "LLaMA")
 
 
 def load_llama_state(model, state):
@@ -258,10 +362,12 @@ def load_llama_state(model, state):
     ({name: np.ndarray}, the full state), in the model's dtype and on its
     device; at tensor-parallel degree > 1, its rank's shards; under ZeRO
     stage 3, its rank's pieces of them."""
-    ref = model._backbone_embed_weight()  # dtype and device: metadata
+    ref = model._ref_param()  # dtype and device: metadata
+    pp = model.pp
     tensors = llama_state_from_numpy(state, model.config, ref.dtype,
                                      ref.device, model.tp_rank,
-                                     model.tp_degree)
+                                     model.tp_degree, pp.stage,
+                                     pp.num_stages, pp.virtual)
     return _load(model, tensors)
 
 
@@ -317,10 +423,12 @@ def gpt_param_shapes(config) -> dict:
 
 
 def gpt_state_from_numpy(state, config, dtype=torch.float32, device=None,
-                         tp_rank=0, tp_degree=1):
+                         tp_rank=0, tp_degree=1, pp_stage=0, pp_degree=1,
+                         virtual_pp_degree=1):
     """{name: np.ndarray} (the JAX GPT's state) -> {name: torch.Tensor} in
     `dtype` on `device`, after checking every name and shape against
-    `config`; with `tp_degree` > 1, rank `tp_rank`'s shards."""
+    `config`; with `tp_degree` > 1, rank `tp_rank`'s shards; with
+    `pp_degree` > 1, only the names pipeline rank `pp_stage` holds."""
     shapes = gpt_param_shapes(config)
     missing = sorted(set(shapes) - set(state))
     extra = sorted(set(state) - set(shapes))
@@ -328,8 +436,12 @@ def gpt_state_from_numpy(state, config, dtype=torch.float32, device=None,
         raise KeyError(f"GPT state dict mismatch: missing {missing}, "
                        f"unexpected {extra}")
     dev = resolve_device(device)
+    keep = set(stage_names(shapes, config, pp_stage, pp_degree,
+                           virtual_pp_degree))
     out = {}
     for name, shape in shapes.items():
+        if name not in keep:
+            continue
         arr = np.asarray(state[name], dtype=np.float32)
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
@@ -347,6 +459,10 @@ def gpt_state_to_numpy(model):
         return _zero_pieces(model)
     state = {n: np.array(t.detach().cpu().float().numpy())
              for n, t in model.state_dict().items()}
+    if model.pp.split:
+        _check_stage(state, gpt_param_shapes(model.config), model, "GPT")
+        state[PP_KEY] = _pp_entry(model)
+        return state
     _gather([state], _tp_shapes(gpt_param_shapes(model.config),
                                 model.tp_degree), "GPT")  # the check
     return state
@@ -355,19 +471,21 @@ def gpt_state_to_numpy(model):
 def gather_gpt_state(states, config):
     """The full GPT state from every tensor-parallel rank's
     `gpt_state_to_numpy` (in rank order), or from every rank's pieces
-    under ZeRO stage 3 (any order)."""
+    under ZeRO stage 3, or every pipeline rank's stage (any order)."""
     shapes = gpt_param_shapes(config)
-    return _gather(_join_zero(states, shapes), shapes, "GPT")
+    return _gather(_join_pp(_join_zero(states, shapes), shapes), shapes,
+                   "GPT")
 
 
 def load_gpt_state(model, state):
     """Replace the weights of a port `GPTForCausalLM` by `state` ({name:
     np.ndarray}, the full state), in the model's dtype and on its device;
     at tensor-parallel degree > 1, its rank's shards."""
-    ref = model._backbone_embed_weight()
+    ref = model._ref_param()
+    pp = model.pp
     return _load(model, gpt_state_from_numpy(
         state, model.config, ref.dtype, ref.device, model.tp_rank,
-        model.tp_degree))
+        model.tp_degree, pp.stage, pp.num_stages, pp.virtual))
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,11 @@ merge wiring and its refused toggles (`test_gradient_merge.py:78-121`),
 and, in a group of two gloo ranks (`torch_tp_workers.fleet_main`),
 `fleet.init` at each degree with what `distributed_model` and
 `distributed_optimizer` return: `DataParallel` at dp 2, `TensorParallel`
-at mp 2, the model itself otherwise, and `DygraphShardingOptimizer` at
-sharding 2 (ZeRO stage 1, as the reference's `fleet.distributed_optimizer`
-gives); pipeline parallelism, context parallelism (sep) and `fleet.save` /
-`load_model` raise, naming their ROADMAP items."""
+at mp 2, `PipelineParallel` at pp 2 (over a LLaMA built under the mesh),
+the model itself otherwise, and `DygraphShardingOptimizer` at sharding 2
+(ZeRO stage 1, as the reference's `fleet.distributed_optimizer` gives);
+context parallelism (sep) and `fleet.save` / `load_model` raise, naming
+their ROADMAP items."""
 import numpy as np
 import pytest
 import torch
@@ -73,7 +74,7 @@ def test_worker_api_over_two_ranks(ranks):
 @pytest.mark.parametrize("degree,mesh,model,mode", [
     ("dp", ("dp",), "DataParallel", "data"),
     ("tp", ("tp",), "TensorParallel", "hybrid"),
-    ("pp", ("pp",), "raises", "hybrid"),
+    ("pp", ("pp",), "PipelineParallel", "hybrid"),
     ("sharding", ("sharding",), "Linear", "sharding"),
     ("sep", ("sep",), "Linear", "single")])
 def test_distributed_model_and_optimizer_by_degree(ranks, degree, mesh,
@@ -88,7 +89,7 @@ def test_distributed_model_and_optimizer_by_degree(ranks, degree, mesh,
         else:
             # the strategy's gradient merge rides on the optimizer
             assert got["optimizer"] == ("HybridParallelOptimizer", 3, False)
-    want_refusal = {"dp": None, "tp": None, "pp": "pipeline",
+    want_refusal = {"dp": None, "tp": None, "pp": None,
                     "sharding": None, "sep": "context_parallel.py"}
     for r in ranks:
         msg = r[degree]["train_step"]
@@ -96,8 +97,6 @@ def test_distributed_model_and_optimizer_by_degree(ranks, degree, mesh,
             assert msg is None, msg
         else:
             assert want_refusal[degree] in msg and "item 4" in msg, msg
-    if degree == "pp":
-        assert "pipeline" in ranks[0][degree]["model"]
 
 
 @pytest.mark.parametrize("degree", ["dp", "tp"])
@@ -124,8 +123,35 @@ def test_distributed_model_without_degrees_is_the_model():
 
 @pytest.mark.parametrize("cls", ["PipelineParallel", "PipelineLayer"])
 def test_unported_meta_parallel_classes_raise(cls):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        getattr(meta_parallel, cls)(None)
+    """(The name is kept from when both classes raised.) Both construct
+    without a "pp" axis: a `PipelineLayer` builds every stage, as the
+    reference's does, and runs them in order; `PipelineParallel` over it
+    reads `pipeline_configs` and runs `train_batch` on one rank. A
+    LayerDesc of a non-layer raises the reference's TypeError."""
+    torch.manual_seed(0)
+    descs = [meta_parallel.LayerDesc(torch.nn.Linear, 4, 4), torch.tanh,
+             meta_parallel.LayerDesc(torch.nn.Linear, 4, 2)]
+    with pytest.raises(TypeError):
+        meta_parallel.LayerDesc(torch.tanh)
+    layer = meta_parallel.PipelineLayer(
+        descs, num_stages=2, loss_fn=torch.nn.functional.cross_entropy)
+    x, y = torch.randn(4, 4), torch.tensor([0, 1, 1, 0])
+    want = layer.run_function[2][0](torch.tanh(layer.run_function[0][0](x)))
+    torch.testing.assert_close(layer(x), want)
+    assert [len(layer.get_stage_layers(s)) for s in (0, 1)] == [1, 2]
+    if cls == "PipelineLayer":
+        assert layer._segments == [0, 1, 1]
+        return
+    s = fleet.DistributedStrategy()
+    s.pipeline_configs = dict(s.pipeline_configs, accumulate_steps=2)
+    pp = getattr(meta_parallel, cls)(layer, None, s)
+    assert (pp.accumulate_steps, pp.micro_batch_size) == (2, 1)
+    opt = torch.optim.SGD(layer.parameters(), lr=0.0)
+    opt.clear_grad = opt.zero_grad
+    loss = pp.train_batch((x, y), opt)
+    want = 0.5 * (torch.nn.functional.cross_entropy(layer(x[:2]), y[:2])
+                  + torch.nn.functional.cross_entropy(layer(x[2:]), y[2:]))
+    torch.testing.assert_close(loss, want.detach())
 
 
 @pytest.mark.parametrize("merge", [True, False])

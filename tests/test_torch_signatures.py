@@ -310,6 +310,34 @@ PAIRS["distributed.mesh.named_sharding"] = (JDM.named_sharding,
 PAIRS["meta_parallel.DygraphShardingOptimizer"] = (
     JMP.DygraphShardingOptimizer.__init__, TMP.DygraphShardingOptimizer.__init__)
 
+# the pipeline slice's public names (the p2p functions of
+# `pp_utils/p2p_communication.py` have no counterpart in the reference,
+# whose stages exchange by `ppermute`)
+import paddle_tpu.distributed.pipeline as JPIPE  # noqa: E402
+import paddle_tpu.models.trainer as JTRAIN  # noqa: E402
+import paddle_tpu_torch.distributed.pipeline as TPIPE  # noqa: E402
+import paddle_tpu_torch.models.trainer as TTRAIN  # noqa: E402
+for _fn in ("microbatch", "spmd_pipeline", "spmd_pipeline_1f1b",
+            "spmd_pipeline_vpp"):
+    PAIRS[f"pipeline.{_fn}"] = (getattr(JPIPE, _fn), getattr(TPIPE, _fn))
+PAIRS["build_pipeline_train_step"] = (JTRAIN.build_pipeline_train_step,
+                                      TTRAIN.build_pipeline_train_step)
+for _cls in ("PipelineLayer", "LayerDesc", "SharedLayerDesc",
+             "PipelineParallel"):
+    PAIRS[f"meta_parallel.{_cls}"] = (getattr(JMP, _cls).__init__,
+                                      getattr(TMP, _cls).__init__)
+for _cls, _fn in (("PipelineParallel", "train_batch"),
+                  ("PipelineParallel", "eval_batch"),
+                  ("PipelineParallel", "forward_backward_pipeline"),
+                  ("PipelineLayer", "get_stage_layers"),
+                  ("PipelineLayer", "forward"),
+                  ("LayerDesc", "build_layer")):
+    PAIRS[f"meta_parallel.{_cls}.{_fn}"] = (
+        getattr(getattr(JMP, _cls), _fn), getattr(getattr(TMP, _cls), _fn))
+PAIRS["mesh.HybridCommunicateGroup.get_rank_from_stage"] = (
+    JDM.HybridCommunicateGroup.get_rank_from_stage,
+    TDM.HybridCommunicateGroup.get_rank_from_stage)
+
 # the port's own trailing parameters (the entry point's device; a layer's
 # dtype, device and the generator its weights come from; a model's seed)
 _LAYER = ["dtype", "device", "generator"]
@@ -321,7 +349,9 @@ PORT_ONLY = {"ServingEngine": ["device"],
              "nn.Embedding": ["dtype", "device"],
              # the rank's device and the rendezvous' time limit
              "distributed.init_parallel_env": ["device", "timeout"],
-             "WeightOnlyLinear": ["device"]}
+             "WeightOnlyLinear": ["device"],
+             # a chunk of the interleaved schedule's stage
+             "meta_parallel.PipelineLayer.forward": ["chunk_id"]}
 # the tensor-parallel layers' dtype and device
 PORT_ONLY.update({n: ["dtype", "device"] for n in (
     "mpu.ColumnParallelLinear", "mpu.RowParallelLinear",

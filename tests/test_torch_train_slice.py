@@ -335,8 +335,11 @@ def test_train_step_refuses_what_it_does_not_port():
         train_step(tm, tm.compute_loss, opt, sharding_stage=4)
     with pytest.raises(NotImplementedError):
         build_train_step(tm, opt, mesh=object())
-    with pytest.raises(NotImplementedError):
-        build_train_step(tm, opt, pipeline_schedule="1f1b")
+    # without a "pp" axis the pipeline arguments are ignored, as in the
+    # reference (`models/trainer.py:626-652`): the plain step
+    step = build_train_step(tm, opt, pipeline_schedule="1f1b",
+                            num_microbatches=4, virtual_pp_degree=2)
+    assert not hasattr(step, "_link") and step._merge["count"] == 0
     step = build_train_step(tm, opt, donate=False)
     assert not hasattr(step, "_data_put")  # the CPU: no staging
 

@@ -287,6 +287,8 @@ def fleet_main(out_dir, files):
                endpoints=len(fleet.worker_endpoints()))
     fleet.barrier_worker()
     net = torch.nn.Linear(4, 4)
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
     for name, degrees in (("dp", dict(dp_degree=2)),
                           ("tp", dict(mp_degree=2)),
                           ("pp", dict(pp_degree=2)),
@@ -302,8 +304,11 @@ def fleet_main(out_dir, files):
                    mode=hcg.get_parallel_mode(),
                    sizes=(hcg.get_data_parallel_world_size(),
                           hcg.get_model_parallel_world_size()))
+        # at pp 2 the model is a LLaMA built under the mesh (its stage)
+        model = LlamaForCausalLM(LlamaConfig.tiny(**TINY_LLAMA),
+                                 device="cpu") if name == "pp" else net
         for what, fn in (
-                ("model", lambda: type(fleet.distributed_model(net))
+                ("model", lambda: type(fleet.distributed_model(model))
                  .__name__),
                 ("optimizer", lambda: fleet.distributed_optimizer(
                     AdamW(learning_rate=0.1, parameters=net.parameters())))):
