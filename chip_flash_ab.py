@@ -267,7 +267,7 @@ def time_gemm(res, dev, gen):
                    "torch": timer(lambda: torch.matmul(x, w()))}
             if hasattr(kmm, "variants"):
                 for v in kmm.variants(torch.bfloat16, m):
-                    row[v] = timer(lambda: kmm.matmul_fused(x, w(), v))
+                    row[v] = timer(lambda: kmm.matmul_fused(x, w(), tile=v))
             res[f"gemm {kk}->{n} m{m}"] = row
             del x, w
             torch.cuda.empty_cache()

@@ -50,7 +50,7 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    before and checked just after; then a profiled warm 2500-token prefill
    and a profiled window of batch-8 decode steps give the device's busy
    time and idle share;
-4b. LLaMA-2-13B's widths at 10 of its 40 layers (hidden 5120; the
+4b. LLaMA-2-13B's widths at 5 of its 40 layers (hidden 5120; the
    script's time limit, `SERVE13_LAYERS`; phases 12-13 build it at 20),
    bf16, random weights from --seed, PyTorch's default initialisation):
    the last-position logits of a 64-token prompt in f32, in bf16, and
@@ -130,7 +130,7 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    through (b)'s options on CUDA and on the CPU from the same weights;
 11. multi-step serving decode, each cell and mode in a process of its own
    (`--phase11 CELL`, started by this script): phase 4's model cut to
-   `CELL7_LAYERS` (16) of its 32 layers (the script's time) and phase 4's
+   `BURST7_LAYERS` (8) of its 32 layers (the script's time) and phase 4's
    traffic on an engine with decode_burst=8 (each (greedy or mixed, 1 or 8
    steps) program a captured CUDA graph, all four captured by `warmup`),
    synchronous and then with async_depth=2: every greedy stream equal to
@@ -224,16 +224,17 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    and shallow spec streams and `generate` equal, 3 AdamW steps' losses
    and updates agree;
 15. the data-parallel fine-tune, each part in processes of its own started
-   by `distributed.spawn`: (a) LLaMA-2-7B widths at 4 layers, bf16 O2,
-   AdamW(1e-4), batch 1 x 4096 of one seeded sequence, at world 1 over
+   by `distributed.spawn`: (a) LLaMA-2-7B widths at `FT_LAYERS` (2)
+   layers, bf16 O2, AdamW(1e-4), batch 1 x 4096 of one seeded sequence,
+   at world 1 over
    NCCL (`init_parallel_env`, `init_mesh(dp=1)`, `DataParallel`, a
    `DataLoader` of 2 worker processes over a `DistributedBatchSampler`):
    NCCL's all_reduce, broadcast and all_gather return their inputs; 4
    steps with the kernels' launches exact, the model's and the optimizer's
    state_dict saved by `paddle_tpu_torch.save` after step 2; a new process
    loads them (digests of the bits equal to the saved state's), resumes
-   steps 3-4 (loss 3 within 1e-6, loss 4 within 1e-3 of the uninterrupted
-   run's, the probe parameters within `FT_PARAM_BAR` of the update since
+   steps 3-4 (loss 3 within 1e-6, loss 4 within `FT_LOSS4_TOL` of the
+   uninterrupted run's, the probe parameters within `FT_PARAM_BAR` of the update since
    step 2) and, as the planted fault, resumes without the optimizer's
    state, which the probe parameters must catch; save and load seconds,
    step ms and tokens/s; (b) two ranks on the one card over gloo (named by
@@ -280,15 +281,16 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    32 new each, greedy and sampled alternating, on the eager engine and at
    decode_burst 8, the GEMM's buckets tuned on each rank and the kernel
    pinned in every one (the ranks time candidates against each other);
-   (b) LLaMA-2-13B's widths at `SERVE13_LAYERS` (10), int8 weights per
+   (b) LLaMA-2-13B's widths at `SERVE13_LAYERS` (5), int8 weights per
    channel (lm_head kept) and int8 KV, 4 of (a)'s requests made greedy.
    First the kernels at the shard shapes against their plain versions
    (decode at 16 heads of 128 and int8 decode at 20, the dequant matmul's
    row shard 6912 -> 5120 and column shard 5120 -> 6912, the GEMM at the
    head's shard 4096 -> 16000). Held: every rank's streams equal bit for
    bit, greedy and sampled; each greedy stream equal to tp 1's or first
-   differing at a near tie (`TPS_LOGIT_BAR`, set before the first run),
-   the prefill's gathered last logits within that bar of tp 1's; each
+   differing at a near tie (`TPS_LOGIT_BAR` in (a), set before the first
+   run; `TPS13_LOGIT_BAR` in (b), from its readings at 5 layers), the
+   prefill's gathered last logits within that bar of tp 1's; each
    rank's pools at kv_heads / 2; the paged decode, RMSNorm, GEMM and
    dequant matmul launches exact a rank; in (b) the probes' quantized
    shards equal to slices of the tp-1 quantization bit for bit. Three
@@ -347,6 +349,41 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    both stages, 2 1F1B steps of 4 x 2048 against pp 1 (losses, masters,
    the tied copies equal). `--phase19` runs the build and this phase
    alone.
+20. BASELINE.json config 4 (LLaMA-2 13B, TP x PP x sharding stage 2), in
+   phase 16 (a)'s four spawned ranks after their results are saved:
+   `fleet.init` at pp 2 x sharding 2, LLaMA-2-13B's widths (hidden 5120,
+   intermediate 13824, 40 heads of 128, vocab 32000, untied) at
+   `ZPP_LAYERS` (2) of 40 layers, one a stage, bf16 O2, AdamW(1e-4) with
+   f32 masters, the dense loss of f32 logits, ZeRO stage 2 through
+   build_train_step, 1F1B, each sharding rank 2 x 4096 rows in M = 2
+   microbatches, 2 steps, from phase 16's seeded weights (`tp_load`),
+   against pp 1 x sharding 1 on rank 0 over the whole 4 x 4096 (the mesh
+   set aside). Held: every rank's losses equal and within `TP_LOSS_TOL`
+   of pp 1's; the probes' f32 masters (joined from the ranks' pieces)
+   within `TP_PARAM_BAR` of pp 1's over their update; each rank holding
+   half of stage 0's optimizer-state and gradient bytes (within 1 %);
+   flash, RMSNorm and Adam launches exact a rank (Adam once a piece of
+   the rank's slice); exactly one reduce_scatter a bucket a step. The
+   checkpoint of step 1 (`CheckpointManager.save` of the tree
+   `fleet.save` writes, every rank writing its pieces) saved in the
+   background while step 2 runs; a second save of step 2 whose COMMITTED
+   marker is withheld; fresh models, optimizers and engines restored by
+   `CheckpointManager.restore` (falling back past step 2 to step 1):
+   their optimizer state bit-equal to the uninterrupted run's after step 1
+   (masters, moments, bias corrections), their step 2's loss bit-equal to
+   the uninterrupted run's, and the probes' masters after it within
+   `ZPP_RESUME_BAR` of the uninterrupted run's own over its step-2 update
+   (the bf16 flash backward's dQ atomics), and within `TP_PARAM_BAR` of
+   pp 1's. Four planted faults caught: the withheld marker (the restore
+   falls back, counted), a restore that leaves the Adam moments at zero
+   (the state check, and step 2's masters beyond `ZPP_RESUME_BAR`), a
+   checkpoint piece written one element off (`fleet.save`'s writer; the
+   forward loss of `fleet.load_model`'s model differs from the correct
+   restore's), a reduce_scatter in every microbatch (M a bucket
+   counted). Logged: step ms, reduce_scatters, all_gathers, sends,
+   receives and staged bytes a step by rank (four ranks on one card over
+   gloo: counts, not a speed), the checkpoint's bytes and its save and
+   load seconds. `--phase20` runs the build and this phase alone.
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -1200,7 +1237,7 @@ def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False, timed=True):
     want = torch.matmul(x.float(), w.float())
     errs, abs_err = {}, 0.0
     for tile in kmm.variants(dtype, m):
-        got = kmm.matmul_fused(x, w, tile)
+        got = kmm.matmul_fused(x, w, tile=tile)
         torch.cuda.synchronize()
         errs[tile] = row_rel_err(got, want)
         abs_err = max(abs_err, (got.float() - want).abs().max().item())
@@ -1232,7 +1269,7 @@ def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False, timed=True):
         # as on the serving path, each call finds its weight out of the
         # 50 MB L2: the calls take turns over copies of w worth >= 128 MB
         w_next = turns([w], k * n * elt, w.clone)
-        tile_ms = {t: time_ms(lambda: kmm.matmul_fused(x, w_next(), t), it)
+        tile_ms = {t: time_ms(lambda: kmm.matmul_fused(x, w_next(), tile=t), it)
                    for t in kmm.variants(dtype, m)}
         best = min(tile_ms, key=lambda t: tile_ms[t][0])
         # the plain version is the library call: torch.matmul in x's dtype
@@ -1244,7 +1281,7 @@ def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False, timed=True):
                    plain_ms=lib_ms, library_ms=lib_ms,
                    # the tuner's timer on the same two calls (one weight)
                    graph_ms={"kernel": autotune.default_timer(
-                       lambda a, b: kmm.matmul_fused(a, b, best), (x, w)),
+                       lambda a, b: kmm.matmul_fused(a, b, tile=best), (x, w)),
                        "library": autotune.default_timer(torch.matmul,
                                                          (x, w))})
         del w_next
@@ -1252,7 +1289,7 @@ def mm_case(name, m, k, n, dtype, gen, dev, check_timer=False, timed=True):
             t = kmm.default_variant(m, n, dtype)
             res["tuner_timer_ms"] = {
                 "tile": t, "graph_events": autotune.default_timer(
-                    lambda a, b: kmm.matmul_fused(a, b, t), (x, w), iters=20),
+                    lambda a, b: kmm.matmul_fused(a, b, tile=t), (x, w), iters=20),
                 "profiler": tile_ms[t][0]}
         return res
 
@@ -1901,17 +1938,21 @@ def init_default(model, seed, dev):
                 p.uniform_(-b, b, generator=gen)
 
 
-# The depths the 1200 s limit leaves: LLaMA-2-13B's widths at 10 of its 40
-# layers in phases 4b and 11 and at 20 in phases 12's and 13's cells (at
+# The depths the 1200 s limit leaves: LLaMA-2-13B's widths at 5 of its 40
+# layers in phases 4b, 11 and 17 (10 until phase 20 came, whose config-4
+# run needs its own minute) and at 20 in phases 12's and 13's cells (at
 # 10 the phase-12 cell's chunked stream differed from the dense one at a
 # top-2 gap of 0.0156 against its near-tie bar of 0.0132, on one H100),
 # and LLaMA-2-7B's at 16 of 32 in phases 11's, 12's and 13's cells, each
 # held to its own eager or off engine. With phase 16 the whole script took
 # 1029-1184 s on H100s where the script without it had taken 802-1247 s;
 # the cells' host-bound work scales with their depth (PERF.md, §5).
-SERVE13_LAYERS = 10
+SERVE13_LAYERS = 5
 CELL13_LAYERS = 20
 CELL7_LAYERS = 16
+# phase 11's 7B cells: held to their own eager engine's streams (one
+# program, bit for bit), so their depth only sets the host's work
+BURST7_LAYERS = 8
 
 
 def llama13b_cut(layers=SERVE13_LAYERS):
@@ -2379,7 +2420,7 @@ def expected_matmul_launches(ms, cfg, dtype):
     total = 0
     for m in ms:
         for k, n, count in linear_shapes(cfg):
-            if not kmm.supports(m, k, n, dtype):
+            if not kmm.supports(m, k, n, dtype=dtype):
                 continue
             win = autotune.choose_matmul(m, k, n, dtype)
             if win is not None and win.meta["impl"] == "cuda":
@@ -4063,7 +4104,7 @@ CELLS = ("7b_sync", "7b_async", "13b_int8_sync", "13b_int8_async")
 
 def multi_step_cell(cell, seed, dev, card, io):
     """One phase-11 cell and mode, in a process of its own: the 7B cell
-    (phase 4's model, LLaMA-2-7B bf16 from `seed`, at `CELL7_LAYERS` of
+    (phase 4's model, LLaMA-2-7B bf16 from `seed`, at `BURST7_LAYERS` of
     its layers) or the 13B int8 cell (LLaMA-2-13B bf16 by `init_default`,
     int8 weights but lm_head, int8 KV); each cell's eager engine's
     streams, taken by its sync process into io/eager_<cell>.json, are what
@@ -4076,7 +4117,7 @@ def multi_step_cell(cell, seed, dev, card, io):
         cfg = llama13b_cut()
     else:
         cfg = LlamaConfig.llama2_7b()
-        cfg.num_hidden_layers = CELL7_LAYERS
+        cfg.num_hidden_layers = BURST7_LAYERS
     cfg.dtype = "bfloat16"
     model = LlamaForCausalLM(cfg, device=dev, seed=seed)
     kv = None
@@ -5920,7 +5961,7 @@ def gpt_phase(seed, card):
 # phase 15: the data-parallel fine-tune
 # ---------------------------------------------------------------------------
 
-FT_LAYERS = 4          # phase 8's depth of LLaMA-2-7B's widths
+FT_LAYERS = 2          # of LLaMA-2-7B's 32 layers (the script's time)
 FT_SEQ = 4096
 FT_STEPS = 4
 FT_SAVE_AFTER = 2      # the checkpoint: model and optimizer after step 2
@@ -5934,12 +5975,16 @@ FT_LR = 1e-4
 # uninterrupted run's by at most FT_PARAM_BAR of the update since step 2
 # (rounding flips of the bf16 parameters where a gradient moved by the
 # atomics' order); a resume without the optimizer's state steps from
-# fresh moments and must exceed it.
+# fresh moments and must exceed it. Both bars from the readings at
+# FT_LAYERS = 2 on an H100 (PERF.md, §6): step 4 rel 2.35e-05 (4.35e-06 to
+# 6.6e-05 at 4 layers), the probes 0.0099-0.0403 (0.0118-0.0621 at 4), the
+# fault 0.643-1.307.
 FT_LOSS3_TOL = 1e-6
-FT_LOSS4_TOL = 1e-3
-FT_PARAM_BAR = 0.25
+FT_LOSS4_TOL = 3e-4
+FT_PARAM_BAR = 0.1
 FT_PROBES = ("llama.layers.0.self_attn.q_proj.weight",
-             "llama.layers.3.mlp.down_proj.weight", "lm_head.weight")
+             f"llama.layers.{FT_LAYERS - 1}.mlp.down_proj.weight",
+             "lm_head.weight")
 # (b): gloo ranks on one card against one process on the global batch:
 # f32 sums of two ranks' gradients in another order than the global
 # batch's GEMMs, 1e-5 of each gradient's norm
@@ -6694,15 +6739,21 @@ def tp_cell(cell, seed, dev, faults=False, sp=False):
     return res
 
 
-def tp_rank_proc(io, seed, cell):
+def tp_rank_proc(io, seed, cell, phases=("16",)):
     """One rank of phase 16's `cell`: gloo over CUDA tensors on the one
-    card (PADDLE_DISTRI_BACKEND), fleet.init at the cell's mp_degree."""
+    card (PADDLE_DISTRI_BACKEND), fleet.init at the cell's mp_degree; with
+    "20" in `phases`, phase 20 after (`zpp_rank_part`, in the same four
+    ranks), its results saved apart."""
     from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch.distributed import fleet
 
     t0 = time.perf_counter()
     D.init_parallel_env()
     dev = D.env.device()
+    if "16" not in phases:
+        zpp_save(io, zpp_rank_part(io, seed, dev, t0), t0)
+        D.destroy_process_group()
+        return
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs = dict(dp_degree=1, mp_degree=TP_CELLS[cell]["tp"])
     fleet.init(is_collective=True, strategy=strategy)
@@ -6720,7 +6771,15 @@ def tp_rank_proc(io, seed, cell):
     res.update(tp_cell(cell, seed, dev, faults=cell == "gpt", sp=sp))
     res["process_s"] = time.perf_counter() - t0
     torch.save(res, os.path.join(io, f"tp_{cell}_rank{res['rank']}.pt"))
+    if "20" in phases:
+        del res
+        zpp_save(io, zpp_rank_part(io, seed, dev, t0), t0)
     D.destroy_process_group()
+
+
+def zpp_save(io, res, t0):
+    res["process_s"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(io, f"zpp_rank{res['rank']}.pt"))
 
 
 def tp_dist(got, want, init):
@@ -6769,10 +6828,12 @@ TP_GRAD_BAR = 0.05
 TP_PARAM_BAR = 0.12
 
 
-def tp_phase(seed, card):
+def tp_phase(seed, card, phases=("16", "20")):
     """Phase 16: the tp = 1 runs in this process, then (b) 2 ranks and (a)
     4 ranks on the card over gloo, each a group of its own; every reading
-    is logged before any check."""
+    is logged before any check. Phase 20 runs in (a)'s four ranks after
+    their phase-16 results are saved (`phases`: ("20",) runs it alone);
+    its readings are the result's "20"."""
     from paddle_tpu_torch.distributed import spawn
 
     gc.collect()
@@ -6780,29 +6841,38 @@ def tp_phase(seed, card):
     res = {}
     t_all = time.perf_counter()
     ref = {}
-    for cell in TP_CELLS:
+    cells = ("llama", "gpt") if "16" in phases else ()
+    for cell in cells:
         t0 = time.perf_counter()
         ref[cell] = tp_cell(cell, seed, torch.device("cuda", 0))
         res[f"{cell}_ref_s"] = time.perf_counter() - t0
-    ranks = {}
+    ranks, zpp = {}, None
     with tempfile.TemporaryDirectory(prefix="phase16-") as io:
         prev = os.environ.get("PADDLE_DISTRI_BACKEND")
         os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
         try:
-            for cell in ("llama", "gpt"):
+            for cell in cells or ("gpt",):
                 t0 = time.perf_counter()
                 n = TP_CELLS[cell]["tp"]
-                spawn(tp_rank_proc, args=(io, seed, cell), nprocs=n,
-                      timeout=400)
+                spawn(tp_rank_proc, args=(io, seed, cell, phases if
+                                          cell == "gpt" else ("16",)),
+                      nprocs=n, timeout=900 if cell == "gpt" else 400)
                 res[f"{cell}_spawn_s"] = time.perf_counter() - t0
-                ranks[cell] = [torch.load(os.path.join(
-                    io, f"tp_{cell}_rank{r}.pt")) for r in range(n)]
+                if cell in cells:
+                    ranks[cell] = [torch.load(os.path.join(
+                        io, f"tp_{cell}_rank{r}.pt")) for r in range(n)]
+            if "20" in phases:
+                zpp = [torch.load(os.path.join(io, f"zpp_rank{r}.pt"))
+                       for r in range(ZPP_N)]
         finally:
             if prev is None:
                 os.environ.pop("PADDLE_DISTRI_BACKEND")
             else:
                 os.environ["PADDLE_DISTRI_BACKEND"] = prev
     res["processes_s"] = time.perf_counter() - t_all
+    if "16" not in phases:
+        res["20"] = zpp_phase(zpp, card, res["processes_s"])
+        return res
     labels = {"gpt": "(a) GPT-3 1.3B", "llama": "(b) LLaMA-2-7B widths"}
     for cell in ("gpt", "llama"):
         res[cell] = tp_readings(cell, labels[cell], ranks[cell], ref[cell],
@@ -6827,6 +6897,12 @@ def tp_phase(seed, card):
     for cell in ("gpt", "llama"):
         for name, v in res[cell]["launches"].items():
             res["launches"][name] = res["launches"].get(name, 0) + v
+    if zpp is not None:
+        # phase 20's time: its ranks' own (the spawn's after phase 16's
+        # GPT cell)
+        res["20"] = zpp_phase(zpp, card, max(
+            r["process_s"] for r in zpp) - max(
+            r["process_s"] for r in ranks["gpt"]))
     return res
 
 
@@ -6986,6 +7062,10 @@ TPS_PROBES = ("llama.layers.0.self_attn.q_proj",
 # bounds a near tie: a greedy stream may leave tp 1's only where tp 1's
 # top-2 gap is within it times the largest |logit|
 TPS_LOGIT_BAR = 0.1
+# (b)'s bar, the same two uses, from its readings at SERVE13_LAYERS (5) on
+# H100s (PERF.md, §6): logits 0.02123 (0.03173 at 10 layers), near ties at
+# top-2 gaps of 0.03125-0.125 where the largest |logit| is 5.8-6.4
+TPS13_LOGIT_BAR = 0.05
 
 
 def tps_traffic(seed, vocab):
@@ -7117,7 +7197,7 @@ def tps_rank_7b(seed, dev, tune_dir, comm):
     m_prefill = 8 * -(-max(len(p) for p, _, _ in reqs) // page) * page
     for k, n in tps_shard_shapes(cfg, TPS_TP):
         for m in (m_prefill, TPS_ENGINE["max_batch"]):
-            check(kmm.supports(m, k, n, torch.bfloat16),
+            check(kmm.supports(m, k, n, dtype=torch.bfloat16),
                   f"phase 17 (a): the GEMM does not take [{m}, {k}] x "
                   f"[{k}, {n}]")
             autotune.choose_matmul(m, k, n, torch.bfloat16)
@@ -7286,16 +7366,17 @@ def tps_kernel_checks(seed, dev):
     return out
 
 
-def tps_streams_hold(model, dev, reqs, ranks, want, tag, card):
+def tps_streams_hold(model, dev, reqs, ranks, want, tag, card,
+                     bar=TPS_LOGIT_BAR):
     """The stream holds: every rank's streams equal bit for bit, and each
     greedy one equal to tp 1's or first differing at a near tie
-    (`judge_streams` at TPS_LOGIT_BAR). Raises on a failure."""
+    (`judge_streams` at `bar`). Raises on a failure."""
     for r in ranks[1:]:
         check(r == ranks[0], f"phase 17 {tag}: the ranks' streams differ")
     greedy = [i for i, (_, _, kw) in enumerate(reqs) if not kw]
     return judge_streams(model, dev, [reqs[i][0] for i in greedy],
                          [ranks[0][i] for i in greedy],
-                         [want[i] for i in greedy], TPS_LOGIT_BAR, tag,
+                         [want[i] for i in greedy], bar, tag,
                          card, phase=17)
 
 
@@ -7518,10 +7599,13 @@ def tps_cell_13b(ranks, ref, dev, card):
                     f"{v['bytes'] / 2 ** 10:.1f} KiB"
                     for op, v in (run[0]["per_decode_step"] or {}).items())
         + f"; launches a rank {run[0]['launches']}; probe logits tp 2 vs tp "
-        f"1 {out['logit_dist']:.4g}; quantized shards that are not slices of "
+        f"1 {out['logit_dist']:.4g} (bar {TPS13_LOGIT_BAR}); quantized "
+        f"shards that are not slices of "
         f"the tp-1 quantization: {mismatched}; planted fault 3 (a row shard "
         f"quantized with its local absmax) caught by rank: {fault3} "
         f"[{card}]")
+    check(out["logit_dist"] <= TPS13_LOGIT_BAR,
+          f"phase 17 {label}: logits {out['logit_dist']:.4g} off")
     check(not mismatched, f"phase 17 {label}: shards {mismatched} are not "
           f"slices of the tp-1 quantization")
     check(all(fault3), f"phase 17 {label}: planted fault 3 passed: {fault3}")
@@ -7529,7 +7613,8 @@ def tps_cell_13b(ranks, ref, dev, card):
               for x in b), f"phase 17 {label}: the scale pools' heads")
     out["diffs"] = tps_streams_hold(model, dev, reqs,
                                     [x["streams"] for x in run],
-                                    ref["run"]["streams"], label, card)
+                                    ref["run"]["streams"], label, card,
+                                    bar=TPS13_LOGIT_BAR)
     for r, x in zip(ranks, run):
         la, fwd = x["launches"], x["prefills"] + x["token_steps"]
         for name, n in (("paged_attention_int8", L * x["token_steps"]),
@@ -8587,6 +8672,550 @@ def pp_verify(ranks, res):
           f"{f['loss_not_divided']}")
 
 
+# ---------------------------------------------------------------------------
+# 20. BASELINE config 4: ZeRO stage 2 under the pipeline, saved and resumed
+
+ZPP_PP, ZPP_SHARDING = 2, 2
+ZPP_N = ZPP_PP * ZPP_SHARDING
+ZPP_LAYERS = 2          # of LLaMA-2-13B's 40: one a stage
+ZPP_ROWS, ZPP_SEQ, ZPP_M = 4, 4096, 2
+ZPP_STAGE = 2           # config 4's ZeRO stage
+ZPP_STEPS = 2
+# the f32 masters compared with pp 1's: a column- and a row-split linear
+# (one a stage), the embedding (first stage) and the final norm (last)
+ZPP_PROBES = ("llama.layers.0.self_attn.q_proj.weight",
+              "llama.layers.1.mlp.down_proj.weight",
+              "llama.embed_tokens.weight", "llama.norm.weight")
+# the leaf whose piece the planted checkpoint fault writes one element off
+ZPP_OFFSET_LEAF = "llama.layers.0.self_attn.q_proj.weight"
+# the resumed run's probe masters after step 2 against the uninterrupted
+# run's own (the same engines and path; only the bf16 flash backward's dQ
+# atomics differ), over the update of step 2. On an H100 (PERF.md, §6)
+# sound runs read 0-0.00576 (the embedding the most), a restore without
+# the Adam moments 0.37-1.74
+ZPP_RESUME_BAR = 0.03
+
+
+def zpp_model(seed, dev):
+    """LLaMA-2-13B's widths at ZPP_LAYERS layers, bf16 O2, the dense loss,
+    this rank's stage under the global mesh (the whole model without one),
+    phase 16's seeded weights (`tp_load`: the stages hold the slices of the
+    pp = 1 model)."""
+    cfg = LlamaConfig.llama2_13b()
+    cfg.num_hidden_layers = ZPP_LAYERS
+    cfg.dtype = "bfloat16"
+    cfg.fused_ce_chunks = 0
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    model = amp.decorate(model, level="O2", dtype="bfloat16")
+    tp_load(model, "llama", seed)
+    return model
+
+
+def zpp_batch(seed, dev, rank=None):
+    """The whole batch (rank None) or sharding rank `rank`'s rows of it
+    (every pp rank of one sharding coordinate the same rows)."""
+    rng = np.random.RandomState(seed + 20)
+    ids = torch.from_numpy(rng.randint(0, TP_DATA_VOCAB, (
+        ZPP_ROWS, ZPP_SEQ + 1))).to(dev)
+    if rank is not None:
+        k = ZPP_ROWS // ZPP_SHARDING
+        ids = ids[rank * k:(rank + 1) * k]
+    return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+
+def zpp_probes(opt, model, eng):
+    """{probe: (lo, hi, its f32 master over the first PP_PROBE_ELEMS
+    elements' overlap with this rank's piece)} of the probes this rank's
+    stage holds (the masters cover the rank's ZeRO pieces)."""
+    inner = getattr(opt, "_inner_opt", opt)
+    pos = {id(p): i for i, p in enumerate(inner._parameter_list)}
+    params = dict(model.named_parameters())
+    out = {}
+    for n in ZPP_PROBES:
+        if n not in params:
+            continue
+        lo, hi = eng.piece_range(params[n]) if eng is not None else (
+            0, params[n].numel())
+        hi2 = min(hi, PP_PROBE_ELEMS)
+        st = inner._accumulators.get(pos[id(params[n])])
+        vals = st["master_weight"].detach().reshape(-1)[:max(hi2 - lo, 0)] \
+            if st is not None and hi2 > lo else torch.empty(0)
+        out[n] = (lo, max(hi2, lo), vals.float().cpu().clone())
+    return out
+
+
+def zpp_opt_state(opt):
+    """Every entry of the optimizer's state (under ZeRO the rank's pieces;
+    tensors copied on the card), by (parameter index, name)."""
+    inner = getattr(opt, "_inner_opt", opt)
+    return {(i, k): v.detach().clone() if torch.is_tensor(v) else v
+            for i, st in inner._accumulators.items() for k, v in st.items()}
+
+
+def zpp_opt_equal(opt, want):
+    """Whether the optimizer's state is `want` (`zpp_opt_state`), bit for
+    bit."""
+    inner = getattr(opt, "_inner_opt", opt)
+    have = {(i, k): v for i, st in inner._accumulators.items()
+            for k, v in st.items()}
+    return set(have) == set(want) and all(
+        torch.equal(have[k], v) if torch.is_tensor(v) else have[k] == v
+        for k, v in want.items())
+
+
+class ZppFaults:
+    """The planted faults of phase 20; each acts alike on every rank."""
+
+    @staticmethod
+    def reduce_every_microbatch(eng):
+        """Stage 2 reduce_scatters each bucket in every microbatch's
+        backward (the engine not told of the microbatches)."""
+        eng.begin_microbatches = lambda m: None
+
+    @staticmethod
+    def drop_moments(opt):
+        """A restore that leaves the Adam moments at zero (the masters and
+        the bias corrections restored)."""
+        inner = getattr(opt, "_inner_opt", opt)
+        for st in inner._accumulators.values():
+            st["moment1"].zero_()
+            st["moment2"].zero_()
+
+
+def zpp_build(seed, dev, rank):
+    """A fresh stage model, AdamW with f32 masters and the step
+    (build_train_step at ZPP_STAGE, 1F1B, M = ZPP_M)."""
+    model = zpp_model(seed, dev)
+    opt = AdamW(learning_rate=ZERO_LR, parameters=model.parameters(),
+                multi_precision=True)
+    step = build_train_step(model, opt, criterion=pp_loss(model),
+                            num_microbatches=ZPP_M,
+                            pipeline_schedule="1f1b",
+                            sharding_stage=ZPP_STAGE)
+    return model, opt, step
+
+
+def zpp_counted(step, x, y, opt, model):
+    """One step with the kernels' launches, the engine's traffic and the
+    link's transfers counted: (loss, ms, launches, traffic delta, link
+    stats, probes)."""
+    eng = step._zero
+    for _, mod, attr in TRAIN_COUNTERS:
+        setattr(mod, attr, 0)
+    before = dict(eng.traffic)
+    step._link.reset_stats()
+    t1 = time.perf_counter()
+    loss = float(step(x, y))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    launches = {n: getattr(mod, a) for n, mod, a in TRAIN_COUNTERS}
+    traffic = {k: v - before.get(k, 0) for k, v in eng.traffic.items()}
+    return loss, ms, launches, traffic, step._link.stats(), \
+        zpp_probes(opt, model, eng)
+
+
+def zpp_eval(step, x, y, dev, data_mean):
+    """The forward alone over this rank's microbatches (no update): the
+    mean loss over the stages and the sharding ranks, as the step gives
+    it."""
+    from paddle_tpu_torch.distributed import pipeline as P
+
+    with torch.no_grad():
+        loss = P.run_forward(step._stage, step._link,
+                             list(P.microbatch(x, ZPP_M)),
+                             list(P.microbatch(y, ZPP_M)), device=dev)
+    return float(data_mean(loss.reshape(1).clone())[0])
+
+
+def zpp_free(*objs):
+    del objs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zpp_baseline(seed, dev):
+    """pp 1 x sharding 1 on this rank, the global mesh set aside: the
+    whole model over the whole batch, ZPP_STEPS plain steps; the probes'
+    initial values and masters after each step."""
+    from paddle_tpu_torch.distributed import mesh as M
+
+    keep = M.get_mesh(optional=True)
+    M.set_mesh(None)
+    zpp_free()
+    try:
+        model = zpp_model(seed, dev)
+        init = {n: p.detach().reshape(-1)[:PP_PROBE_ELEMS].float().cpu()
+                .clone() for n, p in model.named_parameters()
+                if n in ZPP_PROBES}
+        opt = AdamW(learning_rate=ZERO_LR, parameters=model.parameters(),
+                    multi_precision=True)
+        step = build_train_step(model, opt, criterion=pp_loss(model))
+        x, y = zpp_batch(seed, dev)
+        losses, probes, ms = [], [], []
+        for _ in range(ZPP_STEPS):
+            t1 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            probes.append({n: v[2] for n, v in
+                           zpp_probes(opt, model, None).items()})
+        res = dict(losses=losses, probes=probes, init=init, step_ms=ms)
+        zpp_free(model, opt, step)
+    finally:
+        M.set_mesh(keep)
+    return res
+
+
+def zpp_rank_part(io, seed, dev, t0):
+    """Phase 20 on this rank (inside phase 16's four spawned ranks):
+    fleet.init at pp 2 x sharding 2, pp 1 on rank 0 while the others
+    wait, the ZeRO-2 run (a step, the checkpoint of step 1 saved in the
+    background while step 2 runs, a second save whose COMMITTED marker is
+    withheld), the resume in fresh engines, then the planted faults."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding \
+        .group_sharded import held_bytes
+
+    zpp_free()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = dict(dp_degree=1, pp_degree=ZPP_PP,
+                                   sharding_degree=ZPP_SHARDING)
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    stage, srank = hcg.get_stage_id(), hcg.get_sharding_parallel_rank()
+    res = dict(rank=D.get_rank(), stage=stage, sharding_rank=srank,
+               mesh=tuple(D.get_mesh().mesh_dim_names))
+    t1 = time.perf_counter()
+    if D.get_rank() == 0:
+        res["pp1"] = zpp_baseline(seed, dev)
+    D.barrier()
+    res["pp1_s"] = time.perf_counter() - t1
+    log(f"phase 20: rank {D.get_rank()}: pp 1 at "
+        f"{time.perf_counter() - t0:.1f} s")
+    from paddle_tpu_torch.jit.api import _data_mean
+
+    x, y = zpp_batch(seed, dev, srank)
+    root = os.path.join(io, "phase20_ckpt")
+    # the run: step 1, its checkpoint saved while step 2 runs
+    zpp_free()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, step = zpp_build(seed, dev, srank)
+    eng = step._zero
+    stage0 = dict(state=sum(p.numel() for p in model.parameters()) * 12,
+                  grads=sum(p.numel() * p.element_size()
+                            for p in model.parameters()))
+    held = {}
+    plain_update = eng.update
+
+    def measured_update(*a, **k):
+        if "grads" not in held:
+            held["grads"] = held_bytes(opt, eng)["grads"]
+        return plain_update(*a, **k)
+
+    eng.update = measured_update
+    run = [zpp_counted(step, x, y, opt, model)]
+    held["state"] = held_bytes(opt, eng)["state"]
+    saved_opt = zpp_opt_state(opt)
+    mgr = ck.CheckpointManager(os.path.join(root, "run"), max_to_keep=3)
+    t1 = time.perf_counter()
+    mgr.save(1, ck._model_state(model, opt),
+             trainer_state=ck.trainer_state_snapshot(1))
+    save_dispatch_s = time.perf_counter() - t1
+    # the planted wrong offset: the model after step 1 saved again with
+    # this rank's piece of one leaf written one element off, through
+    # save_state_dict as fleet.save writes
+    state = ck._model_state(model)
+    if ZPP_OFFSET_LEAF in state["model"]:
+        pc = state["model"][ZPP_OFFSET_LEAF]
+        pc.value = torch.roll(pc.value.reshape(-1), 1).reshape(
+            pc.value.shape)
+    ck.save_state_dict(state, os.path.join(root, "offset"))
+    del state
+    run.append(zpp_counted(step, x, y, opt, model))
+    t1 = time.perf_counter()
+    mgr.wait()
+    save_wait_s = time.perf_counter() - t1
+    save_bytes = mgr.counts["save_bytes"]
+    # a second save whose marker is withheld (the model alone)
+    plain_commit = ck.CheckpointManager._commit
+    ck.CheckpointManager._commit = lambda self, s: None
+    try:
+        mgr.save(2, ck._model_state(model))
+        mgr.wait()
+    finally:
+        ck.CheckpointManager._commit = plain_commit
+    res["steps"] = [dict(loss=r[0], ms=r[1], launches=r[2], traffic=r[3],
+                         link=r[4], probes=r[5]) for r in run]
+    res.update(held=held, stage0=stage0, buckets=len(eng.buckets),
+               pieces=sum(len(b.pieces) for b in eng.buckets),
+               n_tensors=len(list(model.parameters())),
+               layers=[int(i) for i in model.pp.layer_ids],
+               last=model.pp.last, peak_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30, save_dispatch_s=save_dispatch_s,
+               save_wait_s=save_wait_s, save_bytes=save_bytes,
+               committed=mgr.committed_steps(), all_steps=mgr.all_steps())
+    zpp_free(model, opt, step)
+    log(f"phase 20: rank {D.get_rank()}: run and saves at "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the resume: fresh engines from the manager's newest restorable step
+    model, opt, step = zpp_build(seed, dev, srank)
+    ck._init_optimizer_state(model, opt)
+    t1 = time.perf_counter()
+    got = mgr.restore(template=ck._model_state(model, opt))
+    ck._apply_model_state(model, opt, got)
+    torch.cuda.synchronize()
+    res["load_s"] = time.perf_counter() - t1
+    res["load_bytes"] = mgr.counts["restore_bytes"]
+    res["fallbacks"] = mgr.counts["restore_fallbacks"]
+    res["trainer_step"] = mgr.restore_trainer_state()["step"]
+    res["opt_restored"] = zpp_opt_equal(opt, saved_opt)
+    res["clean_eval"] = zpp_eval(step, x, y, dev, _data_mean)
+    r = zpp_counted(step, x, y, opt, model)
+    res["resumed"] = dict(loss=r[0], ms=r[1], probes=r[5])
+    zpp_free(model, opt, step)
+    # the planted faults: the restore without the Adam moments, step 2's
+    # masters; the offset checkpoint's forward loss at step 2; a
+    # reduce_scatter in every microbatch
+    model, opt, step = zpp_build(seed, dev, srank)
+    ck._init_optimizer_state(model, opt)
+    ck._apply_model_state(model, opt, got)
+    del got
+    ZppFaults.drop_moments(opt)
+    res["fault_moments_restored"] = zpp_opt_equal(opt, saved_opt)
+    del saved_opt
+    r = zpp_counted(step, x, y, opt, model)
+    res["fault_moments"] = dict(loss=r[0], probes=r[5])
+    fleet.fleet.load_model(os.path.join(root, "offset"), model)
+    res["offset_eval"] = zpp_eval(step, x, y, dev, _data_mean)
+    ZppFaults.reduce_every_microbatch(step._zero)
+    r = zpp_counted(step, x, y, opt, model)
+    res["fault_reduce"] = dict(loss=r[0], traffic=r[3],
+                               buckets=len(step._zero.buckets))
+    zpp_free(model, opt, step)
+    D.barrier()
+    if D.get_rank() == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 20: rank {D.get_rank()}: resume and faults at "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def zpp_masters(ranks, probes_of, base, step):
+    """{probe: rel}: the probes' masters (joined from the pieces of the
+    sharding ranks of the stage that holds each) after `step` against
+    pp 1's, over their update from the initial weights."""
+    out = {}
+    for n in ZPP_PROBES:
+        want = base["probes"][step][n]
+        got = torch.full_like(want, float("nan"))
+        for r in ranks:
+            held = probes_of(r).get(n)
+            if held is not None:
+                lo, hi, vals = held
+                got[lo:hi] = vals
+        size = float((want - base["init"][n]).double().norm())
+        out[n] = float((got - want).double().norm()) / size if size \
+            else float("inf")
+    return out
+
+
+def zpp_resume_rel(ranks, probes_of):
+    """{probe: rel}: the probes' masters of a resumed step 2 (joined from
+    the sharding ranks' pieces) against the uninterrupted run's after step
+    2, over that run's update of step 2."""
+    out = {}
+    for n in ZPP_PROBES:
+        got, want, before = (torch.full((PP_PROBE_ELEMS,), float("nan"))
+                             for _ in range(3))
+        for r in ranks:
+            held = probes_of(r).get(n)
+            if held is not None:
+                lo, hi, vals = held
+                got[lo:hi] = vals
+                want[lo:hi] = r["steps"][1]["probes"][n][2]
+                before[lo:hi] = r["steps"][0]["probes"][n][2]
+        keep = ~torch.isnan(want)
+        got, want, before = got[keep], want[keep], before[keep]
+        size = float((want - before).double().norm())
+        out[n] = float((got - want).double().norm()) / size if size \
+            else float("inf")
+    return out
+
+
+def zpp_phase(ranks, card, spawn_s):
+    """Phase 20's readings (each logged before its check), then the
+    checks; returns the readings with the kernels' launches of the
+    counted steps (the ZeRO run's two and the resumed one), every rank."""
+    ranks = sorted(ranks, key=lambda r: (r["stage"], r["sharding_rank"]))
+    base = next(r["pp1"] for r in ranks if "pp1" in r)
+    res = dict(pp1=dict(losses=base["losses"], step_ms=base["step_ms"]))
+    losses = [[s["loss"] for s in r["steps"]] for r in ranks]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], base["losses"])]
+    masters = zpp_masters(ranks, lambda r: r["steps"][-1]["probes"], base,
+                          -1)
+    resumed = [r["resumed"]["loss"] for r in ranks]
+    resumed_masters = zpp_masters(ranks, lambda r: r["resumed"]["probes"],
+                                  base, -1)
+    resumed_rel = zpp_resume_rel(ranks, lambda r: r["resumed"]["probes"])
+    moments_rel = zpp_resume_rel(ranks,
+                                 lambda r: r["fault_moments"]["probes"])
+    rs = [[s["traffic"].get("reduce_scatter", 0) for s in r["steps"]]
+          for r in ranks]
+    res.update(losses=losses, loss_rel=rel, masters=masters,
+               resumed=resumed, resumed_masters=resumed_masters,
+               resumed_rel=resumed_rel,
+               opt_restored=[r["opt_restored"] for r in ranks],
+               reduce_scatters=rs, buckets=[r["buckets"] for r in ranks],
+               held=[r["held"] for r in ranks],
+               stage0=[r["stage0"] for r in ranks],
+               step_ms=[[s["ms"] for s in r["steps"]] for r in ranks],
+               link=[r["steps"][-1]["link"] for r in ranks],
+               traffic=[r["steps"][-1]["traffic"] for r in ranks],
+               peak_gib=[r["peak_gib"] for r in ranks],
+               save_s=[r["save_dispatch_s"] + r["save_wait_s"]
+                       for r in ranks],
+               save_bytes=sum(r["save_bytes"] for r in ranks),
+               load_s=[r["load_s"] for r in ranks],
+               load_bytes=sum(r["load_bytes"] for r in ranks))
+    log(f"phase 20: pp 1 (rank 0, the mesh set aside): LLaMA-2-13B widths, "
+        f"{ZPP_LAYERS} layers, bf16 O2, AdamW({ZERO_LR}, f32 masters), the "
+        f"dense loss, batch {ZPP_ROWS} x {ZPP_SEQ}: losses {base['losses']},"
+        f" step ms {[round(v, 1) for v in base['step_ms']]} [{card}]")
+    log(f"phase 20: pp {ZPP_PP} x sharding {ZPP_SHARDING}, ZeRO stage "
+        f"{ZPP_STAGE}, 1F1B, M {ZPP_M} of 1 x {ZPP_SEQ} a sharding rank, "
+        f"layers by rank {[r['layers'] for r in ranks]}: losses by rank "
+        f"{losses} against pp 1's {base['losses']} (rel "
+        f"{[f'{v:.3g}' for v in rel]}, bar {TP_LOSS_TOL}); probe masters "
+        f"over their update {({k: round(v, 5) for k, v in masters.items()})}"
+        f" (bar {TP_PARAM_BAR}) [{card}]")
+    log(f"phase 20: bytes a rank (stage, sharding rank; held / stage 0's): "
+        + "; ".join(f"({r['stage']}, {r['sharding_rank']}) state "
+                    f"{r['held']['state']} / {r['stage0']['state']}, grads "
+                    f"{r['held']['grads']} / {r['stage0']['grads']}"
+                    for r in ranks)
+        + f"; peak {[round(v, 3) for v in res['peak_gib']]} GiB [{card}]")
+    log(f"phase 20: a step by rank: ms {res['step_ms']}; reduce_scatters "
+        f"{rs} (buckets {res['buckets']}); traffic {res['traffic']}; sends, "
+        f"recvs, staged MiB "
+        + "; ".join(f"{c['sends']}, {c['recvs']}, "
+                    f"{c['staged_bytes'] / 2 ** 20:.1f}" for c in res["link"])
+        + f"; launches by rank {[r['steps'][-1]['launches'] for r in ranks]}"
+        f" (four ranks on ONE card over gloo: counts, not a speed) [{card}]")
+    log(f"phase 20: checkpoint of step 1: {res['save_bytes'] / 2 ** 30:.3f} "
+        f"GiB written by the four ranks, save s by rank (dispatch + wait) "
+        f"{[round(v, 2) for v in res['save_s']]}, "
+        f"{res['load_bytes'] / 2 ** 30:.3f} GiB read, load s by rank "
+        f"{[round(v, 2) for v in res['load_s']]}; committed "
+        f"{ranks[0]['committed']} of {ranks[0]['all_steps']} (step 2's "
+        f"marker withheld), restore fallbacks "
+        f"{[r['fallbacks'] for r in ranks]} [{card}]")
+    log(f"phase 20: resumed step 2's loss by rank {resumed} against the "
+        f"uninterrupted {[l[-1] for l in losses]}; optimizer state after "
+        f"the restore bit-equal to step 1's by rank {res['opt_restored']}; "
+        f"masters after step 2 against the uninterrupted run's, over its "
+        f"step-2 update {({k: f'{v:.4g}' for k, v in resumed_rel.items()})} "
+        f"(bar {ZPP_RESUME_BAR}), against pp 1's over their update "
+        f"{({k: round(v, 5) for k, v in resumed_masters.items()})} [{card}]")
+    faults = dict(
+        moments=dict(rel=moments_rel, restored=[
+            r["fault_moments_restored"] for r in ranks]),
+        offset_eval=[r["offset_eval"] for r in ranks],
+        clean_eval=[r["clean_eval"] for r in ranks],
+        reduce_every_microbatch=dict(
+            reduce_scatters=[r["fault_reduce"]["traffic"].get(
+                "reduce_scatter", 0) for r in ranks],
+            buckets=[r["fault_reduce"]["buckets"] for r in ranks]))
+    res["faults"] = faults
+    log(f"phase 20: planted faults: a restore without the Adam moments: "
+        f"state bit-equal by rank {faults['moments']['restored']}, masters "
+        f"after step 2 against the uninterrupted run's "
+        f"{({k: f'{v:.4g}' for k, v in moments_rel.items()})} (must exceed "
+        f"{ZPP_RESUME_BAR}); a piece written one element off: the "
+        f"step-2 forward's loss {faults['offset_eval']} against the correct "
+        f"restore's {faults['clean_eval']}; a "
+        f"reduce_scatter in every microbatch: "
+        f"{faults['reduce_every_microbatch']} [{card}]")
+    res["process_s"] = spawn_s
+    zpp_verify(ranks, res)
+    launches = {}
+    for r in ranks:
+        for s in r["steps"]:
+            for name, n in s["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+    res["launches"] = launches
+    log(f"phase 20: launches of its counted steps, every rank: {launches} "
+        f"[{card}]")
+    return res
+
+
+def zpp_verify(ranks, res):
+    """Phase 20's checks."""
+    for r in ranks:
+        check(r["mesh"] == ("pp", "sharding"),
+              f"phase 20: rank {r['rank']}: mesh {r['mesh']}")
+    for l in res["losses"]:
+        check(l == res["losses"][0] and all(math.isfinite(v) for v in l),
+              f"phase 20: the ranks' losses differ: {res['losses']}")
+    check(max(res["loss_rel"]) <= TP_LOSS_TOL,
+          f"phase 20: losses {res['losses']} against pp 1's")
+    check(max(res["masters"].values()) <= TP_PARAM_BAR,
+          f"phase 20: probe masters {res['masters']}")
+    for r in ranks:
+        # half of stage 0's state and gradient bytes (the buckets' padding
+        # within 1 %)
+        for part in ("state", "grads"):
+            got, whole = r["held"][part], r["stage0"][part]
+            check(abs(got - whole / 2) <= 0.01 * whole / 2,
+                  f"phase 20 rank {r['rank']}: {part} {got} bytes held, "
+                  f"half of stage 0's {whole} expected")
+        # exactly one reduce_scatter a bucket a step, never one a
+        # microbatch
+        for s in r["steps"]:
+            check(s["traffic"].get("reduce_scatter") == r["buckets"],
+                  f"phase 20 rank {r['rank']}: {s['traffic']} for "
+                  f"{r['buckets']} buckets")
+            L = len(r["layers"])
+            norms = 2 * L + (1 if r["last"] else 0)
+            want = dict(flash_fwd=L * ZPP_M, flash_bwd=L * ZPP_M,
+                        rms_norm=norms * ZPP_M, rms_norm_bwd=norms * ZPP_M,
+                        adam=r["pieces"])
+            for name, n in want.items():
+                check(s["launches"][name] == n,
+                      f"phase 20 rank {r['rank']}: {name} launched "
+                      f"{s['launches'][name]} times a step, expected {n}")
+        check(r["committed"] == [1] and r["all_steps"] == [1, 2]
+              and r["fallbacks"] == 1 and r["trainer_step"] == 1,
+              f"phase 20 rank {r['rank']}: committed {r['committed']} of "
+              f"{r['all_steps']}, fallbacks {r['fallbacks']}")
+    uninterrupted = res["losses"][0][-1]
+    check(all(v == uninterrupted for v in res["resumed"]),
+          f"phase 20: the resumed step 2's loss {res['resumed']} is not the "
+          f"uninterrupted run's {uninterrupted}")
+    check(max(res["resumed_masters"].values()) <= TP_PARAM_BAR,
+          f"phase 20: resumed masters {res['resumed_masters']}")
+    check(all(res["opt_restored"]),
+          f"phase 20: the restored optimizer state is not step 1's, by "
+          f"rank {res['opt_restored']}")
+    check(max(res["resumed_rel"].values()) <= ZPP_RESUME_BAR,
+          f"phase 20: resumed masters against the uninterrupted run's "
+          f"{res['resumed_rel']}")
+    f = res["faults"]
+    check(not any(f["moments"]["restored"])
+          and min(f["moments"]["rel"].values()) > ZPP_RESUME_BAR,
+          f"phase 20: a restore without the Adam moments passed: "
+          f"{f['moments']}")
+    check(all(a != b for a, b in zip(f["offset_eval"], f["clean_eval"])),
+          f"phase 20: a checkpoint piece written one element off gave the "
+          f"correct restore's loss: {f['offset_eval']}")
+    fr = f["reduce_every_microbatch"]
+    check(all(n == ZPP_M * b for n, b in zip(fr["reduce_scatters"],
+                                              fr["buckets"])),
+          f"phase 20: a reduce_scatter in every microbatch was not counted "
+          f"{ZPP_M} a bucket: {fr}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8618,6 +9247,9 @@ def main():
                     "no kernels line, no final line)")
     ap.add_argument("--phase19", action="store_true",
                     help="build the kernels and run phase 19 alone (a probe: "
+                    "no kernels line, no final line)")
+    ap.add_argument("--phase20", action="store_true",
+                    help="build the kernels and run phase 20 alone (a probe: "
                     "no kernels line, no final line)")
     ap.add_argument("--io", default=None,
                     help="with --phase11: the directory of the streams it "
@@ -8686,7 +9318,10 @@ def main():
         finetune_phase(args.seed, card)
         return 0
     if args.phase16:
-        tp_phase(args.seed, card)
+        tp_phase(args.seed, card, ("16",))
+        return 0
+    if args.phase20:
+        tp_phase(args.seed, card, ("20",))
         return 0
     if args.phase17:
         tps_phase(args.seed, card)
@@ -9001,9 +9636,10 @@ def main():
     # LLaMA-2-7B's widths at TP 2 over gloo on the card, against tp 1; the
     # kernels' launches of every rank's counted steps
     tensor_parallel = tp_phase(args.seed, card)
-    mark("phase 16")
-    # phases 15 and 16's launches, one sum a kernel
-    par = {n: ft[n] + tensor_parallel["launches"][n] for n in ft}
+    mark("phases 16 and 20")
+    # phases 15, 16 and 20's launches, one sum a kernel
+    par = {n: ft[n] + tensor_parallel["launches"][n]
+           + tensor_parallel["20"]["launches"].get(n, 0) for n in ft}
 
     # 17. tensor-parallel serving: LLaMA-2-7B's widths and LLaMA-2-13B's
     # int8 at TP 2, two engines on gloo ranks on the card, against tp 1;

@@ -10,11 +10,14 @@ its gradient buckets, and `fleet` (`fleet.init` / `distributed_model` /
 `DygraphShardingOptimizer` and `group_sharded_parallel`, recompute), the
 auto-parallel API over DTensor (`auto_parallel`: `ProcessMesh`,
 `shard_tensor`, `reshard`, ...), the spec annotations of `sharding_utils`
-and `split`, and the pipeline schedules (`pipeline`: `spmd_pipeline` and
-the per-rank programs `build_train_step` runs at pp > 1)."""
+and `split`, the pipeline schedules (`pipeline`: `spmd_pipeline` and
+the per-rank programs `build_train_step` runs at pp > 1), and sharded
+checkpoints (`checkpoint`: `save_state_dict`, `load_state_dict`,
+`CheckpointManager`)."""
 import torch
 
 from . import auto_parallel  # noqa: F401
+from . import checkpoint  # noqa: F401
 from . import collective  # noqa: F401
 from . import env  # noqa: F401
 from . import fleet  # noqa: F401

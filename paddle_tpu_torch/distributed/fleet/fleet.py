@@ -16,9 +16,12 @@ reference); `distributed_optimizer` returns `DygraphShardingOptimizer`
 (ZeRO stage 1 over "sharding") at sharding_degree > 1, else
 `HybridParallelOptimizer` (over the rank's stage at pp > 1).
 `strategy.pipeline_configs` (`accumulate_steps`, `micro_batch_size`,
-`schedule_mode`) is read by `PipelineParallel`. `save` and `load_model`
-raise until `distributed/checkpoint.py` is ported. The worker and role API is the
-reference's; the parameter-server half raises.
+`schedule_mode`) is read by `PipelineParallel`; `sharding_configs` is
+read by nothing, as in the reference (its degree is
+`hybrid_configs["sharding_degree"]`, its stage the optimizer's). `save`
+and `load_model` write and read one sharded checkpoint
+(`distributed/checkpoint.py`). The worker and role API is the reference's;
+the parameter-server half raises.
 """
 from __future__ import annotations
 
@@ -104,16 +107,27 @@ class Fleet:
         return HybridParallelOptimizer(optimizer, self._hcg, strat)
 
     def save(self, dirname, model=None, optimizer=None, **configs):
-        raise NotImplementedError(
-            "fleet.save: sharded checkpoints wait for "
-            "distributed/checkpoint.py (ROADMAP Queue 1 item 4); save each "
-            "rank's state with paddle_tpu_torch.save")
+        """`model` (default: the one `distributed_model` wrapped) and
+        `optimizer` as one checkpoint at `dirname`, every rank writing
+        what it holds (`distributed.checkpoint.save_model_state`)."""
+        from .. import checkpoint as _ckpt
+
+        model = model if model is not None else self._model
+        if model is None:
+            raise ValueError("fleet.save needs a model (none wrapped yet)")
+        _ckpt.save_model_state(getattr(model, "_layers", model), optimizer,
+                               dirname, **configs)
 
     def load_model(self, path, model=None, optimizer=None, **configs):
-        raise NotImplementedError(
-            "fleet.load_model: sharded checkpoints wait for "
-            "distributed/checkpoint.py (ROADMAP Queue 1 item 4); load each "
-            "rank's state with paddle_tpu_torch.load")
+        """Read a `save` checkpoint into `model` and `optimizer` at their
+        own layout (`distributed.checkpoint.load_model_state`)."""
+        from .. import checkpoint as _ckpt
+
+        model = model if model is not None else self._model
+        if model is None:
+            raise ValueError("fleet.load_model needs a model")
+        return _ckpt.load_model_state(getattr(model, "_layers", model),
+                                      optimizer, path, **configs)
 
 
 fleet = Fleet()

@@ -17,9 +17,11 @@ a full state, `weights.gather_llama_state` builds it back).
 The group is `mp_group` (a `collective.Group` or a mesh axis name), by
 default the global mesh's "tp" axis; it is read when the layer is built.
 At degree 1 (no mesh, or a mesh without a "tp" axis) every class is the
-single-card layer. Sharded parameters carry `is_distributed = True`, as
-Paddle's do (`HybridParallelClipGrad` and `TensorParallel` read it through
-`is_distributed`).
+single-card layer. Sharded parameters carry `is_distributed = True` and
+`split_axis`, as Paddle's do (`HybridParallelClipGrad` and `TensorParallel`
+read the first through `is_distributed`), and `tp_shard` = (rank, degree),
+so that a checkpoint can place the shard in the whole tensor
+(`weights.param_pieces`).
 Weights are allocated uninitialised on `device` in `dtype`, as
 `nn.Linear`'s: the model fills or loads them. `weight_attr` takes only
 None, as `nn.Embedding`'s; `name` is unused.
@@ -62,8 +64,10 @@ def _no_attr(weight_attr, cls):
             "(pass None)")
 
 
-def _distributed(p):
+def _distributed(p, axis, rank, degree):
     p.is_distributed = True
+    p.split_axis = axis
+    p.tp_shard = (rank, degree)
     return p
 
 
@@ -172,9 +176,9 @@ class ColumnParallelLinear(Linear):
         self.gather_output = gather_output
         self.in_features, self.out_features = in_features, out_features
         if self.world_size > 1:
-            _distributed(self.weight)
+            _distributed(self.weight, 1, rank, tp)
             if self.bias is not None:
-                _distributed(self.bias)
+                _distributed(self.bias, 0, rank, tp)
 
     def forward(self, x):
         if self.world_size == 1:
@@ -203,7 +207,7 @@ class RowParallelLinear(Linear):
         self.input_is_parallel = input_is_parallel
         self.in_features, self.out_features = in_features, out_features
         if self.world_size > 1:
-            _distributed(self.weight)
+            _distributed(self.weight, 0, rank, tp)
 
     def forward(self, x):
         if self.world_size == 1:
@@ -235,7 +239,7 @@ class VocabParallelEmbedding(nn.Module):
         self.weight = nn.Parameter(torch.empty(
             self.per_rank, embedding_dim, dtype=dtype, device=device))
         if self.world_size > 1:
-            _distributed(self.weight)
+            _distributed(self.weight, 0, self.rank, self.world_size)
 
     def forward(self, x):
         if self.world_size == 1:

@@ -143,7 +143,9 @@ class PipelineParallel(DataParallel):
         """The schedule over `data` = (inputs, labels) cut into
         `accumulate_steps` microbatches: the gradients (scaled by
         `scaler`'s scale) in the stage's parameters, each shared weight's
-        summed over its stages; returns the loss (the mean of the
+        summed over its stages (under ZeRO, a `DygraphShardingOptimizer`'s
+        engine over the stage's parameters: the rank's gradient slices,
+        reduced once a bucket); returns the loss (the mean of the
         microbatch losses, every rank of the "pp" group)."""
         inputs, labels = data
         xs, ys = self._split_micro(inputs), self._split_micro(labels)
@@ -152,9 +154,7 @@ class PipelineParallel(DataParallel):
         loss = _pipe.run_schedule(self._stage, self._link, xs, ys,
                                   self._schedule, device=self._device(),
                                   loss_scale=scale)
-        if self._link is not None:
-            _pipe.allreduce_shared_weight_gradients(
-                list(self._layers.parameters()), self._link)
+        _pipe.reduce_gradients(list(self._layers.parameters()), self._link)
         return loss
 
     def train_batch(self, data, optimizer, lr_scheduler=None, scaler=None,
@@ -162,11 +162,14 @@ class PipelineParallel(DataParallel):
         """data: (inputs, labels); loss = mean over microbatch losses
         (and over "dp"), one update of the stage's parameters."""
         from .hybrid_optimizer import HybridParallelOptimizer
+        from .sharding.sharding_optimizer import DygraphShardingOptimizer
 
         loss = self.forward_backward_pipeline(data, scaler)
         # Paddle's HybridParallelOptimizer averages over "dp" in hybrid
-        # mode; a plain optimizer gets the model's own average
-        if not isinstance(optimizer, HybridParallelOptimizer):
+        # mode, a DygraphShardingOptimizer over its axes; a plain optimizer
+        # gets the model's own average
+        if not isinstance(optimizer, (HybridParallelOptimizer,
+                                      DygraphShardingOptimizer)):
             self.sync_gradients()
         if scaler is not None:
             scaler.step(optimizer)

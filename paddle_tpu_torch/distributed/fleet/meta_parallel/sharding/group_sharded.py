@@ -43,6 +43,20 @@ at degree > 1, else "dp"; `zero_axis_for`) of N ranks:
 At world 2 every stage gives the same bits as the data-parallel step: a
 reduce_scatter's sum of two terms does not depend on order, and each
 update is element by element.
+
+Under a pipeline schedule (`distributed/pipeline.py::run_schedule`, which
+finds the engine of its stage's parameters, `engine_of`) a parameter's
+gradient arrives once in each of the M microbatches' backwards. Stages 2-3
+then accumulate it on the rank (in f32 for a narrower dtype, the
+schedule's own rule: `begin_microbatches`) and reduce each bucket once, in
+the backward of the last microbatch that reaches it; stage 1 reduces after
+the schedule, as without one. Either way one reduce_scatter a bucket a
+step. Stage 3 gathers a block around each microbatch's forward and again
+before each microbatch's backward (any number of microbatches in flight:
+every one's saved tensors view the same storage). A weight shared by
+pipeline stages (a tied embedding, `pipeline.mark_shared`) takes a bucket
+of its own, so its copies on two stages are sliced alike and the sum of
+their gradient slices over those stages is exact (`sum_shared_slices`).
 """
 from __future__ import annotations
 
@@ -147,6 +161,7 @@ class ZeroEngine:
             _mesh.axis_size("dp") > 1 else None
         params = [p for p in optimizer._parameter_list or ()
                   if p.requires_grad]
+        self.params = params
         self._index = {id(p): i
                        for i, p in enumerate(optimizer._parameter_list)}
         self.units = _units(model, params)
@@ -172,7 +187,16 @@ class ZeroEngine:
         self.has_grad = set()
         self.traffic = collections.Counter()
         self._finished = False
+        self._shared_summed = False
         self._handles = []
+        # a pipeline's microbatches (stages 2-3): their count, each
+        # parameter's arrivals and its gradient accumulated so far
+        self._micro = None
+        self._arrivals = collections.Counter()
+        self._acc = {}
+        me = weakref.ref(self)
+        for p in params:
+            p._zero_engine_ref = me
         if stage >= 2:
             # a weak reference: a tensor's hooks live in C++, where the
             # garbage collector cannot see a cycle back to the engine
@@ -226,13 +250,91 @@ class ZeroEngine:
     @torch.no_grad()
     def _on_grad(self, p):
         """Stages 2-3: a parameter's gradient is in; reduce its bucket when
-        the bucket's last one is."""
+        the bucket's last one is (under a pipeline, at the parameter's last
+        microbatch: `_accumulate`)."""
+        if self._micro is not None and not self._accumulate(p):
+            return
         self._sp_reduce(p)
         self.has_grad.add(id(p))
         b = self._where[id(p)][0]
         b.ready += 1
         if b.ready == len(b.params):
             self._reduce_bucket(b)
+
+    def _accumulate(self, p):
+        """One microbatch's gradient of `p` added to its sum on this rank
+        (f32 for a narrower dtype; its `.grad` cleared); at the last of the
+        `_micro` arrivals the sum becomes `p.grad` (in p's dtype) and True
+        is returned."""
+        n = self._arrivals[id(p)] = self._arrivals[id(p)] + 1
+        g, p.grad = p.grad, None
+        acc = self._acc.pop(id(p), None)
+        if acc is None:
+            acc = g if g.dtype == torch.float32 else g.float()
+        else:
+            acc.add_(g)
+        if n < self._micro:
+            self._acc[id(p)] = acc
+            return False
+        p.grad = acc if acc.dtype == p.dtype else acc.to(p.dtype)
+        return True
+
+    def begin_microbatches(self, m):
+        """Before a pipeline schedule of `m` microbatches: stages 2-3
+        accumulate each gradient over its `m` arrivals and reduce a bucket
+        at its last (stage 1 reduces after the schedule anyway)."""
+        if self.stage >= 2:
+            self._micro = int(m)
+            self._arrivals.clear()
+
+    @torch.no_grad()
+    def end_microbatches(self):
+        """After the schedule: a gradient that arrived fewer than `m` times
+        becomes `p.grad` as it stands, its bucket reduced with the rest by
+        `grad_slices`."""
+        if self._micro is None:
+            return
+        self._micro = None
+        by_id = {id(p): p for p in self.params}
+        for i, acc in self._acc.items():
+            p = by_id[i]
+            p.grad = acc if acc.dtype == p.dtype else acc.to(p.dtype)
+            self._sp_reduce(p)
+            self.has_grad.add(i)
+            self._where[i][0].ready += 1
+        self._acc.clear()
+
+    def manages(self, p):
+        """Whether this engine accumulates `p`'s gradient itself under a
+        pipeline schedule (stages 2-3)."""
+        return self.stage >= 2 and id(p) in self._where
+
+    @torch.no_grad()
+    def sum_shared_slices(self, link):
+        """Each weight shared by pipeline stages (a bucket of its own,
+        sliced alike on every stage that holds it): its gradient slice
+        summed over those stages, once a step, after `grad_slices`."""
+        if link is None or self._shared_summed:
+            return
+        self._shared_summed = True
+        for b in self.buckets:
+            stages = getattr(b.params[0], "pp_shared_stages", None)
+            if stages is None:
+                continue
+            if b.grad is None:
+                b.grad = torch.zeros(b.shard_size, dtype=b.dtype,
+                                     device=b.device)
+            _collective.all_reduce(b.grad, group=link.group_of(stages))
+
+    @torch.no_grad()
+    def broadcast_shared(self, link):
+        """Stage 3: each shared weight's slice from the first stage that
+        holds it (the copies' buckets are sliced alike)."""
+        for b in self.buckets:
+            stages = getattr(b.params[0], "pp_shared_stages", None)
+            if stages is not None:
+                _collective.broadcast(b.shard, src=link.ranks[stages[0]],
+                                      group=link.group_of(stages))
 
     @torch.no_grad()
     def _reduce_bucket(self, b):
@@ -351,6 +453,9 @@ class ZeroEngine:
                 self._free(b)
         self.has_grad.clear()
         self._finished = False
+        self._shared_summed = False
+        self._micro = None
+        self._acc.clear()
 
     @torch.no_grad()
     def _gather_into_params(self, b):
@@ -451,6 +556,15 @@ class ZeroEngine:
                 return lo, hi, b.shard[s:s + hi - lo]
         return 0, 0, b.shard[:0]
 
+    def piece_range(self, p):
+        """(lo, hi): the elements of `p` (flattened) in this rank's slice;
+        lo == hi where it has none."""
+        b, j = self._where[id(p)]
+        for jj, lo, hi, _ in b.pieces:
+            if jj == j:
+                return lo, hi
+        return 0, 0
+
     @torch.no_grad()
     def load_param(self, p, value):
         """Write the whole parameter `value` into this rank's piece of
@@ -463,6 +577,20 @@ class ZeroEngine:
         for h in self._handles:
             h.remove()
         self._handles = []
+        for p in self.params:
+            if engine_of([p]) is self:
+                del p._zero_engine_ref
+
+
+def engine_of(params):
+    """The `ZeroEngine` that holds the first of `params` that one holds,
+    or None."""
+    for p in params:
+        ref = getattr(p, "_zero_engine_ref", None)
+        eng = ref() if ref is not None else None
+        if eng is not None:
+            return eng
+    return None
 
 
 def held_bytes(optimizer, engine=None):
@@ -522,12 +650,19 @@ def _units(model, params):
 
 def _bucket_params(params):
     """`params` (one block, in reverse order) in runs of one dtype of at
-    most FLAGS_grad_bucket_mb MiB (<= 0: one parameter a run)."""
+    most FLAGS_grad_bucket_mb MiB (<= 0: one parameter a run); a weight
+    shared by pipeline stages in a run of its own."""
     from .....framework import config as _config
 
     cap = int(_config.get_flag("FLAGS_grad_bucket_mb", 25)) << 20
     out, cur, cur_bytes = [], [], 0
     for p in params:
+        if getattr(p, "pp_shared_stages", None) is not None:
+            if cur:
+                out.append(cur)
+            out.append([p])
+            cur, cur_bytes = [], 0
+            continue
         nbytes = p.numel() * p.element_size()
         if cur and (p.dtype != cur[0].dtype or cur_bytes + nbytes > cap):
             out.append(cur)

@@ -12,7 +12,11 @@ machinery (`group_sharded.ZeroEngine`), in the eager step and in
 slices; at stage 2 the gradients are reduce_scattered in the backward; at
 stage 3 the parameters are stored as slices between steps and gathered
 around each block's forward and backward. `state_dict` /
-`set_state_dict` hold the rank's own slices, as Paddle's do.
+`set_state_dict` hold the rank's own slices, as Paddle's do. At pipeline
+degree > 1 the engine runs over the rank's stage (`PipelineParallel`'s
+`train_batch` and `build_train_step` drive it: one reduce_scatter a
+bucket a step whatever the microbatches), and `fleet.save` writes the
+slices as pieces of one checkpoint (`distributed/checkpoint.py`).
 """
 from __future__ import annotations
 

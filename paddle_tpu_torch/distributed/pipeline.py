@@ -29,6 +29,13 @@ The schedules (`schedule_program`):
   (n // S) % v of microbatch (n // Sv) S + n % S, the backwards mirror it
   with the chunks reversed). It needs M % S == 0.
 
+Under ZeRO (a `group_sharded.ZeroEngine` over the stage's parameters,
+found by `run_schedule` from them) stages 2-3 accumulate each gradient
+over the microbatches themselves and reduce each bucket once, in the
+last microbatch's backward; `reduce_gradients` gives the update its
+slices (stage 1 reducing them then), each shared weight's slice summed
+over its stages.
+
 The generic entries `spmd_pipeline` (forward only), `spmd_pipeline_1f1b`
 and `spmd_pipeline_vpp` keep the reference's contracts over this rank's own
 parameters: `stage_params` is the rank's block (for VPP, leaves with a
@@ -194,8 +201,14 @@ def run_schedule(stage: Stage, link, inputs: Sequence, labels: Sequence,
     last = S * v - 1
     inv_m = float(np.float32(1.0 / M))
     seed = inv_m * float(loss_scale)
+    zero = _engine_of(stage.params)
+    # ZeRO stages 2-3 accumulate their own parameters' gradients over the
+    # microbatches (reducing each bucket once, at its last microbatch)
     narrow = [p for p in stage.params if p.requires_grad
-              and p.dtype != torch.float32]
+              and p.dtype != torch.float32
+              and not (zero is not None and zero.manages(p))]
+    if zero is not None:
+        zero.begin_microbatches(M)
     acc = {}
     saved, losses = {}, []
     fwd = _Forwards(stage, link, device)
@@ -231,12 +244,37 @@ def run_schedule(stage: Stage, link, inputs: Sequence, labels: Sequence,
             trace.append((kind, j, m, len(saved)))
     if link is not None:
         link.finish()
+    if zero is not None:
+        zero.end_microbatches()
     for p in narrow:
         if id(p) in acc:
             p.grad = acc[id(p)].to(p.dtype)
     dev = device if device is not None else (
         losses[0].device if losses else torch.device("cpu"))
     return _mean_loss(losses, link, inv_m, dev)
+
+
+def _engine_of(params):
+    from .fleet.meta_parallel.sharding.group_sharded import engine_of
+
+    return engine_of(params)
+
+
+def reduce_gradients(params, link):
+    """After a schedule, the gradients of this rank's stage `params` as
+    the update reads them: without ZeRO each shared weight's gradient
+    summed over its stages (`allreduce_shared_weight_gradients`); under
+    ZeRO the engine's slices, reduced once a bucket (`grad_slices`), each
+    shared weight's slice summed over its stages. Returns the engine, or
+    None."""
+    zero = _engine_of(params)
+    if zero is None:
+        if link is not None:
+            allreduce_shared_weight_gradients(params, link)
+        return None
+    zero.grad_slices()
+    zero.sum_shared_slices(link)
+    return zero
 
 
 def _mean_loss(losses, link, inv_m, dev):
@@ -436,7 +474,12 @@ def shared_params(params):
 @torch.no_grad()
 def broadcast_shared_weights(params, link):
     """Each shared weight from the first stage that holds it, to the
-    others (at build)."""
+    others (at build); a ZeRO stage-3 engine's shared slices where the
+    parameters are stored as slices."""
+    zero = _engine_of(params)
+    if zero is not None and zero.stage == 3:
+        zero.broadcast_shared(link)
+        return
     for p in shared_params(params):
         _c.broadcast(p.data, src=link.ranks[p.pp_shared_stages[0]],
                      group=link.group_of(p.pp_shared_stages))
@@ -529,7 +572,7 @@ def chunk_layers(layers: Sequence, virtual: int) -> List[list]:
 __all__ = ["Layout", "SCHEDULES", "Stage", "StageLayers",
            "allreduce_shared_weight_gradients",
            "broadcast_shared_weights", "chunk_layers", "is_shared_copy",
-           "mark_shared", "microbatch", "pp_rank", "pp_size", "run_forward",
-           "run_schedule",
+           "mark_shared", "microbatch", "pp_rank", "pp_size",
+           "reduce_gradients", "run_forward", "run_schedule",
            "schedule_program", "spmd_pipeline", "spmd_pipeline_1f1b",
            "spmd_pipeline_vpp", "stage_layer_ids"]

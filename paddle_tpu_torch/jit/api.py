@@ -44,7 +44,7 @@ the returned loss is the mean over dp x sharding. The tensor-parallel
 layers run their own collectives in the forward and backward. With "pp"
 > 1 the step is the pipeline's (`models.trainer.build_pipeline_train_step`:
 each rank holds its stage, and every pp rank of one dp coordinate passes
-the same rows). A mesh with "sep", "sp", "cp" or "ep" raises, naming its
+the same rows), at any ZeRO stage over the stage's own parameters. A mesh with "sep", "sp", "cp" or "ep" raises, naming its
 ROADMAP item.
 """
 from __future__ import annotations
@@ -119,6 +119,9 @@ def train_step(model, criterion: Callable, optimizer, donate=True,
     stage = int(sharding_stage or 0)
     from ..distributed import pipeline as _pipe
 
+    if stage not in (0, 1, 2, 3):
+        raise ValueError(f"train_step: sharding_stage {sharding_stage!r} is "
+                         "not 0, 1, 2 or 3")
     if mesh is not None and _pipe.pp_size(mesh) > 1:
         from ..models.trainer import build_pipeline_train_step
 
@@ -130,9 +133,6 @@ def train_step(model, criterion: Callable, optimizer, donate=True,
         return build_pipeline_train_step(model, optimizer, criterion,
                                          mesh=check_mesh(mesh),
                                          sharding_stage=stage)
-    if stage not in (0, 1, 2, 3):
-        raise ValueError(f"train_step: sharding_stage {sharding_stage!r} is "
-                         "not 0, 1, 2 or 3")
     data_ranks = 1
     zero = None
     if mesh is not None:

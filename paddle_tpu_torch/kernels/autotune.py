@@ -368,7 +368,7 @@ def _choose_matmul(m, k, n, dtype):
         Candidate("torch", "library", torch.matmul, {"impl": "torch"})]
     for tile in mm.variants(dtype, bm):
         def run(x, w, _tile=tile):
-            return mm.matmul_fused(x, w, _tile)
+            return mm.matmul_fused(x, w, tile=_tile)
 
         cands.append(Candidate(f"cuda:{tile}", "kernel", run,
                                {"impl": "cuda", "tile": tile}))

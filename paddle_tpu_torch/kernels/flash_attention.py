@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as TF
 
 from . import _build
+from ._tiles import refuse_tiles
 
 NEG_INF = -1e30  # the TPU kernel's masked-score value
 
@@ -76,11 +77,15 @@ def reset_launches():
         variant_launches[key] = 0
 
 
-def supports(seq_q, seq_kv, head_dim, dtype=torch.float32):
+def supports(seq_q, seq_kv, head_dim, block_q=None, block_k=None, *,
+             dtype=torch.float32):
     """Whether `flash_attention_bshd` takes this shape: sequence lengths
     multiples of 128 (the reference's blocks), head_dim 128 (the kernels'
-    only width; the reference takes any multiple of 128), float32 or
-    bfloat16."""
+    only width; the reference takes any multiple of 128), a `dtype`
+    (keyword only) of float32 or bfloat16. `block_q` / `block_k` are the
+    reference's TPU tile sizes: None."""
+    refuse_tiles("flash_attention.supports", block_q=block_q,
+                 block_k=block_k)
     return (seq_q % BLOCK == 0 and seq_kv % BLOCK == 0 and seq_q >= BLOCK
             and seq_kv >= BLOCK and head_dim == HEAD_DIM
             and dtype in (torch.float32, torch.bfloat16))
@@ -378,7 +383,7 @@ class FlashAttentionLseFunction(torch.autograd.Function):
 def _check_shape(q, k):
     b, s_q, h, d = q.shape
     s_kv = k.shape[1]
-    if not supports(s_q, s_kv, d, q.dtype):
+    if not supports(s_q, s_kv, d, dtype=q.dtype):
         raise ValueError(
             f"flash_attention: unsupported shape seq_q={s_q} seq_kv={s_kv} "
             f"d={d} dtype={q.dtype} (need multiples of {BLOCK}, d "
@@ -399,8 +404,8 @@ def _seg_ids(ids, b, s, dev, name):
     return ids
 
 
-def flash_attention_bshd(q, k, v, causal=False, scale=None,
-                         segment_ids_q=None, segment_ids_k=None,
+def flash_attention_bshd(q, k, v, causal=False, scale=None, block_q=None,
+                         block_k=None, segment_ids_q=None, segment_ids_k=None,
                          dropout=0.0, dropout_seed=None):
     """q [batch, s_q, heads, d], k/v [batch, s_kv, heads, d] (Paddle layout)
     -> [batch, s_q, heads, d]; differentiable.
@@ -410,8 +415,10 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None,
     softmax weights in the kernels with the threefry mask keyed by
     `dropout_seed`, an int whose 32 bits are used (drawn on the host, so
     passing it never waits on the device): the same seed gives the same
-    mask. Raises ValueError for a shape `supports` refuses and for dropout
+    mask. `block_q` / `block_k` are the reference's TPU tile sizes: None.
+    Raises ValueError for a shape `supports` refuses and for dropout
     without a seed."""
+    refuse_tiles("flash_attention_bshd", block_q=block_q, block_k=block_k)
     b, s_q, h, d, s_kv = _check_shape(q, k)
     if dropout and dropout_seed is None:
         raise ValueError("flash_attention: dropout requires dropout_seed")
@@ -435,10 +442,14 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None,
     return out.reshape(b, h, s_q, d).transpose(1, 2)
 
 
-def flash_attention_with_lse_bshd(q, k, v, causal=False, scale=None):
+def flash_attention_with_lse_bshd(q, k, v, causal=False, scale=None,
+                                  block_q=None, block_k=None):
     """Like `flash_attention_bshd` (plain bodies), also returning the row
     logsumexp [batch, heads, s_q] f32, the merge statistic of ring
-    attention; both outputs are differentiable."""
+    attention; both outputs are differentiable. `block_q` / `block_k`:
+    None, as there."""
+    refuse_tiles("flash_attention_with_lse_bshd", block_q=block_q,
+                 block_k=block_k)
     b, s_q, h, d, _ = _check_shape(q, k)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -462,7 +473,8 @@ def _segments(cu, total, padded, pad_id):
 
 def flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                         max_seqlen_k, scale=None, dropout=0.0, causal=False,
-                        return_softmax=False, dropout_seed=None):
+                        return_softmax=False, block_q=None, block_k=None,
+                        dropout_seed=None):
     """Varlen attention over packed sequences (`flash_attn_unpadded`):
     q [total_q, heads, d], k/v [total_k, heads, d], cu_seqlens_* the
     [n_seqs + 1] prefix sums. Returns ([total_q, heads, d], None).
@@ -472,7 +484,9 @@ def flash_attn_unpadded(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
     (under causal to a common length, so that the bottom-right causal
     diagonal stays aligned); padded queries take id -1, padded keys -2, so
     they meet nothing. causal=True needs cu_seqlens_q == cu_seqlens_k
-    (checked: it reads the prefix sums). max_seqlen_* are not used."""
+    (checked: it reads the prefix sums). max_seqlen_* are not used;
+    `block_q` / `block_k` are the reference's TPU tile sizes: None."""
+    refuse_tiles("flash_attn_unpadded", block_q=block_q, block_k=block_k)
     if dropout and dropout_seed is None:
         raise ValueError("flash_attn_unpadded: dropout requires "
                          "dropout_seed")

@@ -40,6 +40,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._tiles import refuse_tiles
 
 launches = 0
 variant_launches: dict = {}  # variant -> launches
@@ -82,9 +83,12 @@ def variants(dtype, m=None):
     return _BY_M[dtype][m > _SMALL_M]
 
 
-def supports(m, k, n, dtype=torch.bfloat16):
+def supports(m, k, n, block_n=None, block_k=None, *, dtype=torch.bfloat16):
     """Whether the kernels take this shape: m >= 1, k a multiple of 64, n a
-    multiple of 128, float32 or bfloat16 operands of one dtype."""
+    multiple of 128, float32 or bfloat16 operands of one `dtype` (keyword
+    only). `block_n` / `block_k` are the reference's TPU tile sizes:
+    None."""
+    refuse_tiles("matmul.supports", block_n=block_n, block_k=block_k)
     return (m >= 1 and k > 0 and n > 0 and k % _K_MULTIPLE == 0
             and n % _N_MULTIPLE == 0 and dtype in _VARIANTS)
 
@@ -183,10 +187,13 @@ def decode_segments(sch):
     return out
 
 
-def matmul_fused(x, w, tile=None):
+def matmul_fused(x, w, block_n=None, block_k=None, *, tile=None):
     """x [..., k] @ w [k, n] -> [..., n] in x's dtype, by a kernel on CUDA
     (raising on what it does not take) and by `matmul_ref` on the CPU.
-    Differentiable in x and w."""
+    Differentiable in x and w. `block_n` / `block_k` are the reference's
+    TPU tile sizes: None; `tile` (keyword only) names one of the kernels'
+    variants (`variants`), None for the default."""
+    refuse_tiles("matmul_fused", block_n=block_n, block_k=block_k)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return MatmulFunction.apply(x, w, tile)
     return _forward(x, w, tile)
@@ -276,7 +283,7 @@ def _matmul_cuda(x, w, tile=None):
                         f"of one dtype, got {x.dtype} and {w.dtype}")
     m, k = x.shape
     n = w.shape[1]
-    if not supports(m, k, n, x.dtype):
+    if not supports(m, k, n, dtype=x.dtype):
         raise ValueError(f"matmul kernel does not take m={m} k={k} n={n}: "
                          f"see matmul.supports")
     if tile is None:

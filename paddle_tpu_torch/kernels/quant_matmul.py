@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._tiles import refuse_tiles
 from . import matmul as _mm
 
 launches = 0
@@ -84,10 +85,13 @@ def quant_matmul_ref(x, qw, scales, weight_dtype="int8"):
     return torch.matmul(x, dequantize(qw, scales, weight_dtype, x.dtype))
 
 
-def supports(m, k, n, weight_dtype="int8", group_size=-1):
+def supports(m, k, n, weight_dtype="int8", group_size=-1, block_n=None,
+             block_k=None):
     """Whether the kernel takes this shape: m >= 1, k a multiple of 64 and
     of the group, n a multiple of 128, int8 or int4, per-channel scales or
-    groups of 64 or 128 rows."""
+    groups of 64 or 128 rows. `block_n` / `block_k` are the reference's TPU
+    tile sizes: None."""
+    refuse_tiles("quant_matmul.supports", block_n=block_n, block_k=block_k)
     return (m >= 1 and k > 0 and n > 0 and k % _K_MULTIPLE == 0
             and n % _N_MULTIPLE == 0 and weight_dtype in ("int8", "int4")
             and group_size in GROUP_SIZES

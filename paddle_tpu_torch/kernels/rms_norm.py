@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._tiles import refuse_tiles
 
 launches = 0
 bwd_launches = 0
@@ -64,9 +65,12 @@ def rms_norm_bwd_ref(x, weight, rstd, g):
     return dx.to(x.dtype), dw
 
 
-def rms_norm(x, weight=None, eps=1e-6, with_rstd=False):
-    """x: [..., cols]; weight: [cols] or None. with_rstd: also return rstd
-    ([...] f32, what the backward needs)."""
+def rms_norm(x, weight=None, eps=1e-6, block_rows=None, *, with_rstd=False):
+    """x: [..., cols]; weight: [cols] or None. `block_rows` is the
+    reference's TPU tile size: None (`_tiles.refuse_tiles`). with_rstd
+    (keyword only): also return rstd ([...] f32, what the backward
+    needs)."""
+    refuse_tiles("rms_norm", block_rows=block_rows)
     if x.device.type == "cpu":
         return rms_norm_ref(x, weight, eps, with_rstd)
     return _rms_norm_cuda(x, weight, eps, with_rstd)
@@ -80,15 +84,18 @@ def rms_norm_bwd(x, weight, rstd, g):
     return _rms_norm_bwd_cuda(x, weight, rstd, g)
 
 
-def supports(x, weight=None):
-    """Whether the kernels take this input: float32, bfloat16 or float16 x
-    with at least one row and one column, and a weight that is None or
-    [cols] in x's dtype or float32."""
-    if x.dtype not in _DTYPE or x.dim() == 0 or x.numel() == 0:
+def supports(rows, cols, block_rows=None, *, dtype=torch.float32,
+             weight=None):
+    """Whether the kernels take `rows` x `cols` of `dtype` (keyword only):
+    float32, bfloat16 or float16 with at least one row and one column, and
+    a `weight` (keyword only) that is None or [cols] in that dtype or
+    float32. `block_rows` is the reference's TPU tile size: None."""
+    refuse_tiles("rms_norm.supports", block_rows=block_rows)
+    if dtype not in _DTYPE or rows <= 0 or cols <= 0:
         return False
     return weight is None or (
-        tuple(weight.shape) == (x.shape[-1],)
-        and weight.dtype in (x.dtype, torch.float32))
+        tuple(weight.shape) == (cols,)
+        and weight.dtype in (dtype, torch.float32))
 
 
 def ring_aligned(tensors, cols, elt):

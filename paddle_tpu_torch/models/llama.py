@@ -81,18 +81,20 @@ class LlamaConfig:
     use_recompute: bool = False
     # the zigzag context-parallel token layout (not ported: True raises)
     cp_zigzag_stream: bool = False
-    # at tensor-parallel degree > 1: sequence parallelism in the training
-    # forward (the serving forwards raise)
-    sequence_parallel: bool = False
     # accepted; the layers run as a plain loop either way
     scan_layers: bool = False
     # > 0: the training step's loss is the chunked LM-head cross entropy
     # over this many token chunks (CausalLMBase.compute_loss_hidden)
     fused_ce_chunks: int = 0
     dtype: str = "float32"
+    # the port-only fields come after the reference's, so a positional
+    # call binds as it does there
     # at pipeline degree > 1: the chunks a rank holds for the interleaved
     # schedule (PaddleNLP's field; the layout of `pipeline.stage_layer_ids`)
     virtual_pp_degree: int = 1
+    # at tensor-parallel degree > 1: sequence parallelism in the training
+    # forward (the serving forwards raise)
+    sequence_parallel: bool = False
 
     @staticmethod
     def llama2_7b():

@@ -134,20 +134,31 @@ def build_pipeline_train_step(model, optimizer,
     2 * pp dividing the rank's batch (for "vpp" a multiple of pp),
     re-derived each call, as the reference's `_resolve_m`. The reference
     raises its errors: an unknown schedule, layers not divisible by pp *
-    vpp, no microbatch count for "vpp". ZeRO (`sharding_stage` >= 1 with a
-    "sharding" or "dp" axis of more than one rank) raises: ROADMAP Queue 1
-    item 4; at stage 0, or on a ZeRO axis of one rank, the optimizer holds
-    whole moments. `donate` is accepted. `step.sync_to_model()` exists
-    and does nothing: the stage's modules own their parameters (the
-    reference's step keeps stacked copies to write back)."""
+    vpp, no microbatch count for "vpp".
+
+    ZeRO (`sharding_stage` 1-3 with a "sharding" or "dp" axis of more than
+    one rank) runs over the stage's own parameters along that axis, within
+    the stage's ranks (`group_sharded.ZeroEngine`; a
+    `DygraphShardingOptimizer`'s own engine, else one the step builds):
+    each bucket is reduce_scattered once a step (stage 1 after the
+    schedule, stages 2-3 in the last microbatch's backward, the gradients
+    accumulated over the microbatches on the rank first), a shared
+    weight's slice summed over its stages, one update a piece of the
+    rank's slice, the stage's parameters all_gathered after it (stages
+    1-2) or kept as slices (stage 3, gathered around each microbatch's
+    forward and backward). The stage defaults to the optimizer's `stage`,
+    else 0 (the reference defaults to 1; the numbers are the same). At
+    stage 0, or on a ZeRO axis of one rank, the optimizer holds whole
+    moments. `donate` is accepted. `step.sync_to_model()` exists and does
+    nothing: the stage's modules own their parameters (the reference's
+    step keeps stacked copies to write back)."""
     from ..distributed import pipeline as _pipe
     from ..distributed.fleet.meta_parallel import pipeline_parallel as _pp
     from ..distributed.fleet.meta_parallel.pp_utils.p2p_communication \
         import link_for
-    from ..distributed.fleet.meta_parallel.sharding import group_sharded \
-        as _gs
     from ..distributed.fleet.utils import sequence_parallel_utils as _sp
-    from ..jit.api import _data_mean, _dp_sync, _sharding_sync, check_mesh
+    from ..jit.api import (_data_mean, _dp_sync, _sharding_sync, _zero_engine,
+                           check_mesh)
 
     mesh = mesh if mesh is not None else _mesh.get_mesh()
     check_mesh(mesh)
@@ -171,19 +182,24 @@ def build_pipeline_train_step(model, optimizer,
                          f"divisible by pp*vpp={S}*{v}")
     _pp.check_layout(inner, schedule, v)
     stage_n = int(sharding_stage or 0)
-    if stage_n >= 1 and _mesh.axis_size(_gs.zero_axis_for(mesh)) > 1:
-        raise NotImplementedError(
-            f"ZeRO stage {stage_n} with pipeline parallelism is not ported "
-            "(ROADMAP Queue 1 item 4: ZeRO x pp); pass sharding_stage=0")
+    if stage_n not in (0, 1, 2, 3):
+        raise ValueError(f"build_pipeline_train_step: sharding_stage "
+                         f"{sharding_stage!r} is not 0, 1, 2 or 3")
+    link = link_for(mesh)
+    params = list(inner.parameters())
+    dev = params[0].device
+    # the shared weights' copies made equal before a stage-3 engine slices
+    # them (an engine that sliced them already broadcasts its slices)
+    _pipe.broadcast_shared_weights(params, link)
+    zero = _zero_engine(model, optimizer, stage_n) if stage_n else None
     if _mesh.axis_size("tp") > 1:
         _sp.register_sequence_parallel_allreduce_hooks(inner)
     stage = _pp.model_stage(inner, criterion)
-    link = link_for(mesh)
-    params = list(inner.parameters())
-    _pipe.broadcast_shared_weights(params, link)
     named = [(n, p) for n, p in inner.named_parameters() if p.requires_grad]
+    names = {id(p): n for n, p in named}
+    inner_opt = getattr(optimizer, "_inner_opt", optimizer) \
+        if zero is not None else optimizer
     data_ranks = _mesh.axis_size("dp") * _mesh.axis_size("sharding")
-    dev = next(inner.parameters()).device
 
     def resolve_m(batch):
         if num_microbatches is not None:
@@ -197,24 +213,31 @@ def build_pipeline_train_step(model, optimizer,
             f"adjust the batch size or pass num_microbatches")
 
     def step(input_ids, labels):
-        lr = np.float32(optimizer.get_lr())
+        lr = np.float32(inner_opt.get_lr())
         m = resolve_m(int(input_ids.shape[0]))
         xs = list(_pipe.microbatch(input_ids, m))
         ys = list(_pipe.microbatch(labels, m))
+        if zero is not None:
+            zero.begin()
         loss = _pipe.run_schedule(stage, link, xs, ys, schedule, device=dev,
                                   trace=step.trace)
-        _pipe.allreduce_shared_weight_gradients(params, link)
+        _pipe.reduce_gradients(params, link)
         if data_ranks > 1:
-            _dp_sync(model)
-            _sharding_sync(named)
+            if zero is None:
+                _dp_sync(model)
+                _sharding_sync(named)
             loss = _data_mean(loss.clone())
         with torch.no_grad():
-            optimizer.apply_gradients(
-                [(n, p, p.grad if p.grad is not None else
-                  torch.zeros_like(p)) for n, p in named], lr)
+            if zero is not None:
+                zero.update(lr, zero.grad_slices(), names)
+                zero.end()
+            else:
+                optimizer.apply_gradients(
+                    [(n, p, p.grad if p.grad is not None else
+                      torch.zeros_like(p)) for n, p in named], lr)
         for _, p in named:
             p.grad = None
-        optimizer._step_count += 1
+        inner_opt._step_count += 1
         return loss
 
     def sync_to_model():
@@ -228,7 +251,7 @@ def build_pipeline_train_step(model, optimizer,
     step._stage = stage
     step._schedule = schedule
     step._resolve_m = resolve_m
-    step._zero = None
+    step._zero = zero
     return _with_data_put(step, inner)
 
 

@@ -67,7 +67,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     p = dropout_p if training else 0.0
     s_q, d = query.shape[1], query.shape[3]
     flash = attn_mask is None and _fa.supports(s_q, key.shape[1], d,
-                                               query.dtype)
+                                               dtype=query.dtype)
     if p > 0.0:
         if flash and _config.get_flag("FLAGS_flash_dropout_kernel", False):
             return _fa.flash_attention_bshd(
@@ -131,7 +131,8 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     `fixed_seed_offset`, `rng_name` and `name` are accepted and unused, as
     in the reference."""
     p = dropout if training else 0.0
-    if _fa.supports(_fa.BLOCK, _fa.BLOCK, query.shape[-1], query.dtype):
+    if _fa.supports(_fa.BLOCK, _fa.BLOCK, query.shape[-1],
+                   dtype=query.dtype):
         return _fa.flash_attn_unpadded(
             query, key, value, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
             max_seqlen_k, scale=scale, dropout=p, causal=causal,

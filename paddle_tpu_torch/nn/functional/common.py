@@ -23,10 +23,10 @@ def _matmul(a, w):
             and w.dim() == 2 and a.dtype == w.dtype:
         k, n = w.shape
         m = a.numel() // k if k else 0
-        if _kmm.supports(m, k, n, a.dtype):
+        if _kmm.supports(m, k, n, dtype=a.dtype):
             win = _at.choose_matmul(m, k, n, a.dtype)
             if win is not None and win.meta["impl"] == "cuda":
-                return _kmm.matmul_fused(a, w, win.meta["tile"])
+                return _kmm.matmul_fused(a, w, tile=win.meta["tile"])
     return torch.matmul(a, w)
 
 

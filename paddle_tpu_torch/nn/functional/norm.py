@@ -41,7 +41,10 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
             x.requires_grad or (weight is not None
                                 and weight.requires_grad))):
         return _krms.rms_norm(x, weight, epsilon)
-    if x.device.type == "cpu" and not _krms.supports(x, weight):
+    cols = x.shape[-1] if x.dim() else 0
+    if x.device.type == "cpu" and not _krms.supports(
+            x.numel() // cols if cols else 0, cols, dtype=x.dtype,
+            weight=weight):
         return _krms.rms_norm_ref(x, weight, epsilon)
     shape = x.shape
     y = _krms.RMSNormFunction.apply(x.reshape(-1, shape[-1]), weight,

@@ -525,13 +525,16 @@ def _zero_pieces(model):
         pieces[n] = (int(lo), int(hi), tuple(p.shape))
     state[ZERO_KEY] = {"tp_rank": int(model.tp_rank),
                        "tp_degree": int(model.tp_degree), "pieces": pieces}
+    if model.pp.split:
+        state[PP_KEY] = _pp_entry(model)
     return state
 
 
 def _join_zero(states, shapes):
     """`states` as tensor-parallel rank states (rank order): stage-3 pieces
-    joined (a dp replica's pieces must equal; every element covered),
-    other states as they are."""
+    joined (a dp replica's pieces must equal; every element covered; each
+    name from the pipeline stages that hold it), other states as they
+    are."""
     if not states or ZERO_KEY not in states[0]:
         return states
     tp = states[0][ZERO_KEY]["tp_degree"]
@@ -544,6 +547,8 @@ def _join_zero(states, shapes):
             flat = np.zeros(int(np.prod(shape)), dtype=np.float32)
             seen = np.zeros(flat.shape, dtype=bool)
             for st in group:
+                if name not in st[ZERO_KEY]["pieces"]:
+                    continue  # another pipeline stage's
                 lo, hi, got_shape = st[ZERO_KEY]["pieces"][name]
                 if tuple(got_shape) != tuple(shape):
                     raise ValueError(f"{name}: a piece of shape {got_shape}, "
@@ -562,3 +567,139 @@ def _join_zero(states, shapes):
         out.append(joined)
     return out
 
+
+
+def _whole_shapes(model):
+    """name -> whole shape of a LLaMA's or GPT's parameters, or None for
+    another model."""
+    from .models.gpt import GPTConfig
+    from .models.llama import LlamaConfig
+
+    cfg = getattr(model, "config", None)
+    if isinstance(cfg, LlamaConfig):
+        return llama_param_shapes(cfg)
+    if isinstance(cfg, GPTConfig):
+        return gpt_param_shapes(cfg)
+    return None
+
+
+def _named_tensors(model):
+    """(name, tensor, is parameter) of every parameter and persistent
+    buffer of `model`, under the whole model's names. A `PipelineLayer`
+    names each entry's tensors by the entry's index among its descs
+    (`_layer_list.<i>.*`, the same on every stage and at every pipeline
+    degree) and a module that several entries use (a shared layer) under
+    each of them, as Paddle's pipeline saves a layer a desc; any other
+    model by its own names (a LLaMA or GPT stage keeps the whole model's
+    layer numbers)."""
+    from .distributed.fleet.meta_parallel.pp_layers import PipelineLayer
+
+    params = dict(model.named_parameters())
+    buffers = [(n, t) for n, t in model.state_dict(keep_vars=True).items()
+               if n not in params]
+    if not isinstance(model, PipelineLayer):
+        return [(n, p, True) for n, p in params.items()] + \
+            [(n, t, False) for n, t in buffers]
+    out, seen = [], set()
+    for i, (mod, _) in zip(model._held, model.run_function):
+        if not isinstance(mod, torch.nn.Module):
+            continue
+        own = dict(mod.named_parameters())
+        for n, t in mod.state_dict(keep_vars=True).items():
+            out.append((f"_layer_list.{i}.{n}", t, n in own))
+            seen.add(id(t))
+    # what lies outside the entries (a loss module's state): its own name
+    out += [(n, p, True) for n, p in params.items() if id(p) not in seen]
+    out += [(n, t, False) for n, t in buffers if id(t) not in seen]
+    return out
+
+
+def _shard_of(name, p):
+    """(split axis, whole shape, rank, degree) of a tensor-parallel layer's
+    shard (`is_distributed`, placed by mp_layers' `split_axis` and
+    `tp_shard`); (None, its shape, 0, 1) for a whole tensor."""
+    from .distributed.fleet.layers.mpu.mp_layers import is_distributed
+
+    if not is_distributed(p):
+        return None, tuple(p.shape), 0, 1
+    ax, place = getattr(p, "split_axis", None), getattr(p, "tp_shard", None)
+    if ax is None or place is None:
+        raise ValueError(
+            f"{name}: a tensor-parallel shard (is_distributed) without "
+            "`split_axis` and `tp_shard`; its block of the whole tensor is "
+            "unknown, so it cannot be saved under the whole model's name "
+            "(build it with a tensor-parallel layer of fleet.meta_parallel)")
+    rank, degree = place
+    shape = list(p.shape)
+    shape[ax] *= degree
+    return ax, tuple(shape), rank, degree
+
+
+def param_pieces(model):
+    """{name: (tensor, whole shape, box, flat)}: every parameter (and
+    persistent buffer) of `model` as this rank holds it, under the whole
+    model's names (`_named_tensors`): a tensor-parallel shard as its block
+    of the whole tensor (`box`: (start, size) per dimension; a LLaMA's or
+    GPT's by `tp_split_axis`, another model's by its layer's `split_axis`
+    and `tp_shard`), a ZeRO stage-3 parameter as its piece `flat` = (lo,
+    hi) of that block flattened (the tensor is the piece). A buffer is
+    whole (box None)."""
+    shapes = _whole_shapes(model)
+    eng = _zero3(model)
+    out = {}
+    for n, p, is_param in _named_tensors(model):
+        if not is_param:
+            out[n] = (p.detach(), tuple(p.shape), None, None)
+            continue
+        local = tuple(p.shape)
+        if shapes is not None:
+            shape, ax = tuple(shapes[n]), tp_split_axis(n)
+            rank = int(getattr(model, "tp_rank", 0) or 0)
+            tp = int(getattr(model, "tp_degree", 1) or 1)
+        else:
+            ax, shape, rank, tp = _shard_of(n, p)
+        box = [(0, s) for s in shape]
+        if ax is not None and tp > 1:
+            box[ax] = (rank * local[ax], local[ax])
+        if tuple(s for _, s in box) != local:
+            raise ValueError(f"{n}: held as {local}, a block {box} of "
+                             f"{shape} expected")
+        if eng is not None:
+            lo, hi, values = eng.piece_of(p)
+            out[n] = (values, shape, tuple(box), (lo, hi))
+        else:
+            out[n] = (p.detach(), shape, tuple(box), None)
+    return out
+
+
+def param_names(model):
+    """{id(parameter): [its names in `param_pieces`]}: one a desc that uses
+    it for a `PipelineLayer`'s shared layer, else one."""
+    out = {}
+    for n, p, is_param in _named_tensors(model):
+        if is_param:
+            out.setdefault(id(p), []).append(n)
+    return out
+
+
+@torch.no_grad()
+def set_param_pieces(model, values):
+    """Write {name: tensor} (each at the place `param_pieces` gives the
+    name on this rank) into `model`'s parameters and buffers; a tensor
+    under several names (a shared layer's) takes its first name's."""
+    eng = _zero3(model)
+    entries = _named_tensors(model)
+    missing = sorted(n for n, _, _ in entries if n not in values)
+    if missing:
+        raise KeyError(f"state mismatch: missing {missing[:4]}")
+    done = set()
+    for n, t, is_param in entries:
+        if id(t) in done:
+            continue
+        done.add(id(t))
+        v = torch.as_tensor(values[n])
+        if is_param and eng is not None:
+            _, _, piece = eng.piece_of(t)
+            piece.copy_(v.reshape(-1).to(piece.device, piece.dtype))
+        else:
+            t.copy_(v.reshape(t.shape).to(t.device, t.dtype))

@@ -308,7 +308,7 @@ def test_linear_routes_to_the_kernel_tile_that_won(tuner_env, monkeypatch,
     real = kmm.matmul_fused
     monkeypatch.setattr(kmm, "matmul_fused",
                         lambda x, w, tile=None: seen.append(tile)
-                        or real(x, w, tile))
+                        or real(x, w, tile=tile))
     rng = np.random.RandomState(6)
     x = torch.from_numpy(rng.randn(1, rows, 256).astype(np.float32)).to(dt)
     w = torch.from_numpy(rng.randn(256, 128).astype(np.float32)).to(dt)

@@ -841,7 +841,7 @@ def test_decode_kernels_launch_once_and_replay_in_a_graph(cuda_device, case):
         .to(torch.bfloat16)
     if case == "bf16":
         def call():
-            return tmm.matmul_fused(x, w, "skinny")
+            return tmm.matmul_fused(x, w, tile="skinny")
     else:
         wd = case[:4]
         qw, sc = weight_quantize(w, _ALGO[wd], group_size=-1)
@@ -1043,7 +1043,7 @@ def test_matmul_kernel_matches_plain(cuda_device, dtype, m, k, n):
         assert _row_rel_err(wrong, want) > _MATMUL_TOL[dtype]
     for tile in tmm.variants(dtype, m):
         n0 = tmm.launches
-        got = tmm.matmul_fused(x, w, tile)
+        got = tmm.matmul_fused(x, w, tile=tile)
         torch.cuda.synchronize()
         assert tmm.launches == n0 + 1
         assert got.dtype == dtype and got.shape == (m, n)
@@ -1078,11 +1078,12 @@ def test_matmul_refuses_what_it_does_not_take(cuda_device):
         tmm.matmul_fused(x.half(), torch.randn(256, 128, device=cuda_device)
                          .half())
     with pytest.raises(ValueError, match="variants"):
-        tmm.matmul_fused(x, torch.randn(256, 128, device=cuda_device), 128)
+        tmm.matmul_fused(x, torch.randn(256, 128, device=cuda_device),
+                         tile=128)
     with pytest.raises(ValueError, match="variants"):  # m > 16
         tmm.matmul_fused(torch.randn(17, 256, device=cuda_device).bfloat16(),
                          torch.randn(256, 128, device=cuda_device).bfloat16(),
-                         "skinny")
+                         tile="skinny")
 
 
 _GROUPED_LENS = (0, 1, 15, 16, 17, 127, 128, 129, 1000, 2049)

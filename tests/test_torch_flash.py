@@ -191,6 +191,6 @@ def test_flash_attention_bshd_refuses_unsupported_shapes():
     q = torch.zeros(1, 100, 2, 128)
     with pytest.raises(ValueError, match="unsupported"):
         tfa.flash_attention_bshd(q, q, q)
-    assert tfa.supports(4096, 4096, 128, torch.bfloat16)
+    assert tfa.supports(4096, 4096, 128, dtype=torch.bfloat16)
     assert not tfa.supports(4096, 4096, 256)
-    assert not tfa.supports(4096, 4096, 128, torch.float16)
+    assert not tfa.supports(4096, 4096, 128, dtype=torch.float16)

@@ -104,16 +104,19 @@ def test_rms_norm_functional_takes_the_kernel_by_shape():
     x = torch.randn(4, 100, requires_grad=True)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         for cols in (1, 6, 100, 20000):
-            xd = torch.randn(3, cols).to(dt)
-            assert trms.supports(xd)
-            assert trms.supports(xd, None)
-            assert trms.supports(xd, torch.ones(cols, dtype=dt))
-            assert trms.supports(xd, torch.ones(cols))  # a float32 weight
-    assert not trms.supports(x.double(), torch.ones(100).double())
-    assert not trms.supports(torch.ones(4, 100, dtype=torch.int32))
-    assert not trms.supports(x.half(), torch.ones(100).bfloat16())
-    assert not trms.supports(x, torch.ones(99))
-    assert not trms.supports(torch.randn(0, 100))
+            assert trms.supports(3, cols, dtype=dt)
+            assert trms.supports(3, cols, None, dtype=dt, weight=None)
+            assert trms.supports(3, cols, dtype=dt,
+                                 weight=torch.ones(cols, dtype=dt))
+            # a float32 weight
+            assert trms.supports(3, cols, dtype=dt, weight=torch.ones(cols))
+    assert not trms.supports(4, 100, dtype=torch.float64,
+                             weight=torch.ones(100).double())
+    assert not trms.supports(4, 100, dtype=torch.int32)
+    assert not trms.supports(4, 100, dtype=torch.float16,
+                             weight=torch.ones(100).bfloat16())
+    assert not trms.supports(4, 100, weight=torch.ones(99))
+    assert not trms.supports(0, 100)
     y = TF.rms_norm(torch.randn(3, 6, dtype=torch.float64,
                                 requires_grad=True),
                     torch.ones(6, dtype=torch.float64, requires_grad=True))

@@ -99,12 +99,12 @@ def test_supports_takes_every_shape_the_reference_takes():
     for m in (0, 1, 8, 33, 300, 1025):
         for k in sizes:
             for n in sizes:
-                ours = tmm.supports(m, k, n, torch.float32)
+                ours = tmm.supports(m, k, n, dtype=torch.float32)
                 assert ours == (m >= 1 and k > 0 and n > 0 and k % 64 == 0
                                 and n % 128 == 0)
                 if jmm.supports(m, k, n):
-                    assert ours and tmm.supports(m, k, n, torch.bfloat16)
-    assert not tmm.supports(8, 128, 128, torch.float16)
+                    assert ours and tmm.supports(m, k, n, dtype=torch.bfloat16)
+    assert not tmm.supports(8, 128, 128, dtype=torch.float16)
 
 
 @pytest.mark.parametrize("dtype,m,n,names,default", [
@@ -246,7 +246,7 @@ def test_matmul_on_cpu_is_the_plain_version():
     x = torch.randn(33, 256)
     w = torch.randn(256, 128)
     n0 = tmm.launches
-    assert torch.equal(tmm.matmul_fused(x, w, 64), torch.matmul(x, w))
+    assert torch.equal(tmm.matmul_fused(x, w, tile=64), torch.matmul(x, w))
     assert tmm.launches == n0
     with pytest.raises(ValueError, match="CUDA"):
         tmm._matmul_cuda(x, w)

@@ -338,6 +338,48 @@ PAIRS["mesh.HybridCommunicateGroup.get_rank_from_stage"] = (
     JDM.HybridCommunicateGroup.get_rank_from_stage,
     TDM.HybridCommunicateGroup.get_rank_from_stage)
 
+# ROADMAP Queue 3's two faults of the re-anchor after the pipeline slice:
+# LlamaConfig's positional order and the kernel entries' tile-size
+# positions (a tile size takes None in the port)
+import paddle_tpu.kernels.flash_attention as JKFA  # noqa: E402
+import paddle_tpu.kernels.matmul as JKMM  # noqa: E402
+import paddle_tpu.kernels.quant_matmul as JKQM  # noqa: E402
+import paddle_tpu.kernels.rms_norm as JKRMS  # noqa: E402
+import paddle_tpu_torch.kernels.flash_attention as TKFA  # noqa: E402
+import paddle_tpu_torch.kernels.matmul as TKMM  # noqa: E402
+import paddle_tpu_torch.kernels.quant_matmul as TKQM  # noqa: E402
+import paddle_tpu_torch.kernels.rms_norm as TKRMS  # noqa: E402
+PAIRS.update({
+    "LlamaConfig": (JaxLlamaConfig.__init__, LlamaConfig.__init__),
+    "kernels.rms_norm.rms_norm": (JKRMS.rms_norm, TKRMS.rms_norm),
+    "kernels.rms_norm.supports": (JKRMS.supports, TKRMS.supports),
+    "kernels.flash_attention.flash_attention_bshd": (
+        JKFA.flash_attention_bshd, TKFA.flash_attention_bshd),
+    "kernels.flash_attention.flash_attention_with_lse_bshd": (
+        JKFA.flash_attention_with_lse_bshd,
+        TKFA.flash_attention_with_lse_bshd),
+    "kernels.flash_attention.flash_attn_unpadded": (
+        JKFA.flash_attn_unpadded, TKFA.flash_attn_unpadded),
+    "kernels.flash_attention.supports": (JKFA.supports, TKFA.supports),
+    "kernels.matmul.matmul_fused": (JKMM.matmul_fused, TKMM.matmul_fused),
+    "kernels.matmul.supports": (JKMM.supports, TKMM.supports),
+    "kernels.quant_matmul.supports": (JKQM.supports, TKQM.supports),
+})
+
+# distributed/checkpoint.py
+import paddle_tpu.distributed.checkpoint as JCK  # noqa: E402
+import paddle_tpu_torch.distributed.checkpoint as TCK  # noqa: E402
+for _fn in ("save_state_dict", "load_state_dict", "trainer_state_snapshot",
+            "apply_trainer_state", "save_model_state", "load_model_state",
+            "_leaf_checksums"):
+    PAIRS[f"checkpoint.{_fn}"] = (getattr(JCK, _fn), getattr(TCK, _fn))
+for _fn in ("__init__", "save", "restore", "restore_trainer_state",
+            "is_committed", "committed_steps", "last_known_good", "manifest",
+            "latest_step", "all_steps", "should_save", "wait", "close"):
+    PAIRS[f"checkpoint.CheckpointManager.{_fn}"] = (
+        getattr(JCK.CheckpointManager, _fn),
+        getattr(TCK.CheckpointManager, _fn))
+
 # the port's own trailing parameters (the entry point's device; a layer's
 # dtype, device and the generator its weights come from; a model's seed)
 _LAYER = ["dtype", "device", "generator"]
@@ -351,7 +393,15 @@ PORT_ONLY = {"ServingEngine": ["device"],
              "distributed.init_parallel_env": ["device", "timeout"],
              "WeightOnlyLinear": ["device"],
              # a chunk of the interleaved schedule's stage
-             "meta_parallel.PipelineLayer.forward": ["chunk_id"]}
+             "meta_parallel.PipelineLayer.forward": ["chunk_id"],
+             # PaddleNLP's fields, after the reference's
+             "LlamaConfig": ["virtual_pp_degree", "sequence_parallel"],
+             # keyword only: the port's own arguments of its kernel entries
+             "kernels.rms_norm.rms_norm": ["with_rstd"],
+             "kernels.rms_norm.supports": ["dtype", "weight"],
+             "kernels.flash_attention.supports": ["dtype"],
+             "kernels.matmul.matmul_fused": ["tile"],
+             "kernels.matmul.supports": ["dtype"]}
 # the tensor-parallel layers' dtype and device
 PORT_ONLY.update({n: ["dtype", "device"] for n in (
     "mpu.ColumnParallelLinear", "mpu.RowParallelLinear",
@@ -707,3 +757,59 @@ def test_plain_layers_take_name():
                             device="cpu")
     jq = JQ.WeightOnlyLinear(64, 128, "weight_only_int8", -1, "q")
     assert tuple(q.weight_scale.shape) == tuple(jq.weight_scale.shape)
+
+
+def test_llama_config_binds_positions_as_the_reference():
+    """The thirteenth positional argument is `scan_layers` in both
+    packages; the port-only fields follow `dtype`."""
+    args = (128, 64, 128, 2, 4, 4, 256, 1e-6, 10000.0, False, False, False,
+            True)
+    ref, port = JaxLlamaConfig(*args), LlamaConfig(*args)
+    assert ref.scan_layers is True and port.scan_layers is True
+    assert port.sequence_parallel is False
+    for f in ("vocab_size", "hidden_size", "num_key_value_heads",
+              "rms_norm_eps", "use_recompute", "cp_zigzag_stream",
+              "fused_ce_chunks", "dtype"):
+        assert getattr(port, f) == getattr(ref, f), f
+    full = args + (4, "bfloat16")
+    assert LlamaConfig(*full).dtype == JaxLlamaConfig(*full).dtype
+
+
+def test_kernel_entries_bind_a_reference_shaped_call():
+    """`rms_norm(x, w, 1e-6, None)` returns y in both packages (the port's
+    fourth position is the reference's `block_rows`, not `with_rstd`);
+    the support tests answer a reference-shaped call by shape."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(8, 256).astype(np.float32)
+    w = (1.0 + 0.1 * rng.randn(256)).astype(np.float32)
+    want = np.asarray(JKRMS.rms_norm(x, w, 1e-6, None))
+    got = TKRMS.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6,
+                         None)
+    assert isinstance(got, torch.Tensor)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    assert TKRMS.supports(256, 512) == JKRMS.supports(256, 512) is True
+    assert TKFA.supports(4096, 4096, 128) == \
+        JKFA.supports(4096, 4096, 128) is True
+    assert TKMM.supports(8, 256, 256) == JKMM.supports(8, 256, 256) is True
+    assert TKQM.supports(8, 256, 256, "int8", -1) == \
+        JKQM.supports(8, 256, 256, "int8", -1) is True
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: TKRMS.rms_norm(x, None, 1e-6, 256),
+    lambda x: TKRMS.supports(8, 256, 128),
+    lambda x: TKFA.supports(256, 256, 128, 128),
+    lambda x: TKFA.supports(256, 256, 128, None, 128),
+    lambda x: TKFA.flash_attention_bshd(x, x, x, False, None, 128),
+    lambda x: TKFA.flash_attention_with_lse_bshd(x, x, x, True, None, None,
+                                                 256),
+    lambda x: TKFA.flash_attn_unpadded(x[0], x[0], x[0], [0, 4], [0, 4], 4,
+                                       4, None, 0.0, False, False, 128),
+    lambda x: TKMM.matmul_fused(x[0, 0], x[0, 0].T, 256),
+    lambda x: TKMM.supports(8, 256, 256, 128),
+    lambda x: TKQM.supports(8, 256, 256, "int8", -1, 128, 128),
+])
+def test_a_tile_size_raises_naming_the_difference(call):
+    x = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="TPU tile sizes"):
+        call(x)

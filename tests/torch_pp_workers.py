@@ -22,7 +22,7 @@ LR = 1e-3
 _DEGREES = []
 
 
-def _fleet(pp=1, dp=1, tp=1, accumulate=1, mode="1F1B"):
+def _fleet(pp=1, dp=1, tp=1, accumulate=1, mode="1F1B", sharding=1):
     """fleet.init over CPU ranks at these degrees (once while they stay the
     same: each init makes every group anew); the strategy's pipeline
     configs set each call. (fleet, hcg)."""
@@ -31,11 +31,12 @@ def _fleet(pp=1, dp=1, tp=1, accumulate=1, mode="1F1B"):
 
     torch.set_num_threads(1)
     D.init_parallel_env(device="cpu", timeout=60)
-    if _DEGREES != [(pp, dp, tp)]:
+    if _DEGREES != [(pp, dp, tp, sharding)]:
         s = fleet.DistributedStrategy()
-        s.hybrid_configs = dict(dp_degree=dp, mp_degree=tp, pp_degree=pp)
+        s.hybrid_configs = dict(dp_degree=dp, mp_degree=tp, pp_degree=pp,
+                                sharding_degree=sharding)
         fleet.init(is_collective=True, strategy=s)
-        _DEGREES[:] = [(pp, dp, tp)]
+        _DEGREES[:] = [(pp, dp, tp, sharding)]
     fleet.fleet._strategy.pipeline_configs = dict(
         accumulate_steps=accumulate, micro_batch_size=1, schedule_mode=mode)
     return fleet, fleet.get_hybrid_communicate_group()
@@ -108,7 +109,18 @@ def pp_train(state, x, y, steps, family="llama", layers=4, pp=2, dp=1, tp=1,
     model = _model(family, layers, state, v)
     xs, ys = _rows(x, hcg), _rows(y, hcg)
     losses, trace = [], []
-    if how == "fleet":
+    if how == "gsp":
+        # sharded first (stage 3 slices the parameters at once), then the
+        # step: the shared weights' slices are broadcast
+        _, opt, _ = group_sharded_parallel(
+            model, opt, {2: "os_g", 3: "p_g_os"}[stage])
+        step = build_train_step(model, opt, num_microbatches=M,
+                                pipeline_schedule=schedule,
+                                virtual_pp_degree=v)
+        run = lambda: step(xs, ys)  # noqa: E731
+        zero = step._zero
+        kind = (step._schedule, zero.axis)
+    elif how == "fleet":
         dm = fleet.distributed_model(model)
         opt = fleet.distributed_optimizer(
             AdamW(learning_rate=LR, parameters=model.parameters()))
@@ -231,14 +243,259 @@ def refusals(state, x, y):
 
 
 def zero_refusal(state, x, y):
-    """ZeRO stage 2 with pp 2 x dp 2: the message."""
+    """ZeRO stage 2 with pp 2 x dp 2 (once refused): one step's loss, the
+    engine's stage and axis, or the error it raised."""
     from paddle_tpu_torch.models import build_train_step
     from paddle_tpu_torch.optimizer import AdamW
 
-    _fleet(pp=2, dp=2)
+    _, hcg = _fleet(pp=2, dp=2)
     model = _model("llama", 4, state)
-    return _raises(lambda: build_train_step(model, AdamW(
-        learning_rate=LR, parameters=model.parameters()), sharding_stage=2))
+    try:
+        step = build_train_step(model, AdamW(
+            learning_rate=LR, parameters=model.parameters()),
+            sharding_stage=2)
+        loss = float(step(_rows(x, hcg), _rows(y, hcg)))
+    except (NotImplementedError, ValueError) as e:
+        return f"{type(e).__name__}: {e}"
+    return dict(loss=loss, stage=step._zero.stage, axis=step._zero.axis)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO under the pipeline (`tests/test_torch_pp_sharding.py`)
+# ---------------------------------------------------------------------------
+
+
+def _data_rows(a, hcg, sharding):
+    """This rank's shard of the batch over dp x sharding (every pp and tp
+    rank of one coordinate the same rows)."""
+    n = hcg.get_data_parallel_world_size() * sharding
+    d = hcg.get_data_parallel_rank() * sharding + \
+        hcg.get_sharding_parallel_rank()
+    k = a.shape[0] // n
+    return torch.from_numpy(a[d * k:(d + 1) * k])
+
+
+def zero_pp_train(state, x, y, steps, family="llama", layers=4, pp=2,
+                  sharding=2, dp=1, tp=1, schedule="1f1b", v=1, M=4,
+                  stage=2, how="step"):
+    """`steps` steps at pp x sharding (x dp, x tp) with ZeRO `stage`: `how`
+    "step" through `build_train_step(..., sharding_stage=stage)` on a
+    plain AdamW, "jit" through `jit.train_step`, "fleet" through
+    `fleet.distributed_model` (PipelineParallel) and
+    `fleet.distributed_optimizer` (a DygraphShardingOptimizer at stage 1;
+    `group_sharded_parallel` at stages 2-3) and `train_batch`, "gsp"
+    through `group_sharded_parallel` first, then `build_train_step`.
+    Returns the
+    losses, this rank's state (stage-3 pieces), the reduce_scatters and
+    buckets of its engine, the updates a step and the launch counts."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.distributed import get_mesh
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import \
+        group_sharded_parallel
+    from paddle_tpu_torch.models import build_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    mode = {"1f1b": "1F1B", "gpipe": "FThenB", "vpp": "VPP"}[schedule]
+    fleet, hcg = _fleet(pp, dp, tp, accumulate=M, mode=mode,
+                        sharding=sharding)
+    model = _model(family, layers, state, v)
+    xs, ys = _data_rows(x, hcg, sharding), _data_rows(y, hcg, sharding)
+    opt = AdamW(learning_rate=LR, parameters=model.parameters())
+    losses, updates = [], []
+    if how == "gsp":
+        # sharded first (stage 3 slices the parameters at once), then the
+        # step: the shared weights' slices are broadcast
+        _, opt, _ = group_sharded_parallel(
+            model, opt, {2: "os_g", 3: "p_g_os"}[stage])
+        step = build_train_step(model, opt, num_microbatches=M,
+                                pipeline_schedule=schedule,
+                                virtual_pp_degree=v)
+        run = lambda: step(xs, ys)  # noqa: E731
+        zero = step._zero
+        kind = (step._schedule, zero.axis)
+    elif how == "fleet":
+        dm = fleet.distributed_model(model)
+        if stage == 1:
+            sopt = fleet.distributed_optimizer(opt)
+        else:
+            _, sopt, _ = group_sharded_parallel(
+                model, opt, {2: "os_g", 3: "p_g_os"}[stage])
+        run = lambda: dm.train_batch((xs, ys), sopt)  # noqa: E731
+        zero = sopt._zero_engine
+        kind = (type(dm).__name__, type(sopt).__name__)
+    else:
+        if how == "jit":
+            step = jit.train_step(model, model.compute_loss, opt,
+                                  sharding_stage=stage, mesh=get_mesh())
+        else:
+            step = build_train_step(model, opt, num_microbatches=M,
+                                    pipeline_schedule=schedule,
+                                    virtual_pp_degree=v,
+                                    sharding_stage=stage)
+        run = lambda: step(xs, ys)  # noqa: E731
+        zero = step._zero
+        kind = (step._schedule, zero.axis if zero is not None else None)
+    rs = []
+    for _ in range(steps):
+        before = getattr(opt, "_zero_test_updates", 0)
+        rs0 = zero.traffic["reduce_scatter"] if zero is not None else 0
+        losses.append(float(run()))
+        updates.append(getattr(opt, "_zero_test_updates", 0) - before)
+        rs.append((zero.traffic["reduce_scatter"] if zero is not None
+                   else 0) - rs0)
+    return dict(losses=losses, state=_to_numpy(model, family),
+                stage=hcg.get_stage_id(), kind=kind,
+                zero_stage=None if zero is None else zero.stage,
+                buckets=None if zero is None else len(zero.buckets),
+                pieces=None if zero is None else sum(
+                    len(b.pieces) for b in zero.buckets),
+                reduce_scatters=rs, updates=updates)
+
+
+def _moment_pieces(model, opt):
+    """{name: (lo, hi, first moment)}: this rank's ZeRO pieces of each
+    parameter's first moment (its flattened elements lo..hi-1)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding \
+        .group_sharded import engine_of
+
+    inner = getattr(opt, "_inner_opt", opt)
+    params = inner._parameter_list
+    eng = engine_of(params)
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = {}
+    for i, st in inner._accumulators.items():
+        lo, hi = eng.piece_range(params[i])
+        out[names[id(params[i])]] = (lo, hi, st["moment1"].numpy().copy())
+    return out
+
+
+def ckpt_pp_run(state, x, y, ckpt_dir, stage=2, schedule="1f1b", M=4,
+                steps=2):
+    """pp 2 x sharding 2 at ZeRO `stage`: one step, then the state saved
+    twice (`fleet.save` to ckpt_dir/fleet, and `CheckpointManager.save`
+    of step 1 to ckpt_dir/run with the trainer snapshot), then the
+    uninterrupted run's next steps; then fresh models, optimizers and
+    engines restored (by `CheckpointManager.restore` and by
+    `fleet.load_model`) take the same steps. Returns the losses and
+    states of each, the state and first-moment pieces after step 1."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.models import build_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    fleet, hcg = _fleet(2, 1, 1, accumulate=M, sharding=2)
+    xs, ys = _data_rows(x, hcg, 2), _data_rows(y, hcg, 2)
+
+    def fresh():
+        model = _model("llama", 4, state)
+        opt = AdamW(learning_rate=LR, parameters=model.parameters())
+        step = build_train_step(model, opt, num_microbatches=M,
+                                pipeline_schedule=schedule,
+                                sharding_stage=stage)
+        return model, opt, step
+
+    model, opt, step = fresh()
+    first = float(step(xs, ys))
+    after1 = _to_numpy(model, "llama")
+    moments1 = _moment_pieces(model, opt)
+    fleet.fleet.save(os.path.join(ckpt_dir, "fleet"), model, opt)
+    mgr = ck.CheckpointManager(os.path.join(ckpt_dir, "run"))
+    mgr.save(1, ck._model_state(model, opt),
+             trainer_state=ck.trainer_state_snapshot(1))
+    mgr.wait()
+    full = [float(step(xs, ys)) for _ in range(steps - 1)]
+    out = dict(first=first, after1=after1, moments1=moments1,
+               full=full, full_state=_to_numpy(model, "llama"),
+               stage=hcg.get_stage_id(),
+               sharding_rank=hcg.get_sharding_parallel_rank())
+    # a fresh run restored by the manager
+    model, opt, step = fresh()
+    ck._init_optimizer_state(model, opt)
+    restored = mgr.restore(template=ck._model_state(model, opt))
+    ck._apply_model_state(model, opt, restored)
+    snap = mgr.restore_trainer_state()
+    out["resumed"] = [float(step(xs, ys)) for _ in range(steps - 1)]
+    out["resumed_state"] = _to_numpy(model, "llama")
+    out["trainer_step"] = snap["step"]
+    out["counts"] = dict(mgr.counts)
+    # and one restored by fleet.load_model
+    model, opt, step = fresh()
+    fleet.fleet.load_model(os.path.join(ckpt_dir, "fleet"), model, opt)
+    out["loaded"] = [float(step(xs, ys)) for _ in range(steps - 1)]
+    out["loaded_state"] = _to_numpy(model, "llama")
+    # load_state_dict's mesh and spec_fn: this rank's rows (over
+    # "sharding") of two saved weights, against the whole ones
+    path = os.path.join(ckpt_dir, "fleet")
+    whole = ck.load_state_dict(path)["model"]
+    names = ("llama.embed_tokens.weight", "llama.norm.weight")
+    got = ck.load_state_dict(
+        path, template={"model": {n: whole[n] for n in names}},
+        mesh=D.get_mesh(), spec_fn=lambda n, a: ("sharding", None)
+        if a.dim() == 2 else None)["model"]
+    k = whole[names[0]].shape[0] // 2
+    s = hcg.get_sharding_parallel_rank()
+    out["spec_rows"] = bool(
+        isinstance(got[names[0]], ck.LocalPiece)
+        and torch.equal(got[names[0]].value, whole[names[0]][s * k:(s + 1) * k])
+        and torch.equal(got[names[1]], whole[names[1]]))
+    D.barrier()
+    return out
+
+
+def zero_pp_clip_and_inf(state, x, y, M=4, stage=2):
+    """At pp 2 x sharding 2 through `PipelineParallel`: the global norm the
+    clip of a `DygraphShardingOptimizer` (ClipGradByGlobalNorm) computes
+    from the rank's slices, against the norm of stage 0's gradients (the
+    whole gradients averaged over "sharding", `HybridParallelClipGrad`);
+    then under a GradScaler an inf planted in the last stage's second
+    sharding rank's slice: every rank skips and halves the scale."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        HybridParallelClipGrad
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import \
+        group_sharded_parallel
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    fleet, hcg = _fleet(2, 1, 1, accumulate=M, sharding=2)
+    xs, ys = _data_rows(x, hcg, 2), _data_rows(y, hcg, 2)
+    # stage 0: whole gradients averaged over "sharding"
+    model = _model("llama", 4, state)
+    dm = fleet.distributed_model(model)
+    dm.forward_backward_pipeline((xs, ys))
+    for p in model.parameters():
+        D.all_reduce(p.grad, op=D.ReduceOp.AVG, group="sharding")
+    want = float(HybridParallelClipGrad(ClipGradByGlobalNorm(1.0))
+                 ._params_norm([(p, p.grad) for p in model.parameters()]))
+    # ZeRO `stage`: the norm from the slices
+    model = _model("llama", 4, state)
+    dm = fleet.distributed_model(model)
+    opt = AdamW(learning_rate=LR, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    _, sopt, _ = group_sharded_parallel(model, opt,
+                                        {1: "os", 2: "os_g", 3: "p_g_os"}
+                                        [stage])
+    seen = []
+    clip = sopt._clip(sopt._zero_engine)
+    norm_of = clip._params_norm
+    clip._params_norm = lambda pairs: seen.append(float(norm_of(pairs))) \
+        or norm_of(pairs)
+    dm.train_batch((xs, ys), sopt)
+    # the GradScaler's skip
+    before = {k: v.copy() for k, v in _to_numpy(model, "llama").items()
+              if not k.startswith("@")}
+    scaler = GradScaler(init_loss_scaling=1024.0)
+    dm.forward_backward_pipeline((xs, ys), scaler)
+    eng = sopt._zero_engine
+    if hcg.get_stage_id() == 1 and hcg.get_sharding_parallel_rank() == 1:
+        eng.buckets[0].grad[0] = float("inf")
+    scaler.step(sopt)
+    sopt.clear_grad()
+    after = _to_numpy(model, "llama")
+    skipped = all(np.array_equal(before[k], after[k]) for k in before)
+    return dict(norm=seen[0] if seen else None, want=want, skipped=skipped,
+                scale=scaler.get_loss_scaling(), stage=hcg.get_stage_id())
 
 
 def generic_fwd(x, ws, pp):
@@ -415,6 +672,133 @@ def layer_descs(LayerDesc, SharedLayerDesc, Linear):
             SharedLayerDesc("tie", Linear, _tied, "weight", 8, 8)]
 
 
+def generic_layer_values(layer):
+    """{name: value} every weight of a `layer_descs` PipelineLayer takes
+    (`weights.param_pieces`' names, drawn from a seed a desc; the shared
+    linear's from desc 0's on both stages)."""
+    from paddle_tpu_torch.weights import param_pieces
+
+    out = {}
+    for name in param_pieces(layer):
+        i = int(name.split(".")[1])
+        seed = 100 + (0 if i == len(layer.descs) - 1 else i)
+        out[name] = (np.random.RandomState(seed).normal(size=(8, 8)) *
+                     0.3).astype(np.float32)
+    return out
+
+
+def mp_net():
+    """An embedding, a column- and a row-parallel linear of mp_layers
+    (shards at tp > 1, whole layers at tp 1)."""
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_layers import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+
+    net = torch.nn.Module()
+    net.embed = VocabParallelEmbedding(16, 8)
+    net.up = ColumnParallelLinear(8, 12, has_bias=True, gather_output=False)
+    net.down = RowParallelLinear(12, 8, input_is_parallel=True)
+    return net
+
+
+# mp_net's whole tensors and the axis each shard splits
+MP_SPLIT = {"embed.weight": 0, "up.weight": 1, "up.bias": 0,
+            "down.weight": 0, "down.bias": None}
+
+
+def mp_whole():
+    rng = np.random.RandomState(7)
+    shapes = {"embed.weight": (16, 8), "up.weight": (8, 12), "up.bias": (12,),
+              "down.weight": (12, 8), "down.bias": (8,)}
+    return {n: rng.normal(size=s).astype(np.float32)
+            for n, s in shapes.items()}
+
+
+def ckpt_generic(ckpt_dir, x, y, M=2):
+    """fleet.save / load_model beyond LLaMA and GPT. At pp 2 x sharding 2:
+    a `PipelineLayer` (`layer_descs`: a shared linear on both stages) after
+    one AdamW step through `PipelineParallel.train_batch`, saved with its
+    optimizer and loaded into a fresh layer and optimizer. At dp 2 x tp 2:
+    `mp_net` holding its slices of `mp_whole`, saved and loaded into a
+    zeroed one. Then the refusals: a name the ranks hold with different
+    values, a shard without its split axis. Returns what each rank held
+    under each name, whether the loads gave it back, and the errors."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer, SharedLayerDesc)
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.weights import param_pieces, set_param_pieces
+
+    fleet, hcg = _fleet(2, 1, 1, accumulate=M, sharding=2)
+
+    def layer():
+        return PipelineLayer(layer_descs(LayerDesc, SharedLayerDesc, Linear),
+                             num_stages=2, loss_fn=TF.cross_entropy)
+
+    def moments(model, opt):
+        names = {id(p): n for n, p in model.named_parameters()}
+        return {names[id(opt._parameter_list[i])]: st["moment1"].numpy()
+                for i, st in opt._accumulators.items()}
+
+    src = layer()
+    set_param_pieces(src, {n: torch.from_numpy(v) for n, v in
+                           generic_layer_values(src).items()})
+    dm = fleet.distributed_model(src)
+    opt = AdamW(learning_rate=LR, parameters=src.parameters())
+    dm.train_batch((torch.from_numpy(x), torch.from_numpy(y)), opt)
+    path = os.path.join(ckpt_dir, "layer")
+    fleet.fleet.save(path, dm, opt)
+    held = {n: v.numpy().copy() for n, (v, *_) in param_pieces(src).items()}
+    dst = layer()
+    dm2 = fleet.distributed_model(dst)
+    opt2 = AdamW(learning_rate=LR, parameters=dst.parameters())
+    fleet.fleet.load_model(path, dm2, opt2)
+    got = {n: v.numpy() for n, (v, *_) in param_pieces(dst).items()}
+    out = dict(stage=hcg.get_stage_id(), layer_held=held,
+               layer_loaded=set(got) == set(held) and all(
+                   np.array_equal(got[n], v) for n, v in held.items()),
+               layer_moments=moments(src, opt) and all(
+                   np.array_equal(moments(dst, opt2)[n], m)
+                   for n, m in moments(src, opt).items())
+               and opt2._step_count == opt._step_count == 1)
+    # tensor parallelism through mp_layers
+    fleet, hcg = _fleet(pp=1, dp=2, tp=2)
+    rank = hcg.get_model_parallel_rank()
+    net, whole = mp_net(), mp_whole()
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            ax, a = MP_SPLIT[n], whole[n]
+            if ax is not None:
+                k = a.shape[ax] // 2
+                a = np.take(a, range(rank * k, (rank + 1) * k), axis=ax)
+            p.copy_(torch.from_numpy(a))
+    path = os.path.join(ckpt_dir, "mp")
+    fleet.fleet.save(path, net)
+    back = mp_net()
+    with torch.no_grad():
+        for p in back.parameters():
+            p.zero_()
+    fleet.fleet.load_model(path, back)
+    out["mp_loaded"] = all(torch.equal(a, b) for a, b in zip(
+        net.parameters(), back.parameters()))
+    # the refusals, raised alike on every rank
+    errors = []
+    odd = Linear(4, 3)
+    with torch.no_grad():
+        odd.weight.fill_(float(hcg.get_data_parallel_rank()))
+    unplaced = Linear(4, 3)
+    unplaced.weight.is_distributed = True
+    for model in (odd, unplaced):
+        try:
+            fleet.fleet.save(os.path.join(ckpt_dir, "refused"), model)
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+    out["refusals"] = errors
+    return out
+
+
 def save_stage(state, out_dir, rank):
     """`paddle_tpu_torch.save` of a pp-2 model's state_dict: one file a
     rank; (its names, reloaded equal)."""
@@ -485,9 +869,16 @@ def pp_runs_main(out_dir, runs):
 
     fns = {"train": pp_train, "grads": grads_by_schedule,
            "info": pipeline_info, "seeded": seeded, "refusals": refusals,
-           "zero": zero_refusal, "fwd": generic_fwd, "vpp": generic_vpp,
+           "zero": zero_refusal, "zero_pp": zero_pp_train,
+           "zero_pp_clip": zero_pp_clip_and_inf, "ckpt_pp": ckpt_pp_run,
+           "ckpt_generic": ckpt_generic,
+           "fwd": generic_fwd, "vpp": generic_vpp,
            "1f1b": generic_1f1b,
            "layer": layer_train, "scaler_clip": layer_scaler_and_clip}
+    from torch_zero_workers import count_updates_on
+    from paddle_tpu_torch.optimizer import AdamW
+
+    count_updates_on(AdamW)
     out = {}
     for tag, fn, kw in runs:
         if fn == "save":

@@ -322,11 +322,21 @@ def fleet_main(out_dir, files):
         got["train_step"] = _train_step_refusal()
         got["step_grad"] = _step_grad(fleet, D.get_rank())
         res[name] = got
-    for fn in (fleet.fleet.save, fleet.fleet.load_model):
-        try:
-            fn("somewhere")
-        except NotImplementedError as e:
-            res.setdefault("checkpoint", []).append(str(e))
+    # fleet.save / load_model: one checkpoint of a replicated layer (its
+    # weight written once, by rank 0), read back into another
+    import os
+
+    from paddle_tpu_torch.nn import Linear
+
+    src, dst = Linear(4, 3), Linear(4, 3)
+    with torch.no_grad():
+        src.weight.copy_(torch.arange(12.0).reshape(4, 3))
+        dst.weight.zero_()
+    path = os.path.join(out_dir, "fleet_ckpt")
+    fleet.fleet.save(path, src)
+    fleet.fleet.load_model(path, dst)
+    res["checkpoint"] = dict(equal=bool(torch.equal(src.weight, dst.weight)),
+                             files=sorted(os.listdir(path)))
     D.destroy_process_group()
     _save(out_dir, res["rank"], res)
 
