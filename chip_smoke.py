@@ -215,11 +215,13 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    timed steps with exact launches a step (flash forward and backward 24
    each, Adam 292, RMSNorm none), losses finite and falling, tokens/s,
    step ms p50, peak memory, the model-FLOPs share by GPT's own count, a
-   profiled step; (c) `fmt`: FusedMultiTransformer at GPT-3 1.3B widths
+   profiled step; in one process `fmt_tiny` (each part takes less time
+   than a process takes to start): (c) FusedMultiTransformer at GPT-3
+   1.3B widths
    (bf16): a 2 x 1024 context forward with exactly 24 flash launches, then
    16 decode steps at `time_step` over bf16 caches, each held row by row
    against the context forward (1e-2), beside a planted fault (the K/V
-   written one slot late) that must fail the bar; (d) `tiny`: a tiny f32
+   written one slot late) that must fail the bar; (d) a tiny f32
    GPT at head_dim 128 on CUDA and on the CPU from the same weights: burst
    and shallow spec streams and `generate` equal, 3 AdamW steps' losses
    and updates agree;
@@ -384,6 +386,35 @@ Run from the repository root; it builds its CUDA kernels itself. Phases:
    receives and staged bytes a step by rank (four ranks on one card over
    gloo: counts, not a speed), the checkpoint's bytes and its save and
    load seconds. `--phase20` runs the build and this phase alone.
+21. the Paddle-shaped core (`to_tensor`, the dtypes and places,
+   `backward` / `grad` / `no_grad` / `PyLayer`, the ops of
+   paddle_tpu_torch/ops), in this process after phase 10: (a) the core's
+   ops of every family (math, reduction, manipulation, logic, search,
+   linalg, activation) at LLaMA-2-7B's widths ([4096, 4096] and
+   [8, 4096, 11008]), bf16 and f32, on the card's tensors against the
+   same calls on the CPU (`CORE_BAR`), every output on the card, every
+   creation op after `set_device("gpu")` with no place on CUDAPlace(0),
+   beside a planted fault (scatter(overwrite=False) adding into the old
+   rows); (b) LLaMA-2-7B's widths at `CORE_LAYERS` (4) layers, bf16 O2,
+   AdamW(1e-4), 1 x 4096, a warm step and `CORE_STEPS` (3) counted steps
+   driven through the core (`to_tensor` ids, `paddle.autograd.backward`,
+   `opt.step()`, `opt.clear_grad()`, a last forward under
+   `paddle.no_grad()`) against the same steps through torch's calls, run
+   twice: the first loss bit-equal, the later losses and the probe
+   weights within `CORE_SPREAD` times the two torch runs' own spread (a
+   loss also within 2 of its bf16 ulps),
+   launches exact a step (flash 4 and 4, RMSNorm 9 and 9, Adam once a
+   parameter tensor), `paddle.grad` of the final norm's weight bit-equal
+   to backward's `.grad`; (c) a `PyLayer` over the RMSNorm kernels at
+   [4096, 4096] bf16 bit-equal to `RMSNormFunction` (y, dx, dw; one
+   launch each way) beside a planted fault (a non-scalar backward seeded
+   with zeros). `--phase21` runs the build and this phase alone.
+
+Every child process (a cell of phases 11-14, the ranks of a spawn in
+phases 15-20) starts while the work before it runs, and waits for a go
+file once it has imported this script and made its CUDA context (and its
+process group), so its start hides behind that work and no two processes
+work on the card at once (`run_child`, `start_spawn`, `join_spawn`).
 
 Any failure raises and exits non-zero. The second-to-last line is the JSON
 list of kernels; the last line is
@@ -392,6 +423,7 @@ list of kernels; the last line is
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import gc
 import json
@@ -402,6 +434,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -515,6 +548,166 @@ ALGO = {"int8": "weight_only_int8", "int4": "weight_only_int4"}
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def process_age():
+    """Seconds since this process started (its interpreter's start, from
+    /proc), so that a child's log says what its start cost."""
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        up = float(f.read().split()[0])
+    return up - start / os.sysconf("SC_CLK_TCK")
+
+
+def stage(proc, what):
+    """Log one step of a child process's time: `what` done at its age."""
+    log(f"process {proc}: {what} at {process_age():.1f} s")
+
+
+# Child processes started ahead of their turn. A child (a cell of phases
+# 11-14, or the ranks of a spawn in phases 15-20) takes 11-16 s to import
+# this script and make its CUDA context (PERF.md §6): started while the
+# process before it still runs, it does that meanwhile, then waits for its
+# go file, so no two processes work on the card at once.
+_RUN_DIR = None
+_STARTED = {}  # name -> a Popen (phases 11-14) or a _Spawn (15-20)
+_PARENT = os.getppid()  # who started this process (at its start)
+
+
+def run_dir():
+    """The run's scratch directory (removed at exit)."""
+    global _RUN_DIR
+    if _RUN_DIR is None:
+        _RUN_DIR = tempfile.mkdtemp(prefix="chip_smoke-")
+        atexit.register(shutil.rmtree, _RUN_DIR, True)
+    return _RUN_DIR
+
+
+def phase_dir(phase):
+    path = os.path.join(run_dir(), f"phase{phase}")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def drop_phase_dir(phase):
+    """Remove a phase's directory once its results are read (phases 15
+    and 20 leave 10-14 GB checkpoints there)."""
+    shutil.rmtree(os.path.join(run_dir(), f"phase{phase}"), True)
+
+
+def wait_go(go, who):
+    """Block until `go` exists (the parent's signal that the card is this
+    process's), ending if the parent ends or writes `go`.stop first."""
+    while not os.path.exists(go):
+        if os.getppid() != _PARENT or os.path.exists(go + ".stop"):
+            sys.exit(f"{who}: stopped before its go")
+        time.sleep(0.02)
+    stage(who, "go")
+
+
+def child_go(phase, cell):
+    return os.path.join(phase_dir(phase), f"go-{cell}")
+
+
+def start_child(phase, cell, seed):
+    """Start phase `phase`'s `cell` in a process of its own, to wait for
+    its go file after its imports and CUDA context."""
+    key = f"{phase}/{cell}"
+    if key not in _STARTED:
+        _STARTED[key] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             f"--phase{phase}", cell, "--io", phase_dir(phase), "--go",
+             child_go(phase, cell)])
+    return _STARTED[key]
+
+
+def run_child(phase, cell, seed, timeout, then=()):
+    """Run a cell's process (started ahead, or now) to its end, starting
+    the processes `then` lists first ((phase, cell) pairs to start ahead,
+    or functions that start something); (exit code, seconds from its
+    go)."""
+    proc = start_child(phase, cell, seed)
+    for t in then:
+        t() if callable(t) else start_child(*t, seed)
+    t0 = time.perf_counter()
+    open(child_go(phase, cell), "w").close()
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    finally:
+        del _STARTED[f"{phase}/{cell}"]
+    return rc, time.perf_counter() - t0
+
+
+class _Spawn:
+    """`distributed.spawn` of ranks in a thread: they start now, wait for
+    `go` after their process group is up, and run when `join` makes it."""
+
+    def __init__(self, fn, args, nprocs, timeout, go):
+        from paddle_tpu_torch.distributed import spawn
+
+        self.go, self.error = go, None
+
+        def body():
+            try:
+                spawn(fn, args=args, nprocs=nprocs, timeout=timeout)
+            except BaseException as e:  # re-raised by join
+                self.error = e
+
+        self.thread = threading.Thread(target=body, daemon=True)
+        self.thread.start()
+
+    def join(self):
+        t0 = time.perf_counter()
+        open(self.go, "w").close()
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return time.perf_counter() - t0
+
+
+def rank_go(io, name):
+    return os.path.join(io, f"go-{name}")
+
+
+def start_spawn(name, io, fn, args, nprocs, timeout):
+    """Start the ranks of spawn `name` ahead: `fn(*args)` in each, its go
+    file `rank_go(io, name)`; `timeout` counts from the go."""
+    if name not in _STARTED:
+        _STARTED[name] = _Spawn(fn, args, nprocs, timeout + 1200,
+                                rank_go(io, name))
+    return _STARTED[name]
+
+
+def join_spawn(name, then=None):
+    """Run the started spawn `name` to its end, calling `then` (which
+    starts the next processes ahead) first; seconds from its go."""
+    sp = _STARTED[name]
+    if then is not None:
+        then()
+    try:
+        return sp.join()
+    finally:
+        del _STARTED[name]
+
+
+def end_started():
+    """End what was started ahead and never run (a failed run): a cell's
+    process is killed; a spawn's ranks are told to stop (they end at their
+    go, and the spawn's thread with them)."""
+    for key, h in list(_STARTED.items()):
+        if isinstance(h, subprocess.Popen):
+            if h.poll() is None:
+                h.kill()
+                h.wait()
+        else:
+            open(h.go + ".stop", "w").close()
+            h.thread.join(timeout=120)
+        _STARTED.pop(key)
 
 
 def kernel_name(mangled):
@@ -4128,6 +4321,7 @@ def multi_step_cell(cell, seed, dev, card, io):
         kv = "int8"
         gc.collect()
         torch.cuda.empty_cache()
+    stage(cell, "model built")
     rng = np.random.RandomState(seed)
     long_req, batch = traffic(rng, cfg.vocab_size)
     res = dict(card=card, layers=cfg.num_hidden_layers)
@@ -4145,9 +4339,11 @@ def multi_step_cell(cell, seed, dev, card, io):
         with open(eager_file, "w") as f:
             json.dump(want, f)
     tag = f"{'13B int8' if big else '7B'} {mode}"
+    stage(cell, "eager streams")
     eng, secs = burst_engine(model, seed, dev, kv,
                              async_depth=ASYNC_DEPTH if mode == "async"
                              else 0)
+    stage(cell, "burst engine warm")
     log(f"phase 11 {tag}: warmup (4 graphs captured) {secs:.2f} s")
     res.update(burst_traffic(eng, long_req, batch, want, tag, card,
                              via_run=mode == "async"))
@@ -4160,26 +4356,32 @@ def multi_step_cell(cell, seed, dev, card, io):
     return res
 
 
-def multi_step_serving(seed, card, serving, serving13):
+def next_cells(phase, cells, then, ahead=1):
+    """(cell, what to start before it runs) of a phase's cells in turn:
+    the `ahead` cells after it, and with the last one `then` (the next
+    phase's first cell, or a function that starts it; None: nothing)."""
+    return [(c, [(phase, n) for n in cells[i + 1:i + 1 + ahead]]
+             + ([then] if then is not None and i + 1 == len(cells) else []))
+            for i, c in enumerate(cells)]
+
+
+def multi_step_serving(seed, card, serving, serving13, then=None):
     """Phase 11: each cell and mode in a process of its own (late in a long
     run the profiler drops device records, and the launch counts here come
     from them), each cell's sync process taking its eager engine's streams
     for both modes; prints the burst decode beside phase 4's and 4b's
-    single-step numbers."""
+    single-step numbers. Each process starts while the one before runs
+    (`run_child`); `then` starts after the last."""
     gc.collect()
     torch.cuda.empty_cache()
     res = {}
-    with tempfile.TemporaryDirectory(prefix="phase11-") as io:
-        for cell in CELLS:
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--seed",
-                 str(seed), "--phase11", cell, "--io", io], timeout=900)
-            check(proc.returncode == 0,
-                  f"phase 11 ({cell}) failed: exit {proc.returncode}")
-            with open(os.path.join(io, f"{cell}.json")) as f:
-                res[cell] = json.load(f)
-            res[cell]["process_s"] = time.perf_counter() - t0
+    io = phase_dir("11")
+    for cell, nxt in next_cells("11", CELLS, then):
+        rc, secs = run_child("11", cell, seed, 900, nxt)
+        check(rc == 0, f"phase 11 ({cell}) failed: exit {rc}")
+        with open(os.path.join(io, f"{cell}.json")) as f:
+            res[cell] = json.load(f)
+        res[cell]["process_s"] = secs
     for cell, base, depth in (
             ("7b", serving, LlamaConfig.llama2_7b().num_hidden_layers),
             ("13b_int8", serving13, SERVE13_LAYERS)):
@@ -4686,6 +4888,7 @@ def prefix_cell(cell, seed, dev, card):
         kv = "int8"
         gc.collect()
         torch.cuda.empty_cache()
+    stage(cell, "model built")
     rng = np.random.RandomState(seed + 12)
     system, parts = prefix_traffic(rng, cfg.vocab_size)
     lone_probe = rng.randint(0, cfg.vocab_size, 2500)
@@ -4741,25 +4944,22 @@ def prefix_cell(cell, seed, dev, card):
     return res
 
 
-def prefix_serving(seed, card):
+def prefix_serving(seed, card, then=None):
     """Phase 12: each cell in a process of its own (its launches inside the
-    captured programs come from profiled replays)."""
+    captured programs come from profiled replays), started while the one
+    before runs."""
     gc.collect()
     torch.cuda.empty_cache()
     res = {}
-    with tempfile.TemporaryDirectory(prefix="phase12-") as io:
-        for cell in PREFIX_CELLS:
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--seed",
-                 str(seed), "--phase12", cell, "--io", io], timeout=900)
-            check(proc.returncode == 0,
-                  f"phase 12 ({cell}) failed: exit {proc.returncode}")
-            with open(os.path.join(io, f"{cell}.json")) as f:
-                res[cell] = json.load(f)
-            res[cell]["process_s"] = time.perf_counter() - t0
-            log(f"phase 12 {cell}: process {res[cell]['process_s']:.1f} s, "
-                f"launches {res[cell]['launches']} [{card}]")
+    io = phase_dir("12")
+    for cell, nxt in next_cells("12", PREFIX_CELLS, then):
+        rc, secs = run_child("12", cell, seed, 900, nxt)
+        check(rc == 0, f"phase 12 ({cell}) failed: exit {rc}")
+        with open(os.path.join(io, f"{cell}.json")) as f:
+            res[cell] = json.load(f)
+        res[cell]["process_s"] = secs
+        log(f"phase 12 {cell}: process {secs:.1f} s from its go, "
+            f"launches {res[cell]['launches']} [{card}]")
     return res
 
 
@@ -5275,6 +5475,7 @@ def spec_cell(cell, seed, dev, card):
         kv = "int8"
         gc.collect()
         torch.cuda.empty_cache()
+    stage(cell, "model built")
     L = cfg.num_hidden_layers
     rng = np.random.RandomState(seed)
     _long, batch = traffic(rng, cfg.vocab_size)
@@ -5454,25 +5655,22 @@ def spec_prefix_run(model, seed, dev, dist, tag, card):
     return out
 
 
-def spec_serving(seed, card):
+def spec_serving(seed, card, then=None):
     """Phase 13: each cell in a process of its own (its launches inside the
-    captured programs come from the profiler's device records)."""
+    captured programs come from the profiler's device records), started
+    while the one before runs."""
     gc.collect()
     torch.cuda.empty_cache()
     res = {}
-    with tempfile.TemporaryDirectory(prefix="phase13-") as io:
-        for cell in SPEC_CELLS:
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--seed",
-                 str(seed), "--phase13", cell, "--io", io], timeout=600)
-            check(proc.returncode == 0,
-                  f"phase 13 ({cell}) failed: exit {proc.returncode}")
-            with open(os.path.join(io, f"{cell}.json")) as f:
-                res[cell] = json.load(f)
-            res[cell]["process_s"] = time.perf_counter() - t0
-            log(f"phase 13 {cell}: process {res[cell]['process_s']:.1f} s, "
-                f"launches {res[cell]['launches']} [{card}]")
+    io = phase_dir("13")
+    for cell, nxt in next_cells("13", SPEC_CELLS, then):
+        rc, secs = run_child("13", cell, seed, 600, nxt)
+        check(rc == 0, f"phase 13 ({cell}) failed: exit {rc}")
+        with open(os.path.join(io, f"{cell}.json")) as f:
+            res[cell] = json.load(f)
+        res[cell]["process_s"] = secs
+        log(f"phase 13 {cell}: process {secs:.1f} s from its go, "
+            f"launches {res[cell]['launches']} [{card}]")
     return res
 
 
@@ -5481,7 +5679,9 @@ def spec_serving(seed, card):
 # FusedMultiTransformer, and a tiny GPT on CUDA against the CPU
 # ---------------------------------------------------------------------------
 
-GPT_CELLS = ("serve", "train", "fmt", "tiny")
+# fmt and tiny in one process: each works 3-7 s, less than a process
+# takes to start (16-18 s on the H100, PERF.md §6); neither profiles
+GPT_CELLS = ("serve", "train", "fmt_tiny")
 GPT_SEQ = 2048         # GPT-3 1.3B's positions: the serving engine's max
 GPT_LONG = 1500        # the lone prompt's tokens (64 new)
 GPT_DRAFT_LAYERS = 12  # the shallow-exit draft: 12 of 24 layers
@@ -5933,27 +6133,28 @@ def gpt_tiny_cell(seed, dev, card, steps=3, lr=1e-3):
 
 
 GPT_CELL_FNS = dict(serve=gpt_serve_cell, train=gpt_train_cell,
-                    fmt=gpt_fmt_cell, tiny=gpt_tiny_cell)
+                    fmt_tiny=lambda seed, dev, card: dict(
+                        fmt=gpt_fmt_cell(seed, dev, card),
+                        tiny=gpt_tiny_cell(seed, dev, card)))
 
 
-def gpt_phase(seed, card):
-    """Phase 14: each cell in a process of its own."""
+def gpt_phase(seed, card, then=None):
+    """Phase 14: each cell in a process of its own, started while the one
+    before runs; `then` starts after the last."""
     gc.collect()
     torch.cuda.empty_cache()
     res = {}
-    with tempfile.TemporaryDirectory(prefix="phase14-") as io:
-        for cell in GPT_CELLS:
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--seed",
-                 str(seed), "--phase14", cell, "--io", io], timeout=400)
-            check(proc.returncode == 0,
-                  f"phase 14 ({cell}) failed: exit {proc.returncode}")
-            with open(os.path.join(io, f"{cell}.json")) as f:
-                res[cell] = json.load(f)
-            res[cell]["process_s"] = time.perf_counter() - t0
-            log(f"phase 14 {cell}: process {res[cell]['process_s']:.1f} s, "
-                f"launches {res[cell].get('launches')} [{card}]")
+    io = phase_dir("14")
+    for cell, nxt in next_cells("14", GPT_CELLS, then, ahead=2):
+        rc, secs = run_child("14", cell, seed, 400, nxt)
+        check(rc == 0, f"phase 14 ({cell}) failed: exit {rc}")
+        with open(os.path.join(io, f"{cell}.json")) as f:
+            got = json.load(f)
+        for name, r in (got if cell == "fmt_tiny" else {cell: got}).items():
+            res[name] = r
+            r["process_s"] = secs
+            log(f"phase 14 {name}: process {secs:.1f} s from its go, "
+                f"launches {r.get('launches')} [{card}]")
     return res
 
 
@@ -6040,6 +6241,10 @@ def ft_rank(mode, io, seed, card):
 
     t_start = time.perf_counter()
     D.init_parallel_env()
+    stage(f"phase15 {mode} rank {D.get_rank()}",
+          "imports, CUDA and the process group")
+    wait_go(rank_go(io, f"ft_{mode}"), f"phase15 {mode}")
+    t_start = time.perf_counter()
     dev = D.env.device()
     check(D.get_backend() == "nccl" and D.get_world_size() == 1,
           f"phase 15 (a): backend {D.get_backend()}, world "
@@ -6155,6 +6360,7 @@ def ft_rank(mode, io, seed, card):
     res["process_s"] = time.perf_counter() - t_start
     with open(os.path.join(io, f"ft_{mode}.json"), "w") as f:
         json.dump(res, f)
+    stage(f"phase15 {mode} rank {D.get_rank()}", "done")
     D.destroy_process_group()
 
 
@@ -6169,8 +6375,13 @@ def ft_gloo_rank(io, seed):
     from paddle_tpu_torch.distributed import collective as C
     from paddle_tpu_torch.distributed import parallel as P
 
+    os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"  # CUDA tensors on gloo
     t_start = time.perf_counter()
     D.init_parallel_env()
+    stage(f"phase15 gloo rank {D.get_rank()}",
+          "imports, CUDA and the process group")
+    wait_go(rank_go(io, "ft_gloo"), f"phase15 gloo rank {D.get_rank()}")
+    t_start = time.perf_counter()
     dev, rank = D.env.device(), D.get_rank()
     check(D.get_backend() == "gloo" and dev.type == "cuda",
           f"phase 15 (b): backend {D.get_backend()} on {dev}")
@@ -6245,6 +6456,7 @@ def ft_gloo_rank(io, seed):
                process_s=time.perf_counter() - t_start)
     with open(os.path.join(io, f"gloo_rank{rank}.json"), "w") as f:
         json.dump(res, f)
+    stage(f"phase15 gloo rank {D.get_rank()}", "done")
     D.destroy_process_group()
 
 
@@ -6292,39 +6504,49 @@ def ft_checker(seed, dev, card):
     return dict(message=msg, card=card)
 
 
-def finetune_phase(seed, card):
+FT_SPAWNS = ("ft_full", "ft_resume", "ft_gloo")
+
+
+def ft_start(name, seed, card):
+    """Start phase 15's spawn `name` ahead: the uninterrupted run and the
+    resume (one NCCL rank each), or the two gloo ranks."""
+    io = phase_dir("15")
+    if name == "ft_gloo":
+        return start_spawn(name, io, ft_gloo_rank, (io, seed), 2, 300)
+    return start_spawn(name, io, ft_rank, (name[3:], io, seed, card), 1,
+                       300)
+
+
+def finetune_phase(seed, card, early=None, then=None):
     """Phase 15: (a) the fine-tune, its uninterrupted run and its resume in
     two processes started by `spawn(nprocs=1)`, (c) the tensor checker at
-    the end of the second; (b) two gloo ranks on the card."""
-    from paddle_tpu_torch.distributed import spawn
-
+    the end of the second; (b) two gloo ranks on the card. Each spawn's
+    ranks start while the one before runs; `early` starts with the first,
+    `then` with the last."""
     gc.collect()
     torch.cuda.empty_cache()
     res = {}
     t_all = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="phase15-") as io:
-        for mode in ("full", "resume"):
-            t0 = time.perf_counter()
-            spawn(ft_rank, args=(mode, io, seed, card), nprocs=1,
-                  timeout=300)
-            with open(os.path.join(io, f"ft_{mode}.json")) as f:
-                res[mode] = json.load(f)
-            res[mode]["spawn_s"] = time.perf_counter() - t0
-        prev = os.environ.get("PADDLE_DISTRI_BACKEND")
-        os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
-        try:
-            t0 = time.perf_counter()
-            spawn(ft_gloo_rank, args=(io, seed), nprocs=2, timeout=300)
-            res["gloo_spawn_s"] = time.perf_counter() - t0
-        finally:
-            if prev is None:
-                os.environ.pop("PADDLE_DISTRI_BACKEND")
-            else:
-                os.environ["PADDLE_DISTRI_BACKEND"] = prev
-        res["gloo"] = []
-        for r in range(2):
-            with open(os.path.join(io, f"gloo_rank{r}.json")) as f:
-                res["gloo"].append(json.load(f))
+    io = phase_dir("15")
+    for i, name in enumerate(FT_SPAWNS):
+        ft_start(name, seed, card)
+        nxt = (lambda n=FT_SPAWNS[i + 1]: ft_start(n, seed, card)) \
+            if i + 1 < len(FT_SPAWNS) else then
+        if i == 0 and early is not None:
+            early()
+        secs = join_spawn(name, then=nxt)
+        if name == "ft_gloo":
+            res["gloo_spawn_s"] = secs
+            continue
+        mode = name[3:]
+        with open(os.path.join(io, f"ft_{mode}.json")) as f:
+            res[mode] = json.load(f)
+        res[mode]["spawn_s"] = secs
+    res["gloo"] = []
+    for r in range(2):
+        with open(os.path.join(io, f"gloo_rank{r}.json")) as f:
+            res["gloo"].append(json.load(f))
+    drop_phase_dir("15")
     full, resume = res["full"], res["resume"]
     L = FT_LAYERS
     losses = full["losses"]
@@ -6747,11 +6969,16 @@ def tp_rank_proc(io, seed, cell, phases=("16",)):
     from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch.distributed import fleet
 
-    t0 = time.perf_counter()
+    os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"  # CUDA tensors on gloo
     D.init_parallel_env()
+    stage(f"phase16/20 rank {D.get_rank()}",
+          "imports, CUDA and the process group")
+    wait_go(rank_go(io, f"tp_{cell}"), f"phase16/20 rank {D.get_rank()}")
+    t0 = time.perf_counter()
     dev = D.env.device()
     if "16" not in phases:
         zpp_save(io, zpp_rank_part(io, seed, dev, t0), t0)
+        stage(f"phase16/20 rank {D.get_rank()}", "done")
         D.destroy_process_group()
         return
     strategy = fleet.DistributedStrategy()
@@ -6771,9 +6998,11 @@ def tp_rank_proc(io, seed, cell, phases=("16",)):
     res.update(tp_cell(cell, seed, dev, faults=cell == "gpt", sp=sp))
     res["process_s"] = time.perf_counter() - t0
     torch.save(res, os.path.join(io, f"tp_{cell}_rank{res['rank']}.pt"))
+    stage(f"phase16/20 rank {D.get_rank()}", f"phase 16 {cell}")
     if "20" in phases:
         del res
         zpp_save(io, zpp_rank_part(io, seed, dev, t0), t0)
+    stage(f"phase16/20 rank {D.get_rank()}", "done")
     D.destroy_process_group()
 
 
@@ -6828,14 +7057,23 @@ TP_GRAD_BAR = 0.05
 TP_PARAM_BAR = 0.12
 
 
-def tp_phase(seed, card, phases=("16", "20")):
-    """Phase 16: the tp = 1 runs in this process, then (b) 2 ranks and (a)
-    4 ranks on the card over gloo, each a group of its own; every reading
-    is logged before any check. Phase 20 runs in (a)'s four ranks after
-    their phase-16 results are saved (`phases`: ("20",) runs it alone);
-    its readings are the result's "20"."""
-    from paddle_tpu_torch.distributed import spawn
+def tp_start(cell, seed, phases=("16", "20")):
+    """Start phase 16's `cell` ranks ahead (the GPT cell's run phase 20
+    after, with "20" in `phases`)."""
+    io = phase_dir("16")
+    return start_spawn(f"tp_{cell}", io, tp_rank_proc,
+                       (io, seed, cell, phases if cell == "gpt"
+                        else ("16",)), TP_CELLS[cell]["tp"],
+                       900 if cell == "gpt" else 400)
 
+
+def tp_phase(seed, card, phases=("16", "20"), then=None):
+    """Phase 16: the tp = 1 runs in this process, then (b) 2 ranks and (a)
+    4 ranks on the card over gloo, each a group of its own, each started
+    while the one before runs (`then` starts after the last); every
+    reading is logged before any check. Phase 20 runs in (a)'s four ranks
+    after their phase-16 results are saved (`phases`: ("20",) runs it
+    alone); its readings are the result's "20"."""
     gc.collect()
     torch.cuda.empty_cache()
     res = {}
@@ -6847,28 +7085,21 @@ def tp_phase(seed, card, phases=("16", "20")):
         ref[cell] = tp_cell(cell, seed, torch.device("cuda", 0))
         res[f"{cell}_ref_s"] = time.perf_counter() - t0
     ranks, zpp = {}, None
-    with tempfile.TemporaryDirectory(prefix="phase16-") as io:
-        prev = os.environ.get("PADDLE_DISTRI_BACKEND")
-        os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
-        try:
-            for cell in cells or ("gpt",):
-                t0 = time.perf_counter()
-                n = TP_CELLS[cell]["tp"]
-                spawn(tp_rank_proc, args=(io, seed, cell, phases if
-                                          cell == "gpt" else ("16",)),
-                      nprocs=n, timeout=900 if cell == "gpt" else 400)
-                res[f"{cell}_spawn_s"] = time.perf_counter() - t0
-                if cell in cells:
-                    ranks[cell] = [torch.load(os.path.join(
-                        io, f"tp_{cell}_rank{r}.pt")) for r in range(n)]
-            if "20" in phases:
-                zpp = [torch.load(os.path.join(io, f"zpp_rank{r}.pt"))
-                       for r in range(ZPP_N)]
-        finally:
-            if prev is None:
-                os.environ.pop("PADDLE_DISTRI_BACKEND")
-            else:
-                os.environ["PADDLE_DISTRI_BACKEND"] = prev
+    io = phase_dir("16")
+    order = cells or ("gpt",)
+    for i, cell in enumerate(order):
+        tp_start(cell, seed, phases)
+        nxt = (lambda c=order[i + 1]: tp_start(c, seed, phases)) \
+            if i + 1 < len(order) else then
+        res[f"{cell}_spawn_s"] = join_spawn(f"tp_{cell}", nxt)
+        if cell in cells:
+            ranks[cell] = [torch.load(os.path.join(
+                io, f"tp_{cell}_rank{r}.pt")) for r in
+                range(TP_CELLS[cell]["tp"])]
+    if "20" in phases:
+        zpp = [torch.load(os.path.join(io, f"zpp_rank{r}.pt"))
+               for r in range(ZPP_N)]
+    drop_phase_dir("16")
     res["processes_s"] = time.perf_counter() - t_all
     if "16" not in phases:
         res["20"] = zpp_phase(zpp, card, res["processes_s"])
@@ -7273,11 +7504,15 @@ def tps_rank_proc(io, seed):
     from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch.distributed import fleet
 
-    t0 = time.perf_counter()
     # the ranks' host work is the engine's and gloo's staging: a few
     # threads each keep them off one another's cores
     torch.set_num_threads(2)
+    os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"  # CUDA tensors on gloo
     D.init_parallel_env()
+    stage(f"phase17 rank {D.get_rank()}",
+          "imports, CUDA and the process group")
+    wait_go(rank_go(io, "tps"), f"phase17 rank {D.get_rank()}")
+    t0 = time.perf_counter()
     dev = D.env.device()
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs = dict(dp_degree=1, mp_degree=TPS_TP)
@@ -7298,6 +7533,7 @@ def tps_rank_proc(io, seed):
         comm.close()
     res["process_s"] = time.perf_counter() - t0
     torch.save(res, os.path.join(io, f"tps_rank{rank}.pt"))
+    stage(f"phase17 rank {D.get_rank()}", "done")
     D.destroy_process_group()
 
 
@@ -7380,12 +7616,17 @@ def tps_streams_hold(model, dev, reqs, ranks, want, tag, card,
                          card, phase=17)
 
 
-def tps_phase(seed, card):
-    """Phase 17: the kernels at the shard shapes, the tp-1 runs in this
-    process, then both cells on two gloo ranks spawned once; every reading
-    logged before its check."""
-    from paddle_tpu_torch.distributed import spawn
+def tps_start(seed):
+    """Start phase 17's two ranks ahead."""
+    io = phase_dir("17")
+    return start_spawn("tps", io, tps_rank_proc, (io, seed), TPS_TP, 300)
 
+
+def tps_phase(seed, card, then=None):
+    """Phase 17: the kernels at the shard shapes, the tp-1 runs in this
+    process, then both cells on two gloo ranks spawned once (started
+    while the phase before runs; `then` starts after them); every reading
+    logged before its check."""
     dev = torch.device("cuda", 0)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7403,20 +7644,12 @@ def tps_phase(seed, card):
     t0 = time.perf_counter()
     ref = tps_reference(seed, dev)
     res["ref_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="phase17-") as io:
-        prev = os.environ.get("PADDLE_DISTRI_BACKEND")
-        os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
-        try:
-            spawn(tps_rank_proc, args=(io, seed), nprocs=TPS_TP, timeout=300)
-        finally:
-            if prev is None:
-                os.environ.pop("PADDLE_DISTRI_BACKEND")
-            else:
-                os.environ["PADDLE_DISTRI_BACKEND"] = prev
-        ranks = [torch.load(os.path.join(io, f"tps_rank{r}.pt"))
-                 for r in range(TPS_TP)]
-    res["spawn_s"] = time.perf_counter() - t0
+    io = phase_dir("17")
+    tps_start(seed)
+    res["spawn_s"] = join_spawn("tps", then)
+    ranks = [torch.load(os.path.join(io, f"tps_rank{r}.pt"))
+             for r in range(TPS_TP)]
+    drop_phase_dir("17")
     res["7b"] = tps_cell_7b(ranks, ref["7b"], dev, card)
     res["13b_int8"] = tps_cell_13b(ranks, ref["13b_int8"], dev, card)
     res["phase_s"] = time.perf_counter() - t_all
@@ -7906,8 +8139,12 @@ def zero_rank_proc(io, seed, phases=("18", "19")):
     from paddle_tpu_torch import distributed as D
 
     faulthandler.enable()
-    t0 = time.perf_counter()
+    os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"  # CUDA tensors on gloo
     D.init_parallel_env()
+    stage(f"phase18-19 rank {D.get_rank()}",
+          "imports, CUDA and the process group")
+    wait_go(rank_go(io, "zero"), f"phase18-19 rank {D.get_rank()}")
+    t0 = time.perf_counter()
     dev = D.env.device()
     if "18" in phases:
         rank = zero_rank_part(io, seed, dev, t0)
@@ -7921,6 +8158,7 @@ def zero_rank_proc(io, seed, phases=("18", "19")):
         # may end the process: gloo's reshard does in torch 2.11)
         torch.save(zero_dtensor(rank, ZERO_N, dev),
                    os.path.join(io, f"zero_dtensor_rank{D.get_rank()}.pt"))
+    stage(f"phase18-19 rank {D.get_rank()}", "done")
     D.destroy_process_group()
 
 
@@ -7996,53 +8234,52 @@ def zero_probe_dist(ranks, run, step, what):
     return out
 
 
+def zero_start(seed, phases=("18", "19")):
+    """Start phases 18-19's two ranks ahead."""
+    io = phase_dir("18")
+    return start_spawn("zero", io, zero_rank_proc, (io, seed, phases),
+                       ZERO_N, 600)
+
+
 def zero_phase(seed, card, phases=("18", "19")):
     """Phases 18 and 19 (or one of them): two gloo ranks on the card run
     every ZeRO stage and its faults, then the pipeline's runs and faults,
-    in one spawn (phase 17's ranks spent most of their time starting);
-    every reading logged before its check. {"18": phase 18's results,
-    "19": phase 19's}."""
-    from paddle_tpu_torch.distributed import spawn
-
+    in one spawn (phase 17's ranks spent most of their time starting),
+    started while the phase before runs; every reading logged before its
+    check. {"18": phase 18's results, "19": phase 19's}."""
     gc.collect()
     torch.cuda.empty_cache()
     t_all = time.perf_counter()
     out = {}
-    with tempfile.TemporaryDirectory(prefix="phase18-") as io:
-        prev = os.environ.get("PADDLE_DISTRI_BACKEND")
-        os.environ["PADDLE_DISTRI_BACKEND"] = "gloo"
-        try:
-            spawn(zero_rank_proc, args=(io, seed, phases), nprocs=ZERO_N,
-                  timeout=600)
-            ended = None
-        except RuntimeError as e:  # spawn's report; the results say more
-            ended = str(e).splitlines()[0][:200]
-        finally:
-            if prev is None:
-                os.environ.pop("PADDLE_DISTRI_BACKEND")
-            else:
-                os.environ["PADDLE_DISTRI_BACKEND"] = prev
-        if "19" in phases:
-            paths = [os.path.join(io, f"pp_rank{r}.pt") for r in range(PP_N)]
-            if not all(os.path.exists(p) for p in paths):
-                raise RuntimeError(f"phase 19: a rank ended before its "
-                                   f"results: {ended}")
-            pp_ranks = sorted((torch.load(p) for p in paths),
-                              key=lambda r: r["stage"])
-        if "18" in phases:
-            paths = [os.path.join(io, f"zero_rank{r}.pt")
-                     for r in range(ZERO_N)]
-            if not all(os.path.exists(p) for p in paths):
-                raise RuntimeError(f"phase 18: a rank ended before its "
-                                   f"results: {ended}")
-            ranks = sorted((torch.load(p) for p in paths),
-                           key=lambda r: r["sharding_rank"])
-            dts = [os.path.join(io, f"zero_dtensor_rank{r}.pt")
-                   for r in range(ZERO_N)]
-            dt = [torch.load(p) for p in dts] if ended is None else \
-                [dict(ranks_ended=ended)]
-        elif ended is not None:
-            raise RuntimeError(f"phase 19: the ranks failed: {ended}")
+    io = phase_dir("18")
+    zero_start(seed, phases)
+    try:
+        join_spawn("zero")
+        ended = None
+    except RuntimeError as e:  # spawn's report; the results say more
+        ended = str(e).splitlines()[0][:200]
+    if "19" in phases:
+        paths = [os.path.join(io, f"pp_rank{r}.pt") for r in range(PP_N)]
+        if not all(os.path.exists(p) for p in paths):
+            raise RuntimeError(f"phase 19: a rank ended before its "
+                               f"results: {ended}")
+        pp_ranks = sorted((torch.load(p) for p in paths),
+                          key=lambda r: r["stage"])
+    if "18" in phases:
+        paths = [os.path.join(io, f"zero_rank{r}.pt")
+                 for r in range(ZERO_N)]
+        if not all(os.path.exists(p) for p in paths):
+            raise RuntimeError(f"phase 18: a rank ended before its "
+                               f"results: {ended}")
+        ranks = sorted((torch.load(p) for p in paths),
+                       key=lambda r: r["sharding_rank"])
+        dts = [os.path.join(io, f"zero_dtensor_rank{r}.pt")
+               for r in range(ZERO_N)]
+        dt = [torch.load(p) for p in dts] if ended is None else \
+            [dict(ranks_ended=ended)]
+    elif ended is not None:
+        raise RuntimeError(f"phase 19: the ranks failed: {ended}")
+    drop_phase_dir("18")
     spawn_s = time.perf_counter() - t_all
     if "19" in phases:
         out["19"] = pp_phase(pp_ranks, card, spawn_s)
@@ -9216,6 +9453,444 @@ def zpp_verify(ranks, res):
           f"{ZPP_M} a bucket: {fr}")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the Paddle-shaped core (to_tensor, dtypes and places, backward /
+# grad / PyLayer, the ops of paddle_tpu_torch/ops) on the card
+# ---------------------------------------------------------------------------
+
+# the card's result against the CPU's, max |got - want| over max |want|:
+# bf16 one output rounding of the largest (2^-7; CUDA and the CPU compute
+# bf16 ops in f32 and round once), f32 summation order over up to 11008
+# terms (1e-4); integer and bool outputs exactly
+CORE_BAR = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
+CORE_SQ = (4096, 4096)         # LLaMA-2-7B's hidden x hidden
+CORE_BIG = (8, 4096, 11008)    # a batch of 8 x 4096 through the MLP's width
+CORE_LAYERS = 4                # of LLaMA-2-7B's 32 layers
+CORE_SEQ = 4096
+CORE_STEPS = 3                 # counted eager steps after one warm step
+CORE_LR = 1e-4
+# (b): the core's eager step against the torch-call step on the same
+# weights (the bf16 flash backward sums dQ by atomics, so two runs differ
+# by rounding): the probe weights after the last step, over their update,
+# at most CORE_SPREAD times the two torch-call runs' own distance (plus
+# CORE_FLOOR for a spread that reads 0; on the H100 the core read
+# 0-0.0742 against a spread of 0-0.0744, PERF.md §6); each later loss, a
+# bf16 value, at most CORE_SPREAD times the torch runs' largest loss
+# spread over the steps, or 2 of its ulps (one step's spread can read 0
+# and the core 2 ulps from it: 3.05e-5 at 0.0039)
+CORE_SPREAD = 4.0
+CORE_FLOOR = 1e-6
+CORE_PROBES = ("llama.embed_tokens.weight",
+               "llama.layers.0.self_attn.q_proj.weight",
+               f"llama.layers.{CORE_LAYERS - 1}.mlp.down_proj.weight",
+               "llama.norm.weight", "lm_head.weight")
+
+
+def core_op_cases(P):
+    """(family, name, function of the inputs, input makers): the core's ops
+    at LLaMA-2-7B's widths. A maker takes (a generator on the card, dtype)
+    and draws the input there; the CPU gets a copy."""
+    def normal(shape):
+        return lambda g, dt: torch.randn(shape, generator=g,
+                                         device=g.device).to(dt)
+
+    def positive(shape):
+        return lambda g, dt: (torch.rand(shape, generator=g,
+                                         device=g.device) + 0.5).to(dt)
+
+    def index(n, hi):
+        return lambda g, dt: torch.randint(0, hi, (n,), generator=g,
+                                           device=g.device)
+
+    n, h = CORE_SQ
+    r = min(256, n)
+    sq, big, rows = normal(CORE_SQ), normal(CORE_BIG), normal((r, h))
+    return [
+        ("math", "add", lambda x, y: P.add(x, y), [sq, sq]),
+        ("math", "multiply", lambda x, y: P.multiply(x, y), [sq, sq]),
+        ("math", "divide", lambda x, y: P.divide(x, y),
+         [sq, positive(CORE_SQ)]),
+        ("math", "pow", lambda x: P.pow(x, 2.0), [positive(CORE_SQ)]),
+        ("math", "exp", lambda x: P.exp(P.scale(x, 0.5)), [sq]),
+        ("math", "sqrt", P.sqrt, [positive(CORE_SQ)]),
+        ("math", "rsqrt", P.rsqrt, [positive(CORE_SQ)]),
+        ("math", "tanh", P.tanh, [sq]),
+        ("math", "clip", lambda x: P.clip(x, -0.5, 0.5), [sq]),
+        ("math", "lerp", lambda x, y: P.lerp(x, y, 0.25), [sq, sq]),
+        ("math", "maximum", P.maximum, [sq, sq]),
+        # accumulated in f32 (`dtype`): torch's bf16 cumsum rounds its
+        # running sum in bf16 on one of the two devices (0.0672 of the
+        # largest against the other on the H100, PERF.md §6)
+        ("math", "cumsum", lambda x: P.cumsum(x, axis=1, dtype="float32"),
+         [sq]),
+        ("math", "multiply_big", lambda x, y: P.multiply(P.silu(x), y),
+         [big, big]),
+        ("reduction", "sum", lambda x: P.sum(x, axis=-1), [sq]),
+        ("reduction", "sum_big", lambda x: P.sum(x, axis=-1), [big]),
+        ("reduction", "mean", lambda x: P.mean(x, axis=0), [sq]),
+        ("reduction", "max", lambda x: P.max(x, axis=1, keepdim=True), [sq]),
+        ("reduction", "var", lambda x: P.var(x, axis=-1), [sq]),
+        ("reduction", "std", lambda x: P.std(x, axis=0), [sq]),
+        ("reduction", "logsumexp", lambda x: P.logsumexp(x, axis=-1), [sq]),
+        ("manipulation", "reshape_transpose",
+         lambda x: P.transpose(P.reshape(x, [64, n // 64, h]), [2, 0, 1]),
+         [sq]),
+        ("manipulation", "concat", lambda x, y: P.concat([x, y], axis=1),
+         [sq, sq]),
+        ("manipulation", "split",
+         lambda x: P.split(x, [h // 4, -1, h // 4], axis=1), [sq]),
+        ("manipulation", "gather",
+         lambda x, i: P.gather(x, i, axis=0), [sq, index(512, n)]),
+        ("manipulation", "scatter",
+         lambda x, i, u: P.scatter(x, i, u, overwrite=False),
+         [sq, index(2 * r, r), normal((2 * r, h))]),
+        ("manipulation", "flatten_expand",
+         lambda x: P.expand(P.flatten(P.unsqueeze(x, 0), 1, 2), [2, -1]),
+         [sq]),
+        ("manipulation", "pad", lambda x: P.pad(x, [0, 0, 3, 5]), [sq]),
+        ("manipulation", "index_select",
+         lambda x, i: P.index_select(x, i, axis=1), [sq, index(512, h)]),
+        ("logic", "greater_than", P.greater_than, [sq, sq]),
+        ("logic", "where",
+         lambda x, y: P.where(P.greater_than(x, y), x, y), [sq, sq]),
+        ("search", "topk", lambda x: P.topk(x, 8, axis=-1)[0], [sq]),
+        ("search", "sort", lambda x: P.sort(x, axis=-1), [sq]),
+        ("search", "argmax", lambda x: P.argmax(P.cast(x, "float32"),
+                                                axis=1), [sq]),
+        ("linalg", "matmul", lambda x, y: P.matmul(x, y), [rows, sq]),
+        ("linalg", "matmul_t", lambda x, y: P.matmul(x, y, transpose_y=True),
+         [rows, sq]),
+        ("linalg", "norm", lambda x: P.norm(x, axis=1), [sq]),
+        ("activation", "gelu", P.gelu, [sq]),
+        ("activation", "silu", P.silu, [sq]),
+        ("activation", "softmax", lambda x: P.softmax(x, axis=-1), [sq]),
+        ("activation", "relu", P.relu, [sq]),
+    ]
+
+
+def core_err(got, want, dtype):
+    """max |got - want| over max |want| (floats), or the count of unequal
+    elements (integer and bool outputs)."""
+    if not want.is_floating_point():
+        return float((got != want).sum())
+    w = want.float()
+    scale = float(w.abs().max().clamp_min(1e-30))
+    return float((got.float() - w).abs().max()) / scale
+
+
+def core_ops(seed, dev, card):
+    """(a): each case on the card's tensors and on the CPU's, bf16 and f32,
+    every output on the card; creation ops with no place land on
+    CUDAPlace(0); the planted fault: scatter(overwrite=False) adding into
+    the old rows (no zeroing), which must fail its bar."""
+    P = ptt
+    res = dict(cases={}, creation={})
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    worst = {}
+    for family, name, fn, makers in core_op_cases(P):
+        for dt in (torch.bfloat16, torch.float32):
+            card_in = [m(g, dt) for m in makers]
+            cpu_in = [t.cpu() for t in card_in]
+            got, want = fn(*card_in), fn(*cpu_in)
+            gots = list(got) if isinstance(got, (list, tuple)) else [got]
+            wants = list(want) if isinstance(want, (list, tuple)) else [want]
+            check(all(t.device == dev for t in gots),
+                  f"phase 21 (a): {name} {dt}: an output left the card")
+            err = max(core_err(a.cpu(), b, dt) for a, b in zip(gots, wants))
+            bar = CORE_BAR[dt] if wants[0].is_floating_point() else 0.0
+            key = f"{name}_{str(dt).split('.')[1]}"
+            res["cases"][key] = dict(family=family, err=err, bar=bar)
+            worst[family] = max(worst.get(family, 0.0), err / max(bar, 1e-30)
+                                if bar else err)
+            del cpu_in, card_in, got, want, gots, wants
+    torch.cuda.synchronize()
+    # creation with no place, after set_device("gpu")
+    place = P.set_device("gpu")
+    made = {"zeros": P.zeros([3]), "ones": P.ones([2, 2]),
+            "full": P.full([2], 1.5), "arange": P.arange(5),
+            "linspace": P.linspace(0.0, 1.0, 4), "eye": P.eye(3),
+            "to_tensor": P.to_tensor([1.0, 2.0]),
+            "rand": P.rand([2]), "randn": P.randn([2]),
+            "randint": P.randint(0, 4, [3]), "randperm": P.randperm(4),
+            "uniform": P.uniform([2]), "tril_indices": P.tril_indices(3, 3)}
+    for name, t in made.items():
+        res["creation"][name] = str(t.device)
+        check(P.framework.device._parse_device(t.device) == P.CUDAPlace(0),
+              f"phase 21 (a): {name} with no place landed on {t.device}")
+    check(place == P.CUDAPlace(0) and P.get_device() == "gpu:0",
+          f"phase 21 (a): set_device('gpu') gave {place}")
+    # the planted fault, made from the plain version
+    r = min(256, CORE_SQ[0])
+    x = torch.randn(CORE_SQ, generator=g, device=dev)
+    i = torch.randint(0, r, (2 * r,), generator=g, device=dev)
+    u = torch.randn((2 * r, CORE_SQ[1]), generator=g, device=dev)
+    got = P.scatter(x, i, u, overwrite=False)
+    fault = x.cpu().index_add(0, i.cpu(), u.cpu())  # adds into old rows
+    res["fault_scatter_no_zeroing"] = core_err(got.cpu(), fault,
+                                               torch.float32)
+    check(res["fault_scatter_no_zeroing"] > CORE_BAR[torch.float32],
+          f"phase 21 (a): the planted fault (scatter adding without zeroing) "
+          f"read {res['fault_scatter_no_zeroing']:.3g}, within the bar")
+    res["worst_over_bar"] = worst
+    log(f"phase 21 (a): {len(res['cases'])} cases (bf16 and f32) at "
+        f"{list(CORE_SQ)} and {list(CORE_BIG)} on the card against the CPU; "
+        f"worst error over its bar by family: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items())
+        + f"; creation with no place on {sorted(set(res['creation'].values()))};"
+        f" the fault (scatter without zeroing) {res['fault_scatter_no_zeroing']:.3g}"
+        f" (must exceed {CORE_BAR[torch.float32]}) [{card}]")
+    log("phase 21 (a): error by case (bar bf16 2^-7, f32 1e-4, exact 0): "
+        + ", ".join(f"{k} {r['err']:.3g}" for k, r in res["cases"].items()))
+    for key, r in res["cases"].items():
+        check(r["err"] <= r["bar"], f"phase 21 (a): {key}: error "
+              f"{r['err']:.3g} over its bar {r['bar']:.3g}")
+    return res
+
+
+def core_model(seed, dev):
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_hidden_layers = CORE_LAYERS
+    model = amp.decorate(LlamaForCausalLM(cfg, device=dev, seed=seed),
+                         level="O2", dtype="bfloat16")
+    return cfg, model, AdamW(learning_rate=CORE_LR,
+                             parameters=model.parameters())
+
+
+def core_run(seed, dev, x_np, y_np, via_core, counted=None):
+    """One warm step and CORE_STEPS steps of the 7B-width model, through
+    the core (`to_tensor`, `paddle.autograd.backward`, `no_grad`) or
+    through torch's calls; losses, probe weights before and after, step
+    ms; with `counted`, the kernels' launches of the counted steps and of
+    the no_grad forward, and paddle.grad of the final norm's weight
+    against its .grad from backward."""
+    P = ptt
+    cfg, model, opt = core_model(seed, dev)
+    named = dict(model.named_parameters())
+    init = {n: named[n].detach().float().clone() for n in CORE_PROBES}
+    if via_core:
+        ids, labels = P.to_tensor(x_np), P.to_tensor(y_np)
+    else:
+        ids = torch.from_numpy(x_np).to(dev)
+        labels = torch.from_numpy(y_np).to(dev)
+
+    def step():
+        loss = model.compute_loss(model(ids), labels)
+        if via_core:
+            P.autograd.backward(loss)
+        else:
+            loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    losses = [step()]
+    torch.cuda.synchronize()
+    out = dict(step_ms=[])
+    if counted is not None:
+        for _, mod, attr in TRAIN_COUNTERS:
+            setattr(mod, attr, 0)
+    for _ in range(CORE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    if counted is not None:
+        out["launches"] = {n: getattr(m, a) for n, m, a in TRAIN_COUNTERS}
+        for _, mod, attr in TRAIN_COUNTERS:
+            setattr(mod, attr, 0)
+    ctx = P.no_grad() if via_core else torch.no_grad()
+    with ctx:
+        last = model.compute_loss(model(ids), labels)
+    check(not last.requires_grad, "phase 21 (b): no_grad's loss needs grad")
+    if counted is not None:
+        out["no_grad_launches"] = {n: getattr(m, a)
+                                   for n, m, a in TRAIN_COUNTERS}
+        # paddle.grad against backward's .grad for the final norm's weight
+        w = model.llama.norm.weight
+        loss = model.compute_loss(model(ids), labels)
+        (gw,) = P.grad(loss, [w], retain_graph=True)
+        check(w.grad is None, "phase 21 (b): grad left a .grad")
+        P.autograd.backward(loss)
+        out["grad_equal"] = bool(torch.equal(gw, w.grad))
+        out["grad_norm"] = float(gw.float().norm())
+        opt.clear_grad()
+    out["losses"] = [float(v) for v in losses] + [float(last)]
+    out["probes"] = {n: (named[n].detach().float() - init[n]).cpu()
+                     for n in CORE_PROBES}
+    out["after"] = {n: named[n].detach().float().cpu() for n in CORE_PROBES}
+    del model, opt, named, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def core_dist(a, b, update):
+    """||a - b|| over ||update|| (a probe's weights after the steps)."""
+    return float((a - b).norm() / update.norm().clamp_min(1e-30))
+
+
+def core_eager_step(seed, dev, card):
+    """(b): the 7B-width eager step through the core, once counted, and
+    twice through torch's calls (their spread); the checks of part (b)."""
+    P = ptt
+    rng = np.random.RandomState(seed + 21)
+    vocab = LlamaConfig.llama2_7b().vocab_size
+    x_np = rng.randint(0, vocab, (1, CORE_SEQ))
+    y_np = rng.randint(0, vocab, (1, CORE_SEQ))
+    P.set_device("gpu")
+    core = core_run(seed, dev, x_np, y_np, via_core=True, counted=True)
+    a = core_run(seed, dev, x_np, y_np, via_core=False)
+    b = core_run(seed, dev, x_np, y_np, via_core=False)
+    per_step = {"flash_fwd": CORE_LAYERS, "flash_bwd": CORE_LAYERS,
+                "rms_norm": 2 * CORE_LAYERS + 1,
+                "rms_norm_bwd": 2 * CORE_LAYERS + 1,
+                "adam": n_param_tensors(CORE_LAYERS)}
+    want = {n: k * CORE_STEPS for n, k in per_step.items()}
+    want_nograd = dict(flash_fwd=CORE_LAYERS, flash_bwd=0,
+                       rms_norm=2 * CORE_LAYERS + 1, rms_norm_bwd=0, adam=0)
+    loss_spread = [abs(u - v) for u, v in zip(a["losses"], b["losses"])]
+    loss_core = [min(abs(c - u), abs(c - v)) for c, u, v in
+                 zip(core["losses"], a["losses"], b["losses"])]
+    w_spread = {n: core_dist(a["after"][n], b["after"][n], a["probes"][n])
+                for n in CORE_PROBES}
+    w_core = {n: min(core_dist(core["after"][n], a["after"][n],
+                               a["probes"][n]),
+                     core_dist(core["after"][n], b["after"][n],
+                               b["probes"][n])) for n in CORE_PROBES}
+    p50 = float(np.median(core["step_ms"]))
+    res = dict(losses=core["losses"], torch_losses=[a["losses"],
+                                                      b["losses"]],
+               loss_spread=loss_spread, loss_core=loss_core,
+               weight_spread=w_spread, weight_core=w_core,
+               launches=core["launches"], no_grad_launches=core[
+                   "no_grad_launches"], grad_equal=core["grad_equal"],
+               step_ms=core["step_ms"], step_ms_p50=p50,
+               torch_step_ms_p50=float(np.median(a["step_ms"] +
+                                                 b["step_ms"])))
+    log(f"phase 21 (b): LLaMA-2-7B widths at {CORE_LAYERS} layers, bf16 O2, "
+        f"AdamW, 1 x {CORE_SEQ}, through the core: losses "
+        + ", ".join(f"{v:.6f}" for v in core["losses"])
+        + f" (the last under no_grad); torch calls "
+        + " / ".join(", ".join(f"{v:.6f}" for v in r["losses"])
+                     for r in (a, b))
+        + f"; the first loss bit-equal: {core['losses'][0] == a['losses'][0]}"
+        f"; later losses' distance to the nearest torch run "
+        + ", ".join(f"{v:.3g}" for v in loss_core[1:])
+        + " against the torch runs' spread "
+        + ", ".join(f"{v:.3g}" for v in loss_spread[1:])
+        + "; probe weights over their update, core "
+        + ", ".join(f"{v:.3g}" for v in w_core.values())
+        + " against spread " + ", ".join(f"{v:.3g}" for v in
+                                         w_spread.values())
+        + f"; step p50 {p50:.1f} ms (torch calls "
+        f"{res['torch_step_ms_p50']:.1f}); launches {core['launches']}, "
+        f"no_grad forward {core['no_grad_launches']}; paddle.grad of the "
+        f"final norm's weight bit-equal to backward's .grad: "
+        f"{core['grad_equal']} [{card}]")
+    check(core["launches"] == want, f"phase 21 (b): launches "
+          f"{core['launches']}, expected {want}")
+    check(core["no_grad_launches"] == want_nograd, f"phase 21 (b): the "
+          f"no_grad forward launched {core['no_grad_launches']}, expected "
+          f"{want_nograd}")
+    check(core["losses"][0] == a["losses"][0] == b["losses"][0],
+          f"phase 21 (b): first losses {core['losses'][0]}, "
+          f"{a['losses'][0]}, {b['losses'][0]} not bit-equal")
+    check(all(math.isfinite(v) for v in core["losses"]),
+          f"phase 21 (b): losses {core['losses']}")
+    for i, c in enumerate(loss_core):
+        ulp = 2.0 ** (math.floor(math.log2(abs(a["losses"][i]))) - 7)
+        bar = max(CORE_SPREAD * max(loss_spread), 2 * ulp)
+        check(c <= bar, f"phase 21 (b): loss {i}: {c:.3g} from the torch "
+              f"runs, over {bar:.3g} (their spread {loss_spread})")
+    for n in CORE_PROBES:
+        check(w_core[n] <= CORE_SPREAD * w_spread[n] + CORE_FLOOR,
+              f"phase 21 (b): {n}: {w_core[n]:.3g} from the torch runs, "
+              f"their spread {w_spread[n]:.3g}")
+    check(core["grad_equal"], "phase 21 (b): paddle.grad of the final "
+          "norm's weight differs from backward's .grad")
+    return res
+
+
+def core_pylayer(seed, dev, card):
+    """(c): a PyLayer over the RMSNorm kernels against RMSNormFunction at
+    [4096, 4096] bf16: y, dx and dw bit-equal, one forward and one
+    backward launch; the planted fault: a non-scalar backward seeded with
+    zeros, which must differ."""
+    P = ptt
+
+    class KernelRMSNorm(P.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x, w, eps):
+            y, rstd = krms.rms_norm(x, w, eps, with_rstd=True)
+            ctx.save_for_backward(x, w, rstd)
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w, rstd = ctx.saved_tensor()
+            return krms.rms_norm_bwd(x, w, rstd, g.contiguous())
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    x0 = torch.randn(CORE_SQ, device=dev, generator=gen).to(torch.bfloat16)
+    w0 = (1 + 0.1 * torch.randn(CORE_SQ[1], device=dev, generator=gen)).to(
+        torch.bfloat16)
+
+    def run(fn, seed_zeros=False):
+        x = x0.clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        y = fn(x, w)
+        if seed_zeros:
+            torch.autograd.backward(y, torch.zeros_like(y))
+        else:
+            P.autograd.backward(y)  # a non-scalar output: seeded with ones
+        return y.detach(), x.grad, w.grad
+
+    krms.launches = krms.bwd_launches = 0
+    got = run(lambda x, w: KernelRMSNorm.apply(x, w, 1e-6))
+    launches = dict(rms_norm=krms.launches, rms_norm_bwd=krms.bwd_launches)
+    want = run(lambda x, w: krms.RMSNormFunction.apply(x, w, 1e-6))
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    bad = run(lambda x, w: KernelRMSNorm.apply(x, w, 1e-6), seed_zeros=True)
+    fault = [bool(torch.equal(a, b)) for a, b in zip(bad, want)]
+    res = dict(equal=equal, launches=launches, fault_equal=fault)
+    log(f"phase 21 (c): a PyLayer over the RMSNorm kernels at {list(CORE_SQ)} "
+        f"bf16 against RMSNormFunction: y, dx, dw bit-equal {equal}, "
+        f"launches {launches}; the fault (backward seeded with zeros): "
+        f"bit-equal {fault} (dx and dw must differ) [{card}]")
+    check(all(equal), f"phase 21 (c): PyLayer against RMSNormFunction: "
+          f"{equal}")
+    check(launches == dict(rms_norm=1, rms_norm_bwd=1),
+          f"phase 21 (c): launches {launches}")
+    check(not fault[1] and not fault[2], "phase 21 (c): the planted fault "
+          "(a backward seeded with zeros) was not caught")
+    return res
+
+
+def core_phase(seed, dev, card):
+    """Phase 21: (a), (b), (c), the place restored after."""
+    from paddle_tpu_torch.framework import device as tdevice
+
+    t0 = time.perf_counter()
+    prev = tdevice._current_place
+    try:
+        res = dict(ops=core_ops(seed, dev, card))
+        res["ops_s"] = time.perf_counter() - t0
+        res["eager"] = core_eager_step(seed, dev, card)
+        res["pylayer"] = core_pylayer(seed, dev, card)
+    finally:
+        tdevice._current_place = prev
+    res["phase_s"] = time.perf_counter() - t0
+    launches = dict(res["eager"]["launches"])
+    for part in (res["eager"]["no_grad_launches"],
+                 res["pylayer"]["launches"]):
+        for n, k in part.items():
+            launches[n] = launches.get(n, 0) + k
+    res["launches"] = launches
+    log(f"phase 21: {res['phase_s']:.1f} s ((a) {res['ops_s']:.1f}); "
+        f"launches {launches} [{card}]")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9251,6 +9926,13 @@ def main():
     ap.add_argument("--phase20", action="store_true",
                     help="build the kernels and run phase 20 alone (a probe: "
                     "no kernels line, no final line)")
+    ap.add_argument("--phase21", action="store_true",
+                    help="build the kernels and run phase 21 alone (a probe: "
+                    "no kernels line, no final line)")
+    ap.add_argument("--go", default=None,
+                    help="with --phase11 to --phase14: wait for this file "
+                    "after the imports and the CUDA context (the script "
+                    "starts each cell's process while the one before runs)")
     ap.add_argument("--io", default=None,
                     help="with --phase11: the directory of the streams it "
                     "is held to and of its result; with --phase12, "
@@ -9275,25 +9957,34 @@ def main():
     log(f"device: {kind}, count {count}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     log(card)
+    child = args.phase11 or args.phase12 or args.phase13 or args.phase14
+    if child:
+        stage(child, "imports and CUDA context")
+        if args.go:
+            wait_go(args.go, child)
     if args.phase11:
         res = multi_step_cell(args.phase11, args.seed, dev, card, args.io)
         with open(os.path.join(args.io, f"{args.phase11}.json"), "w") as f:
             json.dump(res, f)
+        stage(child, "done")
         return 0
     if args.phase12:
         res = prefix_cell(args.phase12, args.seed, dev, card)
         with open(os.path.join(args.io, f"{args.phase12}.json"), "w") as f:
             json.dump(res, f)
+        stage(child, "done")
         return 0
     if args.phase13:
         res = spec_cell(args.phase13, args.seed, dev, card)
         with open(os.path.join(args.io, f"{args.phase13}.json"), "w") as f:
             json.dump(res, f)
+        stage(child, "done")
         return 0
     if args.phase14:
         res = GPT_CELL_FNS[args.phase14](args.seed, dev, card)
         with open(os.path.join(args.io, f"{args.phase14}.json"), "w") as f:
             json.dump(res, f)
+        stage(child, "done")
         return 0
 
     t_script = time.perf_counter()
@@ -9328,6 +10019,9 @@ def main():
         return 0
     if args.phase18 or args.phase19:
         zero_phase(args.seed, card, ("18",) if args.phase18 else ("19",))
+        return 0
+    if args.phase21:
+        core_phase(args.seed, dev, card)
         return 0
 
     # 3. kernels against their plain versions at the serving and training
@@ -9593,21 +10287,33 @@ def main():
     surface_parity = tiny_surface_parity(args.seed, dev)
     mark("phase 10")
 
+    # from here on, each child process (phases 11-14's cells, phases 15-20's
+    # ranks) starts while the work before it runs, and waits for its turn
+    start_child("11", CELLS[0], args.seed)
+
+    # 21. the Paddle-shaped core: (a) its ops on the card against the CPU at
+    # the 7B widths; (b) the 7B-width eager step through to_tensor,
+    # backward, grad and no_grad against the torch-call step; (c) a PyLayer
+    # over the RMSNorm kernels
+    core = core_phase(args.seed, dev, card)
+    mark("phase 21")
+
     # 11. multi-step serving decode: phase 4's and 4b's cells at
     # decode_burst 8 (each program a CUDA graph), sync and async, in fresh
     # processes
-    multi_step = multi_step_serving(args.seed, card, serving, serving13)
+    multi_step = multi_step_serving(args.seed, card, serving, serving13,
+                                    then=("12", PREFIX_CELLS[0]))
     mark("phase 11")
 
     # 12. the prefix cache and chunked prefill: the 7B and 13B int8 cells,
     # each in a fresh process
-    prefix = prefix_serving(args.seed, card)
+    prefix = prefix_serving(args.seed, card, then=("13", SPEC_CELLS[0]))
     mark("phase 12")
     p7, p13 = prefix["7b"]["launches"], prefix["13b_int8"]["launches"]
 
     # 13. speculative decoding: the 7B, 7B target-as-draft and 13B int8
     # cells, each in a fresh process
-    spec = spec_serving(args.seed, card)
+    spec = spec_serving(args.seed, card, then=("14", GPT_CELLS[0]))
     mark("phase 13")
     s7, s13 = dict(spec["7b"]["launches"]), spec["13b_int8"]["launches"]
     for name, n in spec["7b_target_draft"]["launches"].items():
@@ -9616,6 +10322,7 @@ def main():
     # 14. the GPT family: GPT-3 1.3B served, trained and run as
     # FusedMultiTransformer, a tiny GPT on CUDA against the CPU, each cell
     # in a fresh process
+    ft_start("ft_full", args.seed, card)  # waits through phase 14
     gpt = gpt_phase(args.seed, card)
     mark("phase 14")
     g_serve = gpt["serve"]["launches"]
@@ -9626,7 +10333,9 @@ def main():
     # (each spawned at world 1 over NCCL), two gloo ranks on the card, the
     # tensor checker; the kernels' launches on its main path (the full run
     # and the resumed steps)
-    finetune = finetune_phase(args.seed, card)
+    finetune = finetune_phase(
+        args.seed, card, early=lambda: tp_start("llama", args.seed),
+        then=lambda: tp_start("gpt", args.seed))
     mark("phase 15")
     ft = {n: finetune["full"]["launches"][n]
           + finetune["resume"]["resumed"]["launches"][n]
@@ -9635,7 +10344,8 @@ def main():
     # 16. tensor parallelism through fleet: GPT-3 1.3B at TP 4 and
     # LLaMA-2-7B's widths at TP 2 over gloo on the card, against tp 1; the
     # kernels' launches of every rank's counted steps
-    tensor_parallel = tp_phase(args.seed, card)
+    tensor_parallel = tp_phase(args.seed, card,
+                               then=lambda: tps_start(args.seed))
     mark("phases 16 and 20")
     # phases 15, 16 and 20's launches, one sum a kernel
     par = {n: ft[n] + tensor_parallel["launches"][n]
@@ -9644,7 +10354,8 @@ def main():
     # 17. tensor-parallel serving: LLaMA-2-7B's widths and LLaMA-2-13B's
     # int8 at TP 2, two engines on gloo ranks on the card, against tp 1;
     # the kernels' launches of both ranks' counted runs
-    tp_serving = tps_phase(args.seed, card)
+    tp_serving = tps_phase(args.seed, card,
+                           then=lambda: zero_start(args.seed))
     mark("phase 17")
     t17 = tp_serving["launches"]
 
@@ -9721,9 +10432,11 @@ def main():
             served["rms_norm"] + q8["rms_norm"] + q4["rms_norm"]
             + trained["rms_norm"] + g7["rms_norm"] + g13["rms_norm"]
             + p7["rms_norm"] + p13["rms_norm"] + s7["rms_norm"]
-            + s13["rms_norm"] + par["rms_norm"] + t17["rms_norm"]),
+            + s13["rms_norm"] + par["rms_norm"] + t17["rms_norm"]
+            + core["launches"]["rms_norm"]),
         row("rms_norm_bwd", csrc + "rms_norm.cu", ref + "rms_norm.py:101",
-            rms_bwd[0], trained["rms_norm_bwd"] + par["rms_norm_bwd"]),
+            rms_bwd[0], trained["rms_norm_bwd"] + par["rms_norm_bwd"]
+            + core["launches"]["rms_norm_bwd"]),
         row("paged_attention", csrc + "paged_attention.cu",
             ref + "paged_attention.py:584", paged[0],
             served["paged_attention"] + g7["paged_attention"]
@@ -9733,17 +10446,19 @@ def main():
         row("flash_fwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:214", flash[0]["fwd"],
             trained["flash_fwd"] + lse_launches["fwd_plain"] + g_fwd
-            + par["flash_fwd"]),
+            + par["flash_fwd"] + core["launches"]["flash_fwd"]),
         # the one backward kernel, under both sites it replaces: the dK/dV
         # pass and the dQ pass
         row("flash_bwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:473", flash[0]["bwd"],
             trained["flash_bwd"] + lse_launches["bwd_plain"]
-            + g_train["flash_bwd"] + par["flash_bwd"]),
+            + g_train["flash_bwd"] + par["flash_bwd"]
+            + core["launches"]["flash_bwd"]),
         row("flash_bwd", csrc + "flash_attention.cu",
             ref + "flash_attention.py:534", flash[0]["bwd"],
             trained["flash_bwd"] + lse_launches["bwd_plain"]
-            + g_train["flash_bwd"] + par["flash_bwd"]),
+            + g_train["flash_bwd"] + par["flash_bwd"]
+            + core["launches"]["flash_bwd"]),
         # the dequant matmul's two bf16 kernels: m > 16 and m <= 16
         row("quant_matmul_prefill", csrc + "quant_matmul.cu",
             ref + "quant_matmul.py:208",
@@ -9775,7 +10490,8 @@ def main():
                        "paddle_tpu/optimizer/optimizer.py:248",
                        adam_k["timed"],
                        trained["adam"] + surface["launches"]["adam"]
-                       + g_train["adam"] + par["adam"]))
+                       + g_train["adam"] + par["adam"]
+                       + core["launches"]["adam"]))
     # the variant bodies; launches: phase 9's counted runs, (b) (both
     # rates) and (c)'s timed steps
     counted = [run["launches"] for run in variants["varlen"]["runs"].values()]
@@ -9808,7 +10524,8 @@ def main():
                            gpt=gpt, finetune=finetune,
                            tensor_parallel=tensor_parallel,
                            tp_serving=tp_serving, zero=zero,
-                           pipeline=pipeline, kernels=kernels),
+                           pipeline=pipeline, core=core,
+                           kernels=kernels),
                       f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -9818,4 +10535,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        end_started()
+    sys.exit(rc)

@@ -164,3 +164,28 @@ define_flag("FLAGS_spec_draft_layers", 0,
             "paged KV for those layers. 0 (default) = half the model's "
             "layers (rounded up). Ignored when the engine was given a "
             "separate draft_model.", type_=int)
+
+
+# ---------------------------------------------------------------------------
+# The default dtype (paddle.get_default_dtype / set_default_dtype): what a
+# float64 numpy array, a Python float and the creation ops become
+# ---------------------------------------------------------------------------
+_default_dtype_name = "float32"
+
+
+def set_default_dtype(d):
+    global _default_dtype_name
+    from . import dtype as dtype_mod
+
+    _default_dtype_name = dtype_mod.dtype_name(d)
+
+
+def get_default_dtype() -> str:
+    return _default_dtype_name
+
+
+def get_default_dtype_obj():
+    """The default dtype as a torch dtype."""
+    from . import dtype as dtype_mod
+
+    return dtype_mod.to_torch_dtype(_default_dtype_name)
